@@ -1,0 +1,366 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch port's main path once on one NVIDIA GPU (an H100).
+
+    python3 chip_smoke.py
+
+Phases, each printed as it ends; any failure raises and exits non-zero
+without the final `"ok": true` line:
+  1. device  - requires CUDA; prints the card as nvidia-smi names it;
+  2. build   - builds the CUDA attention kernel (nvcc, sm_90a) into
+               build/torch_ext/ and compiles the Triton norm kernels;
+  3. kernels - each kernel against its plain PyTorch version on the card at
+               the SD1.5 512² shapes: max abs error against the plain version
+               evaluated in fp32 on the same bf16 inputs (bounds 3e-2
+               attention, 2e-2 norms, the bf16 bound of tests/test_ops.py;
+               attention also within 2e-2 of its largest output, and the
+               bound must be below the error of the plain version with one
+               64-key tile left out), the error against the plain version
+               in bf16, and the median time of the kernel and of the plain
+               bf16 version;
+  4. slice   - SD1.5 at full width (default configs, bf16, random weights
+               from a seed) answers two 512² requests of batch 2 with 8 DDIM
+               steps and CFG 9; checks the images, that every kernel's
+               launch count rose during the requests, and one CFG epsilon
+               evaluation (t=999) against the same call on the plain ops
+               (relative L2 <= 5e-2 over the uncond and cond outputs; the
+               guided epsilon no farther from an fp32 evaluation than the
+               plain ops, x1.25); prints seconds per request and step;
+  5. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+Imports nothing of JAX.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+ATTN_BOUND, NORM_BOUND, EPS_REL_BOUND = 3e-2, 2e-2, 5e-2
+# At Nk = 4096 an attention output is ~0.03 in size, as large as ATTN_BOUND:
+# the error must also stay within ATTN_REL_BOUND of the largest output.
+ATTN_REL_BOUND = 2e-2
+KEY_TILE = 64  # keys per tile of the attention kernel
+# With random weights the guided epsilon (CFG 9) amplifies bf16 rounding
+# about 7x: the plain bf16 ops alone sit ~10% from an fp32 evaluation. The
+# 5e-2 bound applies to the unguided outputs of ControlNet + UNet; the
+# guided epsilon of the kernels must be no farther from the fp32 evaluation
+# than FP32_RATIO_BOUND times the plain bf16 ops' distance.
+FP32_RATIO_BOUND = 1.25
+REQ_BATCH, REQ_SIZE, REQ_STEPS, CFG = 2, 512, 8, 9.0
+PROMPTS = ("a photograph of a red house by a lake", "an oil painting of a mountain at dawn")
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def hash_token_ids(texts, max_length=77):
+    """The ids the repository's HashTokenizer gives plain lowercase prompts
+    (each word's md5 -> an id in [1000, 49000), between SOT 49406 and EOT
+    49407, EOT-padded), written out here so that this script imports
+    nothing of the JAX package."""
+    import hashlib
+
+    import numpy as np
+
+    out = np.full((len(texts), max_length), 49407, dtype=np.int64)
+    for i, text in enumerate(texts):
+        words = [1000 + int(hashlib.md5(w.encode()).hexdigest()[:8], 16) % 48000
+                 for w in text.lower().split()]
+        ids = [49406] + words[: max_length - 2] + [49407]
+        out[i, : len(ids)] = ids
+    return out
+
+
+def gpu_name_and_limit():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters=10, warmup=2):
+    """Median milliseconds of one call, from CUDA events around each call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def kernel_cases(gen):
+    """(kernel name, case label, wrapper, arguments, bound) at the slice's
+    shapes. Inputs are seeded N(0, 1) in bf16; norm affines near (1, 0)."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_packed,
+    )
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm
+    from prompt_diffusion_tpu_torch.ops.fused_layer_norm import fused_layer_norm
+
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    bf16 = lambda t: t.to(torch.bfloat16)
+    affine = lambda c: (1 + 0.1 * randn(c), 0.1 * randn(c))
+    cases = []
+    # K1: the softmax scale is folded into q, the kernel runs at scale 1; the
+    # last case has ragged query and key tails
+    for b, n, hd, h in ((8, 4096, 320, 8), (8, 1024, 640, 8), (2, 1100, 80, 2)):
+        q = bf16(randn(b, n, hd) * (hd // h) ** -0.5)
+        k, v = bf16(randn(b, n, hd)), bf16(randn(b, n, hd))
+        cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h}", flash_attention_packed,
+                      (q, k, v, h, 1.0), ATTN_BOUND))
+    qkv = tuple(bf16(randn(4, 4096, 1, 512)) for _ in range(3))
+    cases.append(("flash_attention", "(4,4096,1,512)", flash_attention, qkv, ATTN_BOUND))
+    for shape, eps, mean in (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0)):
+        x = bf16(randn(*shape) + mean).contiguous(memory_format=torch.channels_last)
+        cases.append(("fused_group_norm", f"{shape} eps={eps} mean={mean} silu", fused_group_norm,
+                      (x, *affine(shape[1]), 32, eps, True), NORM_BOUND))
+    cases.append(("fused_layer_norm", "(32768,320)", fused_layer_norm,
+                  (bf16(randn(32768, 320)), *affine(320), 1e-5), NORM_BOUND))
+    return cases
+
+
+def phase_kernels(gen):
+    """Every kernel against its plain version; returns per-kernel results.
+
+    The bound applies against the plain version evaluated in fp32 on the
+    same bf16 inputs, as tests/test_ops.py bounds the TPU kernel: the
+    kernel's own bf16 rounding is then the only rounding compared. The
+    error against the plain version in bf16 is printed beside it. For
+    attention the bound is also ATTN_REL_BOUND of the largest output, and
+    it must be smaller than the error of the plain version with the first
+    key tile left out: a kernel that skipped a tile would fail it."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+
+    fp32 = lambda args: tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
+                              else a for a in args)
+    results = {}
+    for name, label, fn, args, bound in kernel_cases(gen):
+        out = fn(*args)
+        with plain_ops():
+            ref = fn(*fp32(args))
+            ref_bf16 = fn(*args)
+        torch.cuda.synchronize()
+        check(torch.isfinite(out).all().item(), f"{name} {label}: non-finite output")
+        err = (out.float() - ref).abs().max().item()
+        err_bf16 = (out.float() - ref_bf16.float()).abs().max().item()
+        if name.startswith("flash_attention"):
+            bound = min(bound, ATTN_REL_BOUND * ref.abs().max().item())
+            q, k, v, *rest = fp32(args)
+            with plain_ops():
+                short = fn(q, k[:, KEY_TILE:], v[:, KEY_TILE:], *rest)
+            tile_err = (short - ref).abs().max().item()
+            log(f"[kernels] {name} {label}: bound {bound}; plain version without one "
+                f"{KEY_TILE}-key tile is {tile_err} off")
+            check(tile_err > bound, f"{name} {label}: bound {bound} would pass a missing key tile "
+                                    f"({tile_err})")
+            del short
+        del ref, ref_bf16
+        ms = time_ms(lambda: fn(*args))
+        with plain_ops():
+            plain_ms = time_ms(lambda: fn(*args))
+        log(f"[kernels] {name} {label}: max_abs_err={err} (bound {bound}, against the plain "
+            f"version in fp32) err_vs_plain_bf16={err_bf16} kernel_ms={ms} plain_ms={plain_ms}")
+        check(err <= bound, f"{name} {label}: max abs error {err} > {bound}")
+        results.setdefault(name, []).append(
+            {"case": label, "max_abs_err": err, "bound": bound, "err_vs_plain_bf16": err_bf16,
+             "ms": ms, "plain_ms": plain_ms})
+    return results
+
+
+KERNELS = {  # name -> (route, source, TPU kernel it replaces)
+    "flash_attention_packed": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+                               "prompt_diffusion_tpu/ops/flash_attention.py:322"),
+    "flash_attention": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+                        "prompt_diffusion_tpu/ops/flash_attention.py:163"),
+    "fused_group_norm": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_norms.py",
+                         "prompt_diffusion_tpu/ops/fused_group_norm.py:128"),
+    "fused_layer_norm": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_norms.py",
+                         "prompt_diffusion_tpu/ops/fused_layer_norm.py:90"),
+}
+
+
+def wrappers():
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+    from prompt_diffusion_tpu_torch.ops import fused_group_norm as gn
+    from prompt_diffusion_tpu_torch.ops import fused_layer_norm as ln
+
+    return {"flash_attention_packed": fa.flash_attention_packed,
+            "flash_attention": fa.flash_attention,
+            "fused_group_norm": gn.fused_group_norm,
+            "fused_layer_norm": ln.fused_layer_norm}
+
+
+def fp32_twin(pipe):
+    """The pipeline with fp32 copies of its UNet and ControlNet (same
+    weights), for an evaluation without bf16 rounding."""
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.utils.dtypes import fp32_policy
+
+    twin = PromptDiffusionSD15.create(policy=fp32_policy(), vae=pipe.vae,
+                                      text_encoder=pipe.text_encoder, device="cuda")
+    twin.unet.load_state_dict(pipe.unet.state_dict())
+    twin.controlnet.load_state_dict(pipe.controlnet.state_dict())
+    return twin
+
+
+def phase_slice(seed=0):
+    """Two full-width requests through the port's public API."""
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, random_init_
+
+    t0 = time.perf_counter()
+    pipe = PromptDiffusionSD15.create(policy=default_policy(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder):
+        random_init_(m, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder)
+                   for p in m.parameters())
+    log(f"[slice] SD1.5 built with random weights: {n_params} parameters "
+        f"in {time.perf_counter() - t0:.1f}s")
+
+    def request(i):
+        g = torch.Generator(device="cuda").manual_seed(1000 + i)
+        cond = lambda c: torch.rand((REQ_BATCH, REQ_SIZE, REQ_SIZE, c), generator=g,
+                                    device="cuda") * 2 - 1
+        return dict(
+            token_ids=torch.from_numpy(hash_token_ids([PROMPTS[i]] * REQ_BATCH)),
+            neg_token_ids=torch.from_numpy(hash_token_ids([""] * REQ_BATCH)),
+            example_pair=cond(6), query=cond(3),
+            generator=torch.Generator(device="cuda").manual_seed(2000 + i),
+        )
+
+    def answer(i):
+        t = time.perf_counter()
+        img = pipe.generate(**request(i), num_steps=REQ_STEPS, guidance_scale=CFG)
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t
+
+    counted = wrappers()
+    for w in counted.values():
+        w.launches = 0
+    img1, s1 = answer(0)
+    img2, s2 = answer(1)
+    launches = {name: w.launches for name, w in counted.items()}
+    log(f"[slice] request 1: {s1:.3f}s, request 2: {s2:.3f}s; launches {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+    for img in (img1, img2):
+        check(tuple(img.shape) == (REQ_BATCH, REQ_SIZE, REQ_SIZE, 3), f"shape {tuple(img.shape)}")
+        check(torch.isfinite(img).all().item(), "non-finite image")
+        check(img.min().item() >= 0.0 and img.max().item() <= 1.0, "image outside [0, 1]")
+    check(not torch.equal(img1, img2), "the two requests gave the same images")
+    img1b, s1b = answer(0)
+    check(torch.equal(img1, img1b), "request 1 with the same generator gave other images")
+    log(f"[slice] images {tuple(img1.shape)} finite in [0,1]; requests differ; "
+        f"request 1 repeated bit-exactly in {s1b:.3f}s; std {img1.float().std().item():.4f}")
+
+    # one CFG epsilon evaluation (ControlNet + UNet at t=999), kernels vs plain
+    r = request(0)
+    r.pop("generator")
+    eps_fns = {gs: pipe.make_eps_fn(**r, guidance_scale=gs) for gs in (0.0, 1.0, CFG)}
+    g = torch.Generator(device="cuda").manual_seed(3000)
+    x = torch.randn((REQ_BATCH, 4, REQ_SIZE // 8, REQ_SIZE // 8), generator=g, device="cuda")
+    x = x.contiguous(memory_format=torch.channels_last)
+    t = torch.full((REQ_BATCH,), 999, dtype=torch.int32, device="cuda")
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    with torch.no_grad():
+        kern = {gs: f(x, t) for gs, f in eps_fns.items()}
+        with plain_ops():
+            plain = {gs: f(x, t) for gs, f in eps_fns.items()}
+            eps32 = fp32_twin(pipe).make_eps_fn(**r, guidance_scale=CFG)(x, t)
+        step_s = time_ms(lambda: eps_fns[CFG](x, t), iters=5, warmup=1) / 1e3
+    # the uncond and cond outputs of ControlNet + UNet (guidance 0 and 1)
+    rel_branches = rel(torch.cat([kern[0.0], kern[1.0]]), torch.cat([plain[0.0], plain[1.0]]))
+    rel_k32, rel_p32 = rel(kern[CFG], eps32), rel(plain[CFG], eps32)
+    log(f"[slice] eps (t=999), kernels vs plain ops: rel L2 {rel_branches} over the uncond "
+        f"and cond outputs (bound {EPS_REL_BOUND}); guided (CFG {CFG}) {rel(kern[CFG], plain[CFG])}")
+    log(f"[slice] guided eps against an fp32 evaluation of the same weights: kernels "
+        f"{rel_k32}, plain bf16 ops {rel_p32} (bound {FP32_RATIO_BOUND}x the plain ops')")
+    check(np.isfinite(rel_branches) and rel_branches <= EPS_REL_BOUND,
+          f"eps rel L2 {rel_branches} > {EPS_REL_BOUND}")
+    check(rel_k32 <= FP32_RATIO_BOUND * rel_p32,
+          f"kernels {rel_k32} vs plain {rel_p32} from the fp32 evaluation")
+    return launches, {"request_s": [s1, s2, s1b], "step_s": step_s}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "prompt_diffusion_tpu_torch")):
+        print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    # the fp32 references run in full fp32: no TF32 in matmuls or convs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    card = gpu_name_and_limit()
+    kind = torch.cuda.get_device_name(0)
+    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+        f"| {torch.cuda.device_count()} device(s)")
+
+    t0 = time.perf_counter()
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    cuda_ext()
+    nvcc_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _, _, fn, args, _ in kernel_cases(gen):  # compiles the Triton kernels
+        fn(*args)
+    torch.cuda.synchronize()
+    log(f"[build] nvcc + load {nvcc_s:.1f}s; first launch of every kernel "
+        f"(Triton compile included) {time.perf_counter() - t0 - nvcc_s:.1f}s")
+
+    results = phase_kernels(gen)
+    launches, timing = phase_slice()
+    per_req = timing["request_s"]
+    log(f"[slice] {card}: {per_req[1]:.3f} s per request (batch {REQ_BATCH}, {REQ_SIZE}², "
+        f"{REQ_STEPS} DDIM steps, CFG {CFG}; first request {per_req[0]:.3f} s), "
+        f"{timing['step_s']:.4f} s per denoise step (ControlNet + UNet, CFG batch "
+        f"{2 * REQ_BATCH})")
+
+    kernels = []
+    for name, (route, source, replaces) in KERNELS.items():
+        cases = results[name]
+        kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
+                        "launches": launches[name],
+                        "max_abs_err": max(c["max_abs_err"] for c in cases),
+                        "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+                        "cases": cases})
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,51 @@
+// Python binding of the port's CUDA kernels.
+//
+// Pointers and the stream arrive as integers (tensor.data_ptr(),
+// torch.cuda.current_stream().cuda_stream); the Python wrappers check
+// device, dtype, shape, strides and alignment before they call in. Only
+// pybind11 is included here, not torch/extension.h, which keeps the build
+// to seconds.
+
+#include <pybind11/pybind11.h>
+
+#include <cstdint>
+#include <stdexcept>
+#include <string>
+
+extern "C" const char* pd_cuda_error_string(int err);
+extern "C" int pd_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o,
+    int batch, int heads, int nq, int nk, int d,
+    int64_t q_sb, int64_t q_sn, int64_t q_sh,
+    int64_t k_sb, int64_t k_sn, int64_t k_sh,
+    int64_t v_sb, int64_t v_sn, int64_t v_sh,
+    int64_t o_sb, int64_t o_sn, int64_t o_sh,
+    float scale, void* stream);
+
+namespace {
+
+void* ptr(uintptr_t p) { return reinterpret_cast<void*>(p); }
+
+void flash_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o,
+                         int batch, int heads, int nq, int nk, int d,
+                         int64_t q_sb, int64_t q_sn, int64_t q_sh,
+                         int64_t k_sb, int64_t k_sn, int64_t k_sh,
+                         int64_t v_sb, int64_t v_sn, int64_t v_sh,
+                         int64_t o_sb, int64_t o_sn, int64_t o_sh,
+                         double scale, uintptr_t stream) {
+  const int err = pd_flash_attention_fwd(
+      ptr(q), ptr(k), ptr(v), ptr(o), batch, heads, nq, nk, d,
+      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, o_sb, o_sn, o_sh,
+      static_cast<float>(scale), ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("flash_attention_fwd launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
+}  // namespace
+
+PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
+  m.def("flash_attention_fwd", &flash_attention_fwd,
+        "Flash attention forward over strided (B, N, H, D) bf16 tensors");
+}

@@ -1,0 +1,72 @@
+"""Carries the JAX package's parameters over to the PyTorch port.
+
+The port's attribute names follow the Flax parameter paths, so the mapping
+is mechanical:
+  * `a/b/c/kernel` of rank 4 (HWIO conv) -> `a.b.c.weight`, OIHW;
+  * `a/b/c/kernel` of rank 2 (Dense, (in, out)) -> `a.b.c.weight`, (out, in);
+  * `scale` and `embedding` -> `weight`; `bias` and other leaves keep their
+    names (CLIP's `position_embedding`).
+Needs numpy only. A reference `.ckpt` reaches the port through the JAX
+package's importer (`tools/torch_import.py`), then through this bridge.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+NAMESPACES = ("unet", "controlnet", "vae", "clip")
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _convert(path, value: np.ndarray):
+    *mods, leaf = path
+    a = np.asarray(value, dtype=np.float32)
+    if leaf == "kernel":
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 2:
+            a = a.T
+        else:
+            raise ValueError(f"kernel of rank {a.ndim} at {'/'.join(path)}")
+        leaf = "weight"
+    elif leaf in ("scale", "embedding"):
+        leaf = "weight"
+    return ".".join(list(mods) + [leaf]), torch.from_numpy(np.ascontiguousarray(a))
+
+
+def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """One namespace's Flax tree ({"params": {...}}) -> a torch state dict.
+    Raises if two leaves map onto one key."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params["params"]):
+        key, tensor = _convert(path, value)
+        if key in out:
+            raise ValueError(f"two JAX leaves map onto {key!r}")
+        out[key] = tensor
+    return out
+
+
+def params_from_jax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{"unet","controlnet","vae","clip"} Flax trees of numpy arrays ->
+    the port's state dicts under the same names."""
+    return {name: state_dict_from_jax(tree[name]) for name in NAMESPACES}
+
+
+def load_jax_params(pipe, tree: Mapping) -> None:
+    """Loads the JAX package's parameter dict into a port pipeline,
+    strictly: every module parameter gets a value and every JAX leaf lands
+    in exactly one parameter (values are cast to each parameter's dtype)."""
+    modules = {"unet": pipe.unet, "controlnet": pipe.controlnet, "vae": pipe.vae,
+               "clip": pipe.text_encoder}
+    for name, sd in params_from_jax(tree).items():
+        modules[name].load_state_dict(sd, strict=True)

@@ -1,0 +1,138 @@
+"""Where the time of one SD1.5 request goes on the card.
+
+    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15
+
+Builds SD1.5 at the default widths (bf16 policy, random weights from a
+seed), the configuration `chip_smoke.py` runs, and one request of batch 2 at
+512² with CFG 9. Every part runs once to warm up (kernel builds, Triton
+compiles, cuDNN heuristics). Then:
+  * the wall time of each part of the request, synchronised, median of 3:
+    the two CLIP encodes, the hint encoders, one CFG denoise step
+    (ControlNet + UNet on the double batch) and the VAE decode;
+  * a torch.profiler trace of three denoise steps: device time by kernel
+    name, device launches per step, and the device's busy share of the
+    profiled wall time (the union of the kernels' device intervals).
+Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+BATCH, SIZE, CFG = 2, 512, 9.0
+STEPS, TOP = 3, 30  # denoise steps traced, kernel names printed
+
+
+def _wall_ms(fn, reps=3):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def build(seed=0):
+    """SD1.5 at the default configs with `random_init_` weights, and one
+    request's inputs, on the card."""
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, random_init_
+
+    pipe = PromptDiffusionSD15.create(policy=default_policy(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder):
+        random_init_(m, gen)
+    vocab = pipe.text_encoder.config.vocab_size
+    ids = lambda: torch.randint(0, vocab, (BATCH, 77), generator=gen, device="cuda")
+    cond = lambda c: torch.rand((BATCH, SIZE, SIZE, c), generator=gen, device="cuda") * 2 - 1
+    request = dict(token_ids=ids(), neg_token_ids=ids(), example_pair=cond(6), query=cond(3))
+    x = torch.randn((BATCH, 4, SIZE // 8, SIZE // 8), generator=gen, device="cuda")
+    return pipe, request, x.contiguous(memory_format=torch.channels_last)
+
+
+def device_kernels(prof):
+    """(name, start_us, end_us) of every device activity in a trace."""
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, cur_start, cur_end = 0, None, None
+    for s, e in sorted(intervals):
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    return total + (cur_end - cur_start if cur_end is not None else 0)
+
+
+@torch.no_grad()
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_sd15: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout
+    print(f"[profile] {card.strip().splitlines()[0]}")
+    pipe, request, x = build()
+    t = torch.full((BATCH,), 999, dtype=torch.int32, device="cuda")
+    eps_fn = pipe.make_eps_fn(**request, guidance_scale=CFG)
+    pair2 = torch.cat([request["example_pair"]] * 2).permute(0, 3, 1, 2)
+    query2 = torch.cat([request["query"]] * 2).permute(0, 3, 1, 2)
+    to_cl = lambda a: a.contiguous(memory_format=torch.channels_last)
+    parts = {
+        "2x CLIP encode": lambda: (pipe.encode_prompt(request["neg_token_ids"]),
+                                   pipe.encode_prompt(request["token_ids"])),
+        "hint encoders": lambda: pipe.controlnet(example_pair=to_cl(pair2), query=to_cl(query2),
+                                                 hint_only=True),
+        "denoise step": lambda: eps_fn(x, t),
+        "VAE decode": lambda: pipe.decode_latents(x.permute(0, 2, 3, 1)),
+    }
+    for fn in parts.values():  # warm-up
+        fn()
+    print(f"[profile] request parts (batch {BATCH}, {SIZE}², CFG {CFG}), wall ms, median of 3:")
+    for name, fn in parts.items():
+        print(f"  {name:16s} {_wall_ms(fn):9.3f}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            eps_fn(x, t)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = {}
+    for name, s, e in kernels:
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + (e - s))
+    busy = busy_us([(s, e) for _, s, e in kernels])
+    print(f"[profile] {STEPS} denoise steps under the profiler: "
+          f"{wall_us / STEPS / 1e3:.3f} ms wall per step, device busy "
+          f"{busy / STEPS / 1e3:.3f} ms per step ({100 * busy / wall_us:.1f}%), "
+          f"{len(kernels) / STEPS:.0f} device launches per step")
+    print("[profile] device ms per step, launches per step, kernel:")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, us) in ranked[:TOP]:
+        print(f"  {us / STEPS / 1e3:9.3f} {n / STEPS:6.0f}  {name[:110]}")
+    rest = sum(us for _, (_, us) in ranked[TOP:])
+    print(f"  {rest / STEPS / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

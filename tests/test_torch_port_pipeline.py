@@ -1,0 +1,149 @@
+"""PyTorch port, pipeline: tiny SD1.5 Prompt-Diffusion `generate` against
+the JAX package with the same weights and the same starting noise, the
+weight bridge's coverage, and the port's independence from JAX."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import traverse_util
+
+from prompt_diffusion_tpu.models import clip_text as jclip
+from prompt_diffusion_tpu.models import controlnet_sd15 as jcn
+from prompt_diffusion_tpu.models import unet_sd15 as junet
+from prompt_diffusion_tpu.models import vae as jvae
+from prompt_diffusion_tpu.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15 as JPipe
+from prompt_diffusion_tpu.schedulers.schedules import DiffusionSchedule as JSchedule
+from prompt_diffusion_tpu.utils.dtypes import fp32_policy as j_fp32_policy
+from prompt_diffusion_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from prompt_diffusion_tpu_torch.models.controlnet_sd15 import ControlNetSD15
+from prompt_diffusion_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
+from prompt_diffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+from prompt_diffusion_tpu_torch.tools.jax_bridge import load_jax_params, params_from_jax
+from prompt_diffusion_tpu_torch.utils.dtypes import fp32_policy
+from tests.torch_port_util import TINY_CLIP, TINY_UNET, TINY_VAE, randomize
+
+torch.set_num_threads(2)
+
+B, IMG = 2, 64
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    jpol = j_fp32_policy()
+    ucfg = junet.UNetConfig(**TINY_UNET)
+    jpipe = JPipe(
+        unet=junet.UNetSD15(config=ucfg, policy=jpol),
+        controlnet=jcn.ControlNetSD15(config=ucfg, hint_channels=6, policy=jpol),
+        vae=jvae.AutoencoderKL(config=jvae.VAEConfig(**TINY_VAE), policy=jpol),
+        text_encoder=jclip.CLIPTextModel(config=jclip.CLIPTextConfig(**TINY_CLIP), policy=jpol),
+        schedule=JSchedule.create(),
+    )
+    shapes = jax.eval_shape(lambda r: jpipe.init_params(r, image_size=IMG), jax.random.PRNGKey(0))
+    params = randomize(shapes, 20)
+
+    pol = fp32_policy()
+    pipe = PromptDiffusionSD15.create(
+        unet=UNetSD15(UNetConfig(**TINY_UNET), pol),
+        controlnet=ControlNetSD15(UNetConfig(**TINY_UNET), 6, pol),
+        vae=AutoencoderKL(VAEConfig(**TINY_VAE), pol),
+        text_encoder=CLIPTextModel(CLIPTextConfig(**TINY_CLIP), pol),
+        device="cpu",
+    )
+    load_jax_params(pipe, params)
+    return jpipe, params, pipe
+
+
+def _request(seed):
+    rng = np.random.default_rng(seed)
+    return dict(
+        ids=rng.integers(0, 100, (B, 77)).astype(np.int32),
+        neg=np.zeros((B, 77), np.int32),
+        pair=rng.uniform(-1, 1, (B, IMG, IMG, 6)).astype(np.float32),
+        query=rng.uniform(-1, 1, (B, IMG, IMG, 3)).astype(np.float32),
+        noise=rng.normal(size=(B, IMG // 8, IMG // 8, 4)).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("guess_mode", [False, True])
+def test_generate_matches_jax(pipes, guess_mode):
+    jpipe, params, pipe = pipes
+    r = _request(1)
+    ref = jpipe.jit_generate()(
+        params, jax.random.PRNGKey(0), jnp.asarray(r["ids"]), jnp.asarray(r["neg"]),
+        jnp.asarray(r["pair"]), jnp.asarray(r["query"]), num_steps=3, guidance_scale=9.0,
+        guess_mode=guess_mode, init_noise=jnp.asarray(r["noise"]))
+    got = pipe.generate(
+        torch.from_numpy(r["ids"]), torch.from_numpy(r["neg"]), torch.from_numpy(r["pair"]),
+        torch.from_numpy(r["query"]), num_steps=3, guidance_scale=9.0, guess_mode=guess_mode,
+        init_noise=torch.from_numpy(r["noise"]))
+    ref = np.asarray(ref)
+    assert got.shape == (B, IMG, IMG, 3)
+    inside = ((ref > 0.01) & (ref < 0.99)).mean()
+    assert inside > 0.5, f"only {inside:.0%} of the pixels are not clipped"
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-3)
+
+
+def test_generate_seeded_noise_and_validation(pipes):
+    _, _, pipe = pipes
+    r = {k: torch.from_numpy(v) for k, v in _request(2).items()}
+    run = lambda seed: pipe.generate(r["ids"], r["neg"], r["pair"], r["query"], num_steps=2,
+                                     generator=torch.Generator().manual_seed(seed))
+    a, b, c = run(0), run(0), run(1)
+    assert torch.isfinite(a).all() and a.min() >= 0 and a.max() <= 1
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        pipe.generate(r["ids"], r["neg"], torch.zeros(B, 100, 100, 6),
+                      torch.zeros(B, 100, 100, 3), num_steps=2)
+    with pytest.raises(ValueError, match="batch"):
+        pipe.generate(r["ids"][:1], r["neg"][:1], r["pair"], r["query"], num_steps=2)
+    with pytest.raises(ValueError, match="sampler"):
+        pipe.generate(r["ids"], r["neg"], r["pair"], r["query"], sampler="unipc")
+
+
+def test_bridge_uses_every_leaf_once(pipes):
+    _, params, pipe = pipes
+    sds = params_from_jax(params)
+    modules = {"unet": pipe.unet, "controlnet": pipe.controlnet, "vae": pipe.vae,
+               "clip": pipe.text_encoder}
+    for name, module in modules.items():
+        leaves = traverse_util.flatten_dict(params[name]["params"])
+        assert len(sds[name]) == len(leaves)
+        assert set(sds[name]) == set(module.state_dict()), name
+    # a Dense kernel arrives transposed, a conv kernel as OIHW
+    k = np.asarray(params["unet"]["params"]["time_embed"]["fc1"]["kernel"])
+    np.testing.assert_array_equal(sds["unet"]["time_embed.fc1.weight"].numpy(), k.T)
+    k = np.asarray(params["unet"]["params"]["input_blocks_0_conv"]["kernel"])
+    np.testing.assert_array_equal(sds["unet"]["input_blocks_0_conv.weight"].numpy(),
+                                  k.transpose(3, 2, 0, 1))
+    # strict: a missing leaf does not load
+    pruned = dict(params)
+    pruned["vae"] = {"params": dict(params["vae"]["params"])}
+    del pruned["vae"]["params"]["post_quant_conv"]
+    with pytest.raises(RuntimeError, match="post_quant_conv"):
+        load_jax_params(pipe, pruned)
+
+
+def test_chip_smoke_token_ids_are_hash_tokenizer_ids():
+    """chip_smoke.py writes HashTokenizer's rule out so that it imports
+    nothing of the JAX package; both must give the same ids."""
+    import chip_smoke
+    from prompt_diffusion_tpu.data.tokenizer import HashTokenizer
+
+    texts = list(chip_smoke.PROMPTS) + ["", "one two  three " * 30]
+    np.testing.assert_array_equal(chip_smoke.hash_token_ids(texts), HashTokenizer()(texts))
+
+
+def test_port_imports_no_jax():
+    code = ("import sys, prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15, "
+            "prompt_diffusion_tpu_torch.tools.jax_bridge; "
+            "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -1,0 +1,51 @@
+"""Shared pieces of the PyTorch-port parity tests (tests/test_torch_port_*.py).
+
+Tiny SD1.5 configurations for both packages, random parameters drawn with
+numpy (every leaf non-trivial, so zero-initialised convs carry signal), and
+layout helpers. JAX runs on the CPU with 'highest' matmul precision
+(tests/conftest.py); the port's CPU matmuls and convs are full fp32.
+"""
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+
+TINY_UNET = dict(model_channels=32, channel_mult=(1, 2), num_res_blocks=1,
+                 attention_resolutions=(1,), num_heads=4, context_dim=64)
+TINY_VAE = dict(ch=32, ch_mult=(1, 1, 2, 2), num_res_blocks=1)
+TINY_CLIP = dict(vocab_size=100, hidden_size=64, num_layers=2, num_heads=4,
+                 intermediate_size=128)
+
+
+def randomize(params, seed: int):
+    """Same tree, every leaf redrawn from numpy: kernels N(0, 1/fan_in),
+    norm scales 1 + N(0, 0.1), biases N(0, 0.1), embeddings N(0, 0.5)."""
+    import jax
+
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = getattr(path[-1], "key", "")
+        shape = leaf.shape
+        if name == "kernel":
+            std = float(np.prod(shape[:-1])) ** -0.5
+            v = rng.normal(0.0, std, shape)
+        elif name == "scale":
+            v = 1.0 + rng.normal(0.0, 0.1, shape)
+        elif name == "bias":
+            v = rng.normal(0.0, 0.1, shape)
+        else:
+            v = rng.normal(0.0, 0.5, shape)
+        return np.asarray(v, np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, params)
+
+
+def nchw(a) -> torch.Tensor:
+    """NHWC numpy array -> NCHW channels_last torch tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2)
+
+
+def nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.permute(0, 2, 3, 1).float().numpy()
