@@ -6,26 +6,34 @@
 Phases, each printed as it ends; any failure raises and exits non-zero
 without the final `"ok": true` line:
   1. device  - requires CUDA; prints the card as nvidia-smi names it;
-  2. build   - builds the CUDA attention kernel (nvcc, sm_90a) into
-               build/torch_ext/ and compiles the Triton norm kernels;
+  2. build   - builds the CUDA kernels (attention, int8 conv; nvcc, sm_90a)
+               into build/torch_ext/ and compiles the Triton kernels;
   3. kernels - each kernel against its plain PyTorch version on the card at
-               the SD1.5 512² shapes: max abs error against the plain version
-               evaluated in fp32 on the same bf16 inputs (bounds 3e-2
-               attention, 2e-2 norms, the bf16 bound of tests/test_ops.py;
-               attention also within 2e-2 of its largest output, and the
-               bound must be below the error of the plain version with one
-               64-key tile left out), the error against the plain version
-               in bf16, and the median time of the kernel and of the plain
-               bf16 version;
+               the SD1.5 512² shapes (CFG batch 8), with the kernel's and
+               the plain version's median time. Float kernels: max abs error
+               against the plain version evaluated in fp32 on the same bf16
+               inputs (bounds 3e-2 attention, 2e-2 norms, the bf16 bound of
+               tests/test_ops.py; attention also within 2e-2 of its largest
+               output, and the bound must be below the error of the plain
+               version with one 64-key tile left out), and the error against
+               the plain version in bf16. int8 epilogue kernels (GroupNorm,
+               LayerNorm, GEGLU -> int8): scales within 1e-6 relative, codes
+               at most 1 apart and at least 99.9% equal. int8 conv: equal
+               to the plain version bit for bit;
   4. slice   - SD1.5 at full width (default configs, bf16, random weights
                from a seed) answers two 512² requests of batch 2 with 8 DDIM
-               steps and CFG 9; checks the images, that every kernel's
-               launch count rose during the requests, and one CFG epsilon
+               steps and CFG 9; checks the images, that every kernel of the
+               path was launched during the requests, and one CFG epsilon
                evaluation (t=999) against the same call on the plain ops
                (relative L2 <= 5e-2 over the uncond and cond outputs; the
                guided epsilon no farther from an fp32 evaluation than the
                plain ops, x1.25); prints seconds per request and step;
-  5. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  5. int8    - the same with the int8 W8A8 serving policy and the int8 VAE
+               (`create(policy=int8_policy(), vae_int8=True)`): the same
+               checks, the launches of the int8 path's kernels, the guided
+               epsilon against an fp32-compute int8 evaluation, and its
+               distance from the bf16 policy for information;
+  6. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -48,6 +56,18 @@ KEY_TILE = 64  # keys per tile of the attention kernel
 # guided epsilon of the kernels must be no farther from the fp32 evaluation
 # than FP32_RATIO_BOUND times the plain bf16 ops' distance.
 FP32_RATIO_BOUND = 1.25
+# Under the int8 policy every quantized site turns an fp32-ulp difference
+# between the kernels and the plain ops into a whole int8 code step where a
+# value sits at a rounding boundary, and the gap grows through the ~70
+# quantized sites of ControlNet + UNet to the policy's own noise: the plain
+# bf16 ops sit ~11% from an fp32-compute int8 evaluation there. So the int8
+# path holds EPS_REL_BOUND block by block (one quantized block, the same
+# input), and its unguided outputs to FP32_RATIO_BOUND times the plain ops'
+# distance from the fp32-compute evaluation, like the guided epsilon.
+# int8 epilogue kernels against their plain versions: the scales within
+# SCALE_REL_BOUND, the codes at most 1 apart (an fp32 ulp can move a value
+# across a rounding boundary) and at least CODES_EQUAL_BOUND of them equal.
+SCALE_REL_BOUND, CODES_EQUAL_BOUND = 1e-6, 0.999
 REQ_BATCH, REQ_SIZE, REQ_STEPS, CFG = 2, 512, 8, 9.0
 PROMPTS = ("a photograph of a red house by a lake", "an oil painting of a mountain at dawn")
 
@@ -104,16 +124,26 @@ def time_ms(fn, iters=10, warmup=2):
 
 
 def kernel_cases(gen):
-    """(kernel name, case label, wrapper, arguments, bound) at the slice's
-    shapes. Inputs are seeded N(0, 1) in bf16; norm affines near (1, 0)."""
+    """(kernel name, case label, wrapper, arguments, kind, bound) at the
+    main paths' shapes. Float inputs are seeded N(0, 1) in bf16; norm
+    affines near (1, 0); int8 conv operands uniform codes and scales.
+    `kind` is "float", "quant" (int8 codes and scales) or "exact"."""
     import torch
 
     from prompt_diffusion_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_packed,
     )
-    from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm
-    from prompt_diffusion_tpu_torch.ops.fused_layer_norm import fused_layer_norm
+    from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import (
+        fused_group_norm,
+        fused_group_norm_quant,
+    )
+    from prompt_diffusion_tpu_torch.ops.fused_layer_norm import (
+        fused_layer_norm,
+        fused_layer_norm_quant,
+    )
+    from prompt_diffusion_tpu_torch.ops.int8_conv import conv3x3_int8
 
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     bf16 = lambda t: t.to(torch.bfloat16)
@@ -125,28 +155,66 @@ def kernel_cases(gen):
         q = bf16(randn(b, n, hd) * (hd // h) ** -0.5)
         k, v = bf16(randn(b, n, hd)), bf16(randn(b, n, hd))
         cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h}", flash_attention_packed,
-                      (q, k, v, h, 1.0), ATTN_BOUND))
+                      (q, k, v, h, 1.0), "float", ATTN_BOUND))
     qkv = tuple(bf16(randn(4, 4096, 1, 512)) for _ in range(3))
-    cases.append(("flash_attention", "(4,4096,1,512)", flash_attention, qkv, ATTN_BOUND))
-    for shape, eps, mean in (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0)):
-        x = bf16(randn(*shape) + mean).contiguous(memory_format=torch.channels_last)
-        cases.append(("fused_group_norm", f"{shape} eps={eps} mean={mean} silu", fused_group_norm,
-                      (x, *affine(shape[1]), 32, eps, True), NORM_BOUND))
+    cases.append(("flash_attention", "(4,4096,1,512)", flash_attention, qkv, "float", ATTN_BOUND))
+    gn_shapes = (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0))
+    for name, fn, kind, bound in (("fused_group_norm", fused_group_norm, "float", NORM_BOUND),
+                                  ("fused_group_norm_quant", fused_group_norm_quant, "quant",
+                                   None)):
+        for shape, eps, mean in gn_shapes:
+            x = bf16(randn(*shape) + mean).contiguous(memory_format=torch.channels_last)
+            cases.append((name, f"{shape} eps={eps} mean={mean} silu", fn,
+                          (x, *affine(shape[1]), 32, eps, True), kind, bound))
     cases.append(("fused_layer_norm", "(32768,320)", fused_layer_norm,
-                  (bf16(randn(32768, 320)), *affine(320), 1e-5), NORM_BOUND))
+                  (bf16(randn(32768, 320)), *affine(320), 1e-5), "float", NORM_BOUND))
+    for n, c in ((32768, 320), (1000, 640)):
+        cases.append(("fused_layer_norm_quant", f"({n},{c})", fused_layer_norm_quant,
+                      (bf16(randn(n, c)), *affine(c), 1e-5), "quant", None))
+    for n, c in ((32768, 2560), (512, 10240)):
+        cases.append(("fused_geglu_quant", f"({n},{c})", fused_geglu_quant,
+                      (bf16(randn(n, c)),), "quant", None))
+    codes = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda",
+                                     dtype=torch.int8)
+    uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
+    # the main path's shapes, then two ragged ones (pixel, channel and K tails
+    # in both load paths; no bias with fp32 output)
+    for b, h, w, cin, cout, bias, dt in (
+            (8, 64, 64, 4, 320, True, torch.bfloat16), (8, 64, 64, 320, 320, True, torch.bfloat16),
+            (8, 8, 8, 2560, 1280, True, torch.bfloat16), (3, 5, 11, 48, 72, True, torch.bfloat16),
+            (2, 7, 9, 24, 40, False, torch.float32)):
+        args = (codes(b, h, w, cin), uniform(b, 0.01, 0.1), codes(cout, 3, 3, cin),
+                uniform(cout, 1e-4, 1e-3), randn(cout) if bias else None, dt)
+        label = f"({b},{h},{w},{cin}->{cout})" + ("" if bias else " no bias, fp32 out")
+        cases.append(("conv3x3_int8", label, conv3x3_int8, args, "exact", 0.0))
     return cases
+
+
+def compare_quant(out, ref):
+    """(max abs error of the dequantized values, largest relative scale
+    error, largest code difference, share of equal codes)."""
+    (q, s), (rq, rs) = out, ref
+    scale_err = ((s - rs).abs() / rs).max().item()
+    diff = (q.int() - rq.int()).abs()
+    shape = (-1,) + (1,) * (q.ndim - 1) if s.ndim == 1 else s.shape
+    deq = lambda codes, scale: codes.float() * scale.reshape(shape)
+    err = (deq(q, s) - deq(rq, rs)).abs().max().item()
+    return err, scale_err, diff.max().item(), (diff == 0).float().mean().item()
 
 
 def phase_kernels(gen):
     """Every kernel against its plain version; returns per-kernel results.
 
-    The bound applies against the plain version evaluated in fp32 on the
-    same bf16 inputs, as tests/test_ops.py bounds the TPU kernel: the
-    kernel's own bf16 rounding is then the only rounding compared. The
-    error against the plain version in bf16 is printed beside it. For
-    attention the bound is also ATTN_REL_BOUND of the largest output, and
-    it must be smaller than the error of the plain version with the first
-    key tile left out: a kernel that skipped a tile would fail it."""
+    The float kernels' bound applies against the plain version evaluated in
+    fp32 on the same bf16 inputs, as tests/test_ops.py bounds the TPU
+    kernel: the kernel's own bf16 rounding is then the only rounding
+    compared. The error against the plain version in bf16 is printed
+    beside it. For attention the bound is also ATTN_REL_BOUND of the
+    largest output, and it must be smaller than the error of the plain
+    version with the first key tile left out: a kernel that skipped a tile
+    would fail it. The int8 epilogue kernels are held to their scales and
+    codes (the plain versions quantize the fp32 value of the same bf16
+    inputs); the int8 conv to bit equality."""
     import torch
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
@@ -154,35 +222,52 @@ def phase_kernels(gen):
     fp32 = lambda args: tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
                               else a for a in args)
     results = {}
-    for name, label, fn, args, bound in kernel_cases(gen):
+    for name, label, fn, args, kind, bound in kernel_cases(gen):
         out = fn(*args)
         with plain_ops():
             ref = fn(*fp32(args))
-            ref_bf16 = fn(*args)
         torch.cuda.synchronize()
-        check(torch.isfinite(out).all().item(), f"{name} {label}: non-finite output")
-        err = (out.float() - ref).abs().max().item()
-        err_bf16 = (out.float() - ref_bf16.float()).abs().max().item()
-        if name.startswith("flash_attention"):
-            bound = min(bound, ATTN_REL_BOUND * ref.abs().max().item())
-            q, k, v, *rest = fp32(args)
+        extra = {}
+        if kind == "quant":
+            check(all(torch.isfinite(t).all().item() for t in (out[1], ref[1])),
+                  f"{name} {label}: non-finite scales")
+            err, scale_err, code_diff, equal = compare_quant(out, ref)
+            extra = {"scale_rel_err": scale_err, "max_code_diff": code_diff,
+                     "codes_equal": equal}
+            msg = (f"dequantized max_abs_err={err}; scales within {scale_err} relative (bound "
+                   f"{SCALE_REL_BOUND}), codes at most {code_diff} apart, {equal} equal "
+                   f"(bound {CODES_EQUAL_BOUND})")
+            ok = scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND
+        else:
+            check(torch.isfinite(out).all().item(), f"{name} {label}: non-finite output")
+            err = (out.float() - ref.float()).abs().max().item()
+            if name.startswith("flash_attention"):
+                bound = min(bound, ATTN_REL_BOUND * ref.abs().max().item())
+                q, k, v, *rest = fp32(args)
+                with plain_ops():
+                    short = fn(q, k[:, KEY_TILE:], v[:, KEY_TILE:], *rest)
+                tile_err = (short - ref).abs().max().item()
+                log(f"[kernels] {name} {label}: bound {bound}; plain version without one "
+                    f"{KEY_TILE}-key tile is {tile_err} off")
+                check(tile_err > bound, f"{name} {label}: bound {bound} would pass a missing "
+                                        f"key tile ({tile_err})")
+                del short
+            msg = f"max_abs_err={err} (bound {bound}, against the plain version in fp32)"
+            ok = err <= bound and (kind != "exact" or torch.equal(out, ref))
+        if kind == "float":
             with plain_ops():
-                short = fn(q, k[:, KEY_TILE:], v[:, KEY_TILE:], *rest)
-            tile_err = (short - ref).abs().max().item()
-            log(f"[kernels] {name} {label}: bound {bound}; plain version without one "
-                f"{KEY_TILE}-key tile is {tile_err} off")
-            check(tile_err > bound, f"{name} {label}: bound {bound} would pass a missing key tile "
-                                    f"({tile_err})")
-            del short
-        del ref, ref_bf16
+                ref_bf16 = fn(*args)
+            extra["err_vs_plain_bf16"] = (out.float() - ref_bf16.float()).abs().max().item()
+            msg += f" err_vs_plain_bf16={extra['err_vs_plain_bf16']}"
+            del ref_bf16
+        del out, ref
         ms = time_ms(lambda: fn(*args))
         with plain_ops():
             plain_ms = time_ms(lambda: fn(*args))
-        log(f"[kernels] {name} {label}: max_abs_err={err} (bound {bound}, against the plain "
-            f"version in fp32) err_vs_plain_bf16={err_bf16} kernel_ms={ms} plain_ms={plain_ms}")
-        check(err <= bound, f"{name} {label}: max abs error {err} > {bound}")
+        log(f"[kernels] {name} {label}: {msg} kernel_ms={ms} plain_ms={plain_ms}")
+        check(ok, f"{name} {label}: outside its bound: {msg}")
         results.setdefault(name, []).append(
-            {"case": label, "max_abs_err": err, "bound": bound, "err_vs_plain_bf16": err_bf16,
+            {"case": label, "max_abs_err": err, "bound": bound, **extra,
              "ms": ms, "plain_ms": plain_ms})
     return results
 
@@ -196,51 +281,114 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                          "prompt_diffusion_tpu/ops/fused_group_norm.py:128"),
     "fused_layer_norm": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_norms.py",
                          "prompt_diffusion_tpu/ops/fused_layer_norm.py:90"),
+    "fused_group_norm_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+                               "prompt_diffusion_tpu/ops/fused_group_norm.py:86"),
+    "fused_layer_norm_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+                               "prompt_diffusion_tpu/ops/fused_layer_norm.py:149"),
+    "fused_geglu_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+                          "prompt_diffusion_tpu/ops/fused_act.py:144"),
+    "conv3x3_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_conv.cu",
+                     "prompt_diffusion_tpu/ops/int8_conv.py:174"),
+}
+# the kernels each main path must launch (K4 LayerNorm does not run in int8
+# mode: every pre-LN there quantizes through K6)
+PATH_KERNELS = {
+    "slice": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+              "fused_layer_norm"),
+    "int8": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+             "fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
+             "conv3x3_int8"),
 }
 
 
 def wrappers():
     from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+    from prompt_diffusion_tpu_torch.ops import fused_act as act
     from prompt_diffusion_tpu_torch.ops import fused_group_norm as gn
     from prompt_diffusion_tpu_torch.ops import fused_layer_norm as ln
+    from prompt_diffusion_tpu_torch.ops import int8_conv as ic
 
     return {"flash_attention_packed": fa.flash_attention_packed,
             "flash_attention": fa.flash_attention,
             "fused_group_norm": gn.fused_group_norm,
-            "fused_layer_norm": ln.fused_layer_norm}
+            "fused_layer_norm": ln.fused_layer_norm,
+            "fused_group_norm_quant": gn.fused_group_norm_quant,
+            "fused_layer_norm_quant": ln.fused_layer_norm_quant,
+            "fused_geglu_quant": act.fused_geglu_quant,
+            "conv3x3_int8": ic.conv3x3_int8}
 
 
-def fp32_twin(pipe):
-    """The pipeline with fp32 copies of its UNet and ControlNet (same
-    weights), for an evaluation without bf16 rounding."""
+def twin(pipe, policy):
+    """The pipeline with copies of its UNet and ControlNet under another
+    policy (same weights), sharing its VAE and text encoder."""
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
-    from prompt_diffusion_tpu_torch.utils.dtypes import fp32_policy
 
-    twin = PromptDiffusionSD15.create(policy=fp32_policy(), vae=pipe.vae,
-                                      text_encoder=pipe.text_encoder, device="cuda")
-    twin.unet.load_state_dict(pipe.unet.state_dict())
-    twin.controlnet.load_state_dict(pipe.controlnet.state_dict())
-    return twin
+    other = PromptDiffusionSD15.create(policy=policy, vae=pipe.vae,
+                                       text_encoder=pipe.text_encoder, device="cuda")
+    other.unet.load_state_dict(pipe.unet.state_dict())
+    other.controlnet.load_state_dict(pipe.controlnet.state_dict())
+    return other
 
 
-def phase_slice(seed=0):
-    """Two full-width requests through the port's public API."""
+def int8_block_checks(pipe, seed=4000):
+    """One quantized block of each kind, the same seeded input through the
+    kernels and through the plain ops: relative L2 within EPS_REL_BOUND."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    act = lambda b, c, hw: randn(b, c, hw, hw).contiguous(memory_format=torch.channels_last)
+    b, lat, img = 2 * REQ_BATCH, REQ_SIZE // 8, REQ_SIZE
+    unet, dec = pipe.unet, pipe.vae.decoder
+    blocks = {
+        "UNet input conv (4->320)": (unet.input_blocks_0_conv, (act(b, 4, lat),)),
+        "UNet ResBlock 320 at 64²": (unet.input_blocks_1_res,
+                                     (act(b, 320, lat), randn(b, 1280))),
+        "UNet SpatialTransformer 320 at 64²": (unet.input_blocks_1_attn,
+                                               (act(b, 320, lat), randn(b, 77, 768))),
+        "UNet Downsample 320": (unet.input_blocks_3_down, (act(b, 320, lat),)),
+        "UNet ResBlock 2560->1280 at 8²": (unet.output_blocks_0_res,
+                                           (act(b, 2560, lat // 8), randn(b, 1280))),
+        "VAE ResnetBlock 256->128 at 512²": (dec.up_0_block_0,
+                                             (act(REQ_BATCH, 256, img),)),
+        "VAE attention 512 at 64²": (dec.mid_attn_1, (act(REQ_BATCH, 512, lat),)),
+    }
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    with torch.no_grad():
+        for name, (module, args) in blocks.items():
+            out = module(*args)
+            with plain_ops():
+                ref = module(*args)
+            err = rel(out, ref)
+            log(f"[int8] block {name}, kernels vs plain ops on the same input: rel L2 {err} "
+                f"(bound {EPS_REL_BOUND})")
+            check(err <= EPS_REL_BOUND, f"block {name}: rel L2 {err} > {EPS_REL_BOUND}")
+
+
+def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
+    """Two full-width requests through the port's public API under
+    `policy`, the launch counts of the path's kernels, and one CFG epsilon
+    evaluation (t=999) against the plain ops and against `ref_policy`
+    (fp32 compute) on the plain ops. `info_policy` adds the distance from
+    another policy's evaluation, printed only."""
     import numpy as np
     import torch
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
-    from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, random_init_
+    from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
 
     t0 = time.perf_counter()
-    pipe = PromptDiffusionSD15.create(policy=default_policy(), device="cuda")
+    pipe = PromptDiffusionSD15.create(policy=policy, vae_int8=vae_int8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder):
         random_init_(m, gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder)
                    for p in m.parameters())
-    log(f"[slice] SD1.5 built with random weights: {n_params} parameters "
+    log(f"[{tag}] SD1.5 built with random weights: {n_params} parameters "
         f"in {time.perf_counter() - t0:.1f}s")
 
     def request(i):
@@ -266,9 +414,9 @@ def phase_slice(seed=0):
     img1, s1 = answer(0)
     img2, s2 = answer(1)
     launches = {name: w.launches for name, w in counted.items()}
-    log(f"[slice] request 1: {s1:.3f}s, request 2: {s2:.3f}s; launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    log(f"[{tag}] request 1: {s1:.3f}s, request 2: {s2:.3f}s; launches {launches}")
+    for name in PATH_KERNELS[tag]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {tag} path")
     for img in (img1, img2):
         check(tuple(img.shape) == (REQ_BATCH, REQ_SIZE, REQ_SIZE, 3), f"shape {tuple(img.shape)}")
         check(torch.isfinite(img).all().item(), "non-finite image")
@@ -276,8 +424,11 @@ def phase_slice(seed=0):
     check(not torch.equal(img1, img2), "the two requests gave the same images")
     img1b, s1b = answer(0)
     check(torch.equal(img1, img1b), "request 1 with the same generator gave other images")
-    log(f"[slice] images {tuple(img1.shape)} finite in [0,1]; requests differ; "
+    log(f"[{tag}] images {tuple(img1.shape)} finite in [0,1]; requests differ; "
         f"request 1 repeated bit-exactly in {s1b:.3f}s; std {img1.float().std().item():.4f}")
+
+    if tag == "int8":
+        int8_block_checks(pipe)
 
     # one CFG epsilon evaluation (ControlNet + UNet at t=999), kernels vs plain
     r = request(0)
@@ -292,19 +443,34 @@ def phase_slice(seed=0):
         kern = {gs: f(x, t) for gs, f in eps_fns.items()}
         with plain_ops():
             plain = {gs: f(x, t) for gs, f in eps_fns.items()}
-            eps32 = fp32_twin(pipe).make_eps_fn(**r, guidance_scale=CFG)(x, t)
+            ref = twin(pipe, ref_policy)
+            eps32 = {gs: ref.make_eps_fn(**r, guidance_scale=gs)(x, t) for gs in eps_fns}
+            del ref
+        info = (None if info_policy is None else
+                twin(pipe, info_policy).make_eps_fn(**r, guidance_scale=CFG)(x, t))
         step_s = time_ms(lambda: eps_fns[CFG](x, t), iters=5, warmup=1) / 1e3
     # the uncond and cond outputs of ControlNet + UNet (guidance 0 and 1)
     rel_branches = rel(torch.cat([kern[0.0], kern[1.0]]), torch.cat([plain[0.0], plain[1.0]]))
-    rel_k32, rel_p32 = rel(kern[CFG], eps32), rel(plain[CFG], eps32)
-    log(f"[slice] eps (t=999), kernels vs plain ops: rel L2 {rel_branches} over the uncond "
-        f"and cond outputs (bound {EPS_REL_BOUND}); guided (CFG {CFG}) {rel(kern[CFG], plain[CFG])}")
-    log(f"[slice] guided eps against an fp32 evaluation of the same weights: kernels "
-        f"{rel_k32}, plain bf16 ops {rel_p32} (bound {FP32_RATIO_BOUND}x the plain ops')")
-    check(np.isfinite(rel_branches) and rel_branches <= EPS_REL_BOUND,
-          f"eps rel L2 {rel_branches} > {EPS_REL_BOUND}")
+    rel_k32, rel_p32 = rel(kern[CFG], eps32[CFG]), rel(plain[CFG], eps32[CFG])
+    rel_branches_p32 = rel(torch.cat([plain[0.0], plain[1.0]]),
+                           torch.cat([eps32[0.0], eps32[1.0]]))
+    branch_bound = EPS_REL_BOUND if tag == "slice" else FP32_RATIO_BOUND * rel_branches_p32
+    log(f"[{tag}] eps (t=999), kernels vs plain ops: rel L2 {rel_branches} over the uncond "
+        f"and cond outputs (bound {branch_bound}; the plain ops' own distance from the "
+        f"fp32-compute evaluation there: {rel_branches_p32}); guided (CFG {CFG}) "
+        f"{rel(kern[CFG], plain[CFG])}")
+    log(f"[{tag}] guided eps against an fp32-compute evaluation of the same weights and "
+        f"policy on the plain ops: kernels {rel_k32}, plain ops {rel_p32} (bound "
+        f"{FP32_RATIO_BOUND}x the plain ops')")
+    if info is not None:
+        log(f"[{tag}] guided eps against the bf16 policy's (kernels, same weights), for "
+            f"information: {rel(kern[CFG], info)}")
+    check(np.isfinite(rel_branches) and rel_branches <= branch_bound,
+          f"eps rel L2 {rel_branches} > {branch_bound}")
     check(rel_k32 <= FP32_RATIO_BOUND * rel_p32,
-          f"kernels {rel_k32} vs plain {rel_p32} from the fp32 evaluation")
+          f"kernels {rel_k32} vs plain {rel_p32} from the fp32-compute evaluation")
+    del pipe
+    torch.cuda.empty_cache()
     return launches, {"request_s": [s1, s2, s1b], "step_s": step_s}
 
 
@@ -321,6 +487,12 @@ def main():
     # the fp32 references run in full fp32: no TF32 in matmuls or convs
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from prompt_diffusion_tpu_torch.utils.dtypes import (
+        DTypePolicy,
+        default_policy,
+        fp32_policy,
+        int8_policy,
+    )
 
     card = gpu_name_and_limit()
     kind = torch.cuda.get_device_name(0)
@@ -333,25 +505,32 @@ def main():
     cuda_ext()
     nvcc_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for _, _, fn, args, _ in kernel_cases(gen):  # compiles the Triton kernels
+    for _, _, fn, args, _, _ in kernel_cases(gen):  # compiles the Triton kernels
         fn(*args)
     torch.cuda.synchronize()
     log(f"[build] nvcc + load {nvcc_s:.1f}s; first launch of every kernel "
         f"(Triton compile included) {time.perf_counter() - t0 - nvcc_s:.1f}s")
 
     results = phase_kernels(gen)
-    launches, timing = phase_slice()
-    per_req = timing["request_s"]
-    log(f"[slice] {card}: {per_req[1]:.3f} s per request (batch {REQ_BATCH}, {REQ_SIZE}², "
-        f"{REQ_STEPS} DDIM steps, CFG {CFG}; first request {per_req[0]:.3f} s), "
-        f"{timing['step_s']:.4f} s per denoise step (ControlNet + UNet, CFG batch "
-        f"{2 * REQ_BATCH})")
+    paths = {
+        "slice": phase_path("slice", default_policy(), False, fp32_policy()),
+        "int8": phase_path("int8", int8_policy(), True,
+                           DTypePolicy(compute_dtype=torch.float32, quant="int8"),
+                           info_policy=default_policy()),
+    }
+    for tag, (_, timing) in paths.items():
+        per_req = timing["request_s"]
+        log(f"[{tag}] {card}: {per_req[1]:.3f} s per request (batch {REQ_BATCH}, {REQ_SIZE}², "
+            f"{REQ_STEPS} DDIM steps, CFG {CFG}; first request {per_req[0]:.3f} s), "
+            f"{timing['step_s']:.4f} s per denoise step (ControlNet + UNet, CFG batch "
+            f"{2 * REQ_BATCH})")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
+        by_path = {tag: launches[name] for tag, (launches, _) in paths.items()}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": launches[name],
+                        "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(c["max_abs_err"] for c in cases),
                         "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
                         "cases": cases})

@@ -4,6 +4,10 @@ Counterpart of `prompt_diffusion_tpu/models/controlnet_sd15.py`: a copy of
 the UNet encoder with two hint encoders (the 6-channel example pair and the
 3-channel query), whose sum is added after the first conv, and a 1x1 conv
 tap after each of the 12 input blocks and the middle block.
+
+Under an int8 policy the encoder it shares with the UNet quantizes
+(`unet_sd15.build_encoder`); the hint encoders and the 1x1 taps stay in the
+compute dtype.
 """
 
 from __future__ import annotations

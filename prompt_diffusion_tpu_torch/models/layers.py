@@ -5,6 +5,12 @@ NCHW tensors in channels_last memory, so convolutions and the norm kernels
 see C-contiguous rows. Attribute names follow the Flax parameter names
 (`in_norm`, `emb_proj`, `block_0.attn1.to_q`, ...), which keeps the weight
 bridge (`tools/jax_bridge.py`) mechanical.
+
+Under a policy with `quant="int8"` (the W8A8 serving mode) the hot convs
+and denses are `QuantConv` / `QuantDense` with the same state dict, and
+the norms that feed them emit (int8, scale) pairs from their kernels' int8
+epilogues: GroupNorm one scale per sample (K5), LayerNorm and GEGLU one per
+row (K6, K7).
 """
 
 from __future__ import annotations
@@ -18,8 +24,10 @@ from torch import nn
 
 from prompt_diffusion_tpu_torch.ops.attention import _flash_eligible, dot_product_attention
 from prompt_diffusion_tpu_torch.ops.flash_attention import flash_attention_packed
-from prompt_diffusion_tpu_torch.ops.fused_group_norm import group_norm_auto
-from prompt_diffusion_tpu_torch.ops.fused_layer_norm import layer_norm_auto
+from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
+from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm_quant, group_norm_auto
+from prompt_diffusion_tpu_torch.ops.fused_layer_norm import fused_layer_norm_quant, layer_norm_auto
+from prompt_diffusion_tpu_torch.ops.quant import QuantConv, QuantDense
 from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy
 
 
@@ -51,40 +59,60 @@ class Conv(nn.Conv2d):
         return self._conv_forward(x.to(self.weight.dtype), self.weight, self.bias)
 
 
-def conv3x3(cin: int, cout: int, dtype: torch.dtype, stride: int = 1) -> Conv:
+def _int8(policy: Optional[DTypePolicy]) -> bool:
+    return policy is not None and policy.quant == "int8"
+
+
+def conv3x3(cin: int, cout: int, dtype: torch.dtype, stride: int = 1,
+            policy: Optional[DTypePolicy] = None) -> nn.Conv2d:
+    """3x3 conv, padding 1; `policy=` with `quant="int8"` makes the site a
+    `QuantConv` (same state dict)."""
+    if _int8(policy):
+        return QuantConv(cin, cout, 3, stride=stride, padding=1, out_dtype=dtype)
     return Conv(cin, cout, 3, stride=stride, padding=1, dtype=dtype)
 
 
-def conv1x1(cin: int, cout: int, dtype: torch.dtype) -> Conv:
+def conv1x1(cin: int, cout: int, dtype: torch.dtype,
+            policy: Optional[DTypePolicy] = None) -> nn.Conv2d:
+    if _int8(policy):
+        return QuantConv(cin, cout, 1, out_dtype=dtype)
     return Conv(cin, cout, 1, dtype=dtype)
 
 
 class FusedLayerNorm(nn.Module):
     """LayerNorm with fp32 statistics and fp32 affine; the Triton kernel on
-    the card at the sizes `layer_norm_auto` picks."""
+    the card at the sizes `layer_norm_auto` picks. `quant_out=True` returns
+    (int8, per-row scale) from K6 instead."""
 
-    def __init__(self, dim: int, eps: float = 1e-5):
+    def __init__(self, dim: int, eps: float = 1e-5, quant_out: bool = False):
         super().__init__()
-        self.eps = eps
+        self.eps, self.quant_out = eps, quant_out
         self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32))
 
     def forward(self, x):
+        if self.quant_out:
+            return fused_layer_norm_quant(x, self.weight, self.bias, eps=self.eps)
         return layer_norm_auto(x, self.weight, self.bias, eps=self.eps)
 
 
 class GroupNorm32(nn.Module):
     """GroupNorm(+SiLU) with fp32 statistics and fp32 affine; the Triton
-    kernel on the card at the sizes `group_norm_auto` picks."""
+    kernel on the card at the sizes `group_norm_auto` picks. `quant_out=True`
+    returns (int8, per-sample scale) from K5 instead, at every size."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
-                 apply_silu: bool = False):
+                 apply_silu: bool = False, quant_out: bool = False):
         super().__init__()
         self.num_groups, self.eps, self.apply_silu = num_groups, eps, apply_silu
+        self.quant_out = quant_out
         self.weight = nn.Parameter(torch.ones(channels, dtype=torch.float32))
         self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32))
 
     def forward(self, x):
+        if self.quant_out:
+            return fused_group_norm_quant(x, self.weight, self.bias, self.num_groups,
+                                          eps=self.eps, apply_silu=self.apply_silu)
         return group_norm_auto(x, self.num_groups, self.weight, self.bias,
                                eps=self.eps, apply_silu=self.apply_silu)
 
@@ -106,13 +134,13 @@ class ResBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, policy: DTypePolicy):
         super().__init__()
-        dt = policy.compute_dtype
-        self.in_norm = GroupNorm32(in_ch, apply_silu=True)
-        self.in_conv = conv3x3(in_ch, out_ch, dt)
+        dt, q8 = policy.compute_dtype, _int8(policy)
+        self.in_norm = GroupNorm32(in_ch, apply_silu=True, quant_out=q8)
+        self.in_conv = conv3x3(in_ch, out_ch, dt, policy=policy)
         self.emb_proj = Dense(emb_dim, out_ch, dtype=dt)
-        self.out_norm = GroupNorm32(out_ch, apply_silu=True)
-        self.out_conv = conv3x3(out_ch, out_ch, dt)
-        self.skip = conv1x1(in_ch, out_ch, dt) if in_ch != out_ch else None
+        self.out_norm = GroupNorm32(out_ch, apply_silu=True, quant_out=q8)
+        self.out_conv = conv3x3(out_ch, out_ch, dt, policy=policy)
+        self.skip = conv1x1(in_ch, out_ch, dt, policy=policy) if in_ch != out_ch else None
 
     def forward(self, x, emb):
         h = self.in_conv(self.in_norm(x))
@@ -129,7 +157,7 @@ class Downsample(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, policy: DTypePolicy):
         super().__init__()
-        self.conv = conv3x3(in_ch, out_ch, policy.compute_dtype, stride=2)
+        self.conv = conv3x3(in_ch, out_ch, policy.compute_dtype, stride=2, policy=policy)
 
     def forward(self, x):
         return self.conv(x)
@@ -141,7 +169,7 @@ class Upsample(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, policy: DTypePolicy):
         super().__init__()
-        self.conv = conv3x3(in_ch, out_ch, policy.compute_dtype)
+        self.conv = conv3x3(in_ch, out_ch, policy.compute_dtype, policy=policy)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -164,7 +192,9 @@ class ScaledDense(nn.Linear):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention; self-attention when `context` is None."""
+    """Multi-head attention; self-attention when `context` is None. In int8
+    mode the projections are `QuantDense`s and `x` (and the self-attention
+    context) may be a pre-quantized (int8, per-row scale) pair."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
                  policy: DTypePolicy):
@@ -173,10 +203,17 @@ class CrossAttention(nn.Module):
         dt = policy.compute_dtype
         self.heads, self.dim_head = heads, dim_head
         # softmax scale folded into the query projection; attention runs at scale 1
-        self.to_q = ScaledDense(query_dim, inner, dim_head ** -0.5, policy)
-        self.to_k = Dense(context_dim, inner, bias=False, dtype=dt)
-        self.to_v = Dense(context_dim, inner, bias=False, dtype=dt)
-        self.to_out = Dense(inner, query_dim, dtype=dt)
+        scale = dim_head ** -0.5
+        if _int8(policy):
+            self.to_q = QuantDense(query_dim, inner, bias=False, pre_scale=scale, out_dtype=dt)
+            self.to_k = QuantDense(context_dim, inner, bias=False, out_dtype=dt)
+            self.to_v = QuantDense(context_dim, inner, bias=False, out_dtype=dt)
+            self.to_out = QuantDense(inner, query_dim, out_dtype=dt)
+        else:
+            self.to_q = ScaledDense(query_dim, inner, scale, policy)
+            self.to_k = Dense(context_dim, inner, bias=False, dtype=dt)
+            self.to_v = Dense(context_dim, inner, bias=False, dtype=dt)
+            self.to_out = Dense(inner, query_dim, dtype=dt)
 
     def forward(self, x, context: Optional[torch.Tensor] = None):
         context = x if context is None else context
@@ -192,31 +229,43 @@ class CrossAttention(nn.Module):
 
 
 class GEGLUFeedForward(nn.Module):
-    """Linear -> h * gelu_erf(gate) -> Linear."""
+    """Linear -> h * gelu_erf(gate) -> Linear. In int8 mode both linears
+    are `QuantDense`s and the GEGLU runs in K7, which hands `out` an
+    (int8, per-row scale) pair."""
 
     def __init__(self, dim: int, policy: DTypePolicy, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.proj = Dense(dim, inner * 2, dtype=policy.compute_dtype)
-        self.out = Dense(inner, dim, dtype=policy.compute_dtype)
+        dt = policy.compute_dtype
+        self.quant = _int8(policy)
+        if self.quant:
+            self.proj = QuantDense(dim, inner * 2, out_dtype=dt)
+            self.out = QuantDense(inner, dim, out_dtype=dt)
+        else:
+            self.proj = Dense(dim, inner * 2, dtype=dt)
+            self.out = Dense(inner, dim, dtype=dt)
 
     def forward(self, x):
+        if self.quant:
+            return self.out(fused_geglu_quant(self.proj(x)))
         h, gate = self.proj(x).chunk(2, dim=-1)
         return self.out(h * F.gelu(gate))
 
 
 class BasicTransformerBlock(nn.Module):
     """Self-attention, cross-attention and GEGLU feed-forward, each with a
-    pre-LayerNorm and a residual."""
+    pre-LayerNorm and a residual. In int8 mode each pre-LN hands its
+    consumers an (int8, per-row scale) pair from K6."""
 
     def __init__(self, dim: int, context_dim: int, heads: int, dim_head: int,
                  policy: DTypePolicy):
         super().__init__()
-        self.norm1 = FusedLayerNorm(dim)
+        q8 = _int8(policy)
+        self.norm1 = FusedLayerNorm(dim, quant_out=q8)
         self.attn1 = CrossAttention(dim, dim, heads, dim_head, policy)
-        self.norm2 = FusedLayerNorm(dim)
+        self.norm2 = FusedLayerNorm(dim, quant_out=q8)
         self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, policy)
-        self.norm3 = FusedLayerNorm(dim)
+        self.norm3 = FusedLayerNorm(dim, quant_out=q8)
         self.ff = GEGLUFeedForward(dim, policy)
 
     def forward(self, x, context=None):
@@ -235,12 +284,12 @@ class SpatialTransformer(nn.Module):
         inner = heads * dim_head
         dt = policy.compute_dtype
         self.depth = depth
-        self.norm = GroupNorm32(channels, eps=1e-6)
-        self.proj_in = conv1x1(channels, inner, dt)
+        self.norm = GroupNorm32(channels, eps=1e-6, quant_out=_int8(policy))
+        self.proj_in = conv1x1(channels, inner, dt, policy=policy)
         for d in range(depth):
             self.add_module(f"block_{d}", BasicTransformerBlock(
                 inner, context_dim, heads, dim_head, policy))
-        self.proj_out = conv1x1(inner, channels, dt)
+        self.proj_out = conv1x1(inner, channels, dt, policy=policy)
 
     def forward(self, x, context=None):
         b, _, h, w = x.shape

@@ -5,6 +5,10 @@ embedding -> MLP; 12 input blocks; middle (res, transformer, res); 12
 output blocks with skip concatenation; GN + SiLU + conv head. Control
 residuals from the ControlNet add to the bottleneck (the last one) and then
 to the skips in reverse order. FreeU is not ported yet.
+
+Under an int8 policy the input conv, the ResBlocks, Down/Upsample and the
+transformers quantize (`models/layers.py`); the time embedding and the
+GN + SiLU + conv head stay in the compute dtype.
 """
 
 from __future__ import annotations
@@ -83,7 +87,7 @@ def build_encoder(module: nn.Module, cfg: UNetConfig, policy: DTypePolicy):
     for i, (kind, out_ch, has_attn) in enumerate(plan):
         if kind == "conv":
             module.add_module(f"input_blocks_{i}_conv",
-                              conv3x3(cur, out_ch, policy.compute_dtype))
+                              conv3x3(cur, out_ch, policy.compute_dtype, policy=policy))
         elif kind == "res":
             module.add_module(f"input_blocks_{i}_res",
                               ResBlock(cur, out_ch, emb_dim, policy))

@@ -1,9 +1,14 @@
 """KL-VAE first stage (AutoencoderKL), NCHW in channels_last memory.
 
-Counterpart of `prompt_diffusion_tpu/models/vae.py` (exact-bf16 policy):
-ch=128, mult (1,2,4,4), 2 res blocks, single-head attention at the
-bottleneck, z=4 with double_z moments. The latent scale and shift are
-applied by the pipeline.
+Counterpart of `prompt_diffusion_tpu/models/vae.py`: ch=128, mult
+(1,2,4,4), 2 res blocks, single-head attention at the bottleneck, z=4 with
+double_z moments. The latent scale and shift are applied by the pipeline.
+
+Under an int8 policy (the pipeline's `vae_int8=True`) the interior convs
+and the attention's q/k/v/proj_out are `QuantConv`s, fed by the GroupNorm
+int8 epilogue (K5) where a norm precedes them; the convs on the pixel and
+latent boundaries (encoder conv_in and conv_out, decoder conv_out), the
+encoder's downsampling convs and quant_conv/post_quant_conv stay bf16.
 """
 
 from __future__ import annotations
@@ -39,12 +44,13 @@ class VAEResnetBlock(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, policy: DTypePolicy):
         super().__init__()
-        dt = policy.compute_dtype
-        self.norm1 = GroupNorm32(in_ch, eps=1e-6, apply_silu=True)
-        self.conv1 = conv3x3(in_ch, out_ch, dt)
-        self.norm2 = GroupNorm32(out_ch, eps=1e-6, apply_silu=True)
-        self.conv2 = conv3x3(out_ch, out_ch, dt)
-        self.nin_shortcut = conv1x1(in_ch, out_ch, dt) if in_ch != out_ch else None
+        dt, q8 = policy.compute_dtype, policy.quant == "int8"
+        self.norm1 = GroupNorm32(in_ch, eps=1e-6, apply_silu=True, quant_out=q8)
+        self.conv1 = conv3x3(in_ch, out_ch, dt, policy=policy)
+        self.norm2 = GroupNorm32(out_ch, eps=1e-6, apply_silu=True, quant_out=q8)
+        self.conv2 = conv3x3(out_ch, out_ch, dt, policy=policy)
+        self.nin_shortcut = (conv1x1(in_ch, out_ch, dt, policy=policy)
+                             if in_ch != out_ch else None)
 
     def forward(self, x):
         h = self.conv2(self.norm2(self.conv1(self.norm1(x))))
@@ -55,16 +61,17 @@ class VAEResnetBlock(nn.Module):
 
 class VAEAttnBlock(nn.Module):
     """Single-head spatial self-attention (the flash kernel K2 on the card
-    at 512², through `dot_product_attention`'s rule)."""
+    at 512², through `dot_product_attention`'s rule). In int8 mode one
+    GroupNorm int8 pair feeds q, k and v."""
 
     def __init__(self, channels: int, policy: DTypePolicy):
         super().__init__()
         dt = policy.compute_dtype
-        self.norm = GroupNorm32(channels, eps=1e-6)
-        self.q = conv1x1(channels, channels, dt)
-        self.k = conv1x1(channels, channels, dt)
-        self.v = conv1x1(channels, channels, dt)
-        self.proj_out = conv1x1(channels, channels, dt)
+        self.norm = GroupNorm32(channels, eps=1e-6, quant_out=policy.quant == "int8")
+        self.q = conv1x1(channels, channels, dt, policy=policy)
+        self.k = conv1x1(channels, channels, dt, policy=policy)
+        self.v = conv1x1(channels, channels, dt, policy=policy)
+        self.proj_out = conv1x1(channels, channels, dt, policy=policy)
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -116,7 +123,7 @@ class VAEDecoder(nn.Module):
         dt = policy.compute_dtype
         self.cfg, self.compute_dtype = cfg, dt
         cur = cfg.ch * cfg.ch_mult[-1]
-        self.conv_in = conv3x3(cfg.z_channels, cur, dt)
+        self.conv_in = conv3x3(cfg.z_channels, cur, dt, policy=policy)
         self.mid_block_1 = VAEResnetBlock(cur, cur, policy)
         self.mid_attn_1 = VAEAttnBlock(cur, policy)
         self.mid_block_2 = VAEResnetBlock(cur, cur, policy)
@@ -126,7 +133,7 @@ class VAEDecoder(nn.Module):
                 self.add_module(f"up_{level}_block_{i}", VAEResnetBlock(cur, out_ch, policy))
                 cur = out_ch
             if level != 0:
-                self.add_module(f"up_{level}_upsample", conv3x3(cur, cur, dt))
+                self.add_module(f"up_{level}_upsample", conv3x3(cur, cur, dt, policy=policy))
         self.norm_out = GroupNorm32(cur, eps=1e-6, apply_silu=True)
         self.conv_out = conv3x3(cur, cfg.out_channels, dt)
 

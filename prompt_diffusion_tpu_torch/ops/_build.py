@@ -38,8 +38,8 @@ def cuda_ext():
     os.makedirs(BUILD_DIR, exist_ok=True)
     return load(
         name="pd_torch_kernels",
-        sources=[os.path.join(_CSRC, "binding.cpp"),
-                 os.path.join(_CSRC, "flash_attention.cu")],
+        sources=[os.path.join(_CSRC, name)
+                 for name in ("binding.cpp", "flash_attention.cu", "int8_conv.cu")],
         build_directory=BUILD_DIR,
         extra_cflags=["-O3", "-std=c++17"],
         extra_cuda_cflags=_CUDA_FLAGS,

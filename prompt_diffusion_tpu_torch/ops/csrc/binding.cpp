@@ -21,6 +21,10 @@ extern "C" int pd_flash_attention_fwd(
     int64_t v_sb, int64_t v_sn, int64_t v_sh,
     int64_t o_sb, int64_t o_sn, int64_t o_sh,
     float scale, void* stream);
+extern "C" int pd_conv3x3_int8(const void* x, const void* w, const void* s_a,
+                               const void* s_w, const void* bias, void* out,
+                               int batch, int h, int wd, int cin, int cout,
+                               int out_bf16, int vec, void* stream);
 
 namespace {
 
@@ -43,9 +47,24 @@ void flash_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o,
   }
 }
 
+void conv3x3_int8(uintptr_t x, uintptr_t w, uintptr_t s_a, uintptr_t s_w, uintptr_t bias,
+                  uintptr_t out, int batch, int h, int wd, int cin, int cout, bool out_bf16,
+                  bool vec, uintptr_t stream) {
+  const int err = pd_conv3x3_int8(ptr(x), ptr(w), ptr(s_a), ptr(s_w), ptr(bias), ptr(out),
+                                  batch, h, wd, cin, cout, out_bf16 ? 1 : 0, vec ? 1 : 0,
+                                  ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("conv3x3_int8 launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_fwd", &flash_attention_fwd,
         "Flash attention forward over strided (B, N, H, D) bf16 tensors");
+  m.def("conv3x3_int8", &conv3x3_int8,
+        "SAME 3x3 int8 convolution over NHWC with the fp32 dequant epilogue "
+        "(bias pointer 0 = no bias)");
 }

@@ -1,8 +1,10 @@
-"""GroupNorm(+SiLU) kernel K3, in Triton, and its dispatch.
+"""GroupNorm(+SiLU) kernels K3 and K5, in Triton, and their dispatch.
 
-Replaces `prompt_diffusion_tpu/ops/fused_group_norm.py::fused_group_norm`,
+K3 replaces `prompt_diffusion_tpu/ops/fused_group_norm.py::fused_group_norm`,
 both its one-pass VMEM-resident kernel (`_gn_kernel`) and its two-pass
-row-blocked kernel (`_stats_kernel` + `_apply_kernel`).
+row-blocked kernel (`_stats_kernel` + `_apply_kernel`). K5 replaces
+`fused_group_norm_quant` (`_gn_quant_kernel`): the same GroupNorm, then
+int8 codes with one fp32 scale per sample (the int8 serving mode).
 
 What bounds it: nothing but memory traffic. A sample is 2.6 MB in the 512²
 UNet and 64 MB in the VAE decoder, far beyond one SM's shared memory, so
@@ -13,6 +15,14 @@ Chan's parallel formula (no E[x²] - E[x]² cancellation on the VAE's
 large-mean activations) and folds the affine into one per-channel scale and
 shift; an apply pass writes x * scale + shift (+ SiLU). That is two reads
 and one write of the activation, like the TPU's two-pass path.
+
+K5 shares the stats and combine programs. Its scale is one amax over the
+whole sample, a reduction across programs, so it adds an amax pass (tile
+maxima folded by an atomic max into one slot per sample) and a quantize
+pass that recomputes the normalised value: three reads of the activation
+and one int8 write. The TPU kernel held a sample in VMEM and read it once;
+JAX falls back to jnp above 8 MB samples, while this kernel serves every
+size (the int8 VAE's 64 MB samples included).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ import torch
 
 from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
 from prompt_diffusion_tpu_torch.ops.norms import group_norm as _torch_group_norm
+from prompt_diffusion_tpu_torch.ops.norms import group_norm_f32
 
 _ROWS = 128      # pixels per stats/apply tile
 _BLOCK_C = 64    # channels per stats/apply tile
@@ -42,21 +53,27 @@ def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 fused_group_norm.launches = 0
 
 
-def _launch(x, scale, bias, num_groups, eps, apply_silu):
-    import triton
-
-    from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
-
+def _check(x, scale, bias, num_groups):
     if x.ndim != 4:
         raise ValueError(f"fused_group_norm takes (B, C, H, W), got {tuple(x.shape)}")
-    b, c, h, w = x.shape
+    c = x.shape[1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"affine must be ({c},), got {tuple(scale.shape)}, {tuple(bias.shape)}")
     if not x.dtype.is_floating_point:
         raise ValueError(f"fused_group_norm takes a float tensor, got {x.dtype}")
-    x = x.contiguous(memory_format=torch.channels_last)
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _stats(x, scale, bias, num_groups, eps):
+    """K3's stats and combine programs: per-(sample, channel) fp32 scale
+    and shift with the affine folded in. Runs on the current device."""
+    import triton
+
+    from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
+
+    b, c, h, w = x.shape
     hw, cg = h * w, c // num_groups
     rb, cb = triton.cdiv(hw, _ROWS), triton.cdiv(c, _BLOCK_C)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -64,19 +81,68 @@ def _launch(x, scale, bias, num_groups, eps, apply_silu):
     part_m2 = torch.empty((b, rb, c), **f32)
     eff_scale = torch.empty((b, c), **f32)
     eff_shift = torch.empty((b, c), **f32)
+    tk.gn_stats_kernel[(b, rb, cb)](x, part_mean, part_m2, hw, c, rb,
+                                    ROWS=_ROWS, BLOCK_C=_BLOCK_C)
+    tk.gn_combine_kernel[(b, num_groups)](
+        part_mean, part_m2, scale.float().contiguous(), bias.float().contiguous(),
+        eff_scale, eff_shift, hw, c, rb, cg, float(eps),
+        ROWS=_ROWS, BLOCK_R=_BLOCK_R, BLOCK_CG=triton.next_power_of_2(cg))
+    return eff_scale, eff_shift, (b, rb, cb)
+
+
+def _launch(x, scale, bias, num_groups, eps, apply_silu):
+    from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
+
+    x = _check(x, scale, bias, num_groups)
+    b, c, h, w = x.shape
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        tk.gn_stats_kernel[(b, rb, cb)](x, part_mean, part_m2, hw, c, rb,
-                                        ROWS=_ROWS, BLOCK_C=_BLOCK_C)
-        tk.gn_combine_kernel[(b, num_groups)](
-            part_mean, part_m2, scale.float().contiguous(), bias.float().contiguous(),
-            eff_scale, eff_shift, hw, c, rb, cg, float(eps),
-            ROWS=_ROWS, BLOCK_R=_BLOCK_R, BLOCK_CG=triton.next_power_of_2(cg))
-        tk.gn_apply_kernel[(b, rb, cb)](x, y, eff_scale, eff_shift, hw, c,
-                                        ROWS=_ROWS, BLOCK_C=_BLOCK_C,
-                                        APPLY_SILU=bool(apply_silu))
+        eff_scale, eff_shift, grid = _stats(x, scale, bias, num_groups, eps)
+        tk.gn_apply_kernel[grid](x, y, eff_scale, eff_shift, h * w, c,
+                                 ROWS=_ROWS, BLOCK_C=_BLOCK_C, APPLY_SILU=bool(apply_silu))
     fused_group_norm.launches += 1
     return y
+
+
+def _torch_group_norm_quant(x, num_groups, scale, bias, eps, apply_silu):
+    """Plain K5: the fp32 GroupNorm(+SiLU), then int8 codes and one scale
+    per sample. It quantizes the fp32 value, as the TPU kernel does (the
+    JAX CPU fallback first rounds it to the input dtype)."""
+    y = group_norm_f32(x, num_groups, scale, bias, eps=eps, apply_silu=apply_silu)
+    s_a = torch.clamp_min(y.abs().amax(dim=(1, 2, 3)) / 127.0, 1e-8)
+    q = torch.clamp(torch.round(y / s_a.view(-1, 1, 1, 1)), -127, 127).to(torch.int8)
+    return q, s_a
+
+
+def fused_group_norm_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           num_groups: int, eps: float = 1e-5,
+                           apply_silu: bool = False):
+    """K5: GroupNorm(+SiLU) of an NCHW tensor -> (int8 (B, C, H, W) in
+    channels_last memory, fp32 scale per sample (B,)); the kernel on CUDA
+    at every size, the plain version on the CPU."""
+    if not use_kernel(x):
+        return _torch_group_norm_quant(x, num_groups, scale, bias, eps, apply_silu)
+    return _launch_quant(x, scale, bias, num_groups, eps, apply_silu)
+
+
+fused_group_norm_quant.launches = 0
+
+
+def _launch_quant(x, scale, bias, num_groups, eps, apply_silu):
+    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
+
+    x = _check(x, scale, bias, num_groups)
+    b, c, h, w = x.shape
+    q = torch.empty_like(x, dtype=torch.int8)
+    s_a = torch.empty((b,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        amax = torch.zeros((b,), dtype=torch.int32, device=x.device)  # fp32 bits
+        eff_scale, eff_shift, grid = _stats(x, scale, bias, num_groups, eps)
+        meta = dict(ROWS=_ROWS, BLOCK_C=_BLOCK_C, APPLY_SILU=bool(apply_silu))
+        tq.gn_amax_kernel[grid](x, eff_scale, eff_shift, amax, h * w, c, **meta)
+        tq.gn_quant_kernel[grid](x, eff_scale, eff_shift, amax, q, s_a, h * w, c, **meta)
+    fused_group_norm_quant.launches += 1
+    return q, s_a
 
 
 def group_norm_auto(x, num_groups, scale, bias, eps=1e-5, apply_silu=False):

@@ -1,13 +1,19 @@
-"""LayerNorm kernel K4, in Triton, its plain version and its dispatch.
+"""LayerNorm kernels K4 and K6, in Triton, their plain versions and the
+dispatch, and `rowquant`.
 
-Replaces `prompt_diffusion_tpu/ops/fused_layer_norm.py::fused_layer_norm`
+K4 replaces `prompt_diffusion_tpu/ops/fused_layer_norm.py::fused_layer_norm`
 (`_ln_kernel`): row LayerNorm with fp32 statistics and affine, at the three
-pre-LNs of every transformer block.
+pre-LNs of every transformer block. K6 replaces `fused_layer_norm_quant`
+(`_ln_quant_kernel`): the same LayerNorm, then int8 codes with one fp32
+scale per row, which the q/k/v and FF `QuantDense`s of the int8 serving
+mode take as a pair.
 
-What bounds it: memory traffic only (one read and one write of the
-activation). One program holds a block of whole rows in registers
-(C = 320, 640 or 1280 on the SD1.5 path), so the mean, the variance of the
-deviations and the affine take a single read.
+What bounds them: memory traffic only (one read of the activation, one
+write of it or of its int8 codes and the row scales). One program holds a
+block of whole rows in registers (C = 320, 640 or 1280 on the SD1.5 path),
+so the mean, the variance of the deviations, the affine and the row's amax
+take a single read. The rows are masked at the tail; the TPU kernel's pad
+of the row count to a multiple of 8 (a tiling rule) has no counterpart.
 """
 
 from __future__ import annotations
@@ -20,15 +26,28 @@ _TILE = 4096  # elements of one program's row block
 _MIN_LN_ELEMS = 1 << 16  # smallest activation that takes the kernel
 
 
-def _torch_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                      eps: float) -> torch.Tensor:
-    """Plain LayerNorm over the last axis (`_jnp_layer_norm`)."""
+def rowquant(h: torch.Tensor):
+    """fp32 (..., C) -> (int8 (..., C), fp32 (..., 1) scales): symmetric
+    per-row int8, the quantize step of K6 and K7 (`rowquant` of the JAX
+    package): scale max(amax / 127, 1e-8), codes round(h / scale) with
+    ties to even, clipped to +-127."""
+    s_a = torch.clamp_min(h.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    return torch.clamp(torch.round(h / s_a), -127, 127).to(torch.int8), s_a
+
+
+def _layer_norm_f32(x, scale, bias, eps):
+    """Plain LayerNorm over the last axis (`_jnp_layer_norm`), in fp32."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
     out = (xf - mean) * torch.rsqrt(var + eps)
-    out = out * scale.float() + bias.float()
-    return out.to(x.dtype)
+    return out * scale.float() + bias.float()
+
+
+def _torch_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                      eps: float) -> torch.Tensor:
+    """Plain LayerNorm over the last axis, in the input dtype."""
+    return _layer_norm_f32(x, scale, bias, eps).to(x.dtype)
 
 
 def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -43,27 +62,59 @@ def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 fused_layer_norm.launches = 0
 
 
-def _launch(x, scale, bias, eps):
+def _rows(x, scale, bias):
+    """(x as contiguous (N, C) rows, fp32 affine, row block, column block)."""
     import triton
-
-    from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
 
     c = x.shape[-1]
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"affine must be ({c},), got {tuple(scale.shape)}, {tuple(bias.shape)}")
     if not x.dtype.is_floating_point:
         raise ValueError(f"fused_layer_norm takes a float tensor, got {x.dtype}")
-    x2 = x.contiguous().view(-1, c)
-    n = x2.shape[0]
     block_c = triton.next_power_of_2(c)
-    block_r = max(1, _TILE // block_c)
+    return (x.contiguous().view(-1, c), scale.float().contiguous(), bias.float().contiguous(),
+            max(1, _TILE // block_c), block_c)
+
+
+def _launch(x, scale, bias, eps):
+    import triton
+
+    from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
+
+    x2, w, b, block_r, block_c = _rows(x, scale, bias)
+    n, c = x2.shape
     y = torch.empty_like(x2)
     with torch.cuda.device(x.device):
         tk.ln_kernel[(triton.cdiv(n, block_r),)](
-            x2, y, scale.float().contiguous(), bias.float().contiguous(), n, c,
-            float(eps), BLOCK_R=block_r, BLOCK_C=block_c)
+            x2, y, w, b, n, c, float(eps), BLOCK_R=block_r, BLOCK_C=block_c)
     fused_layer_norm.launches += 1
     return y.view(x.shape)
+
+
+def fused_layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                           eps: float = 1e-5):
+    """K6: x (..., C) -> LayerNorm over the last axis -> (int8 (..., C),
+    fp32 row scales (..., 1)); the kernel on CUDA, the plain version on the
+    CPU. Both quantize the fp32 value, as the TPU kernel does (the JAX CPU
+    fallback first rounds it to the input dtype)."""
+    if not use_kernel(x):
+        return rowquant(_layer_norm_f32(x, scale, bias, eps))
+    import triton
+
+    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
+
+    x2, w, b, block_r, block_c = _rows(x, scale, bias)
+    n, c = x2.shape
+    q = torch.empty((n, c), dtype=torch.int8, device=x.device)
+    s_a = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        tq.ln_quant_kernel[(triton.cdiv(n, block_r),)](
+            x2, q, s_a, w, b, n, c, float(eps), BLOCK_R=block_r, BLOCK_C=block_c)
+    fused_layer_norm_quant.launches += 1
+    return q.view(x.shape), s_a.view(*x.shape[:-1], 1)
+
+
+fused_layer_norm_quant.launches = 0
 
 
 def layer_norm_auto(x, scale, bias, eps=1e-5):

@@ -1,0 +1,130 @@
+"""int8 3x3 convolution kernel K8, its plain version, and the int8 GEMM
+helper of the W8A8 serving mode.
+
+Replaces `prompt_diffusion_tpu/ops/int8_conv.py::conv3x3_int8`
+(`_conv_kernel`): a SAME 3x3 stride-1 int8 convolution with int32
+accumulation and the dequant epilogue fma(acc, s_a[b] * s_w[oc], bias). The
+kernel is CUDA C++ (`csrc/int8_conv.cu`, whose header says what bounds it
+and how it is laid out); it equals the plain version bit for bit.
+
+Layouts: activations NHWC (an NCHW channels_last tensor permuted, a free
+view), weights (Cout, 3, 3, Cin), the order of a channels_last OIHW conv
+weight and the column-major B operand of the GEMM.
+
+`int8_matmul` is the int8 x int8 -> int32 product of `QuantDense`, the
+1x1 and stride-2 `QuantConv` and this plain version. The JAX package
+leaves it to XLA; here it is `torch._int_mm` (a hand-written GEMM with the
+epilogue fused is queued as G1 in ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
+
+
+def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ w (N, K) int8, transposed -> (M, N) int32, exact.
+
+    `torch._int_mm` on CUDA needs M > 16 and K, N multiples of 8, and takes
+    the weight as the transpose of a row-major (N, K) matrix; zero rows and
+    columns pad the operands up to that (zeros add nothing to an integer
+    sum) and are cut off the result."""
+    m, k = a.shape
+    n = w.shape[0]
+    pad_k, pad_n, pad_m = (-k) % 8, (-n) % 8, max(0, 17 - m)
+    if pad_k or pad_m:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        w = F.pad(w, (0, pad_k, 0, pad_n))
+    out = torch._int_mm(a.contiguous(), w.contiguous().t())
+    return out[:m, :n] if (pad_m or pad_n) else out
+
+
+def im2col3x3(xq: torch.Tensor, stride: int) -> torch.Tensor:
+    """(B, H, W, C) int8 -> (B * Ho * Wo, 9 * C) int8 rows of a 3x3 conv
+    with padding 1, columns in (dy, dx, c) order, from nine shifted views
+    (`F.unfold` has no int8 kernel)."""
+    b, h, w, c = xq.shape
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = [xp[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride]
+            for dy in range(3) for dx in range(3)]
+    return torch.cat(cols, dim=-1).reshape(b * ho * wo, 9 * c)
+
+
+def _torch_conv3x3_int8(xq, s_a, wq, s_w, bias, out_dtype):
+    """Plain K8: int8 im2col, the int8 GEMM, then the fp32 epilogue with
+    s_a * s_w formed first (`quant.py`'s dequant order) and
+    f32(acc) * scale + bias rounded once, as one fused multiply-add: the
+    JAX package's kernel and XLA path contract it so on the CPU. The fp32
+    product is exact in fp64, so the fp64 sum rounded to fp32 is that FMA
+    unless the fp64 sum falls exactly on an fp32 rounding tie (a chance of
+    about 2^-29 per element)."""
+    b, h, w, cin = xq.shape
+    cout = wq.shape[0]
+    acc = int8_matmul(im2col3x3(xq, 1), wq.reshape(cout, 9 * cin)).view(b, h * w, cout)
+    scale = s_a.view(b, 1, 1) * s_w.view(1, 1, cout)
+    if bias is None:
+        out = acc.float() * scale
+    else:
+        out = (acc.float().double() * scale.double() + bias.double()).float()
+    return out.to(out_dtype).view(b, h, w, cout)
+
+
+def conv3x3_int8(xq: torch.Tensor, s_a: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K8: SAME 3x3 stride-1 int8 convolution with the fused dequant epilogue.
+
+    xq (B, H, W, Cin) int8, s_a (B,) fp32, wq (Cout, 3, 3, Cin) int8,
+    s_w (Cout,) fp32, bias (Cout,) fp32 or None -> (B, H, W, Cout) in
+    `out_dtype` (bf16 or fp32). The kernel on CUDA, the plain version on
+    the CPU."""
+    if not use_kernel(xq):
+        return _torch_conv3x3_int8(xq, s_a, wq, s_w, bias, out_dtype)
+    out = _launch(xq, s_a, wq, s_w, bias, out_dtype)
+    conv3x3_int8.launches += 1
+    return out
+
+
+conv3x3_int8.launches = 0
+
+
+def _launch(xq, s_a, wq, s_w, bias, out_dtype):
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    if xq.ndim != 4 or wq.ndim != 4:
+        raise ValueError(f"conv3x3_int8 takes (B,H,W,Cin) and (Cout,3,3,Cin), got "
+                         f"{tuple(xq.shape)}, {tuple(wq.shape)}")
+    b, h, w, cin = xq.shape
+    cout = wq.shape[0]
+    if wq.shape != (cout, 3, 3, cin):
+        raise ValueError(f"weight {tuple(wq.shape)} does not match Cin {cin}")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f"conv3x3_int8 takes int8 operands, got {xq.dtype}, {wq.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bf16 or fp32, got {out_dtype}")
+    vectors = {"s_a": (s_a, b), "s_w": (s_w, cout)}
+    if bias is not None:
+        vectors["bias"] = (bias, cout)
+    for name, (t, n) in vectors.items():
+        if t.shape != (n,) or t.dtype != torch.float32 or t.device != xq.device:
+            raise ValueError(f"{name} must be fp32 ({n},) on {xq.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    xq, wq = xq.contiguous(), wq.contiguous()
+    s_a, s_w = s_a.contiguous(), s_w.contiguous()
+    bias = bias.contiguous() if bias is not None else None
+    vec = cin % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0
+    out = torch.empty((b, h, w, cout), dtype=out_dtype, device=xq.device)
+    with torch.cuda.device(xq.device):
+        cuda_ext().conv3x3_int8(
+            xq.data_ptr(), wq.data_ptr(), s_a.data_ptr(), s_w.data_ptr(),
+            bias.data_ptr() if bias is not None else 0, out.data_ptr(),
+            b, h, w, cin, cout, out_dtype == torch.bfloat16, vec,
+            torch.cuda.current_stream().cuda_stream)
+    return out

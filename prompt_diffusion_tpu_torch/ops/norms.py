@@ -14,6 +14,13 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
                bias: torch.Tensor, eps: float = 1e-5,
                apply_silu: bool = False) -> torch.Tensor:
     """GroupNorm over channel groups of an (B, C, ...) tensor."""
+    return group_norm_f32(x, num_groups, scale, bias, eps, apply_silu).to(x.dtype)
+
+
+def group_norm_f32(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
+                   bias: torch.Tensor, eps: float = 1e-5,
+                   apply_silu: bool = False) -> torch.Tensor:
+    """`group_norm` before the cast back: the fp32 result."""
     c = x.shape[1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
@@ -26,4 +33,4 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
     out = normed * scale.float().reshape(shape) + bias.float().reshape(shape)
     if apply_silu:
         out = out * torch.sigmoid(out)
-    return out.to(x.dtype)
+    return out

@@ -1,7 +1,8 @@
 """SD1.5 Prompt-Diffusion inference pipeline for PyTorch and CUDA.
 
 Counterpart of `prompt_diffusion_tpu/pipelines/prompt_diffusion_sd15.py`
-(DDIM sampler, exact-bf16 policy): CLIP encodes the prompt and the negative
+(DDIM sampler; the exact-bf16 policy, or the int8 W8A8 serving mode with
+`create(policy=int8_policy(), vae_int8=...)`): CLIP encodes the prompt and the negative
 prompt; the ControlNet hint encoders run once; each DDIM step runs
 ControlNet + UNet on the uncond || cond double batch (uncond first) and
 applies classifier-free guidance; the VAE decodes the latents.
@@ -26,7 +27,7 @@ from prompt_diffusion_tpu_torch.models.unet_sd15 import UNetSD15
 from prompt_diffusion_tpu_torch.models.vae import AutoencoderKL
 from prompt_diffusion_tpu_torch.schedulers.ddim import DDIMTables, ddim_sample_loop
 from prompt_diffusion_tpu_torch.schedulers.schedules import DiffusionSchedule
-from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy
+from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy, int8_policy
 
 _NCHW = (0, 3, 1, 2)
 _NHWC = (0, 2, 3, 1)
@@ -45,15 +46,20 @@ class PromptDiffusionSD15:
     @classmethod
     def create(cls, unet=None, controlnet=None, vae=None, text_encoder=None,
                schedule=None, policy: Optional[DTypePolicy] = None,
-               device: torch.device | str = "cpu"):
+               vae_int8: bool = False, device: torch.device | str = "cpu"):
         """Builds the default SD1.5 models (or takes the given ones) on
         `device`, in eval mode, with 4-D weights in channels_last memory.
-        `policy=` sets the UNet/ControlNet dtype policy; the VAE and CLIP
-        keep their defaults."""
+        `policy=` sets the UNet/ControlNet dtype policy (`int8_policy()`
+        for the quantized serving mode); the VAE and CLIP keep their
+        defaults, except that `vae_int8=True` builds the VAE under
+        `int8_policy()` (its interior convs quantize; the decode runs once
+        per request)."""
         with torch.device(device):
             if policy is not None:
                 unet = unet or UNetSD15(policy=policy)
                 controlnet = controlnet or ControlNetSD15(policy=policy)
+            if vae_int8:
+                vae = vae or AutoencoderKL(policy=int8_policy())
             models = dict(
                 unet=unet or UNetSD15(),
                 controlnet=controlnet or ControlNetSD15(),

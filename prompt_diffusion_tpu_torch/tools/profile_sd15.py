@@ -1,10 +1,11 @@
 """Where the time of one SD1.5 request goes on the card.
 
-    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15
+    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 [--int8]
 
-Builds SD1.5 at the default widths (bf16 policy, random weights from a
-seed), the configuration `chip_smoke.py` runs, and one request of batch 2 at
-512² with CFG 9. Every part runs once to warm up (kernel builds, Triton
+Builds SD1.5 at the default widths (bf16 policy, or with `--int8` the int8
+W8A8 serving policy with the int8 VAE; random weights from a seed), the
+configurations `chip_smoke.py` runs, and one request of batch 2 at 512²
+with CFG 9. Every part runs once to warm up (kernel builds, Triton
 compiles, cuDNN heuristics). Then:
   * the wall time of each part of the request, synchronised, median of 3:
     the two CLIP encodes, the hint encoders, one CFG denoise step
@@ -17,6 +18,7 @@ Needs one CUDA device.
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
 import sys
@@ -39,13 +41,15 @@ def _wall_ms(fn, reps=3):
     return statistics.median(times)
 
 
-def build(seed=0):
-    """SD1.5 at the default configs with `random_init_` weights, and one
-    request's inputs, on the card."""
+def build(int8=False, seed=0):
+    """SD1.5 at the default configs with `random_init_` weights (bf16, or
+    the int8 policy with the int8 VAE), and one request's inputs, on the
+    card."""
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
-    from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, random_init_
+    from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, int8_policy, random_init_
 
-    pipe = PromptDiffusionSD15.create(policy=default_policy(), device="cuda")
+    pipe = PromptDiffusionSD15.create(policy=int8_policy() if int8 else default_policy(),
+                                      vae_int8=int8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder):
         random_init_(m, gen)
@@ -77,7 +81,11 @@ def busy_us(intervals):
 
 
 @torch.no_grad()
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--int8", action="store_true",
+                        help="the int8 W8A8 serving policy and the int8 VAE")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sd15: no CUDA device", file=sys.stderr)
         return 2
@@ -85,8 +93,8 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout
-    print(f"[profile] {card.strip().splitlines()[0]}")
-    pipe, request, x = build()
+    print(f"[profile] {card.strip().splitlines()[0]}; policy {'int8' if args.int8 else 'bf16'}")
+    pipe, request, x = build(int8=args.int8)
     t = torch.full((BATCH,), 999, dtype=torch.int32, device="cuda")
     eps_fn = pipe.make_eps_fn(**request, guidance_scale=CFG)
     pair2 = torch.cat([request["example_pair"]] * 2).permute(0, 3, 1, 2)

@@ -22,13 +22,25 @@ class DTypePolicy:
     compute_dtype: dtype of conv/matmul weights and activations.
     Attention logits and softmax, normalisation statistics and affines
     are always fp32.
+    quant: "none" | "int8". "int8" is the W8A8 serving mode
+    (`ops/quant.py`): the hot convs and denses keep fp32 weights, quantize
+    them per output channel once and multiply int8 by int8 into int32.
+    Inference only.
     """
 
     compute_dtype: torch.dtype = torch.bfloat16
+    quant: str = "none"
 
 
 def default_policy() -> DTypePolicy:
     return DTypePolicy()
+
+
+def int8_policy() -> DTypePolicy:
+    """bf16 activations with int8 W8A8 convs and denses (the serving
+    default of the JAX package); attention, norms and the layers that run
+    once per request stay bf16/fp32."""
+    return DTypePolicy(quant="int8")
 
 
 def fp32_policy() -> DTypePolicy:
