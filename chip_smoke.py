@@ -9,7 +9,8 @@ without the final `"ok": true` line:
   2. build   - builds the CUDA kernels (attention, int8 conv; nvcc, sm_90a)
                into build/torch_ext/ and compiles the Triton kernels;
   3. kernels - each kernel against its plain PyTorch version on the card at
-               the SD1.5 512² shapes (CFG batch 8), with the kernel's and
+               the shapes the paths give it (SD1.5 512², CFG batch 8; SD3
+               1024², CFG batch 2, and its VAE), with the kernel's and
                the plain version's median time. Float kernels: max abs error
                against the plain version evaluated in fp32 on the same bf16
                inputs (bounds 3e-2 attention, 2e-2 norms, the bf16 bound of
@@ -33,7 +34,20 @@ without the final `"ok": true` line:
                checks, the launches of the int8 path's kernels, the guided
                epsilon against an fp32-compute int8 evaluation, and its
                distance from the bf16 policy for information;
-  6. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  6. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
+               12-block ControlNet, CLIP-L, CLIP-bigG, T5-XXL, the z=16
+               VAE; random weights from a seed) in the int8 serving mode of
+               `bench.py --config sd3`: T5 staged (encode, free, then build
+               the rest), two 1024² requests of batch 1, CFG 7, shift 3, 8
+               of the bench's 28 flow-match steps; the image checks, the
+               launches of the path's kernels, each quantized block kind
+               against the plain ops, and one CFG velocity evaluation
+               against the plain ops and an fp32-compute int8 evaluation;
+  7. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+Every kernel case also prints the least time the card could take for its
+work (`bound_ms`: bytes over 3.35 TB/s or tensor-core operations over the
+dense peak, whichever is larger) and, where one PyTorch call computes the
+same function, that call's time (`lib_ms`), timed here only.
 Imports nothing of JAX.
 """
 
@@ -70,6 +84,10 @@ FP32_RATIO_BOUND = 1.25
 SCALE_REL_BOUND, CODES_EQUAL_BOUND = 1e-6, 0.999
 REQ_BATCH, REQ_SIZE, REQ_STEPS, CFG = 2, 512, 8, 9.0
 PROMPTS = ("a photograph of a red house by a lake", "an oil painting of a mountain at dawn")
+# SD3 requests as `bench.py --config sd3` makes them, cut to 8 of 28 steps
+SD3_BATCH, SD3_SIZE, SD3_STEPS, SD3_CFG, SD3_SHIFT, T5_LEN = 1, 1024, 8, 7.0, 3.0, 256
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S = 3.35e12, 989e12, 1979e12
 
 
 def check(cond, msg):
@@ -123,18 +141,36 @@ def time_ms(fn, iters=10, warmup=2):
     return statistics.median(times)
 
 
+def roofline(nbytes, int8_ops=0.0, bf16_ops=0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the tensor-core operations over their dense peaks."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = int8_ops / INT8_OPS_S + bf16_ops / BF16_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_cases(gen):
-    """(kernel name, case label, wrapper, arguments, kind, bound) at the
-    main paths' shapes. Float inputs are seeded N(0, 1) in bf16; norm
-    affines near (1, 0); int8 conv operands uniform codes and scales.
-    `kind` is "float", "quant" (int8 codes and scales) or "exact"."""
+    """(kernel name, case label, wrapper, arguments, kind, bound, work,
+    library) at the main paths' shapes. Float inputs are seeded N(0, 1) in
+    bf16; norm affines near (1, 0); int8 conv operands uniform codes and
+    scales. `kind` is "float", "quant" (int8 codes and scales) or "exact".
+    `work` is (bytes, int8 ops, bf16 ops) of the function: each input read
+    once, each output written once. `library` is one PyTorch call that
+    computes the same function on the same inputs, or None."""
     import torch
+    import torch.nn.functional as F
 
     from prompt_diffusion_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_packed,
+        flash_attention_packed_int8,
     )
-    from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
+    from prompt_diffusion_tpu_torch.ops.fused_act import (
+        fused_geglu_quant,
+        fused_gelu_quant,
+        fused_quant_rows,
+    )
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln_quant
     from prompt_diffusion_tpu_torch.ops.fused_group_norm import (
         fused_group_norm,
         fused_group_norm_quant,
@@ -148,32 +184,79 @@ def kernel_cases(gen):
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     bf16 = lambda t: t.to(torch.bfloat16)
     affine = lambda c: (1 + 0.1 * randn(c), 0.1 * randn(c))
+    heads = lambda t, h: t.unflatten(-1, (h, -1)).transpose(1, 2)  # (B, N, H*D) -> (B, H, N, D)
     cases = []
     # K1: the softmax scale is folded into q, the kernel runs at scale 1; the
     # last case has ragged query and key tails
     for b, n, hd, h in ((8, 4096, 320, 8), (8, 1024, 640, 8), (2, 1100, 80, 2)):
         q = bf16(randn(b, n, hd) * (hd // h) ** -0.5)
         k, v = bf16(randn(b, n, hd)), bf16(randn(b, n, hd))
+        lib = (lambda q=q, k=k, v=v, h=h: F.scaled_dot_product_attention(
+            heads(q, h), heads(k, h), heads(v, h), scale=1.0))
         cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h}", flash_attention_packed,
-                      (q, k, v, h, 1.0), "float", ATTN_BOUND))
-    qkv = tuple(bf16(randn(4, 4096, 1, 512)) for _ in range(3))
-    cases.append(("flash_attention", "(4,4096,1,512)", flash_attention, qkv, "float", ATTN_BOUND))
+                      (q, k, v, h, 1.0), "float", ATTN_BOUND,
+                      (8 * b * n * hd, 0, 4 * b * n * n * hd), lib))
+    # K2 at the VAE mid-attention: SD1.5 at 512² (batch 4), SD3 at 1024² (batch 1)
+    for b, n in ((4, 4096), (1, 16384)):
+        qkv = tuple(bf16(randn(b, n, 1, 512)) for _ in range(3))
+        cases.append(("flash_attention", f"({b},{n},1,512)", flash_attention, qkv, "float",
+                      ATTN_BOUND, (8 * b * n * 512, 0, 4 * b * n * n * 512),
+                      lambda qkv=qkv: F.scaled_dot_product_attention(*(t.transpose(1, 2)
+                                                                       for t in qkv))))
+    # K9 at the SD3 joint shape (CFG batch 2, 4096 + 333 tokens, 24 heads
+    # of 64), then ragged query and key tails
+    for b, n, hd, h in ((2, 4429, 1536, 24), (2, 1100, 256, 4)):
+        q, k, v = (bf16(randn(b, n, hd)) for _ in range(3))
+        cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h}",
+                      flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
+                      (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd), None))
     gn_shapes = (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0))
-    for name, fn, kind, bound in (("fused_group_norm", fused_group_norm, "float", NORM_BOUND),
-                                  ("fused_group_norm_quant", fused_group_norm_quant, "quant",
-                                   None)):
+    for name, fn, kind, bound, out_bytes in (
+            ("fused_group_norm", fused_group_norm, "float", NORM_BOUND, 2),
+            ("fused_group_norm_quant", fused_group_norm_quant, "quant", None, 1)):
         for shape, eps, mean in gn_shapes:
             x = bf16(randn(*shape) + mean).contiguous(memory_format=torch.channels_last)
             cases.append((name, f"{shape} eps={eps} mean={mean} silu", fn,
-                          (x, *affine(shape[1]), 32, eps, True), kind, bound))
-    cases.append(("fused_layer_norm", "(32768,320)", fused_layer_norm,
-                  (bf16(randn(32768, 320)), *affine(320), 1e-5), "float", NORM_BOUND))
+                          (x, *affine(shape[1]), 32, eps, True), kind, bound,
+                          ((2 + out_bytes) * x.numel(), 0, 0), None))
+    # K3 after the cases above (the first stays the headline): without SiLU
+    # (the SpatialTransformer norm, the VAE attention norm), where one
+    # PyTorch call computes it, and at the SD3 VAE's shapes at 1024²
+    for shape, eps, mean, silu in (((8, 320, 64, 64), 1e-6, 0.0, False),
+                                   ((1, 512, 128, 128), 1e-6, 0.0, False),
+                                   ((1, 512, 128, 128), 1e-6, 0.0, True),
+                                   ((1, 128, 1024, 1024), 1e-6, 4.0, True)):
+        x = bf16(randn(*shape) + mean).contiguous(memory_format=torch.channels_last)
+        w, bb = affine(shape[1])
+        lib = None if silu else (lambda x=x, w=w, bb=bb, eps=eps: F.group_norm(
+            x, 32, w.to(x.dtype), bb.to(x.dtype), eps))
+        cases.append(("fused_group_norm", f"{shape} eps={eps} mean={mean} "
+                      + ("silu" if silu else "no silu"), fused_group_norm,
+                      (x, w, bb, 32, eps, silu), "float", NORM_BOUND, (4 * x.numel(), 0, 0), lib))
+    x, (w, bb) = bf16(randn(32768, 320)), affine(320)
+    cases.append(("fused_layer_norm", "(32768,320)", fused_layer_norm, (x, w, bb, 1e-5), "float",
+                  NORM_BOUND, (4 * x.numel(), 0, 0),
+                  lambda x=x, w=w, bb=bb: F.layer_norm(x, (320,), w.to(x.dtype), bb.to(x.dtype),
+                                                       1e-5)))
     for n, c in ((32768, 320), (1000, 640)):
         cases.append(("fused_layer_norm_quant", f"({n},{c})", fused_layer_norm_quant,
-                      (bf16(randn(n, c)), *affine(c), 1e-5), "quant", None))
+                      (bf16(randn(n, c)), *affine(c), 1e-5), "quant", None,
+                      (3 * n * c + 4 * n, 0, 0), None))
     for n, c in ((32768, 2560), (512, 10240)):
         cases.append(("fused_geglu_quant", f"({n},{c})", fused_geglu_quant,
-                      (bf16(randn(n, c)),), "quant", None))
+                      (bf16(randn(n, c)),), "quant", None, (2 * n * c + n * c // 2 + 4 * n, 0, 0),
+                      None))
+    # K13 at the SD3 image and context streams, per-sample modulation
+    for b, n, c in ((2, 4096, 1536), (2, 333, 1536)):
+        args = (bf16(randn(b, n, c)), bf16(0.1 * randn(b, 1, c)), bf16(0.1 * randn(b, 1, c)))
+        cases.append(("fused_adaln_quant", f"({b},{n},{c})", fused_adaln_quant, args, "quant",
+                      None, (3 * b * n * c + 4 * b * c + 4 * b * n, 0, 0), None))
+    # K10 at the MMDiT FF width (both streams' rows), K11 at the attention width
+    for name, fn, c in (("fused_gelu_quant", fused_gelu_quant, 6144),
+                        ("fused_quant_rows", fused_quant_rows, 1536)):
+        for n in (8192, 666):
+            cases.append((name, f"({n},{c})", fn, (bf16(2 * randn(n, c)),), "quant", None,
+                          (3 * n * c + 4 * n, 0, 0), None))
     codes = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda",
                                      dtype=torch.int8)
     uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
@@ -186,7 +269,10 @@ def kernel_cases(gen):
         args = (codes(b, h, w, cin), uniform(b, 0.01, 0.1), codes(cout, 3, 3, cin),
                 uniform(cout, 1e-4, 1e-3), randn(cout) if bias else None, dt)
         label = f"({b},{h},{w},{cin}->{cout})" + ("" if bias else " no bias, fp32 out")
-        cases.append(("conv3x3_int8", label, conv3x3_int8, args, "exact", 0.0))
+        out_bytes = 2 if dt == torch.bfloat16 else 4
+        nbytes = b * h * w * (cin + out_bytes * cout) + 9 * cin * cout + 4 * (b + 2 * cout)
+        cases.append(("conv3x3_int8", label, conv3x3_int8, args, "exact", 0.0,
+                      (nbytes, 2 * b * h * w * cout * 9 * cin, 0), None))
     return cases
 
 
@@ -222,7 +308,7 @@ def phase_kernels(gen):
     fp32 = lambda args: tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
                               else a for a in args)
     results = {}
-    for name, label, fn, args, kind, bound in kernel_cases(gen):
+    for name, label, fn, args, kind, bound, work, library in kernel_cases(gen):
         out = fn(*args)
         with plain_ops():
             ref = fn(*fp32(args))
@@ -264,11 +350,15 @@ def phase_kernels(gen):
         ms = time_ms(lambda: fn(*args))
         with plain_ops():
             plain_ms = time_ms(lambda: fn(*args))
-        log(f"[kernels] {name} {label}: {msg} kernel_ms={ms} plain_ms={plain_ms}")
+        lib_ms = None if library is None else time_ms(library)
+        bound_ms, bound_by = roofline(*work)
+        log(f"[kernels] {name} {label}: {msg} kernel_ms={ms} plain_ms={plain_ms} "
+            f"lib_ms={lib_ms} bound_ms={bound_ms} ({bound_by})")
         check(ok, f"{name} {label}: outside its bound: {msg}")
         results.setdefault(name, []).append(
-            {"case": label, "max_abs_err": err, "bound": bound, **extra,
-             "ms": ms, "plain_ms": plain_ms})
+            {"case": label, "max_abs_err": err, "bound": bound, **extra, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by})
     return results
 
 
@@ -289,6 +379,14 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                           "prompt_diffusion_tpu/ops/fused_act.py:144"),
     "conv3x3_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_conv.cu",
                      "prompt_diffusion_tpu/ops/int8_conv.py:174"),
+    "flash_attention_packed_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
+                                    "prompt_diffusion_tpu/ops/flash_attention.py:375"),
+    "fused_gelu_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+                         "prompt_diffusion_tpu/ops/fused_act.py:101"),
+    "fused_quant_rows": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+                         "prompt_diffusion_tpu/ops/fused_act.py:106"),
+    "fused_adaln_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+                          "prompt_diffusion_tpu/ops/fused_adaln.py:140"),
 }
 # the kernels each main path must launch (K4 LayerNorm does not run in int8
 # mode: every pre-LN there quantizes through K6)
@@ -298,12 +396,16 @@ PATH_KERNELS = {
     "int8": ("flash_attention_packed", "flash_attention", "fused_group_norm",
              "fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
              "conv3x3_int8"),
+    # the bf16 VAE's GroupNorm and mid-block attention, the int8 MMDiT's four
+    "sd3": ("flash_attention", "fused_group_norm", "flash_attention_packed_int8",
+            "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
 }
 
 
 def wrappers():
     from prompt_diffusion_tpu_torch.ops import flash_attention as fa
     from prompt_diffusion_tpu_torch.ops import fused_act as act
+    from prompt_diffusion_tpu_torch.ops import fused_adaln as ada
     from prompt_diffusion_tpu_torch.ops import fused_group_norm as gn
     from prompt_diffusion_tpu_torch.ops import fused_layer_norm as ln
     from prompt_diffusion_tpu_torch.ops import int8_conv as ic
@@ -315,7 +417,11 @@ def wrappers():
             "fused_group_norm_quant": gn.fused_group_norm_quant,
             "fused_layer_norm_quant": ln.fused_layer_norm_quant,
             "fused_geglu_quant": act.fused_geglu_quant,
-            "conv3x3_int8": ic.conv3x3_int8}
+            "conv3x3_int8": ic.conv3x3_int8,
+            "flash_attention_packed_int8": fa.flash_attention_packed_int8,
+            "fused_gelu_quant": act.fused_gelu_quant,
+            "fused_quant_rows": act.fused_quant_rows,
+            "fused_adaln_quant": ada.fused_adaln_quant}
 
 
 def twin(pipe, policy):
@@ -474,6 +580,176 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
     return launches, {"request_s": [s1, s2, s1b], "step_s": step_s}
 
 
+def sd3_block_checks(pipe, seed=4100):
+    """One quantized block of each SD3 kind (an MMDiT JointBlock, the
+    context_pre_only last block, a ControlNet block) at the joint shape,
+    the same seeded input through the kernels and through the plain ops:
+    relative L2 over both output streams within EPS_REL_BOUND."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    b, dim = 2 * SD3_BATCH, pipe.transformer.config.hidden_size
+    n_img = (SD3_SIZE // 8 // pipe.transformer.config.patch_size) ** 2
+    args = (randn(b, n_img, dim), randn(b, 77 + T5_LEN, dim), randn(b, dim))
+    last = pipe.transformer.config.num_layers - 1
+    blocks = {"MMDiT JointBlock 0": pipe.transformer.blocks_0,
+              f"MMDiT JointBlock {last} (context_pre_only)": getattr(pipe.transformer,
+                                                                     f"blocks_{last}"),
+              "ControlNet JointBlock 0": pipe.controlnet.blocks_0}
+    flat = lambda outs: torch.cat([o.float().flatten() for o in outs if o is not None])
+    with torch.no_grad():
+        for name, module in blocks.items():
+            out = flat(module(*args))
+            with plain_ops():
+                ref = flat(module(*args))
+            err = ((out - ref).norm() / ref.norm()).item()
+            log(f"[sd3] block {name} at ({b},{n_img}+{77 + T5_LEN},{dim}), kernels vs plain ops "
+                f"on the same input: rel L2 {err} (bound {EPS_REL_BOUND})")
+            check(err <= EPS_REL_BOUND, f"block {name}: rel L2 {err} > {EPS_REL_BOUND}")
+
+
+def phase_sd3(seed=0):
+    """SD3 at full width in the int8 serving mode through the port's public
+    API, with T5-XXL staged: the checks of the SD1.5 paths, each quantized
+    block kind against the plain ops, and one CFG velocity evaluation
+    (ControlNet + MMDiT at the first timestep) against the plain ops and
+    an fp32-compute int8 evaluation of the same weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.models.controlnet_sd3 import SD3ControlNet
+    from prompt_diffusion_tpu_torch.models.mmdit_sd3 import SD3Transformer
+    from prompt_diffusion_tpu_torch.models.t5_text import T5Encoder
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3 import PromptDiffusionSD3
+    from prompt_diffusion_tpu_torch.schedulers.flow_match import make_inference_sigmas
+    from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy, int8_policy, random_init_
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    # staged T5, as bench.py runs it: encode the prompts, free the encoder
+    with torch.device("cuda"):
+        t5 = T5Encoder()
+    random_init_(t5.eval().requires_grad_(False), gen)
+    n_t5 = sum(p.numel() for p in t5.parameters())
+    ids_gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    t5_ids = [torch.randint(0, t5.config.vocab_size, (SD3_BATCH, T5_LEN), generator=ids_gen,
+                            device="cuda") for _ in range(3)]  # request 1, request 2, negative
+    PromptDiffusionSD3.encode_t5(t5, t5_ids[0])  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    t5_seqs = [PromptDiffusionSD3.encode_t5(t5, ids) for ids in t5_ids]
+    torch.cuda.synchronize()
+    t5_ms = (time.perf_counter() - t) * 1e3 / len(t5_ids)
+    del t5
+    torch.cuda.empty_cache()
+    pipe = PromptDiffusionSD3.create(policy=int8_policy(), device="cuda")
+    models = (pipe.transformer, pipe.controlnet, pipe.down_proj, pipe.vae, pipe.clip_l,
+              pipe.clip_g)
+    for m in models:
+        random_init_(m, gen)
+    torch.cuda.synchronize()
+    n_params = n_t5 + sum(p.numel() for m in models for p in m.parameters())
+    log(f"[sd3] SD3 built with random weights: {n_params} parameters (T5-XXL {n_t5}, staged: "
+        f"{t5_ms:.1f} ms per prompt encode at L={T5_LEN}, then freed) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    check(all(torch.isfinite(t).all().item() for t in t5_seqs), "non-finite T5 states")
+
+    def request(i):
+        g = torch.Generator(device="cuda").manual_seed(1000 + i)
+        img = lambda: torch.rand((SD3_BATCH, SD3_SIZE, SD3_SIZE, 3), generator=g,
+                                 device="cuda") * 2 - 1
+        ids = torch.from_numpy(hash_token_ids([PROMPTS[i]] * SD3_BATCH))
+        neg = torch.from_numpy(hash_token_ids([""] * SD3_BATCH))
+        return dict(prompt_ids=dict(l=ids, g=ids), neg_prompt_ids=dict(l=neg, g=neg),
+                    control_image=img(), support_cond=img(), support_image=img(),
+                    t5_seq=t5_seqs[i], neg_t5_seq=t5_seqs[2],
+                    generator=torch.Generator(device="cuda").manual_seed(2000 + i))
+
+    def answer(i):
+        t = time.perf_counter()
+        img = pipe.generate(**request(i), num_steps=SD3_STEPS, guidance_scale=SD3_CFG,
+                            shift=SD3_SHIFT)
+        torch.cuda.synchronize()
+        return img, time.perf_counter() - t
+
+    counted = wrappers()
+    for w in counted.values():
+        w.launches = 0
+    img1, s1 = answer(0)
+    img2, s2 = answer(1)
+    launches = {name: w.launches for name, w in counted.items()}
+    per_step = {name: launches[name] / (2 * SD3_STEPS) for name in PATH_KERNELS["sd3"]}
+    log(f"[sd3] request 1: {s1:.3f}s, request 2: {s2:.3f}s; launches {launches}; per denoise "
+        f"step (VAE launches spread over the steps) {per_step}")
+    for name in PATH_KERNELS["sd3"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the sd3 path")
+    for img in (img1, img2):
+        check(tuple(img.shape) == (SD3_BATCH, SD3_SIZE, SD3_SIZE, 3), f"shape {tuple(img.shape)}")
+        check(torch.isfinite(img).all().item(), "non-finite image")
+        check(img.min().item() >= 0.0 and img.max().item() <= 1.0, "image outside [0, 1]")
+    check(not torch.equal(img1, img2), "the two requests gave the same images")
+    img1b, s1b = answer(0)
+    check(torch.equal(img1, img1b), "request 1 with the same generator gave other images")
+    log(f"[sd3] images {tuple(img1.shape)} finite in [0,1]; requests differ; request 1 "
+        f"repeated bit-exactly in {s1b:.3f}s; std {img1.float().std().item():.4f}")
+
+    sd3_block_checks(pipe)
+
+    # one CFG velocity evaluation (ControlNet + MMDiT at the first timestep):
+    # guidance 0 and 1 give the uncond and cond outputs; kernels, plain ops,
+    # and an fp32-compute int8 twin of the same weights on the plain ops,
+    # all three on the same encodings (made by the kernels, one generator seed)
+    r = request(0)
+    r.pop("generator")
+    vel = lambda p, gs: p.make_velocity_fn(
+        **r, guidance_scale=gs, generator=torch.Generator(device="cuda").manual_seed(2000))
+    g = torch.Generator(device="cuda").manual_seed(3000)
+    x = torch.randn((SD3_BATCH, pipe.vae.config.z_channels, SD3_SIZE // 8, SD3_SIZE // 8),
+                    generator=g, device="cuda")
+    timesteps, _ = make_inference_sigmas(SD3_STEPS, shift=SD3_SHIFT)
+    t = torch.full((SD3_BATCH,), float(np.float32(timesteps[0])), device="cuda")
+    gs_all = (0.0, 1.0, SD3_CFG)
+    with torch.no_grad():
+        fns = {gs: vel(pipe, gs) for gs in gs_all}
+        kern = {gs: f(x, t) for gs, f in fns.items()}
+        step_s = time_ms(lambda: fns[SD3_CFG](x, t), iters=3, warmup=1) / 1e3
+        f32 = DTypePolicy(compute_dtype=torch.float32, quant="int8")
+        with torch.device("cuda"):
+            twin = dataclasses.replace(pipe, transformer=SD3Transformer(policy=f32).eval(),
+                                       controlnet=SD3ControlNet(policy=f32).eval())
+        twin.transformer.load_state_dict(pipe.transformer.state_dict())
+        twin.controlnet.load_state_dict(pipe.controlnet.state_dict())
+        twin_fns = {gs: vel(twin, gs) for gs in gs_all}
+        with plain_ops():
+            plain = {gs: f(x, t) for gs, f in fns.items()}
+            ref = {gs: f(x, t) for gs, f in twin_fns.items()}
+        del fns, twin_fns, twin
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    branches = lambda v: torch.cat([v[0.0], v[1.0]])
+    rel_k32, rel_p32 = rel(branches(kern), branches(ref)), rel(branches(plain), branches(ref))
+    rel_gk32, rel_gp32 = rel(kern[SD3_CFG], ref[SD3_CFG]), rel(plain[SD3_CFG], ref[SD3_CFG])
+    log(f"[sd3] velocity (t={float(timesteps[0]):.2f}), kernels vs plain ops: rel L2 "
+        f"{rel(branches(kern), branches(plain))} over the uncond and cond outputs, guided "
+        f"(CFG {SD3_CFG}) {rel(kern[SD3_CFG], plain[SD3_CFG])}")
+    log(f"[sd3] against an fp32-compute int8 evaluation of the same weights on the plain ops: "
+        f"unguided kernels {rel_k32}, plain ops {rel_p32}; guided kernels {rel_gk32}, plain ops "
+        f"{rel_gp32} (bound {FP32_RATIO_BOUND}x the plain ops')")
+    check(np.isfinite(rel_k32) and rel_k32 <= FP32_RATIO_BOUND * rel_p32,
+          f"unguided velocity: kernels {rel_k32} vs plain {rel_p32} from the fp32 evaluation")
+    check(rel_gk32 <= FP32_RATIO_BOUND * rel_gp32,
+          f"guided velocity: kernels {rel_gk32} vs plain {rel_gp32} from the fp32 evaluation")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches, {"request_s": [s1, s2, s1b], "step_s": step_s, "t5_ms": t5_ms,
+                      "per_step": per_step}
+
+
 def main():
     import torch
 
@@ -505,8 +781,8 @@ def main():
     cuda_ext()
     nvcc_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for _, _, fn, args, _, _ in kernel_cases(gen):  # compiles the Triton kernels
-        fn(*args)
+    for case in kernel_cases(gen):  # compiles the Triton kernels
+        case[2](*case[3])
     torch.cuda.synchronize()
     log(f"[build] nvcc + load {nvcc_s:.1f}s; first launch of every kernel "
         f"(Triton compile included) {time.perf_counter() - t0 - nvcc_s:.1f}s")
@@ -518,8 +794,16 @@ def main():
                            DTypePolicy(compute_dtype=torch.float32, quant="int8"),
                            info_policy=default_policy()),
     }
+    paths["sd3"] = phase_sd3()
     for tag, (_, timing) in paths.items():
         per_req = timing["request_s"]
+        if tag == "sd3":
+            log(f"[sd3] {card}: {per_req[1]:.3f} s per request (batch {SD3_BATCH}, "
+                f"{SD3_SIZE}², {SD3_STEPS} flow-match steps, CFG {SD3_CFG}, staged T5; first "
+                f"request {per_req[0]:.3f} s), {timing['step_s']:.4f} s per denoise step "
+                f"(ControlNet + MMDiT, CFG batch {2 * SD3_BATCH}); T5-XXL encode "
+                f"{timing['t5_ms']:.1f} ms per prompt")
+            continue
         log(f"[{tag}] {card}: {per_req[1]:.3f} s per request (batch {REQ_BATCH}, {REQ_SIZE}², "
             f"{REQ_STEPS} DDIM steps, CFG {CFG}; first request {per_req[0]:.3f} s), "
             f"{timing['step_s']:.4f} s per denoise step (ControlNet + UNet, CFG batch "
@@ -529,10 +813,12 @@ def main():
     for name, (route, source, replaces) in KERNELS.items():
         cases = results[name]
         by_path = {tag: launches[name] for tag, (launches, _) in paths.items()}
+        main_case = cases[0]
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(c["max_abs_err"] for c in cases),
-                        "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"],
+                        **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "library_ms")},
                         "cases": cases})
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 
 Counterpart of `prompt_diffusion_tpu/models/vae.py`: ch=128, mult
 (1,2,4,4), 2 res blocks, single-head attention at the bottleneck, z=4 with
-double_z moments. The latent scale and shift are applied by the pipeline.
+double_z moments (SD3: `VAEConfig(z_channels=16, scale_factor=1.5305,
+shift_factor=0.0609)`). The latent scale and shift are applied by the
+pipeline; `sample_from_moments` draws a latent from the moments.
 
 Under an int8 policy (the pipeline's `vae_int8=True`) the interior convs
 and the attention's q/k/v/proj_out are `QuantConv`s, fed by the GroupNorm
@@ -14,8 +16,9 @@ encoder's downsampling convs and quant_conv/post_quant_conv stay bf16.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -172,3 +175,14 @@ class AutoencoderKL(nn.Module):
     def decode(self, z):
         """(B, z, h, w) latents -> (B, 3, 8h, 8w) pixels in about [-1, 1], fp32."""
         return self.decoder(self.post_quant_conv(z)).float()
+
+
+def sample_from_moments(moments: torch.Tensor,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """DiagonalGaussianDistribution.sample: moments (B, 2z, h, w) [mean |
+    logvar] -> mean + exp(0.5 * clip(logvar, -30, 20)) * N(0, 1), the noise
+    drawn from `generator` on the moments' device."""
+    mean, logvar = moments.chunk(2, dim=1)
+    logvar = torch.clamp(logvar, -30.0, 20.0)
+    noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * noise

@@ -1,9 +1,11 @@
 """Triton programs of the int8 epilogue kernels: GroupNorm->int8 (K5),
-LayerNorm->int8 (K6) and GEGLU->int8 (K7).
+LayerNorm->int8 (K6), GEGLU->int8 (K7), tanh-GELU->int8 (K10), row->int8
+(K11) and AdaLN->int8 (K13).
 
 This module imports `triton` at its top, so only the launchers in
-`fused_group_norm.py`, `fused_layer_norm.py` and `fused_act.py` import it,
-inside the function that launches, on the card.
+`fused_group_norm.py`, `fused_layer_norm.py`, `fused_act.py` and
+`fused_adaln.py` import it, inside the function that launches, on the
+card.
 
 Every quantize step follows `quant.py` of the JAX package: the fp32 value
 is divided by its scale with an IEEE-rounded division (`div_rn`: Triton's
@@ -139,4 +141,57 @@ def geglu_quant_kernel(x_ptr, q_ptr, s_ptr, N, I,
     g = 0.5 * gate * (1.0 + libdevice.erf(gate * 0.7071067811865476))
     q, s = _rowquant(h * g, mask)
     tl.store(q_ptr + rows.to(tl.int64)[:, None] * I + cols[None, :], q, mask=mask)
+    tl.store(s_ptr + rows, s, mask=rmask)
+
+
+# ---- K10 / K11: tanh-GELU -> int8 and row -> int8, one scale per row ----
+
+
+@triton.jit
+def act_quant_kernel(x_ptr, q_ptr, s_ptr, N, C,
+                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr, GELU: tl.constexpr):
+    """BLOCK_R whole rows: optionally x * 0.5 * (1 + tanh(sqrt(2/pi) *
+    (x + 0.044715 x^3))) (`jax.nn.gelu(approximate=True)`), then the row's
+    int8 codes and scale."""
+    pid = tl.program_id(0)
+    rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
+    cols = tl.arange(0, BLOCK_C)
+    rmask = rows < N
+    mask = rmask[:, None] & (cols < C)[None, :]
+    offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    if GELU:
+        inner = 0.7978845608028654 * (x + 0.044715 * (x * x * x))
+        x = x * (0.5 * (1.0 + libdevice.tanh(inner)))
+    q, s = _rowquant(x, mask)
+    tl.store(q_ptr + offs, q, mask=mask)
+    tl.store(s_ptr + rows, s, mask=rmask)
+
+
+# ---- K13: AdaLN (LayerNorm without affine, per-sample modulation) -> int8
+
+
+@triton.jit
+def adaln_quant_kernel(x_ptr, sc_ptr, sh_ptr, q_ptr, s_ptr, R, N, C, eps,
+                       BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+    """BLOCK_R whole rows of the (B*N, C) activation: fp32 LayerNorm
+    statistics, (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
+    with b = row // N, then the row's int8 codes and scale."""
+    pid = tl.program_id(0)
+    rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
+    cols = tl.arange(0, BLOCK_C)
+    rmask = rows < R
+    mask = rmask[:, None] & (cols < C)[None, :]
+    offs = rows.to(tl.int64)[:, None] * C + cols[None, :]
+    x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    cf = C.to(tl.float32)
+    mean = libdevice.div_rn(tl.sum(x, axis=1), cf)
+    dev = tl.where(mask, x - mean[:, None], 0.0)
+    var = libdevice.div_rn(tl.sum(dev * dev, axis=1), cf)
+    h = dev * libdevice.rsqrt(var + eps)[:, None]
+    mod = (rows // N).to(tl.int64)[:, None] * C + cols[None, :]
+    sc = tl.load(sc_ptr + mod, mask=mask, other=0.0)
+    sh = tl.load(sh_ptr + mod, mask=mask, other=0.0)
+    q, s = _rowquant(h * (1.0 + sc) + sh, mask)
+    tl.store(q_ptr + offs, q, mask=mask)
     tl.store(s_ptr + rows, s, mask=rmask)

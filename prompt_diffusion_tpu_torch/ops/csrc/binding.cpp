@@ -25,6 +25,12 @@ extern "C" int pd_conv3x3_int8(const void* x, const void* w, const void* s_a,
                                const void* s_w, const void* bias, void* out,
                                int batch, int h, int wd, int cin, int cout,
                                int out_bf16, int vec, void* stream);
+extern "C" int pd_int8_attention_fwd(
+    const void* q, const void* k, const void* skh, const void* v, void* o,
+    int batch, int heads, int nq, int nk, int d,
+    int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
+    int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
+    float scale, void* stream);
 
 namespace {
 
@@ -59,6 +65,20 @@ void conv3x3_int8(uintptr_t x, uintptr_t w, uintptr_t s_a, uintptr_t s_w, uintpt
   }
 }
 
+void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t skh, uintptr_t v, uintptr_t o,
+                        int batch, int heads, int nq, int nk, int d,
+                        int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
+                        int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
+                        double scale, uintptr_t stream) {
+  const int err = pd_int8_attention_fwd(
+      ptr(q), ptr(k), ptr(skh), ptr(v), ptr(o), batch, heads, nq, nk, d,
+      q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, static_cast<float>(scale), ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("int8_attention_fwd launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -67,4 +87,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("conv3x3_int8", &conv3x3_int8,
         "SAME 3x3 int8 convolution over NHWC with the fp32 dequant epilogue "
         "(bias pointer 0 = no bias)");
+  m.def("int8_attention_fwd", &int8_attention_fwd,
+        "int8-QK^T attention forward over packed (B, N, H*D) tensors: bf16 Q and V, "
+        "int8 K codes with (B, H) fp32 scales");
 }

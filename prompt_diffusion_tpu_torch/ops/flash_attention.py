@@ -1,13 +1,16 @@
-"""Flash attention kernels K1 and K2, their plain versions and wrappers.
+"""Flash attention kernels K1, K2 and K9, their plain versions and wrappers.
 
 Replaces `prompt_diffusion_tpu/ops/flash_attention.py`:
   * K1 `flash_attention_packed` (packed (B, N, H*D) self-attention);
-  * K2 `flash_attention` ((B, N, H, D) attention, the VAE mid-block).
-Both go through one hand-written CUDA kernel, `csrc/flash_attention.cu`
+  * K2 `flash_attention` ((B, N, H, D) attention, the VAE mid-block);
+  * K9 `flash_attention_packed_int8` (packed int8-QK^T attention, the SD3
+    joint attention of the int8 serving mode).
+K1 and K2 go through one hand-written CUDA kernel, `csrc/flash_attention.cu`
 (its header says what bounds it and how it is laid out): packed memory is
 the (B, N, H, D) layout, so the kernel reads either through strides.
 Inputs on the card are bf16; logits and softmax are fp32, P is rounded to
-bf16 before P.V, and P.V accumulates in fp32.
+bf16 before P.V, and P.V accumulates in fp32. K9 is its own CUDA kernel,
+`csrc/int8_attention.cu`.
 """
 
 from __future__ import annotations
@@ -99,3 +102,80 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_packed.launches = 0
+
+
+def _quant_k_per_head(k: torch.Tensor, num_heads: int):
+    """Packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32 scales (B, H)):
+    one scale per (batch, head), max(amax / 127, 1e-8), codes round(k / s)
+    with ties to even, clipped to +-127 (`flash_attention.py:391-395` of the
+    JAX package, which computes it outside the kernel too)."""
+    b, nk, hd = k.shape
+    kf = k.float().view(b, nk, num_heads, hd // num_heads)
+    skh = torch.clamp_min(kf.abs().amax(dim=(1, 3)) / 127.0, 1e-8)
+    codes = torch.clamp(torch.round(kf / skh[:, None, :, None]), -127, 127).to(torch.int8)
+    return codes.view(b, nk, hd), skh
+
+
+def _torch_int8_attention(q, k, v, num_heads: int, scale: float):
+    """Plain K9 over packed (B, N, H*D) tensors, the TPU kernel's math:
+    K per (batch, head) and Q per row and head to int8; logits
+    f32(q_i8 . k_i8) * (sq * (skh * scale)); fp32 softmax as exp(s - max)
+    over its sum; P cast to v's dtype, P.V summed in fp32, divided by the
+    sum; output in q's dtype. The integer products are exact in fp32 (|sum|
+    < 2^24 for D < 1040, also under TF32: the codes have 8 bits)."""
+    b, nq, hd = q.shape
+    d = hd // num_heads
+    kc, skh = _quant_k_per_head(k, num_heads)
+    qf = q.float().view(b, nq, num_heads, d)
+    sq = torch.clamp_min(qf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)  # (B, Nq, H, 1)
+    qc = torch.clamp(torch.round(qf / sq), -127, 127)
+    heads = lambda t: t.view(b, -1, num_heads, d).permute(0, 2, 1, 3)  # (B, H, N, D)
+    s32 = torch.matmul(heads(qc), heads(kc.float()).transpose(-1, -2))  # (B, H, Nq, Nk)
+    logits = s32 * (sq.permute(0, 2, 1, 3) * (skh[:, :, None, None] * scale))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(v.dtype).float(), heads(v).float()) / l
+    return o.permute(0, 2, 1, 3).reshape(b, nq, hd).to(q.dtype)
+
+
+def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
+    """K9: int8-QK^T attention over packed (B, N, H*D) tensors (the int8
+    serving mode's attention). K is quantized here with one scale per
+    (batch, head), folded into the softmax scale; Q per row inside the
+    kernel; fp32 softmax; P.V in bf16 with fp32 sums. The kernel on CUDA,
+    the plain version on the CPU."""
+    d = q.shape[-1] // num_heads
+    if scale is None:
+        scale = d ** -0.5
+    if not use_kernel(q):
+        return _torch_int8_attention(q, k, v, num_heads, float(scale))
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    b, nq, hd = q.shape
+    nk = k.shape[1]
+    if k.shape != (b, nk, hd) or v.shape != (b, nk, hd) or hd % num_heads:
+        raise ValueError(f"q/k/v shapes disagree: {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)} with {num_heads} heads")
+    if d not in (32, 64, 128):
+        raise ValueError(f"head dim {d} not supported (32, 64 or 128)")
+    if k.device != q.device:
+        raise ValueError(f"k must be on {q.device}, got {k.device}")
+    for name, t in (("q", q), ("v", v)):
+        if t.dtype != torch.bfloat16 or t.device != q.device:
+            raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
+        if t.stride(-1) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {t.stride()}")
+    kc, skh = _quant_k_per_head(k, num_heads)
+    out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        cuda_ext().int8_attention_fwd(
+            q.data_ptr(), kc.data_ptr(), skh.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, num_heads, nq, nk, d, q.stride(0), q.stride(1), kc.stride(0), kc.stride(1),
+            v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale),
+            torch.cuda.current_stream().cuda_stream)
+    flash_attention_packed_int8.launches += 1
+    return out
+
+
+flash_attention_packed_int8.launches = 0

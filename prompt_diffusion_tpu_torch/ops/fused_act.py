@@ -1,4 +1,5 @@
-"""GEGLU -> int8 kernel K7, in Triton, and its plain version.
+"""Activation -> int8 kernels K7, K10 and K11, in Triton, and their plain
+versions.
 
 Replaces `prompt_diffusion_tpu/ops/fused_act.py::fused_geglu_quant`
 (`_geglu_quant_kernel` through `_run`): the feed-forward of every SD1.5
@@ -13,8 +14,15 @@ codes take a single read; the row tail is masked. The GELU uses the exact
 erf, as the reference does (the TPU kernel carried an A&S approximation of
 erf only because Mosaic could not lower it).
 
-K10 (`fused_gelu_quant`) and K11 (`fused_quant_rows`) of the same JAX file
-belong to SD3 and are not ported yet.
+K10 replaces `fused_gelu_quant` (`_gelu_quant_kernel`): tanh-GELU, then
+int8 codes with one scale per row, the input of the SD3 MMDiT's `ff_out`
+and `ff_context_out` (the block's widest activation, (B, N, 4C)). K11
+replaces `fused_quant_rows` (`_quant_rows_kernel`): per-row int8 of the
+attention outputs that feed `to_out` and `to_add_out`. Both are bound by
+memory traffic (one read, one int8 write), hold whole rows in registers
+like K7 (C = 6144 and 1536 on the SD3 path) and mask the row tail; the
+TPU kernels' pad of the row count to 8 is a tiling rule with no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -61,3 +69,59 @@ def fused_geglu_quant(proj: torch.Tensor):
 
 
 fused_geglu_quant.launches = 0
+
+
+def _torch_act_quant(x: torch.Tensor, gelu: bool):
+    """Plain K10 / K11 (`_jnp_fallback`): fp32, tanh-GELU or nothing, then
+    `rowquant`."""
+    h = x.float()
+    if gelu:
+        h = F.gelu(h, approximate="tanh")
+    return rowquant(h)
+
+
+def _act_quant(x: torch.Tensor, gelu: bool):
+    import triton
+
+    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
+
+    if not x.dtype.is_floating_point:
+        raise ValueError(f"takes a float tensor, got {x.dtype}")
+    c = x.shape[-1]
+    x2 = x.contiguous().view(-1, c)
+    n = x2.shape[0]
+    block_c = triton.next_power_of_2(c)
+    block_r = max(1, _TILE // block_c)
+    q = torch.empty((n, c), dtype=torch.int8, device=x.device)
+    s_a = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        tq.act_quant_kernel[(triton.cdiv(n, block_r),)](
+            x2, q, s_a, n, c, BLOCK_R=block_r, BLOCK_C=block_c, GELU=gelu,
+            num_warps=8 if block_c >= 4096 else 4)
+    return q.view(x.shape), s_a.view(*x.shape[:-1], 1)
+
+
+def fused_gelu_quant(x: torch.Tensor):
+    """K10: (..., C) -> tanh-GELU -> (int8 (..., C), fp32 row scales
+    (..., 1)); the kernel on CUDA, the plain version on the CPU."""
+    if not use_kernel(x):
+        return _torch_act_quant(x, gelu=True)
+    out = _act_quant(x, gelu=True)
+    fused_gelu_quant.launches += 1
+    return out
+
+
+fused_gelu_quant.launches = 0
+
+
+def fused_quant_rows(x: torch.Tensor):
+    """K11: (..., C) -> (int8 (..., C), fp32 row scales (..., 1)); the
+    kernel on CUDA, the plain version on the CPU."""
+    if not use_kernel(x):
+        return _torch_act_quant(x, gelu=False)
+    out = _act_quant(x, gelu=False)
+    fused_quant_rows.launches += 1
+    return out
+
+
+fused_quant_rows.launches = 0

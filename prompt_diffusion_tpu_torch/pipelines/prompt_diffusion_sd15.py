@@ -46,9 +46,10 @@ class PromptDiffusionSD15:
     @classmethod
     def create(cls, unet=None, controlnet=None, vae=None, text_encoder=None,
                schedule=None, policy: Optional[DTypePolicy] = None,
-               vae_int8: bool = False, device: torch.device | str = "cpu"):
+               vae_int8: bool = False, device: torch.device | str = "cuda"):
         """Builds the default SD1.5 models (or takes the given ones) on
-        `device`, in eval mode, with 4-D weights in channels_last memory.
+        `device` (the card unless the caller asks for the CPU), in eval
+        mode, with 4-D weights in channels_last memory.
         `policy=` sets the UNet/ControlNet dtype policy (`int8_policy()`
         for the quantized serving mode); the VAE and CLIP keep their
         defaults, except that `vae_int8=True` builds the VAE under
@@ -73,6 +74,11 @@ class PromptDiffusionSD15:
     @property
     def device(self) -> torch.device:
         return next(self.unet.parameters()).device
+
+    def jax_modules(self) -> dict:
+        """{JAX parameter namespace: module}, for `tools.jax_bridge`."""
+        return {"unet": self.unet, "controlnet": self.controlnet, "vae": self.vae,
+                "clip": self.text_encoder}
 
     def encode_prompt(self, token_ids: torch.Tensor) -> torch.Tensor:
         return self.text_encoder(token_ids.to(self.device))["last_hidden_state"]

@@ -5,7 +5,10 @@ is mechanical:
   * `a/b/c/kernel` of rank 4 (HWIO conv) -> `a.b.c.weight`, OIHW;
   * `a/b/c/kernel` of rank 2 (Dense, (in, out)) -> `a.b.c.weight`, (out, in);
   * `scale` and `embedding` -> `weight`; `bias` and other leaves keep their
-    names (CLIP's `position_embedding`).
+    names (CLIP's `position_embedding`, T5's `relative_attention_bias`).
+Each pipeline names its namespaces (`jax_modules()`): SD1.5 {"unet",
+"controlnet", "vae", "clip"}, SD3 {"transformer", "controlnet", "down_proj",
+"vae", "clip_l", "clip_g"} and "t5" when it holds a T5 encoder.
 Needs numpy only. A reference `.ckpt` reaches the port through the JAX
 package's importer (`tools/torch_import.py`), then through this bridge.
 """
@@ -16,9 +19,6 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
-
-NAMESPACES = ("unet", "controlnet", "vae", "clip")
-
 
 def _flatten(tree: Mapping, prefix=()):
     for k, v in tree.items():
@@ -56,17 +56,14 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{"unet","controlnet","vae","clip"} Flax trees of numpy arrays ->
-    the port's state dicts under the same names."""
-    return {name: state_dict_from_jax(tree[name]) for name in NAMESPACES}
-
-
 def load_jax_params(pipe, tree: Mapping) -> None:
     """Loads the JAX package's parameter dict into a port pipeline,
-    strictly: every module parameter gets a value and every JAX leaf lands
-    in exactly one parameter (values are cast to each parameter's dtype)."""
-    modules = {"unet": pipe.unet, "controlnet": pipe.controlnet, "vae": pipe.vae,
-               "clip": pipe.text_encoder}
-    for name, sd in params_from_jax(tree).items():
-        modules[name].load_state_dict(sd, strict=True)
+    strictly: the tree's namespaces are those of `pipe.jax_modules()`,
+    every module parameter gets a value and every JAX leaf lands in exactly
+    one parameter (values are cast to each parameter's dtype)."""
+    modules = pipe.jax_modules()
+    if set(tree) != set(modules):
+        raise ValueError(f"the tree's namespaces {sorted(tree)} are not the pipeline's "
+                         f"{sorted(modules)}")
+    for name, module in modules.items():
+        module.load_state_dict(state_dict_from_jax(tree[name]), strict=True)

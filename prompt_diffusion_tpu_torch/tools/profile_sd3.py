@@ -1,0 +1,125 @@
+"""Where the time of one SD3 request goes on the card.
+
+    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd3
+
+Builds SD3 Prompt-Diffusion at full width in the int8 serving mode of
+`bench.py --config sd3` (MMDiT 24 x 1536, the 12-block ControlNet,
+CLIP-L, CLIP-bigG, T5-XXL, the z=16 bf16 VAE; random weights from a seed),
+the configuration `chip_smoke.py` runs, and one request of batch 1 at
+1024² with CFG 7. T5-XXL runs staged: it is timed, then freed before the
+rest is built. Every part runs once to warm up (kernel builds, Triton
+compiles, cuDNN heuristics). Then:
+  * the wall time of each part of the request, synchronised, median of 3:
+    the T5-XXL encode (L = 256), the CLIP-L and CLIP-bigG encodes, the two
+    VAE encodes (support pair with `down_proj`, query condition), one CFG
+    denoise step (ControlNet + MMDiT on the double batch) and the VAE
+    decode;
+  * a torch.profiler trace of two denoise steps: device time by kernel
+    name, device launches per step, and the device's busy share of the
+    profiled wall time.
+Needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+import torch
+
+from prompt_diffusion_tpu_torch.tools.profile_sd15 import _wall_ms, busy_us, device_kernels
+
+BATCH, SIZE, CFG, T5_LEN = 1, 1024, 7.0, 256
+STEPS, TOP = 2, 30  # denoise steps traced, kernel names printed
+
+
+@torch.no_grad()
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_sd3: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from prompt_diffusion_tpu_torch.models.t5_text import T5Encoder
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3 import PromptDiffusionSD3
+    from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout
+    print(f"[profile] {card.strip().splitlines()[0]}; SD3, int8 policy, staged T5")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.device("cuda"):
+        t5 = T5Encoder()
+    random_init_(t5.eval().requires_grad_(False), gen)
+    ids_t5 = torch.randint(0, t5.config.vocab_size, (2, BATCH, T5_LEN), generator=gen,
+                           device="cuda")
+    t5_fn = lambda: PromptDiffusionSD3.encode_t5(t5, ids_t5[0])
+    t5_fn()
+    parts = {"T5-XXL encode": _wall_ms(t5_fn)}
+    t5_seq, neg_t5_seq = t5_fn(), PromptDiffusionSD3.encode_t5(t5, ids_t5[1])
+    del t5
+    torch.cuda.empty_cache()
+
+    pipe = PromptDiffusionSD3.create(policy=int8_policy(), device="cuda")
+    for m in (pipe.transformer, pipe.controlnet, pipe.down_proj, pipe.vae, pipe.clip_l,
+              pipe.clip_g):
+        random_init_(m, gen)
+    ids = lambda: torch.randint(0, 49408, (BATCH, 77), generator=gen, device="cuda")
+    img = lambda: torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device="cuda") * 2 - 1
+    request = dict(prompt_ids=dict(l=ids(), g=ids()), neg_prompt_ids=dict(l=ids(), g=ids()),
+                   control_image=img(), support_cond=img(), support_image=img(),
+                   t5_seq=t5_seq, neg_t5_seq=neg_t5_seq)
+    velocity_fn = pipe.make_velocity_fn(**request, guidance_scale=CFG, generator=gen)
+    x = torch.randn((BATCH, pipe.vae.config.z_channels, SIZE // 8, SIZE // 8), generator=gen,
+                    device="cuda")
+    t = torch.full((BATCH,), 1000.0, device="cuda")
+    control_nchw = request["control_image"].permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    steps = {
+        "CLIP-L encode": lambda: pipe.clip_l(request["prompt_ids"]["l"], output_hidden_layer=2),
+        "CLIP-bigG encode": lambda: pipe.clip_g(request["prompt_ids"]["g"],
+                                                output_hidden_layer=2),
+        "VAE encode, pair": lambda: pipe.encode_support_pair(
+            request["support_cond"], request["support_image"], gen),
+        "VAE encode, query": lambda: pipe._encode_vae(control_nchw, gen),
+        "denoise step": lambda: velocity_fn(x, t),
+        "VAE decode": lambda: pipe.decode_latents(x),
+    }
+    for fn in steps.values():  # warm-up
+        fn()
+    parts.update({name: _wall_ms(fn) for name, fn in steps.items()})
+    print(f"[profile] request parts (batch {BATCH}, {SIZE}², CFG {CFG}), wall ms, median of 3:")
+    for name, ms in parts.items():
+        print(f"  {name:18s} {ms:9.3f}")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            velocity_fn(x, t)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = {}
+    for name, s, e in kernels:
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + (e - s))
+    busy = busy_us([(s, e) for _, s, e in kernels])
+    print(f"[profile] {STEPS} denoise steps under the profiler: "
+          f"{wall_us / STEPS / 1e3:.3f} ms wall per step, device busy "
+          f"{busy / STEPS / 1e3:.3f} ms per step ({100 * busy / wall_us:.1f}%), "
+          f"{len(kernels) / STEPS:.0f} device launches per step")
+    print("[profile] device ms per step, launches per step, kernel:")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    for name, (n, us) in ranked[:TOP]:
+        print(f"  {us / STEPS / 1e3:9.3f} {n / STEPS:6.0f}  {name[:110]}")
+    rest = sum(us for _, (_, us) in ranked[TOP:])
+    print(f"  {rest / STEPS / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

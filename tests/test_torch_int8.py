@@ -429,7 +429,8 @@ def _port_pipe(vae_int8, pol=INT8_F32):
         vae=AutoencoderKL(VAEConfig(**TINY_VAE), INT8_F32 if vae_int8 else DTypePolicy(
             compute_dtype=torch.float32)),
         text_encoder=CLIPTextModel(CLIPTextConfig(**TINY_CLIP),
-                                   DTypePolicy(compute_dtype=torch.float32)))
+                                   DTypePolicy(compute_dtype=torch.float32)),
+        device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -476,7 +477,7 @@ def test_bridge_loads_into_bf16_and_int8_pipelines(generate_case):
         unet=UNetSD15(UNetConfig(**TINY_UNET), pol),
         controlnet=ControlNetSD15(UNetConfig(**TINY_UNET), 6, pol),
         vae=AutoencoderKL(VAEConfig(**TINY_VAE), int8_policy() if vae_int8 else pol),
-        text_encoder=CLIPTextModel(CLIPTextConfig(**TINY_CLIP)))
+        text_encoder=CLIPTextModel(CLIPTextConfig(**TINY_CLIP)), device="cpu")
     load_jax_params(tiny(DTypePolicy(), False), params)
     pipe8 = tiny(int8_policy(), True)
     load_jax_params(pipe8, params)

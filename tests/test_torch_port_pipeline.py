@@ -25,7 +25,7 @@ from prompt_diffusion_tpu_torch.models.controlnet_sd15 import ControlNetSD15
 from prompt_diffusion_tpu_torch.models.unet_sd15 import UNetConfig, UNetSD15
 from prompt_diffusion_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
-from prompt_diffusion_tpu_torch.tools.jax_bridge import load_jax_params, params_from_jax
+from prompt_diffusion_tpu_torch.tools.jax_bridge import load_jax_params, state_dict_from_jax
 from prompt_diffusion_tpu_torch.utils.dtypes import fp32_policy
 from tests.torch_port_util import TINY_CLIP, TINY_UNET, TINY_VAE, randomize
 
@@ -110,9 +110,9 @@ def test_generate_seeded_noise_and_validation(pipes):
 
 def test_bridge_uses_every_leaf_once(pipes):
     _, params, pipe = pipes
-    sds = params_from_jax(params)
-    modules = {"unet": pipe.unet, "controlnet": pipe.controlnet, "vae": pipe.vae,
-               "clip": pipe.text_encoder}
+    modules = pipe.jax_modules()
+    assert set(modules) == {"unet", "controlnet", "vae", "clip"}
+    sds = {name: state_dict_from_jax(params[name]) for name in modules}
     for name, module in modules.items():
         leaves = traverse_util.flatten_dict(params[name]["params"])
         assert len(sds[name]) == len(leaves)
@@ -143,7 +143,13 @@ def test_chip_smoke_token_ids_are_hash_tokenizer_ids():
 
 def test_port_imports_no_jax():
     code = ("import sys, prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15, "
+            "prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3, "
+            "prompt_diffusion_tpu_torch.models.mmdit_sd3, "
+            "prompt_diffusion_tpu_torch.models.controlnet_sd3, "
+            "prompt_diffusion_tpu_torch.models.t5_text, "
+            "prompt_diffusion_tpu_torch.ops.fused_adaln, "
+            "prompt_diffusion_tpu_torch.tools.profile_sd3, "
             "prompt_diffusion_tpu_torch.tools.jax_bridge; "
-            "bad = [m for m in ('jax', 'flax') if m in sys.modules]; "
+            "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu') if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
