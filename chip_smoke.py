@@ -6,8 +6,9 @@
 Phases, each printed as it ends; any failure raises and exits non-zero
 without the final `"ok": true` line:
   1. device  - requires CUDA; prints the card as nvidia-smi names it;
-  2. build   - builds the CUDA kernels (attention, int8 conv; nvcc, sm_90a)
-               into build/torch_ext/ and compiles the Triton kernels;
+  2. build   - builds the CUDA kernels (attention, int8 conv, int8
+               attention; nvcc, sm_90a) into build/torch_ext/ and compiles
+               the Triton kernels;
   3. kernels - each kernel against its plain PyTorch version on the card at
                the shapes the paths give it (SD1.5 512², CFG batch 8; SD3
                1024², CFG batch 2, and its VAE), with the kernel's and
@@ -19,8 +20,13 @@ without the final `"ok": true` line:
                version with one 64-key tile left out), and the error against
                the plain version in bf16. int8 epilogue kernels (GroupNorm,
                LayerNorm, GEGLU -> int8): scales within 1e-6 relative, codes
-               at most 1 apart and at least 99.9% equal. int8 conv: equal
-               to the plain version bit for bit;
+               at most 1 apart and at least 99.9% equal. int8 conv, both
+               variants: equal to the plain version bit for bit. AdaLN's
+               gradient (kernel forward, autograd of the plain version
+               backward) within 1e-4 of the plain version's, relative to
+               its largest value. The attention lab modes at the SD1.5 64²
+               and SD3 joint shapes, with K1's bounds (the no-softmax
+               mode's output is no average of V: its bound is relative);
   4. slice   - SD1.5 at full width (default configs, bf16, random weights
                from a seed) answers two 512² requests of batch 2 with 8 DDIM
                steps and CFG 9; checks the images, that every kernel of the
@@ -33,7 +39,11 @@ without the final `"ok": true` line:
                (`create(policy=int8_policy(), vae_int8=True)`): the same
                checks, the launches of the int8 path's kernels, the guided
                epsilon against an fp32-compute int8 evaluation, and its
-               distance from the bf16 policy for information;
+               distance from the bf16 policy for information; then a
+               pipeline built with `conv_variant="xshift"` (same weights)
+               answers request 1 through K8's xshift kernel, bit-equal to
+               the im2col pipeline's images, with both variants' seconds
+               per step;
   6. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
                12-block ControlNet, CLIP-L, CLIP-bigG, T5-XXL, the z=16
                VAE; random weights from a seed) in the int8 serving mode of
@@ -43,18 +53,23 @@ without the final `"ok": true` line:
                launches of the path's kernels, each quantized block kind
                against the plain ops, and one CFG velocity evaluation
                against the plain ops and an fp32-compute int8 evaluation;
-  7. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  7. adaln   - K12 (called by no model) on the path a training step of an
+               AdaLN site takes: kernel forward, backward through autograd
+               of the plain version, at the SD3 streams' shapes;
+  8. labs    - the attention lab entry point
+               (`prompt_diffusion_tpu_torch.tools.attn_lab`), every lab at
+               two timed iterations;
+  9. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
 work (`bound_ms`: bytes over 3.35 TB/s or tensor-core operations over the
-dense peak, whichever is larger) and, where one PyTorch call computes the
-same function, that call's time (`lib_ms`), timed here only.
-Imports nothing of JAX.
+dense peak, whichever is larger; `prompt_diffusion_tpu_torch/tools/
+timing.py`) and, where one PyTorch call computes the same function, that
+call's time (`lib_ms`), timed here only. Each path phase sets every launch
+count to 0 before it runs and reads them after. Imports nothing of JAX.
 """
 
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -86,8 +101,9 @@ REQ_BATCH, REQ_SIZE, REQ_STEPS, CFG = 2, 512, 8, 9.0
 PROMPTS = ("a photograph of a red house by a lake", "an oil painting of a mountain at dawn")
 # SD3 requests as `bench.py --config sd3` makes them, cut to 8 of 28 steps
 SD3_BATCH, SD3_SIZE, SD3_STEPS, SD3_CFG, SD3_SHIFT, T5_LEN = 1, 1024, 8, 7.0, 3.0, 256
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense)
-HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S = 3.35e12, 989e12, 1979e12
+# K12's gradient against the plain version's, relative to its largest value
+GRAD_REL_BOUND = 1e-4
+LAB_ITERS = 2  # timed iterations of each attention lab variant in `[labs]`
 
 
 def check(cond, msg):
@@ -117,36 +133,16 @@ def hash_token_ids(texts, max_length=77):
     return out
 
 
-def gpu_name_and_limit():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters=10, warmup=2):
-    """Median milliseconds of one call, from CUDA events around each call."""
+def adaln_grads(x, scale, shift):
+    """The gradients of sum(fused_adaln(x, scale, shift)^2) in x, scale and
+    shift, flattened into one vector."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln
 
-
-def roofline(nbytes, int8_ops=0.0, bf16_ops=0.0):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the tensor-core operations over their dense peaks."""
-    t_bytes = nbytes / HBM_BYTES_S
-    t_ops = int8_ops / INT8_OPS_S + bf16_ops / BF16_OPS_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    inputs = [a.detach().requires_grad_() for a in (x, scale, shift)]
+    loss = fused_adaln(*inputs).float().square().sum()
+    return torch.cat([g.flatten() for g in torch.autograd.grad(loss, inputs)])
 
 
 def kernel_cases(gen):
@@ -161,16 +157,20 @@ def kernel_cases(gen):
     import torch.nn.functional as F
 
     from prompt_diffusion_tpu_torch.ops.flash_attention import (
+        attention_no_softmax,
         flash_attention,
         flash_attention_packed,
         flash_attention_packed_int8,
+        flash_attention_packed_int8_rowk,
+        flash_attention_tiled,
+        flash_attention_two_pass,
     )
     from prompt_diffusion_tpu_torch.ops.fused_act import (
         fused_geglu_quant,
         fused_gelu_quant,
         fused_quant_rows,
     )
-    from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln_quant
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_quant
     from prompt_diffusion_tpu_torch.ops.fused_group_norm import (
         fused_group_norm,
         fused_group_norm_quant,
@@ -179,7 +179,7 @@ def kernel_cases(gen):
         fused_layer_norm,
         fused_layer_norm_quant,
     )
-    from prompt_diffusion_tpu_torch.ops.int8_conv import conv3x3_int8
+    from prompt_diffusion_tpu_torch.ops.int8_conv import conv3x3_int8, conv3x3_int8_xshift
 
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     bf16 = lambda t: t.to(torch.bfloat16)
@@ -251,6 +251,18 @@ def kernel_cases(gen):
         args = (bf16(randn(b, n, c)), bf16(0.1 * randn(b, 1, c)), bf16(0.1 * randn(b, 1, c)))
         cases.append(("fused_adaln_quant", f"({b},{n},{c})", fused_adaln_quant, args, "quant",
                       None, (3 * b * n * c + 4 * b * c + 4 * b * n, 0, 0), None))
+    # K12 at the same shapes (the context stream's modulation as (B, C)),
+    # then its gradient in fp32: forward read and write, backward reads of x
+    # and the output gradient, writes of the three gradients
+    for b, n, c in ((2, 4096, 1536), (2, 333, 1536)):
+        x, s = bf16(randn(b, n, c)), bf16(0.1 * randn(b, 1, c))
+        t = bf16(0.1 * randn(b, 1, c) if n > 1000 else 0.1 * randn(b, c))
+        cases.append(("fused_adaln", f"({b},{n},{c})", fused_adaln, (x, s, t), "float",
+                      NORM_BOUND, (4 * b * n * c + 4 * b * c, 0, 0), None))
+    b, n, c = 2, 4096, 1536
+    args = (randn(b, n, c), 0.1 * randn(b, 1, c), 0.1 * randn(b, 1, c))
+    cases.append(("fused_adaln", f"({b},{n},{c}) fp32 gradient", adaln_grads, args, "grad",
+                  GRAD_REL_BOUND, (20 * b * n * c + 16 * b * c, 0, 0), None))
     # K10 at the MMDiT FF width (both streams' rows), K11 at the attention width
     for name, fn, c in (("fused_gelu_quant", fused_gelu_quant, 6144),
                         ("fused_quant_rows", fused_quant_rows, 1536)):
@@ -261,18 +273,47 @@ def kernel_cases(gen):
                                      dtype=torch.int8)
     uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
     # the main path's shapes, then two ragged ones (pixel, channel and K tails
-    # in both load paths; no bias with fp32 output)
-    for b, h, w, cin, cout, bias, dt in (
-            (8, 64, 64, 4, 320, True, torch.bfloat16), (8, 64, 64, 320, 320, True, torch.bfloat16),
-            (8, 8, 8, 2560, 1280, True, torch.bfloat16), (3, 5, 11, 48, 72, True, torch.bfloat16),
-            (2, 7, 9, 24, 40, False, torch.float32)):
-        args = (codes(b, h, w, cin), uniform(b, 0.01, 0.1), codes(cout, 3, 3, cin),
-                uniform(cout, 1e-4, 1e-3), randn(cout) if bias else None, dt)
-        label = f"({b},{h},{w},{cin}->{cout})" + ("" if bias else " no bias, fp32 out")
-        out_bytes = 2 if dt == torch.bfloat16 else 4
-        nbytes = b * h * w * (cin + out_bytes * cout) + 9 * cin * cout + 4 * (b + 2 * cout)
-        cases.append(("conv3x3_int8", label, conv3x3_int8, args, "exact", 0.0,
-                      (nbytes, 2 * b * h * w * cout * 9 * cin, 0), None))
+    # in both load paths; no bias with fp32 output); the xshift variant also
+    # at the int8 VAE's 512² rows, wider than its tile
+    conv_shapes = ((8, 64, 64, 320, 320, True, torch.bfloat16),
+                   (8, 8, 8, 2560, 1280, True, torch.bfloat16),
+                   (2, 64, 64, 4, 320, True, torch.bfloat16),
+                   (3, 5, 11, 48, 72, True, torch.bfloat16),
+                   (2, 7, 9, 24, 40, False, torch.float32))
+    for name, fn, shapes in (
+            ("conv3x3_int8", conv3x3_int8, ((8, 64, 64, 4, 320, True, torch.bfloat16),)
+             + conv_shapes[:2] + conv_shapes[3:]),
+            ("conv3x3_int8_xshift", conv3x3_int8_xshift,
+             conv_shapes + ((2, 512, 512, 128, 128, True, torch.bfloat16),))):
+        for b, h, w, cin, cout, bias, dt in shapes:
+            args = (codes(b, h, w, cin), uniform(b, 0.01, 0.1), codes(cout, 3, 3, cin),
+                    uniform(cout, 1e-4, 1e-3), randn(cout) if bias else None, dt)
+            label = f"({b},{h},{w},{cin}->{cout})" + ("" if bias else " no bias, fp32 out")
+            out_bytes = 2 if dt == torch.bfloat16 else 4
+            nbytes = b * h * w * (cin + out_bytes * cout) + 9 * cin * cout + 4 * (b + 2 * cout)
+            cases.append((name, label, fn, args, "exact", 0.0,
+                          (nbytes, 2 * b * h * w * cout * 9 * cin, 0), None))
+    # the attention lab modes at the SD1.5 64² self-attention (B, N, H, D),
+    # the two-pass mode also at heads padded to 64, and the per-row-K int8
+    # mode at the SD3 joint shape
+    b, n, h = 8, 4096, 8
+    sdpa = lambda q, k, v, s: (lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=s))
+    for name, fn, d, bq, bk, lib in (
+            ("flash_attention_tiled", flash_attention_tiled, 40, 128, 128, True),
+            ("attention_no_softmax", attention_no_softmax, 40, 64, 64, False),
+            ("flash_attention_two_pass", flash_attention_two_pass, 40, 64, 64, True),
+            ("flash_attention_two_pass", flash_attention_two_pass, 64, 128, 64, True)):
+        q, k, v = (bf16(randn(b, n, h, d)) for _ in range(3))
+        cases.append((name, f"({b},{n},{h},{d}) bq{bq} bk{bk}", fn,
+                      (q, k, v, d ** -0.5, bq, bk), "float", ATTN_BOUND,
+                      (8 * b * n * h * d, 0, 4 * b * n * n * h * d),
+                      sdpa(q, k, v, d ** -0.5) if lib else None))
+    b, n, hd, h = 2, 4250, 1536, 24
+    q, k, v = (bf16(randn(b, n, hd)) for _ in range(3))
+    cases.append(("flash_attention_packed_int8_rowk", f"({b},{n},{hd}) H={h}",
+                  flash_attention_packed_int8_rowk, (q, k, v, h), "float", ATTN_BOUND,
+                  (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd), None))
     return cases
 
 
@@ -298,12 +339,16 @@ def phase_kernels(gen):
     beside it. For attention the bound is also ATTN_REL_BOUND of the
     largest output, and it must be smaller than the error of the plain
     version with the first key tile left out: a kernel that skipped a tile
-    would fail it. The int8 epilogue kernels are held to their scales and
-    codes (the plain versions quantize the fp32 value of the same bf16
-    inputs); the int8 conv to bit equality."""
+    would fail it. The no-softmax lab mode sums rather than averages V, so
+    its output grows with sqrt(Nk) and only the relative bound applies.
+    The int8 epilogue kernels are held to their scales and codes (the plain
+    versions quantize the fp32 value of the same bf16 inputs); the int8
+    conv to bit equality; AdaLN's gradient to GRAD_REL_BOUND of its
+    largest value."""
     import torch
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.tools.timing import roofline, time_ms
 
     fp32 = lambda args: tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
                               else a for a in args)
@@ -327,8 +372,13 @@ def phase_kernels(gen):
         else:
             check(torch.isfinite(out).all().item(), f"{name} {label}: non-finite output")
             err = (out.float() - ref.float()).abs().max().item()
-            if name.startswith("flash_attention"):
+            if kind == "grad":
+                bound = GRAD_REL_BOUND * ref.abs().max().item()
+            elif name == "attention_no_softmax":
+                bound = ATTN_REL_BOUND * ref.abs().max().item()
+            elif name.startswith("flash_attention"):
                 bound = min(bound, ATTN_REL_BOUND * ref.abs().max().item())
+            if "attention" in name:
                 q, k, v, *rest = fp32(args)
                 with plain_ops():
                     short = fn(q, k[:, KEY_TILE:], v[:, KEY_TILE:], *rest)
@@ -387,6 +437,26 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                          "prompt_diffusion_tpu/ops/fused_act.py:106"),
     "fused_adaln_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
                           "prompt_diffusion_tpu/ops/fused_adaln.py:140"),
+    "fused_adaln": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+                    "prompt_diffusion_tpu/ops/fused_adaln.py:95"),
+    "conv3x3_int8_xshift": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_conv.cu",
+                            "prompt_diffusion_tpu/ops/int8_conv.py:103"),
+    "flash_attention_tiled": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+                              "tools/attn_variants.py:41"),
+    "attention_no_softmax": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+                             "tools/attn_variants.py:41"),
+    "flash_attention_two_pass": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+                                 "tools/attn_variants.py:76"),
+    "flash_attention_packed_int8_rowk": (
+        "cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
+        "tools/attn_int8_lab.py:46"),
+}
+# further TPU kernels a kernel stands for: the lab kernels that compute the
+# same function as one above
+ALSO_REPLACES = {
+    "flash_attention_two_pass": ("tools/attn_variants.py:169", "tools/attn_lab2.py:47",
+                                 "tools/attn_lab2.py:66", "tools/attn_lab3.py:47"),
+    "flash_attention_packed_int8": ("tools/attn_int8_lab.py:105",),
 }
 # the kernels each main path must launch (K4 LayerNorm does not run in int8
 # mode: every pre-LN there quantizes through K6)
@@ -396,9 +466,15 @@ PATH_KERNELS = {
     "int8": ("flash_attention_packed", "flash_attention", "fused_group_norm",
              "fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
              "conv3x3_int8"),
+    # request 1 again through a pipeline built with conv_variant="xshift"
+    "int8_xshift": ("conv3x3_int8_xshift", "fused_group_norm_quant", "flash_attention_packed"),
     # the bf16 VAE's GroupNorm and mid-block attention, the int8 MMDiT's four
     "sd3": ("flash_attention", "fused_group_norm", "flash_attention_packed_int8",
             "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
+    "adaln": ("fused_adaln",),
+    "labs": ("flash_attention_tiled", "attention_no_softmax", "flash_attention_two_pass",
+             "flash_attention_packed_int8_rowk", "flash_attention_packed_int8",
+             "flash_attention_packed"),
 }
 
 
@@ -421,7 +497,21 @@ def wrappers():
             "flash_attention_packed_int8": fa.flash_attention_packed_int8,
             "fused_gelu_quant": act.fused_gelu_quant,
             "fused_quant_rows": act.fused_quant_rows,
-            "fused_adaln_quant": ada.fused_adaln_quant}
+            "fused_adaln_quant": ada.fused_adaln_quant,
+            "fused_adaln": ada.fused_adaln,
+            "conv3x3_int8_xshift": ic.conv3x3_int8_xshift,
+            "flash_attention_tiled": fa.flash_attention_tiled,
+            "attention_no_softmax": fa.attention_no_softmax,
+            "flash_attention_two_pass": fa.flash_attention_two_pass,
+            "flash_attention_packed_int8_rowk": fa.flash_attention_packed_int8_rowk}
+
+
+def reset_launches():
+    """Every launch count to 0; returns the wrappers by kernel name."""
+    counted = wrappers()
+    for w in counted.values():
+        w.launches = 0
+    return counted
 
 
 def twin(pipe, policy):
@@ -478,12 +568,16 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
     `policy`, the launch counts of the path's kernels, and one CFG epsilon
     evaluation (t=999) against the plain ops and against `ref_policy`
     (fp32 compute) on the plain ops. `info_policy` adds the distance from
-    another policy's evaluation, printed only."""
+    another policy's evaluation, printed only. Under the int8 policy a
+    pipeline built with conv_variant="xshift" and the same weights then
+    answers request 1 again (the "int8_xshift" path). Returns {path tag:
+    (launches, timing)}."""
     import numpy as np
     import torch
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.tools.timing import time_ms
     from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
 
     t0 = time.perf_counter()
@@ -508,15 +602,13 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
             generator=torch.Generator(device="cuda").manual_seed(2000 + i),
         )
 
-    def answer(i):
+    def answer(i, p=pipe):
         t = time.perf_counter()
-        img = pipe.generate(**request(i), num_steps=REQ_STEPS, guidance_scale=CFG)
+        img = p.generate(**request(i), num_steps=REQ_STEPS, guidance_scale=CFG)
         torch.cuda.synchronize()
         return img, time.perf_counter() - t
 
-    counted = wrappers()
-    for w in counted.values():
-        w.launches = 0
+    counted = reset_launches()
     img1, s1 = answer(0)
     img2, s2 = answer(1)
     launches = {name: w.launches for name, w in counted.items()}
@@ -575,9 +667,35 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
           f"eps rel L2 {rel_branches} > {branch_bound}")
     check(rel_k32 <= FP32_RATIO_BOUND * rel_p32,
           f"kernels {rel_k32} vs plain {rel_p32} from the fp32-compute evaluation")
+    paths = {tag: (launches, {"request_s": [s1, s2, s1b], "step_s": step_s})}
+    if tag == "int8":
+        # request 1 through K8's xshift kernel: the same bits as im2col
+        xpipe = PromptDiffusionSD15.create(policy=policy, vae_int8=vae_int8, device="cuda",
+                                           conv_variant="xshift")
+        for name, m in xpipe.jax_modules().items():
+            m.load_state_dict(pipe.jax_modules()[name].state_dict())
+        counted = reset_launches()
+        img_x, s_x = answer(0, xpipe)
+        launches_x = {name: w.launches for name, w in counted.items()}
+        with torch.no_grad():
+            eps_x = xpipe.make_eps_fn(**r, guidance_scale=CFG)
+            step_x = time_ms(lambda: eps_x(x, t), iters=5, warmup=1) / 1e3
+            step_s = time_ms(lambda: eps_fns[CFG](x, t), iters=5, warmup=1) / 1e3
+        log(f"[int8] xshift request 1: {s_x:.3f}s; launches {launches_x}")
+        for name in PATH_KERNELS["int8_xshift"]:
+            check(launches_x[name] > 0, f"kernel {name} was not launched on the xshift request")
+        check(launches_x["conv3x3_int8"] == 0, "the xshift request launched the im2col kernel")
+        check(torch.equal(img_x, img1), "the xshift request's images differ from im2col's")
+        log(f"[int8] xshift request 1 bit-equal to the im2col request; K8 launches per request "
+            f"im2col {launches['conv3x3_int8'] // 2}, xshift {launches_x['conv3x3_int8_xshift']}"
+            f"; seconds per denoise step im2col {step_s:.4f}, xshift {step_x:.4f} (timed in "
+            f"turn)")
+        paths["int8_xshift"] = (launches_x, {"request_s": [s_x], "step_s": step_x,
+                                             "im2col_step_s": step_s})
+        del xpipe, eps_x
     del pipe
     torch.cuda.empty_cache()
-    return launches, {"request_s": [s1, s2, s1b], "step_s": step_s}
+    return paths
 
 
 def sd3_block_checks(pipe, seed=4100):
@@ -628,6 +746,7 @@ def phase_sd3(seed=0):
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3 import PromptDiffusionSD3
     from prompt_diffusion_tpu_torch.schedulers.flow_match import make_inference_sigmas
+    from prompt_diffusion_tpu_torch.tools.timing import time_ms
     from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy, int8_policy, random_init_
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -678,9 +797,7 @@ def phase_sd3(seed=0):
         torch.cuda.synchronize()
         return img, time.perf_counter() - t
 
-    counted = wrappers()
-    for w in counted.values():
-        w.launches = 0
+    counted = reset_launches()
     img1, s1 = answer(0)
     img2, s2 = answer(1)
     launches = {name: w.launches for name, w in counted.items()}
@@ -750,6 +867,62 @@ def phase_sd3(seed=0):
                       "per_step": per_step}
 
 
+def phase_adaln(seed=5000):
+    """K12, which no model calls, on the path a training step of an AdaLN
+    site takes: the kernel forward and the backward through autograd of
+    the plain version, at the SD3 image and context streams (per-sample
+    modulation as (B, C) and (B, 1, C)); outputs and gradients finite and
+    of the inputs' shapes."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    counted = reset_launches()
+    t0 = time.perf_counter()
+    for b, n, c in ((2, 4096, 1536), (2, 333, 1536)):
+        x = randn(b, n, c).requires_grad_()
+        scale, shift = (0.1 * randn(b, c)).requires_grad_(), (0.1 * randn(b, 1, c)).requires_grad_()
+        out = fused_adaln(x, scale, shift)
+        out.float().square().sum().backward()
+        check(out.shape == x.shape and out.dtype == x.dtype and torch.isfinite(out).all().item(),
+              f"AdaLN at {(b, n, c)}: output {tuple(out.shape)} {out.dtype}")
+        for name, t in (("x", x), ("scale", scale), ("shift", shift)):
+            check(t.grad is not None and t.grad.shape == t.shape
+                  and torch.isfinite(t.grad).all().item(), f"AdaLN at {(b, n, c)}: grad of {name}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in counted.items()}
+    log(f"[adaln] forward + backward at (2,4096,1536) and (2,333,1536) bf16: outputs and "
+        f"gradients finite, of the inputs' shapes, in {seconds:.3f}s; launches "
+        f"{ {k: launches[k] for k in PATH_KERNELS['adaln']} }")
+    for name in PATH_KERNELS["adaln"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the adaln path")
+    return launches, {"seconds": seconds}
+
+
+def phase_labs():
+    """The attention lab entry point at LAB_ITERS timed iterations per
+    variant: every variant within ATTN_REL_BOUND of its largest plain
+    output."""
+    from prompt_diffusion_tpu_torch.tools import attn_lab
+
+    counted = reset_launches()
+    t0 = time.perf_counter()
+    rows = [row for lab_rows in attn_lab.run(iters=LAB_ITERS).values() for row in lab_rows]
+    seconds = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in counted.items()}
+    log(f"[labs] {len(rows)} variants in {seconds:.1f}s; launches "
+        f"{ {k: launches[k] for k in PATH_KERNELS['labs']} }")
+    for row in rows:
+        check(row["err_over_max"] <= ATTN_REL_BOUND,
+              f"lab variant {row['variant']}: error {row['err_over_max']} of its largest output")
+    for name in PATH_KERNELS["labs"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the labs path")
+    return launches, {"seconds": seconds}
+
+
 def main():
     import torch
 
@@ -770,7 +943,9 @@ def main():
         int8_policy,
     )
 
-    card = gpu_name_and_limit()
+    from prompt_diffusion_tpu_torch.tools import timing
+
+    card = timing.card()
     kind = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {torch.cuda.device_count()} device(s)")
@@ -788,14 +963,15 @@ def main():
         f"(Triton compile included) {time.perf_counter() - t0 - nvcc_s:.1f}s")
 
     results = phase_kernels(gen)
-    paths = {
-        "slice": phase_path("slice", default_policy(), False, fp32_policy()),
-        "int8": phase_path("int8", int8_policy(), True,
-                           DTypePolicy(compute_dtype=torch.float32, quant="int8"),
-                           info_policy=default_policy()),
-    }
+    paths = phase_path("slice", default_policy(), False, fp32_policy())
+    paths.update(phase_path("int8", int8_policy(), True,
+                            DTypePolicy(compute_dtype=torch.float32, quant="int8"),
+                            info_policy=default_policy()))
     paths["sd3"] = phase_sd3()
-    for tag, (_, timing) in paths.items():
+    paths["adaln"] = phase_adaln()
+    paths["labs"] = phase_labs()
+    for tag in ("slice", "int8", "sd3"):
+        timing = paths[tag][1]
         per_req = timing["request_s"]
         if tag == "sd3":
             log(f"[sd3] {card}: {per_req[1]:.3f} s per request (batch {SD3_BATCH}, "
@@ -814,8 +990,9 @@ def main():
         cases = results[name]
         by_path = {tag: launches[name] for tag, (launches, _) in paths.items()}
         main_case = cases[0]
+        also = {"replaces_also": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
-                        "launches": sum(by_path.values()), "launches_by_path": by_path,
+                        **also, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(c["max_abs_err"] for c in cases),
                         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                      "library_ms")},

@@ -1,6 +1,7 @@
 """Triton programs of the int8 epilogue kernels: GroupNorm->int8 (K5),
 LayerNorm->int8 (K6), GEGLU->int8 (K7), tanh-GELU->int8 (K10), row->int8
-(K11) and AdaLN->int8 (K13).
+(K11) and AdaLN->int8 (K13), which without its int8 epilogue is AdaLN
+(K12).
 
 This module imports `triton` at its top, so only the launchers in
 `fused_group_norm.py`, `fused_layer_norm.py`, `fused_act.py` and
@@ -168,15 +169,17 @@ def act_quant_kernel(x_ptr, q_ptr, s_ptr, N, C,
     tl.store(s_ptr + rows, s, mask=rmask)
 
 
-# ---- K13: AdaLN (LayerNorm without affine, per-sample modulation) -> int8
+# ---- K12 / K13: AdaLN (LayerNorm without affine, per-sample modulation),
+# -> int8 for K13
 
 
 @triton.jit
-def adaln_quant_kernel(x_ptr, sc_ptr, sh_ptr, q_ptr, s_ptr, R, N, C, eps,
-                       BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+def adaln_kernel(x_ptr, sc_ptr, sh_ptr, q_ptr, s_ptr, R, N, C, eps,
+                 BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr, QUANT: tl.constexpr):
     """BLOCK_R whole rows of the (B*N, C) activation: fp32 LayerNorm
     statistics, (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
-    with b = row // N, then the row's int8 codes and scale."""
+    with b = row // N; with QUANT the row's int8 codes and scale (`q_ptr`,
+    `s_ptr`), else the value in `q_ptr`'s dtype (`s_ptr` unused)."""
     pid = tl.program_id(0)
     rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
     cols = tl.arange(0, BLOCK_C)
@@ -192,6 +195,10 @@ def adaln_quant_kernel(x_ptr, sc_ptr, sh_ptr, q_ptr, s_ptr, R, N, C, eps,
     mod = (rows // N).to(tl.int64)[:, None] * C + cols[None, :]
     sc = tl.load(sc_ptr + mod, mask=mask, other=0.0)
     sh = tl.load(sh_ptr + mod, mask=mask, other=0.0)
-    q, s = _rowquant(h * (1.0 + sc) + sh, mask)
-    tl.store(q_ptr + offs, q, mask=mask)
-    tl.store(s_ptr + rows, s, mask=rmask)
+    y = h * (1.0 + sc) + sh
+    if QUANT:
+        q, s = _rowquant(y, mask)
+        tl.store(q_ptr + offs, q, mask=mask)
+        tl.store(s_ptr + rows, s, mask=rmask)
+    else:
+        tl.store(q_ptr + offs, y.to(q_ptr.dtype.element_ty), mask=mask)

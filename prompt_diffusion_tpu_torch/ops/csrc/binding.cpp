@@ -20,13 +20,17 @@ extern "C" int pd_flash_attention_fwd(
     int64_t k_sb, int64_t k_sn, int64_t k_sh,
     int64_t v_sb, int64_t v_sn, int64_t v_sh,
     int64_t o_sb, int64_t o_sn, int64_t o_sh,
-    float scale, void* stream);
+    float scale, int mode, int block_q, int block_k, void* stream);
 extern "C" int pd_conv3x3_int8(const void* x, const void* w, const void* s_a,
                                const void* s_w, const void* bias, void* out,
                                int batch, int h, int wd, int cin, int cout,
                                int out_bf16, int vec, void* stream);
+extern "C" int pd_conv3x3_int8_xshift(const void* x, const void* w, const void* s_a,
+                                      const void* s_w, const void* bias, void* out,
+                                      int batch, int h, int wd, int cin, int cout,
+                                      int out_bf16, int vec, void* stream);
 extern "C" int pd_int8_attention_fwd(
-    const void* q, const void* k, const void* skh, const void* v, void* o,
+    const void* q, const void* k, const void* sk, int row_k, const void* v, void* o,
     int batch, int heads, int nq, int nk, int d,
     int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
     int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
@@ -42,11 +46,11 @@ void flash_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o,
                          int64_t k_sb, int64_t k_sn, int64_t k_sh,
                          int64_t v_sb, int64_t v_sn, int64_t v_sh,
                          int64_t o_sb, int64_t o_sn, int64_t o_sh,
-                         double scale, uintptr_t stream) {
+                         double scale, int mode, int block_q, int block_k, uintptr_t stream) {
   const int err = pd_flash_attention_fwd(
       ptr(q), ptr(k), ptr(v), ptr(o), batch, heads, nq, nk, d,
       q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, o_sb, o_sn, o_sh,
-      static_cast<float>(scale), ptr(stream));
+      static_cast<float>(scale), mode, block_q, block_k, ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("flash_attention_fwd launch failed: ") +
                              pd_cuda_error_string(err));
@@ -55,23 +59,23 @@ void flash_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o,
 
 void conv3x3_int8(uintptr_t x, uintptr_t w, uintptr_t s_a, uintptr_t s_w, uintptr_t bias,
                   uintptr_t out, int batch, int h, int wd, int cin, int cout, bool out_bf16,
-                  bool vec, uintptr_t stream) {
-  const int err = pd_conv3x3_int8(ptr(x), ptr(w), ptr(s_a), ptr(s_w), ptr(bias), ptr(out),
-                                  batch, h, wd, cin, cout, out_bf16 ? 1 : 0, vec ? 1 : 0,
-                                  ptr(stream));
+                  bool vec, bool xshift, uintptr_t stream) {
+  const auto fn = xshift ? pd_conv3x3_int8_xshift : pd_conv3x3_int8;
+  const int err = fn(ptr(x), ptr(w), ptr(s_a), ptr(s_w), ptr(bias), ptr(out),
+                     batch, h, wd, cin, cout, out_bf16 ? 1 : 0, vec ? 1 : 0, ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("conv3x3_int8 launch failed: ") +
                              pd_cuda_error_string(err));
   }
 }
 
-void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t skh, uintptr_t v, uintptr_t o,
-                        int batch, int heads, int nq, int nk, int d,
+void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, bool row_k, uintptr_t v,
+                        uintptr_t o, int batch, int heads, int nq, int nk, int d,
                         int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
                         int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
                         double scale, uintptr_t stream) {
   const int err = pd_int8_attention_fwd(
-      ptr(q), ptr(k), ptr(skh), ptr(v), ptr(o), batch, heads, nq, nk, d,
+      ptr(q), ptr(k), ptr(sk), row_k ? 1 : 0, ptr(v), ptr(o), batch, heads, nq, nk, d,
       q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, static_cast<float>(scale), ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("int8_attention_fwd launch failed: ") +
@@ -83,11 +87,12 @@ void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t skh, uintptr_t v, ui
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("flash_attention_fwd", &flash_attention_fwd,
-        "Flash attention forward over strided (B, N, H, D) bf16 tensors");
+        "Flash attention forward over strided (B, N, H, D) bf16 tensors "
+        "(mode 0 online softmax, 1 no softmax, 2 two passes; query and key tile sizes)");
   m.def("conv3x3_int8", &conv3x3_int8,
         "SAME 3x3 int8 convolution over NHWC with the fp32 dequant epilogue "
-        "(bias pointer 0 = no bias)");
+        "(bias pointer 0 = no bias; xshift = the staged-halo variant)");
   m.def("int8_attention_fwd", &int8_attention_fwd,
         "int8-QK^T attention forward over packed (B, N, H*D) tensors: bf16 Q and V, "
-        "int8 K codes with (B, H) fp32 scales");
+        "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k");
 }

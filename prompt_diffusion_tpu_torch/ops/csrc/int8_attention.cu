@@ -1,5 +1,6 @@
 // int8-QK^T attention forward for Hopper (sm_90a) over packed (B, N, H*D)
-// tensors: bf16 Q and V, int8 K codes with one scale per (batch, head).
+// tensors: bf16 Q and V, int8 K codes with one scale per (batch, head), or
+// one per key row in the lab mode below.
 //
 // Replaces the TPU kernel prompt_diffusion_tpu/ops/flash_attention.py::
 // flash_attention_packed_int8 (_fa_packed_fullk_int8_kernel): the joint
@@ -36,6 +37,12 @@
 //     256 contiguous bytes, as WMMA's int8 loads require.
 // Speed work (cp.async/TMA pipelining, wgmma, a single pass with register
 // rescaling) is left to later changes.
+//
+// ROWK mode: tools/attn_int8_lab.py's v2 (`_kernel_v2`), K quantized per
+// (batch, key row, head) outside the kernel, sk (B, H, Nk); the logits are
+// f32(s32) * (sq[i] * sk[j]) * scale in that order. The block stages the
+// key tile's BK scales beside the codes; everything else is K9's. The lab's
+// v3 (`_kernel_v3`, per-head scales) is K9 itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,7 +64,7 @@ constexpr int LDP = BK + 8;  // bf16 probabilities pitch
 struct Params {
   const __nv_bfloat16* q;  // (B, Nq, H*D)
   const int8_t* k;         // (B, Nk, H*D) codes
-  const float* skh;        // (B, H) K scales
+  const float* sk;         // (B, H) K scales, or (B, H, Nk) in ROWK mode
   const __nv_bfloat16* v;  // (B, Nk, H*D)
   __nv_bfloat16* o;        // (B, Nq, H*D)
   // element strides of batch and sequence; heads are D-wide column slices
@@ -78,14 +85,20 @@ struct Layout {
   static constexpr size_t OFF_P = OFF_S + align128((size_t)BQ * LDS * 4);
   static constexpr size_t OFF_O = OFF_P + align128((size_t)BQ * LDP * 2);
   static constexpr size_t OFF_R = OFF_O + align128((size_t)BQ * LDO * 4);
-  static constexpr size_t TOTAL = OFF_R + align128((size_t)2 * BQ * 4);  // sq, l
+  static constexpr size_t OFF_SK = OFF_R + align128((size_t)2 * BQ * 4);  // sq, l
+  static constexpr size_t TOTAL = OFF_SK + align128((size_t)BK * 4);  // ROWK scales
 };
 
 // Key tile [k0, k0 + BK) of one head into [D/16][BK][16] (int8 codes) and,
-// when V is given, [BK][LDV] (bf16); rows past nk are zeros.
-template <int D>
-__device__ inline void load_kv(int8_t* sK, __nv_bfloat16* sV, const int8_t* kb,
-                               const __nv_bfloat16* vb, const Params& p, int k0) {
+// when V is given, [BK][LDV] (bf16); in ROWK mode its scales into sSk;
+// rows past nk are zeros.
+template <int D, bool ROWK>
+__device__ inline void load_kv(int8_t* sK, __nv_bfloat16* sV, float* sSk, const int8_t* kb,
+                               const __nv_bfloat16* vb, const float* skb, const Params& p,
+                               int k0) {
+  if (ROWK) {
+    for (int i = threadIdx.x; i < BK; i += NTHREADS) sSk[i] = (k0 + i < p.nk) ? skb[k0 + i] : 0.f;
+  }
   constexpr int KCH = D / 16;  // 16-byte chunks of a K row
   for (int i = threadIdx.x; i < BK * KCH; i += NTHREADS) {
     const int r = i / KCH, c = i % KCH;
@@ -127,7 +140,7 @@ __device__ inline void qk_tile(const int8_t* sQ, const int8_t* sK, int32_t* sS, 
   }
 }
 
-template <int D>
+template <int D, bool ROWK>
 __global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
   using L = Layout<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -139,6 +152,7 @@ __global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
   float* sO = reinterpret_cast<float*>(smem + L::OFF_O);
   float* sSq = reinterpret_cast<float*>(smem + L::OFF_R);
   float* sL = sSq + BQ;
+  float* sSk = reinterpret_cast<float*>(smem + L::OFF_SK);
 
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / p.heads;
@@ -150,7 +164,8 @@ __global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
   const int8_t* kb = p.k + b * p.k_sb + h * D;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * D;
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * D;
-  const float hs = __fmul_rn(p.skh[b * p.heads + h], p.scale);  // skh * scale
+  const float* skb = p.sk + (int64_t)(b * p.heads + h) * p.nk;  // ROWK: this head's row scales
+  const float hs = ROWK ? 0.f : __fmul_rn(p.sk[b * p.heads + h], p.scale);  // skh * scale
 
   // quantize the warp's 16 query rows: D/32 values per lane
   constexpr int PER = D / 32;
@@ -179,20 +194,26 @@ __global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
   // two lanes per row, 32 logits each
   const int r = wrow + (lane >> 1);
   const int c0 = (lane & 1) * 32;
-  const float f = __fmul_rn(sSq[r], hs);  // sq * (skh * scale)
+  const float sq = sSq[r];
+  const float f = __fmul_rn(sq, hs);  // sq * (skh * scale)
+  // the scaled logit of code sum s at tile column c
+  auto logit = [&](int32_t s, int c) {
+    return ROWK ? __fmul_rn(__fmul_rn(__int2float_rn(s), __fmul_rn(sq, sSk[c])), p.scale)
+                : __fmul_rn(__int2float_rn(s), f);
+  };
 
   // pass 1: the row maximum of the logits
   float m = -INFINITY;
   for (int k0 = 0; k0 < p.nk; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    load_kv<D>(sK, nullptr, kb, vb, p, k0);
+    load_kv<D, ROWK>(sK, nullptr, sSk, kb, vb, skb, p, k0);
     __syncthreads();
     qk_tile<D>(sQ, sK, sS, wrow);
     __syncwarp();
     const int32_t* srow = sS + r * LDS;
     for (int j = 0; j < 32; ++j) {
       const int c = c0 + j;
-      if (k0 + c < p.nk) m = fmaxf(m, __fmul_rn(__int2float_rn(srow[c]), f));
+      if (k0 + c < p.nk) m = fmaxf(m, logit(srow[c], c));
     }
   }
   m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
@@ -204,7 +225,7 @@ __global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
   float l = 0.f;
   for (int k0 = 0; k0 < p.nk; k0 += BK) {
     __syncthreads();
-    load_kv<D>(sK, sV, kb, vb, p, k0);
+    load_kv<D, ROWK>(sK, sV, sSk, kb, vb, skb, p, k0);
     __syncthreads();
     qk_tile<D>(sQ, sK, sS, wrow);
     __syncwarp();
@@ -212,7 +233,7 @@ __global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
     for (int j = 0; j < 32; ++j) {
       const int c = c0 + j;
       float e = 0.f;
-      if (k0 + c < p.nk) e = expf(__fmul_rn(__int2float_rn(srow[c]), f) - m);
+      if (k0 + c < p.nk) e = expf(logit(srow[c], c) - m);
       l += e;
       sP[r * LDP + c] = __float2bfloat16_rn(e);
     }
@@ -245,24 +266,35 @@ __global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
   }
 }
 
-template <int D>
+template <int D, bool ROWK>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   const size_t smem = Layout<D>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(int8_attn_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(int8_attn_kernel<D, ROWK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.nq + BQ - 1) / BQ, batch * p.heads);
-  int8_attn_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
+  int8_attn_kernel<D, ROWK><<<grid, NTHREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ROWK>
+int launch_d(const Params& p, int batch, int d, cudaStream_t s) {
+  switch (d) {
+    case 32: return launch<32, ROWK>(p, batch, s);
+    case 64: return launch<64, ROWK>(p, batch, s);
+    case 128: return launch<128, ROWK>(p, batch, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Launches on `stream` and returns the launch's cudaError_t (0 = queued).
 // Head dims 32, 64 and 128; every row 16-byte aligned (checked by the
-// Python wrapper).
+// Python wrapper). `sk` holds (B, H) per-head K scales, or (B, H, Nk)
+// per-row ones when `row_k` is set.
 extern "C" int pd_int8_attention_fwd(
-    const void* q, const void* k, const void* skh, const void* v, void* o,
+    const void* q, const void* k, const void* sk, int row_k, const void* v, void* o,
     int batch, int heads, int nq, int nk, int d,
     int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
     int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
@@ -273,7 +305,7 @@ extern "C" int pd_int8_attention_fwd(
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const int8_t*>(k);
-  p.skh = static_cast<const float*>(skh);
+  p.sk = static_cast<const float*>(sk);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
   p.q_sb = q_sb; p.q_sn = q_sn; p.k_sb = k_sb; p.k_sn = k_sn;
@@ -281,10 +313,5 @@ extern "C" int pd_int8_attention_fwd(
   p.heads = heads; p.nq = nq; p.nk = nk;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32: return launch<32>(p, batch, s);
-    case 64: return launch<64>(p, batch, s);
-    case 128: return launch<128>(p, batch, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return row_k ? launch_d<true>(p, batch, d, s) : launch_d<false>(p, batch, d, s);
 }

@@ -1,4 +1,5 @@
-"""Flash attention kernels K1, K2 and K9, their plain versions and wrappers.
+"""Flash attention kernels K1, K2 and K9, the attention lab kernels, their
+plain versions and wrappers.
 
 Replaces `prompt_diffusion_tpu/ops/flash_attention.py`:
   * K1 `flash_attention_packed` (packed (B, N, H*D) self-attention);
@@ -11,6 +12,19 @@ the (B, N, H, D) layout, so the kernel reads either through strides.
 Inputs on the card are bf16; logits and softmax are fp32, P is rounded to
 bf16 before P.V, and P.V accumulates in fp32. K9 is its own CUDA kernel,
 `csrc/int8_attention.cu`.
+
+The lab kernels of `tools/attn_variants.py`, `attn_lab2.py`, `attn_lab3.py`
+and `attn_int8_lab.py` are modes of the same two kernels, each with its own
+wrapper and launch count:
+  * `flash_attention_tiled`: online softmax with chosen query and key tiles
+    (`_online_kernel`);
+  * `attention_no_softmax`: O = sum_j bf16(s_ij * scale) V_j
+    (`_online_kernel` with do_softmax=False);
+  * `flash_attention_two_pass`: the exact row maximum first, then one
+    softmax with no rescaling (the full-K kernels);
+  * `flash_attention_packed_int8_rowk`: K9 with one K scale per key row
+    (`_kernel_v2`); `_kernel_v3` is K9 itself.
+`prompt_diffusion_tpu_torch/tools/attn_lab.py` runs them.
 """
 
 from __future__ import annotations
@@ -45,7 +59,14 @@ def _packed_ref(q, k, v, num_heads: int, scale: float):
     return out.reshape(b, nq, hd)
 
 
-def _launch(q, k, v, scale: float) -> torch.Tensor:
+# (block_q, block_k) pairs instantiated in csrc/flash_attention.cu; K1 and
+# K2 run the online mode at (64, 64)
+LAB_TILES = ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64), (128, 128))
+_MODES = {"online": 0, "no_softmax": 1, "two_pass": 2}
+
+
+def _launch(q, k, v, scale: float, mode: str = "online", block_q: int = 64,
+            block_k: int = 64) -> torch.Tensor:
     """Run the CUDA kernel on (B, N, H, D) views; returns a contiguous
     (B, Nq, H, D) tensor."""
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
@@ -67,7 +88,8 @@ def _launch(q, k, v, scale: float) -> torch.Tensor:
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, nq, nk, d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(scale), torch.cuda.current_stream().cuda_stream)
+            float(scale), _MODES[mode], block_q, block_k,
+            torch.cuda.current_stream().cuda_stream)
     return out
 
 
@@ -104,6 +126,55 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_packed.launches = 0
 
 
+def _torch_attention_no_softmax(q, k, v, scale: float):
+    """Plain no-softmax lab attention over (B, N, H, D): fp32 logits times
+    `scale`, cast to v's dtype, P.V summed in fp32, result in v's dtype."""
+    logits = torch.matmul(q.float().permute(0, 2, 1, 3), k.float().permute(0, 2, 3, 1))
+    p = (logits * scale).to(v.dtype).float()
+    return torch.matmul(p, v.float().permute(0, 2, 1, 3)).permute(0, 2, 1, 3).to(v.dtype)
+
+
+def _lab(wrapper, mode, plain, q, k, v, scale, block_q, block_k):
+    if (block_q, block_k) not in LAB_TILES:
+        raise ValueError(f"tiles ({block_q}, {block_k}) are not instantiated; one of {LAB_TILES}")
+    if not use_kernel(q):
+        return plain(q, k, v, float(scale))
+    out = _launch(q, k, v, float(scale), mode, block_q, block_k)
+    wrapper.launches += 1
+    return out
+
+
+def flash_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                          block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+    """Lab: softmax attention over (B, N, H, D) with an online softmax over
+    key tiles of `block_k` and `block_q` query rows per block (K1's kernel
+    at other tiles; `attn_variants.py::_online_kernel`)."""
+    return _lab(flash_attention_tiled, "online", _torch_attention, q, k, v, scale, block_q,
+                block_k)
+
+
+def attention_no_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                         block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+    """Lab: O = sum_j bf16(s_ij * scale) V_j over (B, N, H, D), no max, exp
+    or division (`attn_variants.py::_online_kernel`, do_softmax=False)."""
+    return _lab(attention_no_softmax, "no_softmax", _torch_attention_no_softmax, q, k, v, scale,
+                block_q, block_k)
+
+
+def flash_attention_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                             block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+    """Lab: softmax attention over (B, N, H, D) in two passes over the keys,
+    the exact row maximum, then exp(s - m), its sum and P.V with no
+    rescaling (the full-K kernels of `attn_variants.py`, `attn_lab2.py`
+    and `attn_lab3.py`; K9's structure in bf16)."""
+    return _lab(flash_attention_two_pass, "two_pass", _torch_attention, q, k, v, scale, block_q,
+                block_k)
+
+
+flash_attention_tiled.launches = attention_no_softmax.launches = 0
+flash_attention_two_pass.launches = 0
+
+
 def _quant_k_per_head(k: torch.Tensor, num_heads: int):
     """Packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32 scales (B, H)):
     one scale per (batch, head), max(amax / 127, 1e-8), codes round(k / s)
@@ -116,25 +187,42 @@ def _quant_k_per_head(k: torch.Tensor, num_heads: int):
     return codes.view(b, nk, hd), skh
 
 
-def _torch_int8_attention(q, k, v, num_heads: int, scale: float):
+def _quant_k_per_row(k: torch.Tensor, num_heads: int):
+    """Packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32 scales (B, H,
+    N)): one scale per (batch, key row, head), as `attn_int8_lab.py:72-76`
+    computes it outside the kernel."""
+    b, nk, hd = k.shape
+    kf = k.float().view(b, nk, num_heads, hd // num_heads)
+    skr = torch.clamp_min(kf.abs().amax(dim=-1) / 127.0, 1e-8)  # (B, N, H)
+    codes = torch.clamp(torch.round(kf / skr[..., None]), -127, 127).to(torch.int8)
+    return codes.view(b, nk, hd), skr.permute(0, 2, 1)
+
+
+def _torch_int8_attention(q, k, v, num_heads: int, scale: float, row_k: bool = False):
     """Plain K9 over packed (B, N, H*D) tensors, the TPU kernel's math:
     K per (batch, head) and Q per row and head to int8; logits
     f32(q_i8 . k_i8) * (sq * (skh * scale)); fp32 softmax as exp(s - max)
     over its sum; P cast to v's dtype, P.V summed in fp32, divided by the
     sum; output in q's dtype. The integer products are exact in fp32 (|sum|
-    < 2^24 for D < 1040, also under TF32: the codes have 8 bits)."""
+    < 2^24 for D < 1040, also under TF32: the codes have 8 bits). With
+    `row_k` (the lab's v2) K has one scale per key row, the logits are
+    f32(q_i8 . k_i8) * (sq * sk) * scale, and P is cast to bf16 whatever
+    v's dtype, as the lab's kernel casts it (`attn_int8_lab.py:62`)."""
     b, nq, hd = q.shape
     d = hd // num_heads
-    kc, skh = _quant_k_per_head(k, num_heads)
+    kc, sk = (_quant_k_per_row if row_k else _quant_k_per_head)(k, num_heads)
     qf = q.float().view(b, nq, num_heads, d)
     sq = torch.clamp_min(qf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)  # (B, Nq, H, 1)
     qc = torch.clamp(torch.round(qf / sq), -127, 127)
     heads = lambda t: t.view(b, -1, num_heads, d).permute(0, 2, 1, 3)  # (B, H, N, D)
     s32 = torch.matmul(heads(qc), heads(kc.float()).transpose(-1, -2))  # (B, H, Nq, Nk)
-    logits = s32 * (sq.permute(0, 2, 1, 3) * (skh[:, :, None, None] * scale))
+    if row_k:
+        logits = s32 * (sq.permute(0, 2, 1, 3) * sk[:, :, None, :]) * scale
+    else:
+        logits = s32 * (sq.permute(0, 2, 1, 3) * (sk[:, :, None, None] * scale))
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), heads(v).float()) / l
+    o = torch.matmul(p.to(torch.bfloat16 if row_k else v.dtype).float(), heads(v).float()) / l
     return o.permute(0, 2, 1, 3).reshape(b, nq, hd).to(q.dtype)
 
 
@@ -145,11 +233,29 @@ def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     (batch, head), folded into the softmax scale; Q per row inside the
     kernel; fp32 softmax; P.V in bf16 with fp32 sums. The kernel on CUDA,
     the plain version on the CPU."""
+    return _int8_attention(flash_attention_packed_int8, False, q, k, v, num_heads, scale)
+
+
+flash_attention_packed_int8.launches = 0
+
+
+def flash_attention_packed_int8_rowk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     num_heads: int,
+                                     scale: Optional[float] = None) -> torch.Tensor:
+    """Lab: K9 with one K scale per (batch, key row, head), the logits
+    f32(s32) * (sq * sk) * scale (`attn_int8_lab.py::_kernel_v2`)."""
+    return _int8_attention(flash_attention_packed_int8_rowk, True, q, k, v, num_heads, scale)
+
+
+flash_attention_packed_int8_rowk.launches = 0
+
+
+def _int8_attention(wrapper, row_k, q, k, v, num_heads, scale):
     d = q.shape[-1] // num_heads
     if scale is None:
         scale = d ** -0.5
     if not use_kernel(q):
-        return _torch_int8_attention(q, k, v, num_heads, float(scale))
+        return _torch_int8_attention(q, k, v, num_heads, float(scale), row_k)
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     b, nq, hd = q.shape
@@ -166,16 +272,14 @@ def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
             raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
         if t.stride(-1) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
             raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {t.stride()}")
-    kc, skh = _quant_k_per_head(k, num_heads)
+    kc, sk = (_quant_k_per_row if row_k else _quant_k_per_head)(k, num_heads)
+    sk = sk.contiguous()
     out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().int8_attention_fwd(
-            q.data_ptr(), kc.data_ptr(), skh.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), kc.data_ptr(), sk.data_ptr(), row_k, v.data_ptr(), out.data_ptr(),
             b, num_heads, nq, nk, d, q.stride(0), q.stride(1), kc.stride(0), kc.stride(1),
             v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale),
             torch.cuda.current_stream().cuda_stream)
-    flash_attention_packed_int8.launches += 1
+    wrapper.launches += 1
     return out
-
-
-flash_attention_packed_int8.launches = 0

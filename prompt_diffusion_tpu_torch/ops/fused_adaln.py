@@ -1,23 +1,28 @@
-"""AdaLN -> int8 kernel K13, in Triton, and its plain version.
+"""AdaLN kernel K12 with its gradient and AdaLN -> int8 kernel K13, in
+Triton, and their plain version.
 
-Replaces `prompt_diffusion_tpu/ops/fused_adaln.py::fused_adaln_quant`
-(`_adaln_quant_kernel`): the four modulation sites of every SD3 JointBlock
-in the int8 serving mode (norm1 / norm2 of the image and the context
-stream, and norm1_context of the last block), LayerNorm without affine
-(eps 1e-6) in fp32, then x * (1 + scale[b]) + shift[b] with per-sample
-modulation vectors, then int8 codes with one fp32 scale per row, which the
-q/k/v and `ff_in` `QuantDense`s take as a pair.
+Replaces `prompt_diffusion_tpu/ops/fused_adaln.py`:
+  * K13 `fused_adaln_quant` (`_adaln_quant_kernel`): the four modulation
+    sites of every SD3 JointBlock in the int8 serving mode (norm1 / norm2
+    of the image and the context stream, and norm1_context of the last
+    block), LayerNorm without affine (eps 1e-6) in fp32, then
+    x * (1 + scale[b]) + shift[b] with per-sample modulation vectors, then
+    int8 codes with one fp32 scale per row, which the q/k/v and `ff_in`
+    `QuantDense`s take as a pair;
+  * K12 `fused_adaln` (`_adaln_kernel`): the same without the int8
+    epilogue, in x's dtype, with a gradient. No model calls it, as none
+    does in the JAX package (its bf16 MMDiT uses LayerNorm plus modulation).
+    The gradient recomputes through autograd of the plain version, as the
+    JAX `custom_vjp` recomputes through `_jnp_adaln`.
 
-What bounds it: memory traffic (one read of the bf16 activation, one int8
-write). One program holds a block of whole rows in registers (C = 1536 on
-the SD3 path), takes the row's sample index as row // N to read the
-modulation vectors, and masks the row tail; the TPU kernel's pad of the
-row count to 8 is a tiling rule with no counterpart here. The JAX CPU path
-quantizes the fp32 value like the TPU kernel (`fused_adaln.py:144-146`),
-and so do this kernel and its plain version.
-
-K12 (`fused_adaln`, the same without the int8 epilogue) is called by no
-model and is not ported yet.
+What bounds them: memory traffic (one read of the activation, one write of
+the bf16 or int8 result). One Triton program (`adaln_kernel`, with a QUANT
+switch as K10 and K11 share one) holds a block of whole rows in registers
+(C = 1536 on the SD3 path), takes the row's sample index as row // N to
+read the modulation vectors, and masks the row tail; the TPU kernels' pad
+of the row count to 8 is a tiling rule with no counterpart here. The JAX
+CPU path quantizes the fp32 value like the TPU kernel
+(`fused_adaln.py:144-146`), and so do this kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -38,35 +43,87 @@ def _torch_adaln(x, scale, shift, eps: float):
     return h * (1.0 + scale.float()) + shift.float()
 
 
-def fused_adaln_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-                      eps: float = 1e-6):
-    """K13: x (B, N, C), scale and shift (B, 1, C) or (B, C) -> (int8 (B, N,
-    C), fp32 row scales (B, N, 1)); the kernel on CUDA, the plain version on
-    the CPU."""
+def _prep(name, x, scale, shift):
+    """x (B, N, C); scale and shift as (B, 1, C) views."""
     if x.ndim != 3:
-        raise ValueError(f"fused_adaln_quant expects (B, N, C), got {tuple(x.shape)}")
+        raise ValueError(f"{name} expects (B, N, C), got {tuple(x.shape)}")
     b, n, c = x.shape
-    scale, shift = scale.reshape(b, 1, c), shift.reshape(b, 1, c)
-    if not use_kernel(x):
-        return rowquant(_torch_adaln(x, scale, shift, eps))
+    return b, n, c, scale.reshape(b, 1, c), shift.reshape(b, 1, c)
+
+
+def _launch(x, scale, shift, eps, quant):
+    """Run `adaln_kernel` on (B, N, C) x: (int8 codes, (B, N, 1) fp32 row
+    scales) with `quant`, else the result in x's dtype."""
     import triton
 
     from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
 
     if not x.dtype.is_floating_point:
-        raise ValueError(f"fused_adaln_quant takes a float tensor, got {x.dtype}")
+        raise ValueError(f"AdaLN takes a float tensor, got {x.dtype}")
+    b, n, c = x.shape
     x2 = x.contiguous().view(b * n, c)
     sc = scale.float().contiguous()
     sh = shift.float().contiguous()
     block_c = triton.next_power_of_2(c)
     block_r = max(1, _TILE // block_c)
-    q = torch.empty((b, n, c), dtype=torch.int8, device=x.device)
-    s_a = torch.empty((b, n, 1), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, n, c), dtype=torch.int8 if quant else x.dtype, device=x.device)
+    s_a = torch.empty((b, n, 1), dtype=torch.float32, device=x.device) if quant else out
     with torch.cuda.device(x.device):
-        tq.adaln_quant_kernel[(triton.cdiv(b * n, block_r),)](
-            x2, sc, sh, q, s_a, b * n, n, c, float(eps), BLOCK_R=block_r, BLOCK_C=block_c)
+        tq.adaln_kernel[(triton.cdiv(b * n, block_r),)](
+            x2, sc, sh, out, s_a, b * n, n, c, float(eps), BLOCK_R=block_r, BLOCK_C=block_c,
+            QUANT=quant)
+    return (out, s_a) if quant else out
+
+
+class _AdaLN(torch.autograd.Function):
+    """K12 forward on the card; the backward recomputes through autograd of
+    the plain version (the JAX `_bwd`), with x and the (B, 1, C) scale and
+    shift saved."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale, shift)
+        out = _launch(x, scale, shift, eps, quant=False)
+        fused_adaln.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, shift = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_() for t in (x, scale, shift)]
+            out = _torch_adaln(*inputs, ctx.eps).to(x.dtype)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*grads, None)
+
+
+def fused_adaln(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """K12: x (B, N, C), scale and shift (B, 1, C) or (B, C) -> LayerNorm
+    without affine, then x * (1 + scale[b]) + shift[b], in x's dtype;
+    differentiable in x, scale and shift (gradients in their input shapes).
+    The kernel on CUDA, the plain version on the CPU."""
+    b, n, c, s3, t3 = _prep("fused_adaln", x, scale, shift)
+    if not use_kernel(x):
+        return _torch_adaln(x, s3, t3, eps).to(x.dtype)
+    return _AdaLN.apply(x, s3, t3, eps)
+
+
+fused_adaln.launches = 0
+
+
+def fused_adaln_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                      eps: float = 1e-6):
+    """K13: x (B, N, C), scale and shift (B, 1, C) or (B, C) -> (int8 (B, N,
+    C), fp32 row scales (B, N, 1)); the kernel on CUDA, the plain version on
+    the CPU."""
+    b, n, c, s3, t3 = _prep("fused_adaln_quant", x, scale, shift)
+    if not use_kernel(x):
+        return rowquant(_torch_adaln(x, s3, t3, eps))
+    out = _launch(x, s3, t3, eps, quant=True)
     fused_adaln_quant.launches += 1
-    return q, s_a
+    return out
 
 
 fused_adaln_quant.launches = 0

@@ -1,11 +1,20 @@
-"""int8 3x3 convolution kernel K8, its plain version, and the int8 GEMM
-helper of the W8A8 serving mode.
+"""int8 3x3 convolution kernel K8 in its two variants, their plain
+versions, and the int8 GEMM helper of the W8A8 serving mode.
 
-Replaces `prompt_diffusion_tpu/ops/int8_conv.py::conv3x3_int8`
-(`_conv_kernel`): a SAME 3x3 stride-1 int8 convolution with int32
-accumulation and the dequant epilogue fma(acc, s_a[b] * s_w[oc], bias). The
-kernel is CUDA C++ (`csrc/int8_conv.cu`, whose header says what bounds it
-and how it is laid out); it equals the plain version bit for bit.
+Replaces `prompt_diffusion_tpu/ops/int8_conv.py::conv3x3_int8`: a SAME 3x3
+stride-1 int8 convolution with int32 accumulation and the dequant epilogue
+fma(acc, s_a[b] * s_w[oc], bias), in the JAX package's two variants:
+  * "im2col" (`_conv_kernel`, the default): here an implicit GEMM that
+    gathers each 32-wide slice of the im2col rows from device memory
+    inside the kernel (no im2col is materialised, unlike the TPU path);
+  * "xshift" (`_conv_kernel_xshift`): the block stages the raw halo'd
+    input rows once in shared memory and runs the nine taps as shifted
+    products (`conv3x3_int8_xshift`).
+Both kernels are CUDA C++ (`csrc/int8_conv.cu`, whose header says what
+bounds each and how it is laid out); each equals its plain version, and
+the two variants each other, bit for bit. The JAX package picks the
+variant from an environment variable at import; the port takes it as an
+argument (`QuantConv.conv_variant`, `PromptDiffusionSD15.create`).
 
 Layouts: activations NHWC (an NCHW channels_last tensor permuted, a free
 view), weights (Cout, 3, 3, Cin), the order of a channels_last OIHW conv
@@ -57,37 +66,66 @@ def im2col3x3(xq: torch.Tensor, stride: int) -> torch.Tensor:
     return torch.cat(cols, dim=-1).reshape(b * ho * wo, 9 * c)
 
 
-def _torch_conv3x3_int8(xq, s_a, wq, s_w, bias, out_dtype):
-    """Plain K8: int8 im2col, the int8 GEMM, then the fp32 epilogue with
-    s_a * s_w formed first (`quant.py`'s dequant order) and
-    f32(acc) * scale + bias rounded once, as one fused multiply-add: the
-    JAX package's kernel and XLA path contract it so on the CPU. The fp32
-    product is exact in fp64, so the fp64 sum rounded to fp32 is that FMA
-    unless the fp64 sum falls exactly on an fp32 rounding tie (a chance of
-    about 2^-29 per element)."""
-    b, h, w, cin = xq.shape
-    cout = wq.shape[0]
-    acc = int8_matmul(im2col3x3(xq, 1), wq.reshape(cout, 9 * cin)).view(b, h * w, cout)
-    scale = s_a.view(b, 1, 1) * s_w.view(1, 1, cout)
+def _epilogue(acc, s_a, s_w, bias, out_dtype):
+    """(B, H, W, Cout) int32 -> out_dtype: the fp32 epilogue with s_a * s_w
+    formed first (`quant.py`'s dequant order) and f32(acc) * scale + bias
+    rounded once, as one fused multiply-add: the JAX package's kernel and
+    XLA path contract it so on the CPU. The fp32 product is exact in fp64,
+    so the fp64 sum rounded to fp32 is that FMA unless the fp64 sum falls
+    exactly on an fp32 rounding tie (a chance of about 2^-29 per
+    element)."""
+    scale = s_a.view(-1, 1, 1, 1) * s_w.view(1, 1, 1, -1)
     if bias is None:
         out = acc.float() * scale
     else:
         out = (acc.float().double() * scale.double() + bias.double()).float()
-    return out.to(out_dtype).view(b, h, w, cout)
+    return out.to(out_dtype)
+
+
+def _torch_conv3x3_int8(xq, s_a, wq, s_w, bias, out_dtype):
+    """Plain K8, im2col: int8 im2col, one int8 GEMM, the epilogue."""
+    b, h, w, cin = xq.shape
+    cout = wq.shape[0]
+    acc = int8_matmul(im2col3x3(xq, 1), wq.reshape(cout, 9 * cin)).view(b, h, w, cout)
+    return _epilogue(acc, s_a, s_w, bias, out_dtype)
+
+
+def _torch_conv3x3_int8_xshift(xq, s_a, wq, s_w, bias, out_dtype):
+    """Plain K8, xshift (`_conv_kernel_xshift`'s data flow): the raw rows
+    padded by one pixel; per tap an int8 GEMM over the whole padded rows,
+    whose x-shifted slice is added to the int32 sum; the epilogue."""
+    b, h, w, cin = xq.shape
+    cout = wq.shape[0]
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((b, h, w, cout), dtype=torch.int32, device=xq.device)
+    for dy in range(3):
+        rows = xp[:, dy:dy + h].reshape(-1, cin)
+        for dx in range(3):
+            tap = int8_matmul(rows, wq[:, dy, dx].contiguous()).view(b, h, w + 2, cout)
+            acc += tap[:, :, dx:dx + w]
+    return _epilogue(acc, s_a, s_w, bias, out_dtype)
+
+
+VARIANTS = ("im2col", "xshift")
 
 
 def conv3x3_int8(xq: torch.Tensor, s_a: torch.Tensor, wq: torch.Tensor, s_w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None,
-                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                 out_dtype: torch.dtype = torch.bfloat16, variant: str = "im2col") -> torch.Tensor:
     """K8: SAME 3x3 stride-1 int8 convolution with the fused dequant epilogue.
 
     xq (B, H, W, Cin) int8, s_a (B,) fp32, wq (Cout, 3, 3, Cin) int8,
     s_w (Cout,) fp32, bias (Cout,) fp32 or None -> (B, H, W, Cout) in
-    `out_dtype` (bf16 or fp32). The kernel on CUDA, the plain version on
-    the CPU."""
+    `out_dtype` (bf16 or fp32). `variant` "im2col" (the in-kernel gather)
+    or "xshift" (`conv3x3_int8_xshift`); both give the same bits. The
+    kernel on CUDA, the plain version on the CPU."""
+    if variant == "xshift":
+        return conv3x3_int8_xshift(xq, s_a, wq, s_w, bias, out_dtype)
+    if variant != "im2col":
+        raise ValueError(f"unknown conv3x3_int8 variant {variant!r}; one of {VARIANTS}")
     if not use_kernel(xq):
         return _torch_conv3x3_int8(xq, s_a, wq, s_w, bias, out_dtype)
-    out = _launch(xq, s_a, wq, s_w, bias, out_dtype)
+    out = _launch(xq, s_a, wq, s_w, bias, out_dtype, xshift=False)
     conv3x3_int8.launches += 1
     return out
 
@@ -95,7 +133,23 @@ def conv3x3_int8(xq: torch.Tensor, s_a: torch.Tensor, wq: torch.Tensor, s_w: tor
 conv3x3_int8.launches = 0
 
 
-def _launch(xq, s_a, wq, s_w, bias, out_dtype):
+def conv3x3_int8_xshift(xq: torch.Tensor, s_a: torch.Tensor, wq: torch.Tensor,
+                        s_w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                        out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K8's xshift variant: the same function and arguments as
+    `conv3x3_int8`, computed from the raw halo'd rows staged once in shared
+    memory, the nine taps as shifted products."""
+    if not use_kernel(xq):
+        return _torch_conv3x3_int8_xshift(xq, s_a, wq, s_w, bias, out_dtype)
+    out = _launch(xq, s_a, wq, s_w, bias, out_dtype, xshift=True)
+    conv3x3_int8_xshift.launches += 1
+    return out
+
+
+conv3x3_int8_xshift.launches = 0
+
+
+def _launch(xq, s_a, wq, s_w, bias, out_dtype, xshift):
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     if xq.ndim != 4 or wq.ndim != 4:
@@ -125,6 +179,6 @@ def _launch(xq, s_a, wq, s_w, bias, out_dtype):
         cuda_ext().conv3x3_int8(
             xq.data_ptr(), wq.data_ptr(), s_a.data_ptr(), s_w.data_ptr(),
             bias.data_ptr() if bias is not None else 0, out.data_ptr(),
-            b, h, w, cin, cout, out_dtype == torch.bfloat16, vec,
+            b, h, w, cin, cout, out_dtype == torch.bfloat16, vec, xshift,
             torch.cuda.current_stream().cuda_stream)
     return out

@@ -25,7 +25,7 @@ from typing import Tuple, Union
 import torch
 from torch import nn
 
-from prompt_diffusion_tpu_torch.ops.int8_conv import conv3x3_int8, im2col3x3, int8_matmul
+from prompt_diffusion_tpu_torch.ops.int8_conv import VARIANTS, conv3x3_int8, im2col3x3, int8_matmul
 
 _EPS = 1e-8
 
@@ -106,18 +106,22 @@ class QuantConv(_QuantizedWeight, nn.Conv2d):
     bias). Takes NCHW activations (channels_last memory), returns NCHW in
     channels_last memory. Serves the 1x1 conv (the int8 GEMM over pixels),
     the 3x3 stride-1 conv (K8) and the 3x3 stride-2 conv (int8 im2col +
-    the GEMM), each with padding 1 for 3x3, as the SD1.5 models use them."""
+    the GEMM), each with padding 1 for 3x3, as the SD1.5 models use them.
+    `conv_variant` picks K8's variant for the 3x3 stride-1 conv ("im2col"
+    or "xshift"; the same bits)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 out_dtype: torch.dtype = torch.bfloat16):
+                 out_dtype: torch.dtype = torch.bfloat16, conv_variant: str = "im2col"):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=padding, bias=bias, dtype=torch.float32)
         form = (self.kernel_size, self.stride, self.padding)
         if form not in (((1, 1), (1, 1), (0, 0)), ((3, 3), (1, 1), (1, 1)),
                         ((3, 3), (2, 2), (1, 1))):
             raise ValueError(f"QuantConv has no int8 path for kernel/stride/padding {form}")
-        self.out_dtype = out_dtype
+        if conv_variant not in VARIANTS:
+            raise ValueError(f"unknown conv_variant {conv_variant!r}; one of {VARIANTS}")
+        self.out_dtype, self.conv_variant = out_dtype, conv_variant
 
     def _quantize(self):
         # (Cout, kh, kw, Cin): the order of the NHWC im2col columns
@@ -139,7 +143,8 @@ class QuantConv(_QuantizedWeight, nn.Conv2d):
             acc = int8_matmul(xh.reshape(-1, cin), wq.view(cout, cin)).view(b, h, w, cout)
         elif self.stride == (1, 1):
             s_vec = s_a.reshape(-1).expand(b).contiguous()
-            y = conv3x3_int8(xh.contiguous(), s_vec, wq, s_w, self.bias, self.out_dtype)
+            y = conv3x3_int8(xh.contiguous(), s_vec, wq, s_w, self.bias, self.out_dtype,
+                             self.conv_variant)
             return y.permute(0, 3, 1, 2)
         else:
             ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1

@@ -25,6 +25,8 @@ from prompt_diffusion_tpu_torch.models.clip_text import CLIPTextModel
 from prompt_diffusion_tpu_torch.models.controlnet_sd15 import ControlNetSD15
 from prompt_diffusion_tpu_torch.models.unet_sd15 import UNetSD15
 from prompt_diffusion_tpu_torch.models.vae import AutoencoderKL
+from prompt_diffusion_tpu_torch.ops.int8_conv import VARIANTS
+from prompt_diffusion_tpu_torch.ops.quant import QuantConv
 from prompt_diffusion_tpu_torch.schedulers.ddim import DDIMTables, ddim_sample_loop
 from prompt_diffusion_tpu_torch.schedulers.schedules import DiffusionSchedule
 from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy, int8_policy
@@ -46,7 +48,8 @@ class PromptDiffusionSD15:
     @classmethod
     def create(cls, unet=None, controlnet=None, vae=None, text_encoder=None,
                schedule=None, policy: Optional[DTypePolicy] = None,
-               vae_int8: bool = False, device: torch.device | str = "cuda"):
+               vae_int8: bool = False, device: torch.device | str = "cuda",
+               conv_variant: str = "im2col"):
         """Builds the default SD1.5 models (or takes the given ones) on
         `device` (the card unless the caller asks for the CPU), in eval
         mode, with 4-D weights in channels_last memory.
@@ -54,7 +57,12 @@ class PromptDiffusionSD15:
         for the quantized serving mode); the VAE and CLIP keep their
         defaults, except that `vae_int8=True` builds the VAE under
         `int8_policy()` (its interior convs quantize; the decode runs once
-        per request)."""
+        per request). `conv_variant` ("im2col" or "xshift") sets the int8
+        3x3 conv kernel's variant on every `QuantConv` of the models,
+        built or given; both give the same bits (the JAX package's
+        `PD_INT8_CONV_XSHIFT`)."""
+        if conv_variant not in VARIANTS:
+            raise ValueError(f"unknown conv_variant {conv_variant!r}; one of {VARIANTS}")
         with torch.device(device):
             if policy is not None:
                 unet = unet or UNetSD15(policy=policy)
@@ -69,6 +77,9 @@ class PromptDiffusionSD15:
             )
         for m in models.values():
             m.to(device=device, memory_format=torch.channels_last).eval().requires_grad_(False)
+            for mod in m.modules():
+                if isinstance(mod, QuantConv):
+                    mod.conv_variant = conv_variant
         return cls(**models, schedule=schedule or DiffusionSchedule.create())
 
     @property

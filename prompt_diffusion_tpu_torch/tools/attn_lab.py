@@ -1,0 +1,258 @@
+"""The attention labs on the card: the four JAX labs of `tools/` in one
+module, a section and a `--lab` name each.
+
+    python3 -m prompt_diffusion_tpu_torch.tools.attn_lab [--lab variants|lab2|lab3|int8] [--iters N]
+
+  variants  tools/attn_variants.py: online softmax across query and key
+            tiles, the no-softmax pass, the full-K kernels (BHND and
+            packed) as the two-pass mode; SD1.5 64² self-attention,
+            B=8, N=4096, H=8, D=40.
+  lab2      tools/attn_lab2.py: the packed full-K kernel with the scale in
+            the kernel, with q pre-scaled in bf16 (scale 1), across query
+            tiles, and with the heads as a batch dimension.
+  lab3      tools/attn_lab3.py: heads zero-padded to D' = 64 and 128; the
+            first 40 columns are held against the D = 40 plain version.
+  int8      tools/attn_int8_lab.py at the SD3 joint shape (2, 4250, 24, 64),
+            q = k = v as the lab runs it: v1 and v3 are K9, v2 is K9 with
+            per-row K scales, beside K1 in bf16; scheme error against
+            exact attention at N = 1178.
+
+Every variant prints the kernel's median time over CUDA events (not the
+JAX labs' scan method), its TFLOP/s over 4·B·H·N²·D (the labs' count), the
+time of `scaled_dot_product_attention` on the same inputs for the softmax
+variants, the least time the card could take (`tools/timing.py::roofline`)
+and the max abs error against the plain version evaluated in fp32 on the
+same bf16 inputs. It needs one CUDA card; without one it exits 2.
+
+The TPU kernels' knobs and what stands for them here:
+  * block_q 128-2048 -> BQ 64 or 128 query rows per block: a block's
+    shared memory (227 KB) and registers hold far fewer rows than VMEM;
+  * block_k -> BK 32, 64 or 128 keys per tile; the full-K kernels' whole
+    logits row -> the two-pass mode;
+  * dimension_semantics ("parallel") -> none: every grid axis of a CUDA
+    launch runs in parallel over the 132 SMs;
+  * vmem_limit_bytes -> the dynamic shared memory the launch asks for;
+  * the row pad to 256 -> masked query and key tails in the kernel;
+  * heads as an MXU batch dimension -> the kernel's (batch, head) grid.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+import torch.nn.functional as F
+
+from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+from prompt_diffusion_tpu_torch.ops.flash_attention import (
+    LAB_TILES,
+    attention_no_softmax,
+    flash_attention_packed,
+    flash_attention_packed_int8,
+    flash_attention_packed_int8_rowk,
+    flash_attention_tiled,
+    flash_attention_two_pass,
+)
+from prompt_diffusion_tpu_torch.tools.timing import card, roofline, time_ms
+
+LABS = ("variants", "lab2", "lab3", "int8")
+B, N, H, D = 8, 4096, 8, 40  # the bf16 labs: SD1.5 64² self-attention, CFG batch 8
+INT8_B, INT8_N, INT8_H, INT8_D = 2, 4096 + 154, 24, 64  # SD3 joint attention
+INT8_CHECK_N = 1024 + 154  # attn_int8_lab.py's correctness length
+
+
+def _fp32(args):
+    return tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+                 for a in args)
+
+
+def measure(name, fn, args, work, iters, library=None, reference=None):
+    """One variant: kernel ms, TFLOP/s over `work` (bytes, int8 ops, bf16
+    ops, lab FLOPs), library ms, bound and max abs error against the plain
+    version of `fn` in fp32 on the same inputs, or against `reference()`
+    (run under `plain_ops`) over its columns."""
+    nbytes, int8_ops, bf16_ops, flops = work
+    out = fn(*args)
+    with plain_ops():
+        ref = fn(*_fp32(args)) if reference is None else reference()
+    out = out[..., :ref.shape[-1]]
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.abs().max().item()
+    del out, ref
+    ms = time_ms(lambda: fn(*args), iters=iters)
+    lib_ms = None if library is None else time_ms(library, iters=iters)
+    bound_ms, bound_by = roofline(nbytes, int8_ops, bf16_ops)
+    row = {"variant": name, "ms": ms, "tflops": flops / ms / 1e9, "sdpa_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+           "err_over_max": rel}
+    lib = "" if lib_ms is None else f" sdpa_ms={lib_ms:.4f}"
+    print(f"[attn_lab] {name:40s} ms={ms:.4f} TFLOP/s={row['tflops']:.1f}{lib} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
+          f"(/max {rel:.3g})", flush=True)
+    return row
+
+
+def _inputs(gen, shape, n=3, scale=1.0):
+    return [(torch.randn(shape, generator=gen, device=gen.device) * scale).to(torch.bfloat16)
+            for _ in range(n)]
+
+
+def _bf16_work(b, n, h, d):
+    flops = 4 * b * h * n * n * d
+    return 8 * b * n * h * d, 0, flops, flops
+
+
+# ---- tools/attn_variants.py ------------------------------------------------
+
+
+def lab_variants(gen, iters):
+    """BHND inputs (B, H, N, D), read by the kernels as (B, N, H, D) views,
+    then the packed full-K kernel (`--packed` in the JAX lab)."""
+    scale = D ** -0.5
+    q, k, v = _inputs(gen, (B, H, N, D))
+    bnhd = [t.transpose(1, 2) for t in (q, k, v)]
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
+    work = _bf16_work(B, N, H, D)
+    rows = []
+    for bq, bk in LAB_TILES:
+        rows.append(measure(f"online bq{bq} bk{bk}",
+                            lambda q, k, v, bq=bq, bk=bk: flash_attention_tiled(q, k, v, scale,
+                                                                                 bq, bk),
+                            bnhd, work, iters, sdpa))
+    for bq in (64, 128):
+        rows.append(measure(f"online-nosoftmax bq{bq} bk64",
+                            lambda q, k, v, bq=bq: attention_no_softmax(q, k, v, scale, bq, 64),
+                            bnhd, work, iters))
+    for bq, bk in ((64, 64), (128, 64), (64, 128)):
+        rows.append(measure(f"fullk (two-pass) bq{bq} bk{bk}",
+                            lambda q, k, v, bq=bq, bk=bk: flash_attention_two_pass(
+                                q, k, v, scale, bq, bk),
+                            bnhd, work, iters, sdpa))
+    packed = [t.transpose(1, 2).reshape(B, N, H * D) for t in (q, k, v)]
+    heads = lambda t: t.view(B, N, H, D)
+    for bq in (64, 128):
+        rows.append(measure(f"fullk_packed (two-pass) bq{bq}",
+                            lambda q, k, v, bq=bq: flash_attention_two_pass(
+                                heads(q), heads(k), heads(v), scale, bq, 64),
+                            packed, work, iters, sdpa))
+    rows.append(measure("current packed (K1)",
+                        lambda q, k, v: flash_attention_packed(q, k, v, H, scale),
+                        packed, work, iters, sdpa))
+    return rows
+
+
+# ---- tools/attn_lab2.py ----------------------------------------------------
+
+
+def lab_lab2(gen, iters):
+    """A: scale in the kernel; B, C: q pre-scaled in bf16 outside, the
+    kernel at scale 1, at both query tiles; D: heads as a batch dimension,
+    which on the card is the kernel's (batch, head) grid, so D is B's
+    launch."""
+    scale = D ** -0.5
+    q, k, v = _inputs(gen, (B, N, H * D))
+    q_scaled = q * torch.tensor(scale, dtype=torch.bfloat16, device=q.device)
+    heads = lambda t: t.view(B, N, H, D)
+    sdpa = lambda q_, s_: (lambda: F.scaled_dot_product_attention(
+        *(heads(t).transpose(1, 2) for t in (q_, k, v)), scale=s_))
+    work = _bf16_work(B, N, H, D)
+    two_pass = lambda s_, bq: (lambda q_, k_, v_: flash_attention_two_pass(
+        heads(q_), heads(k_), heads(v_), s_, bq, 64))
+    runs = (("A  packed fullk bq64 (scale in kernel)", q, scale, 64),
+            ("B  prescaled-q bq64", q_scaled, 1.0, 64),
+            ("C  prescaled-q bq128", q_scaled, 1.0, 128),
+            ("D  batched-heads bq64 (= B's grid)", q_scaled, 1.0, 64),
+            ("D2 batched-heads bq128 (= C's grid)", q_scaled, 1.0, 128))
+    return [measure(name, two_pass(s_, bq), (q_, k, v), work, iters, sdpa(q_, s_))
+            for name, q_, s_, bq in runs]
+
+
+# ---- tools/attn_lab3.py ----------------------------------------------------
+
+
+def lab_lab3(gen, iters):
+    """Heads zero-padded from D = 40 to D' = 64 or 128, q pre-scaled by
+    40^-0.5, the kernel at scale 1; the first 40 columns of each head
+    against the plain version of the unpadded problem (the padding adds
+    nothing to the logits and only zero output columns)."""
+    q, k, v = _inputs(gen, (B, N, H, D))
+    q = q * torch.tensor(D ** -0.5, dtype=torch.bfloat16, device=q.device)
+    rows = []
+    for dp in (64, 128):
+        padded = [F.pad(t, (0, dp - D)) for t in (q, k, v)]
+        sdpa = lambda p=padded: F.scaled_dot_product_attention(
+            *(t.transpose(1, 2) for t in p), scale=1.0)
+        for bq in (64, 128):
+            rows.append(measure(
+                f"P{dp} (two-pass) bq{bq}",
+                lambda q_, k_, v_, bq=bq: flash_attention_two_pass(q_, k_, v_, 1.0, bq, 64),
+                padded, (8 * B * N * H * dp, 0, 4 * B * H * N * N * dp, 4 * B * H * N * N * D),
+                iters, sdpa, reference=lambda: flash_attention_two_pass(*_fp32((q, k, v)), 1.0)))
+    return rows
+
+
+# ---- tools/attn_int8_lab.py ------------------------------------------------
+
+
+def lab_int8(gen, iters):
+    """v1 (the shipped kernel) and v3 (per-head K scales) are K9; v2 is
+    K9 with per-row K scales; the bf16 baseline is K1. First the scheme
+    error of v2 and v3 against exact attention at N = 1178."""
+    b, n, h, d = INT8_B, INT8_N, INT8_H, INT8_D
+    scale = d ** -0.5
+    xs = _inputs(gen, (b, INT8_CHECK_N, h * d), n=1, scale=0.5)[0]
+    with plain_ops():
+        exact = flash_attention_packed(*_fp32((xs, xs, xs)), h, scale)
+    for name, fn in (("v2 int8-QK/bf16-PV", flash_attention_packed_int8_rowk),
+                     ("v3 +per-head K scale", flash_attention_packed_int8)):
+        out = fn(xs, xs, xs, h, scale).float()
+        rel = ((out - exact).norm() / exact.norm()).item()
+        print(f"[attn_lab] {name}: rel l2 vs exact = {rel:.4f} at N={INT8_CHECK_N}", flush=True)
+    x = _inputs(gen, (b, n, h * d), n=1, scale=0.5)[0]
+    heads = lambda t: t.view(b, n, h, d).transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(heads(x), heads(x), heads(x), scale=scale)
+    ops = 2 * b * n * n * h * d
+    int8_work = (8 * b * n * h * d, ops, ops, 2 * ops)
+    runs = (("v1 shipped int8 (K9)", flash_attention_packed_int8, int8_work),
+            ("v2 int8-QK/bf16-PV (per-row K)", flash_attention_packed_int8_rowk, int8_work),
+            ("v3 +per-head K scale (K9)", flash_attention_packed_int8, int8_work),
+            ("bf16 packed (K1, baseline)", flash_attention_packed, _bf16_work(b, n, h, d)))
+    return [measure(name, lambda q, k, v, fn=fn: fn(q, k, v, h, scale), (x, x, x), work, iters,
+                    sdpa) for name, fn, work in runs]
+
+
+RUNS = {"variants": lab_variants, "lab2": lab_lab2, "lab3": lab_lab3, "int8": lab_int8}
+
+
+def run(labs=LABS, iters=10, seed=0, device="cuda"):
+    """Runs the named labs on `device` (the card); returns {lab: [row, ...]}."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    results = {}
+    for lab in labs:
+        print(f"[attn_lab] --- {lab} ---", flush=True)
+        results[lab] = RUNS[lab](gen, iters)
+        torch.cuda.empty_cache()
+    return results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lab", choices=LABS, action="append",
+                    help="a lab to run (repeatable; all when not given)")
+    ap.add_argument("--iters", type=int, default=10)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("attn_lab: no CUDA device", file=sys.stderr)
+        return 2
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    cuda_ext()
+    print(f"[attn_lab] {card()} | torch {torch.__version__} cuda {torch.version.cuda}",
+          flush=True)
+    run(args.lab or LABS, args.iters)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,18 +1,21 @@
 """Where the time of one SD1.5 request goes on the card.
 
-    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 [--int8]
+    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 [--int8 [--conv-variant xshift]]
 
 Builds SD1.5 at the default widths (bf16 policy, or with `--int8` the int8
-W8A8 serving policy with the int8 VAE; random weights from a seed), the
-configurations `chip_smoke.py` runs, and one request of batch 2 at 512²
-with CFG 9. Every part runs once to warm up (kernel builds, Triton
+W8A8 serving policy with the int8 VAE, its 3x3 convs through K8's
+`--conv-variant`; random weights from a seed), the configurations
+`chip_smoke.py` runs, and one request of batch 2 at 512² with CFG 9. Every part runs once to warm up (kernel builds, Triton
 compiles, cuDNN heuristics). Then:
   * the wall time of each part of the request, synchronised, median of 3:
     the two CLIP encodes, the hint encoders, one CFG denoise step
     (ControlNet + UNet on the double batch) and the VAE decode;
   * a torch.profiler trace of three denoise steps: device time by kernel
     name, device launches per step, and the device's busy share of the
-    profiled wall time (the union of the kernels' device intervals).
+    profiled wall time (the union of the kernels' device intervals);
+  * under the int8 policy, the int8 GEMMs of one step (QuantDense, the 1x1
+    and stride-2 QuantConv) and the least time they could take with the
+    dequant fused into them (G1 in ROADMAP.md).
 Needs one CUDA device.
 """
 
@@ -20,11 +23,12 @@ from __future__ import annotations
 
 import argparse
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
+
+from prompt_diffusion_tpu_torch.tools.timing import card, roofline
 
 BATCH, SIZE, CFG = 2, 512, 9.0
 STEPS, TOP = 3, 30  # denoise steps traced, kernel names printed
@@ -41,15 +45,47 @@ def _wall_ms(fn, reps=3):
     return statistics.median(times)
 
 
-def build(int8=False, seed=0):
+def int8_gemm_bound(step):
+    """Runs `step` once, recording every int8 GEMM of `QuantDense` and
+    `QuantConv` (`ops.quant.int8_matmul`, M x K by N x K); returns (calls,
+    int8 ops, bytes, bound ms) of those GEMMs with the dequant fused: each
+    reads its int8 operands once and writes a bf16 (M, N) output, and the
+    bound is the sum over the calls of each call's roofline."""
+    from prompt_diffusion_tpu_torch.ops import quant
+
+    shapes, real = [], quant.int8_matmul
+
+    def record(a, w):
+        shapes.append((a.shape[0], a.shape[1], w.shape[0]))
+        return real(a, w)
+
+    quant.int8_matmul = record
+    try:
+        step()
+    finally:
+        quant.int8_matmul = real
+    ops = sum(2 * m * k * n for m, k, n in shapes)
+    nbytes = sum(m * k + n * k + 2 * m * n for m, k, n in shapes)
+    bound = sum(roofline(m * k + n * k + 2 * m * n, 2 * m * k * n)[0] for m, k, n in shapes)
+    return len(shapes), ops, nbytes, bound
+
+
+def print_int8_gemm_bound(step):
+    calls, ops, nbytes, bound = int8_gemm_bound(step)
+    print(f"[profile] int8 GEMMs of one denoise step (G1): {calls} calls, {ops / 1e12:.3f} "
+          f"TOP, {nbytes / 1e9:.3f} GB with the dequant fused; least time {bound:.3f} ms "
+          f"(each call's larger of bytes at 3.35 TB/s and int8 ops at 1,979 TOP/s)")
+
+
+def build(int8=False, seed=0, conv_variant="im2col"):
     """SD1.5 at the default configs with `random_init_` weights (bf16, or
-    the int8 policy with the int8 VAE), and one request's inputs, on the
-    card."""
+    the int8 policy with the int8 VAE and K8's `conv_variant`), and one
+    request's inputs, on the card."""
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
     from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, int8_policy, random_init_
 
     pipe = PromptDiffusionSD15.create(policy=int8_policy() if int8 else default_policy(),
-                                      vae_int8=int8, device="cuda")
+                                      vae_int8=int8, device="cuda", conv_variant=conv_variant)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder):
         random_init_(m, gen)
@@ -85,16 +121,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8", action="store_true",
                         help="the int8 W8A8 serving policy and the int8 VAE")
+    parser.add_argument("--conv-variant", choices=("im2col", "xshift"), default="im2col",
+                        help="K8's variant for the int8 3x3 convs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sd15: no CUDA device", file=sys.stderr)
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout
-    print(f"[profile] {card.strip().splitlines()[0]}; policy {'int8' if args.int8 else 'bf16'}")
-    pipe, request, x = build(int8=args.int8)
+    policy = f"int8, K8 {args.conv_variant}" if args.int8 else "bf16"
+    print(f"[profile] {card()}; policy {policy}")
+    pipe, request, x = build(int8=args.int8, conv_variant=args.conv_variant)
     t = torch.full((BATCH,), 999, dtype=torch.int32, device="cuda")
     eps_fn = pipe.make_eps_fn(**request, guidance_scale=CFG)
     pair2 = torch.cat([request["example_pair"]] * 2).permute(0, 3, 1, 2)
@@ -113,6 +150,8 @@ def main(argv=None) -> int:
     print(f"[profile] request parts (batch {BATCH}, {SIZE}², CFG {CFG}), wall ms, median of 3:")
     for name, fn in parts.items():
         print(f"  {name:16s} {_wall_ms(fn):9.3f}")
+    if args.int8:
+        print_int8_gemm_bound(parts["denoise step"])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()

@@ -16,19 +16,26 @@ compiles, cuDNN heuristics). Then:
     decode;
   * a torch.profiler trace of two denoise steps: device time by kernel
     name, device launches per step, and the device's busy share of the
-    profiled wall time.
+    profiled wall time;
+  * the int8 GEMMs of one step and the least time they could take with the
+    dequant fused into them (G1 in ROADMAP.md).
 Needs one CUDA device.
 """
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 
 import torch
 
-from prompt_diffusion_tpu_torch.tools.profile_sd15 import _wall_ms, busy_us, device_kernels
+from prompt_diffusion_tpu_torch.tools.profile_sd15 import (
+    _wall_ms,
+    busy_us,
+    device_kernels,
+    print_int8_gemm_bound,
+)
+from prompt_diffusion_tpu_torch.tools.timing import card
 
 BATCH, SIZE, CFG, T5_LEN = 1, 1024, 7.0, 256
 STEPS, TOP = 2, 30  # denoise steps traced, kernel names printed
@@ -45,9 +52,7 @@ def main() -> int:
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3 import PromptDiffusionSD3
     from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
 
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60, check=True).stdout
-    print(f"[profile] {card.strip().splitlines()[0]}; SD3, int8 policy, staged T5")
+    print(f"[profile] {card()}; SD3, int8 policy, staged T5")
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.device("cuda"):
         t5 = T5Encoder()
@@ -92,6 +97,7 @@ def main() -> int:
     print(f"[profile] request parts (batch {BATCH}, {SIZE}², CFG {CFG}), wall ms, median of 3:")
     for name, ms in parts.items():
         print(f"  {name:18s} {ms:9.3f}")
+    print_int8_gemm_bound(steps["denoise step"])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()

@@ -1,0 +1,49 @@
+"""Timing on the card and the least time the card could take for a piece of
+work, shared by `chip_smoke.py`, the attention lab and the profiles.
+
+The bound is the larger of the bytes the function must move (each input
+read once, each output written once) over the memory rate and its
+tensor-core operations over their dense peak, from the published peaks of
+one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet). A card set
+to a lower power limit runs slower: print `card()` beside every number.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S = 3.35e12, 989e12, 1979e12
+
+
+def card() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters=10, warmup=2):
+    """Median milliseconds of one call, from CUDA events around each call."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def roofline(nbytes, int8_ops=0.0, bf16_ops=0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the tensor-core operations over their dense peaks."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = int8_ops / INT8_OPS_S + bf16_ops / BF16_OPS_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")

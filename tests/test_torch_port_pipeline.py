@@ -149,7 +149,9 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.models.t5_text, "
             "prompt_diffusion_tpu_torch.ops.fused_adaln, "
             "prompt_diffusion_tpu_torch.tools.profile_sd3, "
-            "prompt_diffusion_tpu_torch.tools.jax_bridge; "
-            "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu') if m in sys.modules]; "
+            "prompt_diffusion_tpu_torch.tools.attn_lab, "
+            "prompt_diffusion_tpu_torch.tools.jax_bridge, chip_smoke; "
+            "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu', 'tools') "
+            "if m in sys.modules]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
