@@ -10,15 +10,16 @@ without the final `"ok": true` line:
                attention; nvcc, sm_90a) into build/torch_ext/ and compiles
                the Triton kernels;
   3. kernels - each kernel against its plain PyTorch version on the card at
-               the shapes the paths give it (SD1.5 512², CFG batch 8; SD3
-               1024², CFG batch 2, and its VAE), with the kernel's and
-               the plain version's median time. Float kernels: max abs error
-               against the plain version evaluated in fp32 on the same bf16
-               inputs (bounds 3e-2 attention, 2e-2 norms, the bf16 bound of
-               tests/test_ops.py; attention also within 2e-2 of its largest
-               output, and the bound must be below the error of the plain
-               version with one 64-key tile left out), and the error against
-               the plain version in bf16. int8 epilogue kernels (GroupNorm,
+               the shapes the paths give it (SD1.5 512², CFG batch 8 and
+               4; SD3 1024², CFG batch 2, and its VAE; ragged tails), with
+               the kernel's and the plain version's median time. Float
+               kernels: max abs error against the plain version evaluated
+               in fp32 on the same bf16 inputs (bounds 3e-2 attention, 2e-2
+               norms, the bf16 bound of tests/test_ops.py; attention also
+               within 2e-2 of its largest output, and the bound must be
+               below the error of the plain version with one 32-key tile,
+               the smallest the kernels use, left out), and the error
+               against the plain version in bf16. int8 epilogue kernels (GroupNorm,
                LayerNorm, GEGLU -> int8): scales within 1e-6 relative, codes
                at most 1 apart and at least 99.9% equal. int8 conv, both
                variants: equal to the plain version bit for bit. AdaLN's
@@ -61,10 +62,12 @@ without the final `"ok": true` line:
                two timed iterations;
   9. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
-work (`bound_ms`: bytes over 3.35 TB/s or tensor-core operations over the
-dense peak, whichever is larger; `prompt_diffusion_tpu_torch/tools/
-timing.py`) and, where one PyTorch call computes the same function, that
-call's time (`lib_ms`), timed here only. Each path phase sets every launch
+work (`bound_ms`: bytes over 3.35 TB/s, tensor-core operations over the
+dense peak or a softmax's exponentials over ~3.9e12/s, whichever is
+largest; `prompt_diffusion_tpu_torch/tools/timing.py`; in the JSON line
+`bound_by` is "bytes" or "operations", exponentials counting as
+operations, and `bound_term` names the term) and, where one PyTorch call
+computes the same function, that call's time (`lib_ms`), timed here only. Each path phase sets every launch
 count to 0 before it runs and reads them after. Imports nothing of JAX.
 """
 
@@ -78,7 +81,6 @@ ATTN_BOUND, NORM_BOUND, EPS_REL_BOUND = 3e-2, 2e-2, 5e-2
 # At Nk = 4096 an attention output is ~0.03 in size, as large as ATTN_BOUND:
 # the error must also stay within ATTN_REL_BOUND of the largest output.
 ATTN_REL_BOUND = 2e-2
-KEY_TILE = 64  # keys per tile of the attention kernel
 # With random weights the guided epsilon (CFG 9) amplifies bf16 rounding
 # about 7x: the plain bf16 ops alone sit ~10% from an fp32 evaluation. The
 # 5e-2 bound applies to the unguided outputs of ControlNet + UNet; the
@@ -150,8 +152,9 @@ def kernel_cases(gen):
     library) at the main paths' shapes. Float inputs are seeded N(0, 1) in
     bf16; norm affines near (1, 0); int8 conv operands uniform codes and
     scales. `kind` is "float", "quant" (int8 codes and scales) or "exact".
-    `work` is (bytes, int8 ops, bf16 ops) of the function: each input read
-    once, each output written once. `library` is one PyTorch call that
+    `work` is (bytes, int8 ops, bf16 ops, exponentials) of the function:
+    each input read once, each output written once, one exponential per
+    logit of a softmax. `library` is one PyTorch call that
     computes the same function on the same inputs, or None."""
     import torch
     import torch.nn.functional as F
@@ -186,21 +189,24 @@ def kernel_cases(gen):
     affine = lambda c: (1 + 0.1 * randn(c), 0.1 * randn(c))
     heads = lambda t, h: t.unflatten(-1, (h, -1)).transpose(1, 2)  # (B, N, H*D) -> (B, H, N, D)
     cases = []
-    # K1: the softmax scale is folded into q, the kernel runs at scale 1; the
-    # last case has ragged query and key tails
-    for b, n, hd, h in ((8, 4096, 320, 8), (8, 1024, 640, 8), (2, 1100, 80, 2)):
+    # K1: the softmax scale is folded into q, the kernel runs at scale 1. The
+    # headline shapes first (CFG batch 8), then the CFG batch 4 of two
+    # batch-2 requests that the paths run, then ragged query and key tails
+    for b, n, hd, h in ((8, 4096, 320, 8), (8, 1024, 640, 8), (4, 4096, 320, 8),
+                        (4, 1024, 640, 8), (2, 1100, 80, 2)):
         q = bf16(randn(b, n, hd) * (hd // h) ** -0.5)
         k, v = bf16(randn(b, n, hd)), bf16(randn(b, n, hd))
         lib = (lambda q=q, k=k, v=v, h=h: F.scaled_dot_product_attention(
             heads(q, h), heads(k, h), heads(v, h), scale=1.0))
         cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h}", flash_attention_packed,
                       (q, k, v, h, 1.0), "float", ATTN_BOUND,
-                      (8 * b * n * hd, 0, 4 * b * n * n * hd), lib))
-    # K2 at the VAE mid-attention: SD1.5 at 512² (batch 4), SD3 at 1024² (batch 1)
-    for b, n in ((4, 4096), (1, 16384)):
+                      (8 * b * n * hd, 0, 4 * b * n * n * hd, b * h * n * n), lib))
+    # K2 at the VAE mid-attention: SD1.5 at 512² (batch 4), SD3 at 1024²
+    # (batch 1), then ragged query and key tails
+    for b, n in ((4, 4096), (1, 16384), (1, 1100)):
         qkv = tuple(bf16(randn(b, n, 1, 512)) for _ in range(3))
         cases.append(("flash_attention", f"({b},{n},1,512)", flash_attention, qkv, "float",
-                      ATTN_BOUND, (8 * b * n * 512, 0, 4 * b * n * n * 512),
+                      ATTN_BOUND, (8 * b * n * 512, 0, 4 * b * n * n * 512, b * n * n),
                       lambda qkv=qkv: F.scaled_dot_product_attention(*(t.transpose(1, 2)
                                                                        for t in qkv))))
     # K9 at the SD3 joint shape (CFG batch 2, 4096 + 333 tokens, 24 heads
@@ -209,7 +215,8 @@ def kernel_cases(gen):
         q, k, v = (bf16(randn(b, n, hd)) for _ in range(3))
         cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h}",
                       flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
-                      (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd), None))
+                      (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n),
+                      None))
     gn_shapes = (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0))
     for name, fn, kind, bound, out_bytes in (
             ("fused_group_norm", fused_group_norm, "float", NORM_BOUND, 2),
@@ -307,13 +314,13 @@ def kernel_cases(gen):
         q, k, v = (bf16(randn(b, n, h, d)) for _ in range(3))
         cases.append((name, f"({b},{n},{h},{d}) bq{bq} bk{bk}", fn,
                       (q, k, v, d ** -0.5, bq, bk), "float", ATTN_BOUND,
-                      (8 * b * n * h * d, 0, 4 * b * n * n * h * d),
+                      (8 * b * n * h * d, 0, 4 * b * n * n * h * d, b * h * n * n if lib else 0),
                       sdpa(q, k, v, d ** -0.5) if lib else None))
     b, n, hd, h = 2, 4250, 1536, 24
     q, k, v = (bf16(randn(b, n, hd)) for _ in range(3))
     cases.append(("flash_attention_packed_int8_rowk", f"({b},{n},{hd}) H={h}",
                   flash_attention_packed_int8_rowk, (q, k, v, h), "float", ATTN_BOUND,
-                  (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd), None))
+                  (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n), None))
     return cases
 
 
@@ -338,9 +345,10 @@ def phase_kernels(gen):
     compared. The error against the plain version in bf16 is printed
     beside it. For attention the bound is also ATTN_REL_BOUND of the
     largest output, and it must be smaller than the error of the plain
-    version with the first key tile left out: a kernel that skipped a tile
-    would fail it. The no-softmax lab mode sums rather than averages V, so
-    its output grows with sqrt(Nk) and only the relative bound applies.
+    version with the first key tile left out, the smallest key tile the
+    attention kernels use: a kernel that skipped a tile would fail it. The
+    no-softmax lab mode sums rather than averages V, so its output grows
+    with sqrt(Nk) and only the relative bound applies.
     The int8 epilogue kernels are held to their scales and codes (the plain
     versions quantize the fp32 value of the same bf16 inputs); the int8
     conv to bit equality; AdaLN's gradient to GRAD_REL_BOUND of its
@@ -348,8 +356,10 @@ def phase_kernels(gen):
     import torch
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.ops.flash_attention import LAB_TILES, WIDE_TILE
     from prompt_diffusion_tpu_torch.tools.timing import roofline, time_ms
 
+    key_tile = min(tile[1] for tile in LAB_TILES + (WIDE_TILE,))
     fp32 = lambda args: tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
                               else a for a in args)
     results = {}
@@ -381,10 +391,10 @@ def phase_kernels(gen):
             if "attention" in name:
                 q, k, v, *rest = fp32(args)
                 with plain_ops():
-                    short = fn(q, k[:, KEY_TILE:], v[:, KEY_TILE:], *rest)
+                    short = fn(q, k[:, key_tile:], v[:, key_tile:], *rest)
                 tile_err = (short - ref).abs().max().item()
                 log(f"[kernels] {name} {label}: bound {bound}; plain version without one "
-                    f"{KEY_TILE}-key tile is {tile_err} off")
+                    f"{key_tile}-key tile is {tile_err} off")
                 check(tile_err > bound, f"{name} {label}: bound {bound} would pass a missing "
                                         f"key tile ({tile_err})")
                 del short
@@ -401,14 +411,15 @@ def phase_kernels(gen):
         with plain_ops():
             plain_ms = time_ms(lambda: fn(*args))
         lib_ms = None if library is None else time_ms(library)
-        bound_ms, bound_by = roofline(*work)
+        bound_ms, bound_term = roofline(*work)
+        bound_by = "bytes" if bound_term == "bytes" else "operations"
         log(f"[kernels] {name} {label}: {msg} kernel_ms={ms} plain_ms={plain_ms} "
-            f"lib_ms={lib_ms} bound_ms={bound_ms} ({bound_by})")
+            f"lib_ms={lib_ms} bound_ms={bound_ms} ({bound_term})")
         check(ok, f"{name} {label}: outside its bound: {msg}")
         results.setdefault(name, []).append(
             {"case": label, "max_abs_err": err, "bound": bound, **extra, "ms": ms,
              "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by})
+             "bound_by": bound_by, "bound_term": bound_term})
     return results
 
 
@@ -995,7 +1006,7 @@ def main():
                         **also, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(c["max_abs_err"] for c in cases),
                         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "library_ms")},
+                                                     "bound_term", "library_ms")},
                         "cases": cases})
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -6,16 +6,18 @@ Replaces `prompt_diffusion_tpu/ops/flash_attention.py`:
   * K2 `flash_attention` ((B, N, H, D) attention, the VAE mid-block);
   * K9 `flash_attention_packed_int8` (packed int8-QK^T attention, the SD3
     joint attention of the int8 serving mode).
-K1 and K2 go through one hand-written CUDA kernel, `csrc/flash_attention.cu`
-(its header says what bounds it and how it is laid out): packed memory is
-the (B, N, H, D) layout, so the kernel reads either through strides.
-Inputs on the card are bf16; logits and softmax are fp32, P is rounded to
-bf16 before P.V, and P.V accumulates in fp32. K9 is its own CUDA kernel,
-`csrc/int8_attention.cu`.
+K1 and K2 go through one hand-written CUDA source, `csrc/flash_attention.cu`
+(its header says what bounds it and how it is laid out): a narrow kernel
+for D <= 128 with its tile chosen per head dimension (`kernel_tile`) and a
+wide one for the VAE's D = 512. Packed memory is the (B, N, H, D) layout,
+so the kernels read either through strides. Inputs on the card are bf16;
+logits and softmax are fp32, P is rounded to bf16 before P.V, and P.V
+accumulates in fp32. K9 is its own CUDA kernel, `csrc/int8_attention.cu`.
 
 The lab kernels of `tools/attn_variants.py`, `attn_lab2.py`, `attn_lab3.py`
-and `attn_int8_lab.py` are modes of the same two kernels, each with its own
-wrapper and launch count:
+and `attn_int8_lab.py` are modes of the same two sources (the bf16 modes
+of the narrow kernel, D <= 128), each with its own wrapper and launch
+count:
   * `flash_attention_tiled`: online softmax with chosen query and key tiles
     (`_online_kernel`);
   * `attention_no_softmax`: O = sum_j bf16(s_ij * scale) V_j
@@ -59,19 +61,28 @@ def _packed_ref(q, k, v, num_heads: int, scale: float):
     return out.reshape(b, nq, hd)
 
 
-# (block_q, block_k) pairs instantiated in csrc/flash_attention.cu; K1 and
-# K2 run the online mode at (64, 64)
+# (block_q, block_k) pairs of the narrow kernel (D <= NARROW_D) in
+# csrc/flash_attention.cu; above NARROW_D the wide kernel runs the online
+# mode at WIDE_TILE only
 LAB_TILES = ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64), (128, 128))
+NARROW_D, WIDE_TILE = 128, (64, 32)
+# K1's tile: the fastest of LAB_TILES at both SD1.5 heads, D = 40 (64²) and
+# 80 (32²), in the paths' CFG batch (`tools/attn_tune.py`, PERF.md)
+NARROW_TILE = (128, 64)
 _MODES = {"online": 0, "no_softmax": 1, "two_pass": 2}
 
 
-def _launch(q, k, v, scale: float, mode: str = "online", block_q: int = 64,
-            block_k: int = 64) -> torch.Tensor:
-    """Run the CUDA kernel on (B, N, H, D) views; returns a contiguous
-    (B, Nq, H, D) tensor."""
-    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+def kernel_tile(d: int) -> tuple:
+    """The (block_q, block_k) tile K1 and K2 run at head dimension `d`."""
+    return WIDE_TILE if d > NARROW_D else NARROW_TILE
 
+
+def _check(q, k, v, scale: float, mode: str, tile: tuple) -> None:
+    """Raise ValueError for what the kernel refuses, before any build."""
     b, nq, h, d = q.shape
+    if not scale > 0:
+        raise ValueError(f"scale {scale} must be positive (the kernel takes the row maximum "
+                         "before scaling)")
     nk = k.shape[1]
     if k.shape != (b, nk, h, d) or v.shape != (b, nk, h, d):
         raise ValueError(f"q/k/v shapes disagree: {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -82,13 +93,28 @@ def _launch(q, k, v, scale: float, mode: str = "online", block_q: int = 64,
             raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {t.stride()}")
     if d % 8 or d > 512:
         raise ValueError(f"head dim {d} not supported (needs D % 8 == 0 and D <= 512)")
+    if d > NARROW_D and (mode != "online" or tuple(tile) != WIDE_TILE):
+        raise ValueError(f"head dim {d} > {NARROW_D} runs only the online mode at {WIDE_TILE}")
+    if d <= NARROW_D and tuple(tile) not in LAB_TILES:
+        raise ValueError(f"tiles {tuple(tile)} are not instantiated; one of {LAB_TILES}")
+
+
+def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] = None
+            ) -> torch.Tensor:
+    """Run the CUDA kernel on (B, N, H, D) views at `tile` (K1's and K2's
+    own by default); returns a contiguous (B, Nq, H, D) tensor."""
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    b, nq, h, d = q.shape
+    tile = kernel_tile(d) if tile is None else tile
+    _check(q, k, v, scale, mode, tile)
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, nq, nk, d,
+            b, h, nq, k.shape[1], d,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(scale), _MODES[mode], block_q, block_k,
+            float(scale), _MODES[mode], *tile,
             torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -139,7 +165,7 @@ def _lab(wrapper, mode, plain, q, k, v, scale, block_q, block_k):
         raise ValueError(f"tiles ({block_q}, {block_k}) are not instantiated; one of {LAB_TILES}")
     if not use_kernel(q):
         return plain(q, k, v, float(scale))
-    out = _launch(q, k, v, float(scale), mode, block_q, block_k)
+    out = _launch(q, k, v, float(scale), mode, (block_q, block_k))
     wrapper.launches += 1
     return out
 

@@ -69,10 +69,10 @@ def _fp32(args):
 
 def measure(name, fn, args, work, iters, library=None, reference=None):
     """One variant: kernel ms, TFLOP/s over `work` (bytes, int8 ops, bf16
-    ops, lab FLOPs), library ms, bound and max abs error against the plain
-    version of `fn` in fp32 on the same inputs, or against `reference()`
-    (run under `plain_ops`) over its columns."""
-    nbytes, int8_ops, bf16_ops, flops = work
+    ops, lab FLOPs, exponentials), library ms, bound and max abs error
+    against the plain version of `fn` in fp32 on the same inputs, or
+    against `reference()` (run under `plain_ops`) over its columns."""
+    nbytes, int8_ops, bf16_ops, flops, exps = work
     out = fn(*args)
     with plain_ops():
         ref = fn(*_fp32(args)) if reference is None else reference()
@@ -82,7 +82,7 @@ def measure(name, fn, args, work, iters, library=None, reference=None):
     del out, ref
     ms = time_ms(lambda: fn(*args), iters=iters)
     lib_ms = None if library is None else time_ms(library, iters=iters)
-    bound_ms, bound_by = roofline(nbytes, int8_ops, bf16_ops)
+    bound_ms, bound_by = roofline(nbytes, int8_ops, bf16_ops, exps)
     row = {"variant": name, "ms": ms, "tflops": flops / ms / 1e9, "sdpa_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
            "err_over_max": rel}
@@ -98,9 +98,9 @@ def _inputs(gen, shape, n=3, scale=1.0):
             for _ in range(n)]
 
 
-def _bf16_work(b, n, h, d):
+def _bf16_work(b, n, h, d, softmax=True):
     flops = 4 * b * h * n * n * d
-    return 8 * b * n * h * d, 0, flops, flops
+    return 8 * b * n * h * d, 0, flops, flops, b * h * n * n if softmax else 0
 
 
 # ---- tools/attn_variants.py ------------------------------------------------
@@ -123,7 +123,7 @@ def lab_variants(gen, iters):
     for bq in (64, 128):
         rows.append(measure(f"online-nosoftmax bq{bq} bk64",
                             lambda q, k, v, bq=bq: attention_no_softmax(q, k, v, scale, bq, 64),
-                            bnhd, work, iters))
+                            bnhd, _bf16_work(B, N, H, D, softmax=False), iters))
     for bq, bk in ((64, 64), (128, 64), (64, 128)):
         rows.append(measure(f"fullk (two-pass) bq{bq} bk{bk}",
                             lambda q, k, v, bq=bq, bk=bk: flash_attention_two_pass(
@@ -187,7 +187,8 @@ def lab_lab3(gen, iters):
             rows.append(measure(
                 f"P{dp} (two-pass) bq{bq}",
                 lambda q_, k_, v_, bq=bq: flash_attention_two_pass(q_, k_, v_, 1.0, bq, 64),
-                padded, (8 * B * N * H * dp, 0, 4 * B * H * N * N * dp, 4 * B * H * N * N * D),
+                padded, (8 * B * N * H * dp, 0, 4 * B * H * N * N * dp, 4 * B * H * N * N * D,
+                         B * H * N * N),
                 iters, sdpa, reference=lambda: flash_attention_two_pass(*_fp32((q, k, v)), 1.0)))
     return rows
 
@@ -213,7 +214,7 @@ def lab_int8(gen, iters):
     heads = lambda t: t.view(b, n, h, d).transpose(1, 2)
     sdpa = lambda: F.scaled_dot_product_attention(heads(x), heads(x), heads(x), scale=scale)
     ops = 2 * b * n * n * h * d
-    int8_work = (8 * b * n * h * d, ops, ops, 2 * ops)
+    int8_work = (8 * b * n * h * d, ops, ops, 2 * ops, b * h * n * n)
     runs = (("v1 shipped int8 (K9)", flash_attention_packed_int8, int8_work),
             ("v2 int8-QK/bf16-PV (per-row K)", flash_attention_packed_int8_rowk, int8_work),
             ("v3 +per-head K scale (K9)", flash_attention_packed_int8, int8_work),

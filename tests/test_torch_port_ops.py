@@ -13,6 +13,7 @@ from prompt_diffusion_tpu.ops.fused_layer_norm import fused_layer_norm as j_fuse
 from prompt_diffusion_tpu.schedulers.ddim import DDIMTables as JDDIMTables
 from prompt_diffusion_tpu.schedulers.schedules import DiffusionSchedule as JSchedule
 from prompt_diffusion_tpu_torch.ops import dispatch
+from prompt_diffusion_tpu_torch.ops import flash_attention as fa
 from prompt_diffusion_tpu_torch.ops.attention import _flash_eligible, dot_product_attention
 from prompt_diffusion_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed
 from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm, group_norm_auto
@@ -45,6 +46,52 @@ def test_flash_attention_plain_matches_pallas(shape):
     ref = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-3)
+
+
+@pytest.mark.parametrize("d,tile", [(40, (128, 64)), (80, (128, 64)), (512, (64, 32))])
+def test_kernel_tile_per_head_dim(d, tile):
+    """K1's tile at the SD1.5 heads (64² and 32² latents) and K2's at the
+    VAE's D = 512, each one the kernel instantiates."""
+    assert fa.kernel_tile(d) == tile
+    assert tile in (fa.LAB_TILES if d <= fa.NARROW_D else (fa.WIDE_TILE,))
+
+
+def _refused(case):
+    """(q, scale, mode, tile) for each input the attention kernel refuses."""
+    bf16 = lambda d: torch.zeros(1, 64, 1, d, dtype=torch.bfloat16)
+    cases = {
+        "head dim not a multiple of 8": (bf16(36), "online", None),
+        "head dim above 512": (bf16(520), "online", None),
+        "fp32": (torch.zeros(1, 64, 1, 40), "online", None),
+        "row stride not a multiple of 8": (bf16(44)[..., :40], "online", None),
+        "base not 16-byte aligned": (
+            torch.zeros(64 * 40 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 1, 40), "online", None),
+        "lab mode above D = 128": (bf16(256), "two_pass", (64, 64)),
+        "wide tile other than (64, 32)": (bf16(512), "online", (64, 64)),
+        "narrow tile not instantiated": (bf16(40), "online", (256, 64)),
+    }
+    if case == "non-positive scale":
+        return bf16(40), 0.0, "online", None
+    q, mode, tile = cases[case]
+    return q, 1.0, mode, tile
+
+
+@pytest.mark.parametrize("case", [
+    "head dim not a multiple of 8", "head dim above 512", "fp32", "row stride not a multiple of 8",
+    "base not 16-byte aligned", "lab mode above D = 128", "wide tile other than (64, 32)",
+    "narrow tile not instantiated", "non-positive scale"])
+def test_attention_kernel_refuses_before_build(case, monkeypatch):
+    """What the CUDA kernel refuses raises ValueError in the wrapper, before
+    the extension is built or a launch is queued."""
+    from prompt_diffusion_tpu_torch.ops import _build
+
+    def built():
+        raise AssertionError("the extension was built")
+
+    monkeypatch.setattr(_build, "cuda_ext", built)
+    q, scale, mode, tile = _refused(case)
+    with pytest.raises(ValueError):
+        fa._launch(q, q, q, scale, mode, tile)
 
 
 @pytest.mark.parametrize("silu", [False, True])
