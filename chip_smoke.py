@@ -60,7 +60,23 @@ without the final `"ok": true` line:
   8. labs    - the attention lab entry point
                (`prompt_diffusion_tpu_torch.tools.attn_lab`), every lab at
                two timed iterations;
-  9. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+  9. midas   - the MiDaS DPT-Hybrid depth annotator at full width (ViT-B
+               768 x 12, ResNetV2 (3, 4, 9), features 256; random weights
+               from a seed; bf16) on two batches of 16 images at 512², as
+               `bench.py --config annotate --annotator midas` runs it
+               (x / 127.5 - 1 -> depth -> normals): the launches per
+               forward of K3 (52, 33 with the ReLU epilogue), K1 (12) and
+               K4 (24), outputs finite and in [0, 1], a bit-exact repeat,
+               the raw depth against the plain ops (relative L2 <= 5e-2)
+               and against an fp32-compute twin (no farther than 1.25x the
+               plain ops); the same under the int8 policy (K6 24, K9 12,
+               no K4 or K1) with one int8 ViT block against the plain ops;
+               one DPT-Large forward (batch 2, K1 at 16 heads, the
+               transposed convs) against the plain ops (5e-2) and an
+               fp32-compute twin (1.25x the plain ops'); then the port's
+               annotation entry's batch function with canny, depth and
+               normal on 16 images (48 files); images/s;
+ 10. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
 work (`bound_ms`: bytes over 3.35 TB/s, tensor-core operations over the
 dense peak or a softmax's exponentials over ~3.9e12/s, whichever is
@@ -106,6 +122,22 @@ SD3_BATCH, SD3_SIZE, SD3_STEPS, SD3_CFG, SD3_SHIFT, T5_LEN = 1, 1024, 8, 7.0, 3.
 # K12's gradient against the plain version's, relative to its largest value
 GRAD_REL_BOUND = 1e-4
 LAB_ITERS = 2  # timed iterations of each attention lab variant in `[labs]`
+# MiDaS as `bench.py --config annotate --annotator midas` runs it
+MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
+# launches per DPT-Hybrid forward ("fused_group_norm.relu": K3's launches
+# with the ReLU epilogue, among its 52): 1 stem + 16 blocks x 3 + 3
+# downsample GroupNorms, 1 + 16 x 2 of them with ReLU; 12 ViT blocks
+MIDAS_PER_FORWARD = {
+    "midas": {"fused_group_norm": 52, "fused_group_norm.relu": 33,
+              "flash_attention_packed": 12, "fused_layer_norm": 24,
+              "flash_attention_packed_int8": 0, "fused_layer_norm_quant": 0},
+    "midas_int8": {"fused_group_norm": 52, "fused_group_norm.relu": 33,
+                   "flash_attention_packed_int8": 12, "fused_layer_norm_quant": 24,
+                   "flash_attention_packed": 0, "fused_layer_norm": 0},
+    # DPT-Large: 24 ViT-L blocks, no GroupNorm
+    "midas_large": {"flash_attention_packed": 24, "fused_layer_norm": 48,
+                    "fused_group_norm": 0},
+}
 
 
 def check(cond, msg):
@@ -201,6 +233,16 @@ def kernel_cases(gen):
         cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h}", flash_attention_packed,
                       (q, k, v, h, 1.0), "float", ATTN_BOUND,
                       (8 * b * n * hd, 0, 4 * b * n * n * hd, b * h * n * n), lib))
+    # K1 at the MiDaS DPT-Hybrid ViT-B (batch 16 at 512²: 1025 tokens, 12
+    # heads of 64, ragged against the 64-key tile) on the column slices of
+    # one packed qkv projection, unscaled, as the ViT block calls it
+    b, n, hd, h = 16, 1025, 768, 12
+    q, k, v = bf16(randn(b, n, 3 * hd)).chunk(3, dim=-1)
+    cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h} ViT-B qkv slices",
+                  flash_attention_packed, (q, k, v, h, 64 ** -0.5), "float", ATTN_BOUND,
+                  (8 * b * n * hd, 0, 4 * b * n * n * hd, b * h * n * n),
+                  lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                      heads(q, 12), heads(k, 12), heads(v, 12), scale=64 ** -0.5)))
     # K2 at the VAE mid-attention: SD1.5 at 512² (batch 4), SD3 at 1024²
     # (batch 1), then ragged query and key tails
     for b, n in ((4, 4096), (1, 16384), (1, 1100)):
@@ -217,6 +259,13 @@ def kernel_cases(gen):
                       flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
                       (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n),
                       None))
+    # K9 at the MiDaS DPT-Hybrid ViT-B under int8 (batch 16 at 512²), on
+    # the column slices of one packed qkv projection
+    b, n, hd, h = 16, 1025, 768, 12
+    q, k, v = bf16(randn(b, n, 3 * hd)).chunk(3, dim=-1)
+    cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h} ViT-B qkv slices",
+                  flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
+                  (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n), None))
     gn_shapes = (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0))
     for name, fn, kind, bound, out_bytes in (
             ("fused_group_norm", fused_group_norm, "float", NORM_BOUND, 2),
@@ -240,15 +289,29 @@ def kernel_cases(gen):
         cases.append(("fused_group_norm", f"{shape} eps={eps} mean={mean} "
                       + ("silu" if silu else "no silu"), fused_group_norm,
                       (x, w, bb, 32, eps, silu), "float", NORM_BOUND, (4 * x.numel(), 0, 0), lib))
+    # K3's ReLU epilogue at the MiDaS DPT-Hybrid backbone (batch 16 at 512²):
+    # the stem's norm and stage 3's narrowest; no single PyTorch call
+    # computes GroupNorm + ReLU
+    for shape in ((16, 64, 256, 256), (16, 256, 32, 32)):
+        x = bf16(randn(*shape)).contiguous(memory_format=torch.channels_last)
+        cases.append(("fused_group_norm", f"{shape} eps=1e-05 mean=0.0 relu", fused_group_norm,
+                      (x, *affine(shape[1]), 32, 1e-5, False, True), "float", NORM_BOUND,
+                      (4 * x.numel(), 0, 0), None))
     x, (w, bb) = bf16(randn(32768, 320)), affine(320)
     cases.append(("fused_layer_norm", "(32768,320)", fused_layer_norm, (x, w, bb, 1e-5), "float",
                   NORM_BOUND, (4 * x.numel(), 0, 0),
                   lambda x=x, w=w, bb=bb: F.layer_norm(x, (320,), w.to(x.dtype), bb.to(x.dtype),
                                                        1e-5)))
-    for n, c in ((32768, 320), (1000, 640)):
-        cases.append(("fused_layer_norm_quant", f"({n},{c})", fused_layer_norm_quant,
-                      (bf16(randn(n, c)), *affine(c), 1e-5), "quant", None,
-                      (3 * n * c + 4 * n, 0, 0), None))
+    # K4 at the MiDaS ViT-B pre-LNs (batch 16 x 1025 tokens of 768, eps 1e-6)
+    x, (w, bb) = bf16(randn(16400, 768)), affine(768)
+    cases.append(("fused_layer_norm", "(16400,768) eps=1e-06 ViT-B", fused_layer_norm,
+                  (x, w, bb, 1e-6), "float", NORM_BOUND, (4 * x.numel(), 0, 0),
+                  lambda x=x, w=w, bb=bb: F.layer_norm(x, (768,), w.to(x.dtype), bb.to(x.dtype),
+                                                       1e-6)))
+    for n, c, eps in ((32768, 320, 1e-5), (1000, 640, 1e-5), (16400, 768, 1e-6)):
+        cases.append(("fused_layer_norm_quant", f"({n},{c})" + (" ViT-B" if c == 768 else ""),
+                      fused_layer_norm_quant, (bf16(randn(n, c)), *affine(c), eps), "quant",
+                      None, (3 * n * c + 4 * n, 0, 0), None))
     for n, c in ((32768, 2560), (512, 10240)):
         cases.append(("fused_geglu_quant", f"({n},{c})", fused_geglu_quant,
                       (bf16(randn(n, c)),), "quant", None, (2 * n * c + n * c // 2 + 4 * n, 0, 0),
@@ -486,6 +549,10 @@ PATH_KERNELS = {
     "labs": ("flash_attention_tiled", "attention_no_softmax", "flash_attention_two_pass",
              "flash_attention_packed_int8_rowk", "flash_attention_packed_int8",
              "flash_attention_packed"),
+    # the annotation entry's batch with canny, depth and normal
+    "annotate": ("fused_group_norm", "flash_attention_packed", "fused_layer_norm"),
+    **{tag: tuple(k for k, n in counts.items() if n and "." not in k)
+       for tag, counts in MIDAS_PER_FORWARD.items()},
 }
 
 
@@ -522,7 +589,16 @@ def reset_launches():
     counted = wrappers()
     for w in counted.values():
         w.launches = 0
+    counted["fused_group_norm"].relu_launches = 0
     return counted
+
+
+def read_launches(counted):
+    """{kernel name: launches}, and K3's launches with the ReLU epilogue
+    under "fused_group_norm.relu"."""
+    launches = {name: w.launches for name, w in counted.items()}
+    launches["fused_group_norm.relu"] = counted["fused_group_norm"].relu_launches
+    return launches
 
 
 def twin(pipe, policy):
@@ -934,6 +1010,179 @@ def phase_labs():
     return launches, {"seconds": seconds}
 
 
+def _check_per_forward(tag, launches, forwards):
+    """The launches of `tag`'s kernels are MIDAS_PER_FORWARD's per forward."""
+    for name, per in MIDAS_PER_FORWARD[tag].items():
+        check(launches[name] == per * forwards,
+              f"[{tag}] {name}: {launches[name]} launches in {forwards} forwards, expected "
+              f"{per} per forward")
+
+
+def phase_midas(card, seed=0):
+    """The MiDaS DPT-Hybrid depth + normal annotator at full width through
+    the port's modules, on MIDAS_BATCHES batches of MIDAS_BATCH uniform
+    [0, 255] images at MIDAS_SIZE² (`bench.py --config annotate --annotator
+    midas`), bf16 and then int8; one DPT-Large forward; the annotation
+    entry's batch function. Returns {path tag: (launches, timing)}."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.annotate_data import annotate_batch, build_annotators
+    from prompt_diffusion_tpu_torch.annotators.midas import (
+        DPTDepth,
+        DPTHybridDepth,
+        depth_to_normals,
+    )
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.utils.dtypes import (
+        default_policy,
+        fp32_policy,
+        int8_policy,
+        random_init_,
+    )
+
+    def build(cls, policy, state=None):
+        with torch.device("cuda"):
+            model = cls(policy=policy).eval().requires_grad_(False)
+        if state is None:
+            random_init_(model, torch.Generator(device="cuda").manual_seed(seed))
+        else:
+            model.load_state_dict(state)
+        return model
+
+    def annotate(model, imgs):
+        """(depth, depth01, normals, seconds) of one batch, as bench.py."""
+        t = time.perf_counter()
+        depth = model(imgs.permute(0, 3, 1, 2) / 127.5 - 1.0)
+        d01, normals = depth_to_normals(depth)
+        torch.cuda.synchronize()
+        return depth, d01, normals, time.perf_counter() - t
+
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    g = torch.Generator(device="cuda").manual_seed(seed + 6000)
+    batches = [torch.rand((MIDAS_BATCH, MIDAS_SIZE, MIDAS_SIZE, 3), generator=g,
+                          device="cuda") * 255 for _ in range(MIDAS_BATCHES)]
+    paths = {}
+    t0 = time.perf_counter()
+    model = build(DPTHybridDepth, default_policy())
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[midas] DPT-Hybrid built with random weights: {n_params} parameters in "
+        f"{time.perf_counter() - t0:.1f}s")
+    with torch.no_grad():
+        for tag, policy in (("midas", None), ("midas_int8", int8_policy())):
+            m = model if policy is None else build(DPTHybridDepth, policy, model.state_dict())
+            annotate(m, batches[0])  # warm-up: cuDNN's algorithm choice
+            torch.cuda.reset_peak_memory_stats()
+            counted = reset_launches()
+            outs = [annotate(m, imgs) for imgs in batches]
+            launches = read_launches(counted)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+            seconds = [o[3] for o in outs]
+            log(f"[{tag}] {card}: {seconds[-1]:.4f} s per batch of {MIDAS_BATCH} at "
+                f"{MIDAS_SIZE}² ({MIDAS_BATCH / seconds[-1]:.2f} images/s; first batch "
+                f"{seconds[0]:.4f} s); peak device memory {peak_gib:.2f} GiB; launches "
+                f"{ {k: launches[k] for k in MIDAS_PER_FORWARD[tag]} }")
+            _check_per_forward(tag, launches, MIDAS_BATCHES)
+            for depth, d01, normals, _ in outs:
+                check(tuple(depth.shape) == (MIDAS_BATCH, MIDAS_SIZE, MIDAS_SIZE)
+                      and tuple(normals.shape) == (MIDAS_BATCH, MIDAS_SIZE, MIDAS_SIZE, 3),
+                      f"[{tag}] shapes {tuple(depth.shape)}, {tuple(normals.shape)}")
+                check(all(torch.isfinite(t).all().item() for t in (depth, d01, normals)),
+                      f"[{tag}] non-finite output")
+                check(all(t.min().item() >= 0.0 and t.max().item() <= 1.0 for t in (d01, normals)),
+                      f"[{tag}] depth01 or normals outside [0, 1]")
+            depth = outs[0][0]
+            check(not torch.equal(depth, outs[1][0]), f"[{tag}] the two batches gave one depth")
+            check(torch.equal(depth, annotate(m, batches[0])[0]),
+                  f"[{tag}] batch 1 repeated gave another depth")
+            with plain_ops():
+                plain = annotate(m, batches[0])[0]
+            err = rel(depth, plain)
+            timing = {"batch_s": seconds, "images_s": MIDAS_BATCH / seconds[-1],
+                      "peak_gib": peak_gib}
+            if tag == "midas":
+                twin = build(DPTHybridDepth, fp32_policy(), model.state_dict())
+                with plain_ops():
+                    ref32 = annotate(twin, batches[0])[0]
+                del twin
+                rel_k32, rel_p32 = rel(depth, ref32), rel(plain, ref32)
+                log(f"[midas] raw depth of batch 1, kernels vs plain ops: rel L2 {err} (bound "
+                    f"{EPS_REL_BOUND}); against an fp32-compute twin on the plain ops: kernels "
+                    f"{rel_k32}, plain ops {rel_p32} (bound {FP32_RATIO_BOUND}x the plain ops'); "
+                    f"batch 1 repeated bit-exactly; depth std {depth.std().item():.4g}, "
+                    f"{(depth > 0).float().mean().item():.3f} of pixels > 0")
+                check(np.isfinite(err) and err <= EPS_REL_BOUND, f"[midas] rel L2 {err}")
+                check(rel_k32 <= FP32_RATIO_BOUND * rel_p32,
+                      f"[midas] kernels {rel_k32} vs plain {rel_p32} from the fp32 twin")
+                bf16_depth = depth
+            else:
+                x = (torch.randn((MIDAS_BATCH, (MIDAS_SIZE // 16) ** 2 + 1, 768), generator=g,
+                                 device="cuda")).to(torch.bfloat16)
+                blk = m.blocks_0(x)
+                with plain_ops():
+                    blk_plain = m.blocks_0(x)
+                blk_err = rel(blk, blk_plain)
+                log(f"[midas_int8] int8 ViT block 0 at {tuple(x.shape)}, kernels vs plain ops on "
+                    f"the same input: rel L2 {blk_err} (bound {EPS_REL_BOUND}); raw depth vs "
+                    f"plain ops {err}, vs the bf16 policy's {rel(depth, bf16_depth)} (for "
+                    f"information); batch 1 repeated bit-exactly")
+                check(blk_err <= EPS_REL_BOUND, f"[midas_int8] block rel L2 {blk_err}")
+                del m
+            paths[tag] = (launches, timing)
+
+        # DPT-Large: 16 heads, the transposed convs
+        large = build(DPTDepth, default_policy())
+        imgs = batches[0][:2]
+        annotate(large, imgs)
+        counted = reset_launches()
+        depth, d01, normals, s_large = annotate(large, imgs)
+        launches = read_launches(counted)
+        _check_per_forward("midas_large", launches, 1)
+        with plain_ops():
+            plain = annotate(large, imgs)[0]
+            twin = build(DPTDepth, fp32_policy(), large.state_dict())
+            ref32 = annotate(twin, imgs)[0]
+        del twin
+        err, rel_k32, rel_p32 = rel(depth, plain), rel(depth, ref32), rel(plain, ref32)
+        log(f"[midas_large] DPT-Large ({sum(p.numel() for p in large.parameters())} parameters) "
+            f"batch 2 at {MIDAS_SIZE}²: {s_large:.4f} s; raw depth vs plain ops rel L2 {err} "
+            f"(bound {EPS_REL_BOUND}); against an fp32-compute twin on the plain ops: kernels "
+            f"{rel_k32}, plain ops {rel_p32} (bound {FP32_RATIO_BOUND}x the plain ops'); launches "
+            f"{ {k: launches[k] for k in MIDAS_PER_FORWARD['midas_large']} }")
+        check(all(torch.isfinite(t).all().item() for t in (depth, d01, normals)),
+              "[midas_large] non-finite output")
+        check(err <= EPS_REL_BOUND, f"[midas_large] rel L2 {err}")
+        check(rel_k32 <= FP32_RATIO_BOUND * rel_p32,
+              f"[midas_large] kernels {rel_k32} vs plain {rel_p32} from the fp32 twin")
+        paths["midas_large"] = (launches, {"batch_s": s_large})
+        del large
+
+        # the annotation entry's batch function, its files beside the sources
+        out_dir = os.path.join(REPO, "build", "midas_annotate")
+        shutil.rmtree(out_dir, ignore_errors=True)
+        os.makedirs(out_dir)
+        fns = build_annotators(("canny", "depth", "normal"), dpt=model)
+        sources = [os.path.join(out_dir, f"image_{i}.jpg") for i in range(MIDAS_BATCH)]
+        counted = reset_launches()
+        t = time.perf_counter()
+        written = annotate_batch(fns, sources, batches[0])
+        s_entry = time.perf_counter() - t
+        launches = read_launches(counted)
+        check(len(written) == 3 * MIDAS_BATCH and all(os.path.isfile(p) for p in written),
+              f"[annotate] {len(written)} files written, expected {3 * MIDAS_BATCH}")
+        for name in PATH_KERNELS["annotate"]:
+            check(launches[name] > 0, f"kernel {name} was not launched on the annotate path")
+        log(f"[annotate] canny + depth + normal of {MIDAS_BATCH} images at {MIDAS_SIZE}²: "
+            f"{len(written)} files in {s_entry:.3f}s (jpg encoding included)")
+        shutil.rmtree(out_dir)
+        paths["annotate"] = (launches, {"seconds": s_entry})
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     import torch
 
@@ -981,6 +1230,7 @@ def main():
     paths["sd3"] = phase_sd3()
     paths["adaln"] = phase_adaln()
     paths["labs"] = phase_labs()
+    paths.update(phase_midas(card))
     for tag in ("slice", "int8", "sd3"):
         timing = paths[tag][1]
         per_req = timing["request_s"]
@@ -1002,6 +1252,10 @@ def main():
         by_path = {tag: launches[name] for tag, (launches, _) in paths.items()}
         main_case = cases[0]
         also = {"replaces_also": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
+        if name == "fused_group_norm":  # the ReLU epilogue's share of the launches
+            also["relu_launches"] = sum(launches["fused_group_norm.relu"]
+                                        for launches, _ in paths.values()
+                                        if "fused_group_norm.relu" in launches)
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         **also, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(c["max_abs_err"] for c in cases),

@@ -79,9 +79,10 @@ def gn_combine_kernel(mean_ptr, m2_ptr, gamma_ptr, beta_ptr, scale_ptr, shift_pt
 
 @triton.jit
 def gn_apply_kernel(x_ptr, y_ptr, scale_ptr, shift_ptr, HW, C,
-                    ROWS: tl.constexpr, BLOCK_C: tl.constexpr, APPLY_SILU: tl.constexpr):
-    """y = x * scale[b, c] + shift[b, c] in fp32, optional SiLU, stored in
-    the activation dtype."""
+                    ROWS: tl.constexpr, BLOCK_C: tl.constexpr, APPLY_SILU: tl.constexpr,
+                    APPLY_RELU: tl.constexpr):
+    """y = x * scale[b, c] + shift[b, c] in fp32, then SiLU or ReLU (SiLU
+    when both are set), stored in the activation dtype."""
     b = tl.program_id(0)
     rb = tl.program_id(1)
     cb = tl.program_id(2)
@@ -96,6 +97,8 @@ def gn_apply_kernel(x_ptr, y_ptr, scale_ptr, shift_ptr, HW, C,
     y = x * sc[None, :] + sh[None, :]
     if APPLY_SILU:
         y = y * tl.sigmoid(y)
+    elif APPLY_RELU:
+        y = tl.maximum(y, 0.0)
     tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
 

@@ -1,8 +1,10 @@
-"""GroupNorm(+SiLU) kernels K3 and K5, in Triton, and their dispatch.
+"""GroupNorm(+SiLU or ReLU) kernels K3 and K5, in Triton, and their dispatch.
 
 K3 replaces `prompt_diffusion_tpu/ops/fused_group_norm.py::fused_group_norm`,
 both its one-pass VMEM-resident kernel (`_gn_kernel`) and its two-pass
-row-blocked kernel (`_stats_kernel` + `_apply_kernel`). K5 replaces
+row-blocked kernel (`_stats_kernel` + `_apply_kernel`), with either
+epilogue: SiLU (the SD1.5 and SD3 models) or ReLU (timm's GroupNormAct in
+the MiDaS DPT-Hybrid backbone); SiLU wins when both are set. K5 replaces
 `fused_group_norm_quant` (`_gn_quant_kernel`): the same GroupNorm, then
 int8 codes with one fp32 scale per sample (the int8 serving mode).
 
@@ -13,7 +15,7 @@ channel block) tiles writes each tile's per-channel mean and sum of squared
 deviations; a small combine program per (sample, group) merges them with
 Chan's parallel formula (no E[x²] - E[x]² cancellation on the VAE's
 large-mean activations) and folds the affine into one per-channel scale and
-shift; an apply pass writes x * scale + shift (+ SiLU). That is two reads
+shift; an apply pass writes x * scale + shift (+ SiLU or ReLU). That is two reads
 and one write of the activation, like the TPU's two-pass path.
 
 K5 shares the stats and combine programs. Its scale is one amax over the
@@ -41,16 +43,18 @@ _MIN_GN_ELEMS = 1 << 18  # smallest activation that takes the kernel
 
 def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      num_groups: int, eps: float = 1e-5,
-                     apply_silu: bool = False) -> torch.Tensor:
-    """GroupNorm(+SiLU) of an NCHW tensor with fp32 statistics and affine;
-    the kernel on CUDA, the plain version on the CPU."""
+                     apply_silu: bool = False, apply_relu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU or ReLU) of an NCHW tensor with fp32 statistics and
+    affine; the kernel on CUDA, the plain version on the CPU.
+    `fused_group_norm.relu_launches` counts the launches with the ReLU
+    epilogue among `launches`."""
     if not use_kernel(x):
         return _torch_group_norm(x, num_groups, scale, bias, eps=eps,
-                                 apply_silu=apply_silu)
-    return _launch(x, scale, bias, num_groups, eps, apply_silu)
+                                 apply_silu=apply_silu, apply_relu=apply_relu)
+    return _launch(x, scale, bias, num_groups, eps, apply_silu, apply_relu)
 
 
-fused_group_norm.launches = 0
+fused_group_norm.launches = fused_group_norm.relu_launches = 0
 
 
 def _check(x, scale, bias, num_groups):
@@ -90,17 +94,20 @@ def _stats(x, scale, bias, num_groups, eps):
     return eff_scale, eff_shift, (b, rb, cb)
 
 
-def _launch(x, scale, bias, num_groups, eps, apply_silu):
+def _launch(x, scale, bias, num_groups, eps, apply_silu, apply_relu):
     from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
 
     x = _check(x, scale, bias, num_groups)
     b, c, h, w = x.shape
     y = torch.empty_like(x)
+    relu = bool(apply_relu) and not apply_silu
     with torch.cuda.device(x.device):
         eff_scale, eff_shift, grid = _stats(x, scale, bias, num_groups, eps)
         tk.gn_apply_kernel[grid](x, y, eff_scale, eff_shift, h * w, c,
-                                 ROWS=_ROWS, BLOCK_C=_BLOCK_C, APPLY_SILU=bool(apply_silu))
+                                 ROWS=_ROWS, BLOCK_C=_BLOCK_C, APPLY_SILU=bool(apply_silu),
+                                 APPLY_RELU=relu)
     fused_group_norm.launches += 1
+    fused_group_norm.relu_launches += relu
     return y
 
 
@@ -145,11 +152,12 @@ def _launch_quant(x, scale, bias, num_groups, eps, apply_silu):
     return q, s_a
 
 
-def group_norm_auto(x, num_groups, scale, bias, eps=1e-5, apply_silu=False):
+def group_norm_auto(x, num_groups, scale, bias, eps=1e-5, apply_silu=False,
+                    apply_relu=False):
     """The kernel rule of the TPU package: 4-D activations of at least
     2^18 elements whose channels split into the groups go through
     `fused_group_norm`; the rest through the plain version."""
     if x.ndim == 4 and x.numel() >= _MIN_GN_ELEMS and x.shape[1] % num_groups == 0:
-        return fused_group_norm(x, scale, bias, num_groups, eps, apply_silu)
+        return fused_group_norm(x, scale, bias, num_groups, eps, apply_silu, apply_relu)
     return _torch_group_norm(x, num_groups, scale, bias, eps=eps,
-                             apply_silu=apply_silu)
+                             apply_silu=apply_silu, apply_relu=apply_relu)

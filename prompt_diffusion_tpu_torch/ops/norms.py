@@ -2,7 +2,8 @@
 
 Counterpart of `prompt_diffusion_tpu/ops/norms.py::group_norm` (the
 reference's GroupNorm32: stats and affine in fp32, result cast back to the
-activation dtype), on NCHW tensors, with the two-pass variance.
+activation dtype), on NCHW tensors, with the two-pass variance. SiLU takes
+precedence when both activations are asked for, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,14 +13,15 @@ import torch
 
 def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
                bias: torch.Tensor, eps: float = 1e-5,
-               apply_silu: bool = False) -> torch.Tensor:
-    """GroupNorm over channel groups of an (B, C, ...) tensor."""
-    return group_norm_f32(x, num_groups, scale, bias, eps, apply_silu).to(x.dtype)
+               apply_silu: bool = False, apply_relu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU or ReLU) over channel groups of an (B, C, ...) tensor."""
+    return group_norm_f32(x, num_groups, scale, bias, eps, apply_silu,
+                          apply_relu).to(x.dtype)
 
 
 def group_norm_f32(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
                    bias: torch.Tensor, eps: float = 1e-5,
-                   apply_silu: bool = False) -> torch.Tensor:
+                   apply_silu: bool = False, apply_relu: bool = False) -> torch.Tensor:
     """`group_norm` before the cast back: the fp32 result."""
     c = x.shape[1]
     if c % num_groups:
@@ -33,4 +35,6 @@ def group_norm_f32(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
     out = normed * scale.float().reshape(shape) + bias.float().reshape(shape)
     if apply_silu:
         out = out * torch.sigmoid(out)
+    elif apply_relu:
+        out = torch.relu(out)
     return out

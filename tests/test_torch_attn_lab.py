@@ -222,10 +222,12 @@ def test_two_pass_plain_matches_lab3_head_padding(d_pad, dtype, atol):
     # the lab's kernels cast P to bf16 whatever V's dtype (attn_int8_lab.py:
     # 62, 122). v2's plain version does too, and with fp32 V an fp32 ulp of
     # exp between the frameworks now and then moves one P across a bf16
-    # rounding step (26 of 51,200 outputs here, by up to 2.3e-5); K9 and its
-    # TPU kernel cast P to V's dtype, so v3 differs from it in fp32 by one
-    # bf16 rounding of P (3.1e-4 here, on outputs of ~0.05)
-    ("v2", np.float32, 1e-4), ("v2", "bfloat16", 2e-2), ("v3", np.float32, 5e-4),
+    # rounding step (26 of 51,200 outputs here, by up to 2.3e-5; on some
+    # runs past 1e-4), so v2 in fp32 is held to one bf16 rounding of P, as
+    # v3 is.
+    # K9 and its TPU kernel cast P to V's dtype, so v3 differs from it in
+    # fp32 by one bf16 rounding of P (3.1e-4 here, on outputs of ~0.05)
+    ("v2", np.float32, 5e-4), ("v2", "bfloat16", 2e-2), ("v3", np.float32, 5e-4),
     ("v3", "bfloat16", 2e-2)])
 def test_int8_lab_plain_matches_lab(version, dtype, atol):
     """v2 (per-row K scales, bf16 P.V, `_kernel_v2`) against

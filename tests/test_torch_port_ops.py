@@ -94,19 +94,23 @@ def test_attention_kernel_refuses_before_build(case, monkeypatch):
         fa._launch(q, q, q, scale, mode, tile)
 
 
-@pytest.mark.parametrize("silu", [False, True])
+# the epilogue: False none, True SiLU, "relu" ReLU (the MiDaS backbone's)
+@pytest.mark.parametrize("act", [False, True, "relu"])
 @pytest.mark.parametrize("shape,eps,mean", [
     ((2, 16, 16, 32), 1e-5, 0.0),     # one-pass Pallas kernel
     ((1, 1024, 64, 32), 1e-5, 0.0),   # 8.4 MB row: two-pass Pallas kernel
     ((2, 16, 16, 32), 1e-6, 3.0),     # VAE eps, large-mean activation
 ])
-def test_group_norm_plain_matches_pallas(shape, eps, mean, silu):
+def test_group_norm_plain_matches_pallas(shape, eps, mean, act):
     rng = np.random.default_rng(2)
     x = _normal(rng, shape, mean)
     s, bias = _normal(rng, (shape[-1],)), _normal(rng, (shape[-1],))
-    ref = j_fused_gn(jnp.asarray(x), jnp.asarray(s), jnp.asarray(bias), 8, eps, silu)
+    silu, relu = act is True, act == "relu"
+    ref = j_fused_gn(jnp.asarray(x), jnp.asarray(s), jnp.asarray(bias), 8, eps, silu, relu)
     got = fused_group_norm(torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(s),
-                           torch.from_numpy(bias), 8, eps, silu)
+                           torch.from_numpy(bias), 8, eps, silu, relu)
+    if relu:
+        assert (got >= 0).all() and (got == 0).float().mean() > 0.3
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), atol=2e-5)
 
 

@@ -150,7 +150,11 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.ops.fused_adaln, "
             "prompt_diffusion_tpu_torch.tools.profile_sd3, "
             "prompt_diffusion_tpu_torch.tools.attn_lab, "
-            "prompt_diffusion_tpu_torch.tools.jax_bridge, chip_smoke; "
+            "prompt_diffusion_tpu_torch.tools.jax_bridge, "
+            "prompt_diffusion_tpu_torch.annotators.midas, "
+            "prompt_diffusion_tpu_torch.annotators.canny, "
+            "prompt_diffusion_tpu_torch.ops.resize, "
+            "prompt_diffusion_tpu_torch.annotate_data, chip_smoke; "
             "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu', 'tools') "
             "if m in sys.modules]; "
             "assert not bad, bad")
