@@ -12,7 +12,13 @@ without the final `"ok": true` line:
   3. kernels - each kernel against its plain PyTorch version on the card at
                the shapes the paths give it (SD1.5 512², CFG batch 8 and
                4; SD3 1024², CFG batch 2, and its VAE; ragged tails), with
-               the kernel's and the plain version's median time. Float
+               the device time per call of the kernel, of the plain version
+               and of the library call (`device_ms`: the union of the
+               device intervals of back-to-back calls under torch.profiler,
+               the wrapper's own launches included) and the kernel's
+               single-call CUDA-event time (`wall_ms`, which also holds the
+               host's part of the call). K9's prologue (K to int8):
+               codes and scales bit-equal. Float
                kernels: max abs error against the plain version evaluated
                in fp32 on the same bf16 inputs (bounds 3e-2 attention, 2e-2
                norms, the bf16 bound of tests/test_ops.py; attention also
@@ -83,7 +89,9 @@ dense peak or a softmax's exponentials over ~3.9e12/s, whichever is
 largest; `prompt_diffusion_tpu_torch/tools/timing.py`; in the JSON line
 `bound_by` is "bytes" or "operations", exponentials counting as
 operations, and `bound_term` names the term) and, where one PyTorch call
-computes the same function, that call's time (`lib_ms`), timed here only. Each path phase sets every launch
+computes the same function, that call's device time (`library_ms`),
+timed here only. In the JSON line `ms`, `plain_ms` and `library_ms` are
+device times. Each path phase sets every launch
 count to 0 before it runs and reads them after. Imports nothing of JAX.
 """
 
@@ -122,6 +130,9 @@ SD3_BATCH, SD3_SIZE, SD3_STEPS, SD3_CFG, SD3_SHIFT, T5_LEN = 1, 1024, 8, 7.0, 3.
 # K12's gradient against the plain version's, relative to its largest value
 GRAD_REL_BOUND = 1e-4
 LAB_ITERS = 2  # timed iterations of each attention lab variant in `[labs]`
+# profiled calls of a plain version in `[kernels]` (a kernel's and a library
+# call's: `device_ms`'s default, 20)
+PLAIN_ITERS = 5
 # MiDaS as `bench.py --config annotate --annotator midas` runs it
 MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
 # launches per DPT-Hybrid forward ("fused_group_norm.relu": K3's launches
@@ -130,10 +141,11 @@ MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
 MIDAS_PER_FORWARD = {
     "midas": {"fused_group_norm": 52, "fused_group_norm.relu": 33,
               "flash_attention_packed": 12, "fused_layer_norm": 24,
-              "flash_attention_packed_int8": 0, "fused_layer_norm_quant": 0},
+              "flash_attention_packed_int8": 0, "quant_k_int8": 0, "fused_layer_norm_quant": 0},
     "midas_int8": {"fused_group_norm": 52, "fused_group_norm.relu": 33,
-                   "flash_attention_packed_int8": 12, "fused_layer_norm_quant": 24,
-                   "flash_attention_packed": 0, "fused_layer_norm": 0},
+                   "flash_attention_packed_int8": 12, "quant_k_int8": 12,
+                   "fused_layer_norm_quant": 24, "flash_attention_packed": 0,
+                   "fused_layer_norm": 0},
     # DPT-Large: 24 ViT-L blocks, no GroupNorm
     "midas_large": {"flash_attention_packed": 24, "fused_layer_norm": 48,
                     "fused_group_norm": 0},
@@ -199,6 +211,7 @@ def kernel_cases(gen):
         flash_attention_packed_int8_rowk,
         flash_attention_tiled,
         flash_attention_two_pass,
+        quant_k_int8,
     )
     from prompt_diffusion_tpu_torch.ops.fused_act import (
         fused_geglu_quant,
@@ -243,6 +256,14 @@ def kernel_cases(gen):
                   (8 * b * n * hd, 0, 4 * b * n * n * hd, b * h * n * n),
                   lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                       heads(q, 12), heads(k, 12), heads(v, 12), scale=64 ** -0.5)))
+    # K1 on K9's work, for reference: the SD3 joint shape in bf16
+    b, n, hd, h = 2, 4429, 1536, 24
+    q, k, v = (bf16(randn(b, n, hd)) for _ in range(3))
+    cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h} K9's SD3 work in bf16",
+                  flash_attention_packed, (q, k, v, h, 64 ** -0.5), "float", ATTN_BOUND,
+                  (8 * b * n * hd, 0, 4 * b * n * n * hd, b * h * n * n),
+                  lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                      heads(q, h), heads(k, h), heads(v, h), scale=64 ** -0.5)))
     # K2 at the VAE mid-attention: SD1.5 at 512² (batch 4), SD3 at 1024²
     # (batch 1), then ragged query and key tails
     for b, n in ((4, 4096), (1, 16384), (1, 1100)):
@@ -266,6 +287,17 @@ def kernel_cases(gen):
     cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h} ViT-B qkv slices",
                   flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
                   (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n), None))
+    # K9's prologue, K to int8 codes and scales, bit-equal to its plain
+    # version: per head at the SD3 joint shape and on the ViT-B's K column
+    # slice, per key row at the lab's SD3 shape (the ROWK mode's)
+    for b, n, hd, h, per_row, k in (
+            (2, 4429, 1536, 24, False, bf16(randn(2, 4429, 1536))),
+            (16, 1025, 768, 12, False, k),
+            (2, 4250, 1536, 24, True, bf16(randn(2, 4250, 1536)))):
+        scales = b * h * (n if per_row else 1)
+        cases.append(("quant_k_int8", f"({b},{n},{hd}) H={h}" + (" per row" if per_row else "")
+                      + (" ViT-B K slice" if hd == 768 else ""), quant_k_int8, (k, h, per_row),
+                      "exact", 0.0, (3 * b * n * hd + 4 * scales, 0, 0), None))
     gn_shapes = (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0))
     for name, fn, kind, bound, out_bytes in (
             ("fused_group_norm", fused_group_norm, "float", NORM_BOUND, 2),
@@ -420,12 +452,12 @@ def phase_kernels(gen):
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
     from prompt_diffusion_tpu_torch.ops.flash_attention import LAB_TILES, WIDE_TILE
-    from prompt_diffusion_tpu_torch.tools.timing import roofline, time_ms
+    from prompt_diffusion_tpu_torch.tools.timing import device_ms, roofline, time_ms
 
     key_tile = min(tile[1] for tile in LAB_TILES + (WIDE_TILE,))
     fp32 = lambda args: tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
                               else a for a in args)
-    results = {}
+    results, t0, profiled_s = {}, time.perf_counter(), 0.0
     for name, label, fn, args, kind, bound, work, library in kernel_cases(gen):
         out = fn(*args)
         with plain_ops():
@@ -442,6 +474,10 @@ def phase_kernels(gen):
                    f"{SCALE_REL_BOUND}), codes at most {code_diff} apart, {equal} equal "
                    f"(bound {CODES_EQUAL_BOUND})")
             ok = scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND
+        elif kind == "exact" and isinstance(out, tuple):  # K9's prologue: codes and scales
+            err = max((a.float() - r.float()).abs().max().item() for a, r in zip(out, ref))
+            msg = f"codes and scales max_abs_err={err} (bit-equal required)"
+            ok = all(torch.equal(a, r) for a, r in zip(out, ref))
         else:
             check(torch.isfinite(out).all().item(), f"{name} {label}: non-finite output")
             err = (out.float() - ref.float()).abs().max().item()
@@ -470,19 +506,24 @@ def phase_kernels(gen):
             msg += f" err_vs_plain_bf16={extra['err_vs_plain_bf16']}"
             del ref_bf16
         del out, ref
-        ms = time_ms(lambda: fn(*args))
+        t = time.perf_counter()
+        ms = device_ms(lambda: fn(*args))
         with plain_ops():
-            plain_ms = time_ms(lambda: fn(*args))
-        lib_ms = None if library is None else time_ms(library)
+            plain_ms = device_ms(lambda: fn(*args), iters=PLAIN_ITERS, warmup=1)
+        lib_ms = None if library is None else device_ms(library)
+        profiled_s += time.perf_counter() - t
+        wall_ms = time_ms(lambda: fn(*args))
         bound_ms, bound_term = roofline(*work)
         bound_by = "bytes" if bound_term == "bytes" else "operations"
-        log(f"[kernels] {name} {label}: {msg} kernel_ms={ms} plain_ms={plain_ms} "
-            f"lib_ms={lib_ms} bound_ms={bound_ms} ({bound_term})")
+        log(f"[kernels] {name} {label}: {msg} device_ms={ms} plain_device_ms={plain_ms} "
+            f"library_device_ms={lib_ms} wall_ms={wall_ms} bound_ms={bound_ms} ({bound_term})")
         check(ok, f"{name} {label}: outside its bound: {msg}")
         results.setdefault(name, []).append(
             {"case": label, "max_abs_err": err, "bound": bound, **extra, "ms": ms,
-             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+             "plain_ms": plain_ms, "library_ms": lib_ms, "wall_ms": wall_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "bound_term": bound_term})
+    log(f"[kernels] {sum(len(c) for c in results.values())} cases in "
+        f"{time.perf_counter() - t0:.1f}s, {profiled_s:.1f}s of it under the profiler")
     return results
 
 
@@ -524,6 +565,17 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
     "flash_attention_packed_int8_rowk": (
         "cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
         "tools/attn_int8_lab.py:46"),
+    # K9's prologue: the K quantization of K9's own function, which JAX
+    # computes in XLA beside its Pallas call
+    "quant_k_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
+                     "prompt_diffusion_tpu/ops/flash_attention.py:391"),
+}
+# the device functions a wrapper launches, where it launches more than one
+# (K9's wrapper runs its prologue, then the attention kernel)
+DEVICE_FUNCTIONS = {
+    "flash_attention_packed_int8": ("k_amax_kernel", "k_codes_kernel", "int8_attn_kernel"),
+    "flash_attention_packed_int8_rowk": ("k_codes_kernel", "int8_attn_kernel"),
+    "quant_k_int8": ("k_amax_kernel", "k_codes_kernel"),
 }
 # further TPU kernels a kernel stands for: the lab kernels that compute the
 # same function as one above
@@ -544,7 +596,7 @@ PATH_KERNELS = {
     "int8_xshift": ("conv3x3_int8_xshift", "fused_group_norm_quant", "flash_attention_packed"),
     # the bf16 VAE's GroupNorm and mid-block attention, the int8 MMDiT's four
     "sd3": ("flash_attention", "fused_group_norm", "flash_attention_packed_int8",
-            "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
+            "quant_k_int8", "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
     "adaln": ("fused_adaln",),
     "labs": ("flash_attention_tiled", "attention_no_softmax", "flash_attention_two_pass",
              "flash_attention_packed_int8_rowk", "flash_attention_packed_int8",
@@ -581,7 +633,8 @@ def wrappers():
             "flash_attention_tiled": fa.flash_attention_tiled,
             "attention_no_softmax": fa.attention_no_softmax,
             "flash_attention_two_pass": fa.flash_attention_two_pass,
-            "flash_attention_packed_int8_rowk": fa.flash_attention_packed_int8_rowk}
+            "flash_attention_packed_int8_rowk": fa.flash_attention_packed_int8_rowk,
+            "quant_k_int8": fa.quant_k_int8}
 
 
 def reset_launches():
@@ -893,6 +946,8 @@ def phase_sd3(seed=0):
         f"step (VAE launches spread over the steps) {per_step}")
     for name in PATH_KERNELS["sd3"]:
         check(launches[name] > 0, f"kernel {name} was not launched on the sd3 path")
+    check(launches["quant_k_int8"] == launches["flash_attention_packed_int8"],
+          "K9's prologue did not run once per K9 call")
     for img in (img1, img2):
         check(tuple(img.shape) == (SD3_BATCH, SD3_SIZE, SD3_SIZE, 3), f"shape {tuple(img.shape)}")
         check(torch.isfinite(img).all().item(), "non-finite image")
@@ -1252,6 +1307,8 @@ def main():
         by_path = {tag: launches[name] for tag, (launches, _) in paths.items()}
         main_case = cases[0]
         also = {"replaces_also": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
+        if name in DEVICE_FUNCTIONS:
+            also["device_functions"] = DEVICE_FUNCTIONS[name]
         if name == "fused_group_norm":  # the ReLU epilogue's share of the launches
             also["relu_launches"] = sum(launches["fused_group_norm.relu"]
                                         for launches, _ in paths.values()
@@ -1260,7 +1317,7 @@ def main():
                         **also, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(c["max_abs_err"] for c in cases),
                         **{k: main_case[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "bound_term", "library_ms")},
+                                                     "bound_term", "library_ms", "wall_ms")},
                         "cases": cases})
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -29,12 +29,15 @@ extern "C" int pd_conv3x3_int8_xshift(const void* x, const void* w, const void* 
                                       const void* s_w, const void* bias, void* out,
                                       int batch, int h, int wd, int cin, int cout,
                                       int out_bf16, int vec, void* stream);
+extern "C" int pd_int8_quant_k(const void* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
+                               int nk, int d, int row_k, void* amax, void* sk, void* codes,
+                               void* stream);
 extern "C" int pd_int8_attention_fwd(
     const void* q, const void* k, const void* sk, int row_k, const void* v, void* o,
     int batch, int heads, int nq, int nk, int d,
     int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
     int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
-    float scale, void* stream);
+    float scale, int block_q, void* stream);
 
 namespace {
 
@@ -69,14 +72,25 @@ void conv3x3_int8(uintptr_t x, uintptr_t w, uintptr_t s_a, uintptr_t s_w, uintpt
   }
 }
 
+void int8_quant_k(uintptr_t k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk, int d,
+                  bool row_k, uintptr_t amax, uintptr_t sk, uintptr_t codes, uintptr_t stream) {
+  const int err = pd_int8_quant_k(ptr(k), k_sb, k_sn, batch, heads, nk, d, row_k ? 1 : 0,
+                                  ptr(amax), ptr(sk), ptr(codes), ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("int8_quant_k launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, bool row_k, uintptr_t v,
                         uintptr_t o, int batch, int heads, int nq, int nk, int d,
                         int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
                         int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
-                        double scale, uintptr_t stream) {
+                        double scale, int block_q, uintptr_t stream) {
   const int err = pd_int8_attention_fwd(
       ptr(q), ptr(k), ptr(sk), row_k ? 1 : 0, ptr(v), ptr(o), batch, heads, nq, nk, d,
-      q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, static_cast<float>(scale), ptr(stream));
+      q_sb, q_sn, k_sb, k_sn, v_sb, v_sn, o_sb, o_sn, static_cast<float>(scale), block_q,
+      ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("int8_attention_fwd launch failed: ") +
                              pd_cuda_error_string(err));
@@ -92,7 +106,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("conv3x3_int8", &conv3x3_int8,
         "SAME 3x3 int8 convolution over NHWC with the fp32 dequant epilogue "
         "(bias pointer 0 = no bias; xshift = the staged-halo variant)");
+  m.def("int8_quant_k", &int8_quant_k,
+        "K9's prologue: packed bf16 K (B, N, H*D) -> contiguous int8 codes and fp32 scales, "
+        "(B, H) per head (amax: a (B, H) scratch buffer) or (B, H, N) per key row with row_k");
   m.def("int8_attention_fwd", &int8_attention_fwd,
         "int8-QK^T attention forward over packed (B, N, H*D) tensors: bf16 Q and V, "
-        "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k");
+        "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k; block_q 64 or 128");
 }

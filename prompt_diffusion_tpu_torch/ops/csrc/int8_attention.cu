@@ -1,13 +1,13 @@
 // int8-QK^T attention forward for Hopper (sm_90a) over packed (B, N, H*D)
 // tensors: bf16 Q and V, int8 K codes with one scale per (batch, head), or
-// one per key row in the lab mode below.
+// one per key row in the lab mode below; and its prologue, which quantizes
+// K.
 //
 // Replaces the TPU kernel prompt_diffusion_tpu/ops/flash_attention.py::
 // flash_attention_packed_int8 (_fa_packed_fullk_int8_kernel): the joint
-// attention of every SD3 MMDiT and ControlNet block in the int8 serving
-// mode. K is quantized outside the kernel (skh[b, h] = max(amax/127, 1e-8),
-// codes round(k/skh) clipped to +-127), as the JAX package does it in XLA.
-// Per (batch, head) the kernel computes, in the TPU kernel's order:
+// attention of every SD3 MMDiT and ControlNet block, and of the MiDaS ViT,
+// in the int8 serving mode. Per (batch, head) it computes, in the TPU
+// kernel's order:
 //
 //   sq[i]   = max(max_d |q[i, d]| / 127, 1e-8)           (IEEE division)
 //   qc[i,d] = clip(rint(q[i, d] / sq[i]), -127, 127)       (int8)
@@ -17,49 +17,79 @@
 //   l[i]    = sum_j p[i, j]                                 (fp32)
 //   o[i]    = bf16( (sum_j bf16(p[i,j]) * v[j]) / l[i] )   (fp32 sum)
 //
-// What bounds it: at the SD3 joint shape (B 2, N 4429, H 24, D 64) the two
-// matrix products, ~120 GOP of int8 and ~120 GFLOP of bf16 per call, so
-// both run on the tensor cores (WMMA s8 16x16x16 into int32 and WMMA bf16
-// 16x16x16 into fp32). Design:
-//   * one block of 4 warps owns 64 query rows of one (batch, head); each
-//     warp owns 16 rows from the logits to the output, so the work between
-//     two block barriers is warp-local;
-//   * the Q tile is quantized per row in shared memory when it is loaded;
-//   * two passes over the keys in tiles of 64: the first takes the row
-//     maximum of the logits, the second the exponentials, their sum and
-//     P.V. The TPU kernel holds a whole logits row; with the exact maximum
-//     first, P.V needs no running correction, so the output accumulators
-//     stay in registers (WMMA fragments) and p equals the TPU kernel's
-//     exp(s - m) up to the exp implementation. The int8 Q.K^T is computed
-//     twice; it is the cheaper of the two products;
-//   * the query and key tails are masked in the kernel (no padding);
-//   * int8 tiles are stored as [D/16][rows][16], so every 16x16 fragment is
-//     256 contiguous bytes, as WMMA's int8 loads require.
-// Speed work (cp.async/TMA pipelining, wgmma, a single pass with register
-// rescaling) is left to later changes.
+// The TPU kernel holds a whole logits row, so it rounds P to bf16 against
+// the final row maximum. This kernel makes one pass with an online softmax
+// and rounds P to bf16 against the running maximum, as K1 does: the fp32 P
+// and l agree with the full-row order up to the exponential's rounding, and
+// bf16(P) differs by at most one bf16 step where the maximum later moved.
+//
+// The prologue (`k_amax_kernel`, `k_codes_kernel`) is the K quantization
+// that the JAX package computes in XLA in the same Python function
+// (`flash_attention.py:391-394`): skh[b, h] = max(amax / 127, 1e-8) over
+// the head's (Nk, D) values, codes rint(k / skh) clipped to +-127. Two
+// launches: the amax, by warp reductions and one atomicMax on the bits of
+// a non-negative float per block into a zeroed (B, H) buffer; then the
+// codes, written contiguous (B, Nk, H*D) whatever K's strides, so the
+// attention kernel's 16-byte copies of K work on the ViT's qkv column
+// slices too. Both are bit-equal to `_quant_k_per_head`.
+//
+// What bounds it on the H100 (`tools/timing.py::roofline`): at the SD3
+// joint shape (B 2, N 4429, H 24, D 64) the 0.94 G exponentials, ~0.24 ms
+// at ~3.9e12/s, against ~0.06 ms of int8 and ~0.12 ms of bf16 tensor work
+// and ~0.02 ms of bytes. So every logit lives in registers from the product
+// to P, and a probability costs one FFMA into ex2. Design (K1's narrow
+// kernel, `flash_attention.cu`, with an int8 first product):
+//   * one block of BQ/16 warps (BQ = 128 or 64 query rows) owns a query
+//     tile of one (batch, head); each warp owns 16 rows from the logits to
+//     the output;
+//   * the block copies its Q tile (bf16) in with cp.async; each thread then
+//     quantizes, straight from shared memory into registers, the values of
+//     its rows g and g + 8 that its A fragments hold (a quad of lanes holds
+//     whole rows, so the row amax is two shuffles), with the IEEE division:
+//     the codes equal the plain version's bit for bit, and Q's int8 A
+//     fragments stay in registers for the whole key loop;
+//   * Q.K^T is mma.sync m16n8k32 s8 -> s32. ldmatrix (b16, not transposed)
+//     of an int8 tile whose rows are 16-byte chunks gives the s8 B fragment
+//     of K read as column-major (key g, depth 4t..4t+3). The s32
+//     accumulator has the (row, column) layout of K1's fp32 m16n8k16
+//     accumulator, so the logit tile turns into P's bf16 A fragment as in
+//     K1, and P.V is K1's mma.sync m16n8k16 bf16 with ldmatrix.trans on V;
+//   * one pass over the keys with an online softmax. skh * scale > 0 and
+//     sq > 0, so the row maximum is taken over the exact integer sums (as
+//     floats: |s| < 2^22, converted exactly with two full-rate adds) and
+//     scaled once; each probability is ex2(fma(s, c_r, -m_r)) with
+//     c_r = sq_r * (skh * scale) * log2(e). O and l are rescaled only when
+//     a row maximum of the warp moved;
+//   * K/V tiles of 64 keys stream through a two-stage cp.async ring, one
+//     block barrier per tile: tile j + 1 loads while tile j computes. Rows
+//     are padded by 16 bytes, so the 8 rows of every ldmatrix phase fall on
+//     distinct banks;
+//   * the key tail is masked (-inf) on the last tile, in the maximum and in
+//     the sum: a zero-filled key row has an integer sum of 0, which may lie
+//     above every real logit of a row. The query tail's zero rows (sq =
+//     1e-8, codes 0) are computed and not stored;
+//   * at D <= 64 the registers are capped at 128 so that an SM holds 16
+//     warps.
 //
 // ROWK mode: tools/attn_int8_lab.py's v2 (`_kernel_v2`), K quantized per
-// (batch, key row, head) outside the kernel, sk (B, H, Nk); the logits are
-// f32(s32) * (sq[i] * sk[j]) * scale in that order. The block stages the
-// key tile's BK scales beside the codes; everything else is K9's. The lab's
-// v3 (`_kernel_v3`, per-head scales) is K9 itself.
+// (batch, key row, head) by the prologue's codes kernel (sk (B, H, Nk)); the
+// logits are f32(s32) * (sq[i] * sk[j]) * scale in that order, so the row
+// maximum is taken over the scaled logits. The block stages the key tile's
+// BK scales beside the codes; everything else is K9's. The lab's v3
+// (`_kernel_v3`, per-head scales) is K9 itself.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;     // query rows per block
-constexpr int BK = 64;     // keys per tile
-constexpr int NWARPS = 4;  // each warp owns 16 query rows
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int LDS = BK + 4;  // int32 logits pitch
-constexpr int LDP = BK + 8;  // bf16 probabilities pitch
+constexpr int BK = 64;   // keys per tile
+constexpr int NST = 2;   // stages of the K/V ring
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int QK_THREADS = 256;  // threads of a prologue block
+constexpr int AMAX_ROWS = 128;   // key rows per amax block
 
 struct Params {
   const __nv_bfloat16* q;  // (B, Nq, H*D)
@@ -73,233 +103,556 @@ struct Params {
   float scale;
 };
 
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-template <int D>
-struct Layout {
-  static constexpr int LDV = D + 8;  // bf16 V pitch
-  static constexpr int LDO = D + 4;  // fp32 output staging pitch
-  static constexpr size_t OFF_K = align128((size_t)BQ * D);
-  static constexpr size_t OFF_V = OFF_K + align128((size_t)BK * D);
-  static constexpr size_t OFF_S = OFF_V + align128((size_t)BK * LDV * 2);
-  static constexpr size_t OFF_P = OFF_S + align128((size_t)BQ * LDS * 4);
-  static constexpr size_t OFF_O = OFF_P + align128((size_t)BQ * LDP * 2);
-  static constexpr size_t OFF_R = OFF_O + align128((size_t)BQ * LDO * 4);
-  static constexpr size_t OFF_SK = OFF_R + align128((size_t)2 * BQ * 4);  // sq, l
-  static constexpr size_t TOTAL = OFF_SK + align128((size_t)BK * 4);  // ROWK scales
-};
-
-// Key tile [k0, k0 + BK) of one head into [D/16][BK][16] (int8 codes) and,
-// when V is given, [BK][LDV] (bf16); in ROWK mode its scales into sSk;
-// rows past nk are zeros.
-template <int D, bool ROWK>
-__device__ inline void load_kv(int8_t* sK, __nv_bfloat16* sV, float* sSk, const int8_t* kb,
-                               const __nv_bfloat16* vb, const float* skb, const Params& p,
-                               int k0) {
-  if (ROWK) {
-    for (int i = threadIdx.x; i < BK; i += NTHREADS) sSk[i] = (k0 + i < p.nk) ? skb[k0 + i] : 0.f;
-  }
-  constexpr int KCH = D / 16;  // 16-byte chunks of a K row
-  for (int i = threadIdx.x; i < BK * KCH; i += NTHREADS) {
-    const int r = i / KCH, c = i % KCH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (k0 + r < p.nk) val = *reinterpret_cast<const uint4*>(kb + (int64_t)(k0 + r) * p.k_sn + c * 16);
-    *reinterpret_cast<uint4*>(sK + (c * BK + r) * 16) = val;
-  }
-  if (sV == nullptr) return;
-  constexpr int VCH = D / 8;  // 16-byte chunks of a V row
-  for (int i = threadIdx.x; i < BK * VCH; i += NTHREADS) {
-    const int r = i / VCH, c = i % VCH;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (k0 + r < p.nk) val = *reinterpret_cast<const uint4*>(vb + (int64_t)(k0 + r) * p.v_sn + c * 8);
-    *reinterpret_cast<uint4*>(sV + r * Layout<D>::LDV + c * 8) = val;
-  }
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// S = Qc Kc^T (int32) for the warp's 16 rows, stored to sS.
-template <int D>
-__device__ inline void qk_tile(const int8_t* sQ, const int8_t* sK, int32_t* sS, int wrow) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc[BK / 16];
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
-    wmma::load_matrix_sync(a, reinterpret_cast<const signed char*>(sQ + (kk * BQ + wrow) * 16), 16);
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b;
-      wmma::load_matrix_sync(b, reinterpret_cast<const signed char*>(sK + (kk * BK + n * 16) * 16),
-                             16);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
+// 16 bytes from global to shared memory without a register; zeros when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes likewise (the ROWK mode's key scales)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16x32, row-major) * b (32x8, column-major), int8 into int32
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a * b, the accumulator starting from zero
+__device__ __forceinline__ void mma_s8_zero(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(0));
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major), bf16 into fp32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two fp32 -> one bf16x2 register, `lo` in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// f32(s) for |s| < 2^22, exactly, with an integer and a float add (the
+// bits of 1.5 * 2^23 plus s are the float 1.5 * 2^23 + s)
+__device__ __forceinline__ float s32_to_f32(int s) {
+  return __int_as_float(s + 0x4B400000) - 12582912.f;
+}
+
+// the int8 code of x at scale s: clip(rint(x / s), -127, 127), IEEE division
+__device__ __forceinline__ uint32_t code8(float x, float s) {
+  const float c = fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(c)) & 0xffu;
+}
+
+// four bf16 (8 bytes) as floats
+__device__ __forceinline__ void load4(float (&x)[4], const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
+}
+
+// Copies of rows [r0, r0 + ROWS) of a strided matrix, CH 16-byte chunks a
+// row, into shared rows of `ldb` bytes; rows past nrows are zero-filled.
+// UNROLL 1 keeps the loop rolled: in the key loop, unrolled copies keep
+// each copy's addresses in registers across tiles, and at 4 warps a block
+// (4 V copies a thread) that spills under the 128-register cap.
+template <int ROWS, int CH, int NT, int UNROLL>
+__device__ __forceinline__ void load_rows(unsigned char* dst, int ldb, const unsigned char* src,
+                                          int64_t stride_b, int r0, int nrows) {
+#pragma unroll (UNROLL)
+  for (int it = 0; it < (ROWS * CH + NT - 1) / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    if (ROWS * CH % NT == 0 || i < ROWS * CH) {
+      const int r = i / CH, c = (i % CH) * 16;
+      const bool ok = r0 + r < nrows;
+      cp_async16(dst + r * ldb + c, src + (ok ? (int64_t)(r0 + r) * stride_b + c : 0), ok);
     }
   }
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::store_matrix_sync(sS + wrow * LDS + n * 16, acc[n], LDS, wmma::mem_row_major);
-  }
 }
 
-template <int D, bool ROWK>
-__global__ void __launch_bounds__(NTHREADS) int8_attn_kernel(Params p) {
-  using L = Layout<D>;
+// blocks of BQ rows an SM must hold at once: 16 warps at D <= 64, whose
+// registers then stay at <= 128; D = 128 takes what it needs
+__host__ __device__ constexpr int min_blocks(int d, int bq) { return d <= 64 ? 256 / bq : 1; }
+
+template <int D, int BQ, bool ROWK>
+struct Layout {
+  static constexpr int LDQ = D + 8;   // bf16 Q pitch (elements)
+  static constexpr int LDK = D + 16;  // int8 K pitch (bytes)
+  static constexpr int LDV = D + 8;   // bf16 V pitch (elements)
+  static constexpr int OFF_V = BK * LDK;
+  static constexpr int OFF_S = OFF_V + BK * LDV * 2;
+  static constexpr int STAGE = OFF_S + (ROWK ? BK * 4 : 0);
+  static constexpr int Q_BYTES = BQ * LDQ * 2;
+  static constexpr size_t TOTAL = (size_t)Q_BYTES + NST * STAGE;
+};
+
+template <int D, int BQ, bool ROWK>
+__global__ void __launch_bounds__(BQ * 2, min_blocks(D, BQ)) int8_attn_kernel(Params p) {
+  using L = Layout<D, BQ, ROWK>;
+  constexpr int NT = BQ * 2;
+  constexpr int KS = D / 32;  // k32 steps of Q.K^T
+  constexpr int NO = D / 8;   // 8-column output tiles
+  constexpr int NS = BK / 8;  // 8-key logit tiles
   extern __shared__ __align__(128) unsigned char smem[];
-  int8_t* sQ = reinterpret_cast<int8_t*>(smem);
-  int8_t* sK = reinterpret_cast<int8_t*>(smem + L::OFF_K);
-  __nv_bfloat16* sV = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_V);
-  int32_t* sS = reinterpret_cast<int32_t*>(smem + L::OFF_S);
-  __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(smem + L::OFF_P);
-  float* sO = reinterpret_cast<float*>(smem + L::OFF_O);
-  float* sSq = reinterpret_cast<float*>(smem + L::OFF_R);
-  float* sL = sSq + BQ;
-  float* sSk = reinterpret_cast<float*>(smem + L::OFF_SK);
+  const __nv_bfloat16* sQ = reinterpret_cast<const __nv_bfloat16*>(smem);
+  unsigned char* stages = smem + L::Q_BYTES;
 
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y % p.heads;
-  const int lane = threadIdx.x % 32;
-  const int wrow = (threadIdx.x / 32) * 16;  // first query row of this warp
+  const int lane = threadIdx.x & 31;
+  const int wrow = (threadIdx.x >> 5) * 16;  // first query row of this warp
+  const int g = lane >> 2, t = lane & 3;     // fragment row and column group
+  // ldmatrix addressing of this lane: V (.trans) rows and column half; K
+  // rows (two n8 tiles per x4) and byte half of the k32 step
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int lcol = (lane >> 4) * 8;
+  const int krow = (lane & 7) + (lane >> 4) * 8;
+  const int kcol = ((lane >> 3) & 1) * 16;
 
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * D;
   const int8_t* kb = p.k + b * p.k_sb + h * D;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * D;
   __nv_bfloat16* ob = p.o + b * p.o_sb + h * D;
-  const float* skb = p.sk + (int64_t)(b * p.heads + h) * p.nk;  // ROWK: this head's row scales
+  const float* skb = ROWK ? p.sk + (int64_t)(b * p.heads + h) * p.nk : p.sk;  // ROWK: row scales
   const float hs = ROWK ? 0.f : __fmul_rn(p.sk[b * p.heads + h], p.scale);  // skh * scale
+  const int nkt = (p.nk + BK - 1) / BK;
 
-  // quantize the warp's 16 query rows: D/32 values per lane
-  constexpr int PER = D / 32;
-  for (int r = wrow; r < wrow + 16; ++r) {
-    float x[PER];
-    float amax = 0.f;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane * PER + j;
-      x[j] = (q0 + r < p.nq) ? __bfloat162float(qb[(int64_t)(q0 + r) * p.q_sn + c]) : 0.f;
-      amax = fmaxf(amax, fabsf(x[j]));
+  auto stage = [&](int j) { return stages + (j % NST) * L::STAGE; };
+  // one copy group per tile index, empty past the last tile, so that
+  // wait_group 0 at the top of tile j means "tile j is here"
+  auto issue = [&](int j) {
+    if (j < nkt) {
+      unsigned char* st = stage(j);
+      load_rows<BK, D / 16, NT, 1>(st, L::LDK, reinterpret_cast<const unsigned char*>(kb),
+                                   p.k_sn, j * BK, p.nk);
+      load_rows<BK, D / 8, NT, 1>(st + L::OFF_V, L::LDV * 2,
+                                  reinterpret_cast<const unsigned char*>(vb), p.v_sn * 2, j * BK,
+                                  p.nk);
+      if (ROWK && threadIdx.x < BK) {
+        const int c = j * BK + threadIdx.x;
+        cp_async4(st + L::OFF_S + threadIdx.x * 4, skb + (c < p.nk ? c : 0), c < p.nk);
+      }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float sq = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int c = lane * PER + j;
-      const float code = fminf(fmaxf(rintf(__fdiv_rn(x[j], sq)), -127.f), 127.f);
-      sQ[((c / 16) * BQ + r) * 16 + c % 16] = static_cast<int8_t>(code);
-    }
-    if (lane == 0) sSq[r] = sq;
-  }
-  __syncthreads();
-
-  // two lanes per row, 32 logits each
-  const int r = wrow + (lane >> 1);
-  const int c0 = (lane & 1) * 32;
-  const float sq = sSq[r];
-  const float f = __fmul_rn(sq, hs);  // sq * (skh * scale)
-  // the scaled logit of code sum s at tile column c
-  auto logit = [&](int32_t s, int c) {
-    return ROWK ? __fmul_rn(__fmul_rn(__int2float_rn(s), __fmul_rn(sq, sSk[c])), p.scale)
-                : __fmul_rn(__int2float_rn(s), f);
+    cp_async_commit();
   };
 
-  // pass 1: the row maximum of the logits
-  float m = -INFINITY;
-  for (int k0 = 0; k0 < p.nk; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_kv<D, ROWK>(sK, nullptr, sSk, kb, vb, skb, p, k0);
-    __syncthreads();
-    qk_tile<D>(sQ, sK, sS, wrow);
-    __syncwarp();
-    const int32_t* srow = sS + r * LDS;
-    for (int j = 0; j < 32; ++j) {
-      const int c = c0 + j;
-      if (k0 + c < p.nk) m = fmaxf(m, logit(srow[c], c));
-    }
-  }
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  // the Q tile travels in the first copy group, with key tile 0
+  load_rows<BQ, D / 8, NT, 8>(smem, L::LDQ * 2, reinterpret_cast<const unsigned char*>(qb),
+                              p.q_sn * 2, q0, p.nq);
+  issue(0);
 
-  // pass 2: p = exp(s - m), l = sum p, O = bf16(p) V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[D / 16];
+  uint32_t qa[KS][4];  // Q's s8 A fragments: rows g, g + 8; bytes 4t.. and 16 + 4t..
+  float c[2];          // per head: sq * (skh * scale) * log2(e); ROWK: sq
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, in log2 units
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sums
+  float o[NO][4];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  float l = 0.f;
-  for (int k0 = 0; k0 < p.nk; k0 += BK) {
-    __syncthreads();
-    load_kv<D, ROWK>(sK, sV, sSk, kb, vb, skb, p, k0);
-    __syncthreads();
-    qk_tile<D>(sQ, sK, sS, wrow);
-    __syncwarp();
-    const int32_t* srow = sS + r * LDS;
-    for (int j = 0; j < 32; ++j) {
-      const int c = c0 + j;
-      float e = 0.f;
-      if (k0 + c < p.nk) e = expf(logit(srow[c], c) - m);
-      l += e;
-      sP[r * LDP + c] = __float2bfloat16_rn(e);
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  // quantize rows g and g + 8 of the warp straight into the A fragments
+  auto quantize_q = [&]() {
+    const __nv_bfloat16* rp[2] = {sQ + (wrow + g) * L::LDQ, sQ + (wrow + g + 8) * L::LDQ};
+    float amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x[4];
+          load4(x, rp[r] + kk * 32 + half * 16 + 4 * t);
+          amax[r] = fmaxf(amax[r], fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])),
+                                         fmaxf(fabsf(x[2]), fabsf(x[3]))));
+        }
+      }
     }
-    __syncwarp();
+    float sq[2];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sP + wrow * LDP + kk, LDP);
+    for (int r = 0; r < 2; ++r) {
+      sq[r] = fmaxf(__fdiv_rn(quad_max(amax[r]), 127.f), 1e-8f);
+      c[r] = ROWK ? sq[r] : __fmul_rn(__fmul_rn(sq[r], hs), LOG2E);
+    }
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bv;
-        wmma::load_matrix_sync(bv, sV + kk * L::LDV + n * 16, L::LDV);
-        wmma::mma_sync(acc[n], a, bv, acc[n]);
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float x[4];
+          load4(x, rp[r] + kk * 32 + half * 16 + 4 * t);
+          qa[kk][2 * half + r] = code8(x[0], sq[r]) | (code8(x[1], sq[r]) << 8) |
+                                 (code8(x[2], sq[r]) << 16) | (code8(x[3], sq[r]) << 24);
+        }
+      }
+    }
+  };
+
+  cp_async_wait_all();
+  __syncthreads();  // the Q tile and key tile 0 visible
+  issue(1);         // tile 1 loads while Q is quantized and tile 0 computes
+  quantize_q();
+  for (int j = 0; j < nkt; ++j) {
+    if (j > 0) {
+      cp_async_wait_all();
+      __syncthreads();  // tile j visible; every warp is done with tile j - 1
+      issue(j + 1);
+    }
+    const unsigned char* st = stage(j);
+
+    // S = Qc Kc^T of key tile j for the warp's 16 rows, int32
+    int s[NS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < NS / 2; ++n2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, st + (n2 * 16 + krow) * L::LDK + kk * 32 + kcol);
+        if (kk == 0) {
+          mma_s8_zero(s[2 * n2], qa[kk], kf[0], kf[1]);
+          mma_s8_zero(s[2 * n2 + 1], qa[kk], kf[2], kf[3]);
+        } else {
+          mma_s8(s[2 * n2], qa[kk], kf[0], kf[1]);
+          mma_s8(s[2 * n2 + 1], qa[kk], kf[2], kf[3]);
+        }
+      }
+    }
+
+    // the logits as floats: per head the integer sums (scaled in the
+    // exponent), in ROWK mode the scaled logits in log2 units; the key tail
+    // of the last tile to -inf
+    const float* sks = reinterpret_cast<const float*>(st + L::OFF_S);
+    const bool tail = (j + 1) * BK > p.nk;
+    float x[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int col = n * 8 + 2 * t;
+      float2 skc = make_float2(0.f, 0.f);
+      if (ROWK) skc = *reinterpret_cast<const float2*>(sks + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float f = s32_to_f32(s[n][e]);
+        if (ROWK) {
+          const float skj = (e & 1) ? skc.y : skc.x;
+          x[n][e] = __fmul_rn(__fmul_rn(f, __fmul_rn(c[e >> 1], skj)), p.scale) * LOG2E;
+        } else {
+          x[n][e] = f;
+        }
+      }
+      if (tail) {
+        if (j * BK + col >= p.nk) x[n][0] = x[n][2] = -INFINITY;
+        if (j * BK + col + 1 >= p.nk) x[n][1] = x[n][3] = -INFINITY;
+      }
+    }
+
+    // online softmax: the new row maxima, the correction of O and l
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(x[n][2 * r], x[n][2 * r + 1]));
+      mx = quad_max(mx);
+      if (!ROWK) mx *= c[r];  // c > 0: the maximum of the scaled logits
+      mx = fmaxf(m[r], mx);
+      corr[r] = ex2(m[r] - mx);  // 0 on the first tile (m = -inf)
+      m[r] = mx;
+      l[r] *= corr[r];
+    }
+    // rescale only when a row maximum of the warp moved
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        x[n][e] = ROWK ? ex2(x[n][e] - m[r]) : ex2(fmaf(x[n][e], c[r], -m[r]));
+      }
+      l[0] += x[n][0] + x[n][1];
+      l[1] += x[n][2] + x[n][3];
+    }
+
+    // O += bf16(P) V: logit tiles 2kk and 2kk + 1 are the A fragment of k-step kk
+    const __nv_bfloat16* sV = reinterpret_cast<const __nv_bfloat16*>(st + L::OFF_V);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[4];
+      a[0] = pack_bf16(x[2 * kk][0], x[2 * kk][1]);
+      a[1] = pack_bf16(x[2 * kk][2], x[2 * kk][3]);
+      a[2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
+      a[3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
+#pragma unroll
+      for (int n2 = 0; n2 < NO / 2; ++n2) {
+        uint32_t vf[4];
+        ldsm_x4_t(vf, sV + (kk * 16 + lrow) * L::LDV + n2 * 16 + lcol);
+        mma_bf16(o[2 * n2], a, vf[0], vf[1]);
+        mma_bf16(o[2 * n2 + 1], a, vf[2], vf[3]);
       }
     }
   }
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  if ((lane & 1) == 0) sL[r] = l;
+
+  // O / l, stored as bf16 pairs straight from the accumulators
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(sO + wrow * L::LDO + n * 16, acc[n], L::LDO, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int rr = wrow + i / D;
-    const int c = i % D;
-    if (q0 + rr < p.nq) {
-      ob[(int64_t)(q0 + rr) * p.o_sn + c] = __float2bfloat16_rn(__fdiv_rn(sO[rr * L::LDO + c], sL[rr]));
+  for (int r = 0; r < 2; ++r) {
+    const int qi = q0 + wrow + g + 8 * r;
+    if (qi >= p.nq) continue;
+    __nv_bfloat16* orow = ob + (int64_t)qi * p.o_sn;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+          __floats2bfloat162_rn(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
     }
   }
 }
 
+// ---- the prologue: K to int8 -----------------------------------------------
+
+__device__ __forceinline__ float abs_max8(const float (&x)[8]) {
+  float m = 0.f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(x[e]));
+  return m;
+}
+
+__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    x[2 * e] = f.x;
+    x[2 * e + 1] = f.y;
+  }
+}
+
+// amax[b * H + h] = max |k| over rows [r0, r0 + AMAX_ROWS) of one head,
+// folded into the zeroed buffer by atomicMax on the float's bits (the
+// order of non-negative floats is that of their bits as integers)
+template <int D>
+__global__ void __launch_bounds__(QK_THREADS) k_amax_kernel(const __nv_bfloat16* k, int64_t k_sb,
+                                                            int64_t k_sn, int heads, int nk,
+                                                            float* amax) {
+  constexpr int CH = D / 8;  // 16-byte chunks of a head's row
+  __shared__ float part[QK_THREADS / 32];
+  const int bh = blockIdx.y;
+  const int b = bh / heads, h = bh % heads;
+  const int r0 = blockIdx.x * AMAX_ROWS;
+  const int rows = min(AMAX_ROWS, nk - r0);
+  const __nv_bfloat16* kb = k + b * k_sb + h * D;
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < rows * CH; i += QK_THREADS) {
+    float x[8];
+    load8(x, kb + (int64_t)(r0 + i / CH) * k_sn + (i % CH) * 8);
+    mx = fmaxf(mx, abs_max8(x));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < QK_THREADS / 32; ++w) mx = fmaxf(mx, part[w]);
+    atomicMax(reinterpret_cast<int*>(amax) + bh, __float_as_int(mx));
+  }
+}
+
+// The codes of 8 values a thread, written contiguous (B, Nk, H*D). Per
+// head: skh = max(amax / 127, 1e-8), stored once per (batch, head) into
+// sk (B, H). ROWK: the amax of the row's D values over the D/8 lanes that
+// hold them, stored into sk (B, H, Nk).
 template <int D, bool ROWK>
+__global__ void __launch_bounds__(QK_THREADS) k_codes_kernel(const __nv_bfloat16* k, int64_t k_sb,
+                                                             int64_t k_sn, int batch, int heads,
+                                                             int nk, const float* amax, float* sk,
+                                                             int8_t* codes) {
+  constexpr int CH = D / 8;  // lanes of one head's row; divides 32
+  const int64_t row_ch = (int64_t)heads * CH;
+  const int64_t total = (int64_t)batch * nk * row_ch;
+  const int64_t i = (int64_t)blockIdx.x * QK_THREADS + threadIdx.x;
+  const bool live = i < total;  // whole warps stay on for the ROWK shuffles
+  const int64_t ii = live ? i : 0;
+  const int b = static_cast<int>(ii / (nk * row_ch));
+  const int64_t rem = ii - (int64_t)b * nk * row_ch;
+  const int n = static_cast<int>(rem / row_ch);
+  const int c = static_cast<int>(rem - (int64_t)n * row_ch);
+  const int h = c / CH;
+  float x[8];
+  load8(x, k + b * k_sb + (int64_t)n * k_sn + c * 8);
+  float s;
+  if (ROWK) {
+    float mx = abs_max8(x);
+#pragma unroll
+    for (int off = CH / 2; off > 0; off >>= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    s = fmaxf(__fdiv_rn(mx, 127.f), 1e-8f);
+    if (live && c % CH == 0) sk[((int64_t)b * heads + h) * nk + n] = s;
+  } else {
+    s = fmaxf(__fdiv_rn(amax[b * heads + h], 127.f), 1e-8f);
+    if (live && n == 0 && c % CH == 0) sk[b * heads + h] = s;
+  }
+  if (!live) return;
+  uint2 out;
+  out.x = code8(x[0], s) | (code8(x[1], s) << 8) | (code8(x[2], s) << 16) | (code8(x[3], s) << 24);
+  out.y = code8(x[4], s) | (code8(x[5], s) << 8) | (code8(x[6], s) << 16) | (code8(x[7], s) << 24);
+  *reinterpret_cast<uint2*>(codes + i * 8) = out;
+}
+
+// ---- launches --------------------------------------------------------------
+
+template <int D, int BQ, bool ROWK>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = Layout<D>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(int8_attn_kernel<D, ROWK>,
+  const size_t smem = Layout<D, BQ, ROWK>::TOTAL;
+  cudaError_t err = cudaFuncSetAttribute(int8_attn_kernel<D, BQ, ROWK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((p.nq + BQ - 1) / BQ, batch * p.heads);
-  int8_attn_kernel<D, ROWK><<<grid, NTHREADS, smem, stream>>>(p);
+  int8_attn_kernel<D, BQ, ROWK><<<grid, BQ * 2, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool ROWK>
+template <int BQ, bool ROWK>
 int launch_d(const Params& p, int batch, int d, cudaStream_t s) {
   switch (d) {
-    case 32: return launch<32, ROWK>(p, batch, s);
-    case 64: return launch<64, ROWK>(p, batch, s);
-    case 128: return launch<128, ROWK>(p, batch, s);
+    case 32: return launch<32, BQ, ROWK>(p, batch, s);
+    case 64: return launch<64, BQ, ROWK>(p, batch, s);
+    case 128: return launch<128, BQ, ROWK>(p, batch, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <int D>
+int quant_k(const __nv_bfloat16* k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk,
+            bool row_k, float* amax, float* sk, int8_t* codes, cudaStream_t s) {
+  if (!row_k) {
+    cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * batch * heads, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid((nk + AMAX_ROWS - 1) / AMAX_ROWS, batch * heads);
+    k_amax_kernel<D><<<grid, QK_THREADS, 0, s>>>(k, k_sb, k_sn, heads, nk, amax);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t chunks = (int64_t)batch * nk * heads * (D / 8);
+  const unsigned blocks = static_cast<unsigned>((chunks + QK_THREADS - 1) / QK_THREADS);
+  if (row_k) {
+    k_codes_kernel<D, true><<<blocks, QK_THREADS, 0, s>>>(k, k_sb, k_sn, batch, heads, nk, amax,
+                                                          sk, codes);
+  } else {
+    k_codes_kernel<D, false><<<blocks, QK_THREADS, 0, s>>>(k, k_sb, k_sn, batch, heads, nk, amax,
+                                                           sk, codes);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Launches on `stream` and returns the launch's cudaError_t (0 = queued).
-// Head dims 32, 64 and 128; every row 16-byte aligned (checked by the
-// Python wrapper). `sk` holds (B, H) per-head K scales, or (B, H, Nk)
-// per-row ones when `row_k` is set.
+// K9's prologue, on `stream`; returns the first launch's cudaError_t (0 =
+// queued). Packed bf16 K (B, Nk, H*D) with element strides k_sb, k_sn and
+// 16-byte aligned rows -> int8 codes (B, Nk, H*D), contiguous, and fp32
+// scales: (B, H) per head (with `amax`, a (B, H) scratch buffer that the
+// call zeroes), or (B, H, Nk) per key row when `row_k` is set.
+extern "C" int pd_int8_quant_k(const void* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
+                               int nk, int d, int row_k, void* amax, void* sk, void* codes,
+                               void* stream) {
+  if (nk <= 0 || batch <= 0 || heads <= 0 || (int64_t)batch * heads > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  auto* am = static_cast<float*>(amax);
+  auto* skp = static_cast<float*>(sk);
+  auto* cp = static_cast<int8_t*>(codes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 32: return quant_k<32>(kp, k_sb, k_sn, batch, heads, nk, row_k, am, skp, cp, s);
+    case 64: return quant_k<64>(kp, k_sb, k_sn, batch, heads, nk, row_k, am, skp, cp, s);
+    case 128: return quant_k<128>(kp, k_sb, k_sn, batch, heads, nk, row_k, am, skp, cp, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launches K9 on `stream` and returns the launch's cudaError_t (0 =
+// queued). Head dims 32, 64 and 128; `block_q` 64 or 128 query rows per
+// block; every row 16-byte aligned and scale > 0 (checked by the Python
+// wrapper). `k` holds the prologue's codes; `sk` (B, H) per-head K scales,
+// or (B, H, Nk) per-row ones when `row_k` is set.
 extern "C" int pd_int8_attention_fwd(
     const void* q, const void* k, const void* sk, int row_k, const void* v, void* o,
     int batch, int heads, int nq, int nk, int d,
     int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
     int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
-    float scale, void* stream) {
-  if (nq <= 0 || nk <= 0 || batch <= 0 || heads <= 0 || (int64_t)batch * heads > 65535) {
+    float scale, int block_q, void* stream) {
+  if (nq <= 0 || nk <= 0 || batch <= 0 || heads <= 0 || (int64_t)batch * heads > 65535 ||
+      !(scale > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -313,5 +666,11 @@ extern "C" int pd_int8_attention_fwd(
   p.heads = heads; p.nq = nq; p.nk = nk;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return row_k ? launch_d<true>(p, batch, d, s) : launch_d<false>(p, batch, d, s);
+  if (block_q == 128) {
+    return row_k ? launch_d<128, true>(p, batch, d, s) : launch_d<128, false>(p, batch, d, s);
+  }
+  if (block_q == 64) {
+    return row_k ? launch_d<64, true>(p, batch, d, s) : launch_d<64, false>(p, batch, d, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,7 +12,9 @@ for D <= 128 with its tile chosen per head dimension (`kernel_tile`) and a
 wide one for the VAE's D = 512. Packed memory is the (B, N, H, D) layout,
 so the kernels read either through strides. Inputs on the card are bf16;
 logits and softmax are fp32, P is rounded to bf16 before P.V, and P.V
-accumulates in fp32. K9 is its own CUDA kernel, `csrc/int8_attention.cu`.
+accumulates in fp32. K9 is its own CUDA kernel with a K-quantizing
+prologue, `csrc/int8_attention.cu` (`quant_k_int8`, then K9 at
+`int8_block_q` query rows per block).
 
 The lab kernels of `tools/attn_variants.py`, `attn_lab2.py`, `attn_lab3.py`
 and `attn_int8_lab.py` are modes of the same two sources (the bf16 modes
@@ -201,14 +203,24 @@ flash_attention_tiled.launches = attention_no_softmax.launches = 0
 flash_attention_two_pass.launches = 0
 
 
+def _int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax / 127, 1e-8) with the IEEE quotient on every device, as the
+    TPU kernel, the JAX package on the CPU and K9 compute it. (PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal, one ulp off
+    the quotient for ~4% of values; a divisor tensor on the same device
+    takes the true division.)"""
+    return torch.clamp_min(amax / torch.full((), 127.0, device=amax.device), 1e-8)
+
+
 def _quant_k_per_head(k: torch.Tensor, num_heads: int):
     """Packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32 scales (B, H)):
     one scale per (batch, head), max(amax / 127, 1e-8), codes round(k / s)
     with ties to even, clipped to +-127 (`flash_attention.py:391-395` of the
-    JAX package, which computes it outside the kernel too)."""
+    JAX package, which computes it outside the kernel too). The plain
+    version of `quant_k_int8`."""
     b, nk, hd = k.shape
     kf = k.float().view(b, nk, num_heads, hd // num_heads)
-    skh = torch.clamp_min(kf.abs().amax(dim=(1, 3)) / 127.0, 1e-8)
+    skh = _int8_scale(kf.abs().amax(dim=(1, 3)))
     codes = torch.clamp(torch.round(kf / skh[:, None, :, None]), -127, 127).to(torch.int8)
     return codes.view(b, nk, hd), skh
 
@@ -219,7 +231,7 @@ def _quant_k_per_row(k: torch.Tensor, num_heads: int):
     computes it outside the kernel."""
     b, nk, hd = k.shape
     kf = k.float().view(b, nk, num_heads, hd // num_heads)
-    skr = torch.clamp_min(kf.abs().amax(dim=-1) / 127.0, 1e-8)  # (B, N, H)
+    skr = _int8_scale(kf.abs().amax(dim=-1))  # (B, N, H)
     codes = torch.clamp(torch.round(kf / skr[..., None]), -127, 127).to(torch.int8)
     return codes.view(b, nk, hd), skr.permute(0, 2, 1)
 
@@ -238,7 +250,7 @@ def _torch_int8_attention(q, k, v, num_heads: int, scale: float, row_k: bool = F
     d = hd // num_heads
     kc, sk = (_quant_k_per_row if row_k else _quant_k_per_head)(k, num_heads)
     qf = q.float().view(b, nq, num_heads, d)
-    sq = torch.clamp_min(qf.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)  # (B, Nq, H, 1)
+    sq = _int8_scale(qf.abs().amax(dim=-1, keepdim=True))  # (B, Nq, H, 1)
     qc = torch.clamp(torch.round(qf / sq), -127, 127)
     heads = lambda t: t.view(b, -1, num_heads, d).permute(0, 2, 1, 3)  # (B, H, N, D)
     s32 = torch.matmul(heads(qc), heads(kc.float()).transpose(-1, -2))  # (B, H, Nq, Nk)
@@ -255,10 +267,11 @@ def _torch_int8_attention(q, k, v, num_heads: int, scale: float, row_k: bool = F
 def flash_attention_packed_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """K9: int8-QK^T attention over packed (B, N, H*D) tensors (the int8
-    serving mode's attention). K is quantized here with one scale per
-    (batch, head), folded into the softmax scale; Q per row inside the
-    kernel; fp32 softmax; P.V in bf16 with fp32 sums. The kernel on CUDA,
-    the plain version on the CPU."""
+    serving mode's attention). K is quantized with one scale per (batch,
+    head), folded into the softmax scale, by K9's prologue
+    (`quant_k_int8`); Q per row inside the kernel; fp32 softmax; P.V in
+    bf16 with fp32 sums. The prologue and the kernel on CUDA, the plain
+    version on the CPU."""
     return _int8_attention(flash_attention_packed_int8, False, q, k, v, num_heads, scale)
 
 
@@ -282,30 +295,95 @@ def _int8_attention(wrapper, row_k, q, k, v, num_heads, scale):
         scale = d ** -0.5
     if not use_kernel(q):
         return _torch_int8_attention(q, k, v, num_heads, float(scale), row_k)
-    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+    out = _int8_launch(q, k, v, num_heads, float(scale), row_k)
+    wrapper.launches += 1
+    return out
 
+
+INT8_HEAD_DIMS, INT8_BLOCK_Q = (32, 64, 128), (64, 128)
+
+
+def int8_block_q(nq: int) -> int:
+    """K9's query rows per block at `nq` queries: 128, the tile of K1's
+    narrow kernel, unless 128-row blocks would leave more than a tenth of
+    their rows idle (the ViT's N = 1025 leaves 127 of 1,152): then 64.
+    On the H100 64 rows win at N = 1025 and lose at the SD3 joint 4429
+    and the lab's 4250 (2.3% idle) (`tools/attn_tune.py --part int8`)."""
+    pad = -nq % 128
+    return 64 if 10 * pad > nq + pad else 128
+
+
+def _check_packed_bf16(name, t, device):
+    if t.dtype != torch.bfloat16 or t.device != device:
+        raise ValueError(f"{name} must be bf16 on {device}, got {t.dtype} on {t.device}")
+    if t.stride(-1) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
+        raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {t.stride()}")
+
+
+def _check_int8(q, k, v, num_heads: int, scale: float, block_q: int) -> None:
+    """Raise ValueError for what K9 and its prologue refuse, before any build."""
     b, nq, hd = q.shape
     nk = k.shape[1]
     if k.shape != (b, nk, hd) or v.shape != (b, nk, hd) or hd % num_heads:
         raise ValueError(f"q/k/v shapes disagree: {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} with {num_heads} heads")
-    if d not in (32, 64, 128):
-        raise ValueError(f"head dim {d} not supported (32, 64 or 128)")
-    if k.device != q.device:
-        raise ValueError(f"k must be on {q.device}, got {k.device}")
-    for name, t in (("q", q), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
-        if t.stride(-1) != 1 or t.stride(1) % 8 or t.stride(0) % 8 or t.data_ptr() % 16:
-            raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {t.stride()}")
-    kc, sk = (_quant_k_per_row if row_k else _quant_k_per_head)(k, num_heads)
-    sk = sk.contiguous()
+    if hd // num_heads not in INT8_HEAD_DIMS:
+        raise ValueError(f"head dim {hd // num_heads} not supported {INT8_HEAD_DIMS}")
+    if not scale > 0:
+        raise ValueError(f"scale {scale} must be positive (the kernel takes the row maximum "
+                         "before scaling)")
+    if block_q not in INT8_BLOCK_Q:
+        raise ValueError(f"block_q {block_q} is not instantiated; one of {INT8_BLOCK_Q}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_packed_bf16(name, t, q.device)
+
+
+def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
+                 block_q: Optional[int] = None) -> torch.Tensor:
+    """K's prologue, then K9 at `block_q` query rows per block
+    (`int8_block_q` by default); returns a contiguous (B, Nq, H*D) tensor."""
+    b, nq, hd = q.shape
+    block_q = int8_block_q(nq) if block_q is None else block_q
+    _check_int8(q, k, v, num_heads, scale, block_q)
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    kc, sk = quant_k_int8(k, num_heads, row_k)
     out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().int8_attention_fwd(
             q.data_ptr(), kc.data_ptr(), sk.data_ptr(), row_k, v.data_ptr(), out.data_ptr(),
-            b, num_heads, nq, nk, d, q.stride(0), q.stride(1), kc.stride(0), kc.stride(1),
-            v.stride(0), v.stride(1), out.stride(0), out.stride(1), float(scale),
-            torch.cuda.current_stream().cuda_stream)
-    wrapper.launches += 1
+            b, num_heads, nq, k.shape[1], hd // num_heads, q.stride(0), q.stride(1),
+            kc.stride(0), kc.stride(1), v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+            scale, block_q, torch.cuda.current_stream().cuda_stream)
     return out
+
+
+def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False):
+    """K9's prologue: packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32
+    scales), one scale per (batch, head) (B, H), or per (batch, head, key
+    row) (B, H, N) with `per_row`. On CUDA its two kernels in
+    `csrc/int8_attention.cu` (the amax, then the codes; per row the codes
+    alone), bit-equal to the plain versions `_quant_k_per_head` and
+    `_quant_k_per_row`, which the CPU takes."""
+    if not use_kernel(k):
+        return (_quant_k_per_row if per_row else _quant_k_per_head)(k, num_heads)
+    b, nk, hd = k.shape
+    if hd % num_heads or hd // num_heads not in INT8_HEAD_DIMS:
+        raise ValueError(f"head dim of {hd} / {num_heads} not supported {INT8_HEAD_DIMS}")
+    _check_packed_bf16("k", k, k.device)
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    codes = torch.empty((b, nk, hd), dtype=torch.int8, device=k.device)
+    if per_row:
+        scales = amax = torch.empty((b, num_heads, nk), dtype=torch.float32, device=k.device)
+    else:
+        amax, scales = torch.empty((2, b, num_heads), dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        cuda_ext().int8_quant_k(k.data_ptr(), k.stride(0), k.stride(1), b, num_heads, nk,
+                                hd // num_heads, per_row, amax.data_ptr(), scales.data_ptr(),
+                                codes.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    quant_k_int8.launches += 1
+    return codes, scales
+
+
+quant_k_int8.launches = 0

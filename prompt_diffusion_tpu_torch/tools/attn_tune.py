@@ -1,6 +1,6 @@
-"""K1's tile and what bounds it, on the card.
+"""K1's and K9's tiles and what bounds them, on the card.
 
-    python3 -m prompt_diffusion_tpu_torch.tools.attn_tune [--iters N]
+    python3 -m prompt_diffusion_tpu_torch.tools.attn_tune [--iters N] [--part sweep|int8|ablate]
 
   sweep     the online mode of `ops/csrc/flash_attention.cu` at every tile
             of `LAB_TILES` on K1's shapes in the SD1.5 paths (CFG batch 4
@@ -13,10 +13,17 @@
             `build/attn_tune/` and called through ctypes at K1's tile; the
             time each part costs, and ptxas's registers and spills of the
             K1 kernel of each copy. The outputs of an ablated copy are
-            wrong by design and are not checked.
+            wrong by design and are not checked;
+  int8      K9 (`ops/csrc/int8_attention.cu`): ptxas's registers and spills
+            of every instantiation (nvcc -Xptxas=-v on the source), then
+            its device time (`tools/timing.py::device_ms`, its prologue
+            included) at both query tiles on its path shapes (the SD3
+            joint attention, the ViT-B's qkv column slices) and the lab's
+            per-row-K shape, in turns, beside `int8_block_q`'s choice: the
+            data behind that rule.
 
-Times are CUDA-event medians. It needs one CUDA card and nvcc; without a
-card it exits 2.
+The K1 parts' times are CUDA-event medians. It needs one CUDA card and
+nvcc; without a card it exits 2.
 """
 
 from __future__ import annotations
@@ -32,13 +39,17 @@ import torch
 import torch.nn.functional as F
 
 from prompt_diffusion_tpu_torch.ops import flash_attention as fa
-from prompt_diffusion_tpu_torch.tools.timing import card, time_ms
+from prompt_diffusion_tpu_torch.tools.timing import card, device_ms, time_ms
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ops", "csrc",
-                     "flash_attention.cu")
+_CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ops", "csrc")
+_CSRC = os.path.join(_CSRC_DIR, "flash_attention.cu")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 OUT_DIR = os.path.join(_REPO, "build", "attn_tune")
 SHAPES = ((8, 4096, 8, 40), (4, 4096, 8, 40), (8, 1024, 8, 80), (4, 1024, 8, 80))
+# K9's shapes (B, N, H, D, per-row K): the SD3 joint attention, the ViT-B's
+# qkv column slices (packed qkv of width 3 * H * D), the lab's per-row mode
+INT8_SHAPES = (("SD3 joint", 2, 4429, 24, 64, False), ("ViT-B qkv slices", 16, 1025, 12, 64, False),
+               ("lab per-row K", 2, 4250, 24, 64, True))
 # (old, new) edits of the source for each ablated copy
 _EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));'
 _PV = ("mma_bf16(o[2 * n2], a, vf[0], vf[1]);\n"
@@ -71,11 +82,18 @@ def sweep(gen, iters):
               + f" best={best[0]}x{best[1]} kernel_tile={fa.kernel_tile(d)}", flush=True)
 
 
+def _nvcc(src, out, *flags):
+    """Start nvcc for sm_90a with ptxas's report on `src`; returns the process."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), "-gencode=arch=compute_90a,code=sm_90a",
+           "-O3", "-std=c++17", "-Xptxas=-v", *flags, "-o", out, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def _compile(name, edits):
     """Start nvcc on a copy of the source with `edits`; returns (library
     path, the process) or (None, why not)."""
-    from torch.utils.cpp_extension import CUDA_HOME
-
     src = open(_CSRC).read()
     for old, new in edits:
         if old not in src:
@@ -84,11 +102,7 @@ def _compile(name, edits):
     os.makedirs(OUT_DIR, exist_ok=True)
     stem = os.path.join(OUT_DIR, re.sub(r"\W+", "_", name))
     open(stem + ".cu", "w").write(src)
-    cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), "-gencode=arch=compute_90a,code=sm_90a",
-           "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-           "-o", stem + ".so", stem + ".cu"]
-    return stem + ".so", subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True)
+    return stem + ".so", _nvcc(stem + ".cu", stem + ".so", "-shared", "-Xcompiler", "-fPIC")
 
 
 def _load(lib, proc):
@@ -137,9 +151,46 @@ def ablate(gen, iters):
               flush=True)
 
 
+def int8(gen, iters):
+    """ptxas's report of every kernel in `int8_attention.cu`, then K9's
+    device ms at BQ 64 and 128 on its shapes, timed 64, 128, 128, 64."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    out, _ = _nvcc(os.path.join(_CSRC_DIR, "int8_attention.cu"),
+                   os.path.join(OUT_DIR, "int8_attention.o"), "-c").communicate()
+    lines = out.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?"
+                      r"(int8_attn_kernel|k_codes_kernel|k_amax_kernel)I(\w*?)E(?:Ev|EEv)", line)
+        if m:
+            targs = ", ".join(re.findall(r"L[ib](\d+)E", m.group(2) + "E"))
+            info = " | ".join(x.split(":", 2)[-1].strip() for x in lines[i + 1:i + 4]
+                              if "registers" in x or "spill" in x)
+            print(f"[attn_tune] ptxas {m.group(1)}<{targs}>: {info}", flush=True)
+    for label, b, n, h, d, per_row in INT8_SHAPES:
+        hd = h * d
+        if label.startswith("ViT"):
+            q, k, v = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(
+                torch.bfloat16).chunk(3, dim=-1)
+        else:
+            q, k, v = (torch.randn(b, n, hd, generator=gen, device="cuda").to(torch.bfloat16)
+                       for _ in range(3))
+        times = {64: [], 128: []}
+        for bq in (64, 128, 128, 64):
+            times[bq].append(device_ms(lambda bq=bq: fa._int8_launch(q, k, v, h, d ** -0.5,
+                                                                    per_row, bq), iters=iters))
+        print(f"[attn_tune] int8 {label} ({b},{n},{hd}) H={h}: device_ms " + " ".join(
+            f"bq{bq}={'/'.join(f'{t:.4f}' for t in ts)}" for bq, ts in times.items())
+            + f" int8_block_q={fa.int8_block_q(n)}", flush=True)
+
+
+PARTS = {"sweep": sweep, "int8": int8, "ablate": ablate}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--part", choices=PARTS, action="append",
+                    help="a part to run (repeatable; all when not given)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("attn_tune: no CUDA device", file=sys.stderr)
@@ -147,8 +198,8 @@ def main(argv=None) -> int:
     print(f"[attn_tune] {card()} | torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    sweep(gen, args.iters)
-    ablate(gen, args.iters)
+    for part in args.part or PARTS:
+        PARTS[part](gen, args.iters)
     return 0
 
 

@@ -23,8 +23,8 @@ import time
 
 import torch
 
-from prompt_diffusion_tpu_torch.tools.profile_sd15 import _wall_ms, busy_us, device_kernels
-from prompt_diffusion_tpu_torch.tools.timing import card
+from prompt_diffusion_tpu_torch.tools.profile_sd15 import _wall_ms
+from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels
 
 BATCH, SIZE = 16, 512
 BATCHES, TOP = 2, 25  # batches traced, kernel names printed

@@ -28,7 +28,7 @@ import time
 
 import torch
 
-from prompt_diffusion_tpu_torch.tools.timing import card, roofline
+from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels, roofline
 
 BATCH, SIZE, CFG = 2, 512, 9.0
 STEPS, TOP = 3, 30  # denoise steps traced, kernel names printed
@@ -95,25 +95,6 @@ def build(int8=False, seed=0, conv_variant="im2col"):
     request = dict(token_ids=ids(), neg_token_ids=ids(), example_pair=cond(6), query=cond(3))
     x = torch.randn((BATCH, 4, SIZE // 8, SIZE // 8), generator=gen, device="cuda")
     return pipe, request, x.contiguous(memory_format=torch.channels_last)
-
-
-def device_kernels(prof):
-    """(name, start_us, end_us) of every device activity in a trace."""
-    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
-def busy_us(intervals):
-    """Length of the union of [start, end) intervals."""
-    total, cur_start, cur_end = 0, None, None
-    for s, e in sorted(intervals):
-        if cur_end is None or s > cur_end:
-            if cur_end is not None:
-                total += cur_end - cur_start
-            cur_start, cur_end = s, e
-        else:
-            cur_end = max(cur_end, e)
-    return total + (cur_end - cur_start if cur_end is not None else 0)
 
 
 @torch.no_grad()

@@ -29,13 +29,8 @@ import time
 
 import torch
 
-from prompt_diffusion_tpu_torch.tools.profile_sd15 import (
-    _wall_ms,
-    busy_us,
-    device_kernels,
-    print_int8_gemm_bound,
-)
-from prompt_diffusion_tpu_torch.tools.timing import card
+from prompt_diffusion_tpu_torch.tools.profile_sd15 import _wall_ms, print_int8_gemm_bound
+from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels
 
 BATCH, SIZE, CFG, T5_LEN = 1, 1024, 7.0, 256
 STEPS, TOP = 2, 30  # denoise steps traced, kernel names printed

@@ -1,6 +1,14 @@
 """Timing on the card and the least time the card could take for a piece of
 work, shared by `chip_smoke.py`, the attention lab and the profiles.
 
+`device_ms` is the time a call keeps the card busy: the union of the
+device intervals of everything the call launches (kernels, copies,
+memsets), from a `torch.profiler` trace of back-to-back calls, per call.
+It leaves out the host's part of a call (the wrapper's Python, the launch
+itself), which `time_ms`, CUDA events around one synchronised call,
+includes: below ~0.1 ms of device work that host time is most of a
+`time_ms` reading.
+
 The bound is the largest of the bytes the function must move (each input
 read once, each output written once) over the memory rate, its
 tensor-core operations over their dense peak, and its exponentials over
@@ -30,7 +38,8 @@ def card() -> str:
 
 
 def time_ms(fn, iters=10, warmup=2):
-    """Median milliseconds of one call, from CUDA events around each call."""
+    """Median milliseconds of one call, from CUDA events around each call
+    (the host's part of the call included)."""
     import torch
 
     for _ in range(warmup):
@@ -44,6 +53,51 @@ def time_ms(fn, iters=10, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_kernels(prof):
+    """(name, start_us, end_us) of every device activity in a trace."""
+    import torch
+
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, cur_start, cur_end = 0, None, None
+    for s, e in sorted(intervals):
+        if cur_end is None or s > cur_end:
+            if cur_end is not None:
+                total += cur_end - cur_start
+            cur_start, cur_end = s, e
+        else:
+            cur_end = max(cur_end, e)
+    return total + (cur_end - cur_start if cur_end is not None else 0)
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device milliseconds per call of `fn`: `iters` back-to-back calls
+    under `torch.profiler` (CUDA activity), the union of their device
+    intervals over `iters`. Raises without a CUDA device or when the trace
+    holds no device activity; it never falls back to a host clock."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    return busy_us([(s, e) for _, s, e in kernels]) / iters / 1e3
 
 
 def roofline(nbytes, int8_ops=0.0, bf16_ops=0.0, exps=0.0):

@@ -141,6 +141,22 @@ def test_chip_smoke_token_ids_are_hash_tokenizer_ids():
     np.testing.assert_array_equal(chip_smoke.hash_token_ids(texts), HashTokenizer()(texts))
 
 
+def test_chip_smoke_counts_every_kernel_it_lists():
+    """Every kernel in chip_smoke.py's JSON line has a counted wrapper, every
+    kernel a path must launch is listed, and K9's prologue is held to one
+    launch per K9 call on the int8 DPT-Hybrid path."""
+    import chip_smoke
+
+    counted = chip_smoke.wrappers()
+    assert set(chip_smoke.KERNELS) == set(counted)
+    assert all(hasattr(w, "launches") for w in counted.values())
+    for tag, names in chip_smoke.PATH_KERNELS.items():
+        assert set(names) <= set(counted), tag
+    assert set(chip_smoke.DEVICE_FUNCTIONS) <= set(counted)
+    per = chip_smoke.MIDAS_PER_FORWARD["midas_int8"]
+    assert per["quant_k_int8"] == per["flash_attention_packed_int8"] == 12
+
+
 def test_port_imports_no_jax():
     code = ("import sys, prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15, "
             "prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3, "

@@ -24,6 +24,7 @@ from prompt_diffusion_tpu.schedulers import flow_match as jfm
 from prompt_diffusion_tpu.utils.dtypes import fp32_policy as j_fp32_policy
 from prompt_diffusion_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from prompt_diffusion_tpu_torch.models.t5_text import T5Config, T5Encoder, _relative_position_bucket
+from prompt_diffusion_tpu_torch.ops import flash_attention as fa
 from prompt_diffusion_tpu_torch.ops.flash_attention import _packed_ref, flash_attention_packed_int8
 from prompt_diffusion_tpu_torch.ops.fused_act import fused_gelu_quant, fused_quant_rows
 from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln_quant
@@ -144,6 +145,98 @@ def test_int8_attention_plain_matches_pallas(n, dtype, atol):
     got = flash_attention_packed_int8(*(torch.from_numpy(a).to(tdt) for a in qkv), heads)
     assert got.dtype == tdt and got.shape == (2, n, 64)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=atol)
+
+
+def _jax_quant_k_per_head(k, num_heads):
+    """The JAX package's host-side K quantization
+    (`flash_attention.py:391-394`), as `_jax_int8_attention` writes it."""
+    b, n, hd = k.shape
+    kf = k.astype(jnp.float32).reshape(b, n, num_heads, hd // num_heads)
+    skh = jnp.maximum(jnp.max(jnp.abs(kf), axis=(1, 3)) / 127.0, 1e-8)
+    ki = jnp.clip(jnp.round(kf / skh[:, None, :, None]), -127, 127).astype(jnp.int8)
+    return ki.reshape(b, n, hd), skh
+
+
+@pytest.mark.parametrize("case", ["ragged", "zero head", "ties", "bf16"])
+def test_quant_k_per_head_bit_equals_jax(case):
+    """`_quant_k_per_head`, the plain version of K9's prologue, bit-equal in
+    codes and scales to the JAX host-side quantization: at a ragged Nk, with
+    one all-zero head (the 1e-8 clamp), on values placed exactly on .5 code
+    ties (each head's amax 127, so skh = 1 and ties go to even), and on bf16
+    input."""
+    rng = np.random.default_rng(7)
+    b, n, heads, d = 2, 77, 4, 32
+    k = _normal(rng, (b, n, heads * d), 2.0)
+    if case == "zero head":
+        k[1, :, 2 * d:3 * d] = 0.0
+    if case == "ties":
+        k = (rng.integers(-60, 60, size=k.shape) + 0.5).astype(np.float32)
+        k[:, 5, ::d] = 127.0
+    dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    kt = torch.from_numpy(k).to(dtype)
+    codes, scales = fa._quant_k_per_head(kt, heads)
+    ref_codes, ref_scales = _jax_quant_k_per_head(jnp.asarray(kt.float().numpy()).astype(
+        jnp.bfloat16 if case == "bf16" else jnp.float32), heads)
+    assert codes.dtype == torch.int8 and scales.dtype == torch.float32
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(ref_codes))
+    np.testing.assert_array_equal(scales.numpy(), np.asarray(ref_scales))
+    if case == "zero head":
+        assert scales[1, 2].item() == np.float32(1e-8) and not codes[1, :, 2 * d:3 * d].any()
+    if case == "ties":
+        tie_codes = codes.numpy()[np.abs(k) != 127.0]
+        assert (tie_codes % 2 == 0).all(), "ties must round to even"
+    # on the CPU the prologue's wrapper is its plain version, and counts nothing
+    before = fa.quant_k_int8.launches
+    got_codes, got_scales = fa.quant_k_int8(kt, heads)
+    assert torch.equal(got_codes, codes) and torch.equal(got_scales, scales)
+    assert fa.quant_k_int8.launches == before
+
+
+@pytest.mark.parametrize("nq,block_q", [(4429, 128), (1025, 64), (1100, 128), (4250, 128),
+                                        (4096, 128), (64, 64)])
+def test_int8_block_q_per_shape(nq, block_q):
+    """K9's query tile: 128 rows, or 64 where 128-row blocks would leave
+    more than a tenth of their rows idle (the ViT-B's N = 1025); the SD3
+    joint length and the lab's 4250 take 128. Both are instantiated."""
+    assert fa.int8_block_q(nq) == block_q
+    assert block_q in fa.INT8_BLOCK_Q
+
+
+def _int8_refused(case):
+    """(q, k, v, heads, scale, block_q) for each input K9 or its prologue
+    refuses."""
+    bf16 = lambda n, hd: torch.zeros(1, n, hd, dtype=torch.bfloat16)
+    x = bf16(64, 256)  # 4 heads of 64
+    misaligned = torch.zeros(64 * 256 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 256)
+    cases = {
+        "head dim 40": (bf16(64, 160),) * 3 + (4, 0.125, None),
+        "q fp32": (x.float(), x, x, 4, 0.125, None),
+        "k fp32 (the prologue reads bf16)": (x, x.float(), x, 4, 0.125, None),
+        "k row stride not a multiple of 8": (x, bf16(64, 260)[..., :256], x, 4, 0.125, None),
+        "k base not 16-byte aligned": (x, misaligned, x, 4, 0.125, None),
+        "v keys disagree": (x, x, bf16(32, 256), 4, 0.125, None),
+        "non-positive scale": (x, x, x, 4, 0.0, None),
+        "block_q not instantiated": (x, x, x, 4, 0.125, 256),
+    }
+    return cases[case]
+
+
+@pytest.mark.parametrize("case", [
+    "head dim 40", "q fp32", "k fp32 (the prologue reads bf16)",
+    "k row stride not a multiple of 8", "k base not 16-byte aligned", "v keys disagree",
+    "non-positive scale", "block_q not instantiated"])
+def test_int8_attention_refuses_before_build(case, monkeypatch):
+    """What K9 and its prologue refuse raises ValueError in the wrapper,
+    before the extension is built or a launch is queued: no fallback."""
+    from prompt_diffusion_tpu_torch.ops import _build
+
+    def built():
+        raise AssertionError("the extension was built")
+
+    monkeypatch.setattr(_build, "cuda_ext", built)
+    q, k, v, heads, scale, block_q = _int8_refused(case)
+    with pytest.raises(ValueError):
+        fa._int8_launch(q, k, v, heads, scale, False, block_q)
 
 
 def test_int8_attention_scheme_error_with_k_outlier():

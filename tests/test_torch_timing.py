@@ -1,0 +1,43 @@
+"""PyTorch port, the timer (`prompt_diffusion_tpu_torch/tools/timing.py`):
+the union of device intervals behind `device_ms` and the profiles, that
+`device_ms` refuses to run without a card, and the bound PERF.md states
+for K9's SD3 row."""
+
+import pytest
+import torch
+
+from prompt_diffusion_tpu_torch.tools import timing
+
+
+@pytest.mark.parametrize("intervals,union", [
+    ([], 0),
+    ([(0, 5)], 5),
+    ([(0, 2), (4, 7), (10, 11)], 6),           # disjoint
+    ([(0, 4), (2, 6), (5, 9)], 9),             # overlapping in a chain
+    ([(0, 10), (2, 3), (4, 8)], 10),           # nested
+    ([(5, 9), (0, 4), (3, 6), (20, 21)], 10),  # unsorted, overlapping and disjoint
+    ([(0, 3), (3, 5)], 5),                     # touching
+])
+def test_busy_us_is_the_union(intervals, union):
+    assert timing.busy_us(intervals) == union
+
+
+def test_device_ms_raises_without_a_card(monkeypatch):
+    """No CUDA device: `device_ms` raises and never calls the function or
+    falls back to a host clock."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        timing.device_ms(lambda: calls.append(1))
+    assert calls == []
+
+
+def test_roofline_k9_sd3_bound():
+    """K9 at the SD3 joint shape (CFG batch 2, 4096 + 333 tokens, 24 heads
+    of 64), the work `chip_smoke.py` gives it: its exponentials bound it
+    at 0.241 ms (PERF.md §6), above its bytes and tensor operations."""
+    b, n, hd, h = 2, 4429, 1536, 24
+    bound_ms, by = timing.roofline(8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd,
+                                   b * h * n * n)
+    assert by == "exponentials"
+    assert round(bound_ms, 3) == 0.241
