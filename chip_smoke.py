@@ -374,20 +374,25 @@ def kernel_cases(gen):
     codes = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda",
                                      dtype=torch.int8)
     uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
-    # the main path's shapes, then two ragged ones (pixel, channel and K tails
-    # in both load paths; no bias with fp32 output); the xshift variant also
-    # at the int8 VAE's 512² rows, wider than its tile
+    # K8, both variants: the SD1.5 sites that carry most of a step's
+    # operations at CFG batch 8 (64², 32², 16²; the 8² latents, which take
+    # split-K), a Cin that 128 does not divide, the latent input conv (Cin =
+    # 4) at CFG batch 8 and 4, two ragged shapes (pixel, channel and K tails
+    # in both load paths; no bias with fp32 output) and the int8 VAE's 512²
+    # rows, wider than xshift's tile.
     conv_shapes = ((8, 64, 64, 320, 320, True, torch.bfloat16),
+                   (8, 32, 32, 640, 640, True, torch.bfloat16),
+                   (8, 16, 16, 1280, 1280, True, torch.bfloat16),
+                   (8, 8, 8, 1280, 1280, True, torch.bfloat16),
                    (8, 8, 8, 2560, 1280, True, torch.bfloat16),
+                   (8, 64, 64, 960, 320, True, torch.bfloat16),
+                   (8, 64, 64, 4, 320, True, torch.bfloat16),
                    (2, 64, 64, 4, 320, True, torch.bfloat16),
                    (3, 5, 11, 48, 72, True, torch.bfloat16),
-                   (2, 7, 9, 24, 40, False, torch.float32))
-    for name, fn, shapes in (
-            ("conv3x3_int8", conv3x3_int8, ((8, 64, 64, 4, 320, True, torch.bfloat16),)
-             + conv_shapes[:2] + conv_shapes[3:]),
-            ("conv3x3_int8_xshift", conv3x3_int8_xshift,
-             conv_shapes + ((2, 512, 512, 128, 128, True, torch.bfloat16),))):
-        for b, h, w, cin, cout, bias, dt in shapes:
+                   (2, 7, 9, 24, 40, False, torch.float32),
+                   (2, 512, 512, 128, 128, True, torch.bfloat16))
+    for name, fn in (("conv3x3_int8", conv3x3_int8), ("conv3x3_int8_xshift", conv3x3_int8_xshift)):
+        for b, h, w, cin, cout, bias, dt in conv_shapes:
             args = (codes(b, h, w, cin), uniform(b, 0.01, 0.1), codes(cout, 3, 3, cin),
                     uniform(cout, 1e-4, 1e-3), randn(cout) if bias else None, dt)
             label = f"({b},{h},{w},{cin}->{cout})" + ("" if bias else " no bias, fp32 out")
@@ -452,6 +457,7 @@ def phase_kernels(gen):
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
     from prompt_diffusion_tpu_torch.ops.flash_attention import LAB_TILES, WIDE_TILE
+    from prompt_diffusion_tpu_torch.tools.conv_tune import bf16_conv
     from prompt_diffusion_tpu_torch.tools.timing import device_ms, roofline, time_ms
 
     key_tile = min(tile[1] for tile in LAB_TILES + (WIDE_TILE,))
@@ -511,12 +517,16 @@ def phase_kernels(gen):
         with plain_ops():
             plain_ms = device_ms(lambda: fn(*args), iters=PLAIN_ITERS, warmup=1)
         lib_ms = None if library is None else device_ms(library)
+        if name.startswith("conv3x3_int8"):  # the bar an int8 conv must clear to pay
+            extra["bf16_conv_ms"] = device_ms(bf16_conv(gen, *args[0].shape, args[2].shape[0]))
         profiled_s += time.perf_counter() - t
         wall_ms = time_ms(lambda: fn(*args))
         bound_ms, bound_term = roofline(*work)
         bound_by = "bytes" if bound_term == "bytes" else "operations"
         log(f"[kernels] {name} {label}: {msg} device_ms={ms} plain_device_ms={plain_ms} "
-            f"library_device_ms={lib_ms} wall_ms={wall_ms} bound_ms={bound_ms} ({bound_term})")
+            f"library_device_ms={lib_ms} wall_ms={wall_ms} bound_ms={bound_ms} ({bound_term})"
+            + ("" if "bf16_conv_ms" not in extra else f" bf16_conv_device_ms="
+               f"{extra['bf16_conv_ms']} (cuDNN bf16, not the same function)"))
         check(ok, f"{name} {label}: outside its bound: {msg}")
         results.setdefault(name, []).append(
             {"case": label, "max_abs_err": err, "bound": bound, **extra, "ms": ms,
@@ -571,8 +581,11 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                      "prompt_diffusion_tpu/ops/flash_attention.py:391"),
 }
 # the device functions a wrapper launches, where it launches more than one
-# (K9's wrapper runs its prologue, then the attention kernel)
+# (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
+# split-K sum and epilogue where its plan splits K)
 DEVICE_FUNCTIONS = {
+    "conv3x3_int8": ("conv3x3_int8_kernel", "splitk_epilogue_kernel"),
+    "conv3x3_int8_xshift": ("conv3x3_int8_xshift_kernel", "splitk_epilogue_kernel"),
     "flash_attention_packed_int8": ("k_amax_kernel", "k_codes_kernel", "int8_attn_kernel"),
     "flash_attention_packed_int8_rowk": ("k_codes_kernel", "int8_attn_kernel"),
     "quant_k_int8": ("k_amax_kernel", "k_codes_kernel"),

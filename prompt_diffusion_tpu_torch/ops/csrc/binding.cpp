@@ -22,13 +22,14 @@ extern "C" int pd_flash_attention_fwd(
     int64_t o_sb, int64_t o_sn, int64_t o_sh,
     float scale, int mode, int block_q, int block_k, void* stream);
 extern "C" int pd_conv3x3_int8(const void* x, const void* w, const void* s_a,
-                               const void* s_w, const void* bias, void* out,
-                               int batch, int h, int wd, int cin, int cout,
-                               int out_bf16, int vec, void* stream);
+                               const void* s_w, const void* bias, void* out, void* ws,
+                               int batch, int h, int wd, int cin, int cout, int out_bf16,
+                               int vec, int block_m, int splits, int per_split, void* stream);
 extern "C" int pd_conv3x3_int8_xshift(const void* x, const void* w, const void* s_a,
-                                      const void* s_w, const void* bias, void* out,
+                                      const void* s_w, const void* bias, void* out, void* ws,
                                       int batch, int h, int wd, int cin, int cout,
-                                      int out_bf16, int vec, void* stream);
+                                      int out_bf16, int vec, int block_m, int splits,
+                                      int per_split, void* stream);
 extern "C" int pd_int8_quant_k(const void* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
                                int nk, int d, int row_k, void* amax, void* sk, void* codes,
                                void* stream);
@@ -61,11 +62,13 @@ void flash_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o,
 }
 
 void conv3x3_int8(uintptr_t x, uintptr_t w, uintptr_t s_a, uintptr_t s_w, uintptr_t bias,
-                  uintptr_t out, int batch, int h, int wd, int cin, int cout, bool out_bf16,
-                  bool vec, bool xshift, uintptr_t stream) {
+                  uintptr_t out, uintptr_t ws, int batch, int h, int wd, int cin, int cout,
+                  bool out_bf16, bool vec, int block_m, int splits, int per_split, bool xshift,
+                  uintptr_t stream) {
   const auto fn = xshift ? pd_conv3x3_int8_xshift : pd_conv3x3_int8;
-  const int err = fn(ptr(x), ptr(w), ptr(s_a), ptr(s_w), ptr(bias), ptr(out),
-                     batch, h, wd, cin, cout, out_bf16 ? 1 : 0, vec ? 1 : 0, ptr(stream));
+  const int err = fn(ptr(x), ptr(w), ptr(s_a), ptr(s_w), ptr(bias), ptr(out), ptr(ws),
+                     batch, h, wd, cin, cout, out_bf16 ? 1 : 0, vec ? 1 : 0, block_m, splits,
+                     per_split, ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("conv3x3_int8 launch failed: ") +
                              pd_cuda_error_string(err));
@@ -105,7 +108,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "(mode 0 online softmax, 1 no softmax, 2 two passes; query and key tile sizes)");
   m.def("conv3x3_int8", &conv3x3_int8,
         "SAME 3x3 int8 convolution over NHWC with the fp32 dequant epilogue "
-        "(bias pointer 0 = no bias; xshift = the staged-halo variant)");
+        "(bias pointer 0 = no bias; tiles of block_m pixels; splits > 1: split-K over a "
+        "(splits, M, Cout) int32 workspace ws, per_split ring stages each; xshift = the "
+        "staged-halo variant)");
   m.def("int8_quant_k", &int8_quant_k,
         "K9's prologue: packed bf16 K (B, N, H*D) -> contiguous int8 codes and fp32 scales, "
         "(B, H) per head (amax: a (B, H) scratch buffer) or (B, H, N) per key row with row_k");

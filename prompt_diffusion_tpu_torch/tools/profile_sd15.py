@@ -15,7 +15,10 @@ compiles, cuDNN heuristics). Then:
     profiled wall time (the union of the kernels' device intervals);
   * under the int8 policy, the int8 GEMMs of one step (QuantDense, the 1x1
     and stride-2 QuantConv) and the least time they could take with the
-    dequant fused into them (G1 in ROADMAP.md).
+    dequant fused into them (G1 in ROADMAP.md); K8's calls of one step (the
+    3x3 stride-1 QuantConv), by shape, their int8 operations and least
+    time, and K8's device ms per step from the trace (its kernels and the
+    split-K epilogue).
 Needs one CUDA device.
 """
 
@@ -77,6 +80,41 @@ def print_int8_gemm_bound(step):
           f"(each call's larger of bytes at 3.35 TB/s and int8 ops at 1,979 TOP/s)")
 
 
+def k8_calls(step):
+    """Runs `step` once, recording every K8 call of the 3x3 stride-1
+    `QuantConv`; returns {(B, H, W, Cin, Cout): calls}."""
+    from prompt_diffusion_tpu_torch.ops import quant
+
+    shapes, real = {}, quant.conv3x3_int8
+
+    def record(xq, *args, **kwargs):
+        key = tuple(xq.shape) + (args[1].shape[0],)  # (B, H, W, Cin) + Cout of wq
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(xq, *args, **kwargs)
+
+    quant.conv3x3_int8 = record
+    try:
+        step()
+    finally:
+        quant.conv3x3_int8 = real
+    return shapes
+
+
+def print_k8_bound(step):
+    from prompt_diffusion_tpu_torch.tools.conv_tune import conv_work
+
+    shapes = k8_calls(step)
+    work = {k: conv_work(*k) for k in shapes}
+    calls = sum(shapes.values())
+    ops = sum(n * work[k][1] for k, n in shapes.items())
+    bound = sum(n * roofline(*work[k])[0] for k, n in shapes.items())
+    print(f"[profile] K8 (int8 3x3 convs) of one denoise step: {calls} calls, {ops / 1e12:.3f} "
+          f"TOP; least time {bound:.3f} ms (each call's larger of bytes at 3.35 TB/s and int8 "
+          f"ops at 1,979 TOP/s); calls by (B, H, W, Cin, Cout):")
+    for k, n in sorted(shapes.items(), key=lambda kv: -kv[1] * work[kv[0]][1]):
+        print(f"  {n:3d} x {k}")
+
+
 def build(int8=False, seed=0, conv_variant="im2col"):
     """SD1.5 at the default configs with `random_init_` weights (bf16, or
     the int8 policy with the int8 VAE and K8's `conv_variant`), and one
@@ -133,6 +171,7 @@ def main(argv=None) -> int:
         print(f"  {name:16s} {_wall_ms(fn):9.3f}")
     if args.int8:
         print_int8_gemm_bound(parts["denoise step"])
+        print_k8_bound(parts["denoise step"])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -159,6 +198,11 @@ def main(argv=None) -> int:
         print(f"  {us / STEPS / 1e3:9.3f} {n / STEPS:6.0f}  {name[:110]}")
     rest = sum(us for _, (_, us) in ranked[TOP:])
     print(f"  {rest / STEPS / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
+    if args.int8:
+        k8 = [(n, us) for name, (n, us) in by_name.items()
+              if "conv3x3_int8" in name or "splitk_epilogue" in name]
+        print(f"[profile] K8 device ms per step: {sum(us for _, us in k8) / STEPS / 1e3:.3f} "
+              f"({sum(n for n, _ in k8) / STEPS:.0f} launches, split-K epilogues included)")
     return 0
 
 

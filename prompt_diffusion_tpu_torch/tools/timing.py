@@ -76,11 +76,18 @@ def busy_us(intervals):
     return total + (cur_end - cur_start if cur_end is not None else 0)
 
 
+# CUPTI now and then hands back a trace with no device activity (seen once
+# among the ~170 traces of a `chip_smoke.py` run on the H100); such a trace is
+# taken again, up to this many times in all
+PROFILE_TRIES = 3
+
+
 def device_ms(fn, iters=20, warmup=3):
     """Device milliseconds per call of `fn`: `iters` back-to-back calls
     under `torch.profiler` (CUDA activity), the union of their device
-    intervals over `iters`. Raises without a CUDA device or when the trace
-    holds no device activity; it never falls back to a host clock."""
+    intervals over `iters`. Raises without a CUDA device or when
+    PROFILE_TRIES traces hold no device activity; it never falls back to a
+    host clock."""
     import torch
 
     if not torch.cuda.is_available():
@@ -90,14 +97,15 @@ def device_ms(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device activity")
-    return busy_us([(s, e) for _, s, e in kernels]) / iters / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels:
+            return busy_us([(s, e) for _, s, e in kernels]) / iters / 1e3
+    raise RuntimeError(f"the profiler recorded no device activity in {PROFILE_TRIES} traces")
 
 
 def roofline(nbytes, int8_ops=0.0, bf16_ops=0.0, exps=0.0):

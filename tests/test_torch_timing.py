@@ -41,3 +41,39 @@ def test_roofline_k9_sd3_bound():
                                    b * h * n * n)
     assert by == "exponentials"
     assert round(bound_ms, 3) == 0.241
+
+
+class _Trace:
+    """A stand-in for `torch.profiler.profile`; `device_kernels` is faked."""
+
+    def __init__(self, activities):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("traces,expected", [
+    ([[("k", 0, 40)]], 0.02),
+    ([[], [], [("k", 0, 30), ("k", 10, 50)]], 0.025),  # the third trace holds the calls
+    ([[], [], [], [("k", 0, 40)]], None),               # PROFILE_TRIES empty traces: raises
+])
+def test_device_ms_retakes_an_empty_trace(monkeypatch, traces, expected):
+    """A trace with no device activity is taken again, up to PROFILE_TRIES
+    traces in all; then `device_ms` raises rather than read a host clock."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", _Trace)
+    pending = list(traces)
+    monkeypatch.setattr(timing, "device_kernels", lambda prof: pending.pop(0))
+    calls = []
+    if expected is None:
+        with pytest.raises(RuntimeError, match="no device activity"):
+            timing.device_ms(lambda: calls.append(1), iters=2, warmup=1)
+        assert len(calls) == 1 + 2 * timing.PROFILE_TRIES
+    else:
+        assert timing.device_ms(lambda: calls.append(1), iters=2, warmup=1) == pytest.approx(expected)
+        assert len(calls) == 1 + 2 * len(traces)
