@@ -7,8 +7,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero
 without the final `"ok": true` line:
   1. device  - requires CUDA; prints the card as nvidia-smi names it;
   2. build   - builds the CUDA kernels (attention, int8 conv, int8
-               attention; nvcc, sm_90a) into build/torch_ext/ and compiles
-               the Triton kernels;
+               attention, row -> int8; nvcc, sm_90a) into build/torch_ext/
+               and compiles the Triton kernels;
   3. kernels - each kernel against its plain PyTorch version on the card at
                the shapes the paths give it (SD1.5 512², CFG batch 8 and
                4; SD3 1024², CFG batch 2, and its VAE; ragged tails), with
@@ -26,9 +26,14 @@ without the final `"ok": true` line:
                below the error of the plain version with one 32-key tile,
                the smallest the kernels use, left out), and the error
                against the plain version in bf16. int8 epilogue kernels (GroupNorm,
-               LayerNorm, GEGLU -> int8): scales within 1e-6 relative, codes
-               at most 1 apart and at least 99.9% equal. int8 conv, both
-               variants: equal to the plain version bit for bit. AdaLN's
+               LayerNorm, GEGLU, tanh-GELU, row, AdaLN -> int8): scales
+               within 1e-6 relative, codes at most 1 apart and at least
+               99.9% equal, the share of equal codes printed; K10 and K13
+               (also on the (B, 1, C) chunks of one (B, 1, 6C) bf16
+               projection the MMDiT passes as scale and shift) must issue
+               one device launch per call, counted in a profiler trace.
+               int8 conv, both variants: equal to the plain version bit
+               for bit. AdaLN's
                gradient (kernel forward, autograd of the plain version
                backward) within 1e-4 of the plain version's, relative to
                its largest value. The attention lab modes at the SD1.5 64²
@@ -348,11 +353,18 @@ def kernel_cases(gen):
         cases.append(("fused_geglu_quant", f"({n},{c})", fused_geglu_quant,
                       (bf16(randn(n, c)),), "quant", None, (2 * n * c + n * c // 2 + 4 * n, 0, 0),
                       None))
-    # K13 at the SD3 image and context streams, per-sample modulation
+    # K13 at the SD3 image and context streams, per-sample modulation; then
+    # with scale and shift as the MMDiT passes them, strided (B, 1, C)
+    # chunks of one (B, 1, 6C) bf16 projection
     for b, n, c in ((2, 4096, 1536), (2, 333, 1536)):
         args = (bf16(randn(b, n, c)), bf16(0.1 * randn(b, 1, c)), bf16(0.1 * randn(b, 1, c)))
         cases.append(("fused_adaln_quant", f"({b},{n},{c})", fused_adaln_quant, args, "quant",
                       None, (3 * b * n * c + 4 * b * c + 4 * b * n, 0, 0), None))
+    for b, n, c in ((2, 4096, 1536), (2, 333, 1536)):
+        shift, scale = bf16(0.1 * randn(b, 1, 6 * c)).chunk(6, dim=-1)[:2]
+        cases.append(("fused_adaln_quant", f"({b},{n},{c}) (B,1,6C) chunks", fused_adaln_quant,
+                      (bf16(randn(b, n, c)), scale, shift), "quant", None,
+                      (3 * b * n * c + 4 * b * c + 4 * b * n, 0, 0), None))
     # K12 at the same shapes (the context stream's modulation as (B, C)),
     # then its gradient in fp32: forward read and write, backward reads of x
     # and the output gradient, writes of the three gradients
@@ -365,12 +377,13 @@ def kernel_cases(gen):
     args = (randn(b, n, c), 0.1 * randn(b, 1, c), 0.1 * randn(b, 1, c))
     cases.append(("fused_adaln", f"({b},{n},{c}) fp32 gradient", adaln_grads, args, "grad",
                   GRAD_REL_BOUND, (20 * b * n * c + 16 * b * c, 0, 0), None))
-    # K10 at the MMDiT FF width (both streams' rows), K11 at the attention width
-    for name, fn, c in (("fused_gelu_quant", fused_gelu_quant, 6144),
-                        ("fused_quant_rows", fused_quant_rows, 1536)):
+    # K10 at the MMDiT FF width (both streams' rows; one tanh per value on
+    # the special-function units), K11 at the attention width
+    for name, fn, c, tanh in (("fused_gelu_quant", fused_gelu_quant, 6144, 1),
+                              ("fused_quant_rows", fused_quant_rows, 1536, 0)):
         for n in (8192, 666):
             cases.append((name, f"({n},{c})", fn, (bf16(2 * randn(n, c)),), "quant", None,
-                          (3 * n * c + 4 * n, 0, 0), None))
+                          (3 * n * c + 4 * n, 0, 0, tanh * n * c), None))
     codes = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda",
                                      dtype=torch.int8)
     uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
@@ -458,7 +471,12 @@ def phase_kernels(gen):
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
     from prompt_diffusion_tpu_torch.ops.flash_attention import LAB_TILES, WIDE_TILE
     from prompt_diffusion_tpu_torch.tools.conv_tune import bf16_conv
-    from prompt_diffusion_tpu_torch.tools.timing import device_ms, roofline, time_ms
+    from prompt_diffusion_tpu_torch.tools.timing import (
+        device_launches,
+        device_ms,
+        roofline,
+        time_ms,
+    )
 
     key_tile = min(tile[1] for tile in LAB_TILES + (WIDE_TILE,))
     fp32 = lambda args: tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16
@@ -480,6 +498,10 @@ def phase_kernels(gen):
                    f"{SCALE_REL_BOUND}), codes at most {code_diff} apart, {equal} equal "
                    f"(bound {CODES_EQUAL_BOUND})")
             ok = scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND
+            if name in ONE_LAUNCH:
+                extra["launches_per_call"] = device_launches(lambda: fn(*args))
+                msg += f"; {extra['launches_per_call']} device launches per call (1 required)"
+                ok = ok and extra["launches_per_call"] == 1
         elif kind == "exact" and isinstance(out, tuple):  # K9's prologue: codes and scales
             err = max((a.float() - r.float()).abs().max().item() for a, r in zip(out, ref))
             msg = f"codes and scales max_abs_err={err} (bit-equal required)"
@@ -556,11 +578,11 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                      "prompt_diffusion_tpu/ops/int8_conv.py:174"),
     "flash_attention_packed_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
                                     "prompt_diffusion_tpu/ops/flash_attention.py:375"),
-    "fused_gelu_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+    "fused_gelu_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                          "prompt_diffusion_tpu/ops/fused_act.py:101"),
     "fused_quant_rows": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
                          "prompt_diffusion_tpu/ops/fused_act.py:106"),
-    "fused_adaln_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+    "fused_adaln_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                           "prompt_diffusion_tpu/ops/fused_adaln.py:140"),
     "fused_adaln": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
                     "prompt_diffusion_tpu/ops/fused_adaln.py:95"),
@@ -580,6 +602,9 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
     "quant_k_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
                      "prompt_diffusion_tpu/ops/flash_attention.py:391"),
 }
+# kernels whose wrapper must issue exactly one device launch per call (no
+# cast or copy of its inputs), counted in a profiler trace in `[kernels]`
+ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant")
 # the device functions a wrapper launches, where it launches more than one
 # (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
 # split-K sum and epilogue where its plan splits K)

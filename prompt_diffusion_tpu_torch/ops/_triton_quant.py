@@ -1,12 +1,15 @@
 """Triton programs of the int8 epilogue kernels: GroupNorm->int8 (K5),
-LayerNorm->int8 (K6), GEGLU->int8 (K7), tanh-GELU->int8 (K10), row->int8
-(K11) and AdaLN->int8 (K13), which without its int8 epilogue is AdaLN
-(K12).
+LayerNorm->int8 (K6), GEGLU->int8 (K7), row->int8 (K11) and AdaLN (K12).
+K10 (tanh-GELU->int8) and K13 (AdaLN->int8) are CUDA C++
+(`csrc/row_quant.cu`); their former Triton programs stay here only as the
+GELU=True branch of `act_quant_kernel` and the QUANT=True branch of
+`adaln_kernel`, the parent design that `tools/quant_tune.py --part time`
+launches beside the CUDA kernels. No wrapper routes to those branches.
 
 This module imports `triton` at its top, so only the launchers in
-`fused_group_norm.py`, `fused_layer_norm.py`, `fused_act.py` and
-`fused_adaln.py` import it, inside the function that launches, on the
-card.
+`fused_group_norm.py`, `fused_layer_norm.py`, `fused_act.py`,
+`fused_adaln.py` and `tools/quant_tune.py` import it, inside the function
+that launches, on the card.
 
 Every quantize step follows `quant.py` of the JAX package: the fp32 value
 is divided by its scale with an IEEE-rounded division (`div_rn`: Triton's
@@ -145,7 +148,7 @@ def geglu_quant_kernel(x_ptr, q_ptr, s_ptr, N, I,
     tl.store(s_ptr + rows, s, mask=rmask)
 
 
-# ---- K10 / K11: tanh-GELU -> int8 and row -> int8, one scale per row ----
+# ---- K11 (and K10's parent design): row -> int8, one scale per row ----
 
 
 @triton.jit
@@ -153,7 +156,8 @@ def act_quant_kernel(x_ptr, q_ptr, s_ptr, N, C,
                      BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr, GELU: tl.constexpr):
     """BLOCK_R whole rows: optionally x * 0.5 * (1 + tanh(sqrt(2/pi) *
     (x + 0.044715 x^3))) (`jax.nn.gelu(approximate=True)`), then the row's
-    int8 codes and scale."""
+    int8 codes and scale. K11 runs GELU=False; GELU=True is K10's parent
+    design, launched only by `tools/quant_tune.py`."""
     pid = tl.program_id(0)
     rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
     cols = tl.arange(0, BLOCK_C)
@@ -169,8 +173,8 @@ def act_quant_kernel(x_ptr, q_ptr, s_ptr, N, C,
     tl.store(s_ptr + rows, s, mask=rmask)
 
 
-# ---- K12 / K13: AdaLN (LayerNorm without affine, per-sample modulation),
-# -> int8 for K13
+# ---- K12 (and K13's parent design): AdaLN (LayerNorm without affine,
+# per-sample modulation), -> int8 with QUANT
 
 
 @triton.jit
@@ -179,7 +183,9 @@ def adaln_kernel(x_ptr, sc_ptr, sh_ptr, q_ptr, s_ptr, R, N, C, eps,
     """BLOCK_R whole rows of the (B*N, C) activation: fp32 LayerNorm
     statistics, (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
     with b = row // N; with QUANT the row's int8 codes and scale (`q_ptr`,
-    `s_ptr`), else the value in `q_ptr`'s dtype (`s_ptr` unused)."""
+    `s_ptr`), else the value in `q_ptr`'s dtype (`s_ptr` unused). K12 runs
+    QUANT=False; QUANT=True is K13's parent design, launched only by
+    `tools/quant_tune.py`."""
     pid = tl.program_id(0)
     rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
     cols = tl.arange(0, BLOCK_C)

@@ -39,6 +39,11 @@ extern "C" int pd_int8_attention_fwd(
     int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
     int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
     float scale, int block_q, void* stream);
+extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int64_t x_sn,
+                            int batch, int n, int c, const void* sc, int sc_bf16, int64_t sc_sb,
+                            int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
+                            int64_t sh_sc, float eps, int tpr, int vpt, int groups, int grid_x,
+                            void* codes, void* scales, void* stream);
 
 namespace {
 
@@ -100,6 +105,20 @@ void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, bool row_k, uint
   }
 }
 
+void row_quant(int op, uintptr_t x, bool x_bf16, int64_t x_sb, int64_t x_sn, int batch, int n,
+               int c, uintptr_t sc, bool sc_bf16, int64_t sc_sb, int64_t sc_sc, uintptr_t sh,
+               bool sh_bf16, int64_t sh_sb, int64_t sh_sc, double eps, int tpr, int vpt,
+               int groups, int grid_x, uintptr_t codes, uintptr_t scales, uintptr_t stream) {
+  const int err = pd_row_quant(op, ptr(x), x_bf16 ? 1 : 0, x_sb, x_sn, batch, n, c, ptr(sc),
+                               sc_bf16 ? 1 : 0, sc_sb, sc_sc, ptr(sh), sh_bf16 ? 1 : 0, sh_sb,
+                               sh_sc, static_cast<float>(eps), tpr, vpt, groups, grid_x,
+                               ptr(codes), ptr(scales), ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("row_quant launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -117,4 +136,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("int8_attention_fwd", &int8_attention_fwd,
         "int8-QK^T attention forward over packed (B, N, H*D) tensors: bf16 Q and V, "
         "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k; block_q 64 or 128");
+  m.def("row_quant", &row_quant,
+        "Rows -> int8 codes and fp32 row scales: op 0 tanh-GELU (K10), op 1 AdaLN with "
+        "per-sample (B, C) scale and shift views (K13); the plan of ops/row_quant.py::row_plan");
 }

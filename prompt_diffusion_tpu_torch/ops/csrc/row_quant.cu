@@ -1,0 +1,428 @@
+// Row -> int8 kernels for Hopper (sm_90a): K10, tanh-GELU -> int8, and K13,
+// AdaLN -> int8, one int8 code per value and one fp32 scale per row.
+//
+// Replace the TPU kernels prompt_diffusion_tpu/ops/fused_act.py::
+// fused_gelu_quant (_gelu_quant_kernel through _run), the input of the SD3
+// MMDiT's `ff_out` and `ff_context_out`, and prompt_diffusion_tpu/ops/
+// fused_adaln.py::fused_adaln_quant (_adaln_quant_kernel), the four
+// modulation sites of every JointBlock in the int8 serving mode. Per row of
+// C values, in fp32:
+//
+//   K10: y = x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
+//   K13: y = (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
+//        (LayerNorm without affine, eps 1e-6, per-sample modulation)
+//   then s = max(amax|y| / 127, 1e-8) by IEEE division, and the codes
+//   rint(y / s) with y / s the IEEE quotient, clipped to +-127
+//   (`rowquant`, fused_layer_norm.py:28 of the JAX package).
+//
+// What bounds them on the H100: bytes, one read of the bf16 row and one
+// write of its int8 codes (3 bytes a value): 0.045 ms at K10's (8192, 6144)
+// and 0.011 ms at K13's (2, 4096, 1536) at 3.35 TB/s. K10's arithmetic
+// comes close: at ~33.5e12 thread-instructions/s the byte bound leaves ~27
+// instructions a value. So the design keeps every value in registers from
+// the load to its code and spends few instructions on each:
+//   * no padding of a row to a power of two: a row is cut into 16-byte
+//     vectors (8 bf16 or 4 fp32), vector t + k * TPR to thread t of the
+//     row's TPR threads (`row_plan` in ops/row_quant.py picks TPR, the
+//     vectors per thread VPT and the row groups per block);
+//     K13's rows (C = 1536) take one warp each, so its mean, variance and
+//     amax are warp shuffles with no shared memory and no barrier; K10's
+//     (C = 6144) take 256 threads, and its one reduction takes one barrier;
+//   * the division once per row: s, then r = 1/s rounded to nearest; each
+//     quotient is y * r with one FMA residual and one FMA correction
+//     (Markstein), equal to __fdiv_rn(y, s) bit for bit
+//     (`tools/quant_tune.py --part check` holds it so on the card over
+//     every value of the SD3 cases and every float y in [s/4, 128 s] for
+//     128 values of s); rint is the 1.5 * 2^23 shift, whose sum's low byte
+//     is the code, and four codes are packed by byte permutes into one
+//     32-bit word, stored 8 (bf16) or 4 (fp32) bytes at a time. |y| <= amax
+//     and s >= amax / 127 rounded to nearest make |y / s| <= 127 + 2^-16,
+//     so for finite inputs the clip can never bind and is not executed;
+//   * K10's GELU as x * sigmoid(2z) = x / (1 + 2^(-2 z log2 e)): one ex2 and
+//     one reciprocal of the special-function units, a few ulp from the tanh
+//     form (whose 1 + tanh cancels for negative x), and 0 where the tanh
+//     form's 1 + tanh rounds to 0 (`quant_tune` builds a copy with CUDA's
+//     tanhf for its A/B);
+//   * K13's modulation is read once per block, straight from the bf16 or
+//     fp32 (B, 1, C) or (B, C) views the model passes (batch and column
+//     strides): every block serves rows of one sample b and stages
+//     1 + scale[b] and shift[b] as fp32 in shared memory (8 C bytes), in
+//     the order its threads read them (float4 j of vector v at j * nvec + v,
+//     so a warp's loads are conflict-free);
+//   * latency: a block walks `groups` row groups of its sample and loads
+//     the next group's vectors into registers before it quantizes the
+//     current one; `row_plan` takes 4 or 2 groups where the grid keeps ~2
+//     blocks per SM, else 1 (several blocks per SM, nothing pipelined):
+//     the best of `quant_tune --part time`'s sweep at every SD3 shape.
+// Sums are taken in a fixed order (xor-butterfly shuffles give every lane
+// the same value; a row's warp partials are added in warp order), so runs
+// repeat bit for bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kThreads = 256;                  // threads of every block
+constexpr int kMaxVpt = 8;                     // 16-byte vectors a thread holds of a row
+constexpr int kRedFloats = 2 * kThreads / kWarp;  // two buffers of one partial per warp
+constexpr int kSmemDefault = 48 * 1024;
+
+enum Op { kGelu = 0, kAdaLN = 1 };
+
+struct Params {
+  const void* x;
+  int64_t x_sb, x_sn;  // element strides of a sample and of a row; columns dense
+  int n, c;            // rows per sample, columns
+  int tpr, groups;     // threads per row, row groups per block
+  const void* sc;      // K13: scale, shift, each bf16 or fp32, element strides
+  int64_t sc_sb, sc_sc;
+  const void* sh;
+  int64_t sh_sb, sh_sc;
+  int sc_bf16, sh_bf16;
+  float eps;
+  int8_t* codes;  // (batch * n, c), dense
+  float* scales;  // (batch * n)
+};
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int E = 8;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int E = 4;
+  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+};
+
+// -2 sqrt(2/pi) log2(e) and 0.044715 times it: x * (C1 + C3 x^2) = -2 z log2(e)
+constexpr float kGeluC1 = static_cast<float>(-2.0 * 0.7978845608028654 * 1.4426950408889634);
+constexpr float kGeluC3 = static_cast<float>(-2.0 * 0.7978845608028654 * 1.4426950408889634 *
+                                             0.044715);
+
+__device__ __forceinline__ float gelu(float x) {
+  const float u = x * fmaf(kGeluC3, x * x, kGeluC1);
+  float e, rcp;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(u));
+  const float d = 1.0f + e;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(rcp) : "f"(d));
+  // where exp(-2z) > 2^24, 1 + tanh z rounds to 0 in fp32: the tanh form's
+  // GELU is 0 there, and so is this one (no tiny values whose quotient's
+  // residual would underflow)
+  return __fmul_rn(x, e > 16777216.0f ? 0.0f : rcp);
+}
+
+}  // namespace
+
+namespace rq {
+
+// __fdiv_rn(y, s) from r = __frcp_rn(s): y * r is within 1.5 ulp of y / s;
+// the residual s * q0 - y is one FMA, and one more FMA, q0 - residual * r,
+// corrects q0 to the quotient rounded to nearest. Bit-equal for y = +-0 (the
+// residual's sign keeps -0) and wherever the residual does not underflow,
+// |y| > ~2^-100 (s >= 1e-8); below that both round to the code 0.
+__device__ __forceinline__ float quotient(float y, float s, float r) {
+  const float q0 = __fmul_rn(y, r);
+  return fmaf(fmaf(s, q0, -y), -r, q0);
+}
+
+// The int8 code of q (|q| < 2^22) as the low byte of the bits of
+// q + 1.5 * 2^23: the add rounds q to an integer, ties to even (as rintf),
+// and the low byte holds it in two's complement.
+__device__ __forceinline__ uint32_t code_bits(float q) {
+  return __float_as_uint(__fadd_rn(q, 12582912.0f));
+}
+
+// The low bytes of a, b, c, d as bytes 0..3 of one word.
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+}  // namespace rq
+
+namespace {
+
+template <bool kMax>
+__device__ __forceinline__ float combine(float a, float b) {
+  return kMax ? fmaxf(a, b) : a + b;
+}
+
+// The reduction over one row's threads: xor-butterfly shuffles (every lane
+// ends with the same value); for a row of several warps, one partial per
+// warp through shared memory, added in warp order. `red` alternates between
+// two buffers, so one barrier per reduction suffices: a warp writes buffer
+// k % 2 again only after the barrier of reduction k + 1, which every thread
+// reaches after its reads of reduction k.
+template <bool kMax>
+__device__ __forceinline__ float row_reduce(float v, int tpr, float* red, int& slot) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) {
+    v = combine<kMax>(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  if (tpr == kWarp) return v;
+  float* buf = red + slot * (kThreads / kWarp);
+  slot ^= 1;
+  if ((threadIdx.x & (kWarp - 1)) == 0) buf[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  const int wpr = tpr / kWarp;
+  const float* row = buf + (threadIdx.x / tpr) * wpr;
+  float r = row[0];
+  for (int w = 1; w < wpr; ++w) r = combine<kMax>(r, row[w]);
+  return r;
+}
+
+__device__ __forceinline__ float load_mod(const void* p, int is_bf16, int64_t i) {
+  return is_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
+                 : static_cast<const float*>(p)[i];
+}
+
+// One block: rows [row0, row0 + groups * rpb) of sample blockIdx.y, rpb =
+// kThreads / tpr rows at a time (a group), thread t of a row holding
+// vectors t + k * tpr, k < VPT (those < nvec). PIPE: the next group's
+// vectors are loaded before the current group is reduced and quantized.
+template <typename T, int VPT, int OP, bool PIPE>
+__device__ __forceinline__ void row_quant_body(const Params& p) {
+  constexpr int E = Vec<T>::E;
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);  // kRedFloats, then K13's 2 C floats
+  float* mod = red + kRedFloats;
+  const int tpr = p.tpr;
+  const int rpb = kThreads / tpr;
+  const int t = threadIdx.x % tpr;
+  const int slot_row = threadIdx.x / tpr;
+  const int nvec = p.c / E;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rpb * p.groups;
+  const T* xb = static_cast<const T*>(p.x) + b * p.x_sb;
+
+  auto load = [&](int g, uint4 (&dst)[VPT]) {
+    const int n_idx = row0 + g * rpb + slot_row;
+    const uint4* xr = reinterpret_cast<const uint4*>(xb + (int64_t)n_idx * p.x_sn);
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int v = t + k * tpr;
+      dst[k] = (n_idx < p.n && v < nvec) ? __ldg(xr + v) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  uint4 raw[VPT];
+  load(0, raw);
+
+  if constexpr (OP == kAdaLN) {
+    for (int col = threadIdx.x; col < p.c; col += kThreads) {
+      const int v = col / E, j = col % E;
+      const int idx = ((j >> 2) * nvec + v) * 4 + (j & 3);
+      mod[idx] = 1.0f + load_mod(p.sc, p.sc_bf16, b * p.sc_sb + col * p.sc_sc);
+      mod[p.c + idx] = load_mod(p.sh, p.sh_bf16, b * p.sh_sb + col * p.sh_sc);
+    }
+    __syncthreads();
+  }
+
+  int slot = 0;
+  for (int g = 0; g < p.groups; ++g) {
+    uint4 next[VPT];
+    if constexpr (PIPE) {
+      if (g + 1 < p.groups) load(g + 1, next);
+    }
+    const int n_idx = row0 + g * rpb + slot_row;
+    float v[VPT][E];
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) Vec<T>::unpack(raw[k], v[k]);  // zeros past the row
+
+    float amax = 0.f;
+    if constexpr (OP == kGelu) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          v[k][j] = gelu(v[k][j]);  // gelu(0) = 0 past the row
+          amax = fmaxf(amax, fabsf(v[k][j]));
+        }
+      }
+    } else {
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) sum += v[k][j];
+      }
+      const float mean = __fdiv_rn(row_reduce<false>(sum, tpr, red, slot),
+                                   static_cast<float>(p.c));
+      float sq = 0.f;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        if (t + k * tpr < nvec) {
+#pragma unroll
+          for (int j = 0; j < E; ++j) {
+            v[k][j] -= mean;
+            sq = fmaf(v[k][j], v[k][j], sq);
+          }
+        }
+      }
+      const float var = __fdiv_rn(row_reduce<false>(sq, tpr, red, slot), static_cast<float>(p.c));
+      const float rstd = rsqrtf(var + p.eps);
+      const float4* sc4 = reinterpret_cast<const float4*>(mod);
+      const float4* sh4 = reinterpret_cast<const float4*>(mod + p.c);
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int vi = t + k * tpr;
+        if (vi < nvec) {
+#pragma unroll
+          for (int h = 0; h < E / 4; ++h) {
+            const float4 s1 = sc4[h * nvec + vi], s0 = sh4[h * nvec + vi];
+            const float m1[4] = {s1.x, s1.y, s1.z, s1.w}, m0[4] = {s0.x, s0.y, s0.z, s0.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float& y = v[k][4 * h + j];
+              y = fmaf(y * rstd, m1[j], m0[j]);
+              amax = fmaxf(amax, fabsf(y));
+            }
+          }
+        }
+      }
+    }
+    amax = row_reduce<true>(amax, tpr, red, slot);
+    const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+    const float r = __frcp_rn(s);
+    if (n_idx < p.n) {
+      const int64_t row = (int64_t)b * p.n + n_idx;
+      int8_t* out = p.codes + row * p.c;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int vi = t + k * tpr;
+        if (vi < nvec) {
+          uint32_t w[E / 4];
+#pragma unroll
+          for (int h = 0; h < E / 4; ++h) {
+            const float* y = v[k] + 4 * h;
+            w[h] = rq::pack4(rq::code_bits(rq::quotient(y[0], s, r)),
+                             rq::code_bits(rq::quotient(y[1], s, r)),
+                             rq::code_bits(rq::quotient(y[2], s, r)),
+                             rq::code_bits(rq::quotient(y[3], s, r)));
+          }
+          if constexpr (E == 8) {
+            *reinterpret_cast<uint2*>(out + (int64_t)vi * E) = make_uint2(w[0], w[1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(out + (int64_t)vi * E) = w[0];
+          }
+        }
+      }
+      if (t == 0) p.scales[row] = s;
+    }
+    if constexpr (PIPE) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) raw[k] = next[k];
+    }
+  }
+}
+
+template <typename T, int VPT, bool PIPE>
+__global__ void __launch_bounds__(kThreads) gelu_quant_kernel(const Params p) {
+  row_quant_body<T, VPT, kGelu, PIPE>(p);
+}
+
+template <typename T, int VPT, bool PIPE>
+__global__ void __launch_bounds__(kThreads) adaln_quant_kernel(const Params p) {
+  row_quant_body<T, VPT, kAdaLN, PIPE>(p);
+}
+
+template <typename T, int VPT, bool PIPE>
+int launch(int op, const Params& p, dim3 grid, cudaStream_t s) {
+  const size_t smem = sizeof(float) * (kRedFloats + (op == kAdaLN ? 2 * (size_t)p.c : 0));
+  auto kernel = op == kGelu ? gelu_quant_kernel<T, VPT, PIPE> : adaln_quant_kernel<T, VPT, PIPE>;
+  if (smem > kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool PIPE>
+int launch_vpt(int vpt, int op, const Params& p, dim3 grid, cudaStream_t s) {
+  switch (vpt) {
+    case 1: return launch<T, 1, PIPE>(op, p, grid, s);
+    case 2: return launch<T, 2, PIPE>(op, p, grid, s);
+    case 3: return launch<T, 3, PIPE>(op, p, grid, s);
+    case 4: return launch<T, 4, PIPE>(op, p, grid, s);
+    case 5: return launch<T, 5, PIPE>(op, p, grid, s);
+    case 6: return launch<T, 6, PIPE>(op, p, grid, s);
+    case 7: return launch<T, 7, PIPE>(op, p, grid, s);
+    case 8: return launch<T, 8, PIPE>(op, p, grid, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// K10 (op 0) or K13 (op 1) on `stream`; returns the launch's cudaError_t (0
+// = queued). x: `batch` samples of n rows of c values, bf16 (x_bf16) or
+// fp32, element strides x_sb and x_sn, 16-byte aligned rows, dense
+// columns; K13's scale and shift: bf16 or fp32 (B, C) views with element
+// strides (K10 ignores them). The plan (threads per row tpr, vectors per
+// thread vpt, row groups per block, grid_x blocks per sample) comes from
+// `row_plan`; it must cover every column and every row. Writes codes
+// (batch * n, c) and scales (batch * n), both dense.
+extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int64_t x_sn,
+                            int batch, int n, int c, const void* sc, int sc_bf16, int64_t sc_sb,
+                            int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
+                            int64_t sh_sc, float eps, int tpr, int vpt, int groups, int grid_x,
+                            void* codes, void* scales, void* stream) {
+  const int e = x_bf16 ? 8 : 4;
+  const int nvec = c / e;
+  const bool tpr_ok = tpr == 32 || tpr == 64 || tpr == 128 || tpr == 256;
+  if ((op != kGelu && op != kAdaLN) || c <= 0 || c % 8 != 0 || n <= 0 || batch <= 0 ||
+      batch > 65535 || !tpr_ok || vpt < 1 || vpt > kMaxVpt || (int64_t)vpt * tpr < nvec ||
+      groups < 1 || grid_x < 1 || (int64_t)grid_x * (kThreads / tpr) * groups < n ||
+      (op == kAdaLN && (sc == nullptr || sh == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p;
+  p.x = x;
+  p.x_sb = x_sb;
+  p.x_sn = x_sn;
+  p.n = n;
+  p.c = c;
+  p.tpr = tpr;
+  p.groups = groups;
+  p.sc = sc;
+  p.sc_sb = sc_sb;
+  p.sc_sc = sc_sc;
+  p.sh = sh;
+  p.sh_sb = sh_sb;
+  p.sh_sc = sh_sc;
+  p.sc_bf16 = sc_bf16;
+  p.sh_bf16 = sh_bf16;
+  p.eps = eps;
+  p.codes = static_cast<int8_t*>(codes);
+  p.scales = static_cast<float*>(scales);
+  const dim3 grid(grid_x, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    return groups > 1 ? launch_vpt<__nv_bfloat16, true>(vpt, op, p, grid, s)
+                      : launch_vpt<__nv_bfloat16, false>(vpt, op, p, grid, s);
+  }
+  return groups > 1 ? launch_vpt<float, true>(vpt, op, p, grid, s)
+                    : launch_vpt<float, false>(vpt, op, p, grid, s);
+}

@@ -16,7 +16,8 @@ compiles, cuDNN heuristics). Then:
     decode;
   * a torch.profiler trace of two denoise steps: device time by kernel
     name, device launches per step, and the device's busy share of the
-    profiled wall time;
+    profiled wall time; the device ms and launches per step of the int8
+    epilogue kernels K10, K11 and K13 (`KERNEL_NAMES`);
   * the int8 GEMMs of one step and the least time they could take with the
     dequant fused into them (G1 in ROADMAP.md).
 Needs one CUDA device.
@@ -34,6 +35,13 @@ from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernel
 
 BATCH, SIZE, CFG, T5_LEN = 1, 1024, 7.0, 256
 STEPS, TOP = 2, 30  # denoise steps traced, kernel names printed
+# the int8 epilogue kernels of the step, summed by a part of their device
+# name: K10 and K13 in CUDA (`ops/csrc/row_quant.cu`), K11's Triton program
+# (which also ran K10 when K10 was Triton), K12's Triton program (which
+# also ran K13 when K13 was Triton)
+KERNEL_NAMES = (("K10", "gelu_quant_kernel"), ("K13", "adaln_quant_kernel"),
+                ("K11 (and a Triton K10)", "act_quant_kernel"),
+                ("a Triton K13", "adaln_kernel"))
 
 
 @torch.no_grad()
@@ -119,6 +127,10 @@ def main() -> int:
         print(f"  {us / STEPS / 1e3:9.3f} {n / STEPS:6.0f}  {name[:110]}")
     rest = sum(us for _, (_, us) in ranked[TOP:])
     print(f"  {rest / STEPS / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
+    for label, key in KERNEL_NAMES:
+        hits = [(n, us) for name, (n, us) in by_name.items() if key in name]
+        print(f"[profile] {label} ({key}): {sum(us for _, us in hits) / STEPS / 1e3:.3f} device "
+              f"ms, {sum(n for n, _ in hits) / STEPS:.0f} launches per step")
     return 0
 
 

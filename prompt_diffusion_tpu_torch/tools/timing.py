@@ -77,35 +77,55 @@ def busy_us(intervals):
 
 
 # CUPTI now and then hands back a trace with no device activity (seen once
-# among the ~170 traces of a `chip_smoke.py` run on the H100); such a trace is
-# taken again, up to this many times in all
+# among the ~170 traces of a `chip_smoke.py` run on the H100), or one that
+# lost some of its activities (seen on the H100: one launch of three in a
+# trace, and a K13 reading below its byte bound with its inputs rotated out
+# of L2); a trace is taken again, up to this many times in all, while it is
+# empty or its activities are not a whole number per call
 PROFILE_TRIES = 3
 
 
-def device_ms(fn, iters=20, warmup=3):
-    """Device milliseconds per call of `fn`: `iters` back-to-back calls
-    under `torch.profiler` (CUDA activity), the union of their device
-    intervals over `iters`. Raises without a CUDA device or when
-    PROFILE_TRIES traces hold no device activity; it never falls back to a
-    host clock."""
+def _device_trace(fn, iters, warmup, what):
+    """(name, start_us, end_us) of the device activities of `iters`
+    back-to-back calls of `fn` under `torch.profiler`, after `warmup`
+    calls: the first trace whose count is a whole number per call, else
+    the fullest of PROFILE_TRIES (a lost activity only lowers the count).
+    Raises without a CUDA device or when every trace is empty; it never
+    falls back to a host clock."""
     import torch
 
     if not torch.cuda.is_available():
-        raise RuntimeError("device_ms needs a CUDA device")
+        raise RuntimeError(f"{what} needs a CUDA device")
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    fullest = []
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
-        if kernels:
-            return busy_us([(s, e) for _, s, e in kernels]) / iters / 1e3
+        if kernels and len(kernels) % iters == 0:
+            return kernels
+        fullest = max(fullest, kernels, key=len)
+    if fullest:
+        return fullest
     raise RuntimeError(f"the profiler recorded no device activity in {PROFILE_TRIES} traces")
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device milliseconds per call of `fn`: the union of the device
+    intervals of `iters` back-to-back calls over `iters`."""
+    kernels = _device_trace(fn, iters, warmup, "device_ms")
+    return busy_us([(s, e) for _, s, e in kernels]) / iters / 1e3
+
+
+def device_launches(fn, iters=5, warmup=1):
+    """Device activities (kernels, copies, memsets) per call of `fn`."""
+    return len(_device_trace(fn, iters, warmup, "device_launches")) / iters
 
 
 def roofline(nbytes, int8_ops=0.0, bf16_ops=0.0, exps=0.0):

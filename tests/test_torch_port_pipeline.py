@@ -164,6 +164,8 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.models.controlnet_sd3, "
             "prompt_diffusion_tpu_torch.models.t5_text, "
             "prompt_diffusion_tpu_torch.ops.fused_adaln, "
+            "prompt_diffusion_tpu_torch.ops.row_quant, "
+            "prompt_diffusion_tpu_torch.tools.quant_tune, "
             "prompt_diffusion_tpu_torch.tools.profile_sd3, "
             "prompt_diffusion_tpu_torch.tools.attn_lab, "
             "prompt_diffusion_tpu_torch.tools.jax_bridge, "

@@ -57,7 +57,7 @@ class _Trace:
 
 
 @pytest.mark.parametrize("traces,expected", [
-    ([[("k", 0, 40)]], 0.02),
+    ([[("k", 0, 20), ("k", 20, 40)]], 0.02),
     ([[], [], [("k", 0, 30), ("k", 10, 50)]], 0.025),  # the third trace holds the calls
     ([[], [], [], [("k", 0, 40)]], None),               # PROFILE_TRIES empty traces: raises
 ])
@@ -77,3 +77,34 @@ def test_device_ms_retakes_an_empty_trace(monkeypatch, traces, expected):
     else:
         assert timing.device_ms(lambda: calls.append(1), iters=2, warmup=1) == pytest.approx(expected)
         assert len(calls) == 1 + 2 * len(traces)
+
+
+@pytest.mark.parametrize("traces,expected", [
+    ([[("k", 0, 4)] * 3], 1.0),                                  # one launch per call
+    ([[("k", 0, 4)] * 6], 2.0),                                  # two
+    ([[("k", 0, 4)], [("k", 0, 4)] * 3], 1.0),                   # a loss, then a whole trace
+    ([[("k", 0, 4)] * 2, [("k", 0, 4)], [("k", 0, 4)] * 4], 4 / 3),  # losses in every trace
+])
+def test_device_launches_retakes_a_trace_with_losses(monkeypatch, traces, expected):
+    """`device_launches` counts device activities per call; a trace that
+    does not hold a whole number per call lost some and is taken again, up
+    to PROFILE_TRIES traces, and the fullest is kept."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", _Trace)
+    pending = list(traces)
+    monkeypatch.setattr(timing, "device_kernels", lambda prof: pending.pop(0))
+    assert timing.device_launches(lambda: None, iters=3, warmup=0) == pytest.approx(expected)
+    assert not pending
+
+
+def test_device_ms_retakes_a_trace_with_losses(monkeypatch):
+    """`device_ms` reads the first trace that holds a whole number of
+    activities per call: one that lost some would read short."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", _Trace)
+    pending = [[("k", 0, 10)], [("k", 0, 10), ("k", 10, 20)]]
+    monkeypatch.setattr(timing, "device_kernels", lambda prof: pending.pop(0))
+    assert timing.device_ms(lambda: None, iters=2, warmup=0) == pytest.approx(0.01)
+    assert not pending
