@@ -7,8 +7,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero
 without the final `"ok": true` line:
   1. device  - requires CUDA; prints the card as nvidia-smi names it;
   2. build   - builds the CUDA kernels (attention, int8 conv, int8
-               attention, row -> int8; nvcc, sm_90a) into build/torch_ext/
-               and compiles the Triton kernels;
+               attention, row -> int8, GroupNorm -> int8; nvcc, sm_90a)
+               into build/torch_ext/ and compiles the Triton kernels;
   3. kernels - each kernel against its plain PyTorch version on the card at
                the shapes the paths give it (SD1.5 512², CFG batch 8 and
                4; SD3 1024², CFG batch 2, and its VAE; ragged tails), with
@@ -28,8 +28,9 @@ without the final `"ok": true` line:
                against the plain version in bf16. int8 epilogue kernels (GroupNorm,
                LayerNorm, GEGLU, tanh-GELU, row, AdaLN -> int8): scales
                within 1e-6 relative, codes at most 1 apart and at least
-               99.9% equal, the share of equal codes printed; K10 and K13
-               (also on the (B, 1, C) chunks of one (B, 1, 6C) bf16
+               99.9% equal, the share of equal codes printed, and a second
+               call equal bit for bit (K5's sums cross blocks); K5, K7, K10
+               and K13 (also on the (B, 1, C) chunks of one (B, 1, 6C) bf16
                projection the MMDiT passes as scale and shift) must issue
                one device launch per call, counted in a profiler trace.
                int8 conv, both variants: equal to the plain version bit
@@ -349,7 +350,19 @@ def kernel_cases(gen):
         cases.append(("fused_layer_norm_quant", f"({n},{c})" + (" ViT-B" if c == 768 else ""),
                       fused_layer_norm_quant, (bf16(randn(n, c)), *affine(c), eps), "quant",
                       None, (3 * n * c + 4 * n, 0, 0), None))
-    for n, c in ((32768, 2560), (512, 10240)):
+    # K5 beyond the cases above: the widest SD1.5 site (the first 64²
+    # decoder ResBlock's in_norm, 63 MB at CFG batch 8, beyond the L2), an
+    # 8² site (latency), and without SiLU (the SpatialTransformer norm)
+    for shape, eps, silu in (((8, 960, 64, 64), 1e-5, True), ((8, 2560, 8, 8), 1e-5, True),
+                             ((8, 320, 64, 64), 1e-6, False)):
+        x = bf16(randn(*shape)).contiguous(memory_format=torch.channels_last)
+        cases.append(("fused_group_norm_quant", f"{shape} eps={eps} mean=0.0 "
+                      + ("silu" if silu else "no silu"), fused_group_norm_quant,
+                      (x, *affine(shape[1]), 32, eps, silu), "quant", None,
+                      (3 * x.numel() + 4 * shape[0], 0, 0), None))
+    # K7 at the SD1.5 feed-forward rows of CFG batch 8 (64², 32², 8²) and a
+    # ragged row count
+    for n, c in ((32768, 2560), (512, 10240), (8192, 5120), (333, 2560)):
         cases.append(("fused_geglu_quant", f"({n},{c})", fused_geglu_quant,
                       (bf16(randn(n, c)),), "quant", None, (2 * n * c + n * c // 2 + 4 * n, 0, 0),
                       None))
@@ -497,7 +510,12 @@ def phase_kernels(gen):
             msg = (f"dequantized max_abs_err={err}; scales within {scale_err} relative (bound "
                    f"{SCALE_REL_BOUND}), codes at most {code_diff} apart, {equal} equal "
                    f"(bound {CODES_EQUAL_BOUND})")
-            ok = scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND
+            again = fn(*args)
+            extra["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in zip(out, again))
+            del again
+            msg += f"; repeat bit-equal {extra['repeat_bit_equal']}"
+            ok = (scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND
+                  and extra["repeat_bit_equal"])
             if name in ONE_LAUNCH:
                 extra["launches_per_call"] = device_launches(lambda: fn(*args))
                 msg += f"; {extra['launches_per_call']} device launches per call (1 required)"
@@ -568,11 +586,11 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                          "prompt_diffusion_tpu/ops/fused_group_norm.py:128"),
     "fused_layer_norm": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_norms.py",
                          "prompt_diffusion_tpu/ops/fused_layer_norm.py:90"),
-    "fused_group_norm_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+    "fused_group_norm_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/gn_quant.cu",
                                "prompt_diffusion_tpu/ops/fused_group_norm.py:86"),
     "fused_layer_norm_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
                                "prompt_diffusion_tpu/ops/fused_layer_norm.py:149"),
-    "fused_geglu_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+    "fused_geglu_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                           "prompt_diffusion_tpu/ops/fused_act.py:144"),
     "conv3x3_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_conv.cu",
                      "prompt_diffusion_tpu/ops/int8_conv.py:174"),
@@ -604,7 +622,8 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
 }
 # kernels whose wrapper must issue exactly one device launch per call (no
 # cast or copy of its inputs), counted in a profiler trace in `[kernels]`
-ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant")
+ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
+              "fused_group_norm_quant")
 # the device functions a wrapper launches, where it launches more than one
 # (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
 # split-K sum and epilogue where its plan splits K)

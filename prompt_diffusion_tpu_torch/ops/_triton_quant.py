@@ -1,15 +1,17 @@
-"""Triton programs of the int8 epilogue kernels: GroupNorm->int8 (K5),
-LayerNorm->int8 (K6), GEGLU->int8 (K7), row->int8 (K11) and AdaLN (K12).
-K10 (tanh-GELU->int8) and K13 (AdaLN->int8) are CUDA C++
-(`csrc/row_quant.cu`); their former Triton programs stay here only as the
-GELU=True branch of `act_quant_kernel` and the QUANT=True branch of
-`adaln_kernel`, the parent design that `tools/quant_tune.py --part time`
-launches beside the CUDA kernels. No wrapper routes to those branches.
+"""Triton programs of the int8 epilogue kernels: LayerNorm->int8 (K6),
+row->int8 (K11) and AdaLN (K12). K10 (tanh-GELU->int8), K13 (AdaLN->int8)
+and K7 (GEGLU->int8) are CUDA C++ (`csrc/row_quant.cu`), K5
+(GroupNorm->int8) too (`csrc/gn_quant.cu`); their former Triton programs
+stay here only as the parent designs that `tools/quant_tune.py --part
+time` launches beside the CUDA kernels: the GELU=True branch of
+`act_quant_kernel` (K10), the QUANT=True branch of `adaln_kernel` (K13),
+`geglu_quant_kernel` (K7), and `gn_amax_kernel` with `gn_quant_kernel`
+(K5, after K3's stats and combine programs). No wrapper routes to them.
 
 This module imports `triton` at its top, so only the launchers in
-`fused_group_norm.py`, `fused_layer_norm.py`, `fused_act.py`,
-`fused_adaln.py` and `tools/quant_tune.py` import it, inside the function
-that launches, on the card.
+`fused_layer_norm.py`, `fused_act.py`, `fused_adaln.py` and
+`tools/quant_tune.py` import it, inside the function that launches, on
+the card.
 
 Every quantize step follows `quant.py` of the JAX package: the fp32 value
 is divided by its scale with an IEEE-rounded division (`div_rn`: Triton's
@@ -47,8 +49,8 @@ def _rowquant(y, mask):
     return _quantize(y, s[:, None]), s
 
 
-# ---- K5: GroupNorm(+SiLU) -> int8 with one scale per sample -------------
-# The statistics come from K3's stats and combine programs
+# ---- K5's parent design (timed by tools/quant_tune.py only) -------------
+# GroupNorm(+SiLU) -> int8 with one scale per sample. The statistics come from K3's stats and combine programs
 # (`_triton_norms.gn_stats_kernel`, `gn_combine_kernel`), which leave a
 # per-(sample, channel) scale and shift. The sample's amax is a reduction
 # over the whole sample, across programs: `gn_amax_kernel` takes each
@@ -126,7 +128,8 @@ def ln_quant_kernel(x_ptr, q_ptr, s_ptr, w_ptr, b_ptr, N, C, eps,
     tl.store(s_ptr + rows, s, mask=rmask)
 
 
-# ---- K7: GEGLU -> int8 with one scale per row ---------------------------
+# ---- K7's parent design (timed by tools/quant_tune.py only) -------------
+# GEGLU -> int8 with one scale per row
 
 
 @triton.jit

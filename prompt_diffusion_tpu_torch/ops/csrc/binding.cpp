@@ -44,6 +44,11 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
                             int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
                             int64_t sh_sc, float eps, int tpr, int vpt, int groups, int grid_x,
                             void* codes, void* scales, void* stream);
+extern "C" int pd_gn_quant_occupancy(int x_bf16, int k, int silu, int threads, int smem);
+extern "C" int pd_gn_quant(const void* x, int x_bf16, const void* gamma, const void* beta,
+                           void* codes, void* scales, void* ws, int batch, int hw, int c,
+                           int groups, float eps, int silu, int k, int rows, int threads,
+                           int chunks, int bps, void* stream);
 
 namespace {
 
@@ -119,6 +124,23 @@ void row_quant(int op, uintptr_t x, bool x_bf16, int64_t x_sb, int64_t x_sn, int
   }
 }
 
+int gn_quant_occupancy(bool x_bf16, int k, bool silu, int threads, int smem) {
+  return pd_gn_quant_occupancy(x_bf16 ? 1 : 0, k, silu ? 1 : 0, threads, smem);
+}
+
+void gn_quant(uintptr_t x, bool x_bf16, uintptr_t gamma, uintptr_t beta, uintptr_t codes,
+              uintptr_t scales, uintptr_t ws, int batch, int hw, int c, int groups, double eps,
+              bool silu, int k, int rows, int threads, int chunks, int bps, uintptr_t stream) {
+  const int err = pd_gn_quant(ptr(x), x_bf16 ? 1 : 0, ptr(gamma), ptr(beta), ptr(codes),
+                              ptr(scales), ptr(ws), batch, hw, c, groups,
+                              static_cast<float>(eps), silu ? 1 : 0, k, rows, threads, chunks,
+                              bps, ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("gn_quant launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -138,5 +160,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k; block_q 64 or 128");
   m.def("row_quant", &row_quant,
         "Rows -> int8 codes and fp32 row scales: op 0 tanh-GELU (K10), op 1 AdaLN with "
-        "per-sample (B, C) scale and shift views (K13); the plan of ops/row_quant.py::row_plan");
+        "per-sample (B, C) scale and shift views (K13), op 2 GEGLU of [h | gate] rows (K7); "
+        "the plan of ops/row_quant.py::row_plan");
+  m.def("gn_quant_occupancy", &gn_quant_occupancy,
+        "K5: blocks per SM of the GroupNorm -> int8 kernel <bf16, k, silu> at `threads` "
+        "threads and `smem` bytes of dynamic shared memory (negative: a CUDA error)");
+  m.def("gn_quant", &gn_quant,
+        "K5: GroupNorm(+SiLU) of (B, HW, C) -> int8 codes and one fp32 scale per sample, one "
+        "cooperative launch; the plan of ops/gn_quant.py::gn_plan");
 }

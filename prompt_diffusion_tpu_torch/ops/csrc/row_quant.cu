@@ -1,33 +1,43 @@
-// Row -> int8 kernels for Hopper (sm_90a): K10, tanh-GELU -> int8, and K13,
-// AdaLN -> int8, one int8 code per value and one fp32 scale per row.
+// Row -> int8 kernels for Hopper (sm_90a): K10, tanh-GELU -> int8, K13,
+// AdaLN -> int8, and K7, GEGLU -> int8; one int8 code per value and one fp32
+// scale per row.
 //
 // Replace the TPU kernels prompt_diffusion_tpu/ops/fused_act.py::
 // fused_gelu_quant (_gelu_quant_kernel through _run), the input of the SD3
-// MMDiT's `ff_out` and `ff_context_out`, and prompt_diffusion_tpu/ops/
+// MMDiT's `ff_out` and `ff_context_out`, prompt_diffusion_tpu/ops/
 // fused_adaln.py::fused_adaln_quant (_adaln_quant_kernel), the four
-// modulation sites of every JointBlock in the int8 serving mode. Per row of
-// C values, in fp32:
+// modulation sites of every JointBlock in the int8 serving mode, and
+// prompt_diffusion_tpu/ops/fused_act.py::fused_geglu_quant
+// (_geglu_quant_kernel through _run), the feed-forward of every SD1.5
+// transformer block in the int8 serving mode. Per row, in fp32:
 //
 //   K10: y = x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
 //   K13: y = (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
 //        (LayerNorm without affine, eps 1e-6, per-sample modulation)
+//   K7:  a row is [h | gate], 2C values; y = h * gelu_erf(gate) with
+//        gelu_erf(g) = g * 0.5 * (1 + erf(g / sqrt 2)), C values
 //   then s = max(amax|y| / 127, 1e-8) by IEEE division, and the codes
 //   rint(y / s) with y / s the IEEE quotient, clipped to +-127
 //   (`rowquant`, fused_layer_norm.py:28 of the JAX package).
 //
 // What bounds them on the H100: bytes, one read of the bf16 row and one
-// write of its int8 codes (3 bytes a value): 0.045 ms at K10's (8192, 6144)
-// and 0.011 ms at K13's (2, 4096, 1536) at 3.35 TB/s. K10's arithmetic
-// comes close: at ~33.5e12 thread-instructions/s the byte bound leaves ~27
-// instructions a value. So the design keeps every value in registers from
-// the load to its code and spends few instructions on each:
+// write of its int8 codes (3 bytes a value; K7 5 bytes an output value):
+// 0.045 ms at K10's (8192, 6144), 0.011 ms at K13's (2, 4096, 1536) and
+// 0.063 ms at K7's (32768, 2560) at 3.35 TB/s. K10's arithmetic comes
+// close: at ~33.5e12 thread-instructions/s the byte bound leaves ~27
+// instructions a value (K7 ~50 per output value, of which CUDA's erff
+// takes the most). So the design keeps every value in registers from the
+// load to its code and spends few instructions on each:
 //   * no padding of a row to a power of two: a row is cut into 16-byte
 //     vectors (8 bf16 or 4 fp32), vector t + k * TPR to thread t of the
 //     row's TPR threads (`row_plan` in ops/row_quant.py picks TPR, the
-//     vectors per thread VPT and the row groups per block);
+//     vectors per thread VPT and the row groups per block; K7's thread
+//     holds vector v of h and vector v of gate, so both count against the
+//     8 vectors a thread may hold);
 //     K13's rows (C = 1536) take one warp each, so its mean, variance and
 //     amax are warp shuffles with no shared memory and no barrier; K10's
 //     (C = 6144) take 256 threads, and its one reduction takes one barrier;
+//     K7's (C = 1280, 2560, 5120) take 128, 256 and 256 threads;
 //   * the division once per row: s, then r = 1/s rounded to nearest; each
 //     quotient is y * r with one FMA residual and one FMA correction
 //     (Markstein), equal to __fdiv_rn(y, s) bit for bit
@@ -63,6 +73,8 @@
 
 #include <cstdint>
 
+#include "quant_common.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -71,7 +83,7 @@ constexpr int kMaxVpt = 8;                     // 16-byte vectors a thread holds
 constexpr int kRedFloats = 2 * kThreads / kWarp;  // two buffers of one partial per warp
 constexpr int kSmemDefault = 48 * 1024;
 
-enum Op { kGelu = 0, kAdaLN = 1 };
+enum Op { kGelu = 0, kAdaLN = 1, kGeglu = 2 };
 
 struct Params {
   const void* x;
@@ -86,33 +98,6 @@ struct Params {
   float eps;
   int8_t* codes;  // (batch * n, c), dense
   float* scales;  // (batch * n)
-};
-
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int E = 8;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
-template <>
-struct Vec<float> {
-  static constexpr int E = 4;
-  static __device__ __forceinline__ void unpack(const uint4& r, float* f) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
 };
 
 // -2 sqrt(2/pi) log2(e) and 0.044715 times it: x * (C1 + C3 x^2) = -2 z log2(e)
@@ -132,35 +117,13 @@ __device__ __forceinline__ float gelu(float x) {
   return __fmul_rn(x, e > 16777216.0f ? 0.0f : rcp);
 }
 
-}  // namespace
-
-namespace rq {
-
-// __fdiv_rn(y, s) from r = __frcp_rn(s): y * r is within 1.5 ulp of y / s;
-// the residual s * q0 - y is one FMA, and one more FMA, q0 - residual * r,
-// corrects q0 to the quotient rounded to nearest. Bit-equal for y = +-0 (the
-// residual's sign keeps -0) and wherever the residual does not underflow,
-// |y| > ~2^-100 (s >= 1e-8); below that both round to the code 0.
-__device__ __forceinline__ float quotient(float y, float s, float r) {
-  const float q0 = __fmul_rn(y, r);
-  return fmaf(fmaf(s, q0, -y), -r, q0);
+// K7: h * gelu_erf(g) in the plain version's order (PyTorch's CUDA GELU is
+// x * 0.5 * (1 + erf(x * M_SQRT1_2)) with CUDA's erff), so that y is the
+// plain version's fp32 value
+__device__ __forceinline__ float geglu(float h, float g) {
+  return __fmul_rn(h, __fmul_rn(__fmul_rn(g, 0.5f),
+                                __fadd_rn(1.0f, erff(__fmul_rn(g, 0.7071067811865476f)))));
 }
-
-// The int8 code of q (|q| < 2^22) as the low byte of the bits of
-// q + 1.5 * 2^23: the add rounds q to an integer, ties to even (as rintf),
-// and the low byte holds it in two's complement.
-__device__ __forceinline__ uint32_t code_bits(float q) {
-  return __float_as_uint(__fadd_rn(q, 12582912.0f));
-}
-
-// The low bytes of a, b, c, d as bytes 0..3 of one word.
-__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
-}
-
-}  // namespace rq
-
-namespace {
 
 template <bool kMax>
 __device__ __forceinline__ float combine(float a, float b) {
@@ -198,11 +161,13 @@ __device__ __forceinline__ float load_mod(const void* p, int is_bf16, int64_t i)
 
 // One block: rows [row0, row0 + groups * rpb) of sample blockIdx.y, rpb =
 // kThreads / tpr rows at a time (a group), thread t of a row holding
-// vectors t + k * tpr, k < VPT (those < nvec). PIPE: the next group's
+// vectors t + k * tpr, k < VPT (those < nvec) of each of the row's NIN
+// inputs (K7: h, then gate at vector nvec + v). PIPE: the next group's
 // vectors are loaded before the current group is reduced and quantized.
 template <typename T, int VPT, int OP, bool PIPE>
 __device__ __forceinline__ void row_quant_body(const Params& p) {
   constexpr int E = Vec<T>::E;
+  constexpr int NIN = OP == kGeglu ? 2 : 1;
   extern __shared__ float4 smem4[];
   float* red = reinterpret_cast<float*>(smem4);  // kRedFloats, then K13's 2 C floats
   float* mod = red + kRedFloats;
@@ -215,17 +180,21 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
   const int row0 = blockIdx.x * rpb * p.groups;
   const T* xb = static_cast<const T*>(p.x) + b * p.x_sb;
 
-  auto load = [&](int g, uint4 (&dst)[VPT]) {
+  auto load = [&](int g, uint4 (&dst)[NIN * VPT]) {
     const int n_idx = row0 + g * rpb + slot_row;
     const uint4* xr = reinterpret_cast<const uint4*>(xb + (int64_t)n_idx * p.x_sn);
 #pragma unroll
-    for (int k = 0; k < VPT; ++k) {
-      const int v = t + k * tpr;
-      dst[k] = (n_idx < p.n && v < nvec) ? __ldg(xr + v) : make_uint4(0u, 0u, 0u, 0u);
+    for (int i = 0; i < NIN; ++i) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int v = t + k * tpr;
+        dst[i * VPT + k] = (n_idx < p.n && v < nvec) ? __ldg(xr + i * nvec + v)
+                                                     : make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   };
 
-  uint4 raw[VPT];
+  uint4 raw[NIN * VPT];
   load(0, raw);
 
   if constexpr (OP == kAdaLN) {
@@ -240,7 +209,7 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
 
   int slot = 0;
   for (int g = 0; g < p.groups; ++g) {
-    uint4 next[VPT];
+    uint4 next[NIN * VPT];
     if constexpr (PIPE) {
       if (g + 1 < p.groups) load(g + 1, next);
     }
@@ -250,7 +219,18 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
     for (int k = 0; k < VPT; ++k) Vec<T>::unpack(raw[k], v[k]);  // zeros past the row
 
     float amax = 0.f;
-    if constexpr (OP == kGelu) {
+    if constexpr (OP == kGeglu) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        float gate[E];
+        Vec<T>::unpack(raw[VPT + k], gate);
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          v[k][j] = geglu(v[k][j], gate[j]);  // 0 past the row
+          amax = fmaxf(amax, fabsf(v[k][j]));
+        }
+      }
+    } else if constexpr (OP == kGelu) {
 #pragma unroll
       for (int k = 0; k < VPT; ++k) {
 #pragma unroll
@@ -331,7 +311,7 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
     }
     if constexpr (PIPE) {
 #pragma unroll
-      for (int k = 0; k < VPT; ++k) raw[k] = next[k];
+      for (int k = 0; k < NIN * VPT; ++k) raw[k] = next[k];
     }
   }
 }
@@ -347,9 +327,22 @@ __global__ void __launch_bounds__(kThreads) adaln_quant_kernel(const Params p) {
 }
 
 template <typename T, int VPT, bool PIPE>
+__global__ void __launch_bounds__(kThreads) geglu_quant_kernel(const Params p) {
+  row_quant_body<T, VPT, kGeglu, PIPE>(p);
+}
+
+template <typename T, int VPT, bool PIPE>
 int launch(int op, const Params& p, dim3 grid, cudaStream_t s) {
   const size_t smem = sizeof(float) * (kRedFloats + (op == kAdaLN ? 2 * (size_t)p.c : 0));
-  auto kernel = op == kGelu ? gelu_quant_kernel<T, VPT, PIPE> : adaln_quant_kernel<T, VPT, PIPE>;
+  void (*kernel)(const Params) = nullptr;
+  if (op == kGelu) {
+    kernel = gelu_quant_kernel<T, VPT, PIPE>;
+  } else if (op == kAdaLN) {
+    kernel = adaln_quant_kernel<T, VPT, PIPE>;
+  } else if constexpr (2 * VPT <= kMaxVpt) {  // K7 holds VPT vectors of h and of gate
+    kernel = geglu_quant_kernel<T, VPT, PIPE>;
+  }
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > kSmemDefault) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -376,11 +369,11 @@ int launch_vpt(int vpt, int op, const Params& p, dim3 grid, cudaStream_t s) {
 
 }  // namespace
 
-// K10 (op 0) or K13 (op 1) on `stream`; returns the launch's cudaError_t (0
-// = queued). x: `batch` samples of n rows of c values, bf16 (x_bf16) or
-// fp32, element strides x_sb and x_sn, 16-byte aligned rows, dense
-// columns; K13's scale and shift: bf16 or fp32 (B, C) views with element
-// strides (K10 ignores them). The plan (threads per row tpr, vectors per
+// K10 (op 0), K13 (op 1) or K7 (op 2) on `stream`; returns the launch's
+// cudaError_t (0 = queued). x: `batch` samples of n rows of c values (K7:
+// 2c values, [h | gate]), bf16 (x_bf16) or fp32, element strides x_sb and
+// x_sn, 16-byte aligned rows, dense columns; K13's scale and shift: bf16 or
+// fp32 (B, C) views with element strides (K10 and K7 ignore them). The plan (threads per row tpr, vectors per
 // thread vpt, row groups per block, grid_x blocks per sample) comes from
 // `row_plan`; it must cover every column and every row. Writes codes
 // (batch * n, c) and scales (batch * n), both dense.
@@ -392,8 +385,10 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
   const int e = x_bf16 ? 8 : 4;
   const int nvec = c / e;
   const bool tpr_ok = tpr == 32 || tpr == 64 || tpr == 128 || tpr == 256;
-  if ((op != kGelu && op != kAdaLN) || c <= 0 || c % 8 != 0 || n <= 0 || batch <= 0 ||
-      batch > 65535 || !tpr_ok || vpt < 1 || vpt > kMaxVpt || (int64_t)vpt * tpr < nvec ||
+  const int nin = op == kGeglu ? 2 : 1;
+  if ((op != kGelu && op != kAdaLN && op != kGeglu) || c <= 0 || c % 8 != 0 || n <= 0 ||
+      batch <= 0 || batch > 65535 || !tpr_ok || vpt < 1 || nin * vpt > kMaxVpt ||
+      (int64_t)vpt * tpr < nvec ||
       groups < 1 || grid_x < 1 || (int64_t)grid_x * (kThreads / tpr) * groups < n ||
       (op == kAdaLN && (sc == nullptr || sh == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,4 +1,4 @@
-"""GroupNorm(+SiLU or ReLU) kernels K3 and K5, in Triton, and their dispatch.
+"""GroupNorm(+SiLU or ReLU) kernels K3 and K5, and their dispatch.
 
 K3 replaces `prompt_diffusion_tpu/ops/fused_group_norm.py::fused_group_norm`,
 both its one-pass VMEM-resident kernel (`_gn_kernel`) and its two-pass
@@ -8,23 +8,27 @@ the MiDaS DPT-Hybrid backbone); SiLU wins when both are set. K5 replaces
 `fused_group_norm_quant` (`_gn_quant_kernel`): the same GroupNorm, then
 int8 codes with one fp32 scale per sample (the int8 serving mode).
 
-What bounds it: nothing but memory traffic. A sample is 2.6 MB in the 512²
-UNet and 64 MB in the VAE decoder, far beyond one SM's shared memory, so
-one design serves every size: a stats pass over (sample, row block,
+What bounds them: nothing but memory traffic. A sample is 2.6 MB in the
+512² UNet and 64 MB in the VAE decoder, far beyond one SM's shared memory.
+K3 is Triton (`_triton_norms.py`): a stats pass over (sample, row block,
 channel block) tiles writes each tile's per-channel mean and sum of squared
 deviations; a small combine program per (sample, group) merges them with
 Chan's parallel formula (no E[x²] - E[x]² cancellation on the VAE's
 large-mean activations) and folds the affine into one per-channel scale and
-shift; an apply pass writes x * scale + shift (+ SiLU or ReLU). That is two reads
-and one write of the activation, like the TPU's two-pass path.
+shift; an apply pass writes x * scale + shift (+ SiLU or ReLU). That is two
+reads and one write of the activation, like the TPU's two-pass path.
 
-K5 shares the stats and combine programs. Its scale is one amax over the
-whole sample, a reduction across programs, so it adds an amax pass (tile
-maxima folded by an atomic max into one slot per sample) and a quantize
-pass that recomputes the normalised value: three reads of the activation
-and one int8 write. The TPU kernel held a sample in VMEM and read it once;
+K5 is CUDA C++ (`csrc/gn_quant.cu`, plan and launcher in `gn_quant.py`):
+one cooperative launch of a persistent grid whose two grid barriers carry
+the group statistics and the sample's amax, the amax taken from each
+channel's min and max of x, a second read of the activation (from L2
+where it fits) for the codes. The TPU kernel held a sample in VMEM and read it once;
 JAX falls back to jnp above 8 MB samples, while this kernel serves every
-size (the int8 VAE's 64 MB samples included).
+size (the int8 VAE's 64 MB samples included). Its parent design, K3's
+stats and combine programs followed by `_triton_quant.gn_amax_kernel`
+(after a memset of the amax slots) and `gn_quant_kernel`, five device
+launches, stays only for `tools/quant_tune.py --part time`; no wrapper
+routes to it.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
+from prompt_diffusion_tpu_torch.ops.gn_quant import gn_quant
 from prompt_diffusion_tpu_torch.ops.norms import group_norm as _torch_group_norm
 from prompt_diffusion_tpu_torch.ops.norms import group_norm_f32
 
@@ -125,31 +130,17 @@ def fused_group_norm_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Ten
                            num_groups: int, eps: float = 1e-5,
                            apply_silu: bool = False):
     """K5: GroupNorm(+SiLU) of an NCHW tensor -> (int8 (B, C, H, W) in
-    channels_last memory, fp32 scale per sample (B,)); the kernel on CUDA
-    at every size, the plain version on the CPU."""
+    channels_last memory, fp32 scale per sample (B,)); the CUDA kernel on
+    the card at every size (bf16 or fp32, C a multiple of 8, one launch for
+    a channels_last input), the plain version on the CPU."""
     if not use_kernel(x):
         return _torch_group_norm_quant(x, num_groups, scale, bias, eps, apply_silu)
-    return _launch_quant(x, scale, bias, num_groups, eps, apply_silu)
+    out = gn_quant(x, scale, bias, num_groups, eps, apply_silu)
+    fused_group_norm_quant.launches += 1
+    return out
 
 
 fused_group_norm_quant.launches = 0
-
-
-def _launch_quant(x, scale, bias, num_groups, eps, apply_silu):
-    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
-
-    x = _check(x, scale, bias, num_groups)
-    b, c, h, w = x.shape
-    q = torch.empty_like(x, dtype=torch.int8)
-    s_a = torch.empty((b,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        amax = torch.zeros((b,), dtype=torch.int32, device=x.device)  # fp32 bits
-        eff_scale, eff_shift, grid = _stats(x, scale, bias, num_groups, eps)
-        meta = dict(ROWS=_ROWS, BLOCK_C=_BLOCK_C, APPLY_SILU=bool(apply_silu))
-        tq.gn_amax_kernel[grid](x, eff_scale, eff_shift, amax, h * w, c, **meta)
-        tq.gn_quant_kernel[grid](x, eff_scale, eff_shift, amax, q, s_a, h * w, c, **meta)
-    fused_group_norm_quant.launches += 1
-    return q, s_a
 
 
 def group_norm_auto(x, num_groups, scale, bias, eps=1e-5, apply_silu=False,

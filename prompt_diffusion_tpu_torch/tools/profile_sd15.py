@@ -18,7 +18,11 @@ compiles, cuDNN heuristics). Then:
     dequant fused into them (G1 in ROADMAP.md); K8's calls of one step (the
     3x3 stride-1 QuantConv), by shape, their int8 operations and least
     time, and K8's device ms per step from the trace (its kernels and the
-    split-K epilogue).
+    split-K epilogue); K5's and K7's calls of one step (GroupNorm -> int8
+    and GEGLU -> int8), by shape, each shape's byte bound, its device ms
+    and device launches per call alone (`timing.device_ms`, warm, seeded
+    inputs of the shape), and their sums per step; and K5's and K7's device
+    ms and launches per step from the trace, by kernel name (`K5_K7_NAMES`).
 Needs one CUDA device.
 """
 
@@ -35,6 +39,14 @@ from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernel
 
 BATCH, SIZE, CFG = 2, 512, 9.0
 STEPS, TOP = 3, 30  # denoise steps traced, kernel names printed
+# K5's and K7's device functions, by a part of their name: the CUDA C++
+# kernels (`gn_quant_kernel`, `geglu_quant_kernel`), or in the former design
+# (run from an older checkout for a comparison) Triton programs of the same
+# names, K5's after a fill of its amax slots and K3's stats and combine
+# programs (`gn_stats_kernel`, `gn_combine_kernel`, which K3's own calls
+# launch too)
+K5_K7_NAMES = (("K7", ("geglu_quant_kernel",)), ("K5", ("gn_quant_kernel", "gn_amax_kernel")),
+               ("K3's stats and combine (K5's, then)", ("gn_stats_kernel", "gn_combine_kernel")))
 
 
 def _wall_ms(fn, reps=3):
@@ -115,6 +127,74 @@ def print_k8_bound(step):
         print(f"  {n:3d} x {k}")
 
 
+def k5_k7_calls(step):
+    """Runs `step` once, recording the calls of K5 (`GroupNorm32` with
+    quant_out) and K7 (the int8 GEGLU) that the models make; returns
+    ({(B, C, H, W, silu, eps): calls}, {(rows, 2I): calls})."""
+    from prompt_diffusion_tpu_torch.models import layers
+
+    k5, k7 = {}, {}
+    gn, geglu = layers.fused_group_norm_quant, layers.fused_geglu_quant
+
+    def record_gn(x, *args, **kwargs):
+        key = tuple(x.shape) + (bool(kwargs.get("apply_silu")), kwargs.get("eps"))
+        k5[key] = k5.get(key, 0) + 1
+        return gn(x, *args, **kwargs)
+
+    def record_geglu(proj):
+        key = (proj.numel() // proj.shape[-1], proj.shape[-1])
+        k7[key] = k7.get(key, 0) + 1
+        return geglu(proj)
+
+    layers.fused_group_norm_quant, layers.fused_geglu_quant = record_gn, record_geglu
+    try:
+        step()
+    finally:
+        layers.fused_group_norm_quant, layers.fused_geglu_quant = gn, geglu
+    return k5, k7
+
+
+def print_k5_k7(step):
+    """K5's and K7's calls of one step by shape: the byte bound (one read
+    of the bf16 input, one int8 write, the scales), device ms and launches
+    per call of the wrapper alone, and the sums per step."""
+    from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm_quant
+    from prompt_diffusion_tpu_torch.tools.timing import device_launches, device_ms
+
+    k5, k7 = k5_k7_calls(step)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+    rows = []
+    for (b, c, h, w, silu, eps), n in k5.items():
+        x = randn(b, c, h, w).contiguous(memory_format=torch.channels_last)
+        wt = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        bs = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        call = (lambda x=x, wt=wt, bs=bs, silu=silu, eps=eps:
+                fused_group_norm_quant(x, wt, bs, 32, eps, silu))
+        rows.append(("K5", f"({b},{c},{h},{w}) {'silu' if silu else 'no silu'} eps={eps}", n,
+                     roofline(3 * x.numel() + 4 * b)[0], call))
+    for (r, w2), n in k7.items():
+        x = randn(r, w2)
+        rows.append(("K7", f"({r},{w2})", n, roofline(2 * r * w2 + r * w2 // 2 + 4 * r)[0],
+                     lambda x=x: fused_geglu_quant(x)))
+    totals = {}
+    print("[profile] K5 and K7 calls of one denoise step: calls x shape, byte bound ms, "
+          "device ms and device launches per call alone (warm):")
+    for kern, label, n, bound, call in sorted(rows, key=lambda r: (r[0], -r[2] * r[3])):
+        ms, launches = device_ms(call), device_launches(call)
+        t = totals.setdefault(kern, [0, 0.0, 0.0, 0.0])
+        t[0] += n
+        t[1] += n * bound
+        t[2] += n * ms
+        t[3] += n * launches
+        print(f"  {kern} {n:3d} x {label:40s} bound {bound:.4f} device {ms:.4f} "
+              f"launches {launches:g}")
+    for kern, (n, bound, ms, launches) in sorted(totals.items()):
+        print(f"[profile] {kern} per denoise step: {n} calls, device {ms:.3f} ms alone, "
+              f"bound {bound:.3f} ms, {launches:g} device launches")
+
+
 def build(int8=False, seed=0, conv_variant="im2col"):
     """SD1.5 at the default configs with `random_init_` weights (bf16, or
     the int8 policy with the int8 VAE and K8's `conv_variant`), and one
@@ -172,6 +252,7 @@ def main(argv=None) -> int:
     if args.int8:
         print_int8_gemm_bound(parts["denoise step"])
         print_k8_bound(parts["denoise step"])
+        print_k5_k7(parts["denoise step"])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -203,6 +284,11 @@ def main(argv=None) -> int:
               if "conv3x3_int8" in name or "splitk_epilogue" in name]
         print(f"[profile] K8 device ms per step: {sum(us for _, us in k8) / STEPS / 1e3:.3f} "
               f"({sum(n for n, _ in k8) / STEPS:.0f} launches, split-K epilogues included)")
+        for label, parts_of_name in K5_K7_NAMES:
+            hits = [(n, us) for name, (n, us) in by_name.items()
+                    if any(part in name for part in parts_of_name)]
+            print(f"[profile] {label} in the trace: {sum(us for _, us in hits) / STEPS / 1e3:.3f} "
+                  f"device ms, {sum(n for n, _ in hits) / STEPS:.0f} launches per step")
     return 0
 
 

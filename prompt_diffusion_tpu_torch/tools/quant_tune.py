@@ -1,7 +1,9 @@
-"""K10 and K13, the row -> int8 kernels of `ops/csrc/row_quant.cu`, on the card.
+"""The int8 epilogue kernels in CUDA C++ on the card: K10, K13 and K7 (the
+row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm -> int8,
+`ops/csrc/gn_quant.cu`).
 
-    python3 -m prompt_diffusion_tpu_torch.tools.quant_tune [--part sass|check|time]
-        [--iters N]
+    python3 -m prompt_diffusion_tpu_torch.tools.quant_tune
+        [--part sass|check|time|phases] [--kernels K10,K13,K7,K5] [--iters N]
 
   sass   nvcc -cubin of `row_quant.cu` as built and of a copy whose K10
          takes CUDA's tanhf (TANHF): ptxas's registers and spills of every
@@ -11,7 +13,10 @@
          thread, over the values they differ by) and per thread and row
          group (static, slow paths included); from the per-value counts a
          compute bound at the SD3 shapes (a lower bound: the per-row work
-         is left out), beside the byte bound;
+         is left out), beside the byte bound; the same for K7 (its
+         per-value count from 2 and 4 vectors per thread of h and gate, at
+         the SD1.5 shapes), and ptxas's registers and spills of K5's
+         instantiations;
   check  the quotient of `rq::quotient` (y * 1/s with one FMA correction)
          against `__fdiv_rn(y, s)` bit for bit: over every value of the SD3
          K10 and K13 cases (K10's y from the kernel's own GELU, K13's from
@@ -22,7 +27,12 @@
          equal) at the SD3 shapes, at every plan `time` sweeps, in fp32, at
          other widths (warp rows, rows of several warps, ragged vectors and
          rows, 32 KB rows) and with strided modulation; one device launch
-         per call; two runs bit-equal;
+         per call; two runs bit-equal. K7 and K5 likewise: the quotient on
+         their SD1.5 values, K7 at its SD1.5 shapes and every plan `time`
+         sweeps, ragged and fp32; K5 at the SD1.5 sites (64² to 8², with
+         and without SiLU), the int8 VAE's (4,128,512,512), fp32, ragged,
+         an affine so small that the amax comes from the values (SiLU's
+         interior), and every K;
   time   device ms (`tools/timing.py::device_ms`) at every SD3 shape of the
          parent's Triton programs (launched as the parent's wrappers
          launched them, K13's modulation casts included) and the CUDA
@@ -32,6 +42,18 @@
          each call reads its input from device memory); the bound share is
          the cold reading's. Then the plan sweep (K10's threads per row,
          both kernels' row groups) and K10 with tanhf (the copy), cold.
+         K7 and K5 likewise at their SD1.5 shapes (and the int8 VAE's for
+         K5), against the parent's Triton programs (K7's
+         `geglu_quant_kernel`; K5's fill of the amax slots, K3's stats and
+         combine programs, `gn_amax_kernel` and `gn_quant_kernel`, five
+         launches); the sweep of K7's threads and row groups and of K5's
+         vectors per thread K.
+  phases K5 only: copies of `gn_quant.cu` (nvcc, called through ctypes):
+         one that stamps clock64() at each phase boundary of every block
+         (PHASES), printing each phase's share of the block's cycles (mean
+         over blocks) at the SD1.5 sites, and one without SiLU in the codes
+         pass (NO_SILU_CODES; its codes are wrong, its time is the point),
+         timed beside the copy as built.
 
 Needs one CUDA card and nvcc; without a card it exits 2.
 """
@@ -63,10 +85,19 @@ from prompt_diffusion_tpu_torch.tools.timing import (
 
 OUT_DIR = os.path.join(_REPO, "build", "quant_tune")
 SOURCE = os.path.join(_CSRC_DIR, "row_quant.cu")
+GN_SOURCE = os.path.join(_CSRC_DIR, "gn_quant.cu")
 # the SD3 int8 step's shapes (CFG batch 2 at 1024²: 4096 image tokens and
 # 333 context tokens of 1536; the FF's 4 x 1536 = 6144)
 K10_SHAPES = ((8192, 6144), (666, 6144))
 K13_SHAPES = ((2, 4096, 1536), (2, 333, 1536))
+# the SD1.5 int8 step's at CFG batch 8 (a request of 4 at 512²): K7's rows
+# (tokens x 2I) at 64², 32², 16² and 8²; K5's sites, (B, C, H, W), SiLU, eps
+K7_SHAPES = ((32768, 2560), (8192, 5120), (2048, 10240), (512, 10240))
+K5_SHAPES = (((8, 320, 64, 64), True, 1e-5), ((8, 960, 64, 64), True, 1e-5),
+             ((8, 640, 32, 32), True, 1e-5), ((8, 1280, 16, 16), True, 1e-5),
+             ((8, 1280, 8, 8), True, 1e-5), ((8, 2560, 8, 8), True, 1e-5),
+             ((8, 320, 64, 64), False, 1e-6), ((4, 128, 512, 512), True, 1e-6))
+KERNELS = ("K10", "K13", "K7", "K5")
 SCALE_REL_BOUND, CODES_EQUAL_BOUND = 1e-6, 0.999
 SWEEP_SCALES = 128
 COLD_BYTES = 120e6  # > twice the H100's 50 MB L2
@@ -136,6 +167,67 @@ def _parent_adaln_quant(x, scale, shift, eps=1e-6):
     return out, s_a
 
 
+def _gn_inputs(gen, shape, mean=0.0, gain=1.0, dtype=torch.bfloat16):
+    """x (channels_last) and an affine near (gain, 0), as the models pass
+    them."""
+    x = (torch.randn(shape, generator=gen, device="cuda") + mean).to(dtype)
+    c = shape[1]
+    w = gain * (1 + 0.1 * torch.randn(c, generator=gen, device="cuda"))
+    b = 0.1 * gain * torch.randn(c, generator=gen, device="cuda")
+    return x.contiguous(memory_format=torch.channels_last), w, b
+
+
+def _gn_plan(x, silu, **kwargs):
+    """K5's plan for x with the card's occupancy; kwargs force K."""
+    from prompt_diffusion_tpu_torch.ops import gn_quant as gq
+
+    dev, bf16 = x.device.index or 0, x.dtype == torch.bfloat16
+    b, c, h, w = x.shape
+    return gq.gn_plan(b, c, h * w, 32, x.dtype, sms=gq._sms(dev),
+                      occupancy=lambda k, t, m: gq._occupancy(dev, bf16, silu, k, t, m),
+                      **kwargs)
+
+
+def _parent_geglu_quant(proj):
+    """K7 as the parent launched it: Triton `geglu_quant_kernel` over rows
+    padded to a power of two."""
+    import triton
+
+    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
+    from prompt_diffusion_tpu_torch.ops.fused_layer_norm import _TILE
+
+    inner = proj.shape[-1] // 2
+    x2 = proj.contiguous().view(-1, 2 * inner)
+    n = x2.shape[0]
+    block_i = triton.next_power_of_2(inner)
+    block_r = max(1, _TILE // block_i)
+    q = torch.empty((n, inner), dtype=torch.int8, device=proj.device)
+    s_a = torch.empty((n, 1), dtype=torch.float32, device=proj.device)
+    tq.geglu_quant_kernel[(triton.cdiv(n, block_r),)](
+        x2, q, s_a, n, inner, BLOCK_R=block_r, BLOCK_I=block_i,
+        num_warps=8 if block_i >= 4096 else 4)
+    return q.view(*proj.shape[:-1], inner), s_a.view(*proj.shape[:-1], 1)
+
+
+def _parent_gn_quant(x, w, b, eps, silu):
+    """K5 as the parent launched it: a fill of the amax slots, K3's Triton
+    stats and combine programs, then `gn_amax_kernel` and
+    `gn_quant_kernel` (five device launches)."""
+    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
+    from prompt_diffusion_tpu_torch.ops import fused_group_norm as fg
+
+    x = fg._check(x, w, b, 32)
+    bsz, c, h, wd = x.shape
+    q = torch.empty_like(x, dtype=torch.int8)
+    s_a = torch.empty((bsz,), dtype=torch.float32, device=x.device)
+    amax = torch.zeros((bsz,), dtype=torch.int32, device=x.device)
+    eff_scale, eff_shift, grid = fg._stats(x, w, b, 32, eps)
+    meta = dict(ROWS=fg._ROWS, BLOCK_C=fg._BLOCK_C, APPLY_SILU=bool(silu))
+    tq.gn_amax_kernel[grid](x, eff_scale, eff_shift, amax, h * wd, c, **meta)
+    tq.gn_quant_kernel[grid](x, eff_scale, eff_shift, amax, q, s_a, h * wd, c, **meta)
+    return q, s_a
+
+
 def _compare(out, ref):
     """(largest relative scale error, largest code difference, share of
     equal codes)."""
@@ -167,7 +259,7 @@ def _tanhf_source():
 def _build(name, src, *flags):
     os.makedirs(OUT_DIR, exist_ok=True)
     out = os.path.join(OUT_DIR, name)
-    log, _ = _nvcc(src, out, *flags).communicate()
+    log, _ = _nvcc(src, out, "-I", _CSRC_DIR, *flags).communicate()
     if not os.path.isfile(out):
         raise RuntimeError(f"nvcc failed on {src}:\n{log[-3000:]}")
     return out, log
@@ -175,7 +267,8 @@ def _build(name, src, *flags):
 
 # ---- sass ----------------------------------------------------------------
 
-_KERNEL = re.compile(r"(gelu|adaln)_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
+_KERNEL = re.compile(r"(gelu|adaln|geglu)_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
+_GN_KERNEL = re.compile(r"gn_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
 
 
 def _sass_counts(cubin):
@@ -202,41 +295,65 @@ def _sass_counts(cubin):
     return counts
 
 
-def sass(_gen, _iters):
+# (op, the two vectors-per-thread counts compared, values between them per
+# row group, shapes as (samples, rows, output width), input values per output)
+_SASS_OPS = {"K10": ("gelu", 3, 6, 24, [(1, r, c) for r, c in K10_SHAPES], 1),
+             "K13": ("adaln", 3, 6, 24, K13_SHAPES, 1),
+             "K7": ("geglu", 2, 4, 16, [(1, r, w // 2) for r, w in K7_SHAPES], 2)}
+
+
+def _ptxas(log, pattern, keep):
+    """(instantiation, "registers | spills") from ptxas's report in `log` for
+    the kernels `pattern` matches and `keep(match)` selects."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        k = m and pattern.search(m.group(1))
+        if k and keep(k):
+            yield k, " | ".join(x.split(":", 2)[-1].strip() for x in lines[i + 1:i + 4]
+                                if "registers" in x or "spill" in x)
+
+
+def sass(_gen, _iters, kernels):
     """Registers, spills, SASS instructions and MUFU operations per value."""
-    for label, src in (("built", SOURCE), ("tanhf", _tanhf_source())):
+    builds = [("built", SOURCE)] + ([("tanhf", _tanhf_source())] if "K10" in kernels else [])
+    for label, src in builds:
         cubin, log = _build(f"row_quant_{label}.cubin", src, "-cubin")
-        lines = log.splitlines()
-        for i, line in enumerate(lines):
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            k = m and _KERNEL.search(m.group(1))
-            if k and int(k.group(3)) in (3, 6):
-                info = " | ".join(x.split(":", 2)[-1].strip() for x in lines[i + 1:i + 4]
-                                  if "registers" in x or "spill" in x)
-                print(f"[quant_tune] ptxas {label} {k.group(1)}<{k.group(2)}, {k.group(3)}, "
-                      f"pipe={k.group(4)}>: {info}", flush=True)
+        for k, info in _ptxas(log, _KERNEL, lambda k: int(k.group(3)) in (2, 3, 6)):
+            print(f"[quant_tune] ptxas {label} {k.group(1)}<{k.group(2)}, {k.group(3)}, "
+                  f"pipe={k.group(4)}>: {info}", flush=True)
         counts = _sass_counts(cubin)
-        for op, shapes in (("gelu", [(1, r, c) for r, c in K10_SHAPES]), ("adaln", K13_SHAPES)):
+        for name, (op, lo, hi, span, shapes, inputs) in _SASS_OPS.items():
+            if name not in kernels or (label == "tanhf" and name != "K10"):
+                continue
             for pipe in (False, True):
-                (i3, m3), (i6, m6) = counts[(op, "bf16", 3, pipe)], counts[(op, "bf16", 6, pipe)]
-                per_value, mufu_value = (i6 - i3) / 24, (m6 - m3) / 24
-                per_thread = i3 - 24 * per_value
+                (i_lo, m_lo), (i_hi, m_hi) = (counts[(op, "bf16", lo, pipe)],
+                                              counts[(op, "bf16", hi, pipe)])
+                per_value, mufu_value = (i_hi - i_lo) / span, (m_hi - m_lo) / span
+                per_thread = i_lo - lo * span / (hi - lo) * per_value
                 msg = []
                 for b, n, c in shapes:
-                    plan = rq.row_plan(b * n, c, torch.bfloat16, samples=b)
+                    plan = rq.row_plan(b * n, c, torch.bfloat16, samples=b, inputs=inputs)
                     values, threads = b * n * c, b * n * plan.threads
                     issue = values * per_value / ISSUE_S * 1e3
                     mufu = values * mufu_value / EXP_S * 1e3
                     static = threads * per_thread / ISSUE_S * 1e3
-                    nbytes = 3 * values + 4 * b * n + (4 * b * c if op == "adaln" else 0)
+                    nbytes = ((2 * inputs + 1) * values + 4 * b * n
+                              + (4 * b * c if op == "adaln" else 0))
                     msg.append(f"({b},{n},{c}) compute bound {max(issue, mufu):.4f} ms (issue "
                                f"{issue:.4f}, MUFU {mufu:.4f}; the static per-thread part "
                                f"would add at most {static:.4f}) beside bytes "
                                f"{nbytes / HBM_BYTES_S * 1e3:.4f}")
-                print(f"[quant_tune] sass {label} {op} bf16 pipe={pipe}: {i3} instructions at "
-                      f"VPT=3, {i6} at VPT=6: {per_value:.2f} per value ({mufu_value:.2f} "
-                      f"MUFU), {per_thread:.0f} static per thread and row group (slow paths "
-                      f"of the divisions included); " + "; ".join(msg), flush=True)
+                print(f"[quant_tune] sass {label} {name} {op} bf16 pipe={pipe}: {i_lo} "
+                      f"instructions at VPT={lo}, {i_hi} at VPT={hi}: {per_value:.2f} per output "
+                      f"value ({mufu_value:.2f} MUFU), {per_thread:.0f} static per thread and "
+                      f"row group (slow paths of the divisions included); " + "; ".join(msg),
+                      flush=True)
+    if "K5" in kernels:
+        _, log = _build("gn_quant.cubin", GN_SOURCE, "-cubin")
+        for k, info in _ptxas(log, _GN_KERNEL, lambda k: True):
+            print(f"[quant_tune] ptxas gn_quant_kernel<{k.group(1)}, K={k.group(2)}, "
+                  f"silu={k.group(3)}>: {info}", flush=True)
 
 
 # ---- check ---------------------------------------------------------------
@@ -328,25 +445,45 @@ def _div_lib():
     return so
 
 
-def _div_cases(gen):
-    """(label, y or bf16 x, per-row s, is x) at the SD3 shapes: K10's x with
-    the kernel's row scales, K13's plain fp32 values with the kernel's."""
+def _div_cases(gen, kernels):
+    """(label, y or bf16 x as (rows, c), per-row s, is x): K10's x at the
+    SD3 shapes with the kernel's row scales, K13's plain fp32 values with
+    the kernel's; K7's and K5's plain fp32 values at their SD1.5 shapes
+    with the kernels' scales (K5: one row per sample)."""
+    import torch.nn.functional as F
+
     from prompt_diffusion_tpu_torch.ops.fused_adaln import _torch_adaln
+    from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm_quant
+    from prompt_diffusion_tpu_torch.ops.norms import group_norm_f32
 
-    for n, c in K10_SHAPES:
-        x = _x(gen, n, c)
-        yield f"K10 ({n},{c})", x, fused_gelu_quant(x)[1], True
-    for b, n, c in K13_SHAPES:
-        x, (sc, sh) = _x(gen, b, n, c), _mod(gen, b, c)
-        yield f"K13 ({b},{n},{c})", _torch_adaln(x, sc, sh, 1e-6), \
-            fused_adaln_quant(x, sc, sh)[1], False
+    if "K10" in kernels:
+        for n, c in K10_SHAPES:
+            x = _x(gen, n, c)
+            yield f"K10 ({n},{c})", x, fused_gelu_quant(x)[1], True
+    if "K13" in kernels:
+        for b, n, c in K13_SHAPES:
+            x, (sc, sh) = _x(gen, b, n, c), _mod(gen, b, c)
+            yield f"K13 ({b},{n},{c})", _torch_adaln(x, sc, sh, 1e-6), \
+                fused_adaln_quant(x, sc, sh)[1], False
+    if "K7" in kernels:
+        for n, w in K7_SHAPES[:2]:
+            x = _x(gen, n, w)
+            h, g = x.float().chunk(2, dim=-1)
+            yield f"K7 ({n},{w})", h * F.gelu(g), fused_geglu_quant(x)[1], False
+    if "K5" in kernels:
+        for shape, silu, eps in K5_SHAPES[:2]:
+            x, w, b = _gn_inputs(gen, shape)
+            y = group_norm_f32(x, 32, w, b, eps=eps, apply_silu=silu)
+            yield (f"K5 {shape}", y.reshape(shape[0], -1),
+                   fused_group_norm_quant(x, w, b, 32, eps, silu)[1], False)
 
 
-def _check_division(gen):
+def _check_division(gen, kernels):
     so = _div_lib()
     stream = torch.cuda.current_stream().cuda_stream
     failed = []
-    for label, y, s, is_x in _div_cases(gen):
+    for label, y, s, is_x in _div_cases(gen, kernels):
         bad = torch.zeros(1, dtype=torch.int64, device="cuda")
         y, s = y.contiguous(), s.contiguous()
         err = so.div_rows(y.data_ptr(), s.data_ptr(), y.numel(), y.shape[-1], int(is_x),
@@ -377,44 +514,90 @@ def _check_division(gen):
     return failed
 
 
-def _kernel_cases(gen):
+def _kernel_cases(gen, kernels):
     """(label, kernel call, plain call) for `check`."""
+    from prompt_diffusion_tpu_torch.ops import gn_quant as gq
+    from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm_quant
+
     cases = []
-    plans10 = [(t, g) for t in (128, 256) for g in (1, 2, 4)]
-    for n, c in K10_SHAPES + ((200, 256), (37, 2056), (5, 8), (3, 16384)):
-        x = _x(gen, n, c)
-        variants = plans10 if c == 6144 else [(None, 1), (None, 3)]
-        for t, g in variants:
-            plan = rq.row_plan(n, c, x.dtype, threads=t, groups=g)
-            cases.append((f"K10 ({n},{c}) bf16 threads={plan.threads} vectors={plan.vectors} "
-                          f"groups={g}", lambda x=x, p=plan: rq.gelu_quant(x, p),
+    if "K10" in kernels:
+        plans10 = [(t, g) for t in (128, 256) for g in (1, 2, 4)]
+        for n, c in K10_SHAPES + ((200, 256), (37, 2056), (5, 8), (3, 16384)):
+            x = _x(gen, n, c)
+            variants = plans10 if c == 6144 else [(None, 1), (None, 3)]
+            for t, g in variants:
+                plan = rq.row_plan(n, c, x.dtype, threads=t, groups=g)
+                cases.append((f"K10 ({n},{c}) bf16 threads={plan.threads} vectors={plan.vectors} "
+                              f"groups={g}", lambda x=x, p=plan: rq.gelu_quant(x, p),
+                              lambda x=x: fused_gelu_quant(x)))
+        for n, c in ((50, 6144), (70, 8192)):
+            x = _x(gen, n, c, dtype=torch.float32)
+            cases.append((f"K10 ({n},{c}) fp32", lambda x=x: fused_gelu_quant(x),
                           lambda x=x: fused_gelu_quant(x)))
-    for n, c in ((50, 6144), (70, 8192)):
-        x = _x(gen, n, c, dtype=torch.float32)
-        cases.append((f"K10 ({n},{c}) fp32", lambda x=x: fused_gelu_quant(x),
-                      lambda x=x: fused_gelu_quant(x)))
-    for b, n, c in K13_SHAPES + ((3, 77, 4096), (1, 5, 16384), (4, 9, 8)):
-        x, (sc, sh) = _x(gen, b, n, c), _mod(gen, b, c)
-        for g in ((1, 2, 4, 8) if c == 1536 else (1, 3)):
-            plan = rq.row_plan(b * n, c, x.dtype, samples=b, groups=g)
-            cases.append((f"K13 ({b},{n},{c}) bf16, (B,1,6C) chunks, threads={plan.threads} "
-                          f"vectors={plan.vectors} groups={g}",
-                          lambda x=x, sc=sc, sh=sh, p=plan: rq.adaln_quant(x, sc, sh, 1e-6, p),
-                          lambda x=x, sc=sc, sh=sh: fused_adaln_quant(x, sc, sh)))
-    # fp32 x and (B, C) fp32 modulation; a column-strided (B, C) shift
-    b, n, c = K13_SHAPES[0]
-    x = _x(gen, b, n, c, dtype=torch.float32)
-    sc = 0.1 * torch.randn((b, c), generator=gen, device="cuda")
-    sh = (0.1 * torch.randn((c, b), generator=gen, device="cuda")).t()
-    cases.append((f"K13 ({b},{n},{c}) fp32, (B,C) fp32, shift column stride {sh.stride(1)}",
-                  lambda: fused_adaln_quant(x, sc, sh), lambda: fused_adaln_quant(x, sc, sh)))
+    if "K13" in kernels:
+        for b, n, c in K13_SHAPES + ((3, 77, 4096), (1, 5, 16384), (4, 9, 8)):
+            x, (sc, sh) = _x(gen, b, n, c), _mod(gen, b, c)
+            for g in ((1, 2, 4, 8) if c == 1536 else (1, 3)):
+                plan = rq.row_plan(b * n, c, x.dtype, samples=b, groups=g)
+                cases.append((f"K13 ({b},{n},{c}) bf16, (B,1,6C) chunks, threads={plan.threads} "
+                              f"vectors={plan.vectors} groups={g}",
+                              lambda x=x, sc=sc, sh=sh, p=plan: rq.adaln_quant(x, sc, sh, 1e-6, p),
+                              lambda x=x, sc=sc, sh=sh: fused_adaln_quant(x, sc, sh)))
+        # fp32 x and (B, C) fp32 modulation; a column-strided (B, C) shift
+        b, n, c = K13_SHAPES[0]
+        x = _x(gen, b, n, c, dtype=torch.float32)
+        sc = 0.1 * torch.randn((b, c), generator=gen, device="cuda")
+        sh = (0.1 * torch.randn((c, b), generator=gen, device="cuda")).t()
+        cases.append((f"K13 ({b},{n},{c}) fp32, (B,C) fp32, shift column stride {sh.stride(1)}",
+                      lambda: fused_adaln_quant(x, sc, sh), lambda: fused_adaln_quant(x, sc, sh)))
+    if "K7" in kernels:
+        plans7 = [(t, g) for t in (64, 128, 256) for g in (1, 2, 4)]
+        for n, w in K7_SHAPES + ((333, 2576), (5, 16), (3, 16384)):
+            x = _x(gen, n, w)
+            variants = plans7 if (n, w) == K7_SHAPES[0] else [(None, None)]
+            for t, g in variants:
+                try:
+                    plan = rq.row_plan(n, w // 2, x.dtype, threads=t, groups=g, inputs=2)
+                except ValueError:
+                    continue  # too few threads for the row
+                cases.append((f"K7 ({n},{w}) bf16 threads={plan.threads} vectors={plan.vectors} "
+                              f"groups={plan.groups}", lambda x=x, p=plan: rq.geglu_quant(x, p),
+                              lambda x=x: fused_geglu_quant(x)))
+        for n, w in ((77, 2048), (9, 8192)):
+            x = _x(gen, n, w, dtype=torch.float32)
+            cases.append((f"K7 ({n},{w}) fp32", lambda x=x: fused_geglu_quant(x),
+                          lambda x=x: fused_geglu_quant(x)))
+    if "K5" in kernels:
+        extra = (((2, 64, 16, 16), True, 1e-5, 0.0, 1.0, torch.float32),
+                 ((3, 40, 7, 9), True, 1e-5, 0.5, 1.0, torch.bfloat16),
+                 ((8, 320, 64, 64), True, 1e-5, 0.0, 0.05, torch.bfloat16),
+                 ((8, 320, 64, 64), False, 1e-6, 4.0, 1.0, torch.float32))
+        for shape, silu, eps, mean, gain, dt in (
+                [(sh, si, ep, 4.0 if sh[0] == 4 else 0.0, 1.0, torch.bfloat16)
+                 for sh, si, ep in K5_SHAPES] + list(extra)):
+            x, w, b = _gn_inputs(gen, shape, mean=mean, gain=gain, dtype=dt)
+            groups = 32 if shape[1] % 32 == 0 else 8
+            plain = (lambda x=x, w=w, b=b, g=groups, e=eps, si=silu:
+                     fused_group_norm_quant(x, w, b, g, e, si))
+            label = (f"K5 {shape} {str(dt)[6:]} {'silu' if silu else 'no silu'} eps={eps} "
+                     f"mean={mean} gain={gain}")
+            forced = [dict()]
+            if shape in ((8, 320, 64, 64), (8, 2560, 8, 8)) and dt == torch.bfloat16 and gain == 1:
+                forced += [dict(k=k) for k in gq.KS]
+            for f in forced:
+                plan = _gn_plan(x, silu, **f) if groups == 32 else None
+                tag = f"K={plan.k} bps={plan.bps}" if plan else "plan"
+                cases.append((f"{label} {tag}",
+                              lambda x=x, w=w, b=b, g=groups, e=eps, si=silu, p=plan:
+                              gq.gn_quant(x, w, b, g, e, si, p), plain))
     return cases
 
 
-def check(gen, _iters):
+def check(gen, _iters, kernels):
     """The quotient bit for bit; the kernels against their plain versions."""
-    failed = _check_division(gen)
-    for label, kernel, plain in _kernel_cases(gen):
+    failed = _check_division(gen, kernels)
+    for label, kernel, plain in _kernel_cases(gen, kernels):
         out = kernel()
         with plain_ops():
             xs = plain()
@@ -477,53 +660,212 @@ def _turns(label, bound, parent, new, iters):
             f"share_of_bound={bound / best:.3f}")
 
 
-def time_(gen, iters):
+def time_(gen, iters, kernels):
     """Parent and new in turns, warm and cold; the plan sweep; tanhf."""
-    tanhf = _tanhf_lib()
-    for n, c in K10_SHAPES:
-        nbytes = 3 * n * c + 4 * n
+    if "K10" in kernels:
+        tanhf = _tanhf_lib()
+        for n, c in K10_SHAPES:
+            nbytes = 3 * n * c + 4 * n
+            bound = nbytes / HBM_BYTES_S * 1e3
+            x = _x(gen, n, c)
+            with plain_ops():
+                ref = fused_gelu_quant(x)
+            parent = _within(_parent_gelu_quant(x), ref)[1]
+            copy = _within(tanhf(x), (ref[0].view(n, c), ref[1].view(n)))[1]
+            print(f"[quant_tune] parity K10 ({n},{c}): parent {parent}; tanhf {copy}", flush=True)
+            cold = _cold(lambda: (_x(gen, n, c),), nbytes)
+            warm = _turns("warm", bound, lambda: _parent_gelu_quant(x),
+                          lambda: fused_gelu_quant(x), iters)
+            colds = _turns("cold", bound, cold(_parent_gelu_quant), cold(fused_gelu_quant), iters)
+            print(f"[quant_tune] time K10 ({n},{c}) bound_ms={bound:.4f} (bytes) | {warm} | "
+                  f"{colds}", flush=True)
+            sweep = []
+            for t, g in [(t, g) for t in (128, 256) for g in (1, 2, 4)]:
+                plan = rq.row_plan(n, c, x.dtype, threads=t, groups=g)
+                call = cold(lambda x, p=plan: rq.gelu_quant(x, p))
+                sweep.append(f"threads={t} groups={g}: {device_ms(call, iters=iters):.4f}")
+            sweep.append(f"tanhf: {device_ms(cold(tanhf), iters=iters):.4f}")
+            print(f"[quant_tune] sweep K10 ({n},{c}) cold: " + "; ".join(sweep), flush=True)
+    if "K13" in kernels:
+        for b, n, c in K13_SHAPES:
+            nbytes = 3 * b * n * c + 4 * b * n + 2 * 2 * b * c
+            bound = nbytes / HBM_BYTES_S * 1e3
+            x, (sc, sh) = _x(gen, b, n, c), _mod(gen, b, c)
+            with plain_ops():
+                ref = fused_adaln_quant(x, sc, sh)
+            print(f"[quant_tune] parity K13 ({b},{n},{c}): parent "
+                  f"{_within(_parent_adaln_quant(x, sc, sh), ref)[1]}", flush=True)
+            cold = _cold(lambda: (_x(gen, b, n, c), *_mod(gen, b, c)), nbytes)
+            warm = _turns("warm", bound, lambda: _parent_adaln_quant(x, sc, sh),
+                          lambda: fused_adaln_quant(x, sc, sh), iters)
+            colds = _turns("cold", bound, cold(_parent_adaln_quant), cold(fused_adaln_quant), iters)
+            print(f"[quant_tune] time K13 ({b},{n},{c}) (B,1,6C) chunks bound_ms={bound:.4f} "
+                  f"(bytes) | {warm} | {colds}", flush=True)
+            sweep = []
+            for g in (1, 2, 4, 8):
+                plan = rq.row_plan(b * n, c, x.dtype, samples=b, groups=g)
+                call = cold(lambda x, s, t, p=plan: rq.adaln_quant(x, s, t, 1e-6, p))
+                sweep.append(f"groups={g}: {device_ms(call, iters=iters):.4f}")
+            print(f"[quant_tune] sweep K13 ({b},{n},{c}) cold: " + "; ".join(sweep), flush=True)
+    if "K7" in kernels:
+        _time_k7(gen, iters)
+    if "K5" in kernels:
+        _time_k5(gen, iters)
+
+
+def _time_k7(gen, iters):
+    from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
+
+    for n, w in K7_SHAPES:
+        nbytes = 2 * n * w + n * w // 2 + 4 * n
         bound = nbytes / HBM_BYTES_S * 1e3
-        x = _x(gen, n, c)
+        x = _x(gen, n, w)
         with plain_ops():
-            ref = fused_gelu_quant(x)
-        print(f"[quant_tune] parity K10 ({n},{c}): parent {_within(_parent_gelu_quant(x), ref)[1]}"
-              f"; tanhf {_within(tanhf(x), (ref[0].view(n, c), ref[1].view(n)))[1]}", flush=True)
-        cold = _cold(lambda: (_x(gen, n, c),), nbytes)
-        warm = _turns("warm", bound, lambda: _parent_gelu_quant(x), lambda: fused_gelu_quant(x),
-                      iters)
-        colds = _turns("cold", bound, cold(_parent_gelu_quant), cold(fused_gelu_quant), iters)
-        print(f"[quant_tune] time K10 ({n},{c}) bound_ms={bound:.4f} (bytes) | {warm} | {colds}",
+            ref = fused_geglu_quant(x)
+        print(f"[quant_tune] parity K7 ({n},{w}): parent "
+              f"{_within(_parent_geglu_quant(x), ref)[1]}", flush=True)
+        cold = _cold(lambda: (_x(gen, n, w),), nbytes)
+        warm = _turns("warm", bound, lambda: _parent_geglu_quant(x),
+                      lambda: fused_geglu_quant(x), iters)
+        colds = _turns("cold", bound, cold(_parent_geglu_quant), cold(fused_geglu_quant), iters)
+        print(f"[quant_tune] time K7 ({n},{w}) bound_ms={bound:.4f} (bytes) | {warm} | {colds}",
               flush=True)
         sweep = []
-        for t, g in [(t, g) for t in (128, 256) for g in (1, 2, 4)]:
-            plan = rq.row_plan(n, c, x.dtype, threads=t, groups=g)
-            sweep.append(f"threads={t} groups={g}: "
-                         f"{device_ms(cold(lambda x, p=plan: rq.gelu_quant(x, p)), iters=iters):.4f}")
-        sweep.append(f"tanhf: {device_ms(cold(tanhf), iters=iters):.4f}")
-        print(f"[quant_tune] sweep K10 ({n},{c}) cold: " + "; ".join(sweep), flush=True)
-    for b, n, c in K13_SHAPES:
-        nbytes = 3 * b * n * c + 4 * b * n + 2 * 2 * b * c
+        for t, g in [(t, g) for t in (64, 128, 256) for g in (1, 2, 4)]:
+            try:
+                plan = rq.row_plan(n, w // 2, x.dtype, threads=t, groups=g, inputs=2)
+            except ValueError:
+                continue  # too few threads for the row
+            call = cold(lambda x, p=plan: rq.geglu_quant(x, p))
+            sweep.append(f"threads={t} groups={g}: {device_ms(call, iters=iters):.4f}")
+        print(f"[quant_tune] sweep K7 ({n},{w}) cold: " + "; ".join(sweep), flush=True)
+
+
+def _time_k5(gen, iters):
+    from prompt_diffusion_tpu_torch.ops import gn_quant as gq
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm_quant
+
+    for shape, silu, eps in K5_SHAPES:
+        mean = 4.0 if shape[0] == 4 else 0.0
+        numel = shape[0] * shape[1] * shape[2] * shape[3]
+        nbytes = 3 * numel + 4 * shape[0]
         bound = nbytes / HBM_BYTES_S * 1e3
-        x, (sc, sh) = _x(gen, b, n, c), _mod(gen, b, c)
+        x, w, b = _gn_inputs(gen, shape, mean=mean)
         with plain_ops():
-            ref = fused_adaln_quant(x, sc, sh)
-        print(f"[quant_tune] parity K13 ({b},{n},{c}): parent "
-              f"{_within(_parent_adaln_quant(x, sc, sh), ref)[1]}", flush=True)
-        cold = _cold(lambda: (_x(gen, b, n, c), *_mod(gen, b, c)), nbytes)
-        warm = _turns("warm", bound, lambda: _parent_adaln_quant(x, sc, sh),
-                      lambda: fused_adaln_quant(x, sc, sh), iters)
-        colds = _turns("cold", bound, cold(_parent_adaln_quant), cold(fused_adaln_quant), iters)
-        print(f"[quant_tune] time K13 ({b},{n},{c}) (B,1,6C) chunks bound_ms={bound:.4f} "
-              f"(bytes) | {warm} | {colds}", flush=True)
+            ref = fused_group_norm_quant(x, w, b, 32, eps, silu)
+        parent = lambda x, w, b: _parent_gn_quant(x, w, b, eps, silu)
+        new = lambda x, w, b: fused_group_norm_quant(x, w, b, 32, eps, silu)
+        print(f"[quant_tune] parity K5 {shape}: parent {_within(parent(x, w, b), ref)[1]}; "
+              f"device launches per call: parent {device_launches(lambda: parent(x, w, b))}, "
+              f"new {device_launches(lambda: new(x, w, b))}", flush=True)
+        cold = _cold(lambda: _gn_inputs(gen, shape, mean=mean), nbytes)
+        warm = _turns("warm", bound, lambda: parent(x, w, b), lambda: new(x, w, b), iters)
+        colds = _turns("cold", bound, cold(parent), cold(new), iters)
+        plan = _gn_plan(x, silu)
+        print(f"[quant_tune] time K5 {shape} {'silu' if silu else 'no silu'} bound_ms={bound:.4f} "
+              f"(bytes) plan K={plan.k} threads={plan.threads} bps={plan.bps} "
+              f"blocks/SM={plan.blocks_per_sm} chunks/block<={-(-plan.chunks // plan.bps)} "
+              f"| {warm} | {colds}", flush=True)
         sweep = []
-        for g in (1, 2, 4, 8):
-            plan = rq.row_plan(b * n, c, x.dtype, samples=b, groups=g)
-            call = cold(lambda x, s, t, p=plan: rq.adaln_quant(x, s, t, 1e-6, p))
-            sweep.append(f"groups={g}: {device_ms(call, iters=iters):.4f}")
-        print(f"[quant_tune] sweep K13 ({b},{n},{c}) cold: " + "; ".join(sweep), flush=True)
+        for k in gq.KS:
+            p = _gn_plan(x, silu, k=k)
+            call = cold(lambda x, w, b, p=p: gq.gn_quant(x, w, b, 32, eps, silu, p))
+            sweep.append(f"K={k} (bps={p.bps}): {device_ms(call, iters=iters):.4f}")
+        print(f"[quant_tune] sweep K5 {shape} cold: " + "; ".join(sweep), flush=True)
 
 
-PARTS = {"sass": sass, "check": check, "time": time_}
+# ---- phases (K5) --------------------------------------------------------
+
+# clock64() of every block's thread 0 at each phase boundary, into a device
+# array read back through `read_stamps`: (anchor in the source, text put
+# before it, the phase that ends there)
+_STAMPS = """
+__device__ long long g_stamps[8192 * 10];
+#define STAMP(i) do { if (threadIdx.x == 0) g_stamps[blockIdx.x * 10 + (i)] = clock64(); } while (0)
+extern "C" int read_stamps(void* dst, int n) {
+  return (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(long long) * n);
+}
+"""
+PHASES = (("  const int blk = blockIdx.x, b = blk / p.bps, j = blk % p.bps;", 0, None),
+          ("  __syncthreads();  // cmin and cmax set", 1, "reads and statistics"),
+          ("  float* part = p.ws + (int64_t)blk * 3 * G;", 2, "row merge"),
+          ("  cg::this_grid().sync();\n\n  // ---- the sample's", 3, "group merge"),
+          ("  // ---- the sample's group statistics", 4, "barrier 1"),
+          ("  // ---- phase 2", 5, "sample merge and terms"),
+          ("  float* amaxes =", 6, "amax"),
+          ("  // ---- phase 3", 7, "barrier 2"),
+          ("  int8_t* out = p.codes", 8, "scale"),
+          ("}\n\ntemplate <typename T, int K, bool SILU>\nvoid* kernel_of", 9, "codes"))
+NO_SILU_CODES = ("            const float z = epilogue<SILU>(fmaf(f[e], csc[e], csh[e]));",
+                 "            const float z = fmaf(f[e], csc[e], csh[e]);")
+
+
+def _gn_copy(name, edits):
+    """A ctypes handle on a copy of gn_quant.cu with (old, new) edits."""
+    src = open(GN_SOURCE).read()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"the {name} edit no longer matches gn_quant.cu: {old[:40]!r}")
+        src = src.replace(old, new, 1)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"gn_quant_{name}.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    so = ctypes.CDLL(_build(f"gn_quant_{name}.so", path, "-shared", "-Xcompiler", "-fPIC")[0])
+    so.pd_gn_quant.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+                               + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p])
+    so.pd_gn_quant_occupancy.argtypes = [ctypes.c_int] * 5
+    return so
+
+
+def phases(gen, iters, kernels):
+    """K5's cycles by phase, and its time without SiLU in the codes pass."""
+    from prompt_diffusion_tpu_torch.ops import gn_quant as gq
+
+    if "K5" not in kernels:
+        return
+    stamped = _gn_copy("stamped", [("namespace cg = cooperative_groups;",
+                                    "namespace cg = cooperative_groups;\n" + _STAMPS)]
+                       + [(a, f"  STAMP({i});\n" + a) for a, i, _ in PHASES])
+    stamped.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    copies = {"as built": _gn_copy("built", []), "no SiLU in the codes": _gn_copy(
+        "no_silu_codes", [NO_SILU_CODES])}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for shape, silu, eps in K5_SHAPES:
+        x, w, b = _gn_inputs(gen, shape, mean=4.0 if shape[0] == 4 else 0.0)
+        bsz, c, h, wd = shape
+
+        def call(so):
+            occ = lambda k, t, m: so.pd_gn_quant_occupancy(1, k, int(silu), t, m)
+            plan = gq.gn_plan(bsz, c, h * wd, 32, torch.bfloat16, occupancy=occ, sms=sms)
+            q = torch.empty_like(x, dtype=torch.int8)
+            s = torch.empty(bsz, device="cuda")
+            ws = torch.empty(plan.workspace, device="cuda")
+            args = (x.data_ptr(), 1, w.data_ptr(), b.data_ptr(), q.data_ptr(), s.data_ptr(),
+                    ws.data_ptr(), bsz, h * wd, c, 32, eps, int(silu), plan.k, plan.rows,
+                    plan.threads, plan.chunks, plan.bps,
+                    torch.cuda.current_stream().cuda_stream)
+            return plan, lambda: so.pd_gn_quant(*args)
+
+        plan, run = call(stamped)
+        if run():
+            raise RuntimeError("the stamped copy's launch failed")
+        torch.cuda.synchronize()
+        st = torch.zeros(plan.grid * 10, dtype=torch.int64)
+        stamped.read_stamps(st.data_ptr(), st.numel())
+        st = st.view(plan.grid, 10).double()
+        total = (st[:, 9] - st[:, 0]).mean().item()
+        shares = [f"{label} {100 * (st[:, i] - st[:, i - 1]).mean().item() / total:.0f}%"
+                  for _, i, label in PHASES if label]
+        times = "; ".join(f"{name} {device_ms(call(so)[1], iters=iters):.4f} ms"
+                          for name, so in copies.items())
+        print(f"[quant_tune] phases K5 {shape} {'silu' if silu else 'no silu'}: "
+              f"{total:.0f} cycles a block (mean): " + ", ".join(shares) + f" | {times}",
+              flush=True)
+
+
+PARTS = {"sass": sass, "check": check, "time": time_, "phases": phases}
 
 
 def main(argv=None) -> int:
@@ -531,15 +873,20 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--part", choices=PARTS, action="append",
                     help="a part to run (repeatable; all when not given)")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated subset of {','.join(KERNELS)} (all when not given)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("quant_tune: no CUDA device", file=sys.stderr)
         return 2
     print(f"[quant_tune] {card()} | torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
+    kernels = set(args.kernels.split(","))
+    if not kernels <= set(KERNELS):
+        ap.error(f"--kernels takes a subset of {KERNELS}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for part in args.part or PARTS:
-        PARTS[part](gen, args.iters)
+        PARTS[part](gen, args.iters, kernels)
     return 0
 
 

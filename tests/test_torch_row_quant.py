@@ -226,3 +226,43 @@ def test_adaln_refuses_a_modulation_batch_other_than_x(fn):
         fn(x, torch.zeros(1, 32), torch.zeros(2, 16))
     with pytest.raises(ValueError, match="shift"):
         fn(x, torch.zeros(2, 16), torch.zeros(2, 1, 8))
+
+
+@pytest.mark.parametrize("rows,inner,dtype,threads,vectors", [
+    (32768, 1280, torch.bfloat16, 64, 3),   # K7 at 64²: 160 vectors of h and of gate
+    (8192, 2560, torch.bfloat16, 128, 3),   # 32²
+    (2048, 5120, torch.bfloat16, 256, 3),   # 16² (and 512 rows at 8²)
+    (512, 5120, torch.bfloat16, 256, 3),
+    (77, 1024, torch.bfloat16, 32, 4),      # a warp holds 4 + 4 vectors
+    (5, 1032, torch.bfloat16, 64, 3),       # one vector past a warp row
+    (5, 3080, torch.bfloat16, 256, 2),      # past 3 + 3 vectors of 128 threads
+    (5, 1544, torch.bfloat16, 128, 2),      # past 3 + 3 vectors of 64 threads
+    (9, 4096, torch.float32, 256, 4),       # the widest fp32 K7 row (32 KB)
+    (3, 8, torch.bfloat16, 32, 1),
+])
+def test_row_plan_with_two_inputs_covers_every_output_column_once(rows, inner, dtype, threads,
+                                                                  vectors):
+    """K7's plan (`inputs=2`: vector v of h and vector v of gate in one
+    thread): the threads of a row cover every output column once, both
+    halves count against MAX_VECTORS, and the blocks cover every row once."""
+    plan = rq.row_plan(rows, inner, dtype, inputs=2)
+    assert (plan.threads, plan.vectors, plan.inputs) == (threads, vectors, 2)
+    assert 2 * plan.vectors <= rq.MAX_VECTORS
+    cols = [f + j for t in range(plan.threads) for f in plan.columns(t)
+            for j in range(plan.vec_elems)]
+    assert sorted(cols) == list(range(inner))
+    covered = [plan.row(blk, g, slot) for blk in range(plan.grid[0])
+               for g in range(plan.groups) for slot in range(plan.rows_per_group)]
+    assert sorted(r for r in covered if r is not None) == list(range(rows))
+
+
+@pytest.mark.parametrize("args,kwargs,match", [
+    ((64, 1280, torch.bfloat16), dict(inputs=3), "1 or 2 inputs"),
+    ((64, 8200, torch.bfloat16), dict(inputs=2), "exceeds"),
+    ((64, 4104, torch.float32), dict(inputs=2), "exceeds"),
+    ((64, 5120, torch.bfloat16), dict(inputs=2, threads=128), "cannot hold"),
+    ((64, 1284, torch.bfloat16), dict(inputs=2), "multiple of 8"),
+])
+def test_row_plan_with_two_inputs_refuses(args, kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        rq.row_plan(*args, **kwargs)
