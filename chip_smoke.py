@@ -29,10 +29,13 @@ without the final `"ok": true` line:
                LayerNorm, GEGLU, tanh-GELU, row, AdaLN -> int8): scales
                within 1e-6 relative, codes at most 1 apart and at least
                99.9% equal, the share of equal codes printed, and a second
-               call equal bit for bit (K5's sums cross blocks); K5, K7, K10
-               and K13 (also on the (B, 1, C) chunks of one (B, 1, 6C) bf16
-               projection the MMDiT passes as scale and shift) must issue
-               one device launch per call, counted in a profiler trace.
+               call equal bit for bit (K5's sums cross blocks); K5, K6, K7,
+               K10, K11 (also on the MMDiT's image and context slices of
+               one packed (B, N_h + N_c, C) attention output, read in
+               place) and K13 (also on the (B, 1, C) chunks of one
+               (B, 1, 6C) bf16 projection the MMDiT passes as scale and
+               shift) must issue one device launch per call, counted in a
+               profiler trace.
                int8 conv, both variants: equal to the plain version bit
                for bit. AdaLN's
                gradient (kernel forward, autograd of the plain version
@@ -346,10 +349,16 @@ def kernel_cases(gen):
                   (x, w, bb, 1e-6), "float", NORM_BOUND, (4 * x.numel(), 0, 0),
                   lambda x=x, w=w, bb=bb: F.layer_norm(x, (768,), w.to(x.dtype), bb.to(x.dtype),
                                                        1e-6)))
-    for n, c, eps in ((32768, 320, 1e-5), (1000, 640, 1e-5), (16400, 768, 1e-6)):
-        cases.append(("fused_layer_norm_quant", f"({n},{c})" + (" ViT-B" if c == 768 else ""),
-                      fused_layer_norm_quant, (bf16(randn(n, c)), *affine(c), eps), "quant",
-                      None, (3 * n * c + 4 * n, 0, 0), None))
+    # K6 at the SD1.5 pre-LN rows of CFG batch 8 (64², 32², 16², 8²), a
+    # ragged row count, the DPT-Hybrid ViT-B's (eps 1e-6) and fp32 rows
+    for n, c, eps, dt in ((32768, 320, 1e-5, torch.bfloat16), (8192, 640, 1e-5, torch.bfloat16),
+                          (2048, 1280, 1e-5, torch.bfloat16), (512, 1280, 1e-5, torch.bfloat16),
+                          (1000, 640, 1e-5, torch.bfloat16), (16400, 768, 1e-6, torch.bfloat16),
+                          (1000, 640, 1e-5, torch.float32)):
+        cases.append(("fused_layer_norm_quant", f"({n},{c})" + (" ViT-B" if c == 768 else "")
+                      + (" fp32" if dt == torch.float32 else ""), fused_layer_norm_quant,
+                      (randn(n, c).to(dt), *affine(c), eps), "quant", None,
+                      ((dt.itemsize + 1) * n * c + 4 * n + 8 * c, 0, 0), None))
     # K5 beyond the cases above: the widest SD1.5 site (the first 64²
     # decoder ResBlock's in_norm, 63 MB at CFG batch 8, beyond the L2), an
     # 8² site (latency), and without SiLU (the SpatialTransformer norm)
@@ -391,12 +400,22 @@ def kernel_cases(gen):
     cases.append(("fused_adaln", f"({b},{n},{c}) fp32 gradient", adaln_grads, args, "grad",
                   GRAD_REL_BOUND, (20 * b * n * c + 16 * b * c, 0, 0), None))
     # K10 at the MMDiT FF width (both streams' rows; one tanh per value on
-    # the special-function units), K11 at the attention width
-    for name, fn, c, tanh in (("fused_gelu_quant", fused_gelu_quant, 6144, 1),
-                              ("fused_quant_rows", fused_quant_rows, 1536, 0)):
-        for n in (8192, 666):
-            cases.append((name, f"({n},{c})", fn, (bf16(2 * randn(n, c)),), "quant", None,
-                          (3 * n * c + 4 * n, 0, 0, tanh * n * c), None))
+    # the special-function units)
+    for n in (8192, 666):
+        cases.append(("fused_gelu_quant", f"({n},6144)", fused_gelu_quant,
+                      (bf16(2 * randn(n, 6144)),), "quant", None,
+                      (3 * n * 6144 + 4 * n, 0, 0, n * 6144), None))
+    # K11 as the MMDiT calls it, on the image and context slices of one
+    # packed (B, N_h + N_c, C) attention output at CFG batch 2, read in
+    # place; then on contiguous rows of both streams
+    attn = bf16(2 * randn(2, 4429, 1536))
+    for x in (attn[:, :4096], attn[:, 4096:], bf16(2 * randn(8192, 1536)),
+              bf16(2 * randn(666, 1536))):
+        rows = x.numel() // 1536
+        label = (f"({rows},1536)" if x.is_contiguous() else
+                 f"{tuple(x.shape)} slice of {tuple(attn.shape)}")
+        cases.append(("fused_quant_rows", label, fused_quant_rows, (x,), "quant", None,
+                      (3 * rows * 1536 + 4 * rows, 0, 0), None))
     codes = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda",
                                      dtype=torch.int8)
     uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
@@ -588,7 +607,7 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                          "prompt_diffusion_tpu/ops/fused_layer_norm.py:90"),
     "fused_group_norm_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/gn_quant.cu",
                                "prompt_diffusion_tpu/ops/fused_group_norm.py:86"),
-    "fused_layer_norm_quant": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+    "fused_layer_norm_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                                "prompt_diffusion_tpu/ops/fused_layer_norm.py:149"),
     "fused_geglu_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                           "prompt_diffusion_tpu/ops/fused_act.py:144"),
@@ -598,7 +617,7 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                                     "prompt_diffusion_tpu/ops/flash_attention.py:375"),
     "fused_gelu_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                          "prompt_diffusion_tpu/ops/fused_act.py:101"),
-    "fused_quant_rows": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+    "fused_quant_rows": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                          "prompt_diffusion_tpu/ops/fused_act.py:106"),
     "fused_adaln_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                           "prompt_diffusion_tpu/ops/fused_adaln.py:140"),
@@ -623,7 +642,7 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
 # kernels whose wrapper must issue exactly one device launch per call (no
 # cast or copy of its inputs), counted in a profiler trace in `[kernels]`
 ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
-              "fused_group_norm_quant")
+              "fused_group_norm_quant", "fused_layer_norm_quant", "fused_quant_rows")
 # the device functions a wrapper launches, where it launches more than one
 # (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
 # split-K sum and epilogue where its plan splits K)

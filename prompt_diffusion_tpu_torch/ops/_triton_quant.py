@@ -1,17 +1,17 @@
-"""Triton programs of the int8 epilogue kernels: LayerNorm->int8 (K6),
-row->int8 (K11) and AdaLN (K12). K10 (tanh-GELU->int8), K13 (AdaLN->int8)
-and K7 (GEGLU->int8) are CUDA C++ (`csrc/row_quant.cu`), K5
-(GroupNorm->int8) too (`csrc/gn_quant.cu`); their former Triton programs
-stay here only as the parent designs that `tools/quant_tune.py --part
-time` launches beside the CUDA kernels: the GELU=True branch of
-`act_quant_kernel` (K10), the QUANT=True branch of `adaln_kernel` (K13),
-`geglu_quant_kernel` (K7), and `gn_amax_kernel` with `gn_quant_kernel`
-(K5, after K3's stats and combine programs). No wrapper routes to them.
+"""Triton programs: K12 (AdaLN), the one int8 epilogue kernel still in
+Triton, and the parent designs of the others. K10 (tanh-GELU->int8), K13
+(AdaLN->int8), K7 (GEGLU->int8), K6 (LayerNorm->int8) and K11 (row->int8)
+are CUDA C++ (`csrc/row_quant.cu`), K5 (GroupNorm->int8) too
+(`csrc/gn_quant.cu`); their former Triton programs stay here only as the
+parent designs that `tools/quant_tune.py --part time` launches beside the
+CUDA kernels: `act_quant_kernel` (GELU=True: K10; GELU=False: K11), the
+QUANT=True branch of `adaln_kernel` (K13), `geglu_quant_kernel` (K7),
+`ln_quant_kernel` (K6), and `gn_amax_kernel` with `gn_quant_kernel` (K5,
+after K3's stats and combine programs). No wrapper routes to them.
 
-This module imports `triton` at its top, so only the launchers in
-`fused_layer_norm.py`, `fused_act.py`, `fused_adaln.py` and
-`tools/quant_tune.py` import it, inside the function that launches, on
-the card.
+This module imports `triton` at its top, so only the launcher in
+`fused_adaln.py` and `tools/quant_tune.py` import it, inside the function
+that launches, on the card.
 
 Every quantize step follows `quant.py` of the JAX package: the fp32 value
 is divided by its scale with an IEEE-rounded division (`div_rn`: Triton's
@@ -101,7 +101,8 @@ def gn_quant_kernel(x_ptr, sc_ptr, sh_ptr, amax_ptr, q_ptr, s_ptr, HW, C,
     tl.store(s_ptr + b, s, mask=(rb == 0) & (cb == 0))
 
 
-# ---- K6: LayerNorm -> int8 with one scale per row -----------------------
+# ---- K6's parent design (timed by tools/quant_tune.py only) -------------
+# LayerNorm -> int8 with one scale per row
 
 
 @triton.jit
@@ -151,7 +152,8 @@ def geglu_quant_kernel(x_ptr, q_ptr, s_ptr, N, I,
     tl.store(s_ptr + rows, s, mask=rmask)
 
 
-# ---- K11 (and K10's parent design): row -> int8, one scale per row ----
+# ---- K11's and K10's parent design (timed by tools/quant_tune.py only) --
+# row -> int8, one scale per row
 
 
 @triton.jit
@@ -159,8 +161,8 @@ def act_quant_kernel(x_ptr, q_ptr, s_ptr, N, C,
                      BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr, GELU: tl.constexpr):
     """BLOCK_R whole rows: optionally x * 0.5 * (1 + tanh(sqrt(2/pi) *
     (x + 0.044715 x^3))) (`jax.nn.gelu(approximate=True)`), then the row's
-    int8 codes and scale. K11 runs GELU=False; GELU=True is K10's parent
-    design, launched only by `tools/quant_tune.py`."""
+    int8 codes and scale: GELU=False is K11's parent design, GELU=True
+    K10's, both launched only by `tools/quant_tune.py`."""
     pid = tl.program_id(0)
     rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
     cols = tl.arange(0, BLOCK_C)

@@ -1,6 +1,6 @@
 // Row -> int8 kernels for Hopper (sm_90a): K10, tanh-GELU -> int8, K13,
-// AdaLN -> int8, and K7, GEGLU -> int8; one int8 code per value and one fp32
-// scale per row.
+// AdaLN -> int8, K7, GEGLU -> int8, K6, LayerNorm -> int8, and K11, row ->
+// int8; one int8 code per value and one fp32 scale per row.
 //
 // Replace the TPU kernels prompt_diffusion_tpu/ops/fused_act.py::
 // fused_gelu_quant (_gelu_quant_kernel through _run), the input of the SD3
@@ -9,13 +9,23 @@
 // modulation sites of every JointBlock in the int8 serving mode, and
 // prompt_diffusion_tpu/ops/fused_act.py::fused_geglu_quant
 // (_geglu_quant_kernel through _run), the feed-forward of every SD1.5
-// transformer block in the int8 serving mode. Per row, in fp32:
+// transformer block in the int8 serving mode,
+// prompt_diffusion_tpu/ops/fused_layer_norm.py::fused_layer_norm_quant
+// (_ln_quant_kernel), the pre-LNs of every SD1.5 transformer block and of
+// the DPT ViT blocks in the int8 serving mode, and
+// prompt_diffusion_tpu/ops/fused_act.py::fused_quant_rows
+// (_quant_rows_kernel through _run), the attention outputs of every SD3
+// JointBlock in the int8 serving mode. Per row, in fp32:
 //
 //   K10: y = x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
 //   K13: y = (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
 //        (LayerNorm without affine, eps 1e-6, per-sample modulation)
 //   K7:  a row is [h | gate], 2C values; y = h * gelu_erf(gate) with
 //        gelu_erf(g) = g * 0.5 * (1 + erf(g / sqrt 2)), C values
+//   K6:  y = (x - mean) * rsqrt(var + eps) * w[c] + b[c] (LayerNorm with
+//        the module's per-column affine; the products and the sum rounded
+//        one by one, in the plain version's order, not contracted as K13's)
+//   K11: y = x
 //   then s = max(amax|y| / 127, 1e-8) by IEEE division, and the codes
 //   rint(y / s) with y / s the IEEE quotient, clipped to +-127
 //   (`rowquant`, fused_layer_norm.py:28 of the JAX package).
@@ -23,7 +33,8 @@
 // What bounds them on the H100: bytes, one read of the bf16 row and one
 // write of its int8 codes (3 bytes a value; K7 5 bytes an output value):
 // 0.045 ms at K10's (8192, 6144), 0.011 ms at K13's (2, 4096, 1536) and
-// 0.063 ms at K7's (32768, 2560) at 3.35 TB/s. K10's arithmetic comes
+// K11's (8192, 1536), 0.063 ms at K7's (32768, 2560) and 0.0094 ms at K6's
+// (32768, 320) at 3.35 TB/s. K10's arithmetic comes
 // close: at ~33.5e12 thread-instructions/s the byte bound leaves ~27
 // instructions a value (K7 ~50 per output value, of which CUDA's erff
 // takes the most). So the design keeps every value in registers from the
@@ -37,7 +48,12 @@
 //     K13's rows (C = 1536) take one warp each, so its mean, variance and
 //     amax are warp shuffles with no shared memory and no barrier; K10's
 //     (C = 6144) take 256 threads, and its one reduction takes one barrier;
-//     K7's (C = 1280, 2560, 5120) take 128, 256 and 256 threads;
+//     K7's (C = 1280, 2560, 5120) take 128, 256 and 256 threads; K11's
+//     (C = 1536) a warp, as K13's, and K6's C = 1280 and 768 too; K6's
+//     narrow rows (C = 320, 640: 40 and 80 vectors) take 8 and 16 aligned
+//     lanes of a warp, 5 vectors each, so that no lane idles (a warp would
+//     leave 24 of 32 lanes idle in the second vector at C = 320), and
+//     their shuffles stay within the row's lanes;
 //   * the division once per row: s, then r = 1/s rounded to nearest; each
 //     quotient is y * r with one FMA residual and one FMA correction
 //     (Markstein), equal to __fdiv_rn(y, s) bit for bit
@@ -58,7 +74,12 @@
 //     strides): every block serves rows of one sample b and stages
 //     1 + scale[b] and shift[b] as fp32 in shared memory (8 C bytes), in
 //     the order its threads read them (float4 j of vector v at j * nvec + v,
-//     so a warp's loads are conflict-free);
+//     so a warp's loads are conflict-free); K6's affine w and b (the
+//     module's (C,) parameters, batch stride 0) likewise;
+//   * rows are read in place with the caller's sample and row strides: K11
+//     takes the MMDiT's (B, N, C) slices of its packed (B, N_h + N_c, C)
+//     attention output, whose sample stride is (N_h + N_c) C, without a
+//     copy;
 //   * latency: a block walks `groups` row groups of its sample and loads
 //     the next group's vectors into registers before it quantizes the
 //     current one; `row_plan` takes 4 or 2 groups where the grid keeps ~2
@@ -83,14 +104,14 @@ constexpr int kMaxVpt = 8;                     // 16-byte vectors a thread holds
 constexpr int kRedFloats = 2 * kThreads / kWarp;  // two buffers of one partial per warp
 constexpr int kSmemDefault = 48 * 1024;
 
-enum Op { kGelu = 0, kAdaLN = 1, kGeglu = 2 };
+enum Op { kGelu = 0, kAdaLN = 1, kGeglu = 2, kLN = 3, kRows = 4 };
 
 struct Params {
   const void* x;
   int64_t x_sb, x_sn;  // element strides of a sample and of a row; columns dense
   int n, c;            // rows per sample, columns
   int tpr, groups;     // threads per row, row groups per block
-  const void* sc;      // K13: scale, shift, each bf16 or fp32, element strides
+  const void* sc;      // K13: scale, shift; K6: w, b; each bf16 or fp32, element strides
   int64_t sc_sb, sc_sc;
   const void* sh;
   int64_t sh_sb, sh_sc;
@@ -131,7 +152,8 @@ __device__ __forceinline__ float combine(float a, float b) {
 }
 
 // The reduction over one row's threads: xor-butterfly shuffles (every lane
-// ends with the same value); for a row of several warps, one partial per
+// ends with the same value; a row of tpr < 32 threads, tpr aligned lanes,
+// takes only the offsets below tpr); for a row of several warps, one partial per
 // warp through shared memory, added in warp order. `red` alternates between
 // two buffers, so one barrier per reduction suffices: a warp writes buffer
 // k % 2 again only after the barrier of reduction k + 1, which every thread
@@ -140,9 +162,9 @@ template <bool kMax>
 __device__ __forceinline__ float row_reduce(float v, int tpr, float* red, int& slot) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1) {
-    v = combine<kMax>(v, __shfl_xor_sync(0xffffffffu, v, off));
+    if (off < tpr) v = combine<kMax>(v, __shfl_xor_sync(0xffffffffu, v, off));
   }
-  if (tpr == kWarp) return v;
+  if (tpr <= kWarp) return v;
   float* buf = red + slot * (kThreads / kWarp);
   slot ^= 1;
   if ((threadIdx.x & (kWarp - 1)) == 0) buf[threadIdx.x / kWarp] = v;
@@ -169,7 +191,7 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
   constexpr int E = Vec<T>::E;
   constexpr int NIN = OP == kGeglu ? 2 : 1;
   extern __shared__ float4 smem4[];
-  float* red = reinterpret_cast<float*>(smem4);  // kRedFloats, then K13's 2 C floats
+  float* red = reinterpret_cast<float*>(smem4);  // kRedFloats, then K13's or K6's 2 C floats
   float* mod = red + kRedFloats;
   const int tpr = p.tpr;
   const int rpb = kThreads / tpr;
@@ -197,11 +219,12 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
   uint4 raw[NIN * VPT];
   load(0, raw);
 
-  if constexpr (OP == kAdaLN) {
+  if constexpr (OP == kAdaLN || OP == kLN) {
     for (int col = threadIdx.x; col < p.c; col += kThreads) {
       const int v = col / E, j = col % E;
       const int idx = ((j >> 2) * nvec + v) * 4 + (j & 3);
-      mod[idx] = 1.0f + load_mod(p.sc, p.sc_bf16, b * p.sc_sb + col * p.sc_sc);
+      const float m1 = load_mod(p.sc, p.sc_bf16, b * p.sc_sb + col * p.sc_sc);
+      mod[idx] = OP == kAdaLN ? 1.0f + m1 : m1;
       mod[p.c + idx] = load_mod(p.sh, p.sh_bf16, b * p.sh_sb + col * p.sh_sc);
     }
     __syncthreads();
@@ -239,6 +262,12 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
           amax = fmaxf(amax, fabsf(v[k][j]));
         }
       }
+    } else if constexpr (OP == kRows) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) amax = fmaxf(amax, fabsf(v[k][j]));  // 0 past the row
+      }
     } else {
       float sum = 0.f;
 #pragma unroll
@@ -274,7 +303,11 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               float& y = v[k][4 * h + j];
-              y = fmaf(y * rstd, m1[j], m0[j]);
+              if constexpr (OP == kAdaLN) {
+                y = fmaf(y * rstd, m1[j], m0[j]);
+              } else {  // K6: (y * rstd) * w + b, each step rounded
+                y = __fadd_rn(__fmul_rn(__fmul_rn(y, rstd), m1[j]), m0[j]);
+              }
               amax = fmaxf(amax, fabsf(y));
             }
           }
@@ -332,13 +365,29 @@ __global__ void __launch_bounds__(kThreads) geglu_quant_kernel(const Params p) {
 }
 
 template <typename T, int VPT, bool PIPE>
+__global__ void __launch_bounds__(kThreads) ln_quant_kernel(const Params p) {
+  row_quant_body<T, VPT, kLN, PIPE>(p);
+}
+
+template <typename T, int VPT, bool PIPE>
+__global__ void __launch_bounds__(kThreads) rows_quant_kernel(const Params p) {
+  row_quant_body<T, VPT, kRows, PIPE>(p);
+}
+
+template <typename T, int VPT, bool PIPE>
 int launch(int op, const Params& p, dim3 grid, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (kRedFloats + (op == kAdaLN ? 2 * (size_t)p.c : 0));
+  // K13's modulation or K6's affine: 2 C floats after the reduction buffers
+  const bool staged = op == kAdaLN || op == kLN;
+  const size_t smem = sizeof(float) * (kRedFloats + (staged ? 2 * (size_t)p.c : 0));
   void (*kernel)(const Params) = nullptr;
   if (op == kGelu) {
     kernel = gelu_quant_kernel<T, VPT, PIPE>;
   } else if (op == kAdaLN) {
     kernel = adaln_quant_kernel<T, VPT, PIPE>;
+  } else if (op == kLN) {
+    kernel = ln_quant_kernel<T, VPT, PIPE>;
+  } else if (op == kRows) {
+    kernel = rows_quant_kernel<T, VPT, PIPE>;
   } else if constexpr (2 * VPT <= kMaxVpt) {  // K7 holds VPT vectors of h and of gate
     kernel = geglu_quant_kernel<T, VPT, PIPE>;
   }
@@ -369,11 +418,13 @@ int launch_vpt(int vpt, int op, const Params& p, dim3 grid, cudaStream_t s) {
 
 }  // namespace
 
-// K10 (op 0), K13 (op 1) or K7 (op 2) on `stream`; returns the launch's
-// cudaError_t (0 = queued). x: `batch` samples of n rows of c values (K7:
-// 2c values, [h | gate]), bf16 (x_bf16) or fp32, element strides x_sb and
-// x_sn, 16-byte aligned rows, dense columns; K13's scale and shift: bf16 or
-// fp32 (B, C) views with element strides (K10 and K7 ignore them). The plan (threads per row tpr, vectors per
+// K10 (op 0), K13 (op 1), K7 (op 2), K6 (op 3) or K11 (op 4) on `stream`;
+// returns the launch's cudaError_t (0 = queued). x: `batch` samples of n
+// rows of c values (K7: 2c values, [h | gate]), bf16 (x_bf16) or fp32,
+// element strides x_sb and x_sn, 16-byte aligned rows, dense columns; K13's
+// scale and shift: bf16 or fp32 (B, C) views with element strides; K6's w
+// and b in the same arguments, batch stride 0 (K10, K7 and K11 ignore
+// them). The plan (threads per row tpr, vectors per
 // thread vpt, row groups per block, grid_x blocks per sample) comes from
 // `row_plan`; it must cover every column and every row. Writes codes
 // (batch * n, c) and scales (batch * n), both dense.
@@ -384,13 +435,14 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
                             void* codes, void* scales, void* stream) {
   const int e = x_bf16 ? 8 : 4;
   const int nvec = c / e;
-  const bool tpr_ok = tpr == 32 || tpr == 64 || tpr == 128 || tpr == 256;
+  const bool tpr_ok = tpr == 8 || tpr == 16 || tpr == 32 || tpr == 64 || tpr == 128 ||
+                      tpr == 256;
   const int nin = op == kGeglu ? 2 : 1;
-  if ((op != kGelu && op != kAdaLN && op != kGeglu) || c <= 0 || c % 8 != 0 || n <= 0 ||
+  if (op < kGelu || op > kRows || c <= 0 || c % 8 != 0 || n <= 0 ||
       batch <= 0 || batch > 65535 || !tpr_ok || vpt < 1 || nin * vpt > kMaxVpt ||
       (int64_t)vpt * tpr < nvec ||
       groups < 1 || grid_x < 1 || (int64_t)grid_x * (kThreads / tpr) * groups < n ||
-      (op == kAdaLN && (sc == nullptr || sh == nullptr))) {
+      ((op == kAdaLN || op == kLN) && (sc == nullptr || sh == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;

@@ -19,11 +19,15 @@ int8 codes with one scale per row, the input of the SD3 MMDiT's `ff_out`
 and `ff_context_out` (the block's widest activation, (B, N, 4C)). It is
 CUDA C++ (`csrc/row_quant.cu`, launched by `row_quant.gelu_quant`). K11
 replaces `fused_quant_rows` (`_quant_rows_kernel`): per-row int8 of the
-attention outputs that feed `to_out` and `to_add_out`, a Triton program
-that holds whole rows in registers (C = 1536 on the SD3 path) and masks the
-row tail. All three are bound by memory traffic (one read, one int8
-write); the TPU kernels' pad of the row count to 8 is a tiling rule with
-no counterpart here.
+attention outputs that feed `to_out` and `to_add_out`, CUDA C++ too
+(`csrc/row_quant.cu`, op ROWS, launched by `row_quant.quant_rows`), which
+reads the MMDiT's `attn[:, :n_h]` and `attn[:, n_h:]` in place, slices of
+one packed (B, N_h + N_c, C) output, with their own sample stride: one
+launch and no copy. Its former Triton program (`act_quant_kernel` with
+GELU=False) stays only as the parent design that `tools/quant_tune.py
+--part time` launches. All three are bound by memory traffic (one read,
+one int8 write); the TPU kernels' pad of the row count to 8 is a tiling
+rule with no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ import torch
 import torch.nn.functional as F
 
 from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
-from prompt_diffusion_tpu_torch.ops.fused_layer_norm import _TILE, rowquant
-from prompt_diffusion_tpu_torch.ops.row_quant import geglu_quant, gelu_quant
+from prompt_diffusion_tpu_torch.ops.fused_layer_norm import rowquant
+from prompt_diffusion_tpu_torch.ops.row_quant import geglu_quant, gelu_quant, quant_rows
 
 
 def _torch_geglu_quant(proj: torch.Tensor):
@@ -66,28 +70,6 @@ def _torch_act_quant(x: torch.Tensor, gelu: bool):
     return rowquant(h)
 
 
-def _quant_rows(x: torch.Tensor):
-    """K11's Triton launch (`act_quant_kernel` with GELU=False)."""
-    import triton
-
-    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
-
-    if not x.dtype.is_floating_point:
-        raise ValueError(f"takes a float tensor, got {x.dtype}")
-    c = x.shape[-1]
-    x2 = x.contiguous().view(-1, c)
-    n = x2.shape[0]
-    block_c = triton.next_power_of_2(c)
-    block_r = max(1, _TILE // block_c)
-    q = torch.empty((n, c), dtype=torch.int8, device=x.device)
-    s_a = torch.empty((n, 1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        tq.act_quant_kernel[(triton.cdiv(n, block_r),)](
-            x2, q, s_a, n, c, BLOCK_R=block_r, BLOCK_C=block_c, GELU=False,
-            num_warps=8 if block_c >= 4096 else 4)
-    return q.view(x.shape), s_a.view(*x.shape[:-1], 1)
-
-
 def fused_gelu_quant(x: torch.Tensor):
     """K10: (..., C) -> tanh-GELU -> (int8 (..., C), fp32 row scales
     (..., 1)); the CUDA kernel on the card (bf16 or fp32 rows, C a multiple
@@ -104,11 +86,13 @@ fused_gelu_quant.launches = 0
 
 
 def fused_quant_rows(x: torch.Tensor):
-    """K11: (..., C) -> (int8 (..., C), fp32 row scales (..., 1)); the
-    kernel on CUDA, the plain version on the CPU."""
+    """K11: (..., C) -> (int8 (..., C), fp32 row scales (..., 1)); the CUDA
+    kernel on the card (bf16 or fp32 rows, C a multiple of 8 up to
+    `row_quant.MAX_ROW_BYTES`, a (B, N, C) x read in place with its own
+    strides, one launch), the plain version on the CPU."""
     if not use_kernel(x):
         return _torch_act_quant(x, gelu=False)
-    out = _quant_rows(x)
+    out = quant_rows(x)
     fused_quant_rows.launches += 1
     return out
 

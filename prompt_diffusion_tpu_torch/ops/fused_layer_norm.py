@@ -1,19 +1,27 @@
-"""LayerNorm kernels K4 and K6, in Triton, their plain versions and the
-dispatch, and `rowquant`.
+"""LayerNorm kernels K4 (Triton) and K6 (CUDA C++), their plain versions
+and the dispatch, and `rowquant`.
 
 K4 replaces `prompt_diffusion_tpu/ops/fused_layer_norm.py::fused_layer_norm`
 (`_ln_kernel`): row LayerNorm with fp32 statistics and affine, at the three
-pre-LNs of every transformer block. K6 replaces `fused_layer_norm_quant`
-(`_ln_quant_kernel`): the same LayerNorm, then int8 codes with one fp32
-scale per row, which the q/k/v and FF `QuantDense`s of the int8 serving
-mode take as a pair.
+pre-LNs of every transformer block. One Triton program holds a block of
+whole rows in registers (C = 320, 640 or 1280 on the SD1.5 path), so the
+mean, the variance of the deviations and the affine take a single read;
+the rows are masked at the tail (the TPU kernel's pad of the row count to
+a multiple of 8 is a tiling rule with no counterpart).
 
-What bounds them: memory traffic only (one read of the activation, one
-write of it or of its int8 codes and the row scales). One program holds a
-block of whole rows in registers (C = 320, 640 or 1280 on the SD1.5 path),
-so the mean, the variance of the deviations, the affine and the row's amax
-take a single read. The rows are masked at the tail; the TPU kernel's pad
-of the row count to a multiple of 8 (a tiling rule) has no counterpart.
+K6 replaces `fused_layer_norm_quant` (`_ln_quant_kernel`): the same
+LayerNorm, then int8 codes with one fp32 scale per row, which the q/k/v
+and FF `QuantDense`s of the int8 serving mode (SD1.5's transformer blocks,
+the DPT ViT's) take as a pair. It is CUDA C++ (`csrc/row_quant.cu`, op LN,
+launched by `row_quant.ln_quant`; its design is described there): rows in
+16-byte vectors held in registers with no power-of-two padding, the affine
+staged once per block, IEEE divisions for the statistics and the
+quotient. Its former Triton program (`_triton_quant.ln_quant_kernel`)
+stays only as the parent design that `tools/quant_tune.py --part time`
+launches beside it; no wrapper routes to it.
+
+What bounds both: memory traffic (one read of the activation, one write of
+it or of its int8 codes and the row scales).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
+from prompt_diffusion_tpu_torch.ops.row_quant import ln_quant
 
 _TILE = 4096  # elements of one program's row block
 _MIN_LN_ELEMS = 1 << 16  # smallest activation that takes the kernel
@@ -63,7 +72,8 @@ fused_layer_norm.launches = 0
 
 
 def _rows(x, scale, bias):
-    """(x as contiguous (N, C) rows, fp32 affine, row block, column block)."""
+    """K4's (x as contiguous (N, C) rows, fp32 affine, row block, column
+    block)."""
     import triton
 
     c = x.shape[-1]
@@ -94,24 +104,16 @@ def _launch(x, scale, bias, eps):
 def fused_layer_norm_quant(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                            eps: float = 1e-5):
     """K6: x (..., C) -> LayerNorm over the last axis -> (int8 (..., C),
-    fp32 row scales (..., 1)); the kernel on CUDA, the plain version on the
-    CPU. Both quantize the fp32 value, as the TPU kernel does (the JAX CPU
-    fallback first rounds it to the input dtype)."""
+    fp32 row scales (..., 1)); the CUDA kernel on the card (bf16 or fp32
+    rows, C a multiple of 8 up to `row_quant.MAX_ROW_BYTES`, a (C,) affine,
+    one launch, no copy of x), the plain version on the CPU. Both quantize
+    the fp32 value, as the TPU kernel does (the JAX CPU fallback first
+    rounds it to the input dtype)."""
     if not use_kernel(x):
         return rowquant(_layer_norm_f32(x, scale, bias, eps))
-    import triton
-
-    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
-
-    x2, w, b, block_r, block_c = _rows(x, scale, bias)
-    n, c = x2.shape
-    q = torch.empty((n, c), dtype=torch.int8, device=x.device)
-    s_a = torch.empty((n, 1), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        tq.ln_quant_kernel[(triton.cdiv(n, block_r),)](
-            x2, q, s_a, w, b, n, c, float(eps), BLOCK_R=block_r, BLOCK_C=block_c)
+    out = ln_quant(x, scale, bias, eps)
     fused_layer_norm_quant.launches += 1
-    return q.view(x.shape), s_a.view(*x.shape[:-1], 1)
+    return out
 
 
 fused_layer_norm_quant.launches = 0

@@ -1,15 +1,21 @@
 """The launch plan and launchers of K10 (tanh-GELU -> int8), K13 (AdaLN
--> int8) and K7 (GEGLU -> int8), the CUDA C++ kernels of
-`csrc/row_quant.cu`.
+-> int8), K7 (GEGLU -> int8), K6 (LayerNorm -> int8) and K11 (row ->
+int8), the CUDA C++ kernels of `csrc/row_quant.cu`.
 
-`fused_act.fused_gelu_quant`, `fused_act.fused_geglu_quant` and
-`fused_adaln.fused_adaln_quant` send a CUDA tensor here. `row_plan` cuts a
+`fused_act.fused_gelu_quant`, `fused_act.fused_geglu_quant`,
+`fused_act.fused_quant_rows`, `fused_adaln.fused_adaln_quant` and
+`fused_layer_norm.fused_layer_norm_quant` send a CUDA tensor here. Rows
+are read in place: a (B, N, C) tensor of K13 or K11 as B samples with its
+own sample and row strides (K11's are the MMDiT's slices of one packed
+(B, N_h + N_c, C) attention output), any other as x.view(-1, C). `row_plan` cuts a
 row of C output values into 16-byte vectors (8 bf16 or 4 fp32) and gives
 them to the row's threads, vector t + k * TPR to thread t; a thread holds
 that vector of each of the row's `inputs` (K7: h and gate, 2 inputs), and
 all of them count against the 8 vectors a thread may hold: one warp per
 row while a lane holds at most 8 vectors (C <= 2048 in bf16: the row's
-reductions are shuffles, with no barrier), else the fewest threads (64,
+reductions are shuffles, with no barrier), narrowed to 8 or 16 aligned
+lanes of a warp where they hold a one-input row with no lane idle and at
+most 5 vectors each (K6's C = 320 and 640 in bf16), else the fewest threads (64,
 128 or 256) that hold at most 4 vectors each (K10's C = 6144 in bf16: 256
 threads of 3 vectors), else 256 threads of up to 8; for K7 at most 3 + 3
 (C = 1280, 2560 and 5120: 64, 128 and 256 threads of 3 + 3).
@@ -42,9 +48,18 @@ WIDE_VECTORS = 4  # per thread, where a row takes more than one warp
 # `tools/quant_tune.py --part time` on the H100: 64 threads of 3 + 3 beat
 # 128 of 2 + 2 by 21% at I = 1280, 128 of 3 + 3 beat 256 by 18% at I = 2560)
 TWO_INPUT_VECTORS = 3
+# a one-input row narrower than a warp can fill: 8 or 16 aligned lanes of
+# one warp, where they hold it with no lane idle and at most NARROW_VECTORS
+# vectors each (the sweep of `tools/quant_tune.py --part time` on the H100:
+# 8 threads of 5 vectors beat a warp of 2 by 38% at K6's C = 320 in bf16,
+# 16 of 5 beat a warp of 3 by 11% at 640; at 768, 16 threads of 6 came
+# within 5% of a warp of 3, which stays)
+NARROW_THREADS, NARROW_VECTORS = (8, 16), 5
 MAX_ROW_BYTES = BLOCK_THREADS * MAX_VECTORS * VEC_BYTES  # 32 KB
 DTYPES = (torch.bfloat16, torch.float32)
-GELU, ADALN, GEGLU = 0, 1, 2  # the `op` of `csrc/row_quant.cu`
+GELU, ADALN, GEGLU, LN, ROWS = 0, 1, 2, 3, 4  # the `op` of `csrc/row_quant.cu`
+ROW_THREADS = (8, 16, 32, 64, 128, 256)  # threads per row the kernel takes
+MAX_SAMPLES = 65535  # the grid's y dimension
 # row groups a block walks, pipelined, while the grid keeps MIN_BLOCKS blocks
 # (~2 per SM of the H100's 132): the best of 1, 2, 4 and 8 groups at each
 # SD3 shape, or within 1% of it (`tools/quant_tune.py --part time`)
@@ -103,6 +118,8 @@ def row_plan(rows: int, c: int, dtype: torch.dtype, samples: int = 1,
                          f"{MAX_ROW_BYTES // size} {dtype} values ({MAX_ROW_BYTES} bytes)")
     if rows < 1 or samples < 1 or rows % samples:
         raise ValueError(f"{rows} rows do not split into {samples} samples")
+    if samples > MAX_SAMPLES:
+        raise ValueError(f"{samples} samples exceed the grid's {MAX_SAMPLES}")
     if groups is not None and groups < 1:
         raise ValueError(f"groups must be >= 1, got {groups}")
     e = VEC_BYTES // size
@@ -113,8 +130,11 @@ def row_plan(rows: int, c: int, dtype: torch.dtype, samples: int = 1,
             wide = WIDE_VECTORS if inputs == 1 else TWO_INPUT_VECTORS
             threads = next((t for t in (64, 128, 256) if -(-nvec // t) <= wide),
                            BLOCK_THREADS)
-    if threads not in (32, 64, 128, 256):
-        raise ValueError(f"threads per row must be 32, 64, 128 or 256, got {threads}")
+        elif inputs == 1:
+            threads = next((t for t in NARROW_THREADS
+                            if nvec % t == 0 and nvec // t <= NARROW_VECTORS), WARP)
+    if threads not in ROW_THREADS:
+        raise ValueError(f"threads per row must be one of {ROW_THREADS}, got {threads}")
     vectors = -(-nvec // threads)
     if inputs * vectors > MAX_VECTORS:
         raise ValueError(f"{threads} threads cannot hold a row of {c} values")
@@ -133,9 +153,11 @@ def _check_float(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be bf16 or fp32, got {t.dtype}")
 
 
-def _rows(x: torch.Tensor) -> torch.Tensor:
-    """x (..., C) as an (N, C) view of dense, 16-byte aligned rows; never a
-    copy."""
+def _rows(x: torch.Tensor, samples: bool = False):
+    """(samples, rows per sample, sample stride, row stride) of x's dense,
+    16-byte aligned rows, read in place, never a copy: with `samples`, x
+    (B, N, C) as B samples of N rows with x's own strides; else x (..., C)
+    as one sample, the rows of x.view(-1, C)."""
     _check_float("x", x)
     c = x.shape[-1]
     if c <= 0 or c % 8:
@@ -143,55 +165,77 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     if c * x.element_size() > MAX_ROW_BYTES:
         raise ValueError(f"row width {c} exceeds the plan's "
                          f"{MAX_ROW_BYTES // x.element_size()} {x.dtype} values")
-    try:
-        x2 = x.view(-1, c)
-    except RuntimeError:
-        x2 = None
-    if x2 is None or x.stride(-1) != 1 or x2.stride(0) < c:
+    if samples:
+        b, n, _ = x.shape
+        layout = (b, n, x.stride(0), x.stride(1))
+    else:
+        try:
+            x2 = x.view(-1, c)
+        except RuntimeError:
+            x2 = None
+        layout = None if x2 is None else (1, x2.shape[0], x2.shape[0] * x2.stride(0),
+                                          x2.stride(0))
+    if layout is None or x.stride(-1) != 1 or (layout[1] > 1 and layout[3] < c):
         raise ValueError(f"rows must be contiguous: shape {tuple(x.shape)}, strides {x.stride()}")
-    if x2.data_ptr() % VEC_BYTES or (x2.stride(0) * x2.element_size()) % VEC_BYTES:
-        raise ValueError(f"rows must be 16-byte aligned, row stride {x2.stride(0)}")
-    return x2
+    if x.data_ptr() % VEC_BYTES or any(s * x.element_size() % VEC_BYTES for s in layout[2:]):
+        raise ValueError(f"rows must be 16-byte aligned: strides {x.stride()}")
+    return layout
 
 
-def _modulation(name: str, t: torch.Tensor, b: int, c: int, device) -> torch.Tensor:
-    """A (B, 1, C) or (B, C) scale or shift as a (B, C) view."""
+def _modulation(name: str, t: torch.Tensor, b: int, c: int, device):
+    """A (B, 1, C) or (B, C) scale or shift as (pointer, bf16, sample
+    stride, column stride) of its (B, C) view."""
     _check_float(name, t)
     if t.shape not in ((b, 1, c), (b, c)):
         raise ValueError(f"{name} must be ({b}, 1, {c}) or ({b}, {c}) for x's batch {b}, got "
                          f"{tuple(t.shape)}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
-    return t.reshape(b, c)
+    t = t.reshape(b, c)
+    return t.data_ptr(), t.dtype == torch.bfloat16, t.stride(0), t.stride(1)
 
 
-def _launch(op, x2, b, plan, sc=None, sh=None, eps=0.0):
-    """Codes (rows, plan.c) and scales (rows,) of the `b` x plan.rows rows
-    of x2 (each plan.inputs x plan.c wide)."""
+def _affine(name: str, t: torch.Tensor, c: int, device):
+    """K6's (C,) weight or bias as (pointer, bf16, sample stride 0,
+    column stride)."""
+    _check_float(name, t)
+    if t.shape != (c,):
+        raise ValueError(f"{name} must be ({c},), got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    return t.data_ptr(), t.dtype == torch.bfloat16, 0, t.stride(0)
+
+
+def _launch(op, x, layout, plan, sc=None, sh=None, eps=0.0):
+    """Codes (rows, plan.c) and scales (rows,) of the rows of x that
+    `layout` (`_rows`) describes, each plan.inputs x plan.c wide; sc and sh
+    as `_modulation` or `_affine` give them."""
+    b, n, x_sb, x_sn = layout
+    if ((plan.grid[1], plan.rows, plan.inputs * plan.c) != (b, n, x.shape[-1])
+            or plan.vec_elems * x.element_size() != VEC_BYTES):
+        raise ValueError(f"the plan covers {plan.grid[1]} x {plan.rows} rows of {plan.inputs} x "
+                         f"{plan.c} {plan.vec_elems}-value vectors, not {b} x {n} rows of "
+                         f"{x.shape[-1]} {x.dtype}")
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     ext = cuda_ext()
-    rows = b * plan.rows
-    codes = torch.empty((rows, plan.c), dtype=torch.int8, device=x2.device)
-    scales = torch.empty((rows,), dtype=torch.float32, device=x2.device)
-    mod = []
-    for t in (sc, sh):
-        mod += ([0, False, 0, 0] if t is None else
-                [t.data_ptr(), t.dtype == torch.bfloat16, t.stride(0), t.stride(1)])
-    with torch.cuda.device(x2.device):
-        ext.row_quant(op, x2.data_ptr(), x2.dtype == torch.bfloat16, plan.rows * x2.stride(0),
-                      x2.stride(0), b, plan.rows, plan.c, *mod, float(eps), plan.threads,
-                      plan.vectors, plan.groups, plan.grid[0], codes.data_ptr(),
-                      scales.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    codes = torch.empty((b * n, plan.c), dtype=torch.int8, device=x.device)
+    scales = torch.empty((b * n,), dtype=torch.float32, device=x.device)
+    mod = [a for t in (sc, sh) for a in (t or (0, False, 0, 0))]
+    with torch.cuda.device(x.device):
+        ext.row_quant(op, x.data_ptr(), x.dtype == torch.bfloat16, x_sb, x_sn, b, n, plan.c,
+                      *mod, float(eps), plan.threads, plan.vectors, plan.groups, plan.grid[0],
+                      codes.data_ptr(), scales.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream)
     return codes, scales
 
 
 def gelu_quant(x: torch.Tensor, plan: Optional[RowPlan] = None):
     """K10 on the card: x (..., C) -> (int8 codes (..., C), fp32 row scales
     (..., 1)); `plan` overrides `row_plan`'s."""
-    x2 = _rows(x)
-    plan = plan or row_plan(x2.shape[0], x2.shape[1], x2.dtype)
-    codes, scales = _launch(GELU, x2, 1, plan)
+    layout = _rows(x)
+    plan = plan or row_plan(layout[1], x.shape[-1], x.dtype)
+    codes, scales = _launch(GELU, x, layout, plan)
     return codes.view(x.shape), scales.view(*x.shape[:-1], 1)
 
 
@@ -199,15 +243,15 @@ def geglu_quant(proj: torch.Tensor, plan: Optional[RowPlan] = None):
     """K7 on the card: proj (..., 2I), rows [h | gate] -> (int8 codes of
     h * gelu_erf(gate) (..., I), fp32 row scales (..., 1)); one launch, no
     copy of proj; `plan` overrides `row_plan`'s."""
-    x2 = _rows(proj)
-    if x2.shape[1] % 16:
+    layout = _rows(proj)
+    if proj.shape[-1] % 16:
         raise ValueError(f"fused_geglu_quant takes (..., 2I) rows with I a multiple of 8, got "
-                         f"width {x2.shape[1]}")
-    inner = x2.shape[1] // 2
-    plan = plan or row_plan(x2.shape[0], inner, x2.dtype, inputs=2)
+                         f"width {proj.shape[-1]}")
+    inner = proj.shape[-1] // 2
+    plan = plan or row_plan(layout[1], inner, proj.dtype, inputs=2)
     if plan.inputs != 2 or plan.c != inner:
         raise ValueError(f"the plan covers {plan.inputs} x {plan.c}, not 2 x {inner}")
-    codes, scales = _launch(GEGLU, x2, 1, plan)
+    codes, scales = _launch(GEGLU, proj, layout, plan)
     lead = proj.shape[:-1]
     return codes.view(*lead, inner), scales.view(*lead, 1)
 
@@ -216,13 +260,39 @@ def adaln_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, eps: 
                 plan: Optional[RowPlan] = None):
     """K13 on the card: x (B, N, C), scale and shift (B, 1, C) or (B, C)
     views in bf16 or fp32 (read in place, any batch and column strides) ->
-    (int8 codes (B, N, C), fp32 row scales (B, N, 1)); one launch."""
+    (int8 codes (B, N, C), fp32 row scales (B, N, 1)); x's rows are read in
+    place with its sample and row strides; one launch."""
     if x.ndim != 3:
         raise ValueError(f"fused_adaln_quant expects (B, N, C), got {tuple(x.shape)}")
     b, n, c = x.shape
-    x2 = _rows(x)
+    layout = _rows(x, samples=True)
     sc = _modulation("scale", scale, b, c, x.device)
     sh = _modulation("shift", shift, b, c, x.device)
     plan = plan or row_plan(b * n, c, x.dtype, samples=b)
-    codes, scales = _launch(ADALN, x2, b, plan, sc, sh, eps)
+    codes, scales = _launch(ADALN, x, layout, plan, sc, sh, eps)
     return codes.view(b, n, c), scales.view(b, n, 1)
+
+
+def ln_quant(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+             plan: Optional[RowPlan] = None):
+    """K6 on the card: x (..., C), the LayerNorm's (C,) weight and bias in
+    fp32 or bf16 -> (int8 codes (..., C), fp32 row scales (..., 1)); one
+    launch, no copy of x; `plan` overrides `row_plan`'s."""
+    layout = _rows(x)
+    c = x.shape[-1]
+    w = _affine("weight", weight, c, x.device)
+    b = _affine("bias", bias, c, x.device)
+    plan = plan or row_plan(layout[1], c, x.dtype)
+    codes, scales = _launch(LN, x, layout, plan, w, b, eps)
+    return codes.view(x.shape), scales.view(*x.shape[:-1], 1)
+
+
+def quant_rows(x: torch.Tensor, plan: Optional[RowPlan] = None):
+    """K11 on the card: x (..., C) -> (int8 codes (..., C), fp32 row scales
+    (..., 1)); a (B, N, C) x is read in place as B samples with its own
+    strides (the MMDiT's `attn[:, :n_h]` and `attn[:, n_h:]`), one launch,
+    no copy; `plan` overrides `row_plan`'s."""
+    layout = _rows(x, samples=x.ndim == 3)
+    plan = plan or row_plan(layout[0] * layout[1], x.shape[-1], x.dtype, samples=layout[0])
+    codes, scales = _launch(ROWS, x, layout, plan)
+    return codes.view(x.shape), scales.view(*x.shape[:-1], 1)

@@ -18,11 +18,12 @@ compiles, cuDNN heuristics). Then:
     dequant fused into them (G1 in ROADMAP.md); K8's calls of one step (the
     3x3 stride-1 QuantConv), by shape, their int8 operations and least
     time, and K8's device ms per step from the trace (its kernels and the
-    split-K epilogue); K5's and K7's calls of one step (GroupNorm -> int8
-    and GEGLU -> int8), by shape, each shape's byte bound, its device ms
-    and device launches per call alone (`timing.device_ms`, warm, seeded
-    inputs of the shape), and their sums per step; and K5's and K7's device
-    ms and launches per step from the trace, by kernel name (`K5_K7_NAMES`).
+    split-K epilogue); K5's, K6's and K7's calls of one step (GroupNorm ->
+    int8, LayerNorm -> int8 and GEGLU -> int8), by shape, each shape's
+    byte bound, its device ms and device launches per call alone
+    (`timing.device_ms`, warm, seeded inputs of the shape), and their sums
+    per step; and K5's, K6's and K7's device ms and launches per step from
+    the trace, by kernel name (`EPILOGUE_NAMES`).
 Needs one CUDA device.
 """
 
@@ -39,14 +40,17 @@ from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernel
 
 BATCH, SIZE, CFG = 2, 512, 9.0
 STEPS, TOP = 3, 30  # denoise steps traced, kernel names printed
-# K5's and K7's device functions, by a part of their name: the CUDA C++
-# kernels (`gn_quant_kernel`, `geglu_quant_kernel`), or in the former design
-# (run from an older checkout for a comparison) Triton programs of the same
-# names, K5's after a fill of its amax slots and K3's stats and combine
-# programs (`gn_stats_kernel`, `gn_combine_kernel`, which K3's own calls
-# launch too)
-K5_K7_NAMES = (("K7", ("geglu_quant_kernel",)), ("K5", ("gn_quant_kernel", "gn_amax_kernel")),
-               ("K3's stats and combine (K5's, then)", ("gn_stats_kernel", "gn_combine_kernel")))
+# K5's, K6's and K7's device functions, by a part of their name: the CUDA
+# C++ kernels (`gn_quant_kernel`, `ln_quant_kernel`, `geglu_quant_kernel`),
+# or in the former designs (run from an older checkout for a comparison)
+# Triton programs of the same names, K5's after a fill of its amax slots
+# and K3's stats and combine programs (`gn_stats_kernel`,
+# `gn_combine_kernel`, which K3's own calls launch too). No SD1.5 step runs
+# K13's `adaln_quant_kernel`, whose name holds K6's.
+EPILOGUE_NAMES = (("K7", ("geglu_quant_kernel",)), ("K6", ("ln_quant_kernel",)),
+                  ("K5", ("gn_quant_kernel", "gn_amax_kernel")),
+                  ("K3's stats and combine (K5's, then)", ("gn_stats_kernel",
+                                                           "gn_combine_kernel")))
 
 
 def _wall_ms(fn, reps=3):
@@ -154,15 +158,38 @@ def k5_k7_calls(step):
     return k5, k7
 
 
-def print_k5_k7(step):
-    """K5's and K7's calls of one step by shape: the byte bound (one read
-    of the bf16 input, one int8 write, the scales), device ms and launches
-    per call of the wrapper alone, and the sums per step."""
+def k6_calls(step):
+    """Runs `step` once, recording the K6 calls (`FusedLayerNorm` with
+    quant_out) that the models make; returns {(rows, C, eps): calls}."""
+    from prompt_diffusion_tpu_torch.models import layers
+
+    k6, ln = {}, layers.fused_layer_norm_quant
+
+    def record(x, weight, bias, eps=1e-5):
+        key = (x.numel() // x.shape[-1], x.shape[-1], eps)
+        k6[key] = k6.get(key, 0) + 1
+        return ln(x, weight, bias, eps=eps)
+
+    layers.fused_layer_norm_quant = record
+    try:
+        step()
+    finally:
+        layers.fused_layer_norm_quant = ln
+    return k6
+
+
+def print_int8_epilogues(step):
+    """K5's, K6's and K7's calls of one step by shape: the byte bound (one
+    read of the bf16 input, one int8 write, the scales, K6's fp32 affine),
+    device ms and launches per call of the wrapper alone, and the sums per
+    step."""
     from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
     from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm_quant
+    from prompt_diffusion_tpu_torch.ops.fused_layer_norm import fused_layer_norm_quant
     from prompt_diffusion_tpu_torch.tools.timing import device_launches, device_ms
 
     k5, k7 = k5_k7_calls(step)
+    k6 = k6_calls(step)
     gen = torch.Generator(device="cuda").manual_seed(7)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
     rows = []
@@ -178,8 +205,14 @@ def print_k5_k7(step):
         x = randn(r, w2)
         rows.append(("K7", f"({r},{w2})", n, roofline(2 * r * w2 + r * w2 // 2 + 4 * r)[0],
                      lambda x=x: fused_geglu_quant(x)))
+    for (r, c, eps), n in k6.items():
+        x = randn(r, c)
+        wt = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        bs = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        rows.append(("K6", f"({r},{c}) eps={eps}", n, roofline(3 * r * c + 4 * r + 8 * c)[0],
+                     lambda x=x, wt=wt, bs=bs, eps=eps: fused_layer_norm_quant(x, wt, bs, eps)))
     totals = {}
-    print("[profile] K5 and K7 calls of one denoise step: calls x shape, byte bound ms, "
+    print("[profile] K5, K6 and K7 calls of one denoise step: calls x shape, byte bound ms, "
           "device ms and device launches per call alone (warm):")
     for kern, label, n, bound, call in sorted(rows, key=lambda r: (r[0], -r[2] * r[3])):
         ms, launches = device_ms(call), device_launches(call)
@@ -252,7 +285,7 @@ def main(argv=None) -> int:
     if args.int8:
         print_int8_gemm_bound(parts["denoise step"])
         print_k8_bound(parts["denoise step"])
-        print_k5_k7(parts["denoise step"])
+        print_int8_epilogues(parts["denoise step"])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -284,7 +317,7 @@ def main(argv=None) -> int:
               if "conv3x3_int8" in name or "splitk_epilogue" in name]
         print(f"[profile] K8 device ms per step: {sum(us for _, us in k8) / STEPS / 1e3:.3f} "
               f"({sum(n for n, _ in k8) / STEPS:.0f} launches, split-K epilogues included)")
-        for label, parts_of_name in K5_K7_NAMES:
+        for label, parts_of_name in EPILOGUE_NAMES:
             hits = [(n, us) for name, (n, us) in by_name.items()
                     if any(part in name for part in parts_of_name)]
             print(f"[profile] {label} in the trace: {sum(us for _, us in hits) / STEPS / 1e3:.3f} "

@@ -17,7 +17,9 @@ compiles, cuDNN heuristics). Then:
   * a torch.profiler trace of two denoise steps: device time by kernel
     name, device launches per step, and the device's busy share of the
     profiled wall time; the device ms and launches per step of the int8
-    epilogue kernels K10, K11 and K13 (`KERNEL_NAMES`);
+    epilogue kernels K10, K11 and K13 and of the copy kernels
+    (`KERNEL_NAMES`; the former K11 wrapper copied each of its 71
+    attention slices per step to contiguous rows first);
   * the int8 GEMMs of one step and the least time they could take with the
     dequant fused into them (G1 in ROADMAP.md).
 Needs one CUDA device.
@@ -36,12 +38,14 @@ from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernel
 BATCH, SIZE, CFG, T5_LEN = 1, 1024, 7.0, 256
 STEPS, TOP = 2, 30  # denoise steps traced, kernel names printed
 # the int8 epilogue kernels of the step, summed by a part of their device
-# name: K10 and K13 in CUDA (`ops/csrc/row_quant.cu`), K11's Triton program
-# (which also ran K10 when K10 was Triton), K12's Triton program (which
-# also ran K13 when K13 was Triton)
+# name: K10, K13 and K11 in CUDA (`ops/csrc/row_quant.cu`), and from an
+# older checkout the Triton program that ran K11 (and K10 before it was
+# CUDA) and K12's, which ran K13 before it was CUDA; then PyTorch's copy
+# kernels (`.contiguous()`, `.copy_`, dtype casts)
 KERNEL_NAMES = (("K10", "gelu_quant_kernel"), ("K13", "adaln_quant_kernel"),
-                ("K11 (and a Triton K10)", "act_quant_kernel"),
-                ("a Triton K13", "adaln_kernel"))
+                ("K11", "rows_quant_kernel"),
+                ("a Triton K11 (or K10)", "act_quant_kernel"),
+                ("a Triton K13", "adaln_kernel"), ("copies and casts", "copy_kernel"))
 
 
 @torch.no_grad()

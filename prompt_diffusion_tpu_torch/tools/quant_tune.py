@@ -1,9 +1,9 @@
-"""The int8 epilogue kernels in CUDA C++ on the card: K10, K13 and K7 (the
-row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm -> int8,
-`ops/csrc/gn_quant.cu`).
+"""The int8 epilogue kernels in CUDA C++ on the card: K10, K13, K7, K6 and
+K11 (the row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm
+-> int8, `ops/csrc/gn_quant.cu`).
 
     python3 -m prompt_diffusion_tpu_torch.tools.quant_tune
-        [--part sass|check|time|phases] [--kernels K10,K13,K7,K5] [--iters N]
+        [--part sass|check|time|phases] [--kernels K10,K13,K7,K5,K6,K11] [--iters N]
 
   sass   nvcc -cubin of `row_quant.cu` as built and of a copy whose K10
          takes CUDA's tanhf (TANHF): ptxas's registers and spills of every
@@ -15,8 +15,9 @@ row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm -> int8,
          compute bound at the SD3 shapes (a lower bound: the per-row work
          is left out), beside the byte bound; the same for K7 (its
          per-value count from 2 and 4 vectors per thread of h and gate, at
-         the SD1.5 shapes), and ptxas's registers and spills of K5's
-         instantiations;
+         the SD1.5 shapes), K6 (from 2 and 5 vectors, at the SD1.5 and
+         ViT-B shapes) and K11 (3 and 6, at the SD3 attention slices), and
+         ptxas's registers and spills of K5's instantiations;
   check  the quotient of `rq::quotient` (y * 1/s with one FMA correction)
          against `__fdiv_rn(y, s)` bit for bit: over every value of the SD3
          K10 and K13 cases (K10's y from the kernel's own GELU, K13's from
@@ -32,7 +33,13 @@ row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm -> int8,
          sweeps, ragged and fp32; K5 at the SD1.5 sites (64² to 8², with
          and without SiLU), the int8 VAE's (4,128,512,512), fp32, ragged,
          an affine so small that the amax comes from the values (SiLU's
-         interior), and every K;
+         interior), and every K. K6 and K11 likewise: the quotient on
+         their values (K6's plain fp32 LayerNorm at the SD1.5 and ViT-B
+         rows, K11's rows of the MMDiT's attention slices), K6 at every
+         plan `time` sweeps (rows of 8 to 64 threads), fp32, ragged, a bf16
+         and a strided affine; K11 on both slices of one packed
+         (2, 4429, 1536) attention output at every plan swept, on
+         contiguous rows, fp32, ragged, 32 KB rows and a batch-1 slice;
   time   device ms (`tools/timing.py::device_ms`) at every SD3 shape of the
          parent's Triton programs (launched as the parent's wrappers
          launched them, K13's modulation casts included) and the CUDA
@@ -47,7 +54,12 @@ row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm -> int8,
          `geglu_quant_kernel`; K5's fill of the amax slots, K3's stats and
          combine programs, `gn_amax_kernel` and `gn_quant_kernel`, five
          launches); the sweep of K7's threads and row groups and of K5's
-         vectors per thread K.
+         vectors per thread K. K6 at its SD1.5 rows (CFG batch 8) and the
+         ViT-B's against the parent's `ln_quant_kernel`, K11 on the
+         MMDiT's two attention slices against the parent's wrapper as it
+         ran there (`x.contiguous()`, a copy, then `act_quant_kernel`);
+         the sweep of K6's threads per row (8, 16, 32, 64: rows of one
+         warp's aligned lanes or more) and row groups, and of K11's.
   phases K5 only: copies of `gn_quant.cu` (nvcc, called through ctypes):
          one that stamps clock64() at each phase boundary of every block
          (PHASES), printing each phase's share of the block's cycles (mean
@@ -72,8 +84,9 @@ import torch
 
 from prompt_diffusion_tpu_torch.ops import row_quant as rq
 from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
-from prompt_diffusion_tpu_torch.ops.fused_act import fused_gelu_quant
+from prompt_diffusion_tpu_torch.ops.fused_act import fused_gelu_quant, fused_quant_rows
 from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln_quant
+from prompt_diffusion_tpu_torch.ops.fused_layer_norm import fused_layer_norm_quant
 from prompt_diffusion_tpu_torch.tools.attn_tune import _CSRC_DIR, _REPO, _nvcc
 from prompt_diffusion_tpu_torch.tools.timing import (
     EXP_S,
@@ -97,7 +110,15 @@ K5_SHAPES = (((8, 320, 64, 64), True, 1e-5), ((8, 960, 64, 64), True, 1e-5),
              ((8, 640, 32, 32), True, 1e-5), ((8, 1280, 16, 16), True, 1e-5),
              ((8, 1280, 8, 8), True, 1e-5), ((8, 2560, 8, 8), True, 1e-5),
              ((8, 320, 64, 64), False, 1e-6), ((4, 128, 512, 512), True, 1e-6))
-KERNELS = ("K10", "K13", "K7", "K5")
+# K6's rows (tokens x C, eps) at the SD1.5 int8 step at CFG batch 8 (64²,
+# 32², 16², 8²), the 8² rows at CFG batch 4, and the DPT-Hybrid ViT-B's
+# (16 x 1025 tokens); K11's: the MMDiT's attention output (B, N_h + N_c, C)
+# at CFG batch 2, read as its image and context slices
+K6_SHAPES = ((32768, 320, 1e-5), (8192, 640, 1e-5), (2048, 1280, 1e-5), (512, 1280, 1e-5),
+             (256, 1280, 1e-5), (16400, 768, 1e-6))
+K11_SLICES = (2, 4096, 333, 1536)
+K6_THREADS = (8, 16, 32, 64)
+KERNELS = ("K10", "K13", "K7", "K5", "K6", "K11")
 SCALE_REL_BOUND, CODES_EQUAL_BOUND = 1e-6, 0.999
 SWEEP_SCALES = 128
 COLD_BYTES = 120e6  # > twice the H100's 50 MB L2
@@ -125,8 +146,49 @@ def _mod(gen, b, c, dtype=torch.bfloat16):
     return chunks[1], chunks[0]
 
 
+def _ln_inputs(gen, n, c, dtype=torch.bfloat16):
+    """x (n, c) and an fp32 affine near (1, 0), as the LayerNorm modules
+    hold it."""
+    w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return _x(gen, n, c, dtype=dtype), w, 0.1 * torch.randn(c, generator=gen, device="cuda")
+
+
+def _attn(gen, b, n_h, n_c, c, dtype=torch.bfloat16):
+    """The MMDiT's packed (B, N_h + N_c, C) attention output and its image
+    and context slices, as the JointBlock hands them to K11."""
+    attn = _x(gen, b, n_h + n_c, c, dtype=dtype)
+    return attn[:, :n_h], attn[:, n_h:]
+
+
+def _parent_ln_quant(x, w, b, eps):
+    """K6 as the parent launched it: Triton `ln_quant_kernel` over rows
+    padded to a power of two."""
+    import triton
+
+    from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
+    from prompt_diffusion_tpu_torch.ops import fused_layer_norm as fl
+
+    x2, wf, bf, block_r, block_c = fl._rows(x, w, b)
+    n, c = x2.shape
+    q = torch.empty((n, c), dtype=torch.int8, device=x.device)
+    s_a = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    tq.ln_quant_kernel[(triton.cdiv(n, block_r),)](
+        x2, q, s_a, wf, bf, n, c, float(eps), BLOCK_R=block_r, BLOCK_C=block_c)
+    return q.view(x.shape), s_a.view(*x.shape[:-1], 1)
+
+
 def _parent_gelu_quant(x):
     """K10 as the parent launched it: Triton `act_quant_kernel`, GELU=True."""
+    return _parent_act_quant(x, gelu=True)
+
+
+def _parent_quant_rows(x):
+    """K11 as the parent launched it: a copy of x to contiguous rows (the
+    MMDiT's slices are not), then Triton `act_quant_kernel`, GELU=False."""
+    return _parent_act_quant(x, gelu=False)
+
+
+def _parent_act_quant(x, gelu):
     import triton
 
     from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
@@ -140,7 +202,7 @@ def _parent_gelu_quant(x):
     q = torch.empty((n, c), dtype=torch.int8, device=x.device)
     s_a = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     tq.act_quant_kernel[(triton.cdiv(n, block_r),)](
-        x2, q, s_a, n, c, BLOCK_R=block_r, BLOCK_C=block_c, GELU=True,
+        x2, q, s_a, n, c, BLOCK_R=block_r, BLOCK_C=block_c, GELU=gelu,
         num_warps=8 if block_c >= 4096 else 4)
     return q.view(x.shape), s_a.view(*x.shape[:-1], 1)
 
@@ -267,7 +329,7 @@ def _build(name, src, *flags):
 
 # ---- sass ----------------------------------------------------------------
 
-_KERNEL = re.compile(r"(gelu|adaln|geglu)_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
+_KERNEL = re.compile(r"(gelu|adaln|geglu|ln|rows)_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
 _GN_KERNEL = re.compile(r"gn_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
 
 
@@ -299,7 +361,10 @@ def _sass_counts(cubin):
 # row group, shapes as (samples, rows, output width), input values per output)
 _SASS_OPS = {"K10": ("gelu", 3, 6, 24, [(1, r, c) for r, c in K10_SHAPES], 1),
              "K13": ("adaln", 3, 6, 24, K13_SHAPES, 1),
-             "K7": ("geglu", 2, 4, 16, [(1, r, w // 2) for r, w in K7_SHAPES], 2)}
+             "K7": ("geglu", 2, 4, 16, [(1, r, w // 2) for r, w in K7_SHAPES], 2),
+             "K6": ("ln", 2, 5, 24, [(1, r, c) for r, c, _ in K6_SHAPES], 1),
+             "K11": ("rows", 3, 6, 24, [(K11_SLICES[0], n, K11_SLICES[3])
+                                        for n in K11_SLICES[1:3]], 1)}
 
 
 def _ptxas(log, pattern, keep):
@@ -319,7 +384,7 @@ def sass(_gen, _iters, kernels):
     builds = [("built", SOURCE)] + ([("tanhf", _tanhf_source())] if "K10" in kernels else [])
     for label, src in builds:
         cubin, log = _build(f"row_quant_{label}.cubin", src, "-cubin")
-        for k, info in _ptxas(log, _KERNEL, lambda k: int(k.group(3)) in (2, 3, 6)):
+        for k, info in _ptxas(log, _KERNEL, lambda k: int(k.group(3)) in (2, 3, 5, 6)):
             print(f"[quant_tune] ptxas {label} {k.group(1)}<{k.group(2)}, {k.group(3)}, "
                   f"pipe={k.group(4)}>: {info}", flush=True)
         counts = _sass_counts(cubin)
@@ -339,7 +404,7 @@ def sass(_gen, _iters, kernels):
                     mufu = values * mufu_value / EXP_S * 1e3
                     static = threads * per_thread / ISSUE_S * 1e3
                     nbytes = ((2 * inputs + 1) * values + 4 * b * n
-                              + (4 * b * c if op == "adaln" else 0))
+                              + {"adaln": 4 * b * c, "ln": 8 * c}.get(op, 0))
                     msg.append(f"({b},{n},{c}) compute bound {max(issue, mufu):.4f} ms (issue "
                                f"{issue:.4f}, MUFU {mufu:.4f}; the static per-thread part "
                                f"would add at most {static:.4f}) beside bytes "
@@ -449,7 +514,8 @@ def _div_cases(gen, kernels):
     """(label, y or bf16 x as (rows, c), per-row s, is x): K10's x at the
     SD3 shapes with the kernel's row scales, K13's plain fp32 values with
     the kernel's; K7's and K5's plain fp32 values at their SD1.5 shapes
-    with the kernels' scales (K5: one row per sample)."""
+    with the kernels' scales (K5: one row per sample); K6's at its SD1.5
+    and ViT-B rows, K11's rows of the MMDiT's attention slices."""
     import torch.nn.functional as F
 
     from prompt_diffusion_tpu_torch.ops.fused_adaln import _torch_adaln
@@ -477,6 +543,18 @@ def _div_cases(gen, kernels):
             y = group_norm_f32(x, 32, w, b, eps=eps, apply_silu=silu)
             yield (f"K5 {shape}", y.reshape(shape[0], -1),
                    fused_group_norm_quant(x, w, b, 32, eps, silu)[1], False)
+    if "K6" in kernels:
+        from prompt_diffusion_tpu_torch.ops.fused_layer_norm import _layer_norm_f32
+
+        for n, c, eps in K6_SHAPES:
+            x, w, b = _ln_inputs(gen, n, c)
+            yield (f"K6 ({n},{c})", _layer_norm_f32(x, w, b, eps),
+                   fused_layer_norm_quant(x, w, b, eps)[1], False)
+    if "K11" in kernels:
+        b, n_h, n_c, c = K11_SLICES
+        for x in _attn(gen, b, n_h, n_c, c):
+            yield (f"K11 {tuple(x.shape)} slice", x.float().reshape(-1, c),
+                   fused_quant_rows(x)[1], False)
 
 
 def _check_division(gen, kernels):
@@ -552,15 +630,11 @@ def _kernel_cases(gen, kernels):
         cases.append((f"K13 ({b},{n},{c}) fp32, (B,C) fp32, shift column stride {sh.stride(1)}",
                       lambda: fused_adaln_quant(x, sc, sh), lambda: fused_adaln_quant(x, sc, sh)))
     if "K7" in kernels:
-        plans7 = [(t, g) for t in (64, 128, 256) for g in (1, 2, 4)]
         for n, w in K7_SHAPES + ((333, 2576), (5, 16), (3, 16384)):
             x = _x(gen, n, w)
-            variants = plans7 if (n, w) == K7_SHAPES[0] else [(None, None)]
-            for t, g in variants:
-                try:
-                    plan = rq.row_plan(n, w // 2, x.dtype, threads=t, groups=g, inputs=2)
-                except ValueError:
-                    continue  # too few threads for the row
+            plans = (_plans(n, w // 2, x.dtype, (64, 128, 256), (1, 2, 4), inputs=2)
+                     if (n, w) == K7_SHAPES[0] else [rq.row_plan(n, w // 2, x.dtype, inputs=2)])
+            for plan in plans:
                 cases.append((f"K7 ({n},{w}) bf16 threads={plan.threads} vectors={plan.vectors} "
                               f"groups={plan.groups}", lambda x=x, p=plan: rq.geglu_quant(x, p),
                               lambda x=x: fused_geglu_quant(x)))
@@ -568,6 +642,10 @@ def _kernel_cases(gen, kernels):
             x = _x(gen, n, w, dtype=torch.float32)
             cases.append((f"K7 ({n},{w}) fp32", lambda x=x: fused_geglu_quant(x),
                           lambda x=x: fused_geglu_quant(x)))
+    if "K6" in kernels:
+        cases += _k6_cases(gen)
+    if "K11" in kernels:
+        cases += _k11_cases(gen)
     if "K5" in kernels:
         extra = (((2, 64, 16, 16), True, 1e-5, 0.0, 1.0, torch.float32),
                  ((3, 40, 7, 9), True, 1e-5, 0.5, 1.0, torch.bfloat16),
@@ -591,6 +669,73 @@ def _kernel_cases(gen, kernels):
                 cases.append((f"{label} {tag}",
                               lambda x=x, w=w, b=b, g=groups, e=eps, si=silu, p=plan:
                               gq.gn_quant(x, w, b, g, e, si, p), plain))
+    return cases
+
+
+def _plans(rows, c, dtype, threads, groups, samples=1, inputs=1):
+    """The plans of `row_plan` at each (threads, groups) that can hold the
+    row."""
+    plans = []
+    for t, g in itertools.product(threads, groups):
+        try:
+            plans.append(rq.row_plan(rows, c, dtype, samples=samples, threads=t, groups=g,
+                                     inputs=inputs))
+        except ValueError:
+            continue  # too few threads for the row
+    return plans
+
+
+def _k6_cases(gen):
+    """K6 at its path rows at every plan swept; fp32, ragged, 32 KB rows, a
+    bf16 and a column-strided affine at the default plan."""
+    cases = []
+    for n, c, eps in K6_SHAPES:
+        x, w, b = _ln_inputs(gen, n, c)
+        for plan in [None] + _plans(n, c, x.dtype, K6_THREADS, (1, 2, 4)):
+            tag = "plan" if plan is None else (f"threads={plan.threads} vectors={plan.vectors} "
+                                               f"groups={plan.groups}")
+            cases.append((f"K6 ({n},{c}) eps={eps} bf16 {tag}",
+                          lambda x=x, w=w, b=b, e=eps, p=plan: rq.ln_quant(x, w, b, e, p),
+                          lambda x=x, w=w, b=b, e=eps: fused_layer_norm_quant(x, w, b, e)))
+    for n, c, dt, form in ((77, 320, torch.float32, "fp32"), (33, 768, torch.float32, "fp32"),
+                           (37, 328, torch.bfloat16, "ragged"), (5, 8, torch.bfloat16, "ragged"),
+                           (3, 16384, torch.bfloat16, "32 KB rows"),
+                           (300, 640, torch.bfloat16, "bf16 affine"),
+                           (300, 640, torch.bfloat16, "strided affine")):
+        x, w, b = _ln_inputs(gen, n, c, dtype=dt)
+        if form == "bf16 affine":
+            w, b = w.bfloat16(), b.bfloat16()
+        elif form == "strided affine":  # column stride 2
+            w, b = (torch.stack([t, t], dim=1).reshape(-1)[::2] for t in (w, b))
+        cases.append((f"K6 ({n},{c}) {str(dt)[6:]} {form}",
+                      lambda x=x, w=w, b=b: fused_layer_norm_quant(x, w, b),
+                      lambda x=x, w=w, b=b: fused_layer_norm_quant(x, w, b)))
+    return cases
+
+
+def _k11_cases(gen):
+    """K11 on both attention slices at every plan swept; contiguous rows,
+    fp32 slices, ragged, 32 KB rows and a batch-1 slice at the default
+    plan."""
+    cases = []
+    b, n_h, n_c, c = K11_SLICES
+    for x in _attn(gen, b, n_h, n_c, c):
+        n = x.shape[1]
+        for plan in [None] + _plans(b * n, c, x.dtype, (32, 64, 128), (1, 2, 4), samples=b):
+            tag = "plan" if plan is None else (f"threads={plan.threads} vectors={plan.vectors} "
+                                               f"groups={plan.groups}")
+            cases.append((f"K11 {tuple(x.shape)} slice bf16 {tag}",
+                          lambda x=x, p=plan: rq.quant_rows(x, p),
+                          lambda x=x: fused_quant_rows(x)))
+    others = [("(8192,1536) contiguous", _x(gen, 8192, 1536)),
+              ("(666,1536) contiguous", _x(gen, 666, 1536)),
+              ("(37,2056) ragged", _x(gen, 37, 2056)), ("(3,16384) 32 KB rows", _x(gen, 3, 16384))]
+    others += [(f"{tuple(x.shape)} fp32 slice", x)
+               for x in _attn(gen, 2, 77, 154, 1536, dtype=torch.float32)]
+    others += [(f"{tuple(x.shape)} batch-1 slice", x) for x in _attn(gen, 1, 4096, 333, 1536)]
+    for label, x in others:
+        cases.append((f"K11 {label}", lambda x=x: fused_quant_rows(x),
+                      lambda x=x: fused_quant_rows(x)))
     return cases
 
 
@@ -650,10 +795,13 @@ def _tanhf_lib():
     return gelu_quant
 
 
-def _turns(label, bound, parent, new, iters):
+def _turns(label, bound, parent, new, iters, launches=(None, None)):
+    """Parent and new in turns; `launches`, the device activities of a
+    parent and of a new call where known (`timing.device_ms`)."""
     times = {"parent": [], "new": []}
     for who in ("parent", "new", "new", "parent"):
-        times[who].append(device_ms(parent if who == "parent" else new, iters=iters))
+        times[who].append(device_ms(parent if who == "parent" else new, iters=iters,
+                                    launches=launches[who == "new"]))
     best = min(times["new"])
     return (f"{label}: parent={'/'.join(f'{t:.4f}' for t in times['parent'])} "
             f"new={'/'.join(f'{t:.4f}' for t in times['new'])} "
@@ -711,6 +859,67 @@ def time_(gen, iters, kernels):
         _time_k7(gen, iters)
     if "K5" in kernels:
         _time_k5(gen, iters)
+    if "K6" in kernels:
+        _time_k6(gen, iters)
+    if "K11" in kernels:
+        _time_k11(gen, iters)
+
+
+def _time_k6(gen, iters):
+    for n, c, eps in K6_SHAPES:
+        nbytes = 3 * n * c + 4 * n + 8 * c
+        bound = nbytes / HBM_BYTES_S * 1e3
+        x, w, b = _ln_inputs(gen, n, c)
+        new = lambda x, w, b: fused_layer_norm_quant(x, w, b, eps)
+        parent = lambda x, w, b: _parent_ln_quant(x, w, b, eps)
+        with plain_ops():
+            ref = new(x, w, b)
+        print(f"[quant_tune] parity K6 ({n},{c}): parent {_within(parent(x, w, b), ref)[1]}",
+              flush=True)
+        cold = _cold(lambda: _ln_inputs(gen, n, c), nbytes)
+        warm = _turns("warm", bound, lambda: parent(x, w, b), lambda: new(x, w, b), iters)
+        colds = _turns("cold", bound, cold(parent), cold(new), iters)
+        plan = rq.row_plan(n, c, x.dtype)
+        print(f"[quant_tune] time K6 ({n},{c}) eps={eps} bound_ms={bound:.4f} (bytes) plan "
+              f"threads={plan.threads} vectors={plan.vectors} groups={plan.groups} | {warm} | "
+              f"{colds}", flush=True)
+        call = lambda p: cold(lambda x, w, b: rq.ln_quant(x, w, b, eps, p))
+        sweep = [f"threads={p.threads} groups={p.groups}: "
+                 f"{device_ms(call(p), iters=iters):.4f}"
+                 for p in _plans(n, c, x.dtype, K6_THREADS, (1, 2, 4))]
+        print(f"[quant_tune] sweep K6 ({n},{c}) cold: " + "; ".join(sweep), flush=True)
+
+
+def _time_k11(gen, iters):
+    """K11 on the MMDiT's slices; the parent as its wrapper ran there, with
+    the copy of the slice to contiguous rows."""
+    b, n_h, n_c, c = K11_SLICES
+    for i, n in enumerate((n_h, n_c)):
+        nbytes = 3 * b * n * c + 4 * b * n
+        bound = nbytes / HBM_BYTES_S * 1e3
+        x = _attn(gen, b, n_h, n_c, c)[i]
+        with plain_ops():
+            ref = fused_quant_rows(x)
+        print(f"[quant_tune] parity K11 {tuple(x.shape)} slice: parent "
+              f"{_within(_parent_quant_rows(x), ref)[1]}; device launches per call: parent "
+              f"{device_launches(lambda: _parent_quant_rows(x))}, new "
+              f"{device_launches(lambda: fused_quant_rows(x))}", flush=True)
+        cold = _cold(lambda: (_attn(gen, b, n_h, n_c, c)[i],), nbytes)
+        # the parent's copy and program: a trace that lost one of them would
+        # read short (seen on the H100)
+        warm = _turns("warm", bound, lambda: _parent_quant_rows(x), lambda: fused_quant_rows(x),
+                      iters, launches=(2, 1))
+        colds = _turns("cold", bound, cold(_parent_quant_rows), cold(fused_quant_rows), iters,
+                       launches=(2, 1))
+        plan = rq.row_plan(b * n, c, x.dtype, samples=b)
+        print(f"[quant_tune] time K11 {tuple(x.shape)} slice of {(b, n_h + n_c, c)} "
+              f"bound_ms={bound:.4f} (bytes) plan threads={plan.threads} groups={plan.groups} | "
+              f"{warm} | {colds}", flush=True)
+        sweep = [f"threads={p.threads} groups={p.groups}: "
+                 f"{device_ms(cold(lambda x, p=p: rq.quant_rows(x, p)), iters=iters):.4f}"
+                 for p in _plans(b * n, c, x.dtype, (32, 64, 128), (1, 2, 4), samples=b)]
+        print(f"[quant_tune] sweep K11 {tuple(x.shape)} slice cold: " + "; ".join(sweep),
+              flush=True)
 
 
 def _time_k7(gen, iters):
@@ -730,14 +939,9 @@ def _time_k7(gen, iters):
         colds = _turns("cold", bound, cold(_parent_geglu_quant), cold(fused_geglu_quant), iters)
         print(f"[quant_tune] time K7 ({n},{w}) bound_ms={bound:.4f} (bytes) | {warm} | {colds}",
               flush=True)
-        sweep = []
-        for t, g in [(t, g) for t in (64, 128, 256) for g in (1, 2, 4)]:
-            try:
-                plan = rq.row_plan(n, w // 2, x.dtype, threads=t, groups=g, inputs=2)
-            except ValueError:
-                continue  # too few threads for the row
-            call = cold(lambda x, p=plan: rq.geglu_quant(x, p))
-            sweep.append(f"threads={t} groups={g}: {device_ms(call, iters=iters):.4f}")
+        sweep = [f"threads={p.threads} groups={p.groups}: "
+                 f"{device_ms(cold(lambda x, p=p: rq.geglu_quant(x, p)), iters=iters):.4f}"
+                 for p in _plans(n, w // 2, x.dtype, (64, 128, 256), (1, 2, 4), inputs=2)]
         print(f"[quant_tune] sweep K7 ({n},{w}) cold: " + "; ".join(sweep), flush=True)
 
 

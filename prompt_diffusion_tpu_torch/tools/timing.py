@@ -85,11 +85,12 @@ def busy_us(intervals):
 PROFILE_TRIES = 3
 
 
-def _device_trace(fn, iters, warmup, what):
+def _device_trace(fn, iters, warmup, what, launches=None):
     """(name, start_us, end_us) of the device activities of `iters`
     back-to-back calls of `fn` under `torch.profiler`, after `warmup`
-    calls: the first trace whose count is a whole number per call, else
-    the fullest of PROFILE_TRIES (a lost activity only lowers the count).
+    calls: the first trace whose count is a whole number per call (with
+    `launches`, exactly that many per call), else the fullest of
+    PROFILE_TRIES (a lost activity only lowers the count).
     Raises without a CUDA device or when every trace is empty; it never
     falls back to a host clock."""
     import torch
@@ -108,7 +109,8 @@ def _device_trace(fn, iters, warmup, what):
                 fn()
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
-        if kernels and len(kernels) % iters == 0:
+        if kernels and (len(kernels) == launches * iters if launches
+                        else len(kernels) % iters == 0):
             return kernels
         fullest = max(fullest, kernels, key=len)
     if fullest:
@@ -116,10 +118,12 @@ def _device_trace(fn, iters, warmup, what):
     raise RuntimeError(f"the profiler recorded no device activity in {PROFILE_TRIES} traces")
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, iters=20, warmup=3, launches=None):
     """Device milliseconds per call of `fn`: the union of the device
-    intervals of `iters` back-to-back calls over `iters`."""
-    kernels = _device_trace(fn, iters, warmup, "device_ms")
+    intervals of `iters` back-to-back calls over `iters`; `launches`, the
+    device activities a call makes where known, rejects a trace that lost
+    some in whole calls' worth."""
+    kernels = _device_trace(fn, iters, warmup, "device_ms", launches)
     return busy_us([(s, e) for _, s, e in kernels]) / iters / 1e3
 
 

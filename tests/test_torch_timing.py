@@ -108,3 +108,17 @@ def test_device_ms_retakes_a_trace_with_losses(monkeypatch):
     monkeypatch.setattr(timing, "device_kernels", lambda prof: pending.pop(0))
     assert timing.device_ms(lambda: None, iters=2, warmup=0) == pytest.approx(0.01)
     assert not pending
+
+
+def test_device_ms_with_known_launches_retakes_a_trace_that_lost_whole_calls(monkeypatch):
+    """With `launches`, a trace counts only with exactly that many
+    activities per call: one that lost a call's worth (a whole number per
+    call all the same) is taken again."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", _Trace)
+    pending = [[("copy", 0, 10), ("k", 10, 20)],
+               [("copy", 0, 10), ("k", 10, 20), ("copy", 20, 30), ("k", 30, 40)]]
+    monkeypatch.setattr(timing, "device_kernels", lambda prof: pending.pop(0))
+    assert timing.device_ms(lambda: None, iters=2, warmup=0, launches=2) == pytest.approx(0.02)
+    assert not pending
