@@ -7,8 +7,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero
 without the final `"ok": true` line:
   1. device  - requires CUDA; prints the card as nvidia-smi names it;
   2. build   - builds the CUDA kernels (attention, int8 conv, int8
-               attention, row -> int8, GroupNorm -> int8; nvcc, sm_90a)
-               into build/torch_ext/ and compiles the Triton kernels;
+               attention, row -> int8, GroupNorm and GroupNorm -> int8;
+               nvcc, sm_90a) into build/torch_ext/ and compiles the Triton
+               kernels;
   3. kernels - each kernel against its plain PyTorch version on the card at
                the shapes the paths give it (SD1.5 512², CFG batch 8 and
                4; SD3 1024², CFG batch 2, and its VAE; ragged tails), with
@@ -18,14 +19,19 @@ without the final `"ok": true` line:
                the wrapper's own launches included) and the kernel's
                single-call CUDA-event time (`wall_ms`, which also holds the
                host's part of the call). K9's prologue (K to int8):
-               codes and scales bit-equal. Float
+               codes and scales bit-equal, and per head (K9p) one device
+               launch per call and a second call bit-equal. Float
                kernels: max abs error against the plain version evaluated
                in fp32 on the same bf16 inputs (bounds 3e-2 attention, 2e-2
                norms, the bf16 bound of tests/test_ops.py; attention also
                within 2e-2 of its largest output, and the bound must be
                below the error of the plain version with one 32-key tile,
                the smallest the kernels use, left out), and the error
-               against the plain version in bf16. int8 epilogue kernels (GroupNorm,
+               against the plain version in bf16; K3 (GroupNorm, SiLU,
+               ReLU or none) also one device launch per call and a second
+               call bit-equal, and its statistics are K5's: on one fp32
+               tensor K3's output lies within one code step of K5's
+               dequantized codes. int8 epilogue kernels (GroupNorm,
                LayerNorm, GEGLU, tanh-GELU, row, AdaLN -> int8): scales
                within 1e-6 relative, codes at most 1 apart and at least
                99.9% equal, the share of equal codes printed, and a second
@@ -46,7 +52,12 @@ without the final `"ok": true` line:
   4. slice   - SD1.5 at full width (default configs, bf16, random weights
                from a seed) answers two 512² requests of batch 2 with 8 DDIM
                steps and CFG 9; checks the images, that every kernel of the
-               path was launched during the requests, and one CFG epsilon
+               path was launched during the requests, that request 1 again
+               under the profiler launches K3's and K9p's kernels once per
+               wrapper call and none of their parent designs' device
+               functions (`one_launch_per_call`; so do the int8, sd3 and
+               midas phases), that one CFG epsilon evaluation makes 88 K3
+               calls, and one CFG epsilon
                evaluation (t=999) against the same call on the plain ops
                (relative L2 <= 5e-2 over the uncond and cond outputs; the
                guided epsilon no farther from an fp32 evaluation than the
@@ -144,6 +155,9 @@ LAB_ITERS = 2  # timed iterations of each attention lab variant in `[labs]`
 PLAIN_ITERS = 5
 # MiDaS as `bench.py --config annotate --annotator midas` runs it
 MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
+# K3's calls per CFG epsilon evaluation of the SD1.5 bf16 step (ControlNet +
+# UNet): every GroupNorm of at least 2^18 elements
+SD15_K3_PER_STEP = 88
 # launches per DPT-Hybrid forward ("fused_group_norm.relu": K3's launches
 # with the ReLU epilogue, among its 52): 1 stem + 16 blocks x 3 + 3
 # downsample GroupNorms, 1 + 16 x 2 of them with ReLU; 12 ViT blocks
@@ -318,11 +332,13 @@ def kernel_cases(gen):
                           ((2 + out_bytes) * x.numel(), 0, 0), None))
     # K3 after the cases above (the first stays the headline): without SiLU
     # (the SpatialTransformer norm, the VAE attention norm), where one
-    # PyTorch call computes it, and at the SD3 VAE's shapes at 1024²
+    # PyTorch call computes it, at the SD3 VAE's shapes at 1024², and at an
+    # 8² site (latency)
     for shape, eps, mean, silu in (((8, 320, 64, 64), 1e-6, 0.0, False),
                                    ((1, 512, 128, 128), 1e-6, 0.0, False),
                                    ((1, 512, 128, 128), 1e-6, 0.0, True),
-                                   ((1, 128, 1024, 1024), 1e-6, 4.0, True)):
+                                   ((1, 128, 1024, 1024), 1e-6, 4.0, True),
+                                   ((8, 1280, 8, 8), 1e-5, 0.0, True)):
         x = bf16(randn(*shape) + mean).contiguous(memory_format=torch.channels_last)
         w, bb = affine(shape[1])
         lib = None if silu else (lambda x=x, w=w, bb=bb, eps=eps: F.group_norm(
@@ -330,6 +346,12 @@ def kernel_cases(gen):
         cases.append(("fused_group_norm", f"{shape} eps={eps} mean={mean} "
                       + ("silu" if silu else "no silu"), fused_group_norm,
                       (x, w, bb, 32, eps, silu), "float", NORM_BOUND, (4 * x.numel(), 0, 0), lib))
+    # K3 in fp32 at the widest SD1.5 site under the fp32 policy (8², C =
+    # 2560: two 16-byte vectors a thread)
+    x = randn(8, 2560, 8, 8).contiguous(memory_format=torch.channels_last)
+    cases.append(("fused_group_norm", "(8, 2560, 8, 8) eps=1e-05 mean=0.0 silu fp32",
+                  fused_group_norm, (x, *affine(2560), 32, 1e-5, True), "float", NORM_BOUND,
+                  (8 * x.numel(), 0, 0), None))
     # K3's ReLU epilogue at the MiDaS DPT-Hybrid backbone (batch 16 at 512²):
     # the stem's norm and stage 3's narrowest; no single PyTorch call
     # computes GroupNorm + ReLU
@@ -529,16 +551,7 @@ def phase_kernels(gen):
             msg = (f"dequantized max_abs_err={err}; scales within {scale_err} relative (bound "
                    f"{SCALE_REL_BOUND}), codes at most {code_diff} apart, {equal} equal "
                    f"(bound {CODES_EQUAL_BOUND})")
-            again = fn(*args)
-            extra["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in zip(out, again))
-            del again
-            msg += f"; repeat bit-equal {extra['repeat_bit_equal']}"
-            ok = (scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND
-                  and extra["repeat_bit_equal"])
-            if name in ONE_LAUNCH:
-                extra["launches_per_call"] = device_launches(lambda: fn(*args))
-                msg += f"; {extra['launches_per_call']} device launches per call (1 required)"
-                ok = ok and extra["launches_per_call"] == 1
+            ok = (scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND)
         elif kind == "exact" and isinstance(out, tuple):  # K9's prologue: codes and scales
             err = max((a.float() - r.float()).abs().max().item() for a, r in zip(out, ref))
             msg = f"codes and scales max_abs_err={err} (bit-equal required)"
@@ -570,9 +583,20 @@ def phase_kernels(gen):
             extra["err_vs_plain_bf16"] = (out.float() - ref_bf16.float()).abs().max().item()
             msg += f" err_vs_plain_bf16={extra['err_vs_plain_bf16']}"
             del ref_bf16
+        if kind == "quant" or name in ONE_LAUNCH:  # K5's, K3's and K9p's sums cross blocks
+            again = fn(*args)
+            pairs = zip(out, again) if isinstance(out, tuple) else ((out, again),)
+            extra["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
+            del again
+            msg += f"; repeat bit-equal {extra['repeat_bit_equal']}"
+            ok = ok and extra["repeat_bit_equal"]
+        if name in ONE_LAUNCH:
+            extra["launches_per_call"] = device_launches(lambda: fn(*args))
+            msg += f"; {extra['launches_per_call']} device launches per call (1 required)"
+            ok = ok and extra["launches_per_call"] == 1
         del out, ref
         t = time.perf_counter()
-        ms = device_ms(lambda: fn(*args))
+        ms = device_ms(lambda: fn(*args), launches=1 if name in ONE_LAUNCH else None)
         with plain_ops():
             plain_ms = device_ms(lambda: fn(*args), iters=PLAIN_ITERS, warmup=1)
         lib_ms = None if library is None else device_ms(library)
@@ -596,12 +620,40 @@ def phase_kernels(gen):
     return results
 
 
+def k3_k5_statistics(gen):
+    """K3 and K5 take their group statistics from one code path: on one
+    fp32 tensor at the SD1.5 64² site (SiLU), K3's output (fp32, so its
+    pre-cast value) lies within one code step of K5's dequantized codes,
+    and rounding it by K5's scale gives K5's codes (printed: the share)."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import (
+        fused_group_norm,
+        fused_group_norm_quant,
+    )
+
+    x = torch.randn((8, 320, 64, 64), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    w = 1 + 0.1 * torch.randn(320, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(320, generator=gen, device="cuda")
+    y = fused_group_norm(x, w, b, 32, 1e-5, True)
+    q, s = fused_group_norm_quant(x, w, b, 32, 1e-5, True)
+    step = s.view(-1, 1, 1, 1)
+    steps = ((y - q.float() * step).abs() / step).max().item()
+    same = (torch.clamp(torch.round(y / step), -127, 127) == q.float()).float().mean().item()
+    log(f"[kernels] K3 vs K5 on one fp32 (8,320,64,64) tensor, SiLU: K3's output within "
+        f"{steps} code steps of K5's dequantized codes (bound 1); rounded by K5's scale it "
+        f"gives K5's codes for {same} of the values")
+    check(steps <= 1.0, f"K3's statistics are not K5's: {steps} code steps apart")
+    return {"max_code_steps": steps, "codes_equal": same}
+
+
 KERNELS = {  # name -> (route, source, TPU kernel it replaces)
     "flash_attention_packed": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
                                "prompt_diffusion_tpu/ops/flash_attention.py:322"),
     "flash_attention": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
                         "prompt_diffusion_tpu/ops/flash_attention.py:163"),
-    "fused_group_norm": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_norms.py",
+    "fused_group_norm": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/gn_quant.cu",
                          "prompt_diffusion_tpu/ops/fused_group_norm.py:128"),
     "fused_layer_norm": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_norms.py",
                          "prompt_diffusion_tpu/ops/fused_layer_norm.py:90"),
@@ -642,17 +694,24 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
 # kernels whose wrapper must issue exactly one device launch per call (no
 # cast or copy of its inputs), counted in a profiler trace in `[kernels]`
 ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
-              "fused_group_norm_quant", "fused_layer_norm_quant", "fused_quant_rows")
+              "fused_group_norm_quant", "fused_layer_norm_quant", "fused_quant_rows",
+              "fused_group_norm", "quant_k_int8")
 # the device functions a wrapper launches, where it launches more than one
 # (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
 # split-K sum and epilogue where its plan splits K)
 DEVICE_FUNCTIONS = {
     "conv3x3_int8": ("conv3x3_int8_kernel", "splitk_epilogue_kernel"),
     "conv3x3_int8_xshift": ("conv3x3_int8_xshift_kernel", "splitk_epilogue_kernel"),
-    "flash_attention_packed_int8": ("k_amax_kernel", "k_codes_kernel", "int8_attn_kernel"),
-    "flash_attention_packed_int8_rowk": ("k_codes_kernel", "int8_attn_kernel"),
-    "quant_k_int8": ("k_amax_kernel", "k_codes_kernel"),
+    "flash_attention_packed_int8": ("k_head_quant_kernel", "int8_attn_kernel"),
+    "flash_attention_packed_int8_rowk": ("k_row_codes_kernel", "int8_attn_kernel"),
+    "quant_k_int8": ("k_head_quant_kernel", "k_row_codes_kernel"),
 }
+# on the paths: each call of these wrappers is one launch of its device
+# function, and no device function of their parent designs runs
+# (`one_launch_per_call`)
+PATH_ONE_LAUNCH = {"fused_group_norm": "gn_float_kernel", "quant_k_int8": "k_head_quant_kernel"}
+PARENT_FUNCTIONS = ("gn_stats_kernel", "gn_combine_kernel", "gn_apply_kernel", "k_amax_kernel",
+                    "k_codes_kernel")
 # further TPU kernels a kernel stands for: the lab kernels that compute the
 # same function as one above
 ALSO_REPLACES = {
@@ -728,6 +787,38 @@ def read_launches(counted):
     launches = {name: w.launches for name, w in counted.items()}
     launches["fused_group_norm.relu"] = counted["fused_group_norm"].relu_launches
     return launches
+
+
+def one_launch_per_call(tag, fn):
+    """Runs `fn` under the profiler: each call of a PATH_ONE_LAUNCH wrapper
+    made during the run is one launch of its device function, and no
+    device function of the parent designs runs (a trace that lost
+    activities is taken again, up to `timing.PROFILE_TRIES` runs in all).
+    Returns (fn's result, the launches of the run)."""
+    from prompt_diffusion_tpu_torch.tools.timing import (
+        PROFILE_TRIES,
+        device_kernels,
+        device_trace,
+    )
+
+    for attempt in range(PROFILE_TRIES):
+        counted = reset_launches()
+        with device_trace() as prof:
+            out = fn()
+        launches = read_launches(counted)
+        names = [name for name, _, _ in device_kernels(prof)]
+        found = {w: sum(f in n for n in names) for w, f in PATH_ONE_LAUNCH.items()}
+        parents = sorted({n for n in names if any(f in n for f in PARENT_FUNCTIONS)})
+        if all(found[w] == launches[w] for w in found) or attempt == PROFILE_TRIES - 1:
+            break
+    log(f"[{tag}] under the profiler: " + ", ".join(
+        f"{w} {launches[w]} calls, {found[w]} launches of {f}" for w, f in PATH_ONE_LAUNCH.items())
+        + f"; device functions of the parent designs: {parents or 'none'}")
+    for w, f in PATH_ONE_LAUNCH.items():
+        check(found[w] == launches[w], f"[{tag}] {w}: {launches[w]} calls but {found[w]} "
+                                       f"launches of {f}")
+    check(not parents, f"[{tag}] the parent designs ran: {parents}")
+    return out, launches
 
 
 def twin(pipe, policy):
@@ -840,6 +931,11 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
     check(torch.equal(img1, img1b), "request 1 with the same generator gave other images")
     log(f"[{tag}] images {tuple(img1.shape)} finite in [0,1]; requests differ; "
         f"request 1 repeated bit-exactly in {s1b:.3f}s; std {img1.float().std().item():.4f}")
+    (img1c, _), again = one_launch_per_call(tag, lambda: answer(0))
+    check(torch.equal(img1, img1c), "request 1 under the profiler gave other images")
+    for name in PATH_ONE_LAUNCH:
+        check(2 * again[name] == launches[name],
+              f"[{tag}] {name}: {again[name]} calls in request 1, {launches[name]} in two")
 
     if tag == "int8":
         int8_block_checks(pipe)
@@ -855,6 +951,13 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
     rel = lambda a, b: ((a - b).norm() / b.norm()).item()
     with torch.no_grad():
         kern = {gs: f(x, t) for gs, f in eps_fns.items()}
+        if tag == "slice":
+            counted = reset_launches()
+            eps_fns[CFG](x, t)
+            per_step = read_launches(counted)["fused_group_norm"]
+            log(f"[slice] K3 calls per CFG epsilon evaluation: {per_step} (expected "
+                f"{SD15_K3_PER_STEP})")
+            check(per_step == SD15_K3_PER_STEP, f"[slice] {per_step} K3 calls per step")
         with plain_ops():
             plain = {gs: f(x, t) for gs, f in eps_fns.items()}
             ref = twin(pipe, ref_policy)
@@ -1033,6 +1136,11 @@ def phase_sd3(seed=0):
     check(torch.equal(img1, img1b), "request 1 with the same generator gave other images")
     log(f"[sd3] images {tuple(img1.shape)} finite in [0,1]; requests differ; request 1 "
         f"repeated bit-exactly in {s1b:.3f}s; std {img1.float().std().item():.4f}")
+    (img1c, _), again = one_launch_per_call("sd3", lambda: answer(0))
+    check(torch.equal(img1, img1c), "request 1 under the profiler gave other images")
+    for name in PATH_ONE_LAUNCH:
+        check(2 * again[name] == launches[name],
+              f"[sd3] {name}: {again[name]} calls in request 1, {launches[name]} in two")
 
     sd3_block_checks(pipe)
 
@@ -1216,6 +1324,8 @@ def phase_midas(card, seed=0):
                 f"{seconds[0]:.4f} s); peak device memory {peak_gib:.2f} GiB; launches "
                 f"{ {k: launches[k] for k in MIDAS_PER_FORWARD[tag]} }")
             _check_per_forward(tag, launches, MIDAS_BATCHES)
+            _, again = one_launch_per_call(tag, lambda: annotate(m, batches[0]))
+            _check_per_forward(tag, again, 1)
             for depth, d01, normals, _ in outs:
                 check(tuple(depth.shape) == (MIDAS_BATCH, MIDAS_SIZE, MIDAS_SIZE)
                       and tuple(normals.shape) == (MIDAS_BATCH, MIDAS_SIZE, MIDAS_SIZE, 3),
@@ -1354,6 +1464,7 @@ def main():
         f"(Triton compile included) {time.perf_counter() - t0 - nvcc_s:.1f}s")
 
     results = phase_kernels(gen)
+    k3_k5 = k3_k5_statistics(gen)
     paths = phase_path("slice", default_policy(), False, fp32_policy())
     paths.update(phase_path("int8", int8_policy(), True,
                             DTypePolicy(compute_dtype=torch.float32, quant="int8"),
@@ -1389,6 +1500,7 @@ def main():
             also["relu_launches"] = sum(launches["fused_group_norm.relu"]
                                         for launches, _ in paths.values()
                                         if "fused_group_norm.relu" in launches)
+            also["k5_statistics"] = k3_k5
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         **also, "launches": sum(by_path.values()), "launches_by_path": by_path,
                         "max_abs_err": max(c["max_abs_err"] for c in cases),

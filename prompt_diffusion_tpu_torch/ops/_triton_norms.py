@@ -1,9 +1,12 @@
-"""Triton kernels of the GroupNorm (K3) and LayerNorm (K4) ports.
+"""Triton kernels of the LayerNorm port (K4) and of K3's parent design.
 
-This module imports `triton` at its top, so only the launchers in
-`fused_group_norm.py` and `fused_layer_norm.py` import it, inside the
-function that launches, on the card. All three GroupNorm programs read and
-write C-contiguous (B, HW, C) memory: an NCHW tensor in channels_last.
+This module imports `triton` at its top, so only the launcher in
+`fused_layer_norm.py` and `tools/quant_tune.py` import it, inside the
+function that launches, on the card. The three GroupNorm programs (stats,
+combine, apply; C-contiguous (B, HW, C) memory, an NCHW tensor in
+channels_last) are K3's design before `csrc/gn_quant.cu::gn_float_kernel`
+took its place; no wrapper launches them, only `quant_tune --part time`
+(K3's and K5's parents).
 """
 
 import triton

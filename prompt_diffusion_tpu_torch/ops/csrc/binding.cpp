@@ -30,9 +30,13 @@ extern "C" int pd_conv3x3_int8_xshift(const void* x, const void* w, const void* 
                                       int batch, int h, int wd, int cin, int cout,
                                       int out_bf16, int vec, int block_m, int splits,
                                       int per_split, void* stream);
-extern "C" int pd_int8_quant_k(const void* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
-                               int nk, int d, int row_k, void* amax, void* sk, void* codes,
-                               void* stream);
+extern "C" int pd_int8_quant_k_occupancy(int d, int threads);
+extern "C" int pd_int8_quant_k_head(const void* k, int64_t k_sb, int64_t k_sn, int batch,
+                                    int heads, int nk, int d, int rows, int threads, int bps,
+                                    void* ws, void* sk, void* codes, void* stream);
+extern "C" int pd_int8_quant_k_rows(const void* k, int64_t k_sb, int64_t k_sn, int batch,
+                                    int heads, int nk, int d, void* sk, void* codes,
+                                    void* stream);
 extern "C" int pd_int8_attention_fwd(
     const void* q, const void* k, const void* sk, int row_k, const void* v, void* o,
     int batch, int heads, int nq, int nk, int d,
@@ -49,6 +53,11 @@ extern "C" int pd_gn_quant(const void* x, int x_bf16, const void* gamma, const v
                            void* codes, void* scales, void* ws, int batch, int hw, int c,
                            int groups, float eps, int silu, int k, int rows, int threads,
                            int chunks, int bps, void* stream);
+extern "C" int pd_gn_float_occupancy(int x_bf16, int k, int act, int threads, int smem);
+extern "C" int pd_gn_float(const void* x, int x_bf16, const void* gamma, const void* beta,
+                           void* y, void* ws, int batch, int hw, int c, int groups, float eps,
+                           int act, int k, int rows, int threads, int chunks, int bps,
+                           void* stream);
 
 namespace {
 
@@ -85,12 +94,25 @@ void conv3x3_int8(uintptr_t x, uintptr_t w, uintptr_t s_a, uintptr_t s_w, uintpt
   }
 }
 
-void int8_quant_k(uintptr_t k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk, int d,
-                  bool row_k, uintptr_t amax, uintptr_t sk, uintptr_t codes, uintptr_t stream) {
-  const int err = pd_int8_quant_k(ptr(k), k_sb, k_sn, batch, heads, nk, d, row_k ? 1 : 0,
-                                  ptr(amax), ptr(sk), ptr(codes), ptr(stream));
+int int8_quant_k_occupancy(int d, int threads) { return pd_int8_quant_k_occupancy(d, threads); }
+
+void int8_quant_k_head(uintptr_t k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk,
+                       int d, int rows, int threads, int bps, uintptr_t ws, uintptr_t sk,
+                       uintptr_t codes, uintptr_t stream) {
+  const int err = pd_int8_quant_k_head(ptr(k), k_sb, k_sn, batch, heads, nk, d, rows, threads,
+                                       bps, ptr(ws), ptr(sk), ptr(codes), ptr(stream));
   if (err != 0) {
-    throw std::runtime_error(std::string("int8_quant_k launch failed: ") +
+    throw std::runtime_error(std::string("int8_quant_k_head launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
+void int8_quant_k_rows(uintptr_t k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk,
+                       int d, uintptr_t sk, uintptr_t codes, uintptr_t stream) {
+  const int err = pd_int8_quant_k_rows(ptr(k), k_sb, k_sn, batch, heads, nk, d, ptr(sk),
+                                       ptr(codes), ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("int8_quant_k_rows launch failed: ") +
                              pd_cuda_error_string(err));
   }
 }
@@ -141,6 +163,22 @@ void gn_quant(uintptr_t x, bool x_bf16, uintptr_t gamma, uintptr_t beta, uintptr
   }
 }
 
+int gn_float_occupancy(bool x_bf16, int k, int act, int threads, int smem) {
+  return pd_gn_float_occupancy(x_bf16 ? 1 : 0, k, act, threads, smem);
+}
+
+void gn_float(uintptr_t x, bool x_bf16, uintptr_t gamma, uintptr_t beta, uintptr_t y,
+              uintptr_t ws, int batch, int hw, int c, int groups, double eps, int act, int k,
+              int rows, int threads, int chunks, int bps, uintptr_t stream) {
+  const int err = pd_gn_float(ptr(x), x_bf16 ? 1 : 0, ptr(gamma), ptr(beta), ptr(y), ptr(ws),
+                              batch, hw, c, groups, static_cast<float>(eps), act, k, rows,
+                              threads, chunks, bps, ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("gn_float launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -152,9 +190,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "(bias pointer 0 = no bias; tiles of block_m pixels; splits > 1: split-K over a "
         "(splits, M, Cout) int32 workspace ws, per_split ring stages each; xshift = the "
         "staged-halo variant)");
-  m.def("int8_quant_k", &int8_quant_k,
-        "K9's prologue: packed bf16 K (B, N, H*D) -> contiguous int8 codes and fp32 scales, "
-        "(B, H) per head (amax: a (B, H) scratch buffer) or (B, H, N) per key row with row_k");
+  m.def("int8_quant_k_occupancy", &int8_quant_k_occupancy,
+        "K9p: blocks per SM of the per-head K quantization at head dim d and `threads` "
+        "threads (negative: a CUDA error)");
+  m.def("int8_quant_k_head", &int8_quant_k_head,
+        "K9p: packed bf16 K (B, N, H*D) -> contiguous int8 codes and (B, H) fp32 scales, one "
+        "cooperative launch; the plan of ops/flash_attention.py::quant_k_plan");
+  m.def("int8_quant_k_rows", &int8_quant_k_rows,
+        "The lab's per-row K quantization: packed bf16 K (B, N, H*D) -> contiguous int8 codes "
+        "and (B, H, N) fp32 scales");
   m.def("int8_attention_fwd", &int8_attention_fwd,
         "int8-QK^T attention forward over packed (B, N, H*D) tensors: bf16 Q and V, "
         "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k; block_q 64 or 128");
@@ -168,4 +212,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("gn_quant", &gn_quant,
         "K5: GroupNorm(+SiLU) of (B, HW, C) -> int8 codes and one fp32 scale per sample, one "
         "cooperative launch; the plan of ops/gn_quant.py::gn_plan");
+  m.def("gn_float_occupancy", &gn_float_occupancy,
+        "K3: blocks per SM of the GroupNorm kernel <bf16, k, act> at `threads` threads and "
+        "`smem` bytes of dynamic shared memory (negative: a CUDA error)");
+  m.def("gn_float", &gn_float,
+        "K3: GroupNorm (+SiLU: act 1, +ReLU: act 2) of (B, HW, C) in x's dtype, one "
+        "cooperative launch; the plan of ops/gn_quant.py::gn_float_plan");
 }

@@ -23,15 +23,26 @@
 // and l agree with the full-row order up to the exponential's rounding, and
 // bf16(P) differs by at most one bf16 step where the maximum later moved.
 //
-// The prologue (`k_amax_kernel`, `k_codes_kernel`) is the K quantization
-// that the JAX package computes in XLA in the same Python function
+// The prologue (`k_head_quant_kernel`, K9p) is the K quantization that the
+// JAX package computes in XLA in the same Python function
 // (`flash_attention.py:391-394`): skh[b, h] = max(amax / 127, 1e-8) over
-// the head's (Nk, D) values, codes rint(k / skh) clipped to +-127. Two
-// launches: the amax, by warp reductions and one atomicMax on the bits of
-// a non-negative float per block into a zeroed (B, H) buffer; then the
-// codes, written contiguous (B, Nk, H*D) whatever K's strides, so the
-// attention kernel's 16-byte copies of K work on the ViT's qkv column
-// slices too. Both are bit-equal to `_quant_k_per_head`.
+// the head's (Nk, D) values, codes rint(k / skh) clipped to +-127, written
+// contiguous (B, Nk, H*D) whatever K's strides, so the attention kernel's
+// 16-byte copies of K work on the ViT's qkv column slices too. Bound by
+// bytes: one read of bf16 K and one write of its codes, 0.0122 ms at the
+// SD3 joint shape (B 2, N 4429, H*D 1536). One cooperative launch of an
+// all-resident grid (`quant_k_plan` in ops/flash_attention.py), K5's
+// pattern over (batch, head) instead of (sample, group): block j of
+// sample b owns a contiguous range of its key rows, thread (r, v) vector v
+// (8 values of head v / (D/8)) of rows r, r + R, ...; each block writes its
+// |k| amax per head to its workspace slot (no atomic, no zeroed buffer);
+// one grid barrier; each block takes the max of its sample's slots per head
+// (a max: the same bits in any order), forms skh by IEEE division, and
+// writes the codes of its rows, re-read from L2 (the SD3 K is 27 MB), with
+// the quotient k * (1/skh) and one FMA correction (`rq::quotient`, equal
+// to __fdiv_rn). Codes and scales are bit-equal to `_quant_k_per_head`.
+// The per-row mode of the lab (`k_row_codes_kernel`) is one plain launch:
+// a row's scale is a shuffle across the D/8 lanes that hold it.
 //
 // What bounds it on the H100 (`tools/timing.py::roofline`): at the SD3
 // joint shape (B 2, N 4429, H 24, D 64) the 0.94 G exponentials, ~0.24 ms
@@ -72,24 +83,31 @@
 //     warps.
 //
 // ROWK mode: tools/attn_int8_lab.py's v2 (`_kernel_v2`), K quantized per
-// (batch, key row, head) by the prologue's codes kernel (sk (B, H, Nk)); the
+// (batch, key row, head) by `k_row_codes_kernel` (sk (B, H, Nk)); the
 // logits are f32(s32) * (sq[i] * sk[j]) * scale in that order, so the row
 // maximum is taken over the scaled logits. The block stages the key tile's
 // BK scales beside the codes; everything else is K9's. The lab's v3
 // (`_kernel_v3`, per-head scales) is K9 itself.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "quant_common.cuh"
 
 namespace {
 
 constexpr int BK = 64;   // keys per tile
 constexpr int NST = 2;   // stages of the K/V ring
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int QK_THREADS = 256;  // threads of a prologue block
-constexpr int AMAX_ROWS = 128;   // key rows per amax block
+constexpr int QK_THREADS = 256;      // threads of a per-row codes block
+constexpr int HQ_MAX_THREADS = 512;  // threads of a K9p block, at most
+constexpr int HQ_MAX_HEADS = 128;    // H * D / 8 <= HQ_MAX_THREADS at D = 32
+constexpr int HQ_UNROLL = 4;         // key rows a K9p thread loads at once
+constexpr int HQ_MERGE_LOADS = 8;    // block amaxes a K9p thread loads at once in the merge
 
 struct Params {
   const __nv_bfloat16* q;  // (B, Nq, H*D)
@@ -496,50 +514,137 @@ __device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
   }
 }
 
-// amax[b * H + h] = max |k| over rows [r0, r0 + AMAX_ROWS) of one head,
-// folded into the zeroed buffer by atomicMax on the float's bits (the
-// order of non-negative floats is that of their bits as integers)
+// K9p: K's per-head quantization (see the top of the file). Block blk =
+// b * bps + j owns key rows [j nk / bps, (j + 1) nk / bps) of sample b.
+struct HeadQuantParams {
+  const __nv_bfloat16* k;  // (B, Nk, H*D), element strides k_sb, k_sn
+  int64_t k_sb, k_sn;
+  int heads, nk;
+  int cv, rows, bps;  // 16-byte vectors per key row; rows in flight; blocks per sample
+  float* ws;          // grid * heads block amaxes
+  float* sk;          // (B, H)
+  int8_t* codes;      // (B, Nk, H*D), contiguous
+};
+
+// the int8 code of x at scale s (r = 1/s): clip(rint(x / s), -127, 127)
+// with the IEEE quotient
+__device__ __forceinline__ uint32_t code8r(float x, float s, float r) {
+  const float c = fminf(fmaxf(rintf(rq::quotient(x, s, r)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(c)) & 0xffu;
+}
+
 template <int D>
-__global__ void __launch_bounds__(QK_THREADS) k_amax_kernel(const __nv_bfloat16* k, int64_t k_sb,
-                                                            int64_t k_sn, int heads, int nk,
-                                                            float* amax) {
-  constexpr int CH = D / 8;  // 16-byte chunks of a head's row
-  __shared__ float part[QK_THREADS / 32];
-  const int bh = blockIdx.y;
-  const int b = bh / heads, h = bh % heads;
-  const int r0 = blockIdx.x * AMAX_ROWS;
-  const int rows = min(AMAX_ROWS, nk - r0);
-  const __nv_bfloat16* kb = k + b * k_sb + h * D;
-  float mx = 0.f;
-  for (int i = threadIdx.x; i < rows * CH; i += QK_THREADS) {
-    float x[8];
-    load8(x, kb + (int64_t)(r0 + i / CH) * k_sn + (i % CH) * 8);
-    mx = fmaxf(mx, abs_max8(x));
-  }
+__global__ void __launch_bounds__(HQ_MAX_THREADS) k_head_quant_kernel(const HeadQuantParams p) {
+  constexpr int CH = D / 8;  // vectors of one head's row
+  __shared__ float red[HQ_MAX_THREADS];
+  __shared__ float s_skh[HQ_MAX_HEADS], s_rcp[HQ_MAX_HEADS];
+  const int nt = blockDim.x, t = threadIdx.x;
+  const int H = p.heads, R = p.rows;
+  const int v = t % p.cv, r = t / p.cv;
+  const bool active = r < R;  // the threads past cv * rows only join the reductions
+  const int blk = blockIdx.x, b = blk / p.bps, j = blk % p.bps;
+  const int n0 = static_cast<int>((int64_t)j * p.nk / p.bps);
+  const int n1 = static_cast<int>((int64_t)(j + 1) * p.nk / p.bps);
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + v * 8;
+  auto load = [&](int n, uint4 (&raw)[HQ_UNROLL]) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = mx;
+    for (int u = 0; u < HQ_UNROLL; ++u) {
+      const int m = n + u * R;
+      raw[u] = m < n1 ? __ldg(reinterpret_cast<const uint4*>(kb + (int64_t)m * p.k_sn))
+                      : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  // the block's |k| amax per head: per thread, then its rows and the CH
+  // vectors of each head
+  float mx = 0.f;
+  for (int n = n0 + r; active && n < n1; n += HQ_UNROLL * R) {
+    uint4 raw[HQ_UNROLL];
+    load(n, raw);
+#pragma unroll
+    for (int u = 0; u < HQ_UNROLL; ++u) {
+      float x[8];
+      Vec<__nv_bfloat16>::unpack(raw[u], x);  // zero-filled past the rows: |0| changes no max
+      mx = fmaxf(mx, abs_max8(x));
+    }
+  }
+  red[t] = mx;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < QK_THREADS / 32; ++w) mx = fmaxf(mx, part[w]);
-    atomicMax(reinterpret_cast<int*>(amax) + bh, __float_as_int(mx));
+  for (int h = t; h < H; h += nt) {
+    float m = 0.f;
+    for (int rr = 0; rr < R; ++rr) {
+      for (int c = 0; c < CH; ++c) m = fmaxf(m, red[rr * p.cv + h * CH + c]);
+    }
+    p.ws[(int64_t)blk * H + h] = m;
+  }
+  cooperative_groups::this_grid().sync();
+
+  // the sample's amax per head over its blocks, nl lanes a head (thread
+  // (l, h) takes blocks l, l + nl, ...; neighbouring threads read
+  // neighbouring slots), then the lanes; the scale by IEEE division
+  const int nl = max(1, nt / H);
+  for (int i = t; i < nl * H; i += nt) {
+    const int h = i % H, l = i / H;
+    float m = 0.f;
+    for (int j0 = l; j0 < p.bps; j0 += HQ_MERGE_LOADS * nl) {  // loads issued together
+      float q[HQ_MERGE_LOADS];
+#pragma unroll
+      for (int u = 0; u < HQ_MERGE_LOADS; ++u) {
+        const int jj = j0 + u * nl;
+        q[u] = jj < p.bps ? p.ws[((int64_t)b * p.bps + jj) * H + h] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < HQ_MERGE_LOADS; ++u) m = fmaxf(m, q[u]);
+    }
+    red[i] = m;
+  }
+  __syncthreads();
+  for (int h = t; h < H; h += nt) {
+    float m = 0.f;
+    for (int l = 0; l < nl; ++l) m = fmaxf(m, red[l * H + h]);
+    const float s = fmaxf(__fdiv_rn(m, 127.f), 1e-8f);
+    s_skh[h] = s;
+    s_rcp[h] = __frcp_rn(s);
+    if (j == 0) p.sk[b * H + h] = s;
+  }
+  __syncthreads();
+
+  // the codes of the block's rows, 8 bytes a thread and row
+  const float s = s_skh[v / CH], rcp = s_rcp[v / CH];
+  int8_t* out = p.codes + (int64_t)b * p.nk * (H * D) + v * 8;
+  for (int n = n0 + r; active && n < n1; n += HQ_UNROLL * R) {
+    uint4 raw[HQ_UNROLL];
+    load(n, raw);
+#pragma unroll
+    for (int u = 0; u < HQ_UNROLL; ++u) {
+      const int m = n + u * R;
+      if (m < n1) {
+        float x[8];
+        Vec<__nv_bfloat16>::unpack(raw[u], x);
+        uint2 w;
+        w.x = code8r(x[0], s, rcp) | (code8r(x[1], s, rcp) << 8) | (code8r(x[2], s, rcp) << 16) |
+              (code8r(x[3], s, rcp) << 24);
+        w.y = code8r(x[4], s, rcp) | (code8r(x[5], s, rcp) << 8) | (code8r(x[6], s, rcp) << 16) |
+              (code8r(x[7], s, rcp) << 24);
+        *reinterpret_cast<uint2*>(out + (int64_t)m * (H * D)) = w;
+      }
+    }
   }
 }
 
-// The codes of 8 values a thread, written contiguous (B, Nk, H*D). Per
-// head: skh = max(amax / 127, 1e-8), stored once per (batch, head) into
-// sk (B, H). ROWK: the amax of the row's D values over the D/8 lanes that
-// hold them, stored into sk (B, H, Nk).
-template <int D, bool ROWK>
-__global__ void __launch_bounds__(QK_THREADS) k_codes_kernel(const __nv_bfloat16* k, int64_t k_sb,
-                                                             int64_t k_sn, int batch, int heads,
-                                                             int nk, const float* amax, float* sk,
-                                                             int8_t* codes) {
+// The lab's per-row mode: the codes of 8 values a thread, written
+// contiguous (B, Nk, H*D), and the row's scale, the amax of its D values
+// over the D/8 lanes that hold them, into sk (B, H, Nk).
+template <int D>
+__global__ void __launch_bounds__(QK_THREADS) k_row_codes_kernel(const __nv_bfloat16* k,
+                                                                 int64_t k_sb, int64_t k_sn,
+                                                                 int batch, int heads, int nk,
+                                                                 float* sk, int8_t* codes) {
   constexpr int CH = D / 8;  // lanes of one head's row; divides 32
   const int64_t row_ch = (int64_t)heads * CH;
   const int64_t total = (int64_t)batch * nk * row_ch;
   const int64_t i = (int64_t)blockIdx.x * QK_THREADS + threadIdx.x;
-  const bool live = i < total;  // whole warps stay on for the ROWK shuffles
+  const bool live = i < total;  // whole warps stay on for the shuffles
   const int64_t ii = live ? i : 0;
   const int b = static_cast<int>(ii / (nk * row_ch));
   const int64_t rem = ii - (int64_t)b * nk * row_ch;
@@ -548,19 +653,13 @@ __global__ void __launch_bounds__(QK_THREADS) k_codes_kernel(const __nv_bfloat16
   const int h = c / CH;
   float x[8];
   load8(x, k + b * k_sb + (int64_t)n * k_sn + c * 8);
-  float s;
-  if (ROWK) {
-    float mx = abs_max8(x);
+  float mx = abs_max8(x);
 #pragma unroll
-    for (int off = CH / 2; off > 0; off >>= 1) {
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    }
-    s = fmaxf(__fdiv_rn(mx, 127.f), 1e-8f);
-    if (live && c % CH == 0) sk[((int64_t)b * heads + h) * nk + n] = s;
-  } else {
-    s = fmaxf(__fdiv_rn(amax[b * heads + h], 127.f), 1e-8f);
-    if (live && n == 0 && c % CH == 0) sk[b * heads + h] = s;
+  for (int off = CH / 2; off > 0; off >>= 1) {
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   }
+  const float s = fmaxf(__fdiv_rn(mx, 127.f), 1e-8f);
+  if (live && c % CH == 0) sk[((int64_t)b * heads + h) * nk + n] = s;
   if (!live) return;
   uint2 out;
   out.x = code8(x[0], s) | (code8(x[1], s) << 8) | (code8(x[2], s) << 16) | (code8(x[3], s) << 24);
@@ -591,51 +690,89 @@ int launch_d(const Params& p, int batch, int d, cudaStream_t s) {
   }
 }
 
-template <int D>
-int quant_k(const __nv_bfloat16* k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk,
-            bool row_k, float* amax, float* sk, int8_t* codes, cudaStream_t s) {
-  if (!row_k) {
-    cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * batch * heads, s);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid((nk + AMAX_ROWS - 1) / AMAX_ROWS, batch * heads);
-    k_amax_kernel<D><<<grid, QK_THREADS, 0, s>>>(k, k_sb, k_sn, heads, nk, amax);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+void* head_quant_kernel(int d) {
+  switch (d) {
+    case 32: return reinterpret_cast<void*>(k_head_quant_kernel<32>);
+    case 64: return reinterpret_cast<void*>(k_head_quant_kernel<64>);
+    case 128: return reinterpret_cast<void*>(k_head_quant_kernel<128>);
+    default: return nullptr;
   }
+}
+
+template <int D>
+int quant_k_rows(const __nv_bfloat16* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
+                 int nk, float* sk, int8_t* codes, cudaStream_t s) {
   const int64_t chunks = (int64_t)batch * nk * heads * (D / 8);
   const unsigned blocks = static_cast<unsigned>((chunks + QK_THREADS - 1) / QK_THREADS);
-  if (row_k) {
-    k_codes_kernel<D, true><<<blocks, QK_THREADS, 0, s>>>(k, k_sb, k_sn, batch, heads, nk, amax,
-                                                          sk, codes);
-  } else {
-    k_codes_kernel<D, false><<<blocks, QK_THREADS, 0, s>>>(k, k_sb, k_sn, batch, heads, nk, amax,
-                                                           sk, codes);
-  }
+  k_row_codes_kernel<D><<<blocks, QK_THREADS, 0, s>>>(k, k_sb, k_sn, batch, heads, nk, sk, codes);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K9's prologue, on `stream`; returns the first launch's cudaError_t (0 =
-// queued). Packed bf16 K (B, Nk, H*D) with element strides k_sb, k_sn and
-// 16-byte aligned rows -> int8 codes (B, Nk, H*D), contiguous, and fp32
-// scales: (B, H) per head (with `amax`, a (B, H) scratch buffer that the
-// call zeroes), or (B, H, Nk) per key row when `row_k` is set.
-extern "C" int pd_int8_quant_k(const void* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
-                               int nk, int d, int row_k, void* amax, void* sk, void* codes,
-                               void* stream) {
-  if (nk <= 0 || batch <= 0 || heads <= 0 || (int64_t)batch * heads > 65535) {
+// Blocks of `threads` threads that one SM holds at once for K9p at head
+// dimension d; negative: a CUDA error.
+extern "C" int pd_int8_quant_k_occupancy(int d, int threads) {
+  void* kernel = head_quant_kernel(d);
+  if (kernel == nullptr || threads < 1 || threads > HQ_MAX_THREADS) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                                        threads, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// K9p on `stream`: returns the launch's cudaError_t (0 = queued). Packed
+// bf16 K (B, Nk, H*D) with element strides k_sb, k_sn and 16-byte aligned
+// rows -> int8 codes (B, Nk, H*D), contiguous, and fp32 scales (B, H); ws:
+// batch * bps * heads floats. The plan (key rows in flight, threads per
+// block, blocks per sample) comes from `quant_k_plan`; its grid of batch *
+// bps blocks must be resident at once (the cooperative launch refuses it
+// otherwise).
+extern "C" int pd_int8_quant_k_head(const void* k, int64_t k_sb, int64_t k_sn, int batch,
+                                    int heads, int nk, int d, int rows, int threads, int bps,
+                                    void* ws, void* sk, void* codes, void* stream) {
+  void* kernel = head_quant_kernel(d);
+  const int cv = d > 0 ? heads * d / 8 : 0;
+  if (kernel == nullptr || nk <= 0 || batch <= 0 || heads <= 0 || heads > HQ_MAX_HEADS ||
+      rows < 1 || threads < cv * rows || threads % 32 != 0 || threads > HQ_MAX_THREADS ||
+      bps < 1 || bps > nk || (int64_t)batch * bps > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  HeadQuantParams p;
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.k_sb = k_sb;
+  p.k_sn = k_sn;
+  p.heads = heads;
+  p.nk = nk;
+  p.cv = cv;
+  p.rows = rows;
+  p.bps = bps;
+  p.ws = static_cast<float*>(ws);
+  p.sk = static_cast<float*>(sk);
+  p.codes = static_cast<int8_t*>(codes);
+  void* args[] = {&p};
+  return static_cast<int>(cudaLaunchCooperativeKernel(kernel, dim3(batch * bps), dim3(threads),
+                                                      args, 0,
+                                                      static_cast<cudaStream_t>(stream)));
+}
+
+// The lab's per-row K quantization, on `stream`; returns the launch's
+// cudaError_t (0 = queued). Packed bf16 K as K9p's -> int8 codes (B, Nk,
+// H*D), contiguous, and fp32 scales (B, H, Nk).
+extern "C" int pd_int8_quant_k_rows(const void* k, int64_t k_sb, int64_t k_sn, int batch,
+                                    int heads, int nk, int d, void* sk, void* codes,
+                                    void* stream) {
+  if (nk <= 0 || batch <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  auto* am = static_cast<float*>(amax);
   auto* skp = static_cast<float*>(sk);
   auto* cp = static_cast<int8_t*>(codes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return quant_k<32>(kp, k_sb, k_sn, batch, heads, nk, row_k, am, skp, cp, s);
-    case 64: return quant_k<64>(kp, k_sb, k_sn, batch, heads, nk, row_k, am, skp, cp, s);
-    case 128: return quant_k<128>(kp, k_sb, k_sn, batch, heads, nk, row_k, am, skp, cp, s);
+    case 32: return quant_k_rows<32>(kp, k_sb, k_sn, batch, heads, nk, skp, cp, s);
+    case 64: return quant_k_rows<64>(kp, k_sb, k_sn, batch, heads, nk, skp, cp, s);
+    case 128: return quant_k_rows<128>(kp, k_sb, k_sn, batch, heads, nk, skp, cp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,6 @@
-// Helpers shared by the int8 epilogue kernels (row_quant.cu, gn_quant.cu):
-// 16-byte vectors of bf16 or fp32 values, and the IEEE quotient, rint and
-// byte packing of the int8 codes.
+// Helpers shared by the int8 epilogue kernels (row_quant.cu, gn_quant.cu) and
+// K9's prologue (int8_attention.cu): 16-byte vectors of bf16 or fp32 values,
+// and the IEEE quotient, rint and byte packing of the int8 codes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,6 +24,16 @@ struct Vec<__nv_bfloat16> {
       f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
+  // 8 floats rounded to bf16 (to nearest, ties to even, as a cast)
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
 };
 
 template <>
@@ -34,6 +44,10 @@ struct Vec<float> {
     f[1] = __uint_as_float(r.y);
     f[2] = __uint_as_float(r.z);
     f[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]), __float_as_uint(f[2]),
+                      __float_as_uint(f[3]));
   }
 };
 

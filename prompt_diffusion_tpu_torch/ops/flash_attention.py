@@ -14,7 +14,9 @@ so the kernels read either through strides. Inputs on the card are bf16;
 logits and softmax are fp32, P is rounded to bf16 before P.V, and P.V
 accumulates in fp32. K9 is its own CUDA kernel with a K-quantizing
 prologue, `csrc/int8_attention.cu` (`quant_k_int8`, then K9 at
-`int8_block_q` query rows per block).
+`int8_block_q` query rows per block). The prologue's per-head mode, K9p,
+is one cooperative launch of an all-resident grid whose one barrier
+carries each head's amax (`quant_k_plan`).
 
 The lab kernels of `tools/attn_variants.py`, `attn_lab2.py`, `attn_lab3.py`
 and `attn_int8_lab.py` are modes of the same two sources (the bf16 modes
@@ -33,7 +35,9 @@ count:
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Callable, Optional
 
 import torch
 
@@ -358,31 +362,148 @@ def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
     return out
 
 
+# K9p's plan: threads of a block, at most (the kernel's __launch_bounds__),
+# and key rows in flight per block, R = max(1, QK_ROW_THREADS // CV) with CV
+# = H*D/8 16-byte vectors a key row; blocks per SM at most QK_BLOCKS_PER_SM
+# (the best of 1 to 16 in `tools/quant_tune.py --part time` on the H100 at
+# the SD3 joint shape), and what the CPU tests assume of the occupancy
+# query where no card answers it
+QK_MAX_THREADS, QK_ROW_THREADS, QK_MAX_HEADS = 512, 256, 128
+QK_BLOCKS_PER_SM, QK_ASSUMED_OCCUPANCY, SMS = 4, 8, 132
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantKPlan:
+    """How K9p covers a (batch, nk, H*D) K: blocks of `threads` >= cv x
+    rows threads (whole warps), `bps` blocks per sample each holding a
+    contiguous range of its key rows, thread (r, v) vector v of rows r, r +
+    rows, ...; every block resident at once."""
+
+    batch: int
+    nk: int
+    heads: int
+    d: int
+    cv: int
+    rows: int
+    threads: int
+    bps: int
+    blocks_per_sm: int
+
+    @property
+    def grid(self) -> int:
+        return self.batch * self.bps
+
+    @property
+    def workspace(self) -> int:
+        """fp32 slots: each block's amax per head."""
+        return self.grid * self.heads
+
+    def block_rows(self, j: int):
+        """Key rows [first, last) of its sample that block j holds."""
+        return j * self.nk // self.bps, (j + 1) * self.nk // self.bps
+
+
+def quant_k_plan(batch: int, nk: int, num_heads: int, d: int,
+                 occupancy: Optional[Callable[[int], int]] = None,
+                 sms: int = SMS) -> QuantKPlan:
+    """K9p's plan for `batch` samples of `nk` key rows of `num_heads`
+    heads of `d`. `occupancy(threads)` gives the blocks per SM of the
+    kernel at `threads` threads (the launcher asks the card;
+    QK_ASSUMED_OCCUPANCY without one); at most QK_BLOCKS_PER_SM of them
+    are used. Raises ValueError on a shape the kernel does not take and
+    RuntimeError where the grid cannot be resident."""
+    if batch < 1 or nk < 1 or num_heads < 1:
+        raise ValueError(f"empty K (B, N, H) = ({batch}, {nk}, {num_heads})")
+    if d not in INT8_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported {INT8_HEAD_DIMS}")
+    cv = num_heads * d // 8
+    if cv > QK_MAX_THREADS or num_heads > QK_MAX_HEADS:
+        raise ValueError(f"{num_heads} heads of {d} exceed the {QK_MAX_THREADS} vectors a K9p "
+                         f"block holds per key row")
+    rows = max(1, QK_ROW_THREADS // cv)
+    threads = -(-cv * rows // 32) * 32
+    occ = occupancy(threads) if occupancy else QK_ASSUMED_OCCUPANCY
+    return _quant_k_plan(batch, nk, num_heads, d, cv, rows, threads, occ, sms,
+                         QK_BLOCKS_PER_SM)
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_k_plan(batch, nk, num_heads, d, cv, rows, threads, occ, sms, blocks_per_sm):
+    """The plan at most `blocks_per_sm` blocks an SM (`tools/quant_tune.py`
+    sweeps it)."""
+    per_sm = min(occ, blocks_per_sm)
+    if per_sm < 1 or batch > per_sm * sms:
+        raise RuntimeError(f"quant_k_int8 of K ({batch}, {nk}, {num_heads * d}) with "
+                           f"{num_heads} heads: the grid cannot be resident ({occ} blocks of "
+                           f"{threads} threads per SM, {sms} SMs, at least {batch} blocks)")
+    return QuantKPlan(batch=batch, nk=nk, heads=num_heads, d=d, cv=cv, rows=rows,
+                      threads=threads, bps=max(1, min(nk, per_sm * sms // batch)),
+                      blocks_per_sm=per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_k_occupancy(device: int, d: int, threads: int) -> int:
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    with torch.cuda.device(device):
+        blocks = cuda_ext().int8_quant_k_occupancy(d, threads)
+    if blocks < 0:
+        raise RuntimeError(f"K9p occupancy query failed ({blocks}) at D={d}, {threads} threads")
+    return blocks
+
+
 def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False):
     """K9's prologue: packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32
     scales), one scale per (batch, head) (B, H), or per (batch, head, key
-    row) (B, H, N) with `per_row`. On CUDA its two kernels in
-    `csrc/int8_attention.cu` (the amax, then the codes; per row the codes
-    alone), bit-equal to the plain versions `_quant_k_per_head` and
-    `_quant_k_per_row`, which the CPU takes."""
+    row) (B, H, N) with `per_row`. On CUDA one launch of
+    `csrc/int8_attention.cu`: K9p (`k_head_quant_kernel`, `quant_k_plan`)
+    per head, `k_row_codes_kernel` per row; bit-equal to the plain
+    versions `_quant_k_per_head` and `_quant_k_per_row`, which the CPU
+    takes."""
     if not use_kernel(k):
         return (_quant_k_per_row if per_row else _quant_k_per_head)(k, num_heads)
     b, nk, hd = k.shape
     if hd % num_heads or hd // num_heads not in INT8_HEAD_DIMS:
         raise ValueError(f"head dim of {hd} / {num_heads} not supported {INT8_HEAD_DIMS}")
     _check_packed_bf16("k", k, k.device)
+    d = hd // num_heads
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
-    codes = torch.empty((b, nk, hd), dtype=torch.int8, device=k.device)
+    ext = cuda_ext()
     if per_row:
-        scales = amax = torch.empty((b, num_heads, nk), dtype=torch.float32, device=k.device)
+        codes = torch.empty((b, nk, hd), dtype=torch.int8, device=k.device)
+        scales = torch.empty((b, num_heads, nk), dtype=torch.float32, device=k.device)
+        with torch.cuda.device(k.device):
+            ext.int8_quant_k_rows(k.data_ptr(), k.stride(0), k.stride(1), b, num_heads, nk, d,
+                                  scales.data_ptr(), codes.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
     else:
-        amax, scales = torch.empty((2, b, num_heads), dtype=torch.float32, device=k.device)
-    with torch.cuda.device(k.device):
-        cuda_ext().int8_quant_k(k.data_ptr(), k.stride(0), k.stride(1), b, num_heads, nk,
-                                hd // num_heads, per_row, amax.data_ptr(), scales.data_ptr(),
-                                codes.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        dev = k.device.index if k.device.index is not None else torch.cuda.current_device()
+        plan = quant_k_plan(b, nk, num_heads, d,
+                            occupancy=lambda t: _quant_k_occupancy(dev, d, t),
+                            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        codes, scales = _quant_k_head(k, plan)
     quant_k_int8.launches += 1
+    return codes, scales
+
+
+def _quant_k_head(k: torch.Tensor, plan: QuantKPlan):
+    """K9p's launch on a checked K at `plan` (`tools/quant_tune.py` gives
+    the plans of its sweep)."""
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    b, nk, hd = k.shape
+    if (plan.batch, plan.nk, plan.heads * plan.d) != (b, nk, hd):
+        raise ValueError(f"the plan covers {(plan.batch, plan.nk, plan.heads, plan.d)}, not "
+                         f"K {tuple(k.shape)}")
+    codes = torch.empty((b, nk, hd), dtype=torch.int8, device=k.device)
+    scales = torch.empty((b, plan.heads), dtype=torch.float32, device=k.device)
+    ws = torch.empty((plan.workspace,), dtype=torch.float32, device=k.device)
+    with torch.cuda.device(k.device):
+        cuda_ext().int8_quant_k_head(k.data_ptr(), k.stride(0), k.stride(1), b, plan.heads, nk,
+                                     plan.d, plan.rows, plan.threads, plan.bps, ws.data_ptr(),
+                                     scales.data_ptr(), codes.data_ptr(),
+                                     torch.cuda.current_stream().cuda_stream)
     return codes, scales
 
 

@@ -11,7 +11,8 @@ After a warm-up batch (Triton compiles, cuDNN heuristics):
   * the wall time of one batch, synchronised, median of 3;
   * a torch.profiler trace of two batches: device time by kernel name,
     device launches per batch, and the device's busy share of the
-    profiled wall time.
+    profiled wall time; K3's and K9p's device ms and launches per batch,
+    and their parent designs' (`profile_sd15.K3_K9P_NAMES`).
 Needs one CUDA device.
 """
 
@@ -23,8 +24,8 @@ import time
 
 import torch
 
-from prompt_diffusion_tpu_torch.tools.profile_sd15 import _wall_ms
-from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels
+from prompt_diffusion_tpu_torch.tools.profile_sd15 import K3_K9P_NAMES, _wall_ms, print_named
+from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels, device_trace
 
 BATCH, SIZE = 16, 512
 BATCHES, TOP = 2, 25  # batches traced, kernel names printed
@@ -33,8 +34,6 @@ BATCHES, TOP = 2, 25  # batches traced, kernel names printed
 def profile_policy(name: str, policy, state=None, seed=0):
     """Prints the wall time and the device breakdown of one batch under
     `policy`; returns the model's state dict (the weights of every run)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from prompt_diffusion_tpu_torch.annotators.midas import DPTHybridDepth, depth_to_normals
     from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
 
@@ -51,7 +50,7 @@ def profile_policy(name: str, policy, state=None, seed=0):
     wall = _wall_ms(batch)
     print(f"[profile] {name}: {wall:.3f} ms wall per batch of {BATCH} at {SIZE}² "
           f"({BATCH / wall * 1e3:.2f} images/s), median of 3")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(BATCHES):
@@ -76,6 +75,7 @@ def profile_policy(name: str, policy, state=None, seed=0):
         print(f"  {us / BATCHES / 1e3:9.3f} {n / BATCHES:6.0f}  {kname[:110]}")
     rest = sum(us for _, (_, us) in ranked[TOP:])
     print(f"  {rest / BATCHES / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
+    print_named(by_name, BATCHES, "batch", K3_K9P_NAMES)
     state = model.state_dict()
     del model
     torch.cuda.empty_cache()

@@ -23,7 +23,10 @@ compiles, cuDNN heuristics). Then:
     byte bound, its device ms and device launches per call alone
     (`timing.device_ms`, warm, seeded inputs of the shape), and their sums
     per step; and K5's, K6's and K7's device ms and launches per step from
-    the trace, by kernel name (`EPILOGUE_NAMES`).
+    the trace, by kernel name (`EPILOGUE_NAMES`);
+  * under either policy, K3's device ms and launches per step from the
+    trace, and those of its parent design (`K3_K9P_NAMES`; the bf16 step
+    makes 88 K3 calls).
 Needs one CUDA device.
 """
 
@@ -36,7 +39,13 @@ import time
 
 import torch
 
-from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels, roofline
+from prompt_diffusion_tpu_torch.tools.timing import (
+    busy_us,
+    card,
+    device_kernels,
+    device_trace,
+    roofline,
+)
 
 BATCH, SIZE, CFG = 2, 512, 9.0
 STEPS, TOP = 3, 30  # denoise steps traced, kernel names printed
@@ -45,12 +54,35 @@ STEPS, TOP = 3, 30  # denoise steps traced, kernel names printed
 # or in the former designs (run from an older checkout for a comparison)
 # Triton programs of the same names, K5's after a fill of its amax slots
 # and K3's stats and combine programs (`gn_stats_kernel`,
-# `gn_combine_kernel`, which K3's own calls launch too). No SD1.5 step runs
-# K13's `adaln_quant_kernel`, whose name holds K6's.
+# `gn_combine_kernel`, which K3's own calls launched too before
+# `gn_float_kernel`). No SD1.5 step runs K13's `adaln_quant_kernel`, whose
+# name holds K6's.
 EPILOGUE_NAMES = (("K7", ("geglu_quant_kernel",)), ("K6", ("ln_quant_kernel",)),
                   ("K5", ("gn_quant_kernel", "gn_amax_kernel")),
                   ("K3's stats and combine (K5's, then)", ("gn_stats_kernel",
                                                            "gn_combine_kernel")))
+
+
+# K3's and K9p's device functions, by a part of their name: the CUDA kernels
+# (`gn_float_kernel`, `k_head_quant_kernel`), and from an older checkout
+# their parent designs: K3's three Triton programs, K9p's amax and codes
+# kernels after a memset (`cudaMemsetAsync` shows as "Memset")
+K3_K9P_NAMES = (("K3", ("gn_float_kernel",)),
+                ("K3's parent (Triton stats, combine, apply)",
+                 ("gn_stats_kernel", "gn_combine_kernel", "gn_apply_kernel")),
+                ("K9p", ("k_head_quant_kernel",)),
+                ("K9p's parent (amax, codes)", ("k_amax_kernel", "k_codes_kernel")),
+                ("memsets", ("Memset",)))
+
+
+def print_named(by_name, count, unit, table=K3_K9P_NAMES):
+    """Device ms and launches per `unit` of the kernels whose names hold a
+    part listed in `table`, from {name: (launches, µs)} over `count`
+    units."""
+    for label, parts in table:
+        hits = [(n, us) for name, (n, us) in by_name.items() if any(p in name for p in parts)]
+        print(f"[profile] {label} in the trace: {sum(us for _, us in hits) / count / 1e3:.3f} "
+              f"device ms, {sum(n for n, _ in hits) / count:.0f} launches per {unit}")
 
 
 def _wall_ms(fn, reps=3):
@@ -259,8 +291,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_sd15: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     policy = f"int8, K8 {args.conv_variant}" if args.int8 else "bf16"
     print(f"[profile] {card()}; policy {policy}")
     pipe, request, x = build(int8=args.int8, conv_variant=args.conv_variant)
@@ -287,7 +317,7 @@ def main(argv=None) -> int:
         print_k8_bound(parts["denoise step"])
         print_int8_epilogues(parts["denoise step"])
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(STEPS):
@@ -312,6 +342,7 @@ def main(argv=None) -> int:
         print(f"  {us / STEPS / 1e3:9.3f} {n / STEPS:6.0f}  {name[:110]}")
     rest = sum(us for _, (_, us) in ranked[TOP:])
     print(f"  {rest / STEPS / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
+    print_named(by_name, STEPS, "step", K3_K9P_NAMES[:2])
     if args.int8:
         k8 = [(n, us) for name, (n, us) in by_name.items()
               if "conv3x3_int8" in name or "splitk_epilogue" in name]

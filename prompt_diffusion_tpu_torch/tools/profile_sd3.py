@@ -19,7 +19,11 @@ compiles, cuDNN heuristics). Then:
     profiled wall time; the device ms and launches per step of the int8
     epilogue kernels K10, K11 and K13 and of the copy kernels
     (`KERNEL_NAMES`; the former K11 wrapper copied each of its 71
-    attention slices per step to contiguous rows first);
+    attention slices per step to contiguous rows first), and of K9p and
+    its parent design (`profile_sd15.K3_K9P_NAMES`);
+  * a torch.profiler trace of one VAE decode: its device ms, busy share
+    and launches, and K3's device ms and launches in it (the bf16 VAE's
+    GroupNorms; the denoise step makes no K3 call);
   * the int8 GEMMs of one step and the least time they could take with the
     dequant fused into them (G1 in ROADMAP.md).
 Needs one CUDA device.
@@ -32,8 +36,13 @@ import time
 
 import torch
 
-from prompt_diffusion_tpu_torch.tools.profile_sd15 import _wall_ms, print_int8_gemm_bound
-from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels
+from prompt_diffusion_tpu_torch.tools.profile_sd15 import (
+    K3_K9P_NAMES,
+    _wall_ms,
+    print_int8_gemm_bound,
+    print_named,
+)
+from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels, device_trace
 
 BATCH, SIZE, CFG, T5_LEN = 1, 1024, 7.0, 256
 STEPS, TOP = 2, 30  # denoise steps traced, kernel names printed
@@ -53,8 +62,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_sd3: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
     from prompt_diffusion_tpu_torch.models.t5_text import T5Encoder
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3 import PromptDiffusionSD3
     from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
@@ -106,7 +113,7 @@ def main() -> int:
         print(f"  {name:18s} {ms:9.3f}")
     print_int8_gemm_bound(steps["denoise step"])
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_trace() as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(STEPS):
@@ -135,6 +142,26 @@ def main() -> int:
         hits = [(n, us) for name, (n, us) in by_name.items() if key in name]
         print(f"[profile] {label} ({key}): {sum(us for _, us in hits) / STEPS / 1e3:.3f} device "
               f"ms, {sum(n for n, _ in hits) / STEPS:.0f} launches per step")
+    print_named(by_name, STEPS, "step", K3_K9P_NAMES[2:])
+
+    with device_trace() as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps["VAE decode"]()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = {}
+    for name, s, e in kernels:
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + (e - s))
+    busy = busy_us([(s, e) for _, s, e in kernels])
+    print(f"[profile] one VAE decode under the profiler: {wall_us / 1e3:.3f} ms wall, device "
+          f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), {len(kernels)} device "
+          f"launches")
+    print_named(by_name, 1, "VAE decode", K3_K9P_NAMES[:2])
     return 0
 
 

@@ -1,9 +1,12 @@
 """The int8 epilogue kernels in CUDA C++ on the card: K10, K13, K7, K6 and
 K11 (the row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm
--> int8, `ops/csrc/gn_quant.cu`).
+-> int8, `ops/csrc/gn_quant.cu`); and K3 (GroupNorm(+SiLU or ReLU), the
+same source) and K9p (K9's per-head K quantization, `ops/csrc/
+int8_attention.cu`).
 
     python3 -m prompt_diffusion_tpu_torch.tools.quant_tune
-        [--part sass|check|time|phases] [--kernels K10,K13,K7,K5,K6,K11] [--iters N]
+        [--part sass|check|time|phases] [--kernels K10,K13,K7,K5,K6,K11,K3,K9p]
+        [--iters N]
 
   sass   nvcc -cubin of `row_quant.cu` as built and of a copy whose K10
          takes CUDA's tanhf (TANHF): ptxas's registers and spills of every
@@ -17,7 +20,11 @@ K11 (the row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm
          per-value count from 2 and 4 vectors per thread of h and gate, at
          the SD1.5 shapes), K6 (from 2 and 5 vectors, at the SD1.5 and
          ViT-B shapes) and K11 (3 and 6, at the SD3 attention slices), and
-         ptxas's registers and spills of K5's instantiations;
+         ptxas's registers and spills of K5's instantiations; K3's
+         (`gn_float_kernel`), with SASS instructions and MUFU operations per
+         value (its K = 8 and K = 4 instantiations differ by 4 pixels of 8
+         values in every pass that holds a chunk; fp32's K = 4 and K = 2 by
+         2), and K9p's (`k_head_quant_kernel`);
   check  the quotient of `rq::quotient` (y * 1/s with one FMA correction)
          against `__fdiv_rn(y, s)` bit for bit: over every value of the SD3
          K10 and K13 cases (K10's y from the kernel's own GELU, K13's from
@@ -59,13 +66,25 @@ K11 (the row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm
          MMDiT's two attention slices against the parent's wrapper as it
          ran there (`x.contiguous()`, a copy, then `act_quant_kernel`);
          the sweep of K6's threads per row (8, 16, 32, 64: rows of one
-         warp's aligned lanes or more) and row groups, and of K11's.
-  phases K5 only: copies of `gn_quant.cu` (nvcc, called through ctypes):
-         one that stamps clock64() at each phase boundary of every block
-         (PHASES), printing each phase's share of the block's cycles (mean
-         over blocks) at the SD1.5 sites, and one without SiLU in the codes
-         pass (NO_SILU_CODES; its codes are wrong, its time is the point),
-         timed beside the copy as built.
+         warp's aligned lanes or more) and row groups, and of K11's. K3 at
+         its paths' shapes (K3_SHAPES) against the parent's three Triton
+         programs (`_triton_norms.py`'s stats, combine and apply), with the
+         device launches per call of each, and the sweep of K, all timed
+         by `timing.stream_ms` (CUDA events
+         around calls queued behind a spin kernel; no profiler trace);
+         K9p likewise at the SD3 joint shape and on the ViT-B's K
+         column slice against the parent's memset, `k_amax_kernel` and
+         `k_codes_kernel` (PARENT_K9P, built with nvcc, called through
+         ctypes), and the sweep of its blocks per SM.
+  phases K5 and K3: `gn_quant.cu` built with -DGN_PHASE_STAMPS (nvcc,
+         called through ctypes): thread 0 of every block adds the clock64()
+         cycles of each phase to its slot and stamps %globaltimer at its
+         start and end. Printed per shape: each phase's mean cycles a
+         block and share, the blocks' mean span and the kernel's (first
+         start to last end) in µs, and the spread of the blocks' starts;
+         for K5 also a copy without SiLU in the codes pass (NO_SILU_CODES;
+         its codes are wrong, its time is the point), timed beside the copy
+         as built.
 
 Needs one CUDA card and nvcc; without a card it exits 2.
 """
@@ -82,6 +101,7 @@ import sys
 
 import torch
 
+from prompt_diffusion_tpu_torch.ops import gn_quant
 from prompt_diffusion_tpu_torch.ops import row_quant as rq
 from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
 from prompt_diffusion_tpu_torch.ops.fused_act import fused_gelu_quant, fused_quant_rows
@@ -94,6 +114,7 @@ from prompt_diffusion_tpu_torch.tools.timing import (
     card,
     device_launches,
     device_ms,
+    stream_ms,
 )
 
 OUT_DIR = os.path.join(_REPO, "build", "quant_tune")
@@ -118,7 +139,18 @@ K6_SHAPES = ((32768, 320, 1e-5), (8192, 640, 1e-5), (2048, 1280, 1e-5), (512, 12
              (256, 1280, 1e-5), (16400, 768, 1e-6))
 K11_SLICES = (2, 4096, 333, 1536)
 K6_THREADS = (8, 16, 32, 64)
-KERNELS = ("K10", "K13", "K7", "K5", "K6", "K11")
+# K3's shapes on its paths, (B, C, H, W), epilogue, eps, mean: the SD1.5
+# 64² site with and without SiLU and an 8² one (CFG batch 8), the SD3 VAE's
+# at 1024² (128 channels, the VAE's 4.0-mean case, and 512 at 128²), the
+# SD1.5 VAE's at 512² (batch 4), and the DPT-Hybrid backbone's ReLU stem
+# and stage 3 (batch 16 at 512²); K9p's: the SD3 joint K, and the ViT-B's K
+# column slice of its (16, 1025, 2304) qkv projection
+K3_SHAPES = (((8, 320, 64, 64), "silu", 1e-5, 0.0), ((8, 320, 64, 64), "none", 1e-6, 0.0),
+             ((8, 1280, 8, 8), "silu", 1e-5, 0.0), ((1, 512, 128, 128), "none", 1e-6, 0.0),
+             ((1, 128, 1024, 1024), "silu", 1e-6, 4.0), ((4, 128, 512, 512), "silu", 1e-6, 4.0),
+             ((16, 64, 256, 256), "relu", 1e-5, 0.0), ((16, 256, 32, 32), "relu", 1e-5, 0.0))
+K9P_SHAPES = (((2, 4429, 1536), 24, 1536), ((16, 1025, 768), 12, 2304))
+KERNELS = ("K10", "K13", "K7", "K5", "K6", "K11", "K3", "K9p")
 SCALE_REL_BOUND, CODES_EQUAL_BOUND = 1e-6, 0.999
 SWEEP_SCALES = 128
 COLD_BYTES = 120e6  # > twice the H100's 50 MB L2
@@ -250,6 +282,21 @@ def _gn_plan(x, silu, **kwargs):
                       **kwargs)
 
 
+K3_ACTS = {"none": gn_quant.ACT_NONE, "silu": gn_quant.ACT_SILU, "relu": gn_quant.ACT_RELU}
+
+
+def _k3_plan(x, act, **kwargs):
+    """K3's plan for x with the card's occupancy; kwargs force K."""
+    from prompt_diffusion_tpu_torch.ops import gn_quant as gq
+
+    dev, bf16 = x.device.index or 0, x.dtype == torch.bfloat16
+    b, c, h, w = x.shape
+    return gq.gn_float_plan(
+        b, c, h * w, 32, x.dtype, sms=gq._sms(dev),
+        occupancy=lambda k, t, m: gq._float_occupancy(dev, bf16, K3_ACTS[act], k, t, m),
+        **kwargs)
+
+
 def _parent_geglu_quant(proj):
     """K7 as the parent launched it: Triton `geglu_quant_kernel` over rows
     padded to a power of two."""
@@ -271,23 +318,178 @@ def _parent_geglu_quant(proj):
     return q.view(*proj.shape[:-1], inner), s_a.view(*proj.shape[:-1], 1)
 
 
+# the parent K3's tiles: pixels and channels of a stats or apply program,
+# row-block partials per combine step
+_GN_ROWS, _GN_BLOCK_C, _GN_BLOCK_R = 128, 64, 64
+
+
+def _parent_gn_stats(x, w, b, groups, eps):
+    """The parent K3's stats and combine programs (`_triton_norms.py`):
+    per-(sample, channel) fp32 scale and shift with the affine folded in,
+    and the (sample, row block, channel block) grid of its apply program."""
+    import triton
+
+    from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
+
+    bsz, c, h, wd = x.shape
+    hw, cg = h * wd, c // groups
+    rb, cb = triton.cdiv(hw, _GN_ROWS), triton.cdiv(c, _GN_BLOCK_C)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part_mean = torch.empty((bsz, rb, c), **f32)
+    part_m2 = torch.empty((bsz, rb, c), **f32)
+    eff_scale = torch.empty((bsz, c), **f32)
+    eff_shift = torch.empty((bsz, c), **f32)
+    tk.gn_stats_kernel[(bsz, rb, cb)](x, part_mean, part_m2, hw, c, rb, ROWS=_GN_ROWS,
+                                      BLOCK_C=_GN_BLOCK_C)
+    tk.gn_combine_kernel[(bsz, groups)](
+        part_mean, part_m2, w.float().contiguous(), b.float().contiguous(), eff_scale,
+        eff_shift, hw, c, rb, cg, float(eps), ROWS=_GN_ROWS, BLOCK_R=_GN_BLOCK_R,
+        BLOCK_CG=triton.next_power_of_2(cg))
+    return eff_scale, eff_shift, (bsz, rb, cb)
+
+
+def _parent_gn(x, w, b, eps, act):
+    """K3 as the parent launched it: its Triton stats, combine and apply
+    programs (three device launches) over channels_last x."""
+    from prompt_diffusion_tpu_torch.ops import _triton_norms as tk
+
+    x = x.contiguous(memory_format=torch.channels_last)
+    y = torch.empty_like(x)
+    eff_scale, eff_shift, grid = _parent_gn_stats(x, w, b, 32, eps)
+    tk.gn_apply_kernel[grid](x, y, eff_scale, eff_shift, x.shape[2] * x.shape[3], x.shape[1],
+                             ROWS=_GN_ROWS, BLOCK_C=_GN_BLOCK_C, APPLY_SILU=act == "silu",
+                             APPLY_RELU=act == "relu")
+    return y
+
+
 def _parent_gn_quant(x, w, b, eps, silu):
     """K5 as the parent launched it: a fill of the amax slots, K3's Triton
     stats and combine programs, then `gn_amax_kernel` and
     `gn_quant_kernel` (five device launches)."""
     from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
-    from prompt_diffusion_tpu_torch.ops import fused_group_norm as fg
 
-    x = fg._check(x, w, b, 32)
+    x = x.contiguous(memory_format=torch.channels_last)
     bsz, c, h, wd = x.shape
     q = torch.empty_like(x, dtype=torch.int8)
     s_a = torch.empty((bsz,), dtype=torch.float32, device=x.device)
     amax = torch.zeros((bsz,), dtype=torch.int32, device=x.device)
-    eff_scale, eff_shift, grid = fg._stats(x, w, b, 32, eps)
-    meta = dict(ROWS=fg._ROWS, BLOCK_C=fg._BLOCK_C, APPLY_SILU=bool(silu))
+    eff_scale, eff_shift, grid = _parent_gn_stats(x, w, b, 32, eps)
+    meta = dict(ROWS=_GN_ROWS, BLOCK_C=_GN_BLOCK_C, APPLY_SILU=bool(silu))
     tq.gn_amax_kernel[grid](x, eff_scale, eff_shift, amax, h * wd, c, **meta)
     tq.gn_quant_kernel[grid](x, eff_scale, eff_shift, amax, q, s_a, h * wd, c, **meta)
     return q, s_a
+
+
+# K9p's parent, three device operations per call: a memset of a (B, H)
+# buffer, `k_amax_kernel` (warp maxima, one atomicMax on a float's bits per
+# block) and `k_codes_kernel` (IEEE division per value), as
+# `int8_attention.cu` held them before K9p
+PARENT_K9P = r"""
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+constexpr int QK_THREADS = 256, AMAX_ROWS = 128;
+__device__ __forceinline__ void load8(float (&x)[8], const __nv_bfloat16* p) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+    x[2 * e] = f.x;
+    x[2 * e + 1] = f.y;
+  }
+}
+__device__ __forceinline__ float abs_max8(const float (&x)[8]) {
+  float m = 0.f;
+  for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(x[e]));
+  return m;
+}
+__device__ __forceinline__ uint32_t code8(float x, float s) {
+  const float c = fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
+  return static_cast<uint32_t>(static_cast<int>(c)) & 0xffu;
+}
+template <int D>
+__global__ void __launch_bounds__(QK_THREADS) k_amax_kernel(const __nv_bfloat16* k, int64_t k_sb,
+    int64_t k_sn, int heads, int nk, float* amax) {
+  constexpr int CH = D / 8;
+  __shared__ float part[QK_THREADS / 32];
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int r0 = blockIdx.x * AMAX_ROWS, rows = min(AMAX_ROWS, nk - r0);
+  const __nv_bfloat16* kb = k + b * k_sb + h * D;
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < rows * CH; i += QK_THREADS) {
+    float x[8];
+    load8(x, kb + (int64_t)(r0 + i / CH) * k_sn + (i % CH) * 8);
+    mx = fmaxf(mx, abs_max8(x));
+  }
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < QK_THREADS / 32; ++w) mx = fmaxf(mx, part[w]);
+    atomicMax(reinterpret_cast<int*>(amax) + bh, __float_as_int(mx));
+  }
+}
+template <int D>
+__global__ void __launch_bounds__(QK_THREADS) k_codes_kernel(const __nv_bfloat16* k, int64_t k_sb,
+    int64_t k_sn, int batch, int heads, int nk, const float* amax, float* sk, int8_t* codes) {
+  constexpr int CH = D / 8;
+  const int64_t row_ch = (int64_t)heads * CH, total = (int64_t)batch * nk * row_ch;
+  const int64_t i = (int64_t)blockIdx.x * QK_THREADS + threadIdx.x;
+  if (i >= total) return;
+  const int b = static_cast<int>(i / (nk * row_ch));
+  const int64_t rem = i - (int64_t)b * nk * row_ch;
+  const int n = static_cast<int>(rem / row_ch);
+  const int c = static_cast<int>(rem - (int64_t)n * row_ch), h = c / CH;
+  float x[8];
+  load8(x, k + b * k_sb + (int64_t)n * k_sn + c * 8);
+  const float s = fmaxf(__fdiv_rn(amax[b * heads + h], 127.f), 1e-8f);
+  if (n == 0 && c % CH == 0) sk[b * heads + h] = s;
+  uint2 out;
+  out.x = code8(x[0], s) | (code8(x[1], s) << 8) | (code8(x[2], s) << 16) | (code8(x[3], s) << 24);
+  out.y = code8(x[4], s) | (code8(x[5], s) << 8) | (code8(x[6], s) << 16) | (code8(x[7], s) << 24);
+  *reinterpret_cast<uint2*>(codes + i * 8) = out;
+}
+extern "C" int parent_quant_k(const void* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
+                              int nk, void* amax, void* sk, void* codes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * batch * heads, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  k_amax_kernel<64><<<dim3((nk + AMAX_ROWS - 1) / AMAX_ROWS, batch * heads), QK_THREADS, 0, s>>>(
+      kp, k_sb, k_sn, heads, nk, static_cast<float*>(amax));
+  const int64_t chunks = (int64_t)batch * nk * heads * 8;
+  k_codes_kernel<64><<<(unsigned)((chunks + QK_THREADS - 1) / QK_THREADS), QK_THREADS, 0, s>>>(
+      kp, k_sb, k_sn, batch, heads, nk, static_cast<const float*>(amax),
+      static_cast<float*>(sk), static_cast<int8_t*>(codes));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def _parent_k9p():
+    """The parent K9p (PARENT_K9P, D = 64) as a call k, heads -> (codes,
+    scales)."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    src = os.path.join(OUT_DIR, "parent_k9p.cu")
+    with open(src, "w") as f:
+        f.write(PARENT_K9P)
+    so = ctypes.CDLL(_build("parent_k9p.so", src, "-shared", "-Xcompiler", "-fPIC")[0])
+    so.parent_quant_k.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
+                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4)
+    so.parent_quant_k.restype = ctypes.c_int
+
+    def quant_k(k, heads):
+        b, nk, hd = k.shape
+        codes = torch.empty((b, nk, hd), dtype=torch.int8, device=k.device)
+        amax, scales = torch.empty((2, b, heads), dtype=torch.float32, device=k.device)
+        err = so.parent_quant_k(k.data_ptr(), k.stride(0), k.stride(1), b, heads, nk,
+                                amax.data_ptr(), scales.data_ptr(), codes.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent K9p's launch failed: {err}")
+        return codes, scales
+
+    return quant_k
 
 
 def _compare(out, ref):
@@ -331,11 +533,19 @@ def _build(name, src, *flags):
 
 _KERNEL = re.compile(r"(gelu|adaln|geglu|ln|rows)_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
 _GN_KERNEL = re.compile(r"gn_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
+_K3_KERNEL = re.compile(r"gn_float_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)E")
+_K9P_KERNEL = re.compile(r"k_head_quant_kernelILi(\d+)E")
 
 
-def _sass_counts(cubin):
-    """{(op, dtype, vpt, pipe): (instructions, MUFU operations)} of every
-    kernel instantiation in `cubin`."""
+def _row_key(m):
+    return (m.group(1), "bf16" if m.group(2) != "f" else "fp32", int(m.group(3)),
+            m.group(4) == "1")
+
+
+def _sass_counts(cubin, pattern=_KERNEL, key_of=_row_key):
+    """{key_of(match): (instructions, MUFU operations)} of every kernel
+    instantiation in `cubin` whose name `pattern` matches (by default the
+    row kernels: (op, dtype, vpt, pipe))."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME, "bin", "cuobjdump")
@@ -344,9 +554,8 @@ def _sass_counts(cubin):
     counts, key = {}, None
     for line in text.splitlines():
         if "Function :" in line:
-            m = _KERNEL.search(line)
-            key = None if m is None else (m.group(1), "bf16" if m.group(2) != "f" else "fp32",
-                                          int(m.group(3)), m.group(4) == "1")
+            m = pattern.search(line)
+            key = None if m is None else key_of(m)
             if key:
                 counts[key] = [0, 0]
             continue
@@ -414,11 +623,35 @@ def sass(_gen, _iters, kernels):
                       f"value ({mufu_value:.2f} MUFU), {per_thread:.0f} static per thread and "
                       f"row group (slow paths of the divisions included); " + "; ".join(msg),
                       flush=True)
-    if "K5" in kernels:
-        _, log = _build("gn_quant.cubin", GN_SOURCE, "-cubin")
-        for k, info in _ptxas(log, _GN_KERNEL, lambda k: True):
+    if kernels & {"K5", "K3"}:
+        cubin, log = _build("gn_quant.cubin", GN_SOURCE, "-cubin")
+        for k, info in _ptxas(log, _GN_KERNEL, lambda k: "K5" in kernels):
             print(f"[quant_tune] ptxas gn_quant_kernel<{k.group(1)}, K={k.group(2)}, "
                   f"silu={k.group(3)}>: {info}", flush=True)
+        for k, info in _ptxas(log, _K3_KERNEL, lambda k: "K3" in kernels):
+            print(f"[quant_tune] ptxas gn_float_kernel<{k.group(1)}, K={k.group(2)}, "
+                  f"act={k.group(3)}>: {info}", flush=True)
+        if "K3" in kernels:
+            counts = _sass_counts(cubin, _K3_KERNEL, lambda m: (m.group(1), int(m.group(2)),
+                                                                int(m.group(3))))
+            for dt, (hi, lo) in (("13__nv_bfloat16", (8, 4)), ("f", (4, 2))):
+                for act, name in enumerate(("none", "silu", "relu")):
+                    (i_hi, m_hi), (i_lo, m_lo) = counts[(dt, hi, act)], counts[(dt, lo, act)]
+                    values = 8 * (hi - lo)  # the values K = hi holds beyond K = lo, a pass
+                    dtype = "fp32" if dt == "f" else "bf16"
+                    print(f"[quant_tune] sass K3 gn_float_kernel<{dtype}, {name}>: {i_hi} "
+                          f"instructions at K={hi}, {i_lo} at K={lo}: "
+                          f"{(i_hi - i_lo) / values:.2f} per value over its passes "
+                          f"({(m_hi - m_lo) / values:.2f} MUFU)", flush=True)
+    if "K9p" in kernels:
+        cubin, log = _build("int8_attention.cubin", os.path.join(_CSRC_DIR, "int8_attention.cu"),
+                            "-cubin")
+        for k, info in _ptxas(log, _K9P_KERNEL, lambda k: True):
+            print(f"[quant_tune] ptxas k_head_quant_kernel<D={k.group(1)}>: {info}", flush=True)
+        counts = _sass_counts(cubin, _K9P_KERNEL, lambda m: int(m.group(1)))
+        for d, (instr, mufu) in sorted(counts.items()):
+            print(f"[quant_tune] sass K9p k_head_quant_kernel<D={d}>: {instr} instructions "
+                  f"({mufu} MUFU), static", flush=True)
 
 
 # ---- check ---------------------------------------------------------------
@@ -662,7 +895,7 @@ def _kernel_cases(gen, kernels):
                      f"mean={mean} gain={gain}")
             forced = [dict()]
             if shape in ((8, 320, 64, 64), (8, 2560, 8, 8)) and dt == torch.bfloat16 and gain == 1:
-                forced += [dict(k=k) for k in gq.KS]
+                forced += [dict(k=k) for k in gq.KS[dt]]
             for f in forced:
                 plan = _gn_plan(x, silu, **f) if groups == 32 else None
                 tag = f"K={plan.k} bps={plan.bps}" if plan else "plan"
@@ -795,13 +1028,15 @@ def _tanhf_lib():
     return gelu_quant
 
 
-def _turns(label, bound, parent, new, iters, launches=(None, None)):
-    """Parent and new in turns; `launches`, the device activities of a
-    parent and of a new call where known (`timing.device_ms`)."""
+def _turns(label, bound, parent, new, iters, launches=(None, None), timer=None):
+    """Parent and new in turns, by `timer(fn, iters)` or else
+    `timing.device_ms` with `launches`, the device activities of a parent
+    and of a new call where known."""
     times = {"parent": [], "new": []}
     for who in ("parent", "new", "new", "parent"):
-        times[who].append(device_ms(parent if who == "parent" else new, iters=iters,
-                                    launches=launches[who == "new"]))
+        fn = parent if who == "parent" else new
+        times[who].append(timer(fn, iters) if timer else
+                          device_ms(fn, iters=iters, launches=launches[who == "new"]))
     best = min(times["new"])
     return (f"{label}: parent={'/'.join(f'{t:.4f}' for t in times['parent'])} "
             f"new={'/'.join(f'{t:.4f}' for t in times['new'])} "
@@ -863,6 +1098,116 @@ def time_(gen, iters, kernels):
         _time_k6(gen, iters)
     if "K11" in kernels:
         _time_k11(gen, iters)
+    if "K3" in kernels:
+        _time_k3(gen, iters)
+    if "K9p" in kernels:
+        _time_k9p(gen, iters)
+
+
+def _stream(fn, iters):
+    """`timing.stream_ms`, best of two: K3's and K9p's A/B reads no
+    profiler trace (traces of these runs lost activities, PERF.md)."""
+    return min(stream_ms(fn, iters=iters) for _ in range(2))
+
+
+def _time_k3(gen, iters):
+    """K3 against its parent's three Triton programs; the sweep of K,
+    L2-cold; all by `stream_ms`."""
+    from prompt_diffusion_tpu_torch.ops import gn_quant as gq
+    from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm
+
+    for shape, act, eps, mean in K3_SHAPES:
+        bsz, c, h, w = shape
+        nbytes = 4 * bsz * c * h * w + 8 * c
+        bound = nbytes / HBM_BYTES_S * 1e3
+        x, wt, bs = _gn_inputs(gen, shape, mean=mean)
+        silu, relu = act == "silu", act == "relu"
+        new = lambda x, w, b: fused_group_norm(x, w, b, 32, eps, silu, relu)
+        parent = lambda x, w, b: _parent_gn(x, w, b, eps, act)
+        with plain_ops():
+            ref = new(x.float(), wt, bs)
+        errs = [(f(x, wt, bs).float() - ref).abs().max().item() for f in (parent, new)]
+        launches = [device_launches(lambda f=f: f(x, wt, bs)) for f in (parent, new)]
+        print(f"[quant_tune] parity K3 {shape} {act}: max abs error against the plain version "
+              f"in fp32: parent {errs[0]}, new {errs[1]}; device launches per call: parent "
+              f"{launches[0]}, new {launches[1]}", flush=True)
+        cold = _cold(lambda: _gn_inputs(gen, shape, mean=mean), nbytes)
+        warm = _turns("warm", bound, lambda: parent(x, wt, bs), lambda: new(x, wt, bs), iters,
+                      timer=_stream)
+        colds = _turns("cold", bound, cold(parent), cold(new), iters, timer=_stream)
+        plan = _k3_plan(x, act)
+        print(f"[quant_tune] time K3 {shape} {act} bound_ms={bound:.4f} (bytes) plan K={plan.k} "
+              f"threads={plan.threads} bps={plan.bps} "
+              f"blocks/SM={plan.blocks_per_sm} chunks/block<={-(-plan.chunks // plan.bps)} "
+              f"| {warm} | {colds}", flush=True)
+        sweep = []
+        for k in gq.KS[x.dtype]:
+            p = _k3_plan(x, act, k=k)
+            call = cold(lambda x, w, b, p=p: gq.gn_float(x, w, b, 32, eps, K3_ACTS[act], p))
+            sweep.append(f"K={p.k} (bps={p.bps}): {_stream(call, iters):.4f}")
+        print(f"[quant_tune] sweep K3 {shape} {act} cold: " + "; ".join(sweep), flush=True)
+
+
+def _k9_on(q, codes, scales, v, heads):
+    """K9's attention kernel on given K codes and (B, H) scales, at the
+    scale and query tile `flash_attention_packed_int8` takes."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    b, nq, hd = q.shape
+    out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
+    cuda_ext().int8_attention_fwd(
+        q.data_ptr(), codes.data_ptr(), scales.data_ptr(), False, v.data_ptr(), out.data_ptr(),
+        b, heads, nq, codes.shape[1], hd // heads, q.stride(0), q.stride(1), codes.stride(0),
+        codes.stride(1), v.stride(0), v.stride(1), out.stride(0), out.stride(1),
+        (hd // heads) ** -0.5, fa.int8_block_q(nq), torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _time_k9p(gen, iters):
+    """K9p against its parent (PARENT_K9P), bit for bit and in turns; the
+    sweep of its blocks per SM, L2-cold; all by `stream_ms`."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+
+    parent = _parent_k9p()
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (b, n, hd), h, row in K9P_SHAPES:
+        make = lambda: (_x(gen, b, n, row)[..., hd:2 * hd] if row != hd else _x(gen, b, n, hd),)
+        nbytes = 3 * b * n * hd + 4 * b * h
+        bound = nbytes / HBM_BYTES_S * 1e3
+        (k,) = make()
+        with plain_ops():
+            ref = fa.quant_k_int8(k, h)
+        equal = [all(torch.equal(a, r) for a, r in zip(f(k, h), ref))
+                 for f in (parent, fa.quant_k_int8)]
+        launches = [device_launches(lambda f=f: f(k, h)) for f in (parent, fa.quant_k_int8)]
+        label = f"({b},{n},{hd}) H={h}" + (f" K slice of ({b},{n},{row})" if row != hd else "")
+        q, v = _x(gen, b, n, hd), _x(gen, b, n, hd)
+        k9_equal = torch.equal(fa.flash_attention_packed_int8(q, k, v, h),
+                               _k9_on(q, *parent(k, h), v, h))
+        print(f"[quant_tune] parity K9p {label}: bit-equal to the plain version: parent "
+              f"{equal[0]}, new {equal[1]}; K9's output bit-equal to K9 on the parent's codes "
+              f"{k9_equal}; device operations per call: parent {launches[0]}, new "
+              f"{launches[1]}", flush=True)
+        cold = _cold(make, nbytes)
+        new = lambda k: fa.quant_k_int8(k, h)
+        old = lambda k: parent(k, h)
+        warm = _turns("warm", bound, lambda: old(k), lambda: new(k), iters, timer=_stream)
+        colds = _turns("cold", bound, cold(old), cold(new), iters, timer=_stream)
+        occ = lambda t: fa._quant_k_occupancy(dev, hd // h, t)
+        plan = fa.quant_k_plan(b, n, h, hd // h, occupancy=occ, sms=sms)
+        print(f"[quant_tune] time K9p {label} bound_ms={bound:.4f} (bytes) plan "
+              f"threads={plan.threads} rows={plan.rows} bps={plan.bps} "
+              f"blocks/SM={plan.blocks_per_sm} (occupancy {occ(plan.threads)}) | {warm} | "
+              f"{colds}", flush=True)
+        sweep = []
+        for per_sm in (1, 2, 4, 8, 16):
+            p = fa._quant_k_plan(b, n, h, hd // h, plan.cv, plan.rows, plan.threads,
+                                 occ(plan.threads), sms, per_sm)
+            call = cold(lambda k, p=p: fa._quant_k_head(k, p))
+            sweep.append(f"blocks/SM={p.blocks_per_sm} (bps={p.bps}): {_stream(call, iters):.4f}")
+        print(f"[quant_tune] sweep K9p {label} cold: " + "; ".join(sweep), flush=True)
 
 
 def _time_k6(gen, iters):
@@ -971,41 +1316,29 @@ def _time_k5(gen, iters):
               f"blocks/SM={plan.blocks_per_sm} chunks/block<={-(-plan.chunks // plan.bps)} "
               f"| {warm} | {colds}", flush=True)
         sweep = []
-        for k in gq.KS:
+        for k in gq.KS[x.dtype]:
             p = _gn_plan(x, silu, k=k)
             call = cold(lambda x, w, b, p=p: gq.gn_quant(x, w, b, 32, eps, silu, p))
             sweep.append(f"K={k} (bps={p.bps}): {device_ms(call, iters=iters):.4f}")
         print(f"[quant_tune] sweep K5 {shape} cold: " + "; ".join(sweep), flush=True)
 
 
-# ---- phases (K5) --------------------------------------------------------
+# ---- phases (K5, K3) --------------------------------------------------------
 
-# clock64() of every block's thread 0 at each phase boundary, into a device
-# array read back through `read_stamps`: (anchor in the source, text put
-# before it, the phase that ends there)
-_STAMPS = """
-__device__ long long g_stamps[8192 * 10];
-#define STAMP(i) do { if (threadIdx.x == 0) g_stamps[blockIdx.x * 10 + (i)] = clock64(); } while (0)
-extern "C" int read_stamps(void* dst, int n) {
-  return (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(long long) * n);
-}
-"""
-PHASES = (("  const int blk = blockIdx.x, b = blk / p.bps, j = blk % p.bps;", 0, None),
-          ("  __syncthreads();  // cmin and cmax set", 1, "reads and statistics"),
-          ("  float* part = p.ws + (int64_t)blk * 3 * G;", 2, "row merge"),
-          ("  cg::this_grid().sync();\n\n  // ---- the sample's", 3, "group merge"),
-          ("  // ---- the sample's group statistics", 4, "barrier 1"),
-          ("  // ---- phase 2", 5, "sample merge and terms"),
-          ("  float* amaxes =", 6, "amax"),
-          ("  // ---- phase 3", 7, "barrier 2"),
-          ("  int8_t* out = p.codes", 8, "scale"),
-          ("}\n\ntemplate <typename T, int K, bool SILU>\nvoid* kernel_of", 9, "codes"))
-NO_SILU_CODES = ("            const float z = epilogue<SILU>(fmaf(f[e], csc[e], csh[e]));",
-                 "            const float z = fmaf(f[e], csc[e], csh[e]);")
+# the phase that ends at each stamp of `gn_quant.cu` (GN_STAMP(i)); slots 0
+# and STAMP_SLOTS - 1 hold each block's first and last %globaltimer (ns)
+STAMP_SLOTS = 16
+K5_PHASES = {1: "reads and statistics", 2: "block merge", 3: "barrier 1",
+             4: "sample merge and terms", 5: "amax", 6: "barrier 2", 7: "scale", 8: "codes"}
+K3_PHASES = {1: "reads and statistics", 2: "block merge", 3: "barrier",
+             4: "sample merge and terms", 5: "apply"}
+NO_SILU_CODES = ("          const float z = epilogue<ACT>(fmaf(f[e], sc[e], sh[e]));",
+                 "          const float z = fmaf(f[e], sc[e], sh[e]);")
 
 
-def _gn_copy(name, edits):
-    """A ctypes handle on a copy of gn_quant.cu with (old, new) edits."""
+def _gn_copy(name, edits, *flags):
+    """A ctypes handle on a copy of gn_quant.cu with (old, new) edits, built
+    with `flags`."""
     src = open(GN_SOURCE).read()
     for old, new in edits:
         if old not in src:
@@ -1015,58 +1348,95 @@ def _gn_copy(name, edits):
     path = os.path.join(OUT_DIR, f"gn_quant_{name}.cu")
     with open(path, "w") as f:
         f.write(src)
-    so = ctypes.CDLL(_build(f"gn_quant_{name}.so", path, "-shared", "-Xcompiler", "-fPIC")[0])
+    so = ctypes.CDLL(_build(f"gn_quant_{name}.so", path, "-shared", "-Xcompiler", "-fPIC",
+                            *flags)[0])
     so.pd_gn_quant.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
                                + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 6
                                + [ctypes.c_void_p])
-    so.pd_gn_quant_occupancy.argtypes = [ctypes.c_int] * 5
+    so.pd_gn_float.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                               + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 6
+                               + [ctypes.c_void_p])
+    so.pd_gn_quant_occupancy.argtypes = so.pd_gn_float_occupancy.argtypes = [ctypes.c_int] * 5
     return so
 
 
-def phases(gen, iters, kernels):
-    """K5's cycles by phase, and its time without SiLU in the codes pass."""
+def _gn_call(so, x, w, b, eps, act, quant):
+    """(plan, a call of K5 (quant) or K3 through `so` on x)."""
     from prompt_diffusion_tpu_torch.ops import gn_quant as gq
 
-    if "K5" not in kernels:
-        return
-    stamped = _gn_copy("stamped", [("namespace cg = cooperative_groups;",
-                                    "namespace cg = cooperative_groups;\n" + _STAMPS)]
-                       + [(a, f"  STAMP({i});\n" + a) for a, i, _ in PHASES])
-    stamped.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    copies = {"as built": _gn_copy("built", []), "no SiLU in the codes": _gn_copy(
-        "no_silu_codes", [NO_SILU_CODES])}
+    bsz, c, h, wd = x.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for shape, silu, eps in K5_SHAPES:
-        x, w, b = _gn_inputs(gen, shape, mean=4.0 if shape[0] == 4 else 0.0)
-        bsz, c, h, wd = shape
+    stream = torch.cuda.current_stream().cuda_stream
+    if quant:
+        occ = lambda k, t, m: so.pd_gn_quant_occupancy(1, k, int(act == "silu"), t, m)
+        plan = gq.gn_plan(bsz, c, h * wd, 32, torch.bfloat16, occupancy=occ, sms=sms)
+        out = (torch.empty_like(x, dtype=torch.int8), torch.empty(bsz, device="cuda"))
+    else:
+        occ = lambda k, t, m: so.pd_gn_float_occupancy(1, k, K3_ACTS[act], t, m)
+        plan = gq.gn_float_plan(bsz, c, h * wd, 32, torch.bfloat16, occupancy=occ, sms=sms)
+        out = (torch.empty_like(x),)
+    ws = torch.empty(plan.workspace, device="cuda")
+    ptrs = (x.data_ptr(), 1, w.data_ptr(), b.data_ptr(), *(t.data_ptr() for t in out),
+            ws.data_ptr(), bsz, h * wd, c, 32, eps)
+    if quant:
+        args = ptrs + (int(act == "silu"), plan.k, plan.rows, plan.threads, plan.chunks,
+                       plan.bps, stream)
+        return plan, lambda: so.pd_gn_quant(*args)
+    args = ptrs + (K3_ACTS[act], plan.k, plan.rows, plan.threads, plan.chunks, plan.bps,
+                   stream)
+    return plan, lambda: so.pd_gn_float(*args)
 
-        def call(so):
-            occ = lambda k, t, m: so.pd_gn_quant_occupancy(1, k, int(silu), t, m)
-            plan = gq.gn_plan(bsz, c, h * wd, 32, torch.bfloat16, occupancy=occ, sms=sms)
-            q = torch.empty_like(x, dtype=torch.int8)
-            s = torch.empty(bsz, device="cuda")
-            ws = torch.empty(plan.workspace, device="cuda")
-            args = (x.data_ptr(), 1, w.data_ptr(), b.data_ptr(), q.data_ptr(), s.data_ptr(),
-                    ws.data_ptr(), bsz, h * wd, c, 32, eps, int(silu), plan.k, plan.rows,
-                    plan.threads, plan.chunks, plan.bps,
-                    torch.cuda.current_stream().cuda_stream)
-            return plan, lambda: so.pd_gn_quant(*args)
 
-        plan, run = call(stamped)
-        if run():
-            raise RuntimeError("the stamped copy's launch failed")
-        torch.cuda.synchronize()
-        st = torch.zeros(plan.grid * 10, dtype=torch.int64)
-        stamped.read_stamps(st.data_ptr(), st.numel())
-        st = st.view(plan.grid, 10).double()
-        total = (st[:, 9] - st[:, 0]).mean().item()
-        shares = [f"{label} {100 * (st[:, i] - st[:, i - 1]).mean().item() / total:.0f}%"
-                  for _, i, label in PHASES if label]
-        times = "; ".join(f"{name} {device_ms(call(so)[1], iters=iters):.4f} ms"
-                          for name, so in copies.items())
-        print(f"[quant_tune] phases K5 {shape} {'silu' if silu else 'no silu'}: "
-              f"{total:.0f} cycles a block (mean): " + ", ".join(shares) + f" | {times}",
-              flush=True)
+def _phase_line(stamped, plan, run, phases):
+    """Each phase's mean cycles a block and share; the blocks' mean span,
+    the kernel's span and the spread of the blocks' starts in µs."""
+    st = torch.zeros(plan.grid * STAMP_SLOTS, dtype=torch.int64)
+    stamped.pd_gn_read_stamps(st.data_ptr(), st.numel())  # zeroes the slots
+    if run():
+        raise RuntimeError("the stamped copy's launch failed")
+    torch.cuda.synchronize()
+    stamped.pd_gn_read_stamps(st.data_ptr(), st.numel())
+    st = st.view(plan.grid, STAMP_SLOTS).double()
+    cycles = {i: st[:, i].mean().item() for i in phases}
+    total = sum(cycles.values())
+    start, end = st[:, 0], st[:, STAMP_SLOTS - 1]
+    return (f"{total:.0f} cycles a block (mean): "
+            + ", ".join(f"{phases[i]} {cycles[i]:.0f} ({100 * cycles[i] / total:.0f}%)"
+                        for i in phases)
+            + f"; block span {(end - start).mean().item() / 1e3:.2f} µs (mean), kernel span "
+            f"{(end.max() - start.min()).item() / 1e3:.2f} µs, block starts spread over "
+            f"{(start.max() - start.min()).item() / 1e3:.2f} µs; grid {plan.grid} blocks of "
+            f"{plan.threads} threads")
+
+
+def phases(gen, iters, kernels):
+    """K5's and K3's cycles by phase; K5's time without SiLU in the codes
+    pass."""
+    if not kernels & {"K5", "K3"}:
+        return
+    stamped = _gn_copy("stamped", [], "-DGN_PHASE_STAMPS")
+    stamped.pd_gn_read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    built = _gn_copy("built", [])
+    if "K5" in kernels:
+        copies = {"as built": built,
+                  "no SiLU in the codes": _gn_copy("no_silu_codes", [NO_SILU_CODES])}
+        for shape, silu, eps in K5_SHAPES:
+            x, w, b = _gn_inputs(gen, shape, mean=4.0 if shape[0] == 4 else 0.0)
+            act = "silu" if silu else "none"
+            plan, run = _gn_call(stamped, x, w, b, eps, act, True)
+            line = _phase_line(stamped, plan, run, K5_PHASES)
+            run_of = lambda so: _gn_call(so, x, w, b, eps, act, True)[1]
+            times = "; ".join(f"{name} {device_ms(run_of(so), iters=iters, launches=1):.4f} ms"
+                              for name, so in copies.items())
+            print(f"[quant_tune] phases K5 {shape} {act}: {line} | {times}", flush=True)
+    if "K3" in kernels:
+        for shape, act, eps, mean in K3_SHAPES:
+            x, w, b = _gn_inputs(gen, shape, mean=mean)
+            plan, run = _gn_call(stamped, x, w, b, eps, act, False)
+            line = _phase_line(stamped, plan, run, K3_PHASES)
+            ms = device_ms(_gn_call(built, x, w, b, eps, act, False)[1], iters=iters, launches=1)
+            print(f"[quant_tune] phases K3 {shape} {act}: {line} | as built {ms:.4f} ms",
+                  flush=True)
 
 
 PARTS = {"sass": sass, "check": check, "time": time_, "phases": phases}

@@ -4,6 +4,9 @@ work, shared by `chip_smoke.py`, the attention lab and the profiles.
 `device_ms` is the time a call keeps the card busy: the union of the
 device intervals of everything the call launches (kernels, copies,
 memsets), from a `torch.profiler` trace of back-to-back calls, per call.
+`stream_ms` reads the same without the profiler, from CUDA events around
+calls queued behind a spin kernel (the device's gaps between launches
+included), where a trace cannot be trusted to hold every activity.
 It leaves out the host's part of a call (the wrapper's Python, the launch
 itself), which `time_ms`, CUDA events around one synchronised call,
 includes: below ~0.1 ms of device work that host time is most of a
@@ -23,8 +26,10 @@ number.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
+import time
 
 HBM_BYTES_S, BF16_OPS_S, INT8_OPS_S, EXP_S = 3.35e12, 989e12, 1979e12, 3.9e12
 
@@ -56,11 +61,12 @@ def time_ms(fn, iters=10, warmup=2):
 
 
 def device_kernels(prof):
-    """(name, start_us, end_us) of every device activity in a trace."""
+    """(name, start_us, end_us) of every device activity in a trace but
+    `device_trace`'s sentinels."""
     import torch
 
     return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA and SENTINEL not in e.name]
 
 
 def busy_us(intervals):
@@ -74,6 +80,39 @@ def busy_us(intervals):
         else:
             cur_end = max(cur_end, e)
     return total + (cur_end - cur_start if cur_end is not None else 0)
+
+
+# A trace can lose a few activities at its ends: seen on the H100 a few
+# minutes into a `quant_tune` run, where every trace of 5 calls of one
+# launch held 1 to 3 of them and one of 15 launches held 11, with the
+# window padded by 5 or 50 ms of host time as with none. `device_trace`
+# launches SENTINELS spin kernels (`torch.cuda._sleep`, named SENTINEL) at
+# each end of its block, which `device_kernels` leaves out, and pads the
+# window by PROFILE_PAD_S on both sides.
+SENTINELS, SENTINEL, PROFILE_PAD_S = 16, "spin_kernel", 0.005
+
+
+def _sentinels():
+    import torch
+
+    for _ in range(SENTINELS):
+        torch.cuda._sleep(1)
+
+
+@contextlib.contextmanager
+def device_trace():
+    """`torch.profiler.profile` of the device over the block, which ends
+    synchronised, between sentinels and padding (above)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        _sentinels()
+        yield prof
+        _sentinels()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
 
 
 # CUPTI now and then hands back a trace with no device activity (seen once
@@ -97,17 +136,14 @@ def _device_trace(fn, iters, warmup, what, launches=None):
 
     if not torch.cuda.is_available():
         raise RuntimeError(f"{what} needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     fullest = []
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_trace() as prof:
             for _ in range(iters):
                 fn()
-            torch.cuda.synchronize()
         kernels = device_kernels(prof)
         if kernels and (len(kernels) == launches * iters if launches
                         else len(kernels) % iters == 0):
@@ -122,9 +158,40 @@ def device_ms(fn, iters=20, warmup=3, launches=None):
     """Device milliseconds per call of `fn`: the union of the device
     intervals of `iters` back-to-back calls over `iters`; `launches`, the
     device activities a call makes where known, rejects a trace that lost
-    some in whole calls' worth."""
+    some in whole calls' worth, and where every trace lost some, the
+    fullest one's union is divided by the calls it holds."""
     kernels = _device_trace(fn, iters, warmup, "device_ms", launches)
-    return busy_us([(s, e) for _, s, e in kernels]) / iters / 1e3
+    calls = min(iters, len(kernels) / launches) if launches else iters
+    return busy_us([(s, e) for _, s, e in kernels]) / calls / 1e3
+
+
+# cycles of the spin kernel that holds the stream while `stream_ms` queues
+# its calls (~10 ms at the H100's clock, longer than the host needs to
+# queue 20 calls of any wrapper timed here)
+SPIN_CYCLES = 20_000_000
+
+
+def stream_ms(fn, iters=20, warmup=3):
+    """Device milliseconds per call of `fn`, without the profiler: CUDA
+    events around `iters` calls queued behind a spin kernel, so the device
+    runs them back to back whatever the host's pace (the gaps between
+    launches on the device included, the host's part of a call not).
+    Raises without a CUDA device."""
+    import torch
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("stream_ms needs a CUDA device")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def device_launches(fn, iters=5, warmup=1):

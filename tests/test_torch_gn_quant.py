@@ -111,25 +111,28 @@ K5_SHAPES = sorted({(BATCH, c, h * h) for c, h, _, _ in SD15_K5}
 
 def _covers(plan: gq.GnPlan):
     """The kernel's maps cover every (sample, pixel, channel) once: blocks
-    split each sample's chunks in order with none empty, the rows of a
-    chunk split its pixels, and a pixel's threads its channels."""
+    split each sample's pixels in order, none empty and within one pixel of
+    the same count, their chunks and the rows of a chunk split a block's
+    pixels, and a pixel's threads its channels."""
     assert plan.cv * plan.rows <= plan.threads <= gq.MAX_THREADS and plan.threads % 32 == 0
     assert plan.threads - plan.cv * plan.rows < 32
-    assert plan.cv * plan.vec_elems == plan.c
+    assert plan.cv * gq.THREAD_CHANNELS == plan.c
     assert plan.chunks * plan.rows * plan.k >= plan.hw > (plan.chunks - 1) * plan.rows * plan.k
-    ranges = [plan.block_chunks(j) for j in range(plan.bps)]
-    assert ranges[0][0] == 0 and ranges[-1][1] == plan.chunks
-    assert all(lo < hi for lo, hi in ranges)
+    assert 1 <= plan.bps <= plan.chunks
+    ranges = [plan.block_pixels(j) for j in range(plan.bps)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.hw
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert max(hi - lo for lo, hi in ranges) - min(hi - lo for lo, hi in ranges) <= 1
+    assert min(hi - lo for lo, hi in ranges) >= 1
     pixels = []
-    for lo, hi in ranges:
-        for ch in range(lo, hi):
-            chunk = [p for r in range(plan.rows) for p in plan.pixels(ch, r)]
+    for j in range(plan.bps):
+        for ch in range(plan.block_chunks(j)):
+            chunk = [p for r in range(plan.rows) for p in plan.pixels(j, ch, r)]
             assert chunk, "a chunk without a pixel"
             pixels += chunk
     assert sorted(pixels) == list(range(plan.hw))
-    channels = sorted(v * plan.vec_elems + e for v in range(plan.cv)
-                      for e in range(plan.vec_elems))
+    channels = sorted(v * gq.THREAD_CHANNELS + e for v in range(plan.cv)
+                      for e in range(gq.THREAD_CHANNELS))
     assert channels == list(range(plan.c))
 
 
@@ -139,17 +142,16 @@ def test_gn_plan_covers_every_value_once(shape, occ):
     """At every SD1.5 step and VAE site (and ragged ones), for bf16 and
     fp32: the plan covers each value once, its grid is resident at once,
     its shared buffers fit a block, and the workspace is a group partial
-    per block and group and an amax per block."""
+    (mean, M2) per block and group, a count and an amax per block."""
     batch, c, hw = shape
     for dtype in (torch.bfloat16, torch.float32):
-        if c * dtype.itemsize // gq.VEC_BYTES > gq.MAX_THREADS:
-            continue
         plan = gq.gn_plan(batch, c, hw, 32 if c % 32 == 0 else 8, dtype,
                           occupancy=OCCUPANCIES[occ])
         _covers(plan)
+        assert plan.k in gq.KS[dtype]
         assert plan.grid == batch * plan.bps <= plan.blocks_per_sm * gq.SMS
-        assert gq.static_smem(c, plan.rows, plan.groups, plan.threads) <= gq.SMEM_BLOCK
-        assert plan.workspace == plan.grid * (3 * plan.groups + 1)
+        assert gq.static_smem(c, plan.rows, plan.groups) <= gq.SMEM_BLOCK
+        assert plan.workspace == plan.grid * (2 * plan.groups + 2)
 
 
 @pytest.mark.parametrize("shape,k,chunks,bps", [
@@ -173,7 +175,7 @@ def test_gn_plan_at_the_main_sites(shape, k, chunks, bps):
     ((8, 320, 4096, 30, torch.bfloat16), "divisible"),
     ((8, 36, 4096, 4, torch.bfloat16), "multiple of 8"),
     ((8, 8192, 64, 32, torch.bfloat16), "exceed"),
-    ((8, 4096, 64, 32, torch.float32), "exceed"),
+    ((8, 8192, 64, 32, torch.float32), "exceed"),
     ((0, 320, 4096, 32, torch.bfloat16), "empty"),
     ((300, 320, 4096, 32, torch.bfloat16), "batch 300 exceeds"),
 ])
@@ -185,6 +187,17 @@ def test_gn_plan_refuses(args, match):
 def test_gn_plan_refuses_a_forced_k_outside_the_kernels():
     with pytest.raises(ValueError, match="one of"):
         gq.gn_plan(8, 320, 4096, 32, torch.bfloat16, k=3)
+
+
+def test_gn_plan_takes_at_most_4_fp32_pixels_a_thread():
+    """K = 8 exists in bf16 only: 8 fp32 pixels are 16 vectors a thread.
+    The fp32 plan picks from 4, 2 and 1, and at the same chunks the same
+    bytes in flight as bf16's K = 8."""
+    with pytest.raises(ValueError, match="one of"):
+        gq.gn_plan(8, 320, 4096, 32, torch.float32, k=8)
+    bf16 = gq.gn_plan(8, 320, 4096, 32, torch.bfloat16)
+    fp32 = gq.gn_plan(8, 320, 4096, 32, torch.float32)
+    assert (bf16.k, fp32.k) == (8, 4) and (bf16.cv, bf16.threads) == (fp32.cv, fp32.threads)
 
 
 def _no_build(monkeypatch):
@@ -294,13 +307,82 @@ def _chan(a, b):
     return nn, mean + delta * (nb / nn), m2 + m2b + delta * delta * (n * nb / nn)
 
 
-def _merge(parts):
-    """The kernel's merge of parts (n, mean, m2), as K3's combine program:
-    the weighted mean of the means, then the M2s plus n (mean_p - mean)^2."""
+def _tree(lanes):
+    """The kernels' shuffle butterfly over a segment's lanes: at each step
+    lane i adds lane i ^ off's sum (commutative adds: every lane ends with
+    lane 0's bits)."""
     f32 = np.float32
-    n = f32(sum(p[0] for p in parts))
-    mean = f32(sum(p[0] * p[1] for p in parts) / n)
-    return n, mean, f32(sum(p[2] + p[0] * (p[1] - mean) ** 2 for p in parts))
+    v = list(lanes)
+    off = len(v) // 2
+    while off:
+        v = [f32(v[i] + v[i ^ off]) for i in range(len(v))]
+        off //= 2
+    return v[0]
+
+
+def _block_parts(xs, plan, j, groups):
+    """Phase 1 of block j on one sample's (hw, c) float32 values: per
+    thread row and chunk a two-pass mean and M2 merged by Chan's formula,
+    then the block's R x CG parts of each group (part i: row i // CG,
+    channel i % CG of the group) over the segment's S lanes (lane i % S
+    sums its parts in order, then the butterfly): the weighted mean of the
+    parts' means, then their M2 plus n (mean_p - mean)^2. Returns [(n,
+    mean, m2)] per group."""
+    f32 = np.float32
+    c = xs.shape[1]
+    cg = c // groups
+    rows = []
+    for r in range(plan.rows):
+        acc = (f32(0), np.zeros(c, f32), np.zeros(c, f32))
+        for ch in range(plan.block_chunks(j)):
+            pix = plan.pixels(j, ch, r)
+            if not pix:
+                continue
+            vals = xs[pix]
+            cm = vals.sum(0, dtype=f32) * (f32(1) / f32(len(pix)))
+            acc = _chan(acc, (f32(len(pix)), cm, ((vals - cm) ** 2).sum(0, dtype=f32)))
+        rows.append(acc)
+    lo, hi = plan.block_pixels(j)
+    cnt = f32((hi - lo) * cg)
+    seg, parts = gq.merge_lanes(plan.threads, groups), plan.rows * cg
+    out = []
+    for g in range(groups):
+        lanes = [f32(0)] * seg
+        for i in range(parts):
+            n, mean, _ = rows[i // cg]
+            lanes[i % seg] = f32(lanes[i % seg] + n * mean[g * cg + i % cg])
+        gm = f32(_tree(lanes) * (f32(1) / cnt))
+        lanes = [f32(0)] * seg
+        for i in range(parts):
+            n, mean, m2 = rows[i // cg]
+            cc = g * cg + i % cg
+            lanes[i % seg] = f32(lanes[i % seg] + (m2[cc] + n * (mean[cc] - gm) ** 2))
+        out.append((cnt, gm, _tree(lanes)))
+    return out
+
+
+def _sample_stats(parts, plan, groups, eps):
+    """The sample's mean and rstd per group from its blocks' parts, as the
+    kernels merge them: sums about block 0's mean, block j in lane j % S,
+    then the butterfly."""
+    f32 = np.float32
+    mean_g, rstd_g = np.zeros(groups, f32), np.zeros(groups, f32)
+    seg = gq.merge_lanes(plan.threads, groups)
+    for g in range(groups):
+        shift = parts[0][g][1]
+        lanes = [[f32(0)] * 3 for _ in range(seg)]
+        for j in range(plan.bps):
+            n, m, m2 = parts[j][g]
+            d = f32(m - shift)
+            lane = lanes[j % seg]
+            lane[0] = f32(lane[0] + n)
+            lane[1] = f32(lane[1] + n * d)
+            lane[2] = f32(lane[2] + (m2 + n * d * d))
+        n, s1, s2 = (_tree([lane[i] for lane in lanes]) for i in range(3))
+        d = f32(s1 / n)
+        mean_g[g] = shift + d
+        rstd_g[g] = f32(1) / np.sqrt(f32((s2 - s1 * d) / n) + f32(eps))
+    return mean_g, rstd_g
 
 
 def _silu(z):
@@ -308,10 +390,9 @@ def _silu(z):
 
 
 def _emulate(x, gamma, beta, groups, eps, silu, plan):
-    """The kernel's order of work in float32 numpy: per thread row and
-    chunk a two-pass mean and M2 merged by Chan's formula, then the
-    block's rows and its channels per group by `_merge`, the sample's
-    blocks by sums about block 0's mean; the amax
+    """The kernel's order of work in float32 numpy: each block's parts per
+    group (`_block_parts`), the sample's blocks by sums about block 0's
+    mean (`_sample_stats`); the amax
     from each channel's min and max of x (or from the values where SiLU's
     interior might win); the codes by IEEE quotient."""
     f32 = np.float32
@@ -323,43 +404,12 @@ def _emulate(x, gamma, beta, groups, eps, silu, plan):
     for b in range(b_):
         parts, lo, hi = [], [], []
         for j in range(plan.bps):
-            c0, c1 = plan.block_chunks(j)
-            rows = []
-            for r in range(plan.rows):
-                acc = (f32(0), np.zeros(c, f32), np.zeros(c, f32))
-                for ch in range(c0, c1):
-                    pix = plan.pixels(ch, r)
-                    if not pix:
-                        continue
-                    vals = xs[b, pix]
-                    cm = vals.sum(0, dtype=f32) * (f32(1) / f32(len(pix)))
-                    acc = _chan(acc, (f32(len(pix)), cm, ((vals - cm) ** 2).sum(0, dtype=f32)))
-                rows.append(acc)
-            live = [row for row in rows if row[0] > 0]
-            nb, cmean, cm2 = _merge(live)
-            gpart = [_merge([(nb, cmean[cc], cm2[cc]) for cc in range(g * cg, (g + 1) * cg)])
-                     for g in range(groups)]
-            parts.append(gpart)
-            block_px = [p for ch in range(c0, c1) for r in range(plan.rows)
-                        for p in plan.pixels(ch, r)]
+            parts.append(_block_parts(xs[b], plan, j, groups))
+            block_px = [p for ch in range(plan.block_chunks(j)) for r in range(plan.rows)
+                        for p in plan.pixels(j, ch, r)]
             lo.append(xs[b, block_px].min(0))
             hi.append(xs[b, block_px].max(0))
-        mean_g, rstd_g = np.zeros(groups, f32), np.zeros(groups, f32)
-        nl = max(1, plan.threads // groups)
-        for g in range(groups):
-            shift = parts[0][g][1]  # sums about block 0's mean, nl lanes
-            lanes = [[f32(0)] * 3 for _ in range(nl)]
-            for j in range(plan.bps):
-                n, m, m2 = parts[j][g]
-                d = m - shift
-                lane = lanes[j % nl]
-                lane[0] += n
-                lane[1] += n * d
-                lane[2] += m2 + n * d * d
-            n, s1, s2 = (f32(sum(lane[i] for lane in lanes)) for i in range(3))
-            d = s1 / n
-            mean_g[g] = shift + d
-            rstd_g[g] = f32(1) / np.sqrt((s2 - s1 * d) / n + f32(eps))
+        mean_g, rstd_g = _sample_stats(parts, plan, groups, eps)
         sc = (gamma.numpy() * np.repeat(rstd_g, cg)).astype(f32)
         sh = (beta.numpy() - np.repeat(mean_g, cg) * sc).astype(f32)
         epi = (lambda z: _silu(z).astype(f32)) if silu else (lambda z: z)
@@ -368,9 +418,8 @@ def _emulate(x, gamma, beta, groups, eps, silu, plan):
         for j in range(plan.bps):
             a = max(np.abs(z(lo[j])).max(), np.abs(z(hi[j])).max())
             if silu and a < 0.28:
-                c0, c1 = plan.block_chunks(j)
-                px = [p for ch in range(c0, c1) for r in range(plan.rows)
-                      for p in plan.pixels(ch, r)]
+                px = [p for ch in range(plan.block_chunks(j)) for r in range(plan.rows)
+                      for p in plan.pixels(j, ch, r)]
                 a = np.abs(z(xs[b, px])).max()
             amaxes.append(a)
         s = max(f32(max(amaxes)) / f32(127), f32(1e-8))
@@ -395,7 +444,7 @@ def test_gn_quant_emulation_matches_the_plain_version(case):
         "no silu eps 1e-6": ((2, 64, 24, 24), 8, 1e-6, False, 0.0, 1.0),
         "mean 4": ((2, 32, 40, 40), 8, 1e-6, True, 4.0, 1.0),
         "silu interior": ((2, 64, 24, 24), 8, 1e-5, True, 0.0, 0.02),
-        "fp32 ragged": ((3, 40, 7, 9), 5, 1e-5, True, 0.5, 1.0),
+        "fp32 ragged": ((3, 40, 11, 13), 5, 1e-5, True, 0.5, 1.0),
     }[case]
     x = torch.from_numpy((rng.normal(size=shape) + mean).astype(np.float32))
     if case != "fp32 ragged":

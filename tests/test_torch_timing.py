@@ -9,6 +9,14 @@ import torch
 from prompt_diffusion_tpu_torch.tools import timing
 
 
+@pytest.fixture(autouse=True)
+def _no_sentinels(monkeypatch):
+    """The fake traces below hold no sentinel kernels, and no card runs
+    them."""
+    monkeypatch.setattr(timing, "_sentinels", lambda: None)
+    monkeypatch.setattr(timing, "PROFILE_PAD_S", 0.0)
+
+
 @pytest.mark.parametrize("intervals,union", [
     ([], 0),
     ([(0, 5)], 5),
@@ -20,6 +28,15 @@ from prompt_diffusion_tpu_torch.tools import timing
 ])
 def test_busy_us_is_the_union(intervals, union):
     assert timing.busy_us(intervals) == union
+
+
+def test_stream_ms_raises_without_a_card(monkeypatch):
+    """No CUDA device: `stream_ms` raises before it calls the function."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = []
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        timing.stream_ms(lambda: calls.append(1))
+    assert calls == []
 
 
 def test_device_ms_raises_without_a_card(monkeypatch):
@@ -122,3 +139,30 @@ def test_device_ms_with_known_launches_retakes_a_trace_that_lost_whole_calls(mon
     monkeypatch.setattr(timing, "device_kernels", lambda prof: pending.pop(0))
     assert timing.device_ms(lambda: None, iters=2, warmup=0, launches=2) == pytest.approx(0.02)
     assert not pending
+
+
+def test_device_ms_with_known_launches_divides_by_the_calls_it_holds(monkeypatch):
+    """Where every trace lost activities, `device_ms` with `launches` reads
+    the fullest trace per call it holds, not per call made: a lost call
+    would otherwise read as idle time."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.profiler, "profile", _Trace)
+    pending = [[("k", 0, 10)], [("k", 0, 10), ("k", 10, 20)], [("k", 0, 10)]]
+    monkeypatch.setattr(timing, "device_kernels", lambda prof: pending.pop(0))
+    assert timing.device_ms(lambda: None, iters=4, warmup=0, launches=1) == pytest.approx(0.01)
+    assert not pending
+
+
+def test_device_kernels_leave_out_the_sentinels():
+    """`device_trace`'s spin kernels at the ends of a trace are not the
+    traced calls' activities; host events are not device activities."""
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    event = lambda name, dev, s, e: type("E", (), {
+        "name": name, "device_type": dev,
+        "time_range": type("R", (), {"start": s, "end": e})})
+    prof = type("P", (), {"events": lambda self: [
+        event("void at::cuda::(anonymous namespace)::spin_kernel(long)", cuda, 0, 2),
+        event("gn_float_kernel", cuda, 2, 9), event("aten::empty", cpu, 0, 1),
+        event("void at::cuda::(anonymous namespace)::spin_kernel(long)", cuda, 9, 11)]})()
+    assert timing.device_kernels(prof) == [("gn_float_kernel", 2, 9)]
