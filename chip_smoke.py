@@ -43,12 +43,17 @@ without the final `"ok": true` line:
                shift) must issue one device launch per call, counted in a
                profiler trace.
                int8 conv, both variants: equal to the plain version bit
-               for bit. AdaLN's
-               gradient (kernel forward, autograd of the plain version
-               backward) within 1e-4 of the plain version's, relative to
-               its largest value. The attention lab modes at the SD1.5 64²
-               and SD3 joint shapes, with K1's bounds (the no-softmax
-               mode's output is no average of V: its bound is relative);
+               for bit. K12 (AdaLN): its forward within 2e-2 and one
+               device launch per call, its gradient through both kernels
+               within 1e-4 of the plain version's, relative to its largest
+               value, and its backward alone against the plain backward:
+               each of dx, dscale and dshift within 1e-4 of its largest
+               plain value in fp32, and in bf16 within one bf16 rounding
+               (2^-8 of the largest value) more; one device launch per
+               call and a second call bit-equal. The attention lab modes
+               at the SD1.5 64² and SD3 joint shapes, with K1's bounds
+               (the no-softmax mode's output is no average of V: its
+               bound is relative);
   4. slice   - SD1.5 at full width (default configs, bf16, random weights
                from a seed) answers two 512² requests of batch 2 with 8 DDIM
                steps and CFG 9; checks the images, that every kernel of the
@@ -81,8 +86,9 @@ without the final `"ok": true` line:
                against the plain ops, and one CFG velocity evaluation
                against the plain ops and an fp32-compute int8 evaluation;
   7. adaln   - K12 (called by no model) on the path a training step of an
-               AdaLN site takes: kernel forward, backward through autograd
-               of the plain version, at the SD3 streams' shapes;
+               AdaLN site takes: the forward kernel, then the backward
+               kernel through autograd, at the SD3 streams' shapes, each
+               call one launch of each under the profiler;
   8. labs    - the attention lab entry point
                (`prompt_diffusion_tpu_torch.tools.attn_lab`), every lab at
                two timed iterations;
@@ -149,6 +155,9 @@ PROMPTS = ("a photograph of a red house by a lake", "an oil painting of a mounta
 SD3_BATCH, SD3_SIZE, SD3_STEPS, SD3_CFG, SD3_SHIFT, T5_LEN = 1, 1024, 8, 7.0, 3.0, 256
 # K12's gradient against the plain version's, relative to its largest value
 GRAD_REL_BOUND = 1e-4
+# K12's backward in bf16: one bf16 rounding of each gradient, at most
+# BF16_ROUNDING of its largest value, beside the fp32 term GRAD_REL_BOUND
+BF16_ROUNDING = 2.0 ** -8
 LAB_ITERS = 2  # timed iterations of each attention lab variant in `[labs]`
 # profiled calls of a plain version in `[kernels]` (a kernel's and a library
 # call's: `device_ms`'s default, 20)
@@ -241,7 +250,11 @@ def kernel_cases(gen):
         fused_gelu_quant,
         fused_quant_rows,
     )
-    from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln, fused_adaln_quant
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import (
+        fused_adaln,
+        fused_adaln_bwd,
+        fused_adaln_quant,
+    )
     from prompt_diffusion_tpu_torch.ops.fused_group_norm import (
         fused_group_norm,
         fused_group_norm_quant,
@@ -421,6 +434,19 @@ def kernel_cases(gen):
     args = (randn(b, n, c), 0.1 * randn(b, 1, c), 0.1 * randn(b, 1, c))
     cases.append(("fused_adaln", f"({b},{n},{c}) fp32 gradient", adaln_grads, args, "grad",
                   GRAD_REL_BOUND, (20 * b * n * c + 16 * b * c, 0, 0), None))
+    # K12's backward alone against the plain backward: fp32 at the image
+    # stream, then bf16 at both streams (the context stream's modulation as
+    # (B, C)); reads of x, the output gradient and scale, writes of dx,
+    # dscale and dshift
+    for b, n, c, dt in ((2, 4096, 1536, torch.float32), (2, 4096, 1536, torch.bfloat16),
+                        (2, 333, 1536, torch.bfloat16)):
+        x, g = randn(b, n, c).to(dt), randn(b, n, c).to(dt)
+        s = (0.1 * randn(b, 1, c) if n > 1000 else 0.1 * randn(b, c)).to(dt)
+        size = x.element_size()
+        cases.append(("fused_adaln_bwd", f"({b},{n},{c}) {str(dt)[6:]}", fused_adaln_bwd,
+                      (x, s, g), "bwd",
+                      GRAD_REL_BOUND + (BF16_ROUNDING if dt == torch.bfloat16 else 0.0),
+                      (3 * size * b * n * c + 3 * size * b * c, 0, 0), None))
     # K10 at the MMDiT FF width (both streams' rows; one tanh per value on
     # the special-function units)
     for n in (8192, 666):
@@ -519,7 +545,8 @@ def phase_kernels(gen):
     The int8 epilogue kernels are held to their scales and codes (the plain
     versions quantize the fp32 value of the same bf16 inputs); the int8
     conv to bit equality; AdaLN's gradient to GRAD_REL_BOUND of its
-    largest value."""
+    largest value, and AdaLN's backward alone each of its gradients to its
+    bound times the gradient's largest plain value."""
     import torch
 
     from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
@@ -552,6 +579,16 @@ def phase_kernels(gen):
                    f"{SCALE_REL_BOUND}), codes at most {code_diff} apart, {equal} equal "
                    f"(bound {CODES_EQUAL_BOUND})")
             ok = (scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND)
+        elif kind == "bwd":  # K12's backward: dx, dscale, dshift
+            check(all(torch.isfinite(t).all().item() for t in out),
+                  f"{name} {label}: non-finite gradients")
+            errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(out, ref)]
+            bounds = [bound * r.abs().max().item() for r in ref]
+            err = max(errs)
+            extra = {"errors": errs, "bounds": bounds}
+            msg = (f"dx, dscale, dshift max_abs_err={errs} (bounds {bounds}: {bound} of each "
+                   f"largest plain gradient in fp32)")
+            ok = all(e <= bb for e, bb in zip(errs, bounds))
         elif kind == "exact" and isinstance(out, tuple):  # K9's prologue: codes and scales
             err = max((a.float() - r.float()).abs().max().item() for a, r in zip(out, ref))
             msg = f"codes and scales max_abs_err={err} (bit-equal required)"
@@ -583,20 +620,21 @@ def phase_kernels(gen):
             extra["err_vs_plain_bf16"] = (out.float() - ref_bf16.float()).abs().max().item()
             msg += f" err_vs_plain_bf16={extra['err_vs_plain_bf16']}"
             del ref_bf16
-        if kind == "quant" or name in ONE_LAUNCH:  # K5's, K3's and K9p's sums cross blocks
+        one = name in ONE_LAUNCH and kind != "grad"  # a gradient case runs many kernels
+        if kind == "quant" or one:  # K5's, K3's, K9p's and K12's backward's sums cross blocks
             again = fn(*args)
             pairs = zip(out, again) if isinstance(out, tuple) else ((out, again),)
             extra["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
             del again
             msg += f"; repeat bit-equal {extra['repeat_bit_equal']}"
             ok = ok and extra["repeat_bit_equal"]
-        if name in ONE_LAUNCH:
+        if one:
             extra["launches_per_call"] = device_launches(lambda: fn(*args))
             msg += f"; {extra['launches_per_call']} device launches per call (1 required)"
             ok = ok and extra["launches_per_call"] == 1
         del out, ref
         t = time.perf_counter()
-        ms = device_ms(lambda: fn(*args), launches=1 if name in ONE_LAUNCH else None)
+        ms = device_ms(lambda: fn(*args), launches=1 if one else None)
         with plain_ops():
             plain_ms = device_ms(lambda: fn(*args), iters=PLAIN_ITERS, warmup=1)
         lib_ms = None if library is None else device_ms(library)
@@ -673,8 +711,11 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                          "prompt_diffusion_tpu/ops/fused_act.py:106"),
     "fused_adaln_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                           "prompt_diffusion_tpu/ops/fused_adaln.py:140"),
-    "fused_adaln": ("triton", "prompt_diffusion_tpu_torch/ops/_triton_quant.py",
+    "fused_adaln": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                     "prompt_diffusion_tpu/ops/fused_adaln.py:95"),
+    # K12's backward: the JAX `custom_vjp` `_bwd`, jnp beside the pallas_call
+    "fused_adaln_bwd": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
+                        "prompt_diffusion_tpu/ops/fused_adaln.py:127"),
     "conv3x3_int8_xshift": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_conv.cu",
                             "prompt_diffusion_tpu/ops/int8_conv.py:103"),
     "flash_attention_tiled": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
@@ -693,9 +734,10 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
 }
 # kernels whose wrapper must issue exactly one device launch per call (no
 # cast or copy of its inputs), counted in a profiler trace in `[kernels]`
+# (K12's gradient case, which runs both K12 kernels and plain ops, aside)
 ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
               "fused_group_norm_quant", "fused_layer_norm_quant", "fused_quant_rows",
-              "fused_group_norm", "quant_k_int8")
+              "fused_group_norm", "quant_k_int8", "fused_adaln", "fused_adaln_bwd")
 # the device functions a wrapper launches, where it launches more than one
 # (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
 # split-K sum and epilogue where its plan splits K)
@@ -709,9 +751,10 @@ DEVICE_FUNCTIONS = {
 # on the paths: each call of these wrappers is one launch of its device
 # function, and no device function of their parent designs runs
 # (`one_launch_per_call`)
-PATH_ONE_LAUNCH = {"fused_group_norm": "gn_float_kernel", "quant_k_int8": "k_head_quant_kernel"}
+PATH_ONE_LAUNCH = {"fused_group_norm": "gn_float_kernel", "quant_k_int8": "k_head_quant_kernel",
+                   "fused_adaln": "adaln_float_kernel", "fused_adaln_bwd": "adaln_bwd_kernel"}
 PARENT_FUNCTIONS = ("gn_stats_kernel", "gn_combine_kernel", "gn_apply_kernel", "k_amax_kernel",
-                    "k_codes_kernel")
+                    "k_codes_kernel", "adaln_kernel")
 # further TPU kernels a kernel stands for: the lab kernels that compute the
 # same function as one above
 ALSO_REPLACES = {
@@ -732,7 +775,7 @@ PATH_KERNELS = {
     # the bf16 VAE's GroupNorm and mid-block attention, the int8 MMDiT's four
     "sd3": ("flash_attention", "fused_group_norm", "flash_attention_packed_int8",
             "quant_k_int8", "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
-    "adaln": ("fused_adaln",),
+    "adaln": ("fused_adaln", "fused_adaln_bwd"),
     "labs": ("flash_attention_tiled", "attention_no_softmax", "flash_attention_two_pass",
              "flash_attention_packed_int8_rowk", "flash_attention_packed_int8",
              "flash_attention_packed"),
@@ -741,6 +784,23 @@ PATH_KERNELS = {
     **{tag: tuple(k for k, n in counts.items() if n and "." not in k)
        for tag, counts in MIDAS_PER_FORWARD.items()},
 }
+
+
+class _BackwardLaunches:
+    """K12's backward launches, `fused_adaln.backward_launches`, as the
+    `launches` of a wrapper."""
+
+    @property
+    def launches(self):
+        from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln
+
+        return fused_adaln.backward_launches
+
+    @launches.setter
+    def launches(self, value):
+        from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln
+
+        fused_adaln.backward_launches = value
 
 
 def wrappers():
@@ -764,6 +824,7 @@ def wrappers():
             "fused_quant_rows": act.fused_quant_rows,
             "fused_adaln_quant": ada.fused_adaln_quant,
             "fused_adaln": ada.fused_adaln,
+            "fused_adaln_bwd": _BackwardLaunches(),
             "conv3x3_int8_xshift": ic.conv3x3_int8_xshift,
             "flash_attention_tiled": fa.flash_attention_tiled,
             "attention_no_softmax": fa.attention_no_softmax,
@@ -1195,34 +1256,47 @@ def phase_sd3(seed=0):
 
 def phase_adaln(seed=5000):
     """K12, which no model calls, on the path a training step of an AdaLN
-    site takes: the kernel forward and the backward through autograd of
-    the plain version, at the SD3 image and context streams (per-sample
-    modulation as (B, C) and (B, 1, C)); outputs and gradients finite and
-    of the inputs' shapes."""
+    site takes: the forward kernel, then the backward kernel through
+    autograd, at the SD3 image and context streams (per-sample modulation
+    as (B, C) and (B, 1, C)); each call under the profiler one launch of
+    each kernel and none of the parent Triton program
+    (`one_launch_per_call`); outputs and gradients finite and of the
+    inputs' shapes."""
     import torch
 
     from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
-    counted = reset_launches()
+    launches = {}
     t0 = time.perf_counter()
     for b, n, c in ((2, 4096, 1536), (2, 333, 1536)):
         x = randn(b, n, c).requires_grad_()
         scale, shift = (0.1 * randn(b, c)).requires_grad_(), (0.1 * randn(b, 1, c)).requires_grad_()
-        out = fused_adaln(x, scale, shift)
-        out.float().square().sum().backward()
+
+        def step():
+            for t in (x, scale, shift):
+                t.grad = None
+            out = fused_adaln(x, scale, shift)
+            out.float().square().sum().backward()
+            return out
+
+        out, per_call = one_launch_per_call("adaln", step)
+        check(per_call["fused_adaln"] == 1 and per_call["fused_adaln_bwd"] == 1,
+              f"AdaLN at {(b, n, c)}: {per_call['fused_adaln']} forward and "
+              f"{per_call['fused_adaln_bwd']} backward launches in one call")
+        for name, count in per_call.items():
+            launches[name] = launches.get(name, 0) + count
         check(out.shape == x.shape and out.dtype == x.dtype and torch.isfinite(out).all().item(),
               f"AdaLN at {(b, n, c)}: output {tuple(out.shape)} {out.dtype}")
         for name, t in (("x", x), ("scale", scale), ("shift", shift)):
-            check(t.grad is not None and t.grad.shape == t.shape
+            check(t.grad is not None and t.grad.shape == t.shape and t.grad.dtype == t.dtype
                   and torch.isfinite(t.grad).all().item(), f"AdaLN at {(b, n, c)}: grad of {name}")
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in counted.items()}
     log(f"[adaln] forward + backward at (2,4096,1536) and (2,333,1536) bf16: outputs and "
-        f"gradients finite, of the inputs' shapes, in {seconds:.3f}s; launches "
-        f"{ {k: launches[k] for k in PATH_KERNELS['adaln']} }")
+        f"gradients finite, of the inputs' shapes and dtypes, in {seconds:.3f}s (under the "
+        f"profiler); launches {dict((k, launches[k]) for k in PATH_KERNELS['adaln'])}")
     for name in PATH_KERNELS["adaln"]:
         check(launches[name] > 0, f"kernel {name} was not launched on the adaln path")
     return launches, {"seconds": seconds}

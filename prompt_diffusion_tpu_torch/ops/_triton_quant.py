@@ -1,17 +1,16 @@
-"""Triton programs: K12 (AdaLN), the one int8 epilogue kernel still in
-Triton, and the parent designs of the others. K10 (tanh-GELU->int8), K13
-(AdaLN->int8), K7 (GEGLU->int8), K6 (LayerNorm->int8) and K11 (row->int8)
-are CUDA C++ (`csrc/row_quant.cu`), K5 (GroupNorm->int8) too
-(`csrc/gn_quant.cu`); their former Triton programs stay here only as the
-parent designs that `tools/quant_tune.py --part time` launches beside the
-CUDA kernels: `act_quant_kernel` (GELU=True: K10; GELU=False: K11), the
-QUANT=True branch of `adaln_kernel` (K13), `geglu_quant_kernel` (K7),
+"""Triton programs: the parent designs of kernels that are now CUDA C++.
+K10 (tanh-GELU->int8), K13 (AdaLN->int8), K12 (AdaLN), K7
+(GEGLU->int8), K6 (LayerNorm->int8) and K11 (row->int8) are in
+`csrc/row_quant.cu`, K5 (GroupNorm->int8) in `csrc/gn_quant.cu`; their
+former Triton programs stay here only as the parent designs that
+`tools/quant_tune.py --part time` launches beside the CUDA kernels:
+`act_quant_kernel` (GELU=True: K10; GELU=False: K11), `adaln_kernel`
+(QUANT=True: K13; QUANT=False: K12), `geglu_quant_kernel` (K7),
 `ln_quant_kernel` (K6), and `gn_amax_kernel` with `gn_quant_kernel` (K5,
 after K3's stats and combine programs). No wrapper routes to them.
 
-This module imports `triton` at its top, so only the launcher in
-`fused_adaln.py` and `tools/quant_tune.py` import it, inside the function
-that launches, on the card.
+This module imports `triton` at its top, so only `tools/quant_tune.py`
+imports it, inside the function that launches, on the card.
 
 Every quantize step follows `quant.py` of the JAX package: the fp32 value
 is divided by its scale with an IEEE-rounded division (`div_rn`: Triton's
@@ -178,7 +177,7 @@ def act_quant_kernel(x_ptr, q_ptr, s_ptr, N, C,
     tl.store(s_ptr + rows, s, mask=rmask)
 
 
-# ---- K12 (and K13's parent design): AdaLN (LayerNorm without affine,
+# ---- K12's and K13's parent design: AdaLN (LayerNorm without affine,
 # per-sample modulation), -> int8 with QUANT
 
 
@@ -188,9 +187,8 @@ def adaln_kernel(x_ptr, sc_ptr, sh_ptr, q_ptr, s_ptr, R, N, C, eps,
     """BLOCK_R whole rows of the (B*N, C) activation: fp32 LayerNorm
     statistics, (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
     with b = row // N; with QUANT the row's int8 codes and scale (`q_ptr`,
-    `s_ptr`), else the value in `q_ptr`'s dtype (`s_ptr` unused). K12 runs
-    QUANT=False; QUANT=True is K13's parent design, launched only by
-    `tools/quant_tune.py`."""
+    `s_ptr`), else the value in `q_ptr`'s dtype (`s_ptr` unused): K13's and
+    K12's parent design, launched only by `tools/quant_tune.py`."""
     pid = tl.program_id(0)
     rows = pid * BLOCK_R + tl.arange(0, BLOCK_R)
     cols = tl.arange(0, BLOCK_C)

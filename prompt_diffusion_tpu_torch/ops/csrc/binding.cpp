@@ -47,7 +47,14 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
                             int batch, int n, int c, const void* sc, int sc_bf16, int64_t sc_sb,
                             int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
                             int64_t sh_sc, float eps, int tpr, int vpt, int groups, int grid_x,
-                            void* codes, void* scales, void* stream);
+                            void* out, void* scales, void* stream);
+extern "C" int pd_adaln_bwd_occupancy(int x_bf16, int vpt, int c);
+extern "C" int pd_adaln_bwd(const void* x, int x_bf16, int64_t x_sb, int64_t x_sn, const void* g,
+                            int64_t g_sb, int64_t g_sn, int batch, int n, int c, const void* sc,
+                            int sc_bf16, int64_t sc_sb, int64_t sc_sc, float eps, int tpr,
+                            int vpt, int groups, int bps, int merge_lanes, void* dx,
+                            void* dscale, int dscale_bf16, void* dshift, int dshift_bf16,
+                            void* ws, void* stream);
 extern "C" int pd_gn_quant_occupancy(int x_bf16, int k, int silu, int threads, int smem);
 extern "C" int pd_gn_quant(const void* x, int x_bf16, const void* gamma, const void* beta,
                            void* codes, void* scales, void* ws, int batch, int hw, int c,
@@ -135,13 +142,33 @@ void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, bool row_k, uint
 void row_quant(int op, uintptr_t x, bool x_bf16, int64_t x_sb, int64_t x_sn, int batch, int n,
                int c, uintptr_t sc, bool sc_bf16, int64_t sc_sb, int64_t sc_sc, uintptr_t sh,
                bool sh_bf16, int64_t sh_sb, int64_t sh_sc, double eps, int tpr, int vpt,
-               int groups, int grid_x, uintptr_t codes, uintptr_t scales, uintptr_t stream) {
+               int groups, int grid_x, uintptr_t out, uintptr_t scales, uintptr_t stream) {
   const int err = pd_row_quant(op, ptr(x), x_bf16 ? 1 : 0, x_sb, x_sn, batch, n, c, ptr(sc),
                                sc_bf16 ? 1 : 0, sc_sb, sc_sc, ptr(sh), sh_bf16 ? 1 : 0, sh_sb,
                                sh_sc, static_cast<float>(eps), tpr, vpt, groups, grid_x,
-                               ptr(codes), ptr(scales), ptr(stream));
+                               ptr(out), ptr(scales), ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("row_quant launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
+int adaln_bwd_occupancy(bool x_bf16, int vpt, int c) {
+  return pd_adaln_bwd_occupancy(x_bf16 ? 1 : 0, vpt, c);
+}
+
+void adaln_bwd(uintptr_t x, bool x_bf16, int64_t x_sb, int64_t x_sn, uintptr_t g, int64_t g_sb,
+               int64_t g_sn, int batch, int n, int c, uintptr_t sc, bool sc_bf16, int64_t sc_sb,
+               int64_t sc_sc, double eps, int tpr, int vpt, int groups, int bps,
+               int merge_lanes, uintptr_t dx, uintptr_t dscale, bool dscale_bf16,
+               uintptr_t dshift, bool dshift_bf16, uintptr_t ws, uintptr_t stream) {
+  const int err = pd_adaln_bwd(ptr(x), x_bf16 ? 1 : 0, x_sb, x_sn, ptr(g), g_sb, g_sn, batch, n,
+                               c, ptr(sc), sc_bf16 ? 1 : 0, sc_sb, sc_sc,
+                               static_cast<float>(eps), tpr, vpt, groups, bps, merge_lanes,
+                               ptr(dx), ptr(dscale), dscale_bf16 ? 1 : 0,
+                               ptr(dshift), dshift_bf16 ? 1 : 0, ptr(ws), ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("adaln_bwd launch failed: ") +
                              pd_cuda_error_string(err));
   }
 }
@@ -204,8 +231,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k; block_q 64 or 128");
   m.def("row_quant", &row_quant,
         "Rows -> int8 codes and fp32 row scales: op 0 tanh-GELU (K10), op 1 AdaLN with "
-        "per-sample (B, C) scale and shift views (K13), op 2 GEGLU of [h | gate] rows (K7); "
+        "per-sample (B, C) scale and shift views (K13), op 2 GEGLU of [h | gate] rows (K7), "
+        "op 3 LayerNorm (K6), op 4 rows (K11); op 5 AdaLN in x's dtype, no scales (K12); "
         "the plan of ops/row_quant.py::row_plan");
+  m.def("adaln_bwd_occupancy", &adaln_bwd_occupancy,
+        "K12's backward: blocks per SM of the kernel <bf16, vpt> at c columns "
+        "(negative: a CUDA error)");
+  m.def("adaln_bwd", &adaln_bwd,
+        "K12's backward: dx, dscale and dshift of AdaLN from x, scale and the output's "
+        "gradient, one cooperative launch; the plan of ops/row_quant.py::adaln_bwd_plan");
   m.def("gn_quant_occupancy", &gn_quant_occupancy,
         "K5: blocks per SM of the GroupNorm -> int8 kernel <bf16, k, silu> at `threads` "
         "threads and `smem` bytes of dynamic shared memory (negative: a CUDA error)");

@@ -1,6 +1,8 @@
 // Row -> int8 kernels for Hopper (sm_90a): K10, tanh-GELU -> int8, K13,
 // AdaLN -> int8, K7, GEGLU -> int8, K6, LayerNorm -> int8, and K11, row ->
-// int8; one int8 code per value and one fp32 scale per row.
+// int8; one int8 code per value and one fp32 scale per row. Beside them
+// K12, AdaLN in x's dtype (K13's body with a float epilogue,
+// `adaln_float_kernel`), and K12's backward (`adaln_bwd_kernel`, below).
 //
 // Replace the TPU kernels prompt_diffusion_tpu/ops/fused_act.py::
 // fused_gelu_quant (_gelu_quant_kernel through _run), the input of the SD3
@@ -15,7 +17,10 @@
 // the DPT ViT blocks in the int8 serving mode, and
 // prompt_diffusion_tpu/ops/fused_act.py::fused_quant_rows
 // (_quant_rows_kernel through _run), the attention outputs of every SD3
-// JointBlock in the int8 serving mode. Per row, in fp32:
+// JointBlock in the int8 serving mode; and prompt_diffusion_tpu/ops/
+// fused_adaln.py::fused_adaln (_adaln_kernel) with its custom_vjp's _bwd,
+// which no model calls (a training step of an AdaLN site would). Per row,
+// in fp32:
 //
 //   K10: y = x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 x^3)))
 //   K13: y = (x - mean) * rsqrt(var + eps) * (1 + scale[b]) + shift[b]
@@ -26,6 +31,7 @@
 //        the module's per-column affine; the products and the sum rounded
 //        one by one, in the plain version's order, not contracted as K13's)
 //   K11: y = x
+//   K12: K13's y, stored in x's dtype (bf16 rounded to nearest), no codes
 //   then s = max(amax|y| / 127, 1e-8) by IEEE division, and the codes
 //   rint(y / s) with y / s the IEEE quotient, clipped to +-127
 //   (`rowquant`, fused_layer_norm.py:28 of the JAX package).
@@ -34,7 +40,10 @@
 // write of its int8 codes (3 bytes a value; K7 5 bytes an output value):
 // 0.045 ms at K10's (8192, 6144), 0.011 ms at K13's (2, 4096, 1536) and
 // K11's (8192, 1536), 0.063 ms at K7's (32768, 2560) and 0.0094 ms at K6's
-// (32768, 320) at 3.35 TB/s. K10's arithmetic comes
+// (32768, 320) at 3.35 TB/s; K12 reads and writes bf16 (4 bytes a
+// value): 0.015 ms at (2, 4096, 1536), and its backward reads x and the
+// gradient and writes dx: 0.045 ms at (2, 4096, 1536) in fp32 (12 bytes a
+// value), 0.023 in bf16. K10's arithmetic comes
 // close: at ~33.5e12 thread-instructions/s the byte bound leaves ~27
 // instructions a value (K7 ~50 per output value, of which CUDA's erff
 // takes the most). So the design keeps every value in registers from the
@@ -89,6 +98,7 @@
 // the same value; a row's warp partials are added in warp order), so runs
 // repeat bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -104,7 +114,7 @@ constexpr int kMaxVpt = 8;                     // 16-byte vectors a thread holds
 constexpr int kRedFloats = 2 * kThreads / kWarp;  // two buffers of one partial per warp
 constexpr int kSmemDefault = 48 * 1024;
 
-enum Op { kGelu = 0, kAdaLN = 1, kGeglu = 2, kLN = 3, kRows = 4 };
+enum Op { kGelu = 0, kAdaLN = 1, kGeglu = 2, kLN = 3, kRows = 4, kAdaLNF = 5 };
 
 struct Params {
   const void* x;
@@ -117,8 +127,8 @@ struct Params {
   int64_t sh_sb, sh_sc;
   int sc_bf16, sh_bf16;
   float eps;
-  int8_t* codes;  // (batch * n, c), dense
-  float* scales;  // (batch * n)
+  void* out;      // int8 codes, or K12's y in x's dtype: (batch * n, c), dense
+  float* scales;  // (batch * n); K12: none
 };
 
 // -2 sqrt(2/pi) log2(e) and 0.044715 times it: x * (C1 + C3 x^2) = -2 z log2(e)
@@ -190,6 +200,8 @@ template <typename T, int VPT, int OP, bool PIPE>
 __device__ __forceinline__ void row_quant_body(const Params& p) {
   constexpr int E = Vec<T>::E;
   constexpr int NIN = OP == kGeglu ? 2 : 1;
+  constexpr bool kModulated = OP == kAdaLN || OP == kAdaLNF;
+  constexpr bool kFloatOut = OP == kAdaLNF;  // K12: y in x's dtype, no codes
   extern __shared__ float4 smem4[];
   float* red = reinterpret_cast<float*>(smem4);  // kRedFloats, then K13's or K6's 2 C floats
   float* mod = red + kRedFloats;
@@ -219,12 +231,12 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
   uint4 raw[NIN * VPT];
   load(0, raw);
 
-  if constexpr (OP == kAdaLN || OP == kLN) {
+  if constexpr (kModulated || OP == kLN) {
     for (int col = threadIdx.x; col < p.c; col += kThreads) {
       const int v = col / E, j = col % E;
       const int idx = ((j >> 2) * nvec + v) * 4 + (j & 3);
       const float m1 = load_mod(p.sc, p.sc_bf16, b * p.sc_sb + col * p.sc_sc);
-      mod[idx] = OP == kAdaLN ? 1.0f + m1 : m1;
+      mod[idx] = kModulated ? 1.0f + m1 : m1;
       mod[p.c + idx] = load_mod(p.sh, p.sh_bf16, b * p.sh_sb + col * p.sh_sc);
     }
     __syncthreads();
@@ -303,44 +315,55 @@ __device__ __forceinline__ void row_quant_body(const Params& p) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               float& y = v[k][4 * h + j];
-              if constexpr (OP == kAdaLN) {
+              if constexpr (kModulated) {  // contracted: one rounding of y * rstd, one FMA
                 y = fmaf(y * rstd, m1[j], m0[j]);
               } else {  // K6: (y * rstd) * w + b, each step rounded
                 y = __fadd_rn(__fmul_rn(__fmul_rn(y, rstd), m1[j]), m0[j]);
               }
-              amax = fmaxf(amax, fabsf(y));
+              if constexpr (!kFloatOut) amax = fmaxf(amax, fabsf(y));
             }
           }
         }
       }
     }
-    amax = row_reduce<true>(amax, tpr, red, slot);
-    const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
-    const float r = __frcp_rn(s);
-    if (n_idx < p.n) {
-      const int64_t row = (int64_t)b * p.n + n_idx;
-      int8_t* out = p.codes + row * p.c;
+    if constexpr (kFloatOut) {  // K12: 16-byte stores of y in x's dtype
+      if (n_idx < p.n) {
+        T* out = static_cast<T*>(p.out) + ((int64_t)b * p.n + n_idx) * p.c;
 #pragma unroll
-      for (int k = 0; k < VPT; ++k) {
-        const int vi = t + k * tpr;
-        if (vi < nvec) {
-          uint32_t w[E / 4];
-#pragma unroll
-          for (int h = 0; h < E / 4; ++h) {
-            const float* y = v[k] + 4 * h;
-            w[h] = rq::pack4(rq::code_bits(rq::quotient(y[0], s, r)),
-                             rq::code_bits(rq::quotient(y[1], s, r)),
-                             rq::code_bits(rq::quotient(y[2], s, r)),
-                             rq::code_bits(rq::quotient(y[3], s, r)));
-          }
-          if constexpr (E == 8) {
-            *reinterpret_cast<uint2*>(out + (int64_t)vi * E) = make_uint2(w[0], w[1]);
-          } else {
-            *reinterpret_cast<uint32_t*>(out + (int64_t)vi * E) = w[0];
-          }
+        for (int k = 0; k < VPT; ++k) {
+          const int vi = t + k * tpr;
+          if (vi < nvec) *reinterpret_cast<uint4*>(out + (int64_t)vi * E) = Vec<T>::pack(v[k]);
         }
       }
-      if (t == 0) p.scales[row] = s;
+    } else {
+      amax = row_reduce<true>(amax, tpr, red, slot);
+      const float s = fmaxf(__fdiv_rn(amax, 127.f), 1e-8f);
+      const float r = __frcp_rn(s);
+      if (n_idx < p.n) {
+        const int64_t row = (int64_t)b * p.n + n_idx;
+        int8_t* out = static_cast<int8_t*>(p.out) + row * p.c;
+#pragma unroll
+        for (int k = 0; k < VPT; ++k) {
+          const int vi = t + k * tpr;
+          if (vi < nvec) {
+            uint32_t w[E / 4];
+#pragma unroll
+            for (int h = 0; h < E / 4; ++h) {
+              const float* y = v[k] + 4 * h;
+              w[h] = rq::pack4(rq::code_bits(rq::quotient(y[0], s, r)),
+                               rq::code_bits(rq::quotient(y[1], s, r)),
+                               rq::code_bits(rq::quotient(y[2], s, r)),
+                               rq::code_bits(rq::quotient(y[3], s, r)));
+            }
+            if constexpr (E == 8) {
+              *reinterpret_cast<uint2*>(out + (int64_t)vi * E) = make_uint2(w[0], w[1]);
+            } else {
+              *reinterpret_cast<uint32_t*>(out + (int64_t)vi * E) = w[0];
+            }
+          }
+        }
+        if (t == 0) p.scales[row] = s;
+      }
     }
     if constexpr (PIPE) {
 #pragma unroll
@@ -375,9 +398,15 @@ __global__ void __launch_bounds__(kThreads) rows_quant_kernel(const Params p) {
 }
 
 template <typename T, int VPT, bool PIPE>
+__global__ void __launch_bounds__(kThreads) adaln_float_kernel(const Params p) {
+  row_quant_body<T, VPT, kAdaLNF, PIPE>(p);
+}
+
+template <typename T, int VPT, bool PIPE>
 int launch(int op, const Params& p, dim3 grid, cudaStream_t s) {
-  // K13's modulation or K6's affine: 2 C floats after the reduction buffers
-  const bool staged = op == kAdaLN || op == kLN;
+  // K13's and K12's modulation or K6's affine: 2 C floats after the
+  // reduction buffers
+  const bool staged = op == kAdaLN || op == kLN || op == kAdaLNF;
   const size_t smem = sizeof(float) * (kRedFloats + (staged ? 2 * (size_t)p.c : 0));
   void (*kernel)(const Params) = nullptr;
   if (op == kGelu) {
@@ -388,6 +417,8 @@ int launch(int op, const Params& p, dim3 grid, cudaStream_t s) {
     kernel = ln_quant_kernel<T, VPT, PIPE>;
   } else if (op == kRows) {
     kernel = rows_quant_kernel<T, VPT, PIPE>;
+  } else if (op == kAdaLNF) {
+    kernel = adaln_float_kernel<T, VPT, PIPE>;
   } else if constexpr (2 * VPT <= kMaxVpt) {  // K7 holds VPT vectors of h and of gate
     kernel = geglu_quant_kernel<T, VPT, PIPE>;
   }
@@ -416,33 +447,330 @@ int launch_vpt(int vpt, int op, const Params& p, dim3 grid, cudaStream_t s) {
   }
 }
 
+
+// ---- K12's backward: adaln_bwd_kernel ---------------------------------
+
+struct BwdParams {
+  const void* x;
+  int64_t x_sb, x_sn;  // element strides of a sample and of a row; columns dense
+  const void* g;       // the output's gradient, x's dtype
+  int64_t g_sb, g_sn;
+  int n, c;
+  int tpr, groups, bps, merge_lanes;  // the plan: blocks per sample bps = gridDim.x
+  const void* sc;                     // scale, bf16 or fp32, element strides
+  int64_t sc_sb, sc_sc;
+  int sc_bf16;
+  float eps;
+  void* dx;        // (batch, n, c), dense, x's dtype
+  void* dscale;    // (batch, c), dense, bf16 or fp32
+  void* dshift;
+  int dscale_bf16, dshift_bf16;
+  float* ws;       // (batch, bps, 2 c): each block's column sums of g, then of g * xhat
+};
+
+constexpr int kMergeLoads = 4;  // partials a merge lane has in flight
+
+__device__ __forceinline__ void store_float(void* base, int bf16, int64_t i, float v) {
+  if (bf16) {
+    static_cast<__nv_bfloat16*>(base)[i] = __float2bfloat16_rn(v);
+  } else {
+    static_cast<float*>(base)[i] = v;
+  }
+}
+
+// Shared memory: the reduction buffers, 1 + scale[b] (C floats, in the
+// forward's float4 order), then the block's column sums (2 C floats, at
+// least kThreads: the merge's partial sums reuse them); 196 KB at the
+// widest row, C = 16384, within a block's 227 KB.
+__host__ __device__ constexpr size_t bwd_smem_floats(int c) {
+  return kRedFloats + c + (2 * c > kThreads ? 2 * c : kThreads);
+}
+
+// One cooperative launch of a grid of bps x batch blocks, all resident:
+//   phase 1, the rows: block (j, b) walks `groups` row groups of sample b
+//   on K13's row plan (a row's threads hold the same columns in every
+//   row); per row it reloads x and g, takes mean and rstd by the row's
+//   reductions (nothing is saved from the forward: x is read anyway), then
+//   ghat = g * (1 + scale[b]), xhat = (x - mean) * rstd and the row means
+//   of ghat and ghat * xhat (two more reductions), and writes
+//   dx = rstd * (ghat - mean(ghat) - xhat * mean(ghat * xhat)) in x's
+//   dtype. Each thread keeps the running column sums of g and g * xhat of
+//   its columns in registers; at the end the block adds them over its row
+//   slots in slot order in shared memory and writes one (2, C) fp32
+//   partial to the workspace;
+//   grid barrier;
+//   phase 2, the merge: block j of sample b takes a contiguous slice of the
+//   sample's 2 C sums; for each, `merge_lanes` lanes sum the sample's
+//   partials j', j' + lanes, ... in order, and the lanes' sums are added
+//   in lane order; then dshift = sum g and dscale = sum g * xhat in their
+//   dtypes. Every sum is taken in an order fixed by the plan, so a call
+//   repeats bit for bit (atomics would not).
+// What bounds it: bytes (x and g read once, dx written once: 0.045 ms in
+// fp32 at (2, 4096, 1536)), and registers: a thread holds its vectors of x
+// and of g, the next row group's (loaded before the current group's four
+// reductions) and two fp32 sums per column. At most BWD_VECTORS = 3
+// vectors of each a thread (`adaln_bwd_plan`): 64 threads a bf16 row of
+// 1536 (48 sums a thread), 128 an fp32 one, in 128 registers at two
+// blocks of 256 threads per SM; a warp per bf16 row would hold 96 sums
+// and spill (`quant_tune --part sass`).
+template <typename T, int VPT>
+__global__ void __launch_bounds__(kThreads, 2) adaln_bwd_kernel(const BwdParams p) {
+  constexpr int E = Vec<T>::E;
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);
+  float* mod = red + kRedFloats;
+  float* cols = mod + p.c;
+  const int tpr = p.tpr;
+  const int rpb = kThreads / tpr;
+  const int t = threadIdx.x % tpr;
+  const int slot_row = threadIdx.x / tpr;
+  const int nvec = p.c / E;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rpb * p.groups;
+  const T* xb = static_cast<const T*>(p.x) + b * p.x_sb;
+  const T* gb = static_cast<const T*>(p.g) + b * p.g_sb;
+
+  // vectors k < VPT of x, then of g, of the row slot's row in group grp
+  auto load = [&](int grp, uint4 (&dst)[2 * VPT]) {
+    const int n_idx = row0 + grp * rpb + slot_row;
+    const uint4* xr = reinterpret_cast<const uint4*>(xb + (int64_t)n_idx * p.x_sn);
+    const uint4* gr = reinterpret_cast<const uint4*>(gb + (int64_t)n_idx * p.g_sn);
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int v = t + k * tpr;
+      const bool in = n_idx < p.n && v < nvec;
+      dst[k] = in ? __ldg(xr + v) : make_uint4(0u, 0u, 0u, 0u);
+      dst[VPT + k] = in ? __ldg(gr + v) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+
+  uint4 raw[2 * VPT];
+  load(0, raw);
+  for (int col = threadIdx.x; col < p.c; col += kThreads) {
+    const int v = col / E, j = col % E;
+    mod[((j >> 2) * nvec + v) * 4 + (j & 3)] =
+        1.0f + load_mod(p.sc, p.sc_bf16, b * p.sc_sb + col * p.sc_sc);
+  }
+  __syncthreads();
+  const float4* sc4 = reinterpret_cast<const float4*>(mod);
+
+  float acc_g[VPT][E], acc_gx[VPT][E];  // the thread's column sums
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) acc_g[k][j] = acc_gx[k][j] = 0.f;
+  }
+
+  int slot = 0;
+  for (int grp = 0; grp < p.groups; ++grp) {
+    uint4 next[2 * VPT];  // the next group's, loaded before this one's reductions
+    if (grp + 1 < p.groups) load(grp + 1, next);
+    const int n_idx = row0 + grp * rpb + slot_row;
+    float v[VPT][E];  // x, then x - mean, then xhat; zeros past the row
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) Vec<T>::unpack(raw[k], v[k]);
+    float sum = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) sum += v[k][j];
+    }
+    const float mean = __fdiv_rn(row_reduce<false>(sum, tpr, red, slot), static_cast<float>(p.c));
+    float sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      if (t + k * tpr < nvec) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) {
+          v[k][j] -= mean;
+          sq = fmaf(v[k][j], v[k][j], sq);
+        }
+      }
+    }
+    const float var = __fdiv_rn(row_reduce<false>(sq, tpr, red, slot), static_cast<float>(p.c));
+    const float rstd = rsqrtf(var + p.eps);
+    float sg = 0.f, sgx = 0.f;  // the row's sums of ghat and ghat * xhat
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int vi = t + k * tpr;
+      if (vi < nvec) {
+        float gv[E];
+        Vec<T>::unpack(raw[VPT + k], gv);
+#pragma unroll
+        for (int h = 0; h < E / 4; ++h) {
+          const float4 s1 = sc4[h * nvec + vi];
+          const float m1[4] = {s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int j = 4 * h + i;
+            const float xh = v[k][j] * rstd;
+            const float gh = gv[j] * m1[i];
+            v[k][j] = xh;
+            sg += gh;
+            sgx = fmaf(gh, xh, sgx);
+            acc_g[k][j] += gv[j];
+            acc_gx[k][j] = fmaf(gv[j], xh, acc_gx[k][j]);
+          }
+        }
+      }
+    }
+    const float mg = __fdiv_rn(row_reduce<false>(sg, tpr, red, slot), static_cast<float>(p.c));
+    const float mgx = __fdiv_rn(row_reduce<false>(sgx, tpr, red, slot), static_cast<float>(p.c));
+    if (n_idx < p.n) {
+      T* dx = static_cast<T*>(p.dx) + ((int64_t)b * p.n + n_idx) * p.c;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int vi = t + k * tpr;
+        if (vi < nvec) {
+          float gv[E], d[E];
+          Vec<T>::unpack(raw[VPT + k], gv);
+#pragma unroll
+          for (int h = 0; h < E / 4; ++h) {
+            const float4 s1 = sc4[h * nvec + vi];
+            const float m1[4] = {s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int j = 4 * h + i;
+              d[j] = rstd * fmaf(-v[k][j], mgx, gv[j] * m1[i] - mg);
+            }
+          }
+          *reinterpret_cast<uint4*>(dx + (int64_t)vi * E) = Vec<T>::pack(d);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 2 * VPT; ++k) raw[k] = next[k];
+  }
+
+  // the block's column sums: row slots added in slot order
+  float4* cols4 = reinterpret_cast<float4*>(cols);
+  for (int s = 0; s < rpb; ++s) {
+    if (slot_row == s) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int vi = t + k * tpr;
+        if (vi < nvec) {
+#pragma unroll
+          for (int h = 0; h < E / 4; ++h) {
+            const int q4 = vi * (E / 4) + h;
+            const float* a = acc_g[k] + 4 * h;
+            const float* ax = acc_gx[k] + 4 * h;
+            float4 cg4 = make_float4(a[0], a[1], a[2], a[3]);
+            float4 cx4 = make_float4(ax[0], ax[1], ax[2], ax[3]);
+            if (s > 0) {
+              const float4 o = cols4[q4], ox = cols4[p.c / 4 + q4];
+              cg4 = make_float4(o.x + cg4.x, o.y + cg4.y, o.z + cg4.z, o.w + cg4.w);
+              cx4 = make_float4(ox.x + cx4.x, ox.y + cx4.y, ox.z + cx4.z, ox.w + cx4.w);
+            }
+            cols4[q4] = cg4;
+            cols4[p.c / 4 + q4] = cx4;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int two_c = 2 * p.c;
+  float4* part = reinterpret_cast<float4*>(p.ws + ((int64_t)b * p.bps + blockIdx.x) * two_c);
+  for (int q4 = threadIdx.x; q4 < two_c / 4; q4 += kThreads) part[q4] = cols4[q4];
+
+  cooperative_groups::this_grid().sync();
+
+  // phase 2: sums [q0, q1) of sample b, `lanes` lanes each
+  const int lanes = p.merge_lanes, width = kThreads / lanes;
+  const int lane = threadIdx.x / width, qi = threadIdx.x % width;
+  const int per_block = (two_c + p.bps - 1) / p.bps;
+  const int q0 = blockIdx.x * per_block, q1 = min(q0 + per_block, two_c);
+  const float* parts = p.ws + (int64_t)b * p.bps * two_c;
+  for (int qb = q0; qb < q1; qb += width) {  // the same trip count in every thread
+    const int q = qb + qi;
+    float acc = 0.f;
+    if (q < q1) {
+      for (int j0 = lane; j0 < p.bps; j0 += kMergeLoads * lanes) {
+        float w[kMergeLoads];
+#pragma unroll
+        for (int u = 0; u < kMergeLoads; ++u) {
+          const int jj = min(j0 + u * lanes, p.bps - 1);
+          w[u] = parts[(int64_t)jj * two_c + q];
+        }
+#pragma unroll
+        for (int u = 0; u < kMergeLoads; ++u) {
+          if (j0 + u * lanes < p.bps) acc += w[u];
+        }
+      }
+    }
+    cols[lane * width + qi] = acc;
+    __syncthreads();
+    if (lane == 0 && q < q1) {
+      float total = cols[qi];
+      for (int l = 1; l < lanes; ++l) total += cols[l * width + qi];
+      if (q < p.c) {
+        store_float(p.dshift, p.dshift_bf16, (int64_t)b * p.c + q, total);
+      } else {
+        store_float(p.dscale, p.dscale_bf16, (int64_t)b * p.c + q - p.c, total);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+void* bwd_kernel_of(int vpt) {
+  switch (vpt) {
+    case 1: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 1>);
+    case 2: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 2>);
+    case 3: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 3>);
+    case 4: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 4>);
+    case 5: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 5>);
+    case 6: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 6>);
+    case 7: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 7>);
+    case 8: return reinterpret_cast<void*>(adaln_bwd_kernel<T, 8>);
+    default: return nullptr;
+  }
+}
+
+// K12's backward <bf16 or fp32, vpt>, with its shared memory for c columns
+// allowed, or nullptr
+void* pick_bwd(int x_bf16, int vpt, int c) {
+  void* kernel = x_bf16 ? bwd_kernel_of<__nv_bfloat16>(vpt) : bwd_kernel_of<float>(vpt);
+  const size_t smem = sizeof(float) * bwd_smem_floats(c);
+  if (kernel != nullptr && smem > kSmemDefault &&
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)) != cudaSuccess) {
+    return nullptr;
+  }
+  return kernel;
+}
+
 }  // namespace
 
-// K10 (op 0), K13 (op 1), K7 (op 2), K6 (op 3) or K11 (op 4) on `stream`;
+// K10 (op 0), K13 (op 1), K7 (op 2), K6 (op 3), K11 (op 4) or K12 (op 5) on
+// `stream`;
 // returns the launch's cudaError_t (0 = queued). x: `batch` samples of n
 // rows of c values (K7: 2c values, [h | gate]), bf16 (x_bf16) or fp32,
 // element strides x_sb and x_sn, 16-byte aligned rows, dense columns; K13's
-// scale and shift: bf16 or fp32 (B, C) views with element strides; K6's w
+// and K12's scale and shift: bf16 or fp32 (B, C) views with element strides; K6's w
 // and b in the same arguments, batch stride 0 (K10, K7 and K11 ignore
 // them). The plan (threads per row tpr, vectors per
 // thread vpt, row groups per block, grid_x blocks per sample) comes from
-// `row_plan`; it must cover every column and every row. Writes codes
-// (batch * n, c) and scales (batch * n), both dense.
+// `row_plan`; it must cover every column and every row. Writes int8 codes
+// (batch * n, c) to `out` and scales (batch * n), both dense; K12 writes y
+// (batch * n, c) in x's dtype to `out` and no scales.
 extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int64_t x_sn,
                             int batch, int n, int c, const void* sc, int sc_bf16, int64_t sc_sb,
                             int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
                             int64_t sh_sc, float eps, int tpr, int vpt, int groups, int grid_x,
-                            void* codes, void* scales, void* stream) {
+                            void* out, void* scales, void* stream) {
   const int e = x_bf16 ? 8 : 4;
   const int nvec = c / e;
   const bool tpr_ok = tpr == 8 || tpr == 16 || tpr == 32 || tpr == 64 || tpr == 128 ||
                       tpr == 256;
   const int nin = op == kGeglu ? 2 : 1;
-  if (op < kGelu || op > kRows || c <= 0 || c % 8 != 0 || n <= 0 ||
+  if (op < kGelu || op > kAdaLNF || c <= 0 || c % 8 != 0 || n <= 0 ||
       batch <= 0 || batch > 65535 || !tpr_ok || vpt < 1 || nin * vpt > kMaxVpt ||
       (int64_t)vpt * tpr < nvec ||
       groups < 1 || grid_x < 1 || (int64_t)grid_x * (kThreads / tpr) * groups < n ||
-      ((op == kAdaLN || op == kLN) && (sc == nullptr || sh == nullptr))) {
+      ((op == kAdaLN || op == kLN || op == kAdaLNF) && (sc == nullptr || sh == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -462,7 +790,7 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
   p.sc_bf16 = sc_bf16;
   p.sh_bf16 = sh_bf16;
   p.eps = eps;
-  p.codes = static_cast<int8_t*>(codes);
+  p.out = out;
   p.scales = static_cast<float*>(scales);
   const dim3 grid(grid_x, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -472,4 +800,75 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
   }
   return groups > 1 ? launch_vpt<float, true>(vpt, op, p, grid, s)
                     : launch_vpt<float, false>(vpt, op, p, grid, s);
+}
+
+// Blocks of K12's backward <bf16 or fp32, vpt> at c columns that one SM
+// holds at once; negative: a CUDA error.
+extern "C" int pd_adaln_bwd_occupancy(int x_bf16, int vpt, int c) {
+  if (c <= 0 || c % 8 != 0) return -static_cast<int>(cudaErrorInvalidValue);
+  void* kernel = pick_bwd(x_bf16, vpt, c);
+  if (kernel == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kernel, kThreads, sizeof(float) * bwd_smem_floats(c));
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// K12's backward on `stream`, one cooperative launch; returns its
+// cudaError_t (0 = queued). x and g: `batch` samples of n rows of c values,
+// bf16 (x_bf16) or fp32, each with its own element strides, 16-byte
+// aligned rows, dense columns; scale as K12's forward takes it. Writes dx
+// (batch, n, c) in x's dtype, dscale and dshift (batch, c) in bf16 or fp32,
+// all dense; ws: batch * bps * 2c floats, 16-byte aligned. The plan
+// (threads per row tpr, vectors per thread vpt, row groups per block, bps
+// blocks per sample, lanes per merged sum) comes from
+// `adaln_bwd_plan`; it must cover every column and every row, and its grid
+// of bps x batch blocks must be resident at once (the cooperative launch
+// refuses it otherwise).
+extern "C" int pd_adaln_bwd(const void* x, int x_bf16, int64_t x_sb, int64_t x_sn, const void* g,
+                            int64_t g_sb, int64_t g_sn, int batch, int n, int c, const void* sc,
+                            int sc_bf16, int64_t sc_sb, int64_t sc_sc, float eps, int tpr,
+                            int vpt, int groups, int bps, int merge_lanes, void* dx,
+                            void* dscale, int dscale_bf16, void* dshift, int dshift_bf16,
+                            void* ws, void* stream) {
+  const int nvec = c / (x_bf16 ? 8 : 4);
+  const bool tpr_ok = tpr == 32 || tpr == 64 || tpr == 128 || tpr == 256;
+  const bool lanes_ok = merge_lanes >= 1 && merge_lanes <= kThreads &&
+                        (merge_lanes & (merge_lanes - 1)) == 0;
+  if (c <= 0 || c % 8 != 0 || n <= 0 || batch <= 0 || batch > 65535 || !tpr_ok || vpt < 1 ||
+      vpt > kMaxVpt || (int64_t)vpt * tpr < nvec || groups < 1 || bps < 1 ||
+      (int64_t)bps * (kThreads / tpr) * groups < n || !lanes_ok || sc == nullptr ||
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void* kernel = pick_bwd(x_bf16, vpt, c);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  BwdParams p;
+  p.x = x;
+  p.x_sb = x_sb;
+  p.x_sn = x_sn;
+  p.g = g;
+  p.g_sb = g_sb;
+  p.g_sn = g_sn;
+  p.n = n;
+  p.c = c;
+  p.tpr = tpr;
+  p.groups = groups;
+  p.bps = bps;
+  p.merge_lanes = merge_lanes;
+  p.sc = sc;
+  p.sc_sb = sc_sb;
+  p.sc_sc = sc_sc;
+  p.sc_bf16 = sc_bf16;
+  p.eps = eps;
+  p.dx = dx;
+  p.dscale = dscale;
+  p.dshift = dshift;
+  p.dscale_bf16 = dscale_bf16;
+  p.dshift_bf16 = dshift_bf16;
+  p.ws = static_cast<float*>(ws);
+  void* args[] = {&p};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      kernel, dim3(bps, batch), dim3(kThreads), args, sizeof(float) * bwd_smem_floats(c),
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,11 +1,13 @@
-"""The launch plan and launchers of K10 (tanh-GELU -> int8), K13 (AdaLN
--> int8), K7 (GEGLU -> int8), K6 (LayerNorm -> int8) and K11 (row ->
-int8), the CUDA C++ kernels of `csrc/row_quant.cu`.
+"""The launch plans and launchers of K10 (tanh-GELU -> int8), K13 (AdaLN
+-> int8), K7 (GEGLU -> int8), K6 (LayerNorm -> int8), K11 (row -> int8)
+and K12 (AdaLN in x's dtype) with K12's backward, the CUDA C++ kernels of
+`csrc/row_quant.cu`.
 
 `fused_act.fused_gelu_quant`, `fused_act.fused_geglu_quant`,
-`fused_act.fused_quant_rows`, `fused_adaln.fused_adaln_quant` and
+`fused_act.fused_quant_rows`, `fused_adaln.fused_adaln_quant`,
+`fused_adaln.fused_adaln` (and its backward) and
 `fused_layer_norm.fused_layer_norm_quant` send a CUDA tensor here. Rows
-are read in place: a (B, N, C) tensor of K13 or K11 as B samples with its
+are read in place: a (B, N, C) tensor of K13, K12 or K11 as B samples with its
 own sample and row strides (K11's are the MMDiT's slices of one packed
 (B, N_h + N_c, C) attention output), any other as x.view(-1, C). `row_plan` cuts a
 row of C output values into 16-byte vectors (8 bf16 or 4 fp32) and gives
@@ -26,6 +28,15 @@ when `groups` > 1: 4, or 2, where the grid still keeps MIN_BLOCKS blocks,
 else 1. Rows are at most 32 KB (`MAX_ROW_BYTES`): C <= 16384 in bf16, 8192
 in fp32 (K7: 2C values, C <= 8192 and 4096).
 
+K12's backward (`adaln_bwd_plan`) is one cooperative launch of a grid
+whose blocks are all resident: the same row plan (a row's threads hold
+the same columns in every row, so each keeps the column sums of g and
+g * xhat of its columns in registers, BWD_VECTORS of each at most where
+the row allows it), as many blocks per sample as the card holds at once
+over the samples (the occupancy query), each walking `groups` row groups;
+then every block merges a slice of its sample's 2C column sums over the
+sample's per-block partials, `merge_lanes` lanes a sum.
+
 Every refusal is a `ValueError` raised before the extension is built or a
 launch is queued; a CUDA tensor never falls back to the plain version.
 """
@@ -34,9 +45,13 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
+
+# the H100's SMs, and the blocks per SM a plan assumes where no card answers
+# the occupancy query (the launchers read the card's)
+from prompt_diffusion_tpu_torch.ops.gn_quant import ASSUMED_OCCUPANCY, SMS
 
 VEC_BYTES = 16  # one load per thread and vector
 BLOCK_THREADS = 256
@@ -57,13 +72,22 @@ TWO_INPUT_VECTORS = 3
 NARROW_THREADS, NARROW_VECTORS = (8, 16), 5
 MAX_ROW_BYTES = BLOCK_THREADS * MAX_VECTORS * VEC_BYTES  # 32 KB
 DTYPES = (torch.bfloat16, torch.float32)
-GELU, ADALN, GEGLU, LN, ROWS = 0, 1, 2, 3, 4  # the `op` of `csrc/row_quant.cu`
+GELU, ADALN, GEGLU, LN, ROWS, ADALN_F = 0, 1, 2, 3, 4, 5  # the `op` of `csrc/row_quant.cu`
 ROW_THREADS = (8, 16, 32, 64, 128, 256)  # threads per row the kernel takes
 MAX_SAMPLES = 65535  # the grid's y dimension
 # row groups a block walks, pipelined, while the grid keeps MIN_BLOCKS blocks
 # (~2 per SM of the H100's 132): the best of 1, 2, 4 and 8 groups at each
 # SD3 shape, or within 1% of it (`tools/quant_tune.py --part time`)
 MAX_GROUPS, MIN_BLOCKS = 4, 256
+# K12's backward: threads per row it takes, and the vectors of x and of g a
+# thread holds at most where the row allows it (each column also takes two
+# fp32 sums in registers). `tools/quant_tune.py` on the H100 at (2, 4096,
+# 1536), L2-cold: bf16, 64 threads of 3 vectors (128 registers, 12 bytes
+# of spill) 0.0364 ms, 128 of 2 0.0426, a warp of 6 (~1 KB of spill)
+# 0.1054; fp32, 128 threads of 3 (127 registers) 0.0599, 64 of 6 (316
+# bytes of spill) 0.0840, 256 of 2 0.0739
+BWD_THREADS = (32, 64, 128, 256)
+BWD_VECTORS = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,7 +233,8 @@ def _affine(name: str, t: torch.Tensor, c: int, device):
 def _launch(op, x, layout, plan, sc=None, sh=None, eps=0.0):
     """Codes (rows, plan.c) and scales (rows,) of the rows of x that
     `layout` (`_rows`) describes, each plan.inputs x plan.c wide; sc and sh
-    as `_modulation` or `_affine` give them."""
+    as `_modulation` or `_affine` give them. K12 (ADALN_F): y (rows,
+    plan.c) in x's dtype, and no scales."""
     b, n, x_sb, x_sn = layout
     if ((plan.grid[1], plan.rows, plan.inputs * plan.c) != (b, n, x.shape[-1])
             or plan.vec_elems * x.element_size() != VEC_BYTES):
@@ -219,15 +244,17 @@ def _launch(op, x, layout, plan, sc=None, sh=None, eps=0.0):
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     ext = cuda_ext()
-    codes = torch.empty((b * n, plan.c), dtype=torch.int8, device=x.device)
-    scales = torch.empty((b * n,), dtype=torch.float32, device=x.device)
+    out = torch.empty((b * n, plan.c), dtype=x.dtype if op == ADALN_F else torch.int8,
+                      device=x.device)
+    scales = None if op == ADALN_F else torch.empty((b * n,), dtype=torch.float32,
+                                                    device=x.device)
     mod = [a for t in (sc, sh) for a in (t or (0, False, 0, 0))]
     with torch.cuda.device(x.device):
         ext.row_quant(op, x.data_ptr(), x.dtype == torch.bfloat16, x_sb, x_sn, b, n, plan.c,
                       *mod, float(eps), plan.threads, plan.vectors, plan.groups, plan.grid[0],
-                      codes.data_ptr(), scales.data_ptr(),
+                      out.data_ptr(), 0 if scales is None else scales.data_ptr(),
                       torch.cuda.current_stream().cuda_stream)
-    return codes, scales
+    return out, scales
 
 
 def gelu_quant(x: torch.Tensor, plan: Optional[RowPlan] = None):
@@ -296,3 +323,158 @@ def quant_rows(x: torch.Tensor, plan: Optional[RowPlan] = None):
     plan = plan or row_plan(layout[0] * layout[1], x.shape[-1], x.dtype, samples=layout[0])
     codes, scales = _launch(ROWS, x, layout, plan)
     return codes.view(x.shape), scales.view(*x.shape[:-1], 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaLNBwdPlan:
+    """How K12's backward covers `samples` x `row.rows` rows of `row.c`
+    values: the row plan `row` (threads per row, vectors, row groups per
+    block; `row.grid` = (blocks per sample, samples)), `blocks_per_sm` the
+    occupancy it was sized by, `merge_lanes` lanes per merged sum."""
+
+    row: RowPlan
+    blocks_per_sm: int
+    merge_lanes: int
+
+    @property
+    def samples(self) -> int:
+        return self.row.grid[1]
+
+    @property
+    def bps(self) -> int:
+        """Blocks per sample."""
+        return self.row.grid[0]
+
+    @property
+    def workspace(self) -> int:
+        """fp32 slots of the workspace: a (2, C) partial per block."""
+        return self.samples * self.bps * 2 * self.row.c
+
+    def merge_sums(self, block: int) -> range:
+        """The sums of its sample's 2C (C sums of g, then C of g * xhat)
+        that block `block` merges."""
+        per = -(-2 * self.row.c // self.bps)
+        return range(block * per, min((block + 1) * per, 2 * self.row.c))
+
+    def merge_blocks(self, lane: int) -> range:
+        """The blocks whose partials lane `lane` of a merged sum adds, in
+        order (the lanes' sums are then added in lane order)."""
+        return range(lane, self.bps, self.merge_lanes)
+
+
+def adaln_bwd_plan(samples: int, rows: int, c: int, dtype: torch.dtype,
+                   occupancy: Optional[Callable[[int], int]] = None, sms: int = SMS,
+                   threads: Optional[int] = None,
+                   per_sm: Optional[int] = None) -> AdaLNBwdPlan:
+    """K12's backward plan for `samples` samples of `rows` rows of `c`
+    values. `occupancy(vectors)` gives the blocks per SM of the kernel
+    instantiation (the launcher asks the card; ASSUMED_OCCUPANCY without
+    one); `threads` (per row) and `per_sm` (a cap on blocks per SM)
+    override the rules (`tools/quant_tune.py` sweeps them). A batch of more
+    samples than the card holds blocks is refused."""
+    if dtype not in DTYPES:
+        raise ValueError(f"rows of {dtype} are not supported: bf16 or fp32")
+    if c <= 0 or c % 8:
+        raise ValueError(f"row width {c} must be a positive multiple of 8")
+    e = VEC_BYTES // dtype.itemsize
+    nvec = c // e
+    if threads is None:
+        threads = next((t for t in BWD_THREADS if -(-nvec // t) <= BWD_VECTORS),
+                       BLOCK_THREADS)
+    if threads not in BWD_THREADS:
+        raise ValueError(f"threads per row must be one of {BWD_THREADS}, got {threads}")
+    # the row plan's checks (row width, samples, a thread count that holds
+    # the row) before the occupancy query
+    row_plan(samples * rows, c, dtype, samples=samples, threads=threads, groups=1)
+    vectors = -(-nvec // threads)
+    occ = occupancy(vectors) if occupancy else ASSUMED_OCCUPANCY
+    if per_sm is not None:
+        occ = min(occ, per_sm)
+    if occ < 1:
+        raise ValueError(f"no block of K12's backward fits an SM at C = {c} {dtype}")
+    capacity = occ * sms
+    if samples > capacity:
+        raise ValueError(f"batch {samples} exceeds the {capacity} blocks the card holds at once")
+    row_groups = -(-rows // (BLOCK_THREADS // threads))
+    groups = -(-row_groups // (capacity // samples))
+    row = row_plan(samples * rows, c, dtype, samples=samples, threads=threads, groups=groups)
+    per = -(-2 * c // row.grid[0])
+    lanes = min(max(1, BLOCK_THREADS // per), row.grid[0])
+    return AdaLNBwdPlan(row=row, blocks_per_sm=occ, merge_lanes=1 << (lanes.bit_length() - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_occupancy(device: int, x_bf16: bool, vectors: int, c: int) -> int:
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    with torch.cuda.device(device):
+        blocks = cuda_ext().adaln_bwd_occupancy(x_bf16, vectors, c)
+    if blocks < 0:
+        raise RuntimeError(f"adaln_bwd occupancy query failed ({blocks}) for {vectors} vectors")
+    return blocks
+
+
+def adaln(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, eps: float,
+          plan: Optional[RowPlan] = None) -> torch.Tensor:
+    """K12 on the card: x (B, N, C), scale and shift (B, 1, C) or (B, C)
+    views in bf16 or fp32 (read in place) -> LayerNorm without affine, then
+    x * (1 + scale[b]) + shift[b], in x's dtype (B, N, C); K13's row plan
+    and checks (bf16 or fp32, C a multiple of 8 up to MAX_ROW_BYTES, dense
+    16-byte aligned rows, the modulation's batch x's); one launch."""
+    if x.ndim != 3:
+        raise ValueError(f"fused_adaln expects (B, N, C), got {tuple(x.shape)}")
+    b, n, c = x.shape
+    layout = _rows(x, samples=True)
+    sc = _modulation("scale", scale, b, c, x.device)
+    sh = _modulation("shift", shift, b, c, x.device)
+    plan = plan or row_plan(b * n, c, x.dtype, samples=b)
+    y, _ = _launch(ADALN_F, x, layout, plan, sc, sh, eps)
+    return y.view(b, n, c)
+
+
+def adaln_bwd(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, eps: float,
+              shift: Optional[torch.Tensor] = None, plan: Optional[AdaLNBwdPlan] = None):
+    """K12's backward on the card, one cooperative launch: x (B, N, C) and
+    the output's gradient g (x's shape and dtype, its own strides), scale
+    as `adaln` takes it -> (dx in x's dtype (B, N, C), dscale in scale's
+    dtype and shape, dshift in shift's dtype and shape, scale's where shift
+    is not given: its values are not read). `plan` overrides
+    `adaln_bwd_plan`'s."""
+    if x.ndim != 3:
+        raise ValueError(f"fused_adaln expects (B, N, C), got {tuple(x.shape)}")
+    b, n, c = x.shape
+    layout = _rows(x, samples=True)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"the gradient must be {tuple(x.shape)} {x.dtype} on {x.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    glayout = _rows(g, samples=True)
+    sc = _modulation("scale", scale, b, c, x.device)
+    shift = scale if shift is None else shift
+    _modulation("shift", shift, b, c, x.device)
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    ext = cuda_ext()
+    bf16 = x.dtype == torch.bfloat16
+    if plan is None:
+        dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        plan = adaln_bwd_plan(
+            b, n, c, x.dtype, sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+            occupancy=lambda vpt: _bwd_occupancy(dev, bf16, vpt, c))
+    if ((plan.samples, plan.row.rows, plan.row.c) != (b, n, c)
+            or plan.row.vec_elems * x.element_size() != VEC_BYTES):
+        raise ValueError(f"the plan covers {plan.samples} x {plan.row.rows} rows of "
+                         f"{plan.row.c} {plan.row.vec_elems}-value vectors, not {b} x {n} rows "
+                         f"of {c} {x.dtype}")
+    dx = torch.empty((b, n, c), dtype=x.dtype, device=x.device)
+    dscale = torch.empty((b, c), dtype=scale.dtype, device=x.device)
+    dshift = torch.empty((b, c), dtype=shift.dtype, device=x.device)
+    ws = torch.empty((plan.workspace,), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        ext.adaln_bwd(x.data_ptr(), bf16, layout[2], layout[3], g.data_ptr(), glayout[2],
+                      glayout[3], b, n, c, sc[0], sc[1], sc[2], sc[3], float(eps),
+                      plan.row.threads, plan.row.vectors, plan.row.groups, plan.bps,
+                      plan.merge_lanes, dx.data_ptr(), dscale.data_ptr(),
+                      scale.dtype == torch.bfloat16, dshift.data_ptr(),
+                      shift.dtype == torch.bfloat16, ws.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream)
+    return dx, dscale.view(scale.shape), dshift.view(shift.shape)

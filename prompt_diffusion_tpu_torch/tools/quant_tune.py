@@ -1,12 +1,13 @@
 """The int8 epilogue kernels in CUDA C++ on the card: K10, K13, K7, K6 and
 K11 (the row -> int8 kernels of `ops/csrc/row_quant.cu`) and K5 (GroupNorm
 -> int8, `ops/csrc/gn_quant.cu`); and K3 (GroupNorm(+SiLU or ReLU), the
-same source) and K9p (K9's per-head K quantization, `ops/csrc/
-int8_attention.cu`).
+same source), K9p (K9's per-head K quantization, `ops/csrc/
+int8_attention.cu`) and K12 (AdaLN in x's dtype, `row_quant.cu`) with its
+backward (K12b).
 
     python3 -m prompt_diffusion_tpu_torch.tools.quant_tune
-        [--part sass|check|time|phases] [--kernels K10,K13,K7,K5,K6,K11,K3,K9p]
-        [--iters N]
+        [--part sass|check|time|phases]
+        [--kernels K10,K13,K7,K5,K6,K11,K3,K9p,K12,K12b] [--iters N]
 
   sass   nvcc -cubin of `row_quant.cu` as built and of a copy whose K10
          takes CUDA's tanhf (TANHF): ptxas's registers and spills of every
@@ -24,7 +25,11 @@ int8_attention.cu`).
          (`gn_float_kernel`), with SASS instructions and MUFU operations per
          value (its K = 8 and K = 4 instantiations differ by 4 pixels of 8
          values in every pass that holds a chunk; fp32's K = 4 and K = 2 by
-         2), and K9p's (`k_head_quant_kernel`);
+         2), and K9p's (`k_head_quant_kernel`); K12's forward
+         (`adaln_float_kernel`) and backward (`adaln_bwd_kernel`):
+         registers and spills of every instantiation, and SASS
+         instructions and MUFU operations per value (forward: 3 and 6
+         vectors per thread; backward: 1 and 3, of x and of g);
   check  the quotient of `rq::quotient` (y * 1/s with one FMA correction)
          against `__fdiv_rn(y, s)` bit for bit: over every value of the SD3
          K10 and K13 cases (K10's y from the kernel's own GELU, K13's from
@@ -75,7 +80,15 @@ int8_attention.cu`).
          K9p likewise at the SD3 joint shape and on the ViT-B's K
          column slice against the parent's memset, `k_amax_kernel` and
          `k_codes_kernel` (PARENT_K9P, built with nvcc, called through
-         ctypes), and the sweep of its blocks per SM.
+         ctypes), and the sweep of its blocks per SM. K12 at the SD3
+         streams against the parent's Triton `adaln_kernel` (QUANT=False,
+         the modulation cast to contiguous fp32 first), with the sweep of
+         its row groups; K12b (the backward alone, fp32 and bf16) against
+         the parent's backward, autograd of the plain version (about
+         twenty plain kernels), with each one's error against the plain
+         backward and device launches per call, and the sweep of the
+         backward's threads per row and blocks per SM; all by
+         `timing.device_ms`.
   phases K5 and K3: `gn_quant.cu` built with -DGN_PHASE_STAMPS (nvcc,
          called through ctypes): thread 0 of every block adds the clock64()
          cycles of each phase to its slot and stamps %globaltimer at its
@@ -150,7 +163,11 @@ K3_SHAPES = (((8, 320, 64, 64), "silu", 1e-5, 0.0), ((8, 320, 64, 64), "none", 1
              ((1, 128, 1024, 1024), "silu", 1e-6, 4.0), ((4, 128, 512, 512), "silu", 1e-6, 4.0),
              ((16, 64, 256, 256), "relu", 1e-5, 0.0), ((16, 256, 32, 32), "relu", 1e-5, 0.0))
 K9P_SHAPES = (((2, 4429, 1536), 24, 1536), ((16, 1025, 768), 12, 2304))
-KERNELS = ("K10", "K13", "K7", "K5", "K6", "K11", "K3", "K9p")
+KERNELS = ("K10", "K13", "K7", "K5", "K6", "K11", "K3", "K9p", "K12", "K12b")
+# K12's backward alone at the SD3 image stream in fp32 and bf16 and the
+# context stream in bf16 ((B, C) modulation there)
+K12B_SHAPES = (((2, 4096, 1536), torch.float32), ((2, 4096, 1536), torch.bfloat16),
+               ((2, 333, 1536), torch.bfloat16))
 SCALE_REL_BOUND, CODES_EQUAL_BOUND = 1e-6, 0.999
 SWEEP_SCALES = 128
 COLD_BYTES = 120e6  # > twice the H100's 50 MB L2
@@ -242,6 +259,29 @@ def _parent_act_quant(x, gelu):
 def _parent_adaln_quant(x, scale, shift, eps=1e-6):
     """K13 as the parent launched it: the modulation cast to contiguous
     fp32, then Triton `adaln_kernel`, QUANT=True."""
+    return _parent_adaln_program(x, scale, shift, eps, quant=True)
+
+
+def _parent_adaln(x, scale, shift, eps=1e-6):
+    """K12's forward as the parent launched it: the same, QUANT=False, y in
+    x's dtype."""
+    return _parent_adaln_program(x, scale, shift, eps, quant=False)
+
+
+def _parent_adaln_bwd(x, scale, shift, g, eps=1e-6):
+    """K12's backward as the parent ran it: the plain forward recomputed
+    under autograd, then `torch.autograd.grad` at g."""
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import _torch_adaln
+
+    b, _, c = x.shape
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_() for t in (x, scale, shift)]
+        out = _torch_adaln(inputs[0], inputs[1].reshape(b, 1, c), inputs[2].reshape(b, 1, c),
+                           eps).to(x.dtype)
+        return torch.autograd.grad(out, inputs, g)
+
+
+def _parent_adaln_program(x, scale, shift, eps, quant):
     import triton
 
     from prompt_diffusion_tpu_torch.ops import _triton_quant as tq
@@ -253,12 +293,12 @@ def _parent_adaln_quant(x, scale, shift, eps=1e-6):
     sh = shift.reshape(b, 1, c).float().contiguous()
     block_c = triton.next_power_of_2(c)
     block_r = max(1, _TILE // block_c)
-    out = torch.empty((b, n, c), dtype=torch.int8, device=x.device)
-    s_a = torch.empty((b, n, 1), dtype=torch.float32, device=x.device)
+    out = torch.empty((b, n, c), dtype=torch.int8 if quant else x.dtype, device=x.device)
+    s_a = torch.empty((b, n, 1), dtype=torch.float32, device=x.device) if quant else out
     tq.adaln_kernel[(triton.cdiv(b * n, block_r),)](
         x2, sc, sh, out, s_a, b * n, n, c, float(eps), BLOCK_R=block_r, BLOCK_C=block_c,
-        QUANT=True)
-    return out, s_a
+        QUANT=quant)
+    return (out, s_a) if quant else out
 
 
 def _gn_inputs(gen, shape, mean=0.0, gain=1.0, dtype=torch.bfloat16):
@@ -535,6 +575,10 @@ _KERNEL = re.compile(r"(gelu|adaln|geglu|ln|rows)_quant_kernelI(13__nv_bfloat16|
 _GN_KERNEL = re.compile(r"gn_quant_kernelI(13__nv_bfloat16|f)Li(\d)ELb([01])E")
 _K3_KERNEL = re.compile(r"gn_float_kernelI(13__nv_bfloat16|f)Li(\d)ELi(\d)E")
 _K9P_KERNEL = re.compile(r"k_head_quant_kernelILi(\d+)E")
+_K12_KERNEL = re.compile(r"adaln_(float|bwd)_kernelI(13__nv_bfloat16|f)Li(\d)E(?:Lb([01])E)?")
+# K12's kernels: the two vectors-per-thread counts compared (of x, and of g
+# in the backward)
+_K12_SASS = {"K12": ("float", 3, 6), "K12b": ("bwd", 1, 3)}
 
 
 def _row_key(m):
@@ -623,6 +667,8 @@ def sass(_gen, _iters, kernels):
                       f"value ({mufu_value:.2f} MUFU), {per_thread:.0f} static per thread and "
                       f"row group (slow paths of the divisions included); " + "; ".join(msg),
                       flush=True)
+        if label == "built" and kernels & set(_K12_SASS):
+            _sass_k12(cubin, log, kernels)
     if kernels & {"K5", "K3"}:
         cubin, log = _build("gn_quant.cubin", GN_SOURCE, "-cubin")
         for k, info in _ptxas(log, _GN_KERNEL, lambda k: "K5" in kernels):
@@ -652,6 +698,31 @@ def sass(_gen, _iters, kernels):
         for d, (instr, mufu) in sorted(counts.items()):
             print(f"[quant_tune] sass K9p k_head_quant_kernel<D={d}>: {instr} instructions "
                   f"({mufu} MUFU), static", flush=True)
+
+
+def _sass_k12(cubin, log, kernels):
+    """K12's forward and backward: ptxas's registers and spills of every
+    instantiation, and instructions per value from two vector counts."""
+    for name, (kind, lo, hi) in _K12_SASS.items():
+        if name not in kernels:
+            continue
+        for k, info in _ptxas(log, _K12_KERNEL, lambda k, kind=kind: k.group(1) == kind):
+            print(f"[quant_tune] ptxas adaln_{kind}_kernel<{k.group(2)}, VPT={k.group(3)}"
+                  + ("" if k.group(4) is None else f", pipe={k.group(4)}") + f">: {info}",
+                  flush=True)
+        counts = _sass_counts(cubin, _K12_KERNEL, lambda m: (m.group(1), m.group(2),
+                                                             int(m.group(3)), m.group(4) == "1"))
+        for dt, e in (("13__nv_bfloat16", 8), ("f", 4)):
+            for pipe in ((False, True) if kind == "float" else (False,)):
+                (i_lo, m_lo), (i_hi, m_hi) = counts[(kind, dt, lo, pipe)], counts[(kind, dt, hi,
+                                                                                   pipe)]
+                span = (hi - lo) * e
+                dtype = "fp32" if dt == "f" else "bf16"
+                print(f"[quant_tune] sass {name} adaln_{kind}_kernel<{dtype}"
+                      + (f", pipe={pipe}" if kind == "float" else "") + f">: {i_lo} "
+                      f"instructions at VPT={lo}, {i_hi} at VPT={hi}: "
+                      f"{(i_hi - i_lo) / span:.2f} per value ({(m_hi - m_lo) / span:.2f} MUFU)",
+                      flush=True)
 
 
 # ---- check ---------------------------------------------------------------
@@ -1102,6 +1173,10 @@ def time_(gen, iters, kernels):
         _time_k3(gen, iters)
     if "K9p" in kernels:
         _time_k9p(gen, iters)
+    if "K12" in kernels:
+        _time_k12(gen, iters)
+    if "K12b" in kernels:
+        _time_k12b(gen, iters)
 
 
 def _stream(fn, iters):
@@ -1208,6 +1283,97 @@ def _time_k9p(gen, iters):
             call = cold(lambda k, p=p: fa._quant_k_head(k, p))
             sweep.append(f"blocks/SM={p.blocks_per_sm} (bps={p.bps}): {_stream(call, iters):.4f}")
         print(f"[quant_tune] sweep K9p {label} cold: " + "; ".join(sweep), flush=True)
+
+
+def _k12_mod(gen, b, c, n, dtype=torch.bfloat16):
+    """K12's scale and shift at a stream: (B, 1, C) chunks of one (B, 1, 6C)
+    projection at the image stream, (B, C) ones at the context stream."""
+    sc, sh = _mod(gen, b, c, dtype)
+    return (sc, sh) if n > 1000 else (sc[:, 0], sh[:, 0])
+
+
+def _time_k12(gen, iters):
+    """K12's forward against the parent's Triton program, warm and cold;
+    the sweep of its row groups, cold."""
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import fused_adaln
+
+    for b, n, c in K13_SHAPES:
+        nbytes = 4 * b * n * c + 2 * 2 * b * c
+        bound = nbytes / HBM_BYTES_S * 1e3
+        x, (sc, sh) = _x(gen, b, n, c), _k12_mod(gen, b, c, n)
+        with plain_ops():
+            ref = fused_adaln(x.float(), sc.float(), sh.float())
+        errs = [(f(x, sc, sh).float() - ref).abs().max().item() for f in (_parent_adaln,
+                                                                          fused_adaln)]
+        launches = [device_launches(lambda f=f: f(x, sc, sh)) for f in (_parent_adaln,
+                                                                         fused_adaln)]
+        print(f"[quant_tune] parity K12 ({b},{n},{c}): max abs error against the plain version "
+              f"in fp32: parent {errs[0]}, new {errs[1]}; device launches per call: parent "
+              f"{launches[0]}, new {launches[1]}", flush=True)
+        cold = _cold(lambda: (_x(gen, b, n, c), *_k12_mod(gen, b, c, n)), nbytes)
+        warm = _turns("warm", bound, lambda: _parent_adaln(x, sc, sh),
+                      lambda: fused_adaln(x, sc, sh), iters)
+        colds = _turns("cold", bound, cold(_parent_adaln), cold(fused_adaln), iters)
+        print(f"[quant_tune] time K12 ({b},{n},{c}) bound_ms={bound:.4f} (bytes) | {warm} | "
+              f"{colds}", flush=True)
+        sweep = []
+        for g in (1, 2, 4, 8):
+            plan = rq.row_plan(b * n, c, x.dtype, samples=b, groups=g)
+            call = cold(lambda x, s, t, p=plan: rq.adaln(x, s, t, 1e-6, p))
+            sweep.append(f"groups={g}: {device_ms(call, iters=iters):.4f}")
+        print(f"[quant_tune] sweep K12 ({b},{n},{c}) cold: " + "; ".join(sweep), flush=True)
+
+
+def _time_k12b(gen, iters):
+    """K12's backward alone against the parent's (autograd of the plain
+    version), warm and cold; the sweep of threads per row and blocks per
+    SM, cold."""
+    from prompt_diffusion_tpu_torch.ops.fused_adaln import _torch_adaln_bwd, fused_adaln_bwd
+
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for (b, n, c), dtype in K12B_SHAPES:
+        size = torch.empty((), dtype=dtype).element_size()
+        nbytes = 3 * size * b * n * c + 3 * size * b * c
+        bound = nbytes / HBM_BYTES_S * 1e3
+        make = lambda: (_x(gen, b, n, c, dtype=dtype), *_k12_mod(gen, b, c, n, dtype),
+                        _x(gen, b, n, c, dtype=dtype))
+        x, sc, sh, g = make()
+        new = lambda x, sc, sh, g: fused_adaln_bwd(x, sc, g, 1e-6, sh)
+        ref = _torch_adaln_bwd(x.float(), sc.float(), g.float(), 1e-6)
+        errs = [[(a.float() - r).abs().max().item() for a, r in zip(f(x, sc, sh, g), ref)]
+                for f in (_parent_adaln_bwd, new)]
+        launches = [device_launches(lambda f=f: f(x, sc, sh, g)) for f in (_parent_adaln_bwd,
+                                                                            new)]
+        label = f"({b},{n},{c}) {str(dtype)[6:]}"
+        print(f"[quant_tune] parity K12b {label}: max abs error of dx, dscale, dshift against "
+              f"the plain backward in fp32 (largest {[r.abs().max().item() for r in ref]}): "
+              f"parent {errs[0]}, new {errs[1]}; device launches per call: parent "
+              f"{launches[0]}, new {launches[1]}", flush=True)
+        cold = _cold(make, nbytes)
+        warm = _turns("warm", bound, lambda: _parent_adaln_bwd(x, sc, sh, g),
+                      lambda: new(x, sc, sh, g), iters)
+        colds = _turns("cold", bound, cold(_parent_adaln_bwd), cold(new), iters)
+        bf16 = dtype == torch.bfloat16
+        occ = lambda v: rq._bwd_occupancy(dev, bf16, v, c)
+        plan = rq.adaln_bwd_plan(b, n, c, dtype, occupancy=occ, sms=sms)
+        print(f"[quant_tune] time K12b {label} bound_ms={bound:.4f} (bytes) plan "
+              f"threads={plan.row.threads} vectors={plan.row.vectors} groups={plan.row.groups} "
+              f"bps={plan.bps} blocks/SM={plan.blocks_per_sm} lanes={plan.merge_lanes} | "
+              f"{warm} | {colds}", flush=True)
+        sweep = []
+        for threads, per_sm in itertools.product((32, 64, 128, 256), (1, 2)):
+            try:
+                p = rq.adaln_bwd_plan(b, n, c, dtype, occupancy=occ, sms=sms, threads=threads,
+                                      per_sm=per_sm)
+            except ValueError as err:
+                sweep.append(f"threads={threads} blocks/SM<={per_sm}: {err}")
+                continue
+            call = cold(lambda x, s, t, g, p=p: rq.adaln_bwd(x, s, g, 1e-6, t, p))
+            sweep.append(f"threads={threads} vectors={p.row.vectors} blocks/SM={p.blocks_per_sm} "
+                         f"(groups={p.row.groups}, bps={p.bps}): "
+                         f"{device_ms(call, iters=iters):.4f}")
+        print(f"[quant_tune] sweep K12b {label} cold: " + "; ".join(sweep), flush=True)
 
 
 def _time_k6(gen, iters):
