@@ -76,7 +76,20 @@ without the final `"ok": true` line:
                answers request 1 through K8's xshift kernel, bit-equal to
                the im2col pipeline's images, with both variants' seconds
                per step;
-  6. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
+  6. serve   - the micro-batching GenerationServer (max_batch 4, flush
+               50 ms, warmed) over the int8 pipeline of phase 5: a burst of
+               eight 512² requests at 8 steps (four UniPC, two DPM-Solver++,
+               one PLMS, one DDIM at eta 0.5; guidance 5-9, control scale
+               0.5-1, a seed each); every image (512,512,3), finite, in
+               [0,1]; fewer batches than requests, the UniPC four as one;
+               each batch bit-equal to `pipe.generate` on the same stacked
+               inputs; the int8 path's kernels launched; one UniPC request
+               at batch 1 no farther from an fp32-compute evaluation than
+               1.25x the plain ops; one request beside two sets of three
+               strangers bit-equal under the bf16 policy (a bf16 twin with
+               the same weights; the int8 policy's difference printed);
+               seconds per request by sampler, requests/s;
+  7. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
                12-block ControlNet, CLIP-L, CLIP-bigG, T5-XXL, the z=16
                VAE; random weights from a seed) in the int8 serving mode of
                `bench.py --config sd3`: T5 staged (encode, free, then build
@@ -85,14 +98,16 @@ without the final `"ok": true` line:
                launches of the path's kernels, each quantized block kind
                against the plain ops, and one CFG velocity evaluation
                against the plain ops and an fp32-compute int8 evaluation;
-  7. adaln   - K12 (called by no model) on the path a training step of an
+               one request at 2 steps through GenerationServer(adapter=
+               SD3Adapter(pipe)), bit-equal to `pipe.generate`;
+  8. adaln   - K12 (called by no model) on the path a training step of an
                AdaLN site takes: the forward kernel, then the backward
                kernel through autograd, at the SD3 streams' shapes, each
                call one launch of each under the profiler;
-  8. labs    - the attention lab entry point
+  9. labs    - the attention lab entry point
                (`prompt_diffusion_tpu_torch.tools.attn_lab`), every lab at
                two timed iterations;
-  9. midas   - the MiDaS DPT-Hybrid depth annotator at full width (ViT-B
+ 10. midas   - the MiDaS DPT-Hybrid depth annotator at full width (ViT-B
                768 x 12, ResNetV2 (3, 4, 9), features 256; random weights
                from a seed; bf16) on two batches of 16 images at 512², as
                `bench.py --config annotate --annotator midas` runs it
@@ -108,7 +123,7 @@ without the final `"ok": true` line:
                fp32-compute twin (1.25x the plain ops'); then the port's
                annotation entry's batch function with canny, depth and
                normal on 16 images (48 files); images/s;
- 10. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+ 11. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
 work (`bound_ms`: bytes over 3.35 TB/s, tensor-core operations over the
 dense peak or a softmax's exponentials over ~3.9e12/s, whichever is
@@ -162,6 +177,13 @@ LAB_ITERS = 2  # timed iterations of each attention lab variant in `[labs]`
 # profiled calls of a plain version in `[kernels]` (a kernel's and a library
 # call's: `device_ms`'s default, 20)
 PLAIN_ITERS = 5
+# `[serve]`: GenerationServer(max_batch=4, flush_ms=50) on the int8 pipeline;
+# a burst of eight 512² requests at 8 steps, by (sampler, eta), each with its
+# own seed, guidance in [5, 9] and control scale in [0.5, 1]
+SERVE_MAX_BATCH, SERVE_FLUSH_MS = 4, 50.0
+SERVE_BURST = (("unipc", 0.0),) * 4 + (("dpm++", 0.0),) * 2 + (("plms", 0.0), ("ddim", 0.5))
+# steps of the co-batching experiment (one request with two sets of strangers)
+COBATCH_STEPS = 4
 # MiDaS as `bench.py --config annotate --annotator midas` runs it
 MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
 # K3's calls per CFG epsilon evaluation of the SD1.5 bf16 step (ControlNet +
@@ -770,6 +792,10 @@ PATH_KERNELS = {
     "int8": ("flash_attention_packed", "flash_attention", "fused_group_norm",
              "fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
              "conv3x3_int8"),
+    # the server's burst: the int8 path's kernels under every sampler
+    "serve": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+              "fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
+              "conv3x3_int8"),
     # request 1 again through a pipeline built with conv_variant="xshift"
     "int8_xshift": ("conv3x3_int8_xshift", "fused_group_norm_quant", "flash_attention_packed"),
     # the bf16 VAE's GroupNorm and mid-block attention, the int8 MMDiT's four
@@ -931,7 +957,7 @@ def int8_block_checks(pipe, seed=4000):
             check(err <= EPS_REL_BOUND, f"block {name}: rel L2 {err} > {EPS_REL_BOUND}")
 
 
-def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
+def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0, keep_pipe=False):
     """Two full-width requests through the port's public API under
     `policy`, the launch counts of the path's kernels, and one CFG epsilon
     evaluation (t=999) against the plain ops and against `ref_policy`
@@ -939,7 +965,7 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
     another policy's evaluation, printed only. Under the int8 policy a
     pipeline built with conv_variant="xshift" and the same weights then
     answers request 1 again (the "int8_xshift" path). Returns {path tag:
-    (launches, timing)}."""
+    (launches, timing)}, and with `keep_pipe` the pipeline too."""
     import numpy as np
     import torch
 
@@ -1073,9 +1099,186 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0):
         paths["int8_xshift"] = (launches_x, {"request_s": [s_x], "step_s": step_x,
                                              "im2col_step_s": step_s})
         del xpipe, eps_x
+    if keep_pipe:
+        return paths, pipe
     del pipe
     torch.cuda.empty_cache()
     return paths
+
+
+def serve_request(i, sampler="unipc", eta=0.0, steps=REQ_STEPS, n=len(SERVE_BURST)):
+    """Request i of a burst of n: its own seed, example pair and query,
+    guidance from 5 to 9 and control scale from 0.5 to 1 across the burst."""
+    import numpy as np
+
+    from prompt_diffusion_tpu_torch.serving import GenerationRequest
+
+    rng = np.random.default_rng(6000 + i)
+    img = lambda c: rng.uniform(-1, 1, (REQ_SIZE, REQ_SIZE, c)).astype(np.float32)
+    frac = i / max(n - 1, 1)
+    return GenerationRequest(
+        token_ids=hash_token_ids([PROMPTS[i % 2]])[0], neg_token_ids=hash_token_ids([""])[0],
+        example_pair=img(6), query=img(3), num_steps=steps, guidance_scale=5.0 + 4.0 * frac,
+        control_scale=0.5 + 0.5 * frac, eta=eta, sampler=sampler, seed=7000 + i)
+
+
+def recording_adapter(pipe):
+    """An SD15Adapter that records each batch it runs: (the padded
+    requests, seconds to the images on the host)."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.serving import SD15Adapter
+
+    class Recording(SD15Adapter):
+        def __init__(self, pipe):
+            super().__init__(pipe)
+            self.batches = []
+
+        def execute(self, padded):
+            t = time.perf_counter()
+            out = super().execute(padded)
+            torch.cuda.synchronize()
+            self.batches.append((list(padded), time.perf_counter() - t))
+            return out
+
+    return Recording(pipe)
+
+
+def serve_burst(pipe, reqs, **config):
+    """`reqs` submitted at once to a fresh GenerationServer over `pipe`
+    (warmed first when `warm`): (images by seed, the batches it ran, the
+    burst's seconds, the server's stats of the burst, the launch counts of
+    the burst, set to 0 after the warm-up)."""
+    from prompt_diffusion_tpu_torch.serving import GenerationServer, ServerConfig
+
+    warm = config.pop("warm", False)
+    adapter = recording_adapter(pipe)
+    server = GenerationServer(pipe, ServerConfig(**config), adapter=adapter)
+    if warm:  # every bucket once, at 2 steps
+        server.warmup(serve_request(0, steps=2))
+    adapter.batches.clear()
+    before = dict(server.stats)
+    counted = reset_launches()
+    with server:
+        t0 = time.perf_counter()
+        futs = [server.submit(r) for r in reqs]
+        images = {r.seed: f.result(timeout=900) for r, f in zip(reqs, futs)}
+        burst_s = time.perf_counter() - t0
+    launches = read_launches(counted)
+    stats = {k: server.stats[k] - before[k] for k in before}
+    return images, list(adapter.batches), burst_s, stats, launches
+
+
+def phase_serve(pipe, card):
+    """The micro-batching server over the int8 SD1.5 pipeline at full
+    width: a burst of eight requests (four UniPC, two DPM-Solver++, one
+    PLMS, one DDIM at eta 0.5), each image checked, the burst batched with
+    the UniPC requests in one batch, each batch bit-equal to
+    `pipe.generate` on the same inputs, the int8 path's kernels launched;
+    one UniPC request at batch 1 through the kernels no farther from an
+    fp32-compute evaluation than 1.25x the plain ops; the co-batching
+    contract bit-equal under the bf16 policy (and the int8 policy's
+    difference printed); seconds per request by sampler, requests/s."""
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.models.vae import AutoencoderKL
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.serving import SD15Adapter
+    from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy
+
+    reqs = [serve_request(i, sampler, eta) for i, (sampler, eta) in enumerate(SERVE_BURST)]
+    images, batches, burst_s, stats, launches = serve_burst(
+        pipe, reqs, max_batch=SERVE_MAX_BATCH, flush_ms=SERVE_FLUSH_MS, warm=True)
+    log(f"[serve] burst of {len(reqs)} requests ({REQ_SIZE}², {REQ_STEPS} steps, int8 policy, "
+        f"int8 VAE): {burst_s:.3f}s, {len(reqs) / burst_s:.3f} requests/s; stats {stats}; "
+        f"batches " + ", ".join(f"{b[0][0].sampler} x{len(b[0])} {b[1]:.3f}s" for b in batches))
+    log(f"[serve] launches {launches}")
+    # check 1: the images, and the batching
+    for seed, img in images.items():
+        check(img.shape == (REQ_SIZE, REQ_SIZE, 3), f"[serve] image shape {img.shape}")
+        check(np.isfinite(img).all() and img.min() >= 0.0 and img.max() <= 1.0,
+              f"[serve] request {seed}: non-finite or outside [0, 1]")
+    check(stats["requests"] == len(reqs) and stats["batches"] < len(reqs),
+          f"[serve] {stats['batches']} batches for {len(reqs)} requests")
+    unipc = {r.seed for r in reqs if r.sampler == "unipc"}
+    check(any({r.seed for r in padded} == unipc for padded, _ in batches),
+          "[serve] the four UniPC requests did not run as one batch")
+    # check 3: the kernels of the int8 path ran on the server's path
+    for name in PATH_KERNELS["serve"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the serve path")
+    # check 2: the server adds nothing; also the direct call's seconds per request
+    adapter, direct_s, served_s = SD15Adapter(pipe), {}, {}
+    for padded, secs in batches:
+        t = time.perf_counter()
+        ref = pipe.generate(**adapter.inputs(padded)).cpu().numpy()
+        sampler, n = padded[0].sampler, len({r.seed for r in padded})
+        direct_s.setdefault(sampler, []).append((time.perf_counter() - t) / n)
+        served_s.setdefault(sampler, []).append(secs / n)
+        for k, r in enumerate(padded[:n]):
+            check(np.array_equal(images[r.seed], ref[k]),
+                  f"[serve] request {r.seed} ({sampler}) differs from pipe.generate's")
+    log("[serve] every batch bit-equal to pipe.generate on the same stacked inputs, noise "
+        "and scales")
+    # check 4: a UniPC trajectory at batch 1, kernels and plain ops against fp32 compute
+    one = adapter.inputs([serve_request(0)])
+    f32 = DTypePolicy(compute_dtype=torch.float32, quant="int8")
+    with torch.no_grad():
+        img_k = pipe.generate(**one)
+        with plain_ops():
+            img_p = pipe.generate(**one)
+            with torch.device("cuda"):
+                vae32 = AutoencoderKL(policy=f32)
+            vae32.load_state_dict(pipe.vae.state_dict())
+            ref = PromptDiffusionSD15.create(policy=f32, vae=vae32,
+                                             text_encoder=pipe.text_encoder, device="cuda")
+            ref.unet.load_state_dict(pipe.unet.state_dict())
+            ref.controlnet.load_state_dict(pipe.controlnet.state_dict())
+            img_32 = ref.generate(**one)
+            del ref, vae32
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    rel_k32, rel_p32 = rel(img_k, img_32), rel(img_p, img_32)
+    log(f"[serve] UniPC request at batch 1 ({REQ_STEPS} steps): image against an fp32-compute "
+        f"int8 evaluation of the same weights on the plain ops: kernels {rel_k32}, plain ops "
+        f"{rel_p32} (bound {FP32_RATIO_BOUND}x the plain ops'); kernels vs plain ops "
+        f"{rel(img_k, img_p)}")
+    check(np.isfinite(rel_k32) and rel_k32 <= FP32_RATIO_BOUND * rel_p32,
+          f"[serve] UniPC image: kernels {rel_k32} vs plain {rel_p32} from fp32 compute")
+    # check 5: one request twice, each time with three other strangers, bucket 4
+    target = serve_request(0, steps=COBATCH_STEPS)
+    sets = [[target] + [serve_request(10 + 3 * k + j, steps=COBATCH_STEPS, n=16)
+                        for j in range(3)] for k in range(2)]
+    bf16 = PromptDiffusionSD15.create(text_encoder=pipe.text_encoder, device="cuda")
+    for name in ("unet", "controlnet", "vae"):
+        getattr(bf16, name).load_state_dict(getattr(pipe, name).state_dict())
+
+    def cobatched(p):
+        out = []
+        for reqs4 in sets:
+            imgs, runs, _, _, _ = serve_burst(p, reqs4, max_batch=SERVE_MAX_BATCH,
+                                              flush_ms=SERVE_FLUSH_MS)
+            check([[r.seed for r in padded] for padded, _ in runs] ==
+                  [[r.seed for r in reqs4]], f"[serve] the co-batch ran as {runs}")
+            out.append(imgs[target.seed])
+        return out
+
+    a, b = cobatched(bf16)
+    del bf16
+    a8, b8 = cobatched(pipe)
+    log(f"[serve] co-batching: one request beside two sets of three strangers (bucket 4, "
+        f"{COBATCH_STEPS} steps): bf16 policy bit-equal {np.array_equal(a, b)}; int8 policy "
+        f"max abs difference {float(np.abs(a8 - b8).max())} (per-tensor activation scales "
+        f"couple the batch; printed, not checked)")
+    check(np.array_equal(a, b), "[serve] bf16: a request's image depends on its strangers")
+    per_req = {k: float(np.mean(v)) for k, v in served_s.items()}
+    log(f"[serve] {card}: seconds per request by sampler, served (batch time / requests) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_req.items()) + "; direct generate "
+        + ", ".join(f"{k} {np.mean(v):.3f}" for k, v in direct_s.items())
+        + f"; {len(reqs) / burst_s:.3f} requests/s over the burst")
+    torch.cuda.empty_cache()
+    return launches, {"burst_s": burst_s, "requests_per_s": len(reqs) / burst_s,
+                      "s_per_request": per_req, "stats": stats}
 
 
 def sd3_block_checks(pipe, seed=4100):
@@ -1107,6 +1310,37 @@ def sd3_block_checks(pipe, seed=4100):
             log(f"[sd3] block {name} at ({b},{n_img}+{77 + T5_LEN},{dim}), kernels vs plain ops "
                 f"on the same input: rel L2 {err} (bound {EPS_REL_BOUND})")
             check(err <= EPS_REL_BOUND, f"block {name}: rel L2 {err} > {EPS_REL_BOUND}")
+
+
+def sd3_served(pipe):
+    """One SD3 request at 2 steps through GenerationServer(adapter=
+    SD3Adapter(pipe)), bit-equal to pipe.generate on the same inputs."""
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.serving import (
+        GenerationServer,
+        SD3Adapter,
+        SD3GenerationRequest,
+        ServerConfig,
+    )
+
+    rng = np.random.default_rng(6100)
+    img = lambda: rng.uniform(-1, 1, (SD3_SIZE, SD3_SIZE, 3)).astype(np.float32)
+    ids, neg = hash_token_ids([PROMPTS[0]])[0], hash_token_ids([""])[0]
+    req = SD3GenerationRequest(token_ids_l=ids, token_ids_g=ids, neg_ids_l=neg, neg_ids_g=neg,
+                               support_cond=img(), support_image=img(), query=img(),
+                               num_steps=2, guidance_scale=SD3_CFG, shift=SD3_SHIFT, seed=6101)
+    adapter = SD3Adapter(pipe)
+    t = time.perf_counter()
+    with GenerationServer(pipe, ServerConfig(max_batch=1), adapter=adapter) as server:
+        served = server.generate(req, timeout=600)
+    s = time.perf_counter() - t
+    with torch.no_grad():
+        ref = pipe.generate(**adapter.inputs([req]))[0].cpu().numpy()
+    log(f"[sd3] one request (2 steps) through GenerationServer(adapter=SD3Adapter): "
+        f"{s:.3f}s; bit-equal to pipe.generate {np.array_equal(served, ref)}")
+    check(np.array_equal(served, ref), "[sd3] the served image differs from pipe.generate's")
 
 
 def phase_sd3(seed=0):
@@ -1203,6 +1437,7 @@ def phase_sd3(seed=0):
         check(2 * again[name] == launches[name],
               f"[sd3] {name}: {again[name]} calls in request 1, {launches[name]} in two")
 
+    sd3_served(pipe)
     sd3_block_checks(pipe)
 
     # one CFG velocity evaluation (ControlNet + MMDiT at the first timestep):
@@ -1540,9 +1775,13 @@ def main():
     results = phase_kernels(gen)
     k3_k5 = k3_k5_statistics(gen)
     paths = phase_path("slice", default_policy(), False, fp32_policy())
-    paths.update(phase_path("int8", int8_policy(), True,
-                            DTypePolicy(compute_dtype=torch.float32, quant="int8"),
-                            info_policy=default_policy()))
+    int8_paths, int8_pipe = phase_path("int8", int8_policy(), True,
+                                       DTypePolicy(compute_dtype=torch.float32, quant="int8"),
+                                       info_policy=default_policy(), keep_pipe=True)
+    paths.update(int8_paths)
+    paths["serve"] = phase_serve(int8_pipe, card)
+    del int8_pipe
+    torch.cuda.empty_cache()
     paths["sd3"] = phase_sd3()
     paths["adaln"] = phase_adaln()
     paths["labs"] = phase_labs()

@@ -75,13 +75,18 @@ class ControlNetSD15(nn.Module):
         example_pair: Optional[torch.Tensor] = None,  # (B, 6, 8H, 8W)
         query: Optional[torch.Tensor] = None,  # (B, 3, 8H, 8W)
         context: Optional[torch.Tensor] = None,  # (B, L, context_dim)
-        conditioning_scale: Union[float, Sequence[float]] = 1.0,
+        conditioning_scale: Union[float, torch.Tensor, Sequence] = 1.0,
         guided_hint: Optional[torch.Tensor] = None,
         hint_only: bool = False,
     ) -> Union[torch.Tensor, Tuple[torch.Tensor, ...]]:
         """The control stack, or with `hint_only=True` just the summed hint
         embedding. The hint does not depend on x or t, so the sampler
-        computes it once and passes it back as `guided_hint`."""
+        computes it once and passes it back as `guided_hint`.
+        `conditioning_scale` is one number or tensor for every tap (a
+        per-sample (B, 1, 1, 1) tensor too), or one per tap (a sequence or
+        a 1-D tensor, e.g. guess mode's decay). A bf16 tap times an fp32
+        tensor of more than 0 dimensions comes out fp32, as in JAX; the
+        UNet casts it back."""
         if guided_hint is None:
             guided_hint = self.input_hint_block(example_pair) + self.input_cond_block(query)
         if hint_only:
@@ -100,6 +105,7 @@ class ControlNetSD15(nn.Module):
         h = run_middle_block(self, h, emb, context)
         outs.append(self.middle_block_out(h))
 
-        if isinstance(conditioning_scale, (tuple, list)):
+        if isinstance(conditioning_scale, (tuple, list)) or getattr(
+                conditioning_scale, "ndim", None) == 1:
             return tuple(o * s for o, s in zip(outs, conditioning_scale))
         return tuple(o * conditioning_scale for o in outs)

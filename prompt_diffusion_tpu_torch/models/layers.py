@@ -130,23 +130,34 @@ class TimeEmbedMLP(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """GN -> SiLU -> conv, + time embedding, GN -> SiLU -> conv, residual."""
+    """GN -> SiLU -> conv, + time embedding, GN -> SiLU -> conv, residual.
+    With `use_scale_shift_norm` the embedding projects to 2 * out_ch
+    channels, (scale, shift), applied as GN(h) * (1 + scale) + shift before
+    the SiLU; such a block's norms emit no int8 under an int8 policy (its
+    convs quantize their float inputs)."""
 
-    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, policy: DTypePolicy):
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, policy: DTypePolicy,
+                 use_scale_shift_norm: bool = False):
         super().__init__()
-        dt, q8 = policy.compute_dtype, _int8(policy)
+        dt = policy.compute_dtype
+        q8 = _int8(policy) and not use_scale_shift_norm
+        self.use_scale_shift_norm = use_scale_shift_norm
         self.in_norm = GroupNorm32(in_ch, apply_silu=True, quant_out=q8)
         self.in_conv = conv3x3(in_ch, out_ch, dt, policy=policy)
-        self.emb_proj = Dense(emb_dim, out_ch, dtype=dt)
-        self.out_norm = GroupNorm32(out_ch, apply_silu=True, quant_out=q8)
+        self.emb_proj = Dense(emb_dim, 2 * out_ch if use_scale_shift_norm else out_ch, dtype=dt)
+        self.out_norm = GroupNorm32(out_ch, apply_silu=not use_scale_shift_norm, quant_out=q8)
         self.out_conv = conv3x3(out_ch, out_ch, dt, policy=policy)
         self.skip = conv1x1(in_ch, out_ch, dt, policy=policy) if in_ch != out_ch else None
 
     def forward(self, x, emb):
         h = self.in_conv(self.in_norm(x))
         emb_out = self.emb_proj(F.silu(emb))[:, :, None, None]
-        h = h + emb_out.to(h.dtype)
-        h = self.out_conv(self.out_norm(h))
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = F.silu(self.out_norm(h) * (1 + scale) + shift)
+        else:
+            h = self.out_norm(h + emb_out.to(h.dtype))
+        h = self.out_conv(h)
         if self.skip is not None:
             x = self.skip(x)
         return x + h

@@ -4,7 +4,9 @@ Counterpart of `prompt_diffusion_tpu/models/unet_sd15.py`: timestep
 embedding -> MLP; 12 input blocks; middle (res, transformer, res); 12
 output blocks with skip concatenation; GN + SiLU + conv head. Control
 residuals from the ControlNet add to the bottleneck (the last one) and then
-to the skips in reverse order. FreeU is not ported yet.
+to the skips in reverse order (only the bottleneck's with
+`only_mid_control`). FreeU (`UNetConfig.freeu`) rescales the backbone and
+damps the skips' low frequencies at the two deepest decoder levels.
 
 Under an int8 policy the input conv, the ResBlocks, Down/Upsample and the
 transformers quantize (`models/layers.py`); the time embedding and the
@@ -45,6 +47,9 @@ class UNetConfig:
     num_heads: int = 8
     transformer_depth: int = 1
     context_dim: int = 768
+    # FreeU: backbone/skip feature rescaling at the two deepest decoder
+    # levels; None disables.
+    freeu: Optional[Tuple[float, float, float, float]] = None  # (s1, s2, b1, b2)
 
     def encoder_plan(self):
         """('conv'|'res'|'down', out_ch, has_attn) per input block, the
@@ -75,6 +80,20 @@ class UNetConfig:
                 if has_up:
                     ds //= 2
         return plan
+
+
+def _freeu_filter(skip: torch.Tensor, scale: float, threshold: int = 1) -> torch.Tensor:
+    """Fourier low-frequency damping of skip features (diffusers'
+    fourier_filter, used by FreeU), in fp32 over the spatial axes."""
+    x = skip.float()
+    h, w = x.shape[-2:]
+    freq = torch.fft.fftshift(torch.fft.fftn(x, dim=(-2, -1)), dim=(-2, -1))
+    ch, cw = h // 2, w // 2
+    yy = (torch.arange(h, device=x.device) - ch).abs()[:, None]
+    xx = (torch.arange(w, device=x.device) - cw).abs()[None, :]
+    mask = torch.where((yy <= threshold) & (xx <= threshold), scale, 1.0)
+    freq = torch.fft.ifftshift(freq * mask, dim=(-2, -1))
+    return torch.fft.ifftn(freq, dim=(-2, -1)).real.to(skip.dtype)
 
 
 def build_encoder(module: nn.Module, cfg: UNetConfig, policy: DTypePolicy):
@@ -152,6 +171,7 @@ class UNetSD15(nn.Module):
         timesteps: torch.Tensor,  # (B,)
         context: torch.Tensor,  # (B, L, context_dim)
         control: Optional[Sequence[torch.Tensor]] = None,  # 13 residuals, NCHW
+        only_mid_control: bool = False,
     ) -> torch.Tensor:
         dt = self.policy.compute_dtype
         x, context = x.to(dt), context.to(dt)
@@ -169,11 +189,26 @@ class UNetSD15(nn.Module):
             h = h + ctrl.pop().to(h.dtype)
         for i, (_, _, has_attn, has_up) in enumerate(self._dec_plan):
             skip = hs.pop()
-            if ctrl is not None:
+            if ctrl is not None and not only_mid_control:
                 skip = skip + ctrl.pop().to(skip.dtype)
+            if self.config.freeu is not None:
+                h, skip = self._freeu(h, skip)
             h = getattr(self, f"output_blocks_{i}_res")(torch.cat([h, skip], dim=1), emb)
             if has_attn:
                 h = getattr(self, f"output_blocks_{i}_attn")(h, context)
             if has_up:
                 h = getattr(self, f"output_blocks_{i}_up")(h)
         return self.out_conv(self.out_norm(h)).float()
+
+    def _freeu(self, h, skip):
+        """FreeU at the deepest (4 x model_channels) and the next (2 x)
+        decoder levels: the first half of the backbone's channels times b1
+        or b2, the skip's low frequencies times s1 or s2."""
+        s1, s2, b1, b2 = self.config.freeu
+        mc, c = self.config.model_channels, h.shape[1]
+        if c not in (4 * mc, 2 * mc):
+            return h, skip
+        b, s = (b1, s1) if c == 4 * mc else (b2, s2)
+        half = c // 2
+        h = torch.cat([h[:, :half] * b, h[:, half:]], dim=1)
+        return h, _freeu_filter(skip, s)

@@ -25,6 +25,25 @@ def control_keep(step_index: int, num_steps: int, start: float, end: float) -> f
     return 0.0 if drop else 1.0
 
 
+def step_index_from_timestep(table_timesteps: np.ndarray, t: int) -> int:
+    """Sampling-order step index of model timestep `t`: the number of table
+    entries with a larger timestep, whether the table is stored ascending
+    (DDIM, PLMS) or descending (UniPC, DPM-Solver)."""
+    return int((np.asarray(table_timesteps) > t).sum())
+
+
+def keep_by_timestep(table_timesteps: np.ndarray, num_timesteps: int, start: float,
+                     end: float) -> np.ndarray:
+    """(num_timesteps,) fp32: the keep factor of the step that evaluates the
+    model at each DDPM timestep, the step index taken from the timestep as
+    `step_index_from_timestep` takes it and N the full table length, as the
+    JAX package computes it inside its loop. A sampler's timesteps then
+    gather their factor on the device."""
+    n = len(table_timesteps)
+    return np.asarray([control_keep(step_index_from_timestep(table_timesteps, t), n, start, end)
+                       for t in range(num_timesteps)], np.float32)
+
+
 def is_default_window(start, end) -> bool:
     """True when the window keeps every step (start 0, end 1)."""
     return float(start) == 0.0 and float(end) == 1.0

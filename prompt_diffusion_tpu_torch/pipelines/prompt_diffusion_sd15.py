@@ -1,11 +1,15 @@
 """SD1.5 Prompt-Diffusion inference pipeline for PyTorch and CUDA.
 
 Counterpart of `prompt_diffusion_tpu/pipelines/prompt_diffusion_sd15.py`
-(DDIM sampler; the exact-bf16 policy, or the int8 W8A8 serving mode with
-`create(policy=int8_policy(), vae_int8=...)`): CLIP encodes the prompt and the negative
-prompt; the ControlNet hint encoders run once; each DDIM step runs
-ControlNet + UNet on the uncond || cond double batch (uncond first) and
-applies classifier-free guidance; the VAE decodes the latents.
+(the exact-bf16 policy, or the int8 W8A8 serving mode with
+`create(policy=int8_policy(), vae_int8=...)`): CLIP encodes the prompt and
+the negative prompt; the ControlNet hint encoders run once; each sampler
+step (DDIM, PLMS, UniPC, DPM-Solver++ or DPM-Solver) runs ControlNet + UNet
+on the uncond || cond double batch (uncond first) and applies
+classifier-free guidance; the VAE decodes the latents. Guidance and
+control scales are numbers or per-sample (B, 1, 1, 1) tensors (the
+serving batcher mixes requests); `control_guidance_start/end` restrict
+the ControlNet to a window of the trajectory.
 
 Images cross the API as NHWC tensors in [-1, 1] and come back NHWC in
 [0, 1], as in the JAX package; inside, activations are NCHW in
@@ -16,7 +20,7 @@ channels_last memory. The modules hold their weights: load them with
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -26,13 +30,28 @@ from prompt_diffusion_tpu_torch.models.controlnet_sd15 import ControlNetSD15
 from prompt_diffusion_tpu_torch.models.unet_sd15 import UNetSD15
 from prompt_diffusion_tpu_torch.models.vae import AutoencoderKL
 from prompt_diffusion_tpu_torch.ops.int8_conv import VARIANTS
+from prompt_diffusion_tpu_torch.data.tokenizer import EOT, SOT
+from prompt_diffusion_tpu_torch.models.vae import sample_from_moments
 from prompt_diffusion_tpu_torch.ops.quant import QuantConv
+from prompt_diffusion_tpu_torch.pipelines.control_window import (
+    is_default_window,
+    keep_by_timestep,
+    validate_window,
+)
 from prompt_diffusion_tpu_torch.schedulers.ddim import DDIMTables, ddim_sample_loop
+from prompt_diffusion_tpu_torch.schedulers.dpm_solver import (
+    DPMTables,
+    dpm_solver_multistep_loop,
+)
+from prompt_diffusion_tpu_torch.schedulers.plms import plms_sample_loop
 from prompt_diffusion_tpu_torch.schedulers.schedules import DiffusionSchedule
+from prompt_diffusion_tpu_torch.schedulers.unipc import UniPCTables, unipc_sample_loop
 from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy, int8_policy
 
 _NCHW = (0, 3, 1, 2)
 _NHWC = (0, 2, 3, 1)
+SAMPLERS = ("ddim", "plms", "unipc", "dpm++", "dpm")
+Scale = Union[float, torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -94,6 +113,43 @@ class PromptDiffusionSD15:
     def encode_prompt(self, token_ids: torch.Tensor) -> torch.Tensor:
         return self.text_encoder(token_ids.to(self.device))["last_hidden_state"]
 
+    def encode_long_prompt(self, token_ids: torch.Tensor, windows: int = 3,
+                           clip_skip: int = 0) -> torch.Tensor:
+        """Long-prompt encoding by 77-token windows: the caller's SOT and
+        EOT stripped, the content cut (or EOT-padded) to windows x 75
+        tokens, each chunk wrapped in SOT/EOT and encoded alone, the hidden
+        states concatenated along the sequence: (B, windows * 77, D).
+        `clip_skip` k > 0 takes CLIP's hidden state `k + 1` layers from the
+        end in place of the final one."""
+        ids = token_ids.to(self.device)
+        b = ids.shape[0]
+        content = ids[:, 1:-1]
+        per = 75
+        need = windows * per
+        pad = torch.full((b, max(0, need - content.shape[1])), EOT, dtype=ids.dtype,
+                         device=ids.device)
+        content = torch.cat([content[:, :need], pad], dim=1)[:, :need]
+        layer = None if clip_skip == 0 else clip_skip + 1
+        sot = torch.full((b, 1), SOT, dtype=ids.dtype, device=ids.device)
+        eot = torch.full((b, 1), EOT, dtype=ids.dtype, device=ids.device)
+        outs = []
+        for w in range(windows):
+            chunk = torch.cat([sot, content[:, w * per:(w + 1) * per], eot], dim=1)
+            enc = self.text_encoder(chunk, output_hidden_layer=layer)
+            outs.append(enc["last_hidden_state"] if layer is None else enc["hidden"])
+        return torch.cat(outs, dim=1)
+
+    @torch.no_grad()
+    def encode_image(self, images: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images (B, H, W, 3) in [-1, 1] -> sampled, shifted and scaled
+        latents (B, H/8, W/8, 4); the sampling noise is drawn from
+        `generator`."""
+        cfg = self.vae.config
+        x = images.to(self.device).permute(_NCHW).contiguous(memory_format=torch.channels_last)
+        z = sample_from_moments(self.vae.encode_moments(x), generator)
+        return ((z - cfg.shift_factor) * cfg.scale_factor).permute(_NHWC)
+
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """latents (B, h, w, 4) -> images (B, 8h, 8w, 3) in [0, 1]."""
         cfg = self.vae.config
@@ -116,6 +172,15 @@ class PromptDiffusionSD15:
             if ids.shape[0] != b:
                 raise ValueError(f"{name} batch {ids.shape[0]} != image batch {b}")
 
+    def sampler_tables(self, sampler: str, num_steps: int, eta: float = 0.0):
+        """The step tables of `sampler`: UniPC's, DPM-Solver's (both
+        variants) or DDIM's (DDIM and PLMS)."""
+        if sampler == "unipc":
+            return UniPCTables.create(self.schedule, num_steps)
+        if sampler in ("dpm++", "dpm"):
+            return DPMTables.create(self.schedule, num_steps)
+        return DDIMTables.create(self.schedule, num_steps, eta=eta)
+
     @torch.no_grad()
     def generate(
         self,
@@ -124,41 +189,66 @@ class PromptDiffusionSD15:
         example_pair: torch.Tensor,  # (B, H, W, 6) condition‖image, [-1, 1]
         query: torch.Tensor,  # (B, H, W, 3) query condition, [-1, 1]
         num_steps: int = 50,
-        guidance_scale: float = 9.0,
-        control_scale: float = 1.0,
+        guidance_scale: Scale = 9.0,  # a number or (B, 1, 1, 1)
+        control_scale: Scale = 1.0,  # a number or (B, 1, 1, 1)
         eta: float = 0.0,
         guess_mode: bool = False,
         init_noise: Optional[torch.Tensor] = None,  # (B, H/8, W/8, 4)
         sampler: str = "ddim",
+        control_guidance_start: float = 0.0,
+        control_guidance_end: float = 1.0,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Returns images (B, H, W, 3) in [0, 1], fp32. The starting noise
         is `init_noise` when given, else drawn from `generator`, which
-        also gives the per-step noise when eta > 0."""
-        if sampler != "ddim":
-            raise ValueError(f"sampler {sampler!r} is not ported yet (only 'ddim')")
+        also gives the per-step noise when eta > 0 (DDIM only).
+        `sampler` is one of `SAMPLERS`: "ddim" (the reference's default),
+        "plms", "unipc" (the reference's diffusers scripts), "dpm++" or
+        "dpm" (DPM-Solver multistep order 2, data or noise prediction).
+        `control_guidance_start/end` keep the ControlNet on the steps whose
+        fraction [i/N, (i+1)/N) of the table lies inside the window."""
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}; one of {SAMPLERS}")
+        if sampler != "ddim" and eta != 0.0:
+            raise ValueError(f"eta>0 is DDIM-only (got sampler={sampler!r})")
+        validate_window(control_guidance_start, control_guidance_end)
         self.check_inputs(token_ids, neg_token_ids, example_pair, query)
         b, img_h, img_w, _ = query.shape
-        tables = DDIMTables.create(self.schedule, num_steps, eta=eta)
+        tables = self.sampler_tables(sampler, num_steps, eta)
+        keep = None
+        if not is_default_window(control_guidance_start, control_guidance_end):
+            keep = keep_by_timestep(tables.timesteps, self.schedule.num_timesteps,
+                                    control_guidance_start, control_guidance_end)
         eps_fn = self.make_eps_fn(token_ids, neg_token_ids, example_pair, query,
-                                  guidance_scale, control_scale, guess_mode)
+                                  guidance_scale, control_scale, guess_mode, control_keep=keep)
         if init_noise is None:
             x = torch.randn((b, img_h // 8, img_w // 8, 4), generator=generator,
                             device=self.device, dtype=torch.float32)
         else:
             x = init_noise.to(device=self.device, dtype=torch.float32)
         x = x.permute(_NCHW)
-        # every table entry runs: more than num_steps when 1000 % num_steps != 0
-        x = ddim_sample_loop(eps_fn, x, tables, generator=generator if eta > 0.0 else None)
+        if sampler == "unipc":
+            x = unipc_sample_loop(eps_fn, x, tables)
+        elif sampler in ("dpm++", "dpm"):
+            x = dpm_solver_multistep_loop(eps_fn, x, tables, predict_x0=(sampler == "dpm++"))
+        elif sampler == "plms":
+            x = plms_sample_loop(eps_fn, x, tables)
+        else:
+            # every table entry runs: more than num_steps when 1000 % num_steps != 0
+            x = ddim_sample_loop(eps_fn, x, tables, generator=generator if eta > 0.0 else None)
         return self.decode_latents(x.permute(_NHWC))
 
     @torch.no_grad()
     def make_eps_fn(self, token_ids, neg_token_ids, example_pair, query,
-                    guidance_scale: float = 9.0, control_scale: float = 1.0,
-                    guess_mode: bool = False):
+                    guidance_scale: Scale = 9.0, control_scale: Scale = 1.0,
+                    guess_mode: bool = False, control_keep: Optional[np.ndarray] = None):
         """Encodes the prompts and the hint once and returns
         `eps_fn(x, t)`: ControlNet + UNet on the uncond || cond double
-        batch and the classifier-free guidance, for NCHW latents x."""
+        batch and the classifier-free guidance, for NCHW latents x.
+        `control_keep`, a (T,) table of 0/1 per DDPM timestep
+        (`control_window.keep_by_timestep`), scales the control at each
+        step; the factor is gathered on the device, so the loop never
+        waits for it."""
         dev = self.device
         b = query.shape[0]
         # uncond first, cond second
@@ -166,21 +256,37 @@ class PromptDiffusionSD15:
         to_nchw = lambda t: t.to(dev).permute(_NCHW).contiguous(memory_format=torch.channels_last)
         pair2 = to_nchw(torch.cat([example_pair] * 2))
         query2 = to_nchw(torch.cat([query] * 2))
+        if isinstance(guidance_scale, torch.Tensor):
+            guidance_scale = guidance_scale.to(device=dev, dtype=torch.float32)
+        # a per-sample (B, 1, 1, 1) control scale covers both halves of the double batch
+        if isinstance(control_scale, torch.Tensor):
+            control_scale = control_scale.to(device=dev, dtype=torch.float32)
+            if control_scale.ndim >= 2:
+                control_scale = torch.cat([control_scale] * 2)
         if guess_mode:
             # strength * 0.825^(12 - i) over the 13 taps, fp32 as in JAX
             decay = np.float32(0.825) ** np.arange(12, -1, -1, dtype=np.float32)
-            ctrl_scale = tuple(float(np.float32(control_scale) * d) for d in decay)
+            if isinstance(control_scale, torch.Tensor):
+                ctrl_scale = tuple(control_scale * float(d) for d in decay)
+            else:
+                ctrl_scale = tuple(float(np.float32(control_scale) * d) for d in decay)
             # the uncond half of the double batch gets no control at all
             branch_mask = torch.cat([torch.zeros(b, 1, 1, 1), torch.ones(b, 1, 1, 1)]).to(dev)
         else:
             ctrl_scale, branch_mask = control_scale, None
+        keep = None if control_keep is None else torch.from_numpy(control_keep).to(dev)
 
         hint2 = self.controlnet(example_pair=pair2, query=query2, hint_only=True)
 
         def eps_fn(x, t_b):
             x2 = torch.cat([x, x])
             t2 = torch.cat([t_b, t_b])
-            control = self.controlnet(x2, t2, context=context2, conditioning_scale=ctrl_scale,
+            scale = ctrl_scale
+            if keep is not None:
+                k = keep[t_b[0].long()]
+                scale = (tuple(c * k for c in ctrl_scale) if isinstance(ctrl_scale, tuple)
+                         else ctrl_scale * k)
+            control = self.controlnet(x2, t2, context=context2, conditioning_scale=scale,
                                       guided_hint=hint2)
             if branch_mask is not None:
                 control = tuple(c * branch_mask.to(c.dtype) for c in control)

@@ -1,0 +1,132 @@
+"""Serving entry point: build SD1.5, warm the buckets, serve concurrent
+Prompt-Diffusion requests through the micro-batching server.
+
+    python -m prompt_diffusion_tpu_torch.serve --demo [--policy bf16|int8]
+        [--max-batch 4] [--steps 50] [--resolution 512] [--sampler ddim]
+        [--vocab DIR] [--out-dir served_images] [--device cuda]
+
+The weights are random (`random_init_`, seed 0): the checkpoint importers
+are not ported yet, so `--ckpt` is refused. `--demo` submits 4 concurrent
+requests with different prompts, seeds and guidance scales (they share one
+batched run) and writes each image as a PNG (the standard library's zlib;
+no imaging package needed). The counterpart of `examples/serve.py`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import struct
+import sys
+import time
+import zlib
+
+import numpy as np
+
+from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import SAMPLERS
+
+DEMO_PROMPTS = ("a modern house", "a red sports car", "a snowy mountain",
+                "a lighthouse at dusk")
+NEGATIVE = "lowres, worst quality"
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """(H, W, 3) floats in [0, 1] -> an 8-bit RGB PNG."""
+    img = np.clip(np.rint(np.asarray(image) * 255.0), 0, 255).astype(np.uint8)
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))  # filter 0 per row
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        body = tag + data
+        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def build_pipeline(policy: str, device: str, seed: int = 0):
+    """SD1.5 at the default widths with random weights: exact bf16, or the
+    int8 serving mode with the int8 VAE (`bench.py`'s default)."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
+
+    if policy == "int8":
+        pipe = PromptDiffusionSD15.create(policy=int8_policy(), vae_int8=True, device=device)
+    else:
+        pipe = PromptDiffusionSD15.create(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for m in pipe.jax_modules().values():
+        random_init_(m, gen)
+    return pipe
+
+
+def make_request(tok, prompt: str, seed: int, resolution: int, steps: int, sampler: str,
+                 guidance: float = 9.0):
+    """A request with a blank example pair and query condition."""
+    from prompt_diffusion_tpu_torch.serving import GenerationRequest
+
+    blank = np.zeros((resolution, resolution, 3), np.float32)
+    return GenerationRequest(
+        token_ids=np.asarray(tok([prompt]))[0],
+        neg_token_ids=np.asarray(tok([NEGATIVE]))[0],
+        example_pair=np.concatenate([blank, blank], axis=-1),
+        query=blank, num_steps=steps, guidance_scale=guidance, sampler=sampler, seed=seed)
+
+
+def run_demo(server, tok, resolution: int, steps: int, sampler: str, out_dir: str) -> list:
+    """Submits the demo prompts at once, writes `req{i}.png` for each;
+    returns the paths."""
+    futs = [server.submit(make_request(tok, p, i, resolution, steps, sampler, 7.0 + i))
+            for i, p in enumerate(DEMO_PROMPTS)]
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    paths = []
+    for i, fut in enumerate(futs):
+        paths.append(os.path.join(out_dir, f"req{i}.png"))
+        write_png(paths[-1], fut.result())
+    print(f"served {len(futs)} requests in {time.perf_counter() - t0:.1f}s "
+          f"({server.stats['batches']} batched runs) -> {out_dir}/")
+    return paths
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--ckpt", default=None, help="not supported yet (random weights only)")
+    p.add_argument("--vocab", default=None, help="CLIP BPE vocab dir (else hash ids)")
+    p.add_argument("--policy", choices=("bf16", "int8"), default="int8")
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--steps", type=int, default=50)
+    p.add_argument("--sampler", choices=SAMPLERS, default="ddim")
+    p.add_argument("--max-batch", type=int, default=4)
+    p.add_argument("--out-dir", default="served_images")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--demo", action="store_true")
+    args = p.parse_args(argv)
+    if args.ckpt:
+        print("--ckpt: the checkpoint importers are not ported yet (ROADMAP queue 1, "
+              "item 2); the port serves random weights only", file=sys.stderr)
+        return 2
+
+    from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
+    from prompt_diffusion_tpu_torch.serving import GenerationServer, ServerConfig
+
+    pipe = build_pipeline(args.policy, args.device)
+    print(f"random weights ({args.policy} policy) on {pipe.device}: mechanics demo only")
+    tok = load_tokenizer(args.vocab)
+    server = GenerationServer(pipe, ServerConfig(max_batch=args.max_batch, flush_ms=25.0))
+    with server:
+        t0 = time.perf_counter()
+        server.warmup(make_request(tok, "warmup", 0, args.resolution, args.steps, args.sampler))
+        print(f"warm in {time.perf_counter() - t0:.1f}s; accepting requests")
+        if args.demo:
+            run_demo(server, tok, args.resolution, args.steps, args.sampler, args.out_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

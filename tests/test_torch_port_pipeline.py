@@ -104,8 +104,10 @@ def test_generate_seeded_noise_and_validation(pipes):
                       torch.zeros(B, 100, 100, 3), num_steps=2)
     with pytest.raises(ValueError, match="batch"):
         pipe.generate(r["ids"][:1], r["neg"][:1], r["pair"], r["query"], num_steps=2)
-    with pytest.raises(ValueError, match="sampler"):
-        pipe.generate(r["ids"], r["neg"], r["pair"], r["query"], sampler="unipc")
+    with pytest.raises(ValueError, match="unknown sampler"):
+        pipe.generate(r["ids"], r["neg"], r["pair"], r["query"], sampler="euler")
+    with pytest.raises(ValueError, match="DDIM-only"):
+        pipe.generate(r["ids"], r["neg"], r["pair"], r["query"], sampler="unipc", eta=0.5)
 
 
 def test_bridge_uses_every_leaf_once(pipes):
@@ -172,7 +174,12 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.annotators.midas, "
             "prompt_diffusion_tpu_torch.annotators.canny, "
             "prompt_diffusion_tpu_torch.ops.resize, "
-            "prompt_diffusion_tpu_torch.annotate_data, chip_smoke; "
+            "prompt_diffusion_tpu_torch.annotate_data, "
+            "prompt_diffusion_tpu_torch.serving.server, prompt_diffusion_tpu_torch.serve, "
+            "prompt_diffusion_tpu_torch.data.tokenizer, "
+            "prompt_diffusion_tpu_torch.schedulers.unipc, "
+            "prompt_diffusion_tpu_torch.schedulers.dpm_solver, "
+            "prompt_diffusion_tpu_torch.schedulers.plms, chip_smoke; "
             "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu', 'tools') "
             "if m in sys.modules]; "
             "assert not bad, bad")
