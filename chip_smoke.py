@@ -89,7 +89,35 @@ without the final `"ok": true` line:
                strangers bit-equal under the bf16 policy (a bf16 twin with
                the same weights; the int8 policy's difference printed);
                seconds per request by sampler, requests/s;
-  7. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
+  7. ckpt    - reference checkpoints into the port at full width, on files
+               written under build/ckpt_smoke/ (git-ignored, deleted at the
+               phase's end), each file's size and seconds to write and to
+               load printed: phase 4's pipeline (SD1.5 bf16, 1.43 B
+               parameters, random weights) exported by
+               `export_ldm_checkpoint` to a `.ckpt`, loaded by
+               `PromptDiffusionSD15.from_single_file` (every state-dict
+               tensor equal to its source: dtype, strides, values), request
+               1 with phase 4's x_T as `init_noise` bit-equal to phase 4's
+               images; the same through a `.safetensors` file
+               (`tools/safetensors_io.py`); a rank-4 peft LoRA on every
+               attention projection of the UNet and CLIP fused into the
+               loaded pipeline: at scale 0 the image bit-equal, at scale 1
+               each fused weight within 1e-6 (relative to its largest
+               value) of W + B.A computed in fp64 on the host and rounded
+               as the fold rounds (fp32, then the weight's dtype), the
+               image finite and not the base image; `serve.main --ckpt
+               FILE --policy int8 --steps 8 --demo`, its four PNGs equal
+               to `SD15Adapter.execute` of the same requests on a pipeline
+               loaded from the file; the batch entry `generate.main`, whole
+               (PIL decodes the data root), on a COCO-layout root of four
+               512² images, writing four PNGs; an SD3 folder at full width
+               and 2 MMDiT, 2 ControlNet and 2 T5 layers written from a
+               random int8 pipeline by `export_sd3_folder`, loaded by
+               `PromptDiffusionSD3.from_folder(..., t5=True)` (state dicts
+               equal) and one 1024² request at 2 steps with T5 staged
+               bit-equal to the source's with T5 in-graph; the launches of
+               the path's kernels;
+  8. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
                12-block ControlNet, CLIP-L, CLIP-bigG, T5-XXL, the z=16
                VAE; random weights from a seed) in the int8 serving mode of
                `bench.py --config sd3`: T5 staged (encode, free, then build
@@ -100,14 +128,14 @@ without the final `"ok": true` line:
                against the plain ops and an fp32-compute int8 evaluation;
                one request at 2 steps through GenerationServer(adapter=
                SD3Adapter(pipe)), bit-equal to `pipe.generate`;
-  8. adaln   - K12 (called by no model) on the path a training step of an
+  9. adaln   - K12 (called by no model) on the path a training step of an
                AdaLN site takes: the forward kernel, then the backward
                kernel through autograd, at the SD3 streams' shapes, each
                call one launch of each under the profiler;
-  9. labs    - the attention lab entry point
+ 10. labs    - the attention lab entry point
                (`prompt_diffusion_tpu_torch.tools.attn_lab`), every lab at
                two timed iterations;
- 10. midas   - the MiDaS DPT-Hybrid depth annotator at full width (ViT-B
+ 11. midas   - the MiDaS DPT-Hybrid depth annotator at full width (ViT-B
                768 x 12, ResNetV2 (3, 4, 9), features 256; random weights
                from a seed; bf16) on two batches of 16 images at 512², as
                `bench.py --config annotate --annotator midas` runs it
@@ -123,7 +151,7 @@ without the final `"ok": true` line:
                fp32-compute twin (1.25x the plain ops'); then the port's
                annotation entry's batch function with canny, depth and
                normal on 16 images (48 files); images/s;
- 11. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+ 12. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
 work (`bound_ms`: bytes over 3.35 TB/s, tensor-core operations over the
 dense peak or a softmax's exponentials over ~3.9e12/s, whichever is
@@ -184,6 +212,13 @@ SERVE_MAX_BATCH, SERVE_FLUSH_MS = 4, 50.0
 SERVE_BURST = (("unipc", 0.0),) * 4 + (("dpm++", 0.0),) * 2 + (("plms", 0.0), ("ddim", 0.5))
 # steps of the co-batching experiment (one request with two sets of strangers)
 COBATCH_STEPS = 4
+# `[ckpt]`: files under a git-ignored directory, removed at the phase's end;
+# a rank-4 LoRA's fused weights against W + B.A in fp64, rounded to the
+# weight's dtype, relative to the weight's largest value; the SD3 folder's
+# depth (MMDiT, ControlNet and T5 layers) and its request's steps
+CKPT_DIR = os.path.join(REPO, "build", "ckpt_smoke")
+LORA_RANK, LORA_REL_BOUND = 4, 1e-6
+SD3_CKPT_LAYERS, SD3_CKPT_STEPS = 2, 2
 # MiDaS as `bench.py --config annotate --annotator midas` runs it
 MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
 # K3's calls per CFG epsilon evaluation of the SD1.5 bf16 step (ControlNet +
@@ -796,6 +831,12 @@ PATH_KERNELS = {
     "serve": ("flash_attention_packed", "flash_attention", "fused_group_norm",
               "fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
               "conv3x3_int8"),
+    # [ckpt]: the bf16 SD1.5 requests and LoRA, serve.main --ckpt under int8,
+    # the generate entry (bf16), the int8 SD3 folder
+    "ckpt": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+             "fused_layer_norm", "fused_group_norm_quant", "fused_layer_norm_quant",
+             "fused_geglu_quant", "conv3x3_int8", "flash_attention_packed_int8",
+             "quant_k_int8", "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
     # request 1 again through a pipeline built with conv_variant="xshift"
     "int8_xshift": ("conv3x3_int8_xshift", "fused_group_norm_quant", "flash_attention_packed"),
     # the bf16 VAE's GroupNorm and mid-block attention, the int8 MMDiT's four
@@ -957,6 +998,22 @@ def int8_block_checks(pipe, seed=4000):
             check(err <= EPS_REL_BOUND, f"block {name}: rel L2 {err} > {EPS_REL_BOUND}")
 
 
+def sd15_request(i):
+    """Request i (0 or 1) of the SD1.5 paths: `generate`'s keyword
+    arguments, the generator that draws x_T included."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(1000 + i)
+    cond = lambda c: torch.rand((REQ_BATCH, REQ_SIZE, REQ_SIZE, c), generator=g,
+                                device="cuda") * 2 - 1
+    return dict(
+        token_ids=torch.from_numpy(hash_token_ids([PROMPTS[i]] * REQ_BATCH)),
+        neg_token_ids=torch.from_numpy(hash_token_ids([""] * REQ_BATCH)),
+        example_pair=cond(6), query=cond(3),
+        generator=torch.Generator(device="cuda").manual_seed(2000 + i),
+    )
+
+
 def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0, keep_pipe=False):
     """Two full-width requests through the port's public API under
     `policy`, the launch counts of the path's kernels, and one CFG epsilon
@@ -965,7 +1022,8 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0, keep
     another policy's evaluation, printed only. Under the int8 policy a
     pipeline built with conv_variant="xshift" and the same weights then
     answers request 1 again (the "int8_xshift" path). Returns {path tag:
-    (launches, timing)}, and with `keep_pipe` the pipeline too."""
+    (launches, timing)}, and with `keep_pipe` the pipeline and request 1's
+    images too."""
     import numpy as np
     import torch
 
@@ -985,20 +1043,9 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0, keep
     log(f"[{tag}] SD1.5 built with random weights: {n_params} parameters "
         f"in {time.perf_counter() - t0:.1f}s")
 
-    def request(i):
-        g = torch.Generator(device="cuda").manual_seed(1000 + i)
-        cond = lambda c: torch.rand((REQ_BATCH, REQ_SIZE, REQ_SIZE, c), generator=g,
-                                    device="cuda") * 2 - 1
-        return dict(
-            token_ids=torch.from_numpy(hash_token_ids([PROMPTS[i]] * REQ_BATCH)),
-            neg_token_ids=torch.from_numpy(hash_token_ids([""] * REQ_BATCH)),
-            example_pair=cond(6), query=cond(3),
-            generator=torch.Generator(device="cuda").manual_seed(2000 + i),
-        )
-
     def answer(i, p=pipe):
         t = time.perf_counter()
-        img = p.generate(**request(i), num_steps=REQ_STEPS, guidance_scale=CFG)
+        img = p.generate(**sd15_request(i), num_steps=REQ_STEPS, guidance_scale=CFG)
         torch.cuda.synchronize()
         return img, time.perf_counter() - t
 
@@ -1028,7 +1075,7 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0, keep
         int8_block_checks(pipe)
 
     # one CFG epsilon evaluation (ControlNet + UNet at t=999), kernels vs plain
-    r = request(0)
+    r = sd15_request(0)
     r.pop("generator")
     eps_fns = {gs: pipe.make_eps_fn(**r, guidance_scale=gs) for gs in (0.0, 1.0, CFG)}
     g = torch.Generator(device="cuda").manual_seed(3000)
@@ -1100,7 +1147,7 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0, keep
                                              "im2col_step_s": step_s})
         del xpipe, eps_x
     if keep_pipe:
-        return paths, pipe
+        return paths, pipe, img1
     del pipe
     torch.cuda.empty_cache()
     return paths
@@ -1279,6 +1326,340 @@ def phase_serve(pipe, card):
     torch.cuda.empty_cache()
     return launches, {"burst_s": burst_s, "requests_per_s": len(reqs) / burst_s,
                       "s_per_request": per_req, "stats": stats}
+
+
+def read_png(path):
+    """An 8-bit RGB PNG written by `serve.write_png` -> (H, W, 3) uint8."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,), tag = struct.unpack(">I", data[pos:pos + 4]), data[pos + 4:pos + 8]
+        chunks[tag] = chunks.get(tag, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    check((raw[:, 0] == 0).all(), f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def to_png_values(images):
+    """Float images in [0, 1] -> the 8-bit values `serve.write_png` stores."""
+    import numpy as np
+
+    return np.clip(np.rint(np.asarray(images) * 255.0), 0, 255).astype(np.uint8)
+
+
+def lora_targets(pipe):
+    """[(module path in a diffusers LoRA file, namespace, port key)] of every
+    attention projection of the UNet (to_q, to_k, to_v, to_out of attn1 and
+    attn2) and of CLIP (q_proj, k_proj, v_proj, out_proj)."""
+    from prompt_diffusion_tpu_torch.tools.diffusers_import import diffusers_unet_rules
+    from prompt_diffusion_tpu_torch.tools.torch_import import rule_keys
+
+    unet_keys = set(pipe.unet.state_dict())
+    out = [("unet." + ref[:-len(".weight")], "unet", key)
+           for ref, key in rule_keys(diffusers_unet_rules(pipe.unet.config))
+           if ref.endswith(".weight") and key in unet_keys
+           and any(f".attn{a}.{p}." in f".{key}" for a in "12"
+                   for p in ("to_q", "to_k", "to_v", "to_out"))]
+    for i in range(pipe.text_encoder.config.num_layers):
+        for p in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out.append((f"text_encoder.text_model.encoder.layers.{i}.self_attn.{p}", "clip",
+                        f"layers_{i}.self_attn.{p}.weight"))
+    return out
+
+
+def state_dicts_equal(tag, got, want):
+    """Every tensor of {namespace: state dict} `got` equals `want`'s: the
+    same keys, dtype, strides, device and values. Returns the count."""
+    import torch
+
+    n = 0
+    for name, sd in want.items():
+        check(set(got[name]) == set(sd), f"[{tag}] {name}: the keys differ")
+        for key, t in sd.items():
+            g = got[name][key]
+            check(g.dtype == t.dtype and g.stride() == t.stride() and g.device == t.device
+                  and torch.equal(g, t), f"[{tag}] {name}.{key} differs from its source")
+            n += 1
+    return n
+
+
+def ckpt_sd15(pipe, img1, tmp):
+    """The full-width SD1.5 round trips (`.ckpt`, then `.safetensors`) and
+    the LoRA checks; returns (timing, the two file paths)."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.tools import safetensors_io
+    from prompt_diffusion_tpu_torch.tools.torch_import import export_ldm_checkpoint
+
+    timing, files, kept = {}, {}, None
+    src = pipe.state_dicts()
+    r = sd15_request(0)
+    gen = r.pop("generator")
+    # [slice]'s x_T for request 1, drawn as `generate` draws it
+    noise = torch.randn((REQ_BATCH, REQ_SIZE // 8, REQ_SIZE // 8, 4), generator=gen,
+                        device="cuda", dtype=torch.float32)
+    for fmt in ("ckpt", "safetensors"):
+        path = files[fmt] = os.path.join(tmp, f"sd15.{fmt}")
+        t = time.perf_counter()
+        export_ldm_checkpoint(src, path, unet_cfg=pipe.unet.config,
+                              vae_ch_mult=pipe.vae.config.ch_mult,
+                              vae_num_res_blocks=pipe.vae.config.num_res_blocks,
+                              clip_layers=pipe.text_encoder.config.num_layers)
+        write_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loaded = PromptDiffusionSD15.from_single_file(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        n = state_dicts_equal("ckpt", loaded.state_dicts(), src)
+        t = time.perf_counter()
+        img = loaded.generate(**r, init_noise=noise, num_steps=REQ_STEPS, guidance_scale=CFG)
+        torch.cuda.synchronize()
+        req_s = time.perf_counter() - t
+        check(torch.equal(img, img1), f"[ckpt] request 1 through the .{fmt} file differs from "
+                                      "[slice]'s")
+        size = os.path.getsize(path)
+        log(f"[ckpt] .{fmt}: {size} bytes ({size / 1e9:.3f} GB), written in {write_s:.2f}s, "
+            f"loaded by from_single_file in {load_s:.2f}s; {n} tensors equal to the source "
+            f"(dtype, strides, values); request 1 bit-equal to [slice]'s in {req_s:.3f}s")
+        timing[fmt] = {"bytes": size, "write_s": write_s, "load_s": load_s, "request_s": req_s}
+        if fmt == "ckpt":
+            kept = loaded
+        del loaded
+    # LoRA: rank 4, peft layout, on every attention projection of the UNet and CLIP
+    targets = lora_targets(kept)
+    modules = kept.jax_modules()
+    g = torch.Generator().manual_seed(7)
+    lora = {}
+    for mod, name, key in targets:
+        out_f, in_f = modules[name].get_parameter(key).shape
+        lora[f"{mod}.lora_A.weight"] = torch.randn(LORA_RANK, in_f, generator=g) * 0.05
+        lora[f"{mod}.lora_B.weight"] = torch.randn(out_f, LORA_RANK, generator=g) * 0.05
+    lora_path = os.path.join(tmp, "lora.safetensors")
+    safetensors_io.save_file(lora, lora_path)
+    before = {(name, key): modules[name].get_parameter(key).detach().cpu().clone()
+              for _, name, key in targets}
+    kept.load_lora_weights(lora_path, scale=0.0)
+    img0 = kept.generate(**r, init_noise=noise, num_steps=REQ_STEPS, guidance_scale=CFG)
+    check(torch.equal(img0, img1), "[ckpt] LoRA at scale 0 changed the image")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    folded = kept.load_lora_weights(lora_path, scale=1.0)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t
+    check(sum(map(len, folded.values())) == len(targets), f"[ckpt] LoRA folded {folded}")
+    worst = worst_raw = 0.0
+    dtypes = set()
+    for mod, name, key in targets:
+        w = modules[name].get_parameter(key).detach().cpu()
+        ref = before[(name, key)].double() + (lora[f"{mod}.lora_B.weight"].double()
+                                              @ lora[f"{mod}.lora_A.weight"].double())
+        scale = ref.abs().max().item()
+        rounded = ref.float().to(w.dtype).double()  # the fold's two roundings
+        worst = max(worst, (w.double() - rounded).abs().max().item() / scale)
+        worst_raw = max(worst_raw, (w.double() - ref).abs().max().item() / scale)
+        dtypes.add(str(w.dtype).replace("torch.", ""))
+    check(worst <= LORA_REL_BOUND, f"[ckpt] a fused weight is {worst} (relative) from "
+                                   f"W + B.A rounded to its dtype")
+    img_l = kept.generate(**r, init_noise=noise, num_steps=REQ_STEPS, guidance_scale=CFG)
+    check(torch.isfinite(img_l).all().item() and not torch.equal(img_l, img1),
+          "[ckpt] the LoRA at scale 1 gave a non-finite image or the base image")
+    log(f"[ckpt] LoRA rank {LORA_RANK} (peft) on {len(targets)} projections "
+        f"({len(folded['unet'])} UNet, {len(folded['clip'])} CLIP; weights {sorted(dtypes)}): "
+        f"scale 0 bit-equal to the base image; scale 1 folded in {fold_s:.3f}s, each fused "
+        f"weight within {worst} (relative to its largest value) of W + B.A computed in fp64 "
+        f"on the host and rounded to the weight's dtype (bound {LORA_REL_BOUND}; before "
+        f"that rounding {worst_raw}); the image finite and not the base image")
+    timing["lora"] = {"projections": len(targets), "fold_s": fold_s, "max_rel": worst}
+    return timing, files
+
+
+def ckpt_serve(path, tmp):
+    """`serve.main --ckpt` under the int8 policy; its PNGs against
+    `SD15Adapter.execute` of the same requests on a pipeline loaded from
+    the same file."""
+    import gc
+
+    import torch
+
+    from prompt_diffusion_tpu_torch import serve
+    from prompt_diffusion_tpu_torch.data.tokenizer import HashTokenizer
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.serving import SD15Adapter
+    from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy
+
+    out = os.path.join(tmp, "served")
+    t = time.perf_counter()
+    rc = serve.main(["--ckpt", path, "--policy", "int8", "--steps", str(REQ_STEPS), "--demo",
+                     "--out-dir", out])
+    serve_s = time.perf_counter() - t
+    check(rc == 0, f"[ckpt] serve.main returned {rc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = PromptDiffusionSD15.from_single_file(path, policy=int8_policy(), vae_int8=True)
+    tok = HashTokenizer()  # what serve.main's load_tokenizer(None) gives
+    reqs = [serve.make_request(tok, p, i, REQ_SIZE, REQ_STEPS, "ddim", 7.0 + i)
+            for i, p in enumerate(serve.DEMO_PROMPTS)]
+    direct = to_png_values(SD15Adapter(pipe).execute(reqs).float().cpu().numpy())
+    for i, want in enumerate(direct):
+        got = read_png(os.path.join(out, f"req{i}.png"))
+        check(got.shape == want.shape and (got == want).all(),
+              f"[ckpt] served req{i}.png differs from SD15Adapter.execute on the loaded file")
+    log(f"[ckpt] serve.main --ckpt --policy int8 --steps {REQ_STEPS} --demo: the whole entry "
+        f"(load, warm-up, 4 requests, PNGs) in {serve_s:.2f}s; its {len(direct)} PNGs decode "
+        f"to SD15Adapter.execute of the same requests on a pipeline loaded from the same file")
+    return {"serve_main_s": serve_s}
+
+
+def ckpt_generate(path, tmp):
+    """The batch entry (`generate.main`, whole) on a COCO-layout data root
+    of four 512² images made here, one batch of four at REQ_STEPS steps."""
+    import numpy as np
+    from PIL import Image
+
+    from prompt_diffusion_tpu_torch import generate
+
+    root, out = os.path.join(tmp, "coco"), os.path.join(tmp, "generated")
+    rng = np.random.default_rng(11)
+    names = [f"{i:012d}" for i in range(4)]
+    for sub in ("images", "hed", "prompts"):
+        os.makedirs(os.path.join(root, sub))
+    for i, name in enumerate(names):
+        for sub in ("images", "hed"):
+            Image.fromarray(rng.integers(0, 256, (REQ_SIZE, REQ_SIZE, 3), dtype=np.uint8)).save(
+                os.path.join(root, sub, f"{name}.jpg"))
+        with open(os.path.join(root, "prompts", f"{name}.txt"), "w") as f:
+            f.write(PROMPTS[i % len(PROMPTS)])
+    t = time.perf_counter()
+    rc = generate.main(["--stack", "sd15", "--ckpt", path, "--data-root", root, "--dataset",
+                        "coco", "--tasks", "hed", "--steps", str(REQ_STEPS), "--batch-size", "4",
+                        "--resolution", str(REQ_SIZE), "--out-dir", out])
+    gen_s = time.perf_counter() - t
+    check(rc == 0, f"[ckpt] generate.main returned {rc}")
+    files = sorted(os.listdir(os.path.join(out, "hed")))
+    check(files == [f"{n}.png" for n in names], f"[ckpt] generate wrote {files}")
+    stds = []
+    for f in files:
+        img = read_png(os.path.join(out, "hed", f))
+        check(img.shape == (REQ_SIZE, REQ_SIZE, 3), f"[ckpt] {f}: shape {img.shape}")
+        stds.append(float(img.std()))
+    log(f"[ckpt] generate.main (whole: PIL decode of the data root, from_single_file of the "
+        f".safetensors file, one batch of 4 at {REQ_STEPS} DDIM steps): {gen_s:.2f}s; wrote "
+        f"{len(files)} PNGs under hed/ (std of their values {[round(s, 2) for s in stds]})")
+    return {"generate_main_s": gen_s}
+
+
+def ckpt_sd3(tmp, seed=0):
+    """An SD3 folder at full width and reduced depth (SD3_CKPT_LAYERS
+    MMDiT, ControlNet and T5 layers) written from a random pipeline by the
+    port's exporters, loaded by `PromptDiffusionSD3.from_folder` under the
+    int8 policy; equal state dicts and a bit-equal request (T5 staged on
+    the loaded pipeline, in-graph on the source)."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.models.controlnet_sd3 import SD3ControlNet
+    from prompt_diffusion_tpu_torch.models.mmdit_sd3 import MMDiTConfig, SD3Transformer
+    from prompt_diffusion_tpu_torch.models.t5_text import T5Config, T5Encoder
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3 import PromptDiffusionSD3
+    from prompt_diffusion_tpu_torch.tools.diffusers_import import export_sd3_folder
+    from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
+
+    pol, depth = int8_policy(), SD3_CKPT_LAYERS
+
+    def models(device):
+        with torch.device(device):
+            return dict(transformer=SD3Transformer(MMDiTConfig(num_layers=depth), pol),
+                        controlnet=SD3ControlNet(MMDiTConfig(num_layers=depth), pol))
+
+    with torch.device("cuda"):
+        t5 = T5Encoder(T5Config(num_layers=depth))
+    src = PromptDiffusionSD3.create(**models("cuda"), t5=t5, policy=pol, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for m in src.jax_modules().values():
+        random_init_(m, gen)
+    n_params = sum(p.numel() for m in src.jax_modules().values() for p in m.parameters())
+    root = os.path.join(tmp, "sd3")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    export_sd3_folder({n: m.state_dict() for n, m in src.jax_modules().items()}, root,
+                      num_layers=depth, controlnet_layers=depth)
+    write_s = time.perf_counter() - t
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    t = time.perf_counter()
+    pipe = PromptDiffusionSD3.from_folder(root, policy=pol, t5=True, **models("meta"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    n = state_dicts_equal("ckpt", {k: m.state_dict() for k, m in pipe.jax_modules().items()},
+                          {k: m.state_dict() for k, m in src.jax_modules().items()})
+    g = torch.Generator(device="cuda").manual_seed(1000)
+    img = lambda: torch.rand((SD3_BATCH, SD3_SIZE, SD3_SIZE, 3), generator=g,
+                             device="cuda") * 2 - 1
+    t5_ids = [torch.randint(0, t5.config.vocab_size, (SD3_BATCH, T5_LEN), generator=g,
+                            device="cuda") for _ in range(2)]
+    ids = torch.from_numpy(hash_token_ids([PROMPTS[0]] * SD3_BATCH))
+    neg = torch.from_numpy(hash_token_ids([""] * SD3_BATCH))
+    args = dict(control_image=img(), support_cond=img(), support_image=img(),
+                num_steps=SD3_CKPT_STEPS, guidance_scale=SD3_CFG, shift=SD3_SHIFT)
+    want = src.generate(dict(l=ids, g=ids, t5=t5_ids[0]), dict(l=neg, g=neg, t5=t5_ids[1]),
+                        **args, generator=torch.Generator(device="cuda").manual_seed(2000))
+    del src, t5
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    seq, neg_seq = pipe.stage_t5(*t5_ids)
+    got = pipe.generate(dict(l=ids, g=ids), dict(l=neg, g=neg), **args, t5_seq=seq,
+                        neg_t5_seq=neg_seq,
+                        generator=torch.Generator(device="cuda").manual_seed(2000))
+    torch.cuda.synchronize()
+    req_s = time.perf_counter() - t
+    check(tuple(got.shape) == (SD3_BATCH, SD3_SIZE, SD3_SIZE, 3)
+          and torch.isfinite(got).all().item(), "[ckpt] SD3 image shape or values")
+    check(torch.equal(got, want), "[ckpt] the SD3 request on the loaded folder differs from "
+                                  "the source pipeline's")
+    log(f"[ckpt] SD3 folder (full width; {depth} MMDiT, {depth} ControlNet and {depth} T5 "
+        f"layers; {n_params} parameters, int8 policy): {size} bytes ({size / 1e9:.3f} GB) "
+        f"written in {write_s:.2f}s, loaded by from_folder in {load_s:.2f}s; {n} tensors "
+        f"equal to the source; one {SD3_SIZE}² request at {SD3_CKPT_STEPS} steps (T5 staged) "
+        f"bit-equal to the source pipeline's (in-graph T5) in {req_s:.3f}s")
+    return {"bytes": size, "write_s": write_s, "load_s": load_s, "request_s": req_s,
+            "parameters": n_params}
+
+
+def phase_ckpt(pipe, img1, card):
+    """Reference checkpoints into the port at full width, on files written
+    under CKPT_DIR and deleted at the end: the SD1.5 `.ckpt` and
+    `.safetensors` round trips of [slice]'s pipeline, a LoRA fused into a
+    loaded pipeline, `serve.main --ckpt` under int8, the batch `generate`
+    entry, and a reduced-depth SD3 folder. Returns (launches, timing)."""
+    import shutil
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    t0 = time.perf_counter()
+    try:
+        counted = reset_launches()
+        timing, files = ckpt_sd15(pipe, img1, CKPT_DIR)
+        timing.update(ckpt_serve(files["ckpt"], CKPT_DIR))
+        timing.update(ckpt_generate(files["safetensors"], CKPT_DIR))
+        timing["sd3"] = ckpt_sd3(CKPT_DIR)
+        launches = read_launches(counted)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    timing["phase_s"] = time.perf_counter() - t0
+    log(f"[ckpt] {card}: the phase in {timing['phase_s']:.1f}s; launches {launches}")
+    for name in PATH_KERNELS["ckpt"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the ckpt path")
+    return launches, timing
+
 
 
 def sd3_block_checks(pipe, seed=4100):
@@ -1774,13 +2155,17 @@ def main():
 
     results = phase_kernels(gen)
     k3_k5 = k3_k5_statistics(gen)
-    paths = phase_path("slice", default_policy(), False, fp32_policy())
-    int8_paths, int8_pipe = phase_path("int8", int8_policy(), True,
+    paths, slice_pipe, slice_img1 = phase_path("slice", default_policy(), False, fp32_policy(),
+                                               keep_pipe=True)
+    int8_paths, int8_pipe, _ = phase_path("int8", int8_policy(), True,
                                        DTypePolicy(compute_dtype=torch.float32, quant="int8"),
                                        info_policy=default_policy(), keep_pipe=True)
     paths.update(int8_paths)
     paths["serve"] = phase_serve(int8_pipe, card)
     del int8_pipe
+    torch.cuda.empty_cache()
+    paths["ckpt"] = phase_ckpt(slice_pipe, slice_img1, card)
+    del slice_pipe
     torch.cuda.empty_cache()
     paths["sd3"] = phase_sd3()
     paths["adaln"] = phase_adaln()

@@ -13,8 +13,10 @@ the ControlNet to a window of the trajectory.
 
 Images cross the API as NHWC tensors in [-1, 1] and come back NHWC in
 [0, 1], as in the JAX package; inside, activations are NCHW in
-channels_last memory. The modules hold their weights: load them with
-`tools.jax_bridge.load_jax_params` or fill them with `random_init_`.
+channels_last memory. The modules hold their weights: build the pipeline
+from a reference checkpoint (`from_single_file`, `from_diffusers_folder`),
+load a JAX tree (`tools.jax_bridge.load_jax_params`) or fill them with
+`random_init_`.
 """
 
 from __future__ import annotations
@@ -101,6 +103,50 @@ class PromptDiffusionSD15:
                     mod.conv_variant = conv_variant
         return cls(**models, schedule=schedule or DiffusionSchedule.create())
 
+    # ---- loaders (the reference pipeline's mixins,
+    # pipeline_prompt_diffusion.py:145,155-156; `tools/loaders.py`) ---------
+
+    @classmethod
+    def from_single_file(cls, path: str, policy: Optional[DTypePolicy] = None,
+                         vae_int8: bool = False, device: torch.device | str = "cuda",
+                         conv_variant: str = "im2col", **create_kwargs):
+        """The pipeline from a reference `.ckpt` or `.safetensors`
+        (FromSingleFileMixin): built through `create` on the meta device,
+        so nothing is initialised, then loaded onto `device` with the
+        dtypes and memory formats `create` gives. `create_kwargs` are
+        models built on the meta device (other widths) or a `schedule`."""
+        from prompt_diffusion_tpu_torch.tools.loaders import from_single_file
+
+        return from_single_file(path, policy=policy, vae_int8=vae_int8, device=device,
+                                conv_variant=conv_variant, **create_kwargs)
+
+    @classmethod
+    def from_diffusers_folder(cls, root: str, policy: Optional[DTypePolicy] = None,
+                              vae_int8: bool = False, device: torch.device | str = "cuda",
+                              conv_variant: str = "im2col", **create_kwargs):
+        """The pipeline from a prompt-diffusion-diffusers folder, built as
+        `from_single_file` builds it (a folder without text_encoder/ needs
+        a loaded `text_encoder=`)."""
+        from prompt_diffusion_tpu_torch.tools.loaders import from_diffusers_folder
+
+        return from_diffusers_folder(root, policy=policy, vae_int8=vae_int8, device=device,
+                                     conv_variant=conv_variant, **create_kwargs)
+
+    def load_lora_weights(self, path_or_sd, scale: float = 1.0) -> dict:
+        """Folds a diffusers-format LoRA into the UNet and CLIP in place
+        (LoraLoaderMixin + fuse_lora); returns {namespace: keys folded}."""
+        from prompt_diffusion_tpu_torch.tools.loaders import load_lora_weights
+
+        return load_lora_weights(self, path_or_sd, scale=scale)
+
+    def load_textual_inversion(self, tokenizer, path_or_sd, token: Optional[str] = None):
+        """Appends learned embeddings to CLIP's token table and registers
+        the placeholder with `tokenizer` (TextualInversionLoaderMixin);
+        returns (token, ids)."""
+        from prompt_diffusion_tpu_torch.tools.loaders import load_textual_inversion
+
+        return load_textual_inversion(self.text_encoder, tokenizer, path_or_sd, token=token)
+
     @property
     def device(self) -> torch.device:
         return next(self.unet.parameters()).device
@@ -109,6 +155,11 @@ class PromptDiffusionSD15:
         """{JAX parameter namespace: module}, for `tools.jax_bridge`."""
         return {"unet": self.unet, "controlnet": self.controlnet, "vae": self.vae,
                 "clip": self.text_encoder}
+
+    def state_dicts(self) -> dict:
+        """{namespace: state dict}, what `tools.torch_import.
+        export_ldm_checkpoint` writes."""
+        return {name: m.state_dict() for name, m in self.jax_modules().items()}
 
     def encode_prompt(self, token_ids: torch.Tensor) -> torch.Tensor:
         return self.text_encoder(token_ids.to(self.device))["last_hidden_state"]

@@ -100,6 +100,55 @@ class PromptDiffusionSD3:
             m.to(device=device, memory_format=torch.channels_last).eval().requires_grad_(False)
         return cls(**models)
 
+    @classmethod
+    def from_folder(cls, root: str, policy: Optional[DTypePolicy] = None,
+                    vae_int8: bool = False, device: torch.device | str = "cuda",
+                    t5=False, **create_kwargs):
+        """The pipeline from an SD3 diffusers folder
+        (`tools.diffusers_import.import_sd3_folder`), built through `create`
+        on the meta device, so nothing is initialised, then loaded onto
+        `device`. `t5=True` also builds T5-XXL's widths with the folder's
+        text_encoder_3/ depth (a T5Encoder built on the meta device may be
+        given instead) and requires that folder; run it staged with
+        `stage_t5`. Every other model comes from its folder, or loaded in
+        `create_kwargs` (kept as given), else this raises."""
+        from prompt_diffusion_tpu_torch.models.t5_text import T5Config
+        from prompt_diffusion_tpu_torch.tools.diffusers_import import import_sd3_folder
+        from prompt_diffusion_tpu_torch.tools.jax_bridge import (
+            check_materialized,
+            load_state_dicts,
+        )
+        from prompt_diffusion_tpu_torch.tools.loaders import build_on_meta
+
+        pipe, todo = build_on_meta(cls, device, create_kwargs, policy=policy, vae_int8=vae_int8)
+        sds = import_sd3_folder(root, num_layers=pipe.transformer.config.num_layers,
+                                controlnet_layers=pipe.controlnet.config.num_layers)
+        if t5 is not False and "t5" not in sds:
+            raise ValueError(f"{root} has no text_encoder_3/: T5 weights are required for "
+                             "the T5 branch")
+        if t5 is True:
+            layers = 1 + max(int(k.split(".")[0][len("blocks_"):]) for k in sds["t5"]
+                             if k.startswith("blocks_"))
+            with torch.device("meta"):
+                t5 = T5Encoder(T5Config(num_layers=layers))
+        if t5 is not False:
+            pipe.t5 = t5.eval().requires_grad_(False)
+            todo.add("t5")
+        sds = {n: sd for n, sd in sds.items() if n in todo}
+        load_state_dicts(pipe, sds, namespaces=set(sds), device=device)
+        check_materialized(pipe)
+        return pipe
+
+    def stage_t5(self, *ids_t5: torch.Tensor) -> list:
+        """The staged T5 path of `bench.py --config sd3`: encodes each (B, L)
+        id tensor with the pipeline's T5, then frees the encoder. Pass the
+        sequences to `generate` as `t5_seq` / `neg_t5_seq`."""
+        seqs = [self.encode_t5(self.t5, ids) for ids in ids_t5]
+        self.t5 = None
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return seqs
+
     @property
     def device(self) -> torch.device:
         return next(self.transformer.parameters()).device

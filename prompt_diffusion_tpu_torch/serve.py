@@ -1,12 +1,14 @@
 """Serving entry point: build SD1.5, warm the buckets, serve concurrent
 Prompt-Diffusion requests through the micro-batching server.
 
-    python -m prompt_diffusion_tpu_torch.serve --demo [--policy bf16|int8]
-        [--max-batch 4] [--steps 50] [--resolution 512] [--sampler ddim]
-        [--vocab DIR] [--out-dir served_images] [--device cuda]
+    python -m prompt_diffusion_tpu_torch.serve --demo [--ckpt FILE]
+        [--policy bf16|int8] [--max-batch 4] [--steps 50] [--resolution 512]
+        [--sampler ddim] [--vocab DIR] [--out-dir served_images] [--device cuda]
 
-The weights are random (`random_init_`, seed 0): the checkpoint importers
-are not ported yet, so `--ckpt` is refused. `--demo` submits 4 concurrent
+`--ckpt` names a reference `.ckpt` or `.safetensors` (an ldm checkpoint in
+the four reference namespaces), loaded under `--policy` through
+`PromptDiffusionSD15.from_single_file`; without it the weights are random
+(`random_init_`, seed 0), a mechanics demo. `--demo` submits 4 concurrent
 requests with different prompts, seeds and guidance scales (they share one
 batched run) and writes each image as a PNG (the standard library's zlib;
 no imaging package needed). The counterpart of `examples/serve.py`.
@@ -47,18 +49,20 @@ def write_png(path: str, image: np.ndarray) -> None:
         f.write(chunk(b"IEND", b""))
 
 
-def build_pipeline(policy: str, device: str, seed: int = 0):
-    """SD1.5 at the default widths with random weights: exact bf16, or the
-    int8 serving mode with the int8 VAE (`bench.py`'s default)."""
+def build_pipeline(policy: str, device: str, seed: int = 0, ckpt=None, **create_kwargs):
+    """SD1.5, exact bf16 or the int8 serving mode with the int8 VAE: from
+    the checkpoint `ckpt` (`create_kwargs`: models built on the meta
+    device, for other widths), else at the default widths with random
+    weights from `seed`."""
     import torch
 
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
     from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
 
-    if policy == "int8":
-        pipe = PromptDiffusionSD15.create(policy=int8_policy(), vae_int8=True, device=device)
-    else:
-        pipe = PromptDiffusionSD15.create(device=device)
+    kw = dict(policy=int8_policy(), vae_int8=True) if policy == "int8" else {}
+    if ckpt:
+        return PromptDiffusionSD15.from_single_file(ckpt, device=device, **kw, **create_kwargs)
+    pipe = PromptDiffusionSD15.create(device=device, **kw, **create_kwargs)
     gen = torch.Generator(device=device).manual_seed(seed)
     for m in pipe.jax_modules().values():
         random_init_(m, gen)
@@ -94,9 +98,13 @@ def run_demo(server, tok, resolution: int, steps: int, sampler: str, out_dir: st
     return paths
 
 
-def main(argv=None) -> int:
+def main(argv=None, tokenizer=None, **create_kwargs) -> int:
+    """The entry. A caller may pass the `tokenizer` (else `--vocab`'s) and
+    `create_kwargs` for `build_pipeline` (models of other widths, built on
+    the meta device for `--ckpt`)."""
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--ckpt", default=None, help="not supported yet (random weights only)")
+    p.add_argument("--ckpt", default=None,
+                   help="reference .ckpt/.safetensors (omit for random weights)")
     p.add_argument("--vocab", default=None, help="CLIP BPE vocab dir (else hash ids)")
     p.add_argument("--policy", choices=("bf16", "int8"), default="int8")
     p.add_argument("--resolution", type=int, default=512)
@@ -107,17 +115,18 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--demo", action="store_true")
     args = p.parse_args(argv)
-    if args.ckpt:
-        print("--ckpt: the checkpoint importers are not ported yet (ROADMAP queue 1, "
-              "item 2); the port serves random weights only", file=sys.stderr)
-        return 2
 
     from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
     from prompt_diffusion_tpu_torch.serving import GenerationServer, ServerConfig
 
-    pipe = build_pipeline(args.policy, args.device)
-    print(f"random weights ({args.policy} policy) on {pipe.device}: mechanics demo only")
-    tok = load_tokenizer(args.vocab)
+    t0 = time.perf_counter()
+    pipe = build_pipeline(args.policy, args.device, ckpt=args.ckpt, **create_kwargs)
+    if args.ckpt:
+        print(f"loaded {args.ckpt} ({args.policy} policy) on {pipe.device} in "
+              f"{time.perf_counter() - t0:.1f}s")
+    else:
+        print(f"random weights ({args.policy} policy) on {pipe.device}: mechanics demo only")
+    tok = tokenizer or load_tokenizer(args.vocab)
     server = GenerationServer(pipe, ServerConfig(max_batch=args.max_batch, flush_ms=25.0))
     with server:
         t0 = time.perf_counter()

@@ -179,7 +179,15 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.data.tokenizer, "
             "prompt_diffusion_tpu_torch.schedulers.unipc, "
             "prompt_diffusion_tpu_torch.schedulers.dpm_solver, "
-            "prompt_diffusion_tpu_torch.schedulers.plms, chip_smoke; "
+            "prompt_diffusion_tpu_torch.schedulers.plms, "
+            "prompt_diffusion_tpu_torch.tools.safetensors_io, "
+            "prompt_diffusion_tpu_torch.tools.torch_import, "
+            "prompt_diffusion_tpu_torch.tools.diffusers_import, "
+            "prompt_diffusion_tpu_torch.tools.loaders, "
+            "prompt_diffusion_tpu_torch.data.t5_tokenizer, "
+            "prompt_diffusion_tpu_torch.data.coco_val, "
+            "prompt_diffusion_tpu_torch.data.laion_meta, "
+            "prompt_diffusion_tpu_torch.generate, chip_smoke; "
             "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu', 'tools') "
             "if m in sys.modules]; "
             "assert not bad, bad")

@@ -363,7 +363,12 @@ def _read_png(path):
 
 def test_serve_entry_demo_and_refusals(pipe, tmp_path, capsys):
     """The demo's four requests batch into one run and land as PNGs that
-    decode to the served images; --ckpt is refused."""
+    decode to the served images; `--ckpt` serves a checkpoint: the entry's
+    PNGs decode to `SD15Adapter.execute` of the same requests on a pipeline
+    loaded from that file; an unknown sampler is refused."""
+    from prompt_diffusion_tpu_torch.tools.torch_import import export_ldm_checkpoint
+    from tests.test_torch_ckpt_import import RULE_KW, tiny_models
+
     tok = lambda texts: ptok.HashTokenizer()(texts) % 100  # the tiny CLIP's vocabulary
     srv = GenerationServer(pipe, ServerConfig(max_batch=4, flush_ms=500.0))
     with srv:
@@ -375,7 +380,18 @@ def test_serve_entry_demo_and_refusals(pipe, tmp_path, capsys):
     for path, want in zip(paths, direct):
         np.testing.assert_array_equal(
             _read_png(path), np.clip(np.rint(want * 255), 0, 255).astype(np.uint8))
-    assert serve.main(["--ckpt", "model.ckpt"]) == 2
-    assert "ROADMAP queue 1, item 2" in capsys.readouterr().err
+    ckpt = str(tmp_path / "tiny.ckpt")
+    export_ldm_checkpoint(pipe.state_dicts(), ckpt, unet_cfg=UNetConfig(**TINY_UNET), **RULE_KW)
+    out = tmp_path / "served"
+    assert serve.main(["--ckpt", ckpt, "--policy", "bf16", "--steps", str(STEPS), "--resolution",
+                       str(RES), "--sampler", "unipc", "--demo", "--out-dir", str(out),
+                       "--device", "cpu"], tokenizer=tok, **tiny_models("meta")) == 0
+    assert f"loaded {ckpt}" in capsys.readouterr().out
+    loaded = PromptDiffusionSD15.from_single_file(ckpt, device="cpu", **tiny_models("meta"))
+    direct = SD15Adapter(loaded).execute(reqs).numpy()
+    for i, want in enumerate(direct):
+        np.testing.assert_array_equal(
+            _read_png(str(out / f"req{i}.png")),
+            np.clip(np.rint(want * 255), 0, 255).astype(np.uint8))
     with pytest.raises(SystemExit):
         serve.main(["--sampler", "euler"])
