@@ -151,7 +151,28 @@ without the final `"ok": true` line:
                fp32-compute twin (1.25x the plain ops'); then the port's
                annotation entry's batch function with canny, depth and
                normal on 16 images (48 files); images/s;
- 12. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+ 12. train   - training through the entries, at full width with random
+               weights from a seed, on a synthetic EditDataset root of 512²
+               images: SD1.5 at BASELINE config 5 (`train_sd15.main`, batch
+               8 at 512², grad-accum 1, gradient checkpointing, EMA, bf16
+               with fp32 masters), 3 steps saving at step 2, the saved
+               state read back into a fresh state bit-equal (masters,
+               moments, EMA, counters), one `--resume`d step whose draws
+               equal the uninterrupted run's; UNet, VAE and CLIP
+               bit-unchanged, the ControlNet moved; K1, K3 and K4 launched
+               and their backwards run (the checkpoint recompute launches
+               the forward kernels again: counted, not a fault), K2 in the
+               VAE encode with no backward; one loss and ControlNet
+               gradient (batch 2) through the kernels, on the plain ops
+               and on an fp32-compute twin: the kernels' gradient and loss
+               terms no farther from the fp32 ones than FP32_RATIO_BOUND
+               times the plain ops'; the backward recomputes' device ms
+               beside SDPA's backward; then SD3 (`train_sd3.main`, 24 + 12
+               layers at 1536, batch 1 at 1024², 3 steps): the transformer
+               and VAE bit-unchanged, the ControlNet and down_proj moved,
+               K2 and K3 forward and backward; seconds per step, samples/s
+               and peak memory beside the card's name and power limit;
+ 13. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
 work (`bound_ms`: bytes over 3.35 TB/s, tensor-core operations over the
 dense peak or a softmax's exponentials over ~3.9e12/s, whichever is
@@ -219,6 +240,15 @@ COBATCH_STEPS = 4
 CKPT_DIR = os.path.join(REPO, "build", "ckpt_smoke")
 LORA_RANK, LORA_REL_BOUND = 4, 1e-6
 SD3_CKPT_LAYERS, SD3_CKPT_STEPS = 2, 2
+# `[train]`: BASELINE config 5 (SD1.5 ControlNet, 512², batch 8, grad-accum
+# 1, gradient checkpointing) through the entry, TRAIN_STEPS steps with a save
+# at step 2, then one resumed step; the gradient check at GRAD_BATCH; SD3
+# at full width, batch 1 at 1024² (a cut in batch only), SD3_TRAIN_STEPS
+# steps; files under a git-ignored directory, removed at the phase's end
+TRAIN_DIR = os.path.join(REPO, "build", "train_smoke")
+TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_IMAGES = 8, 512, 3, 12
+GRAD_BATCH = 2
+SD3_TRAIN_BATCH, SD3_TRAIN_STEPS = 1, 3
 # MiDaS as `bench.py --config annotate --annotator midas` runs it
 MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
 # K3's calls per CFG epsilon evaluation of the SD1.5 bf16 step (ControlNet +
@@ -846,6 +876,12 @@ PATH_KERNELS = {
     "labs": ("flash_attention_tiled", "attention_no_softmax", "flash_attention_two_pass",
              "flash_attention_packed_int8_rowk", "flash_attention_packed_int8",
              "flash_attention_packed"),
+    # SD1.5 training (the forward kernels; their backwards are counted as
+    # "<name>.backward"): the VAE encode (K2, K3) and ControlNet + UNet
+    "train": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+              "fused_layer_norm"),
+    # SD3 training: the joint attention and the VAE (K2), the VAE's GroupNorm
+    "train_sd3": ("flash_attention", "fused_group_norm"),
     # the annotation entry's batch with canny, depth and normal
     "annotate": ("fused_group_norm", "flash_attention_packed", "fused_layer_norm"),
     **{tag: tuple(k for k, n in counts.items() if n and "." not in k)
@@ -900,20 +936,31 @@ def wrappers():
             "quant_k_int8": fa.quant_k_int8}
 
 
+# the wrappers with a gradient whose backward recomputes the plain version
+# (`backward_calls`, read as "<name>.backward")
+DIFFERENTIABLE = ("flash_attention_packed", "flash_attention", "fused_group_norm",
+                  "fused_layer_norm")
+
+
 def reset_launches():
-    """Every launch count to 0; returns the wrappers by kernel name."""
+    """Every launch count and backward count to 0; returns the wrappers by
+    kernel name."""
     counted = wrappers()
     for w in counted.values():
         w.launches = 0
     counted["fused_group_norm"].relu_launches = 0
+    for name in DIFFERENTIABLE:
+        counted[name].backward_calls = 0
     return counted
 
 
 def read_launches(counted):
-    """{kernel name: launches}, and K3's launches with the ReLU epilogue
-    under "fused_group_norm.relu"."""
+    """{kernel name: launches}, K3's launches with the ReLU epilogue under
+    "fused_group_norm.relu", and the backward calls of K1-K4 under
+    "<name>.backward"."""
     launches = {name: w.launches for name, w in counted.items()}
     launches["fused_group_norm.relu"] = counted["fused_group_norm"].relu_launches
+    launches.update({f"{n}.backward": counted[n].backward_calls for n in DIFFERENTIABLE})
     return launches
 
 
@@ -2114,6 +2161,365 @@ def phase_midas(card, seed=0):
     return paths
 
 
+def write_edit_root(root, n=TRAIN_IMAGES, size=TRAIN_SIZE, seed=0):
+    """An EditDataset data root (laion_nonhuman/<dir>/<name>.jpg, each task's
+    condition and a caption) of `n` random `size`² images in two folders:
+    its train split (9 of every 10) fills a batch of TRAIN_BATCH distinct
+    samples."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        base = os.path.join(root, "laion_nonhuman", f"group{i % 2}")
+        for sub in ("", "canny", "depth", "hed", "normal"):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+            # smooth random images: 16² noise upsampled
+            img = Image.fromarray(rng.integers(0, 255, (16, 16, 3), dtype=np.uint8))
+            img.resize((size, size), Image.BILINEAR).save(
+                os.path.join(base, sub, f"img{i}.jpg"), quality=90)
+        with open(os.path.join(base, f"img{i}.txt"), "w") as f:
+            f.write(f"{PROMPTS[i % 2]} number {i}")
+    return root
+
+
+def trained(launches, tag):
+    """The launches of a training path's kernels and their backward calls."""
+    return {k: v for k, v in launches.items()
+            if k in PATH_KERNELS[tag] or k.endswith(".backward")}
+
+
+def module_states_equal(a, b):
+    """Every tensor of module a's state dict equal to b's, bit for bit."""
+    import torch
+
+    sb = b.state_dict()
+    return all(torch.equal(v, sb[k]) for k, v in a.state_dict().items())
+
+
+def grad_check(pipe, seed=6000):
+    """One SD1.5 loss and its ControlNet gradient on GRAD_BATCH samples at
+    512² with fixed draws (t spread, no dropout), three ways: through the
+    kernels, on the plain ops, and on the plain ops with fp32 compute (an
+    fp32 twin of the UNet and ControlNet, same weights, same VAE latents).
+    The kernels' gradient and loss terms must be no farther from the fp32
+    ones than FP32_RATIO_BOUND times the plain bf16 ops' (global relative
+    error: ||a - b|| / ||b|| over every element; the loss terms are the
+    MSE's elementwise (pred - target)², whose mean is the loss). Returns
+    the distances and the launches of the kernel run."""
+    import torch
+
+    import dataclasses
+
+    from prompt_diffusion_tpu_torch.models.controlnet_sd15 import ControlNetSD15
+    from prompt_diffusion_tpu_torch.models.unet_sd15 import UNetSD15
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.training import sd15 as tr
+    from prompt_diffusion_tpu_torch.utils.dtypes import fp32_policy
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, lat = GRAD_BATCH, TRAIN_SIZE // 8
+    batch = {"image": torch.rand((b, TRAIN_SIZE, TRAIN_SIZE, 3), generator=g, device="cuda") * 2 - 1,
+             "query": torch.rand((b, TRAIN_SIZE, TRAIN_SIZE, 3), generator=g, device="cuda"),
+             "example_pair": torch.rand((b, TRAIN_SIZE, TRAIN_SIZE, 6), generator=g,
+                                        device="cuda") * 2 - 1,
+             "token_ids": torch.from_numpy(hash_token_ids([PROMPTS[0]] * b)),
+             "null_ids": torch.from_numpy(hash_token_ids([""]))}
+    draws = tr.Draws(torch.randn((b, 4, lat, lat), generator=g, device="cuda"),
+                     torch.tensor([250, 900], device="cuda"),
+                     torch.randn((b, 4, lat, lat), generator=g, device="cuda"),
+                     torch.full((b,), 0.5, device="cuda"))
+    cfg = tr.SD15TrainConfig()
+    ucfg = dataclasses.replace(pipe.unet.config, use_checkpoint=True)
+    with torch.device("cuda"):
+        twin32 = PromptDiffusionSD15.create(
+            unet=UNetSD15(ucfg, fp32_policy()), controlnet=ControlNetSD15(ucfg, 6, fp32_policy()),
+            vae=pipe.vae, text_encoder=pipe.text_encoder, device="cuda")
+    twin32.unet.load_state_dict(pipe.unet.state_dict())
+    twin32.controlnet.load_state_dict(pipe.controlnet.state_dict())
+    twin32.controlnet.requires_grad_(True)
+
+    def run(p):
+        pred, target = tr.sd15_pred_target(p, cfg, tr.device_batch(batch, "cuda"), draws)
+        terms = (pred.float() - target.float()) ** 2
+        loss = terms.mean()
+        grads = torch.autograd.grad(loss, list(p.controlnet.parameters()))
+        return (loss.item(), terms.detach().flatten(),
+                torch.cat([x.float().flatten() for x in grads]))
+
+    counted = reset_launches()
+    kern = run(pipe)
+    launches = read_launches(counted)
+    with plain_ops():
+        plain = run(pipe)
+        ref = run(twin32)
+    del twin32
+    torch.cuda.empty_cache()
+    rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+    out = {"loss": {"kernels": kern[0], "plain": plain[0], "fp32": ref[0]},
+           "terms_rel": {"kernels": rel(kern[1], ref[1]), "plain": rel(plain[1], ref[1])},
+           "grad_rel": {"kernels": rel(kern[2], ref[2]), "plain": rel(plain[2], ref[2])}}
+    log(f"[train] gradient check (batch {b} at {TRAIN_SIZE}², t {draws.t.tolist()}, no dropout): "
+        f"loss kernels {kern[0]}, plain {plain[0]}, fp32 {ref[0]}; against the fp32-compute "
+        f"plain evaluation, the loss terms' relative L2 kernels {out['terms_rel']['kernels']} "
+        f"plain {out['terms_rel']['plain']}, the ControlNet gradient's kernels "
+        f"{out['grad_rel']['kernels']} plain {out['grad_rel']['plain']} (bound "
+        f"{FP32_RATIO_BOUND}x the plain ops'); launches {trained(launches, 'train')}")
+    for what in ("terms_rel", "grad_rel"):
+        k, p = out[what]["kernels"], out[what]["plain"]
+        check(k <= FP32_RATIO_BOUND * p, f"[train] {what}: kernels {k} vs plain {p} from fp32")
+    for name in DIFFERENTIABLE:
+        if name != "flash_attention":
+            check(launches[f"{name}.backward"] > 0, f"[train] no backward of {name} in the check")
+    return out, launches
+
+
+def backward_times():
+    """Device ms of each differentiable kernel's backward (the plain
+    version's autograd, recomputed from the saved inputs) at the training
+    paths' shapes, beside SDPA's backward at the attention shapes (the
+    yardstick of a hand-written attention backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+    from prompt_diffusion_tpu_torch.ops.dispatch import recompute_grads
+    from prompt_diffusion_tpu_torch.ops.fused_layer_norm import _torch_layer_norm
+    from prompt_diffusion_tpu_torch.ops.norms import group_norm
+    from prompt_diffusion_tpu_torch.tools.timing import device_ms, roofline
+
+    g = torch.Generator(device="cuda").manual_seed(7000)
+    bf = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    f32 = lambda *s: torch.randn(s, generator=g, device="cuda")
+    rows = {}
+
+    def attn(label, fn, inputs, heads, sdpa_shape):
+        gout = torch.randn_like(inputs[0])
+        ms = device_ms(lambda: fa._recompute_grads(fn, gout, inputs, (True,) * 3, heads),
+                       iters=3, warmup=1)
+        b, n, h, d = sdpa_shape
+        qs = [t.reshape(b, n, h, d).transpose(1, 2).detach().requires_grad_() for t in inputs]
+        out = F.scaled_dot_product_attention(*qs)
+        go = torch.randn_like(out)
+        lib = device_ms(lambda: torch.autograd.grad(out, qs, go, retain_graph=True),
+                        iters=3, warmup=1)
+        # q, k, v and the output's gradient read, dq, dk, dv written; the
+        # logits recomputed and four products (dV, dP, dQ, dK), each
+        # 2 N² D per head; one exponential per logit
+        bound, term = roofline(7 * 2 * b * n * h * d, bf16_ops=10 * b * h * n * n * d,
+                               exps=b * h * n * n)
+        rows[label] = {"ms": ms, "sdpa_bwd_ms": lib, "bound_ms": bound, "bound_term": term}
+
+    def norm(label, fn, inputs):
+        gx = torch.randn_like(inputs[0])
+        ms = device_ms(lambda: recompute_grads(fn, gx, inputs, (True,) * 3), iters=3, warmup=1)
+        # x and its gradient read, dx written
+        bound, term = roofline(3 * inputs[0].numel() * inputs[0].element_size())
+        rows[label] = {"ms": ms, "bound_ms": bound, "bound_term": term}
+
+    attn("K1 (8,4096,320) H=8", lambda q, k, v: fa._packed_ref(q, k, v, 8, 40 ** -0.5),
+         [bf(8, 4096, 320) for _ in range(3)], 8, (8, 4096, 8, 40))
+    attn("K2 (1,4429,24,64)", lambda q, k, v: fa._torch_attention(q, k, v, 64 ** -0.5),
+         [bf(1, 4429, 24, 64) for _ in range(3)], 24, (1, 4429, 24, 64))
+    attn("K2 (1,16384,1,512)", lambda q, k, v: fa._torch_attention(q, k, v, 512 ** -0.5),
+         [bf(1, 16384, 1, 512) for _ in range(3)], 1, (1, 16384, 1, 512))
+    gn = lambda x_, s_, b_: group_norm(x_, 32, s_, b_, apply_silu=True)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+    norm("K3 (8,320,64,64) SiLU", gn, (cl(bf(8, 320, 64, 64)), f32(320), f32(320)))
+    norm("K3 (1,128,1024,1024) SiLU", gn, (cl(bf(1, 128, 1024, 1024)), f32(128), f32(128)))
+    norm("K4 (32768,320)", lambda x_, s_, b_: _torch_layer_norm(x_, s_, b_, 1e-5),
+         (bf(8, 4096, 320), f32(320), f32(320)))
+    for label, r in rows.items():
+        log(f"[train] backward {label}: plain recompute device_ms={r['ms']}"
+            + (f" sdpa_backward_device_ms={r['sdpa_bwd_ms']}" if "sdpa_bwd_ms" in r else "")
+            + f" bound_ms={r['bound_ms']} ({r['bound_term']})")
+    return rows
+
+
+def phase_train(card):
+    """SD1.5 ControlNet training at BASELINE config 5 through the entry
+    `train_sd15.main` (default widths, 1.43 B parameters, random weights
+    from seed 0, bf16, gradient checkpointing, EMA) on a synthetic data
+    root: TRAIN_STEPS steps saving at step 2, the saved state restored bit
+    for bit, one `--resume`d step; the frozen models bit-unchanged and the
+    ControlNet moved; the gradient check; the backward times; then SD3 at
+    full width through `train_sd3.main` (batch 1 at 1024²). Returns {path
+    tag: (launches, timing)}."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch import train_sd3, train_sd15
+    from prompt_diffusion_tpu_torch.training import checkpoint as ckpt
+    from prompt_diffusion_tpu_torch.training import sd15 as tr
+    from prompt_diffusion_tpu_torch.training.optimizer import step_generator
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        root = write_edit_root(os.path.join(TRAIN_DIR, "data"))
+        log(f"[train] data root: {TRAIN_IMAGES} random {TRAIN_SIZE}² images with 4 conditions "
+            f"and a caption each, in {time.perf_counter() - t0:.1f}s")
+        logdir = os.path.join(TRAIN_DIR, "sd15")
+        argv = ["--data-root", root, "--logdir", logdir, "--batch-size", str(TRAIN_BATCH),
+                "--accum-steps", "1", "--resolution", str(TRAIN_SIZE), "--use-checkpoint",
+                "--use-ema", "--ckpt-every", "2", "--image-log-every", "0", "--seed", "0",
+                "--device", "cuda"]
+        torch.cuda.reset_peak_memory_stats()
+        counted = reset_launches()
+        t = time.perf_counter()
+        run_a = train_sd15.main(argv + ["--max-steps", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches = read_launches(counted)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [m["loss"] for m in run_a["metrics"]]
+        step_s = run_a["step_s"]
+        steady = float(np.mean(step_s[1:]))
+        log(f"[train] {card}: SD1.5 ControlNet, batch {TRAIN_BATCH} at {TRAIN_SIZE}², "
+            f"grad-accum 1, gradient checkpointing, EMA, bf16 with fp32 masters: "
+            f"{TRAIN_STEPS} steps through train_sd15.main in {run_s:.1f}s (pipeline build and "
+            f"saves included); seconds per step {step_s} (the first with the warm-up); "
+            f"{steady:.3f} s/step and {TRAIN_BATCH / steady:.2f} samples/s after the first; "
+            f"peak device memory {peak / 2**30:.2f} GiB; losses {losses}")
+        per_step = {k: v / TRAIN_STEPS for k, v in trained(launches, "train").items()}
+        log(f"[train] launches per step (forward, checkpoint recompute included; backward "
+            f"calls as .backward): {per_step}")
+        check(all(np.isfinite(losses)), f"[train] non-finite loss {losses}")
+        for name in PATH_KERNELS["train"]:
+            check(launches[name] > 0, f"kernel {name} was not launched on the train path")
+        for name in ("flash_attention_packed", "fused_group_norm", "fused_layer_norm"):
+            check(launches[f"{name}.backward"] > 0, f"[train] no backward of {name}")
+            check(launches[name] >= launches[f"{name}.backward"],
+                  f"[train] {name}: more backwards than forwards")
+        check(launches["flash_attention.backward"] == 0,
+              "[train] K2 ran a backward in the SD1.5 step (its VAE encode has no gradient)")
+
+        pipe_a, state_a = run_a["pipe"], run_a["state"]
+        ref = train_sd15.build_pipe(False, "cuda", True)
+        train_sd15.init_weights(ref, 0)
+        frozen_same = {n: module_states_equal(getattr(ref, a), getattr(pipe_a, a))
+                       for n, a in (("unet", "unet"), ("vae", "vae"), ("clip", "text_encoder"))}
+        cn_moved = not module_states_equal(ref.controlnet, pipe_a.controlnet)
+        log(f"[train] after {TRAIN_STEPS} steps: UNet, VAE, CLIP bit-unchanged {frozen_same}; "
+            f"ControlNet moved {cn_moved}")
+        check(all(frozen_same.values()) and cn_moved, "[train] trained the wrong modules")
+
+        # the saved step: read back into a fresh state of the same run
+        cfg = tr.SD15TrainConfig(use_ema=True, accum_steps=1)
+        template = tr.init_train_state(cfg, ref, seed=1)
+        manager = ckpt.make_manager(os.path.join(logdir, "checkpoints"), save_every=2)
+        steps_saved = manager.all_steps()
+        restored, step = ckpt.restore_state(manager, template)
+        manager.close()
+        mine, saved = state_a.tensors(), restored.tensors()
+        same = all(torch.equal(mine[k], saved[k]) for k in mine) and mine.keys() == saved.keys()
+        log(f"[train] checkpoints {steps_saved}; step {step} restored into a fresh state: "
+            f"masters, moments and EMA ({len(mine)} tensors, "
+            f"{sum(t.numel() * t.element_size() for t in mine.values()) / 1e9:.2f} GB) bit-equal "
+            f"{same}; counters {restored.meta() == state_a.meta()} ({restored.meta()['step']})")
+        check(steps_saved == [0, 2] and step == TRAIN_STEPS - 1, f"[train] saved {steps_saved}")
+        check(same and restored.meta() == state_a.meta(), "[train] the restored state differs")
+        del ref, template, restored, pipe_a, run_a
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        run_b = train_sd15.main(argv + ["--max-steps", str(TRAIN_STEPS + 1), "--resume"])
+        torch.cuda.synchronize()
+        state_b = run_b["state"]
+        shape = (TRAIN_BATCH, 4, TRAIN_SIZE // 8, TRAIN_SIZE // 8)
+        d_a = tr.make_draws(step_generator(state_a.seed, TRAIN_STEPS, "cuda"), shape, 1000)
+        d_b = tr.make_draws(step_generator(state_b.seed, run_b["start_step"], "cuda"), shape,
+                            1000)
+        draws_same = all(torch.equal(x, y) for x, y in zip(d_a, d_b))
+        log(f"[train] --resume: started at step {run_b['start_step']}, loss "
+            f"{run_b['metrics'][0]['loss']} in {time.perf_counter() - t:.1f}s; its draws equal "
+            f"the uninterrupted run's {draws_same}")
+        check(run_b["start_step"] == TRAIN_STEPS and draws_same and state_b.step == TRAIN_STEPS + 1
+              and np.isfinite(run_b["metrics"][0]["loss"]), "[train] the resumed run is wrong")
+        del state_a
+        grads, grad_launches = grad_check(run_b["pipe"])
+        del run_b, state_b
+        torch.cuda.empty_cache()
+        bwd = backward_times()
+        out["train"] = (launches, {"step_s": step_s, "steady_step_s": steady,
+                                   "samples_per_s": TRAIN_BATCH / steady, "peak_bytes": peak,
+                                   "losses": losses, "grad_check": grads, "backward": bwd})
+
+        # SD3 at full width
+        torch.cuda.reset_peak_memory_stats()
+        counted = reset_launches()
+        t = time.perf_counter()
+        sd3_argv = ["--data-root", root, "--logdir", os.path.join(TRAIN_DIR, "sd3"),
+                    "--batch-size", str(SD3_TRAIN_BATCH), "--resolution", str(SD3_SIZE),
+                    "--max-steps", str(SD3_TRAIN_STEPS), "--ckpt-keep", "1", "--seed", "0",
+                    "--device", "cuda"]
+        run3 = train_sd3.main(sd3_argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        launches3 = read_launches(counted)
+        peak3 = torch.cuda.max_memory_allocated()
+        pipe3 = run3["pipe"]
+        n_params = {n: sum(p.numel() for p in m.parameters())
+                    for n, m in pipe3.jax_modules().items()}
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        frozen_gb = nbytes(p for n in ("transformer", "vae", "clip_l", "clip_g")
+                           for p in getattr(pipe3, n).parameters()) / 2**30
+        state_gb = (nbytes(run3["state"].params)
+                    + nbytes(run3["state"].tensors().values())) / 2**30
+        losses3 = [m["loss"] for m in run3["metrics"]]
+        steady3 = float(np.mean(run3["step_s"][1:]))
+        log(f"[train] {card}: SD3 ({n_params}) at full width, batch {SD3_TRAIN_BATCH} at "
+            f"{SD3_SIZE}², bf16 with fp32 masters: {SD3_TRAIN_STEPS} steps through "
+            f"train_sd3.main in {run_s:.1f}s; seconds per step {run3['step_s']}; {steady3:.3f} "
+            f"s/step after the first; peak device memory {peak3 / 2**30:.2f} GiB (frozen "
+            f"models {frozen_gb:.2f} GiB, trainable weights, fp32 masters and moments "
+            f"{state_gb:.2f} GiB, the rest gradients and activations); losses "
+            f"{losses3}; launches {trained(launches3, 'train_sd3')}")
+        check(all(np.isfinite(losses3)), f"[train] SD3 non-finite loss {losses3}")
+        ref3 = train_sd3.build_pipe(False, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
+
+        for m in ref3.jax_modules().values():
+            random_init_(m, gen)
+        same3 = {n: module_states_equal(getattr(ref3, n), getattr(pipe3, n))
+                 for n in ("transformer", "vae", "controlnet", "down_proj")}
+        log(f"[train] SD3 after {SD3_TRAIN_STEPS} steps, bit-unchanged: {same3}")
+        check(same3["transformer"] and same3["vae"] and not same3["controlnet"]
+              and not same3["down_proj"], "[train] SD3 trained the wrong modules")
+        for name in PATH_KERNELS["train_sd3"]:
+            check(launches3[name] > 0, f"kernel {name} was not launched on the SD3 train path")
+            check(launches3[f"{name}.backward"] > 0, f"[train] SD3: no backward of {name}")
+        # the support pair's VAE encode alone: K2 (its mid-block attention)
+        # and K3 run forward and backward to down_proj
+        g = torch.Generator(device="cuda").manual_seed(8000)
+        img = lambda: torch.rand((1, SD3_SIZE, SD3_SIZE, 3), generator=g, device="cuda") * 2 - 1
+        counted = reset_launches()
+        lat = pipe3.support_pair_latents(img(), img(), noise=torch.randn(
+            (1, pipe3.vae.config.z_channels, SD3_SIZE // 8, SD3_SIZE // 8), generator=g,
+            device="cuda"))
+        lat.square().mean().backward()
+        pair = trained(read_launches(counted), "train_sd3")
+        log(f"[train] SD3 support pair encode with its gradient to down_proj: launches {pair}")
+        check(pair["flash_attention"] == pair["flash_attention.backward"] == 1
+              and pair["fused_group_norm.backward"] > 0
+              and all(p.grad is not None for p in pipe3.down_proj.parameters()),
+              "[train] the support pair's VAE encode ran no K2 or K3 backward")
+        out["train_sd3"] = (launches3, {"step_s": run3["step_s"], "steady_step_s": steady3,
+                                        "peak_bytes": peak3, "frozen_gib": frozen_gb,
+                                        "state_gib": state_gb, "losses": losses3})
+        del run3, pipe3, ref3
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    log(f"[train] the phase in {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main():
     import torch
 
@@ -2171,6 +2577,7 @@ def main():
     paths["adaln"] = phase_adaln()
     paths["labs"] = phase_labs()
     paths.update(phase_midas(card))
+    paths.update(phase_train(card))
     for tag in ("slice", "int8", "sd3"):
         timing = paths[tag][1]
         per_req = timing["request_s"]

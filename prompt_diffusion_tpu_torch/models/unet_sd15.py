@@ -20,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from prompt_diffusion_tpu_torch.models.layers import (
     Downsample,
@@ -50,6 +51,9 @@ class UNetConfig:
     # FreeU: backbone/skip feature rescaling at the two deepest decoder
     # levels; None disables.
     freeu: Optional[Tuple[float, float, float, float]] = None  # (s1, s2, b1, b2)
+    # recompute each ResBlock and SpatialTransformer in the backward pass
+    # (gradient checkpointing, the JAX package's `nn.remat`)
+    use_checkpoint: bool = False
 
     def encoder_plan(self):
         """('conv'|'res'|'down', out_ch, has_attn) per input block, the
@@ -126,21 +130,31 @@ def _transformer(cfg: UNetConfig, ch: int, policy: DTypePolicy) -> SpatialTransf
                               cfg.transformer_depth, policy)
 
 
+def run_block(owner: nn.Module, block: nn.Module, *args):
+    """block(*args); a ResBlock or SpatialTransformer of a model whose
+    config sets `use_checkpoint` runs, while gradients are recorded, under
+    `torch.utils.checkpoint` (its activations recomputed in the backward
+    pass, its kernels launched a second time there)."""
+    if owner.config.use_checkpoint and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False)
+    return block(*args)
+
+
 def run_input_block(module: nn.Module, i: int, kind: str, has_attn: bool, h, emb, context):
     if kind == "conv":
         return getattr(module, f"input_blocks_{i}_conv")(h)
     if kind == "res":
-        h = getattr(module, f"input_blocks_{i}_res")(h, emb)
+        h = run_block(module, getattr(module, f"input_blocks_{i}_res"), h, emb)
         if has_attn:
-            h = getattr(module, f"input_blocks_{i}_attn")(h, context)
+            h = run_block(module, getattr(module, f"input_blocks_{i}_attn"), h, context)
         return h
     return getattr(module, f"input_blocks_{i}_down")(h)
 
 
 def run_middle_block(module: nn.Module, h, emb, context):
-    h = module.middle_block_0(h, emb)
-    h = module.middle_block_1(h, context)
-    return module.middle_block_2(h, emb)
+    h = run_block(module, module.middle_block_0, h, emb)
+    h = run_block(module, module.middle_block_1, h, context)
+    return run_block(module, module.middle_block_2, h, emb)
 
 
 class UNetSD15(nn.Module):
@@ -193,9 +207,10 @@ class UNetSD15(nn.Module):
                 skip = skip + ctrl.pop().to(skip.dtype)
             if self.config.freeu is not None:
                 h, skip = self._freeu(h, skip)
-            h = getattr(self, f"output_blocks_{i}_res")(torch.cat([h, skip], dim=1), emb)
+            h = run_block(self, getattr(self, f"output_blocks_{i}_res"),
+                          torch.cat([h, skip], dim=1), emb)
             if has_attn:
-                h = getattr(self, f"output_blocks_{i}_attn")(h, context)
+                h = run_block(self, getattr(self, f"output_blocks_{i}_attn"), h, context)
             if has_up:
                 h = getattr(self, f"output_blocks_{i}_up")(h)
         return self.out_conv(self.out_norm(h)).float()

@@ -178,11 +178,15 @@ class AutoencoderKL(nn.Module):
 
 
 def sample_from_moments(moments: torch.Tensor,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """DiagonalGaussianDistribution.sample: moments (B, 2z, h, w) [mean |
     logvar] -> mean + exp(0.5 * clip(logvar, -30, 20)) * N(0, 1), the noise
-    drawn from `generator` on the moments' device."""
+    given (a trainer's draw) or drawn from `generator` on the moments'
+    device."""
     mean, logvar = moments.chunk(2, dim=1)
     logvar = torch.clamp(logvar, -30.0, 20.0)
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=mean.dtype)
     return mean + torch.exp(0.5 * logvar) * noise

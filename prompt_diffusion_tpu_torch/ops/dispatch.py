@@ -24,6 +24,19 @@ def use_kernel(x: torch.Tensor) -> bool:
     return not _plain_on_cuda
 
 
+def recompute_grads(plain, g, inputs, needs):
+    """The backward of a kernel whose plain version is `plain`: autograd of
+    `plain(*inputs)` recomputed from the saved inputs for the output's
+    gradient g (the counterpart of a JAX `custom_vjp` whose backward is
+    `jax.vjp` of its reference); a gradient for each input, None where
+    `needs` is False. `plain` is the plain function itself, never a
+    dispatching wrapper, so the backward launches no kernel."""
+    part = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+    with torch.enable_grad():
+        got = iter(torch.autograd.grad(plain(*part), [t for t in part if t.requires_grad], g))
+    return [next(got) if n else None for n in needs]
+
+
 @contextlib.contextmanager
 def plain_ops():
     """Run the plain PyTorch versions on CUDA tensors inside the block

@@ -41,7 +41,7 @@ from typing import Callable, Optional
 
 import torch
 
-from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
+from prompt_diffusion_tpu_torch.ops.dispatch import recompute_grads, use_kernel
 
 
 def _torch_attention(q, k, v, scale: float, mask=None):
@@ -125,37 +125,97 @@ def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] =
     return out
 
 
+# samples per chunk of an attention backward's recompute: the chunk's fp32
+# logits stay within this many bytes (a (8, 8, 4096, 4096) batch would hold
+# 4.3 GB of logits, and as much again of probabilities and of their gradient)
+_BWD_LOGIT_BYTES = 1 << 30
+
+
+def _recompute_grads(plain, g, inputs, needs, heads: int):
+    """`dispatch.recompute_grads` of attention, in chunks of samples whose
+    fp32 logits (`heads` x Nq x Nk each) fit `_BWD_LOGIT_BYTES`; each
+    sample's gradient depends on that sample alone."""
+    q, k = inputs[0], inputs[1]
+    chunk = max(1, _BWD_LOGIT_BYTES // (4 * heads * q.shape[1] * k.shape[1]))
+    parts = [recompute_grads(plain, g[s:s + chunk], [t[s:s + chunk] for t in inputs], needs)
+             for s in range(0, q.shape[0], chunk)]
+    return [(col[0] if len(col) == 1 else torch.cat(col)) if n else None
+            for col, n in zip(zip(*parts), needs)]
+
+
+class _Attention(torch.autograd.Function):
+    """K2 with its gradient: the kernel forward on CUDA tensors (the plain
+    version on the CPU), the backward by recompute of `_torch_attention`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v)
+        if not use_kernel(q):
+            return _torch_attention(q, k, v, scale)
+        out = _launch(q, k, v, scale)
+        flash_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        flash_attention.backward_calls += 1
+        plain = functools.partial(_torch_attention, scale=ctx.scale)
+        q = ctx.saved_tensors[0]
+        return (*_recompute_grads(plain, g, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                                  q.shape[2]), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """K2: attention over (B, N, H, D) tensors, no mask."""
+    """K2: attention over (B, N, H, D) tensors, no mask; differentiable in
+    q, k and v (each backward counted in `backward_calls`)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not use_kernel(q):
-        return _torch_attention(q, k, v, float(scale))
-    out = _launch(q, k, v, float(scale))
-    flash_attention.launches += 1
-    return out
+    return _Attention.apply(q, k, v, float(scale))
 
 
 flash_attention.launches = 0
+flash_attention.backward_calls = 0
+
+
+class _PackedAttention(torch.autograd.Function):
+    """K1 with its gradient: the kernel forward on CUDA tensors (the plain
+    version on the CPU), the backward by recompute of `_packed_ref`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(q, k, v)
+        if not use_kernel(q):
+            return _packed_ref(q, k, v, num_heads, scale)
+        d = q.shape[-1] // num_heads
+        out = _launch(q.unflatten(-1, (num_heads, d)), k.unflatten(-1, (num_heads, d)),
+                      v.unflatten(-1, (num_heads, d)), scale)
+        flash_attention_packed.launches += 1
+        return out.view(q.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        flash_attention_packed.backward_calls += 1
+        plain = functools.partial(_packed_ref, num_heads=ctx.num_heads, scale=ctx.scale)
+        return (*_recompute_grads(plain, g, ctx.saved_tensors, ctx.needs_input_grad[:3],
+                                  ctx.num_heads), None, None)
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """K1: attention over packed (B, N, H*D) tensors, the projection
-    layout, with no head transposes."""
+    layout, with no head transposes; differentiable in q, k and v (each
+    backward counted in `backward_calls`)."""
     d = q.shape[-1] // num_heads
     if scale is None:
         scale = d ** -0.5
-    if not use_kernel(q):
-        return _packed_ref(q, k, v, num_heads, float(scale))
-    out = _launch(q.unflatten(-1, (num_heads, d)), k.unflatten(-1, (num_heads, d)),
-                  v.unflatten(-1, (num_heads, d)), float(scale))
-    flash_attention_packed.launches += 1
-    return out.view(q.shape)
+    return _PackedAttention.apply(q, k, v, num_heads, float(scale))
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.backward_calls = 0
 
 
 def _torch_attention_no_softmax(q, k, v, scale: float):

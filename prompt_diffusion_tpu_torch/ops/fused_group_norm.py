@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
+from prompt_diffusion_tpu_torch.ops.dispatch import recompute_grads, use_kernel
 from prompt_diffusion_tpu_torch.ops.gn_quant import (
     ACT_NONE,
     ACT_RELU,
@@ -47,26 +47,50 @@ from prompt_diffusion_tpu_torch.ops.norms import group_norm_f32
 _MIN_GN_ELEMS = 1 << 18  # smallest activation that takes the kernel
 
 
+class _GroupNorm(torch.autograd.Function):
+    """K3 with its gradient: the kernel forward on CUDA tensors (the plain
+    version on the CPU), the backward by autograd of the plain version
+    recomputed from the saved x and affine (the JAX `custom_vjp`'s
+    `jax.vjp` of `_jnp_group_norm`)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, apply_silu, apply_relu):
+        ctx.args = (num_groups, eps, apply_silu, apply_relu)
+        ctx.save_for_backward(x, scale, bias)
+        if not use_kernel(x):
+            return _torch_group_norm(x, num_groups, scale, bias, eps=eps,
+                                     apply_silu=apply_silu, apply_relu=apply_relu)
+        act = ACT_SILU if apply_silu else ACT_RELU if apply_relu else ACT_NONE
+        y = gn_float(x, scale, bias, num_groups, eps, act)
+        fused_group_norm.launches += 1
+        fused_group_norm.relu_launches += act == ACT_RELU
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        fused_group_norm.backward_calls += 1
+        num_groups, eps, apply_silu, apply_relu = ctx.args
+        plain = lambda x, s, b: _torch_group_norm(x, num_groups, s, b, eps=eps,
+                                                  apply_silu=apply_silu, apply_relu=apply_relu)
+        return (*recompute_grads(plain, g, ctx.saved_tensors, ctx.needs_input_grad[:3]),
+                None, None, None, None)
+
+
 def fused_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      num_groups: int, eps: float = 1e-5,
                      apply_silu: bool = False, apply_relu: bool = False) -> torch.Tensor:
     """GroupNorm(+SiLU or ReLU) of an NCHW tensor with fp32 statistics and
     affine; K3 on CUDA (bf16 or fp32, C a multiple of 8 up to 4096, else a
     ValueError; one launch for a channels_last input), the plain version on
-    the CPU.
+    the CPU. Differentiable in x, scale and bias (each backward counted in
+    `backward_calls`).
     `fused_group_norm.relu_launches` counts the launches with the ReLU
     epilogue among `launches`."""
-    if not use_kernel(x):
-        return _torch_group_norm(x, num_groups, scale, bias, eps=eps,
-                                 apply_silu=apply_silu, apply_relu=apply_relu)
-    act = ACT_SILU if apply_silu else ACT_RELU if apply_relu else ACT_NONE
-    y = gn_float(x, scale, bias, num_groups, eps, act)
-    fused_group_norm.launches += 1
-    fused_group_norm.relu_launches += act == ACT_RELU
-    return y
+    return _GroupNorm.apply(x, scale, bias, num_groups, eps, apply_silu, apply_relu)
 
 
 fused_group_norm.launches = fused_group_norm.relu_launches = 0
+fused_group_norm.backward_calls = 0
 
 
 def _torch_group_norm_quant(x, num_groups, scale, bias, eps, apply_silu):

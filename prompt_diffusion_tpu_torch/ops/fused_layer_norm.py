@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from prompt_diffusion_tpu_torch.ops.dispatch import use_kernel
+from prompt_diffusion_tpu_torch.ops.dispatch import recompute_grads, use_kernel
 from prompt_diffusion_tpu_torch.ops.row_quant import ln_quant
 
 _TILE = 4096  # elements of one program's row block
@@ -59,16 +59,37 @@ def _torch_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return _layer_norm_f32(x, scale, bias, eps).to(x.dtype)
 
 
+class _LayerNorm(torch.autograd.Function):
+    """K4 with its gradient: the kernel forward on CUDA tensors (the plain
+    version on the CPU), the backward by autograd of `_torch_layer_norm`
+    recomputed from the saved x and affine (the JAX `custom_vjp`'s
+    `jax.vjp` of `_jnp_layer_norm`)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, scale, bias)
+        if not use_kernel(x):
+            return _torch_layer_norm(x, scale, bias, eps)
+        return _launch(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        fused_layer_norm.backward_calls += 1
+        plain = lambda x, s, b: _torch_layer_norm(x, s, b, ctx.eps)
+        return (*recompute_grads(plain, g, ctx.saved_tensors, ctx.needs_input_grad[:3]), None)
+
+
 def fused_layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
     """x (..., C) -> LayerNorm over the last axis; the kernel on CUDA, the
-    plain version on the CPU."""
-    if not use_kernel(x):
-        return _torch_layer_norm(x, scale, bias, eps)
-    return _launch(x, scale, bias, eps)
+    plain version on the CPU. Differentiable in x, scale and bias (each
+    backward counted in `backward_calls`)."""
+    return _LayerNorm.apply(x, scale, bias, eps)
 
 
 fused_layer_norm.launches = 0
+fused_layer_norm.backward_calls = 0
 
 
 def _rows(x, scale, bias):

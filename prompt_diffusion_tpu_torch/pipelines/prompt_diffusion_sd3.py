@@ -198,20 +198,29 @@ class PromptDiffusionSD3:
 
     # ---- VAE helpers -----------------------------------------------------
 
-    def _encode_vae(self, images: torch.Tensor, generator) -> torch.Tensor:
-        """NCHW images -> sampled latents, shifted and scaled, fp32."""
+    def _encode_vae(self, images: torch.Tensor, generator, noise=None) -> torch.Tensor:
+        """NCHW images -> sampled latents, shifted and scaled, fp32; the
+        sampling noise given or drawn from `generator`."""
         cfg = self.vae.config
-        z = sample_from_moments(self.vae.encode_moments(images), generator)
+        z = sample_from_moments(self.vae.encode_moments(images), generator, noise)
         return (z - cfg.shift_factor) * cfg.scale_factor
+
+    def support_pair_latents(self, cond: torch.Tensor, gt: torch.Tensor,
+                             generator: Optional[torch.Generator] = None,
+                             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """cond, gt (B, H, W, 3) NHWC in [-1, 1] -> pair latents (B, z,
+        H/8, W/8) NCHW: down_proj, then the VAE encode, recording gradients
+        where they are on (the trainer's path to `down_proj`, through the
+        VAE encoder); the sampling noise given or drawn from `generator`."""
+        dev = self.device
+        mixed = self.down_proj(_nchw(cond, dev), _nchw(gt, dev))
+        return self._encode_vae(mixed, generator, noise)
 
     @torch.no_grad()
     def encode_support_pair(self, cond: torch.Tensor, gt: torch.Tensor,
                             generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """cond, gt (B, H, W, 3) NHWC in [-1, 1] -> pair latents (B, z,
-        H/8, W/8) NCHW: down_proj, then the VAE encode."""
-        dev = self.device
-        mixed = self.down_proj(_nchw(cond, dev), _nchw(gt, dev))
-        return self._encode_vae(mixed, generator)
+        """`support_pair_latents` without gradients (inference)."""
+        return self.support_pair_latents(cond, gt, generator)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:

@@ -5,6 +5,11 @@ fp32 parameters and cast them to the compute dtype right before each
 matmul/conv (Flax `dtype=` with `param_dtype=float32`). The port stores the
 compute weights already cast (bf16 under the default policy) and keeps norm
 affines in fp32, which gives the same numbers without a cast per call.
+Training keeps what the cast would lose: the trainer holds an fp32 master
+of every trainable tensor (`training/optimizer.py::TrainState`; the
+tensor itself where it is fp32), updates the master, and writes it back
+into the module in the policy's dtype after each update; a bf16 weight's
+gradient is taken to fp32 before it is summed, clipped or averaged.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ from torch import nn
 class DTypePolicy:
     """Where each class of tensor lives.
 
-    compute_dtype: dtype of conv/matmul weights and activations.
+    compute_dtype: dtype of conv/matmul weights and activations (a
+    trainer's fp32 masters stand behind the trainable ones).
     Attention logits and softmax, normalisation statistics and affines
     are always fp32.
     quant: "none" | "int8". "int8" is the W8A8 serving mode

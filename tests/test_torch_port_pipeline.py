@@ -187,7 +187,14 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.data.t5_tokenizer, "
             "prompt_diffusion_tpu_torch.data.coco_val, "
             "prompt_diffusion_tpu_torch.data.laion_meta, "
-            "prompt_diffusion_tpu_torch.generate, chip_smoke; "
+            "prompt_diffusion_tpu_torch.generate, "
+            "prompt_diffusion_tpu_torch.data.edit_dataset, "
+            "prompt_diffusion_tpu_torch.training.sd15, prompt_diffusion_tpu_torch.training.sd3, "
+            "prompt_diffusion_tpu_torch.training.checkpoint, "
+            "prompt_diffusion_tpu_torch.training.image_logger, "
+            "prompt_diffusion_tpu_torch.train_sd15, prompt_diffusion_tpu_torch.finetune_sd15, "
+            "prompt_diffusion_tpu_torch.train_sd3, prompt_diffusion_tpu_torch.tools.profile_train, "
+            "chip_smoke; "
             "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu', 'tools') "
             "if m in sys.modules]; "
             "assert not bad, bad")

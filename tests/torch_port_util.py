@@ -6,6 +6,8 @@ layout helpers. JAX runs on the CPU with 'highest' matmul precision
 (tests/conftest.py); the port's CPU matmuls and convs are full fp32.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -49,3 +51,24 @@ def nchw(a) -> torch.Tensor:
 
 def nhwc(t: torch.Tensor) -> np.ndarray:
     return t.permute(0, 2, 3, 1).float().numpy()
+
+
+def make_edit_root(root, groups=2, per_group=5, res=32,
+                   tasks=("canny", "depth", "hed", "normal"), seed=0):
+    """laion_nonhuman/<group>/<name>.jpg with every task's condition and a
+    caption; the EditDataset and the meta dataset both read it."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    img = lambda: Image.fromarray(rng.integers(0, 255, (res, res, 3), dtype=np.uint8))
+    for g in range(groups):
+        base = os.path.join(root, "laion_nonhuman", f"group{g}")
+        for t in tasks:
+            os.makedirs(os.path.join(base, t), exist_ok=True)
+        for i in range(per_group):
+            img().save(os.path.join(base, f"img{i}.jpg"))
+            for t in tasks:
+                img().save(os.path.join(base, t, f"img{i}.jpg"))
+            with open(os.path.join(base, f"img{i}.txt"), "w") as f:
+                f.write(f"a photograph {g} {i}")
+    return root
