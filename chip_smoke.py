@@ -116,7 +116,11 @@ without the final `"ok": true` line:
                `PromptDiffusionSD3.from_folder(..., t5=True)` (state dicts
                equal) and one 1024² request at 2 steps with T5 staged
                bit-equal to the source's with T5 in-graph; the launches of
-               the path's kernels;
+               the path's kernels; then `[notebook]`:
+               `run_prompt_diffusion.main` on the `.ckpt` at 512², 8 DDIM
+               steps, with --task hed and --task seg on `.pth` files
+               written from random HED and UniFormer modules (the PNG
+               exists and is not constant);
   8. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
                12-block ControlNet, CLIP-L, CLIP-bigG, T5-XXL, the z=16
                VAE; random weights from a seed) in the int8 serving mode of
@@ -148,9 +152,25 @@ without the final `"ok": true` line:
                no K4 or K1) with one int8 ViT block against the plain ops;
                one DPT-Large forward (batch 2, K1 at 16 heads, the
                transposed convs) against the plain ops (5e-2) and an
-               fp32-compute twin (1.25x the plain ops'); then the port's
-               annotation entry's batch function with canny, depth and
-               normal on 16 images (48 files); images/s;
+               fp32-compute twin (1.25x the plain ops'); images/s;
+     hed, seg, seg_int8, mlsd, openpose - the other annotators at full
+               width on the same two batches (16 at 512², `bench.py
+               --config annotate`): HED (VGG16, N(0, 1 / fan_in): N(0,
+               0.02) makes its output vanish), UniFormer-S/UperNet in bf16 (N(0,
+               0.02); exact launches per forward: K1 8, K4 22) and int8 (K9
+               8, K9p 8, K6 22; no K1 or K4), M-LSD and the OpenPose body
+               net (N(0, 2 / fan_in)); each: images/s, the first batch's
+               time, peak memory, launches per forward, a bit-exact repeat,
+               the output against the plain ops (relative L2 <= 5e-2);
+               UniFormer's classes against an fp32-compute twin's (its
+               disagreement at most 1.25x the plain bf16 ops' + 1e-4), its
+               logits' std, and the share of classes that a bf16 logit
+               upsample (the JAX package's) flips against the port's fp32
+               one; one int8 SABlock against the plain ops; M-LSD's and
+               OpenPose's detectors on 2 images each; the annotation pass
+               (HED + UniFormer + MiDaS-Hybrid) in images/s; then the
+               port's annotation entry's batch function with canny, hed,
+               depth, normal and seg on 16 images (80 files);
  12. train   - training through the entries, at full width with random
                weights from a seed, on a synthetic EditDataset root of 512²
                images: SD1.5 at BASELINE config 5 (`train_sd15.main`, batch
@@ -271,6 +291,31 @@ MIDAS_PER_FORWARD = {
 }
 
 
+# the other annotators as `bench.py --config annotate` runs them: batch 16
+# (bench.py:232) at 512², two batches each, random weights from a seed
+ANN_BATCH, ANN_SIZE, ANN_BATCHES = 16, 512, 2
+# launches per UniFormer-S forward: stage 3's 8 SABlocks at 1024 tokens take
+# the packed attention (K1, or K9 and its K prologue under int8), stage 4's
+# 3 at 256 tokens the plain one; both stages' 2 pre-LNs a block are K4 (K6
+# under int8), 16 + 6; the patch and stage LayerNorms are plain
+SEG_PER_FORWARD = {
+    "seg": {"flash_attention_packed": 8, "fused_layer_norm": 22,
+            "flash_attention_packed_int8": 0, "quant_k_int8": 0, "fused_layer_norm_quant": 0,
+            "fused_group_norm": 0},
+    "seg_int8": {"flash_attention_packed_int8": 8, "quant_k_int8": 8,
+                 "fused_layer_norm_quant": 22, "flash_attention_packed": 0,
+                 "fused_layer_norm": 0, "fused_group_norm": 0},
+}
+PER_FORWARD = {**MIDAS_PER_FORWARD, **SEG_PER_FORWARD}
+# the UniFormer argmax against an fp32-compute twin's: the kernels' share of
+# pixels whose class differs at most FP32_RATIO_BOUND times the plain bf16
+# ops' share, plus SEG_FLIP_SLACK (a few pixels of a 512² batch of 16)
+SEG_FLIP_SLACK = 1e-4
+# `[notebook]`: run_prompt_diffusion.main at 512², 8 DDIM steps, per task
+NOTEBOOK_TASKS, NOTEBOOK_SIZE, NOTEBOOK_STEPS = ("hed", "seg"), 512, 8
+NOTEBOOK_DIR = os.path.join(REPO, "build", "notebook_smoke")
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
@@ -379,6 +424,15 @@ def kernel_cases(gen):
                   (8 * b * n * hd, 0, 4 * b * n * n * hd, b * h * n * n),
                   lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                       heads(q, 12), heads(k, 12), heads(v, 12), scale=64 ** -0.5)))
+    # K1 at UniFormer-S stage 3 (batch 16 at 512²: 1024 tokens, 5 heads of
+    # 64) on the column slices of one packed qkv projection, unscaled
+    b, n, hd, h = 16, 1024, 320, 5
+    q, k, v = bf16(randn(b, n, 3 * hd)).chunk(3, dim=-1)
+    cases.append(("flash_attention_packed", f"({b},{n},{hd}) H={h} UniFormer qkv slices",
+                  flash_attention_packed, (q, k, v, h, 64 ** -0.5), "float", ATTN_BOUND,
+                  (8 * b * n * hd, 0, 4 * b * n * n * hd, b * h * n * n),
+                  lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                      heads(q, 5), heads(k, 5), heads(v, 5), scale=64 ** -0.5)))
     # K1 on K9's work, for reference: the SD3 joint shape in bf16
     b, n, hd, h = 2, 4429, 1536, 24
     q, k, v = (bf16(randn(b, n, hd)) for _ in range(3))
@@ -410,16 +464,25 @@ def kernel_cases(gen):
     cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h} ViT-B qkv slices",
                   flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
                   (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n), None))
+    vit_k = k
+    # K9 at UniFormer-S stage 3 under int8 (batch 16 at 512², 5 heads of 64)
+    b, n, hd, h = 16, 1024, 320, 5
+    q, k, v = bf16(randn(b, n, 3 * hd)).chunk(3, dim=-1)
+    cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h} UniFormer qkv slices",
+                  flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
+                  (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n), None))
     # K9's prologue, K to int8 codes and scales, bit-equal to its plain
-    # version: per head at the SD3 joint shape and on the ViT-B's K column
-    # slice, per key row at the lab's SD3 shape (the ROWK mode's)
-    for b, n, hd, h, per_row, k in (
-            (2, 4429, 1536, 24, False, bf16(randn(2, 4429, 1536))),
-            (16, 1025, 768, 12, False, k),
-            (2, 4250, 1536, 24, True, bf16(randn(2, 4250, 1536)))):
+    # version: per head at the SD3 joint shape and on the ViT-B's and
+    # UniFormer's K column slices, per key row at the lab's SD3 shape (the
+    # ROWK mode's)
+    for b, n, hd, h, per_row, k, site in (
+            (2, 4429, 1536, 24, False, bf16(randn(2, 4429, 1536)), ""),
+            (16, 1025, 768, 12, False, vit_k, " ViT-B K slice"),
+            (2, 4250, 1536, 24, True, bf16(randn(2, 4250, 1536)), ""),
+            (16, 1024, 320, 5, False, k, " UniFormer K slice")):
         scales = b * h * (n if per_row else 1)
         cases.append(("quant_k_int8", f"({b},{n},{hd}) H={h}" + (" per row" if per_row else "")
-                      + (" ViT-B K slice" if hd == 768 else ""), quant_k_int8, (k, h, per_row),
+                      + site, quant_k_int8, (k, h, per_row),
                       "exact", 0.0, (3 * b * n * hd + 4 * scales, 0, 0), None))
     gn_shapes = (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0))
     for name, fn, kind, bound, out_bytes in (
@@ -471,13 +534,24 @@ def kernel_cases(gen):
                   (x, w, bb, 1e-6), "float", NORM_BOUND, (4 * x.numel(), 0, 0),
                   lambda x=x, w=w, bb=bb: F.layer_norm(x, (768,), w.to(x.dtype), bb.to(x.dtype),
                                                        1e-6)))
+    # K4 at the UniFormer-S SABlock pre-LNs (batch 16 at 512², eps 1e-6):
+    # stage 3's 16 x 1024 tokens of 320, stage 4's 16 x 256 of 512
+    for n, c in ((16384, 320), (4096, 512)):
+        x, (w, bb) = bf16(randn(n, c)), affine(c)
+        cases.append(("fused_layer_norm", f"({n},{c}) eps=1e-06 UniFormer", fused_layer_norm,
+                      (x, w, bb, 1e-6), "float", NORM_BOUND, (4 * x.numel(), 0, 0),
+                      lambda x=x, w=w, bb=bb, c=c: F.layer_norm(
+                          x, (c,), w.to(x.dtype), bb.to(x.dtype), 1e-6)))
     # K6 at the SD1.5 pre-LN rows of CFG batch 8 (64², 32², 16², 8²), a
-    # ragged row count, the DPT-Hybrid ViT-B's (eps 1e-6) and fp32 rows
+    # ragged row count, the DPT-Hybrid ViT-B's (eps 1e-6), fp32 rows and
+    # the UniFormer-S SABlocks' (eps 1e-6)
     for n, c, eps, dt in ((32768, 320, 1e-5, torch.bfloat16), (8192, 640, 1e-5, torch.bfloat16),
                           (2048, 1280, 1e-5, torch.bfloat16), (512, 1280, 1e-5, torch.bfloat16),
                           (1000, 640, 1e-5, torch.bfloat16), (16400, 768, 1e-6, torch.bfloat16),
-                          (1000, 640, 1e-5, torch.float32)):
-        cases.append(("fused_layer_norm_quant", f"({n},{c})" + (" ViT-B" if c == 768 else "")
+                          (1000, 640, 1e-5, torch.float32), (16384, 320, 1e-6, torch.bfloat16),
+                          (4096, 512, 1e-6, torch.bfloat16)):
+        site = " ViT-B" if c == 768 else " UniFormer" if eps == 1e-6 else ""
+        cases.append(("fused_layer_norm_quant", f"({n},{c})" + site
                       + (" fp32" if dt == torch.float32 else ""), fused_layer_norm_quant,
                       (randn(n, c).to(dt), *affine(c), eps), "quant", None,
                       ((dt.itemsize + 1) * n * c + 4 * n + 8 * c, 0, 0), None))
@@ -882,10 +956,17 @@ PATH_KERNELS = {
               "fused_layer_norm"),
     # SD3 training: the joint attention and the VAE (K2), the VAE's GroupNorm
     "train_sd3": ("flash_attention", "fused_group_norm"),
-    # the annotation entry's batch with canny, depth and normal
+    # the annotation entry's batch with canny, hed, depth, normal and seg
     "annotate": ("fused_group_norm", "flash_attention_packed", "fused_layer_norm"),
     **{tag: tuple(k for k, n in counts.items() if n and "." not in k)
-       for tag, counts in MIDAS_PER_FORWARD.items()},
+       for tag, counts in PER_FORWARD.items()},
+    # HED, M-LSD and OpenPose run convs, pools and resizes only: no kernel of
+    # the port (every count must stay 0)
+    "hed": (), "mlsd": (), "openpose": (),
+    # run_prompt_diffusion.main: HED or UniFormer on the example, then SD1.5
+    # bf16 from a checkpoint
+    "notebook": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+                 "fused_layer_norm"),
 }
 
 
@@ -1686,7 +1767,8 @@ def phase_ckpt(pipe, img1, card):
     under CKPT_DIR and deleted at the end: the SD1.5 `.ckpt` and
     `.safetensors` round trips of [slice]'s pipeline, a LoRA fused into a
     loaded pipeline, `serve.main --ckpt` under int8, the batch `generate`
-    entry, and a reduced-depth SD3 folder. Returns (launches, timing)."""
+    entry, and a reduced-depth SD3 folder; then `[notebook]` on the `.ckpt`.
+    Returns {"ckpt": (launches, timing), "notebook": (launches, timing)}."""
     import shutil
 
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -1699,13 +1781,14 @@ def phase_ckpt(pipe, img1, card):
         timing.update(ckpt_generate(files["safetensors"], CKPT_DIR))
         timing["sd3"] = ckpt_sd3(CKPT_DIR)
         launches = read_launches(counted)
+        timing["phase_s"] = time.perf_counter() - t0
+        notebook = phase_notebook(files["ckpt"], card)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
-    timing["phase_s"] = time.perf_counter() - t0
     log(f"[ckpt] {card}: the phase in {timing['phase_s']:.1f}s; launches {launches}")
     for name in PATH_KERNELS["ckpt"]:
         check(launches[name] > 0, f"kernel {name} was not launched on the ckpt path")
-    return launches, timing
+    return {"ckpt": (launches, timing), "notebook": notebook}
 
 
 
@@ -1987,8 +2070,8 @@ def phase_labs():
 
 
 def _check_per_forward(tag, launches, forwards):
-    """The launches of `tag`'s kernels are MIDAS_PER_FORWARD's per forward."""
-    for name, per in MIDAS_PER_FORWARD[tag].items():
+    """The launches of `tag`'s kernels are PER_FORWARD's per forward."""
+    for name, per in PER_FORWARD[tag].items():
         check(launches[name] == per * forwards,
               f"[{tag}] {name}: {launches[name]} launches in {forwards} forwards, expected "
               f"{per} per forward")
@@ -1998,14 +2081,11 @@ def phase_midas(card, seed=0):
     """The MiDaS DPT-Hybrid depth + normal annotator at full width through
     the port's modules, on MIDAS_BATCHES batches of MIDAS_BATCH uniform
     [0, 255] images at MIDAS_SIZE² (`bench.py --config annotate --annotator
-    midas`), bf16 and then int8; one DPT-Large forward; the annotation
-    entry's batch function. Returns {path tag: (launches, timing)}."""
-    import shutil
-
+    midas`), bf16 and then int8; one DPT-Large forward. Returns ({path tag:
+    (launches, timing)}, the bf16 DPT-Hybrid, the image batches)."""
     import numpy as np
     import torch
 
-    from prompt_diffusion_tpu_torch.annotate_data import annotate_batch, build_annotators
     from prompt_diffusion_tpu_torch.annotators.midas import (
         DPTDepth,
         DPTHybridDepth,
@@ -2137,28 +2217,382 @@ def phase_midas(card, seed=0):
         paths["midas_large"] = (launches, {"batch_s": s_large})
         del large
 
+    return paths, model, batches
+
+
+def fan_in_init_(module, gen, gain=2.0):
+    """`random_init_`, then every tensor of 2 or more dimensions rescaled to
+    N(0, gain / fan_in) (gain 2: He): under N(0, 0.02) HED's, M-LSD's and
+    OpenPose's outputs vanish (stds ~3e-4, 2e-7 and 6e-6 at 512², fp32),
+    since their ReLU convs have no norm or residual to hold the signal. HED
+    takes gain 1: its input is RGB minus the mean (~±128), and under He its
+    fused score saturates the sigmoid."""
+    import math
+
+    import torch
+
+    from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
+
+    random_init_(module, gen)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.ndim >= 2:
+                p.mul_(math.sqrt(gain / p[0].numel()) / 0.02)
+    return module
+
+
+def run_annotator(tag, card, fn, batches, timing_extra=None):
+    """One annotator as `bench.py --config annotate` times it: a warm-up
+    batch, then each batch synchronised; prints images/s, the first batch's
+    time, peak memory and the launches per forward, checked against
+    PER_FORWARD (a tag without an entry launches no kernel of the port);
+    `one_launch_per_call` on batch 1. Returns (outputs, launches, timing)."""
+    import torch
+
+    def timed(x):
+        t = time.perf_counter()
+        out = fn(x)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    first_s = timed(batches[0])[1]  # cuDNN's algorithm choice, Triton's compiles
+    torch.cuda.reset_peak_memory_stats()
+    counted = reset_launches()
+    runs = [timed(x) for x in batches]
+    launches = read_launches(counted)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    seconds = [r[1] for r in runs]
+    n = batches[0].shape[0]
+    shown = PER_FORWARD.get(tag, {k: 0 for k in ("flash_attention_packed", "fused_layer_norm",
+                                                 "fused_group_norm")})
+    log(f"[{tag}] {card}: {seconds[-1]:.4f} s per batch of {n} at {ANN_SIZE}² "
+        f"({n / seconds[-1]:.2f} images/s; first batch {first_s:.4f} s, then "
+        f"{[round(x, 4) for x in seconds]}); peak device memory {peak_gib:.2f} GiB; launches "
+        f"per forward { {k: launches[k] / len(batches) for k in shown} }")
+    if tag in PER_FORWARD:
+        _check_per_forward(tag, launches, len(batches))
+        _, again = one_launch_per_call(tag, lambda: fn(batches[0]))
+        _check_per_forward(tag, again, 1)
+    else:
+        busy = {k: v for k, v in launches.items() if v}
+        check(not busy, f"[{tag}] launched kernels of the port: {busy}")
+    timing = {"batch_s": seconds, "first_batch_s": first_s, "images_s": n / seconds[-1],
+              "peak_gib": peak_gib, **(timing_extra or {})}
+    return [r[0] for r in runs], launches, timing
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _check_outputs(tag, outs, again, plain, shape, lo=None, hi=None):
+    """Shapes, finite values (in [lo, hi] where given), two batches that
+    differ, batch 1 repeated bit-exactly, and batch 1 against the plain ops
+    (relative L2 within EPS_REL_BOUND); returns that distance."""
+    import torch
+
+    for o in outs:
+        check(tuple(o.shape) == shape, f"[{tag}] shape {tuple(o.shape)}, expected {shape}")
+        check(torch.isfinite(o).all().item(), f"[{tag}] non-finite output")
+        if lo is not None:
+            check(o.min().item() >= lo and o.max().item() <= hi, f"[{tag}] outside [{lo}, {hi}]")
+    check(not torch.equal(outs[0], outs[1]), f"[{tag}] the two batches gave one output")
+    check(torch.equal(outs[0], again), f"[{tag}] batch 1 repeated gave another output")
+    err = _rel(outs[0], plain)
+    check(err <= EPS_REL_BOUND, f"[{tag}] rel L2 {err} against the plain ops")
+    return err
+
+
+def phase_annotators(card, dpt, batches, midas_timing, seed=0):
+    """HED, UniFormer-S/UperNet (bf16, then int8), M-LSD and OpenPose at full
+    width (random weights from a seed) on ANN_BATCHES batches of ANN_BATCH
+    uniform [0, 255] images at ANN_SIZE² (`bench.py --config annotate`);
+    each against the plain ops; M-LSD's and OpenPose's detectors on 2
+    images; the reference annotation pass (HED + UniFormer + MiDaS-Hybrid);
+    the annotation entry's batch function with canny, hed, depth, normal and
+    seg. Returns {path tag: (launches, timing)}."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from prompt_diffusion_tpu_torch.annotate_data import annotate_batch, build_annotators
+    from prompt_diffusion_tpu_torch.annotators.hed import HEDNetwork
+    from prompt_diffusion_tpu_torch.annotators.mlsd import MLSDdetector, MLSDNet
+    from prompt_diffusion_tpu_torch.annotators.openpose import BodyPoseNet, OpenposeDetector
+    from prompt_diffusion_tpu_torch.annotators.uniformer import UniFormerSeg
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.utils.dtypes import (
+        default_policy,
+        fp32_policy,
+        int8_policy,
+        random_init_,
+    )
+
+    gen = lambda k: torch.Generator(device="cuda").manual_seed(seed + k)
+
+    def build(cls, policy, state=None, init=None, k=0):
+        with torch.device("cuda"):
+            model = cls(policy=policy).eval().requires_grad_(False)
+        if state is not None:
+            model.load_state_dict(state)
+        else:
+            (init or random_init_)(model, gen(k))
+        return model
+
+    nchw = lambda x: x.permute(0, 3, 1, 2)
+    paths = {}
+    with torch.no_grad():
+        # HED: the entry's map, the edge probability x 255
+        hed = build(HEDNetwork, default_policy(), init=lambda m, g: fan_in_init_(m, g, 1.0), k=1)
+        hed_fn = lambda x: hed(nchw(x)) * 255.0
+        outs, launches, timing = run_annotator("hed", card, hed_fn, batches)
+        with plain_ops():
+            plain = hed_fn(batches[0])
+        err = _check_outputs("hed", outs, hed_fn(batches[0]), plain,
+                             (ANN_BATCH, ANN_SIZE, ANN_SIZE), 0.0, 255.0)
+        log(f"[hed] {sum(p.numel() for p in hed.parameters())} parameters; map of batch 1 vs "
+            f"plain ops rel L2 {err} (bound {EPS_REL_BOUND}; no kernel of the port runs here); "
+            f"batch 1 repeated bit-exactly; map mean {outs[0].mean().item():.4g}, std "
+            f"{outs[0].std().item():.4g}, {(outs[0] > 127.5).float().mean().item():.3f} of "
+            f"pixels above 127.5")
+        paths["hed"] = (launches, timing)
+        del outs, plain
+
+        # UniFormer-S + UperNet: the entry's classes, bf16 then int8
+        seg = build(UniFormerSeg, default_policy(), k=2)
+        seg_fn = lambda x: seg(nchw(x)).argmax(dim=1)
+        outs, launches, timing = run_annotator("seg", card, seg_fn, batches)
+        check(all(tuple(o.shape) == (ANN_BATCH, ANN_SIZE, ANN_SIZE) for o in outs),
+              "[seg] class map shape")
+        check(not torch.equal(outs[0], outs[1]), "[seg] the two batches gave one class map")
+        x0 = nchw(batches[0])
+        logits = seg.head_logits(x0)
+        check(torch.isfinite(logits).all().item(), "[seg] non-finite logits")
+        check(torch.equal(logits, seg.head_logits(x0)), "[seg] batch 1 repeated gave other logits")
+        with plain_ops():
+            plain = seg.head_logits(x0)
+        err = _rel(logits, plain)
+        check(err <= EPS_REL_BOUND, f"[seg] logits rel L2 {err} against the plain ops")
+        twin = build(UniFormerSeg, fp32_policy(), seg.state_dict())
+        with plain_ops():
+            ref32 = twin.head_logits(x0)
+            cls32 = twin(x0).argmax(dim=1)
+            cls_plain = seg(x0).argmax(dim=1)
+        del twin
+        flip_k = (outs[0] != cls32).float().mean().item()
+        flip_p = (cls_plain != cls32).float().mean().item()
+        # decision (a): the logits are upsampled in fp32; the JAX package's
+        # bf16 upsample of the same logits, for comparison
+        up = lambda t: F.interpolate(t, size=(ANN_SIZE, ANN_SIZE), mode="bilinear",
+                                     align_corners=False)
+        flip_bf16 = (up(logits.to(torch.bfloat16)).argmax(dim=1) != outs[0]).float().mean().item()
+        log(f"[seg] {sum(p.numel() for p in seg.parameters())} parameters; quarter-size logits "
+            f"of batch 1 vs plain ops rel L2 {err} (bound {EPS_REL_BOUND}), std "
+            f"{logits.std().item():.4g} (N(0, 0.02) weights; against an fp32-compute twin "
+            f"{_rel(logits, ref32)}); classes against the fp32 twin's: kernels {1 - flip_k} "
+            f"agree, plain bf16 ops {1 - flip_p} (bound: the kernels' disagreement at most "
+            f"{FP32_RATIO_BOUND}x the plain ops' + {SEG_FLIP_SLACK}); {len(outs[0].unique())} "
+            f"classes present; the logits upsampled in bf16 (the JAX package) flip {flip_bf16} "
+            f"of the pixels against the fp32 upsample")
+        check(flip_k <= FP32_RATIO_BOUND * flip_p + SEG_FLIP_SLACK,
+              f"[seg] kernels disagree with the fp32 twin on {flip_k} of the pixels, plain ops "
+              f"on {flip_p}")
+        timing.update(class_agree_fp32=1 - flip_k, plain_agree_fp32=1 - flip_p,
+                      bf16_upsample_flips=flip_bf16, logits_std=logits.std().item())
+        paths["seg"] = (launches, timing)
+        bf16_cls = outs[0]
+        del outs, plain, ref32
+
+        seg8 = build(UniFormerSeg, int8_policy(), seg.state_dict())
+        seg8_fn = lambda x: seg8(nchw(x)).argmax(dim=1)
+        outs, launches, timing8 = run_annotator("seg_int8", card, seg8_fn, batches)
+        logits8 = seg8.head_logits(x0)
+        check(torch.isfinite(logits8).all().item(), "[seg_int8] non-finite logits")
+        check(torch.equal(outs[0], seg8_fn(batches[0])), "[seg_int8] batch 1 repeated differs")
+        with plain_ops():
+            plain8 = seg8.head_logits(x0)
+        blk = seg8.backbone.blocks3_0
+        t = torch.randn((ANN_BATCH, 320, ANN_SIZE // 16, ANN_SIZE // 16), generator=gen(3),
+                        device="cuda").to(torch.bfloat16).contiguous(
+                            memory_format=torch.channels_last)
+        got = blk(t)
+        with plain_ops():
+            blk_plain = blk(t)
+        blk_err = _rel(got, blk_plain)
+        log(f"[seg_int8] int8 SABlock 3.0 at {tuple(t.shape)}, kernels vs plain ops on the same "
+            f"input: rel L2 {blk_err} (bound {EPS_REL_BOUND}); quarter-size logits vs plain ops "
+            f"{_rel(logits8, plain8)}, vs the bf16 policy's {_rel(logits8, logits)} (for "
+            f"information); classes equal to the bf16 policy's on "
+            f"{(outs[0] == bf16_cls).float().mean().item()} of the pixels")
+        check(blk_err <= EPS_REL_BOUND, f"[seg_int8] block rel L2 {blk_err}")
+        paths["seg_int8"] = (launches, timing8)
+        del seg8, outs, logits, logits8, plain8, bf16_cls
+
+        # M-LSD: the net batched on the detector's input (RGB and ones)
+        mlsd = build(MLSDNet, default_policy(), init=fan_in_init_, k=4)
+        ones = torch.ones((ANN_BATCH, 1, ANN_SIZE, ANN_SIZE), device="cuda")
+        mlsd_fn = lambda x: mlsd(torch.cat([nchw(x) / 127.5 - 1.0, ones], dim=1))
+        outs, launches, timing = run_annotator("mlsd", card, mlsd_fn, batches)
+        with plain_ops():
+            plain = mlsd_fn(batches[0])
+        err = _check_outputs("mlsd", outs, mlsd_fn(batches[0]), plain,
+                             (ANN_BATCH, 9, ANN_SIZE // 2, ANN_SIZE // 2))
+        rng = np.random.default_rng(seed)
+        images = [rng.integers(0, 256, shape, dtype=np.uint8)
+                  for shape in ((640, 576, 3), (384, 448, 3))]
+        det = MLSDdetector(mlsd)
+        det(images[0])
+        t = time.perf_counter()
+        maps = [det(img) for img in images]
+        det_s = (time.perf_counter() - t) / len(images)
+        check(all(m.shape == img.shape[:2] and m.dtype == np.uint8 for m, img in
+                  zip(maps, images)), "[mlsd] detector map shapes")
+        log(f"[mlsd] {sum(p.numel() for p in mlsd.parameters())} parameters; maps of batch 1 vs "
+            f"plain ops rel L2 {err} (no kernel of the port runs here), std "
+            f"{outs[0].std().item():.4g}; detector on {[i.shape for i in images]}: "
+            f"{det_s:.4f} s per image (area resize, net, decode, raster on the host), "
+            f"{[int((m > 0).sum()) for m in maps]} line pixels")
+        timing["detector_s"] = det_s
+        paths["mlsd"] = (launches, timing)
+        del mlsd, outs, plain
+
+        # OpenPose: the body net batched on BGR / 256 - 0.5
+        body = build(BodyPoseNet, default_policy(), init=fan_in_init_, k=5)
+        body_fn = lambda x: torch.cat(body(nchw(x).flip(1) / 256.0 - 0.5), dim=1)
+        outs, launches, timing = run_annotator("openpose", card, body_fn, batches)
+        with plain_ops():
+            plain = body_fn(batches[0])
+        err = _check_outputs("openpose", outs, body_fn(batches[0]), plain,
+                             (ANN_BATCH, 57, ANN_SIZE // 8, ANN_SIZE // 8))
+        # small images: under random weights every joint map peaks ~500 times
+        # at 640 x 576 and the decode pairs every two peaks of a limb on the
+        # host (~140 s an image); at 160 x 128 it stays ~20 a joint
+        images = [rng.integers(0, 256, shape, dtype=np.uint8)
+                  for shape in ((160, 128, 3), (128, 96, 3))]
+        det = OpenposeDetector(body)
+        det(images[1])
+        t = time.perf_counter()
+        poses = [det(img) for img in images]
+        det_s = (time.perf_counter() - t) / len(images)
+        check(all(c.shape == img.shape and c.dtype == np.uint8 for (c, _), img in
+                  zip(poses, images)), "[openpose] detector canvas shapes")
+        log(f"[openpose] {sum(p.numel() for p in body.parameters())} parameters; maps of batch 1 "
+            f"vs plain ops rel L2 {err} (no kernel of the port runs here), PAF std "
+            f"{outs[0][:, :38].std().item():.4g}, heat std {outs[0][:, 38:].std().item():.4g}; "
+            f"detector on {[i.shape for i in images]}: {det_s:.4f} s per image; "
+            f"{[len(info['candidate']) for _, info in poses]} candidates, "
+            f"{[len(info['subset']) for _, info in poses]} people")
+        timing["detector_s"] = det_s
+        paths["openpose"] = (launches, timing)
+        del body, outs, plain
+
+        # the reference annotation pass, `bench.py --annotator pass`
+        per_img = {name: 1.0 / paths[name][1]["images_s"] for name in ("hed", "seg")}
+        per_img["midas"] = 1.0 / midas_timing["images_s"]
+        pass_s = sum(per_img.values())
+        log(f"[annotate] {card}: the annotation pass (hed + seg + depth/normal, bf16, batch "
+            f"{ANN_BATCH} at {ANN_SIZE}²): {pass_s * 1e3:.3f} ms per image ({1.0 / pass_s:.2f} "
+            f"images/s); per image: " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                                                   per_img.items()))
+
         # the annotation entry's batch function, its files beside the sources
         out_dir = os.path.join(REPO, "build", "midas_annotate")
         shutil.rmtree(out_dir, ignore_errors=True)
         os.makedirs(out_dir)
-        fns = build_annotators(("canny", "depth", "normal"), dpt=model)
-        sources = [os.path.join(out_dir, f"image_{i}.jpg") for i in range(MIDAS_BATCH)]
+        tasks = ("canny", "hed", "depth", "normal", "seg")
+        fns = build_annotators(tasks, dpt=dpt, hed=hed, seg=seg)
+        sources = [os.path.join(out_dir, f"image_{i}.jpg") for i in range(ANN_BATCH)]
         counted = reset_launches()
         t = time.perf_counter()
         written = annotate_batch(fns, sources, batches[0])
         s_entry = time.perf_counter() - t
         launches = read_launches(counted)
-        check(len(written) == 3 * MIDAS_BATCH and all(os.path.isfile(p) for p in written),
-              f"[annotate] {len(written)} files written, expected {3 * MIDAS_BATCH}")
+        check(len(written) == len(tasks) * ANN_BATCH and all(os.path.isfile(p) for p in written),
+              f"[annotate] {len(written)} files written, expected {len(tasks) * ANN_BATCH}")
         for name in PATH_KERNELS["annotate"]:
             check(launches[name] > 0, f"kernel {name} was not launched on the annotate path")
-        log(f"[annotate] canny + depth + normal of {MIDAS_BATCH} images at {MIDAS_SIZE}²: "
+        log(f"[annotate] {' + '.join(tasks)} of {ANN_BATCH} images at {ANN_SIZE}²: "
             f"{len(written)} files in {s_entry:.3f}s (jpg encoding included)")
         shutil.rmtree(out_dir)
-        paths["annotate"] = (launches, {"seconds": s_entry})
-    del model
+        paths["annotate"] = (launches, {"seconds": s_entry, "pass_s": pass_s,
+                                        "pass_images_s": 1.0 / pass_s, "per_image_s": per_img})
+    del hed, seg
     torch.cuda.empty_cache()
     return paths
+
+
+def phase_notebook(ckpt_path, card, seed=0):
+    """`run_prompt_diffusion.main` once per NOTEBOOK_TASKS at NOTEBOOK_SIZE² and
+    NOTEBOOK_STEPS DDIM steps, on the SD1.5 checkpoint `ckpt_path` and on a
+    network-bsds500 `.pth` (HED, N(0, 1 / fan_in)) and an mmseg `.pth`
+    (UniFormer-S, N(0, 0.02)) written from random modules; each PNG exists
+    and is not constant. Returns (launches, timing)."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from prompt_diffusion_tpu_torch import run_prompt_diffusion
+    from prompt_diffusion_tpu_torch.annotators.hed import HEDNetwork, export_hed_checkpoint
+    from prompt_diffusion_tpu_torch.annotators.uniformer import (
+        UniFormerSeg,
+        export_uniformer_checkpoint,
+    )
+    from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
+
+    shutil.rmtree(NOTEBOOK_DIR, ignore_errors=True)
+    os.makedirs(NOTEBOOK_DIR)
+    try:
+        with torch.device("cuda"):
+            hed, seg = HEDNetwork(), UniFormerSeg()
+        fan_in_init_(hed, torch.Generator(device="cuda").manual_seed(seed + 1), gain=1.0)
+        random_init_(seg, torch.Generator(device="cuda").manual_seed(seed + 2))
+        files = {"hed": os.path.join(NOTEBOOK_DIR, "network-bsds500.pth"),
+                 "seg": os.path.join(NOTEBOOK_DIR, "upernet_global_small.pth")}
+        torch.save({k.replace("net", "module", 1): v
+                    for k, v in export_hed_checkpoint(hed).items()}, files["hed"])
+        torch.save(export_uniformer_checkpoint(seg), files["seg"])
+        del hed, seg
+        # 640² sources: resize_image takes them to NOTEBOOK_SIZE² (the short
+        # side to --resolution, each side rounded to a multiple of 64)
+        rng = np.random.default_rng(seed)
+        n = NOTEBOOK_SIZE * 5 // 4
+        yy, xx = np.mgrid[:n, :n]
+        scene = 255.0 * ((np.hypot(yy - n / 2, xx - n / 2.2) < n / 4) ^ (xx > n * 3 // 4))
+        images = {}
+        for name, shift in (("example", 0), ("query", n // 16)):
+            img = np.clip(np.roll(scene, shift, axis=1)[..., None] + rng.normal(0, 20, (n, n, 3)),
+                          0, 255).astype(np.uint8)
+            images[name] = os.path.join(NOTEBOOK_DIR, f"{name}.png")
+            Image.fromarray(img).save(images[name])
+        counted = reset_launches()
+        timing = {}
+        for task in NOTEBOOK_TASKS:
+            out = os.path.join(NOTEBOOK_DIR, f"out_{task}.png")
+            t = time.perf_counter()
+            run_prompt_diffusion.main([
+                "--ckpt", ckpt_path, "--example-image", images["example"],
+                "--query-image", images["query"], "--task", task, f"--{task}-ckpt", files[task],
+                "--prompt", PROMPTS[0], "--resolution", str(NOTEBOOK_SIZE),
+                "--steps", str(NOTEBOOK_STEPS),
+                "--seed", str(seed), "--out", out])
+            torch.cuda.synchronize()
+            timing[task] = time.perf_counter() - t
+            png = np.asarray(Image.open(out))
+            check(png.shape == (NOTEBOOK_SIZE, NOTEBOOK_SIZE, 3) and png.std() > 0,
+                  f"[notebook] {task}: the PNG is {png.shape} with std {png.std()}")
+            log(f"[notebook] {card}: run_prompt_diffusion.main --task {task} at {NOTEBOOK_SIZE}², "
+                f"{NOTEBOOK_STEPS} DDIM steps: {timing[task]:.2f} s (checkpoint load, annotator "
+                f"build and pass, generate, PNG); PNG {png.shape}, std {png.std():.2f}")
+        launches = read_launches(counted)
+    finally:
+        shutil.rmtree(NOTEBOOK_DIR, ignore_errors=True)
+    for name in PATH_KERNELS["notebook"]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the notebook path")
+    return launches, timing
 
 
 def write_edit_root(root, n=TRAIN_IMAGES, size=TRAIN_SIZE, seed=0):
@@ -2570,13 +3004,17 @@ def main():
     paths["serve"] = phase_serve(int8_pipe, card)
     del int8_pipe
     torch.cuda.empty_cache()
-    paths["ckpt"] = phase_ckpt(slice_pipe, slice_img1, card)
+    paths.update(phase_ckpt(slice_pipe, slice_img1, card))
     del slice_pipe
     torch.cuda.empty_cache()
     paths["sd3"] = phase_sd3()
     paths["adaln"] = phase_adaln()
     paths["labs"] = phase_labs()
-    paths.update(phase_midas(card))
+    midas_paths, dpt, batches = phase_midas(card)
+    paths.update(midas_paths)
+    paths.update(phase_annotators(card, dpt, batches, paths["midas"][1]))
+    del dpt, batches
+    torch.cuda.empty_cache()
     paths.update(phase_train(card))
     for tag in ("slice", "int8", "sd3"):
         timing = paths[tag][1]

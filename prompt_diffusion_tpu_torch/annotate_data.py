@@ -4,12 +4,12 @@ Counterpart of the repository's `annotate_data.py` (the JAX entry), with
 its flags and output files: images of a data set are resized, batched and
 annotated on the card, and each annotation is written beside its image as
 `<name>_<task>.jpg`. The depth and normal tasks share one MiDaS forward and
-write both files, as the JAX entry does.
+write both files, as the JAX entry does; the HED map is clipped to [0, 255]
+and truncated to uint8, the segmentation rendered with the ADE palette.
 
   python -m prompt_diffusion_tpu_torch.annotate_data --path DIR \\
-      [--tasks canny depth normal] [--midas-ckpt dpt_hybrid.pt] [--device cuda]
-
-`hed` and `seg` are not ported yet (ROADMAP.md, queue 1, item 4).
+      [--tasks canny hed depth normal seg] [--hed-ckpt network-bsds500.pth] \\
+      [--midas-ckpt dpt_hybrid.pt] [--seg-ckpt upernet_global_small.pth] [--device cuda]
 """
 
 from __future__ import annotations
@@ -24,10 +24,11 @@ import numpy as np
 import torch
 
 from prompt_diffusion_tpu_torch.annotators.canny import canny
+from prompt_diffusion_tpu_torch.annotators.hed import create_hed
 from prompt_diffusion_tpu_torch.annotators.midas import create_dpt, depth_to_normals
+from prompt_diffusion_tpu_torch.annotators.uniformer import colorize_segmentation, create_uniformer
 
-TASKS = ("canny", "depth", "normal")
-NOT_PORTED = ("hed", "seg")
+TASKS = ("canny", "hed", "depth", "normal", "seg")
 
 
 def parse_args(argv: Optional[Sequence[str]] = None):
@@ -37,16 +38,18 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--i-end", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--resolution", type=int, default=512)
-    p.add_argument("--tasks", nargs="+", default=["canny"], choices=TASKS + NOT_PORTED)
+    p.add_argument("--tasks", nargs="+", default=["canny"], choices=TASKS)
+    p.add_argument("--hed-ckpt", default=None)
     p.add_argument("--midas-ckpt", default=None)
+    p.add_argument("--seg-ckpt", default=None)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    refused = [t for t in args.tasks if t in NOT_PORTED]
-    if refused:
-        p.error(f"tasks {refused} are not ported to PyTorch yet (ROADMAP.md, queue 1, item 4: "
-                "HED and UniFormer); run the JAX entry, annotate_data.py, for them")
+    if "hed" in args.tasks and not args.hed_ckpt:
+        p.error("--tasks hed needs --hed-ckpt (network-bsds500.pth)")
     if ("depth" in args.tasks or "normal" in args.tasks) and not args.midas_ckpt:
         p.error("--tasks depth/normal need --midas-ckpt (dpt_hybrid or dpt_large)")
+    if "seg" in args.tasks and not args.seg_ckpt:
+        p.error("--tasks seg needs --seg-ckpt (upernet_global_small.pth)")
     return args
 
 
@@ -65,24 +68,34 @@ def list_images(path: str, i_start: int = 0, i_end: Optional[int] = None) -> Lis
 
 
 def build_annotators(tasks: Sequence[str], midas_ckpt: Optional[str] = None,
-                     device="cuda", dpt: Optional[torch.nn.Module] = None
+                     device="cuda", dpt: Optional[torch.nn.Module] = None,
+                     hed_ckpt: Optional[str] = None, hed: Optional[torch.nn.Module] = None,
+                     seg_ckpt: Optional[str] = None, seg: Optional[torch.nn.Module] = None
                      ) -> Dict[str, Callable]:
-    """{name: fn} of the annotators `tasks` need: "canny" maps (B, H, W, 3)
-    images in [0, 255] to edges, "midas" to (depth, normals) scaled to
-    [0, 255]. The MiDaS model is `dpt` when given, else `create_dpt`'s of
-    `midas_ckpt` on `device`."""
+    """{name: fn} of the annotators `tasks` need, each mapping (B, H, W, 3)
+    images in [0, 255]: "canny" to edges, "hed" to the edge probability
+    scaled to [0, 255], "midas" to (depth, normals) scaled to [0, 255],
+    "seg" to (B, H, W) ADE class ids. A model is the one given (`hed`,
+    `dpt`, `seg`), else the one its checkpoint builds on `device`."""
     fns: Dict[str, Callable] = {}
+    nchw = lambda x: x.permute(0, 3, 1, 2)
     if "canny" in tasks:
         fns["canny"] = canny
+    if "hed" in tasks:
+        hed_model = hed if hed is not None else create_hed(hed_ckpt, device=device)
+        fns["hed"] = lambda x: hed_model(nchw(x)) * 255.0
     if "depth" in tasks or "normal" in tasks:
         model = dpt if dpt is not None else create_dpt(midas_ckpt, device=device)
 
         def midas(x):
-            depth = model(x.permute(0, 3, 1, 2) / 127.5 - 1.0)
+            depth = model(nchw(x) / 127.5 - 1.0)
             d01, normals = depth_to_normals(depth)
             return d01 * 255.0, normals * 255.0
 
         fns["midas"] = midas
+    if "seg" in tasks:
+        seg_model = seg if seg is not None else create_uniformer(seg_ckpt, device=device)
+        fns["seg"] = lambda x: seg_model(nchw(x)).argmax(dim=1)
     return fns
 
 
@@ -105,11 +118,18 @@ def annotate_batch(fns: Dict[str, Callable], paths: Sequence[str],
     if "canny" in fns:
         for p, e in zip(paths, as_u8(fns["canny"](images))):
             written.append(_save(p, "canny", np.repeat(e[..., None], 3, -1)))
+    if "hed" in fns:
+        edges = np.clip(fns["hed"](images).float().cpu().numpy(), 0, 255).astype(np.uint8)
+        for p, e in zip(paths, edges):
+            written.append(_save(p, "hed", np.repeat(e[..., None], 3, -1)))
     if "midas" in fns:
         d, n = fns["midas"](images)
         for p, di, ni in zip(paths, as_u8(d), as_u8(n)):
             written.append(_save(p, "depth", np.repeat(di[..., None], 3, -1)))
             written.append(_save(p, "normal", ni))
+    if "seg" in fns:
+        for p, ci in zip(paths, fns["seg"](images).cpu().numpy()):
+            written.append(_save(p, "seg", colorize_segmentation(ci)))
     return written
 
 
@@ -126,7 +146,8 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parse_args(argv)
     entries = list_images(args.path, args.i_start, args.i_end)
     print(f"{len(entries)} images, tasks={args.tasks}")
-    fns = build_annotators(args.tasks, args.midas_ckpt, args.device)
+    fns = build_annotators(args.tasks, args.midas_ckpt, args.device, hed_ckpt=args.hed_ckpt,
+                           seg_ckpt=args.seg_ckpt)
     for s in range(0, len(entries), args.batch_size):
         paths = [p for p in entries[s: s + args.batch_size] if os.path.exists(p)]
         if not paths:

@@ -104,6 +104,16 @@ def _vit_attention(qkv: torch.Tensor, num_heads: int, quant: bool) -> torch.Tens
     return _torch_attention(split(q), split(k), split(v), d ** -0.5).reshape(b, n, -1)
 
 
+def vit_norm(norm: FusedLayerNorm, x: torch.Tensor, quant: bool):
+    """A pre-LN of a transformer block: int8 on the card, K6 hands the
+    QuantDense after it (int8, row scale); elsewhere the LN's float output
+    (K4 at `layer_norm_auto`'s sizes), which an int8 QuantDense quantizes
+    per tensor."""
+    if quant and x.is_cuda:
+        return fused_layer_norm_quant(x, norm.weight, norm.bias, eps=norm.eps)
+    return norm(x)
+
+
 class ViTBlock(nn.Module):
     """Pre-LN transformer block: LN -> qkv -> attention -> proj, LN -> fc1
     -> exact GELU -> fc2, each with a residual."""
@@ -119,17 +129,11 @@ class ViTBlock(nn.Module):
         self.fc1 = dense(dim, cfg.mlp_ratio * dim)
         self.fc2 = dense(cfg.mlp_ratio * dim, dim)
 
-    def _norm(self, norm: FusedLayerNorm, x):
-        # int8 on the card: K6 hands QuantDense (int8, row scale); elsewhere
-        # the LN's float output, quantized per tensor by QuantDense
-        if self.quant and x.is_cuda:
-            return fused_layer_norm_quant(x, norm.weight, norm.bias, eps=norm.eps)
-        return norm(x)
-
     def forward(self, x):
-        attn = _vit_attention(self.qkv(self._norm(self.norm1, x)), self.num_heads, self.quant)
+        attn = _vit_attention(self.qkv(vit_norm(self.norm1, x, self.quant)), self.num_heads,
+                              self.quant)
         x = x + self.proj(attn)
-        h = F.gelu(self.fc1(self._norm(self.norm2, x)), approximate="none")
+        h = F.gelu(self.fc1(vit_norm(self.norm2, x, self.quant)), approximate="none")
         return x + self.fc2(h)
 
 

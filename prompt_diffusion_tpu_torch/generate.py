@@ -15,7 +15,7 @@ and a file an ldm `.ckpt`/`.safetensors`; for sd3 a diffusers folder.
 `--random-init` uses random weights (seed `--seed`) instead. The
 pipelines run exact bf16, as the root generate.py's do. Decoding the data root
 needs PIL, as the root generate.py does. `--compute-fid` is refused: the
-evaluation is not ported yet (ROADMAP queue 1, item 5).
+evaluation is not ported yet (ROADMAP queue 1, item 3).
 
 Ranks: with `torch.distributed` initialized, rank r of w takes batches
 r, r + w, ...; otherwise one process takes all.
@@ -55,7 +55,7 @@ def parse_args(argv=None):
     p.add_argument("--black-support", action="store_true",
                    help="zero the support pair (generate_train.py ablation)")
     p.add_argument("--compute-fid", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 5)")
+                   help="not ported yet (ROADMAP queue 1, item 3)")
     p.add_argument("--max-batches", type=int, default=None)
     p.add_argument("--tokenizer-assets", default=None)
     p.add_argument("--t5-assets", default=None,
@@ -219,7 +219,7 @@ def generate_batches(gen: Callable, tok: Callable, iters: Iterable, dataset: str
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     if args.compute_fid:
-        print("--compute-fid: FID evaluation is not ported yet (ROADMAP queue 1, item 5)",
+        print("--compute-fid: FID evaluation is not ported yet (ROADMAP queue 1, item 3)",
               file=sys.stderr)
         return 2
     if args.stack == "sd3" and args.sampler != "ddim":

@@ -1,12 +1,15 @@
-"""Where the time of one MiDaS DPT-Hybrid annotation batch goes on the card.
+"""Where the time of one annotation batch goes on the card: MiDaS
+DPT-Hybrid or UniFormer-S/UperNet segmentation.
 
     python3 -m prompt_diffusion_tpu_torch.tools.profile_midas [--policy bf16|int8|both]
+        [--model midas|seg]
 
-Builds DPT-Hybrid at full width (ViT-B 768 x 12, ResNetV2 (3, 4, 9),
-features 256; random weights from a seed), the configuration of
-`chip_smoke.py`'s `[midas]` phase and of `bench.py --config annotate
---annotator midas`, and runs batches of 16 uniform [0, 255] images at 512²
-through x / 127.5 - 1 -> depth -> normals, under each policy asked for.
+Builds the model at full width with random weights from a seed: DPT-Hybrid
+(ViT-B 768 x 12, ResNetV2 (3, 4, 9), features 256; `chip_smoke.py`'s
+`[midas]`, `bench.py --config annotate --annotator midas`), run as x /
+127.5 - 1 -> depth -> normals; or UniFormer-S with the UperNet head
+(`[seg]`, `--annotator uniformer`), run as logits -> argmax. Batches of 16
+uniform [0, 255] images at 512², under each policy asked for.
 After a warm-up batch (Triton compiles, cuDNN heuristics):
   * the wall time of one batch, synchronised, median of 3;
   * a torch.profiler trace of two batches: device time by kernel name,
@@ -31,21 +34,27 @@ BATCH, SIZE = 16, 512
 BATCHES, TOP = 2, 25  # batches traced, kernel names printed
 
 
-def profile_policy(name: str, policy, state=None, seed=0):
+def profile_policy(name: str, policy, state=None, seed=0, model_name="midas"):
     """Prints the wall time and the device breakdown of one batch under
     `policy`; returns the model's state dict (the weights of every run)."""
     from prompt_diffusion_tpu_torch.annotators.midas import DPTHybridDepth, depth_to_normals
+    from prompt_diffusion_tpu_torch.annotators.uniformer import UniFormerSeg
     from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     with torch.device("cuda"):
-        model = DPTHybridDepth(policy=policy).eval().requires_grad_(False)
+        cls = DPTHybridDepth if model_name == "midas" else UniFormerSeg
+        model = cls(policy=policy).eval().requires_grad_(False)
     if state is None:
         random_init_(model, gen)
     else:
         model.load_state_dict(state)
     imgs = torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device="cuda") * 255
-    batch = lambda: depth_to_normals(model(imgs.permute(0, 3, 1, 2) / 127.5 - 1.0))
+    x = imgs.permute(0, 3, 1, 2)
+    if model_name == "midas":
+        batch = lambda: depth_to_normals(model(x / 127.5 - 1.0))
+    else:
+        batch = lambda: model(x).argmax(dim=1)
     batch()
     wall = _wall_ms(batch)
     print(f"[profile] {name}: {wall:.3f} ms wall per batch of {BATCH} at {SIZE}² "
@@ -86,18 +95,20 @@ def profile_policy(name: str, policy, state=None, seed=0):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--policy", choices=("bf16", "int8", "both"), default="both")
+    p.add_argument("--model", choices=("midas", "seg"), default="midas")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_midas: no CUDA device", file=sys.stderr)
         return 2
     from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, int8_policy
 
-    print(f"[profile] {card()}; MiDaS DPT-Hybrid, policy {args.policy}")
+    title = "MiDaS DPT-Hybrid" if args.model == "midas" else "UniFormer-S/UperNet seg"
+    print(f"[profile] {card()}; {title}, policy {args.policy}")
     state = None
     if args.policy in ("bf16", "both"):
-        state = profile_policy("bf16", default_policy())
+        state = profile_policy("bf16", default_policy(), model_name=args.model)
     if args.policy in ("int8", "both"):
-        profile_policy("int8", int8_policy(), state)
+        profile_policy("int8", int8_policy(), state, model_name=args.model)
     return 0
 
 

@@ -18,7 +18,7 @@ ControlNet weights gets the UNet encoder's (`tool_add_control.py`).
 Without it the weights are random (`random_init_`, from `--seed`).
 `--tiny` builds the root driver's tiny widths (a CPU-sized run);
 `--num-fsdp` above 1 is refused (the port's sharded trainer is ROADMAP
-queue 1, item 3).
+queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -60,7 +60,7 @@ def parse_args(argv=None):
 def refuse_fsdp(num_fsdp: int) -> None:
     if num_fsdp > 1:
         raise SystemExit(f"--num-fsdp {num_fsdp}: the port trains on one device; sharded "
-                         "training (DDP/FSDP/TP) is ROADMAP queue 1, item 3")
+                         "training (DDP/FSDP/TP) is ROADMAP queue 1, item 4")
 
 
 def build_pipe(tiny: bool, device: str, use_checkpoint: bool = False):

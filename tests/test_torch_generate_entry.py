@@ -3,7 +3,7 @@
 data roots written here (ids and batches equal), the entry's batch loop on
 a tiny SD1.5 pipeline (the root generate.py's file layout, PNGs that decode to
 the images `generate` gives, the support choice, rank sharding), and its
-refusals (`--compute-fid` names ROADMAP queue 1, item 5)."""
+refusals (`--compute-fid` names ROADMAP queue 1, item 3)."""
 
 import json
 import os
@@ -272,7 +272,7 @@ def test_batch_loop_shards_by_rank(coco_root, tiny_gen, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--compute-fid", "--random-init"], "ROADMAP queue 1, item 5"),
+    (["--compute-fid", "--random-init"], "ROADMAP queue 1, item 3"),
     (["--stack", "sd3", "--sampler", "unipc", "--random-init"], "sd15 only"),
     ([], "--ckpt is required")])
 def test_entry_refusals(tmp_path, capsys, argv, match):

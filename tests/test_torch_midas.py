@@ -142,12 +142,23 @@ def test_feature_fusion_matches_flax(skip):
 
 
 def test_resize_is_upsample_only():
+    """The port's resize no longer refuses to downsample (UperNet's pyramid
+    pools downsample below 192² inputs): it equals the JAX package's
+    two-tap `resize_bilinear` downsampling too, on both grids, and returns
+    its input when the size does not change."""
+    from prompt_diffusion_tpu.ops.resize import resize_bilinear as j_resize
     from prompt_diffusion_tpu_torch.ops.resize import resize_bilinear
 
     x = torch.zeros(1, 2, 6, 6)
     assert resize_bilinear(x, 6, 6) is x
-    with pytest.raises(ValueError, match="upsamples only"):
-        resize_bilinear(x, 3, 12)
+    rng = np.random.default_rng(9)
+    for (h, w), (nh, nw) in (((6, 6), (2, 2)), ((6, 6), (3, 3)), ((3, 3), (2, 2)),
+                             ((6, 9), (3, 12)), ((7, 5), (2, 4))):
+        a = _normal(rng, (2, h, w, 5))
+        for corners in (False, True):
+            got = nhwc(resize_bilinear(nchw(a), nh, nw, align_corners=corners))
+            _assert_close(got, j_resize(jnp.asarray(a), nh, nw, align_corners=corners),
+                          MODULE_RTOL)
 
 
 # ---- whole models ----------------------------------------------------------

@@ -173,6 +173,13 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.tools.jax_bridge, "
             "prompt_diffusion_tpu_torch.annotators.midas, "
             "prompt_diffusion_tpu_torch.annotators.canny, "
+            "prompt_diffusion_tpu_torch.annotators.hed, "
+            "prompt_diffusion_tpu_torch.annotators.uniformer, "
+            "prompt_diffusion_tpu_torch.annotators.mlsd, "
+            "prompt_diffusion_tpu_torch.annotators.openpose, "
+            "prompt_diffusion_tpu_torch.annotators.util, "
+            "prompt_diffusion_tpu_torch.run_prompt_diffusion, "
+            "prompt_diffusion_tpu_torch.tools.profile_midas, "
             "prompt_diffusion_tpu_torch.ops.resize, "
             "prompt_diffusion_tpu_torch.annotate_data, "
             "prompt_diffusion_tpu_torch.serving.server, prompt_diffusion_tpu_torch.serve, "

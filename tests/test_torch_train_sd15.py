@@ -380,7 +380,7 @@ def test_entries_refuse_fsdp_and_default_to_the_card(data_root):
     for mod in (train_sd15, finetune_sd15):
         assert mod.parse_args(["--data-root", "x", "--task", "t"] if mod is finetune_sd15
                               else ["--data-root", "x"]).device == "cuda"
-    with pytest.raises(SystemExit, match="queue 1, item 3"):
+    with pytest.raises(SystemExit, match="queue 1, item 4"):
         train_sd15.main(["--data-root", data_root, "--num-fsdp", "2", "--device", "cpu"])
 
 

@@ -197,5 +197,5 @@ def test_train_sd3_entry_staged_t5_and_resume(tmp_path_factory):
                    for k, v in getattr(fresh, name).state_dict().items())
         assert same == (name not in ("controlnet", "down_proj")), name
     assert train_sd3.parse_args(["--data-root", "x"]).device == "cuda"
-    with pytest.raises(SystemExit, match="queue 1, item 3"):
+    with pytest.raises(SystemExit, match="queue 1, item 4"):
         train_sd3.main(["--data-root", root, "--num-fsdp", "2", "--device", "cpu"])
