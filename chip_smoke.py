@@ -121,6 +121,29 @@ without the final `"ok": true` line:
                steps, with --task hed and --task seg on `.pth` files
                written from random HED and UniFormer modules (the PNG
                exists and is not constant);
+     eval    - evaluation at full width, on files under build/eval_smoke/
+               (git-ignored, deleted at the phase's end), with phase 4's
+               pipeline: `utils.config.create_model` on a cldm_v15-format
+               YAML written here (every state-dict name, shape and dtype
+               equal to `create()`'s; with phase 4's weights request 1
+               bit-equal to phase 4's); the FID InceptionV3 (random
+               He-normal weights from a seed) on a batch of 64 at 512²:
+               device ms and images/s, features finite and within 1e-4
+               (relative L2) of the CPU's fp32 features of 4 of the images,
+               the distance TF32 convolutions would give printed, one
+               `utils.profiling.trace` naming convolution kernels; the int8
+               quality protocol (`tools.int8_quality`) shortened: SD1.5
+               at 512² (8 images in batches of 4, 8 DDIM steps, phase 4's
+               weights; the int8 pipeline with the bf16 VAE, as bench.py
+               runs it: one of its decodes launches K3 30 times, K2 once
+               and no K5) and SD3 at 1024² under bf16 and int8 (2 images,
+               4 steps, no T5): the eps errors, SSIM, FID floor and cross
+               and the verdict printed (a record at these sizes, not a
+               check), images finite in [0, 1], int8 unlike bf16, a bf16
+               batch repeated bit for bit, the launches of each part; the
+               `evaluation.fid` ref and calc entries on those images as
+               PNGs (the set against itself within the eigh form's rounding
+               floor) and `evaluation.mse` (0 against itself);
   8. sd3     - SD3 Prompt-Diffusion at full width (MMDiT 24 x 1536, the
                12-block ControlNet, CLIP-L, CLIP-bigG, T5-XXL, the z=16
                VAE; random weights from a seed) in the int8 serving mode of
@@ -314,6 +337,25 @@ SEG_FLIP_SLACK = 1e-4
 # `[notebook]`: run_prompt_diffusion.main at 512², 8 DDIM steps, per task
 NOTEBOOK_TASKS, NOTEBOOK_SIZE, NOTEBOOK_STEPS = ("hed", "seg"), 512, 8
 NOTEBOOK_DIR = os.path.join(REPO, "build", "notebook_smoke")
+# `[eval]`: files under a git-ignored directory, removed at the phase's end;
+# the int8 quality protocol shortened (SD1.5 at 512², 8 images in batches of
+# 4, 8 DDIM steps, the int8 pipeline with the bf16 VAE as bench.py runs it;
+# SD3 at 1024², 2 images of batch 1, 4 flow-match steps, bf16 and int8);
+# the Inception extractor on a batch of 64 at 512² against the CPU's fp32
+# features of 4 of the images, relative L2
+EVAL_DIR = os.path.join(REPO, "build", "eval_smoke")
+EVAL_N, EVAL_BATCH, EVAL_STEPS, EVAL_SD3_N, EVAL_SD3_STEPS = 8, 4, 8, 2, 4
+EVAL_SD15 = ["--stack", "sd15", "--n", str(EVAL_N), "--batch", str(EVAL_BATCH), "--steps",
+             str(EVAL_STEPS)]
+EVAL_SD3 = ["--stack", "sd3", "--n", str(EVAL_SD3_N), "--batch", "1", "--steps",
+            str(EVAL_SD3_STEPS)]
+INCEPTION_BATCH, INCEPTION_SIZE, INCEPTION_CPU_IMAGES = 64, 512, 4
+INCEPTION_CPU_REL_BOUND = 1e-4
+# the `utils.profiling.annotate` span around the traced Inception batch
+INCEPTION_SPAN = "inception batch"
+# K3's launches per SD1.5 VAE decode: 2 GroupNorms in each of the 2 mid
+# ResnetBlocks and the 12 up ResnetBlocks, the mid attention's, norm_out
+SD15_K3_PER_DECODE = 30
 
 
 def check(cond, msg):
@@ -323,6 +365,85 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def cldm_v15_yaml(model_channels=320, channel_mult=(1, 2, 4, 4), num_res_blocks=2,
+                  attention_resolutions=(4, 2, 1), num_heads=8, context_dim=768, vae_ch=128,
+                  vae_ch_mult=(1, 2, 4, 4), vae_res_blocks=2, hint_channels=6):
+    """A model YAML in the layout of the reference's models/cldm_v15.yaml
+    (`ControlLDM` with its control stage, UNet and first stage; the
+    Prompt-Diffusion ControlNet takes a 6-channel hint), at the given
+    widths: the defaults are the full SD1.5 widths. Written out here so
+    that this script needs no file of the reference."""
+    flow = lambda t: "[ " + ", ".join(str(v) for v in t) + " ]"
+    block = lambda v: "".join(f"\n          - {x}" for x in v)
+    unet = (f"""        image_size: 32 # unused
+        in_channels: 4
+        model_channels: {model_channels}
+        attention_resolutions: {flow(attention_resolutions)}
+        num_res_blocks: {num_res_blocks}
+        channel_mult: {flow(channel_mult)}
+        num_heads: {num_heads}
+        use_spatial_transformer: True
+        transformer_depth: 1
+        context_dim: {context_dim}
+        use_checkpoint: True
+        legacy: False""")
+    return f"""model:
+  target: cldm.cldm.ControlLDM
+  params:
+    linear_start: 0.00085
+    linear_end: 0.0120
+    num_timesteps_cond: 1
+    log_every_t: 200
+    timesteps: 1000
+    first_stage_key: "jpg"
+    cond_stage_key: "txt"
+    control_key: "hint"
+    image_size: 64
+    channels: 4
+    cond_stage_trainable: false
+    conditioning_key: crossattn
+    monitor: val/loss_simple_ema
+    scale_factor: 0.18215
+    use_ema: False
+    only_mid_control: False
+
+    control_stage_config:
+      target: cldm.cldm.ControlNet
+      params:
+        hint_channels: {hint_channels}
+{unet}
+
+    unet_config:
+      target: cldm.cldm.ControlledUnetModel
+      params:
+        out_channels: 4
+{unet}
+
+    first_stage_config:
+      target: ldm.models.autoencoder.AutoencoderKL
+      params:
+        embed_dim: 4
+        monitor: val/rec_loss
+        ddconfig:
+          double_z: true
+          z_channels: 4
+          resolution: 256
+          in_channels: 3
+          out_ch: 3
+          ch: {vae_ch}
+          ch_mult:{block(vae_ch_mult)}
+          num_res_blocks: {vae_res_blocks}
+          attn_resolutions: []
+          dropout: 0.0
+        lossconfig:
+          target: torch.nn.Identity
+
+    cond_stage_config:
+      # the CLIP ViT-L/14 text tower
+      target: ldm.modules.encoders.modules.FrozenCLIPEmbedder
+"""
 
 
 def hash_token_ids(texts, max_length=77):
@@ -449,6 +570,15 @@ def kernel_cases(gen):
                       ATTN_BOUND, (8 * b * n * 512, 0, 4 * b * n * n * 512, b * n * n),
                       lambda qkv=qkv: F.scaled_dot_product_attention(*(t.transpose(1, 2)
                                                                        for t in qkv))))
+    # K2 at the MMDiT's joint attention under the bf16 policy (CFG batch 2,
+    # 4096 + 333 tokens, 24 heads of 64), on `JointBlock.attention`'s
+    # layout: (B, N, H*D) projections viewed as (B, N, H, D), default scale
+    b, n, h, d = 2, 4429, 24, 64
+    qkv = tuple(bf16(randn(b, n, h * d)).unflatten(-1, (h, d)) for _ in range(3))
+    cases.append(("flash_attention", f"({b},{n},{h},{d}) MMDiT joint", flash_attention, qkv,
+                  "float", ATTN_BOUND, (8 * b * n * h * d, 0, 4 * b * n * n * h * d, b * h * n * n),
+                  lambda qkv=qkv: F.scaled_dot_product_attention(*(t.transpose(1, 2)
+                                                                   for t in qkv))))
     # K9 at the SD3 joint shape (CFG batch 2, 4096 + 333 tokens, 24 heads
     # of 64), then ragged query and key tails
     for b, n, hd, h in ((2, 4429, 1536, 24), (2, 1100, 256, 4)):
@@ -967,6 +1097,25 @@ PATH_KERNELS = {
     # bf16 from a checkpoint
     "notebook": ("flash_attention_packed", "flash_attention", "fused_group_norm",
                  "fused_layer_norm"),
+    # [eval]: create_model's request 1 (SD1.5 bf16)
+    "eval_config": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+                    "fused_layer_norm"),
+    # the quality protocol's SD1.5 run: the eps checks and the generation
+    # under bf16 and under int8 with the bf16 VAE
+    "eval_sd15": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+                  "fused_layer_norm", "fused_group_norm_quant", "fused_layer_norm_quant",
+                  "fused_geglu_quant", "conv3x3_int8"),
+    # one bf16 batch again (the repeat check)
+    "eval_sd15_bf16": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+                       "fused_layer_norm"),
+    # one decode of the int8 pipeline's bf16 VAE: K3 and the mid attention
+    "eval_decode": ("flash_attention", "fused_group_norm"),
+    # the protocol's SD3 run under bf16 (joint attention as K2) and int8
+    "eval_sd3": ("flash_attention", "fused_group_norm", "flash_attention_packed_int8",
+                 "quant_k_int8", "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
+    "eval_sd3_bf16": ("flash_attention", "fused_group_norm"),
+    # the Inception extractor and the FID entries: cuDNN convolutions only
+    "eval_fid": (),
 }
 
 
@@ -2523,6 +2672,269 @@ def phase_annotators(card, dpt, batches, midas_timing, seed=0):
     return paths
 
 
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _expect(tag, launches, zero=()):
+    """The path's kernels launched, and those of `zero` not."""
+    for name in PATH_KERNELS[tag]:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {tag} path")
+    for name in zero:
+        check(launches[name] == 0, f"[{tag}] {name} launched {launches[name]} times")
+
+
+def _quality(argv, tag, **pipes):
+    """`tools.int8_quality.main` on the card, its JSON lines printed under
+    the phase's tag; (its result, the launches of the run)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from prompt_diffusion_tpu_torch.tools import int8_quality
+
+    counted = reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = int8_quality.main(argv + ["--device", "cuda"], **pipes)
+    launches = read_launches(counted)
+    for line in buf.getvalue().splitlines():
+        log(f"[eval] {tag} quality: {line}")
+    for mode, stats in out["timing"].items():
+        log(f"[eval] {tag} {mode}: per batch (StepTimer, first batch left out) {stats}")
+    imgs = out["images"]
+    for mode, im in imgs.items():
+        check(np.isfinite(im).all() and im.min() >= 0.0 and im.max() <= 1.0,
+              f"[eval] {tag} {mode} images not finite in [0, 1]")
+    check(not np.array_equal(imgs["bf16"], imgs["int8"]), f"[eval] {tag}: int8 equals bf16")
+    return out, launches
+
+
+def phase_eval(slice_pipe, slice_img1, card):
+    """Evaluation on the card: `utils.config.create_model` on a full-width
+    cldm_v15-format YAML (the names, shapes and dtypes of [slice]'s
+    pipeline, whose weights it loads; request 1 bit-equal to [slice]'s);
+    the Inception extractor at batch 64 (device ms, images/s, its features
+    against the CPU's fp32 ones, a `utils.profiling.trace`); the int8
+    quality protocol shortened for SD1.5 (the bench's int8 pipeline with
+    the bf16 VAE) and SD3 (both policies), with a bf16 batch repeated bit
+    for bit and the launches of each part; the FID and RMSE entries on the
+    quality images written as PNGs. Returns {path tag: (launches, timing)}."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.evaluation import fid, mse
+    from prompt_diffusion_tpu_torch.evaluation.inception import (
+        InceptionV3,
+        create_inception,
+        tf32_convolutions,
+    )
+    from prompt_diffusion_tpu_torch.serve import write_png
+    from prompt_diffusion_tpu_torch.tools import int8_quality
+    from prompt_diffusion_tpu_torch.tools.timing import device_kernels, device_ms, time_ms
+    from prompt_diffusion_tpu_torch.utils import profiling
+    from prompt_diffusion_tpu_torch.utils.config import create_model
+
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    os.makedirs(EVAL_DIR)
+    t_phase = time.perf_counter()
+    paths = {}
+    try:
+        # ---- the config: a full-width YAML read by the port's own parser
+        path = os.path.join(EVAL_DIR, "cldm_v15.yaml")
+        with open(path, "w") as f:
+            f.write(cldm_v15_yaml())
+        t0 = time.perf_counter()
+        pipe = create_model(path, device="cuda")
+        build_s = time.perf_counter() - t0
+        for name, m in pipe.jax_modules().items():
+            want = slice_pipe.jax_modules()[name].state_dict()
+            got = m.state_dict()
+            check(list(got) == list(want), f"[eval] create_model's {name} names differ")
+            for k, v in want.items():
+                check(got[k].shape == v.shape and got[k].dtype == v.dtype,
+                      f"[eval] create_model's {name}.{k}: {tuple(got[k].shape)} "
+                      f"{got[k].dtype}, create()'s {tuple(v.shape)} {v.dtype}")
+            m.load_state_dict(want)
+        for k in ("betas", "alphas_cumprod"):
+            check(np.array_equal(getattr(pipe.schedule, k), getattr(slice_pipe.schedule, k)),
+                  f"[eval] create_model's schedule differs in {k}")
+        counted = reset_launches()
+        t0 = time.perf_counter()
+        img = pipe.generate(**sd15_request(0), num_steps=REQ_STEPS, guidance_scale=CFG)
+        torch.cuda.synchronize()
+        req_s = time.perf_counter() - t0
+        paths["eval_config"] = (read_launches(counted), {"build_s": build_s, "request_s": req_s})
+        _expect("eval_config", paths["eval_config"][0])
+        check(torch.equal(img, slice_img1), "[eval] create_model's request 1 differs from [slice]'s")
+        log(f"[eval] create_model({os.path.basename(path)}): built in {build_s:.1f}s, every "
+            f"state-dict name, shape and dtype equal to create()'s; with [slice]'s weights "
+            f"request 1 bit-equal to [slice]'s ({req_s:.3f}s)")
+        del pipe, img
+        torch.cuda.empty_cache()
+
+        # ---- the Inception extractor at batch 64, against fp32 on the CPU
+        counted = reset_launches()
+        model = create_inception(seed=0, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(7000)
+        x = torch.rand((INCEPTION_BATCH, INCEPTION_SIZE, INCEPTION_SIZE, 3), generator=g,
+                       device="cuda")
+        with torch.inference_mode():
+            feats = model(x)
+            check(tuple(feats.shape) == (INCEPTION_BATCH, 2048), f"features {tuple(feats.shape)}")
+            check(torch.isfinite(feats).all().item(), "[eval] non-finite Inception features")
+            inc_ms = device_ms(lambda: model(x), iters=10, warmup=2)
+            wall_ms = time_ms(lambda: model(x), iters=5, warmup=1)
+            cpu = InceptionV3()
+            cpu.load_state_dict(model.state_dict())
+            cpu = cpu.to(memory_format=torch.channels_last).eval()
+            sub = x[:INCEPTION_CPU_IMAGES]
+            ref = cpu(sub.cpu())
+            rel = lambda a: ((a.cpu() - ref).norm() / ref.norm()).item()
+            rel_cpu = rel(feats[:INCEPTION_CPU_IMAGES])
+            with tf32_convolutions():
+                rel_tf32 = rel(model(sub))
+            trace_dir = os.path.join(EVAL_DIR, "trace")
+            with profiling.trace(trace_dir) as prof, profiling.annotate(INCEPTION_SPAN):
+                model(x)
+        # the device activities but the span's own annotation
+        events = [e for e in device_kernels(prof) if e[0] != INCEPTION_SPAN]
+        busy = {}  # device us by kernel name
+        for name, start, end in events:
+            busy[name] = busy.get(name, 0.0) + (end - start)
+        kernels = set(busy)
+        is_conv = lambda n: any(w in n.lower() for w in (
+            "conv", "xmma", "implicit_gemm", "fprop", "winograd"))
+        conv = sorted(n for n in kernels if is_conv(n))
+        check(conv, f"[eval] the trace names no convolution kernel: {sorted(kernels)[:8]}")
+        trace_path = os.path.join(trace_dir, profiling.TRACE_FILE)
+        check(os.path.exists(trace_path), f"[eval] no trace at {trace_path}")
+        with open(trace_path) as f:
+            text = f.read()
+        check(any(json.dumps(n)[1:-1] in text for n in conv),
+              f"[eval] {trace_path} names no convolution kernel")
+        total_us = sum(busy.values())
+        top = sorted(busy.items(), key=lambda kv: -kv[1])[:5]
+        images_s = INCEPTION_BATCH / (wall_ms / 1e3)
+        log(f"[eval] Inception {card}: batch {INCEPTION_BATCH} at {INCEPTION_SIZE}² (resized "
+            f"inside to 299²), fp32, TF32 off: {inc_ms:.3f} device ms per batch, {wall_ms:.3f} "
+            f"ms per synchronised call, {images_s:.1f} images/s; features finite")
+        log(f"[eval] Inception features against the CPU's fp32 ones ({INCEPTION_CPU_IMAGES} "
+            f"images, same weights): rel L2 {rel_cpu} (bound {INCEPTION_CPU_REL_BOUND}); with "
+            f"TF32 convolutions, for information: {rel_tf32}")
+        log(f"[eval] trace {os.path.relpath(trace_path, REPO)}: {len(events)} kernel launches "
+            f"of {len(kernels)} names, {len(conv)} of them convolutions; kernel time "
+            f"{total_us / 1e3:.3f} ms, convolutions {sum(busy[n] for n in conv) / 1e3:.3f} ms; "
+            f"the largest: " + "; ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in top))
+        check(rel_cpu <= INCEPTION_CPU_REL_BOUND,
+              f"[eval] Inception vs CPU fp32: {rel_cpu} > {INCEPTION_CPU_REL_BOUND}")
+        fid_launches = read_launches(counted)
+        del model, cpu, x, feats
+        torch.cuda.empty_cache()
+
+        # ---- the int8 quality protocol, shortened: SD1.5 with the bf16 VAE
+        t0 = time.perf_counter()
+        out, launches = _quality(EVAL_SD15, "sd15", bf16=slice_pipe)
+        sd15_s = time.perf_counter() - t0
+        paths["eval_sd15"] = (launches, {"phase_s": sd15_s, **out["timing"]})
+        _expect("eval_sd15", launches)
+        i8 = out["pipes"]["int8"]
+        check(i8.vae is slice_pipe.vae and not any(
+            type(m).__name__.startswith("Quant") for m in i8.vae.modules()),
+            "[eval] the int8 SD1.5 pipeline does not hold the bf16 VAE")
+        counted = reset_launches()
+        again = int8_quality.generate_set("sd15", slice_pipe, EVAL_BATCH, EVAL_BATCH, REQ_SIZE,
+                                          EVAL_STEPS, "bf16 again", profiling.StepTimer())
+        paths["eval_sd15_bf16"] = (read_launches(counted), {})
+        check(np.array_equal(again, out["images"]["bf16"][:EVAL_BATCH]),
+              "[eval] sd15: a bf16 batch did not repeat bit for bit")
+        g = torch.Generator(device="cuda").manual_seed(7100)
+        lat = torch.randn((EVAL_BATCH, REQ_SIZE // 8, REQ_SIZE // 8, 4), generator=g,
+                          device="cuda")
+        counted = reset_launches()
+        with torch.no_grad():
+            i8.decode_latents(lat)
+        paths["eval_decode"] = (read_launches(counted), {})
+        quant = ("fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
+                 "conv3x3_int8")
+        _expect("eval_sd15_bf16", paths["eval_sd15_bf16"][0], zero=quant)
+        _expect("eval_decode", paths["eval_decode"][0], zero=quant + (
+            "flash_attention_packed", "fused_layer_norm"))
+        dec = paths["eval_decode"][0]
+        check(dec["fused_group_norm"] == SD15_K3_PER_DECODE and dec["flash_attention"] == 1,
+              f"[eval] one VAE decode: K3 {dec['fused_group_norm']} (expected "
+              f"{SD15_K3_PER_DECODE}), K2 {dec['flash_attention']} (expected 1)")
+        # the eps checks and the denoise steps
+        evals = len(int8_quality.EPS_TIMESTEPS) + EVAL_N // EVAL_BATCH * EVAL_STEPS
+        log(f"[eval] sd15 ({sd15_s:.1f}s): launches {_nonzero(launches)}; K5 per int8 ControlNet + UNet "
+            f"evaluation {launches['fused_group_norm_quant'] / evals} ({evals} evaluations); "
+            f"one decode of the int8 pipeline's bf16 VAE (batch {EVAL_BATCH}): K3 {dec['fused_group_norm']}"
+            f", K2 {dec['flash_attention']}, K5 {dec['fused_group_norm_quant']}; a bf16 batch "
+            f"repeated bit for bit")
+        sets = {f"sd15_{mode}": im for mode, im in out["images"].items()}
+        del out, i8
+        torch.cuda.empty_cache()
+
+        # ---- SD3 under both policies (no T5, as the JAX protocol runs it)
+        t0 = time.perf_counter()
+        out, launches = _quality(EVAL_SD3, "sd3")
+        sd3_s = time.perf_counter() - t0
+        paths["eval_sd3"] = (launches, {"phase_s": sd3_s, **out["timing"]})
+        _expect("eval_sd3", launches)
+        counted = reset_launches()
+        again = int8_quality.generate_set("sd3", out["pipes"]["bf16"], 1, 1, SD3_SIZE,
+                                          EVAL_SD3_STEPS, "bf16 again", profiling.StepTimer())
+        paths["eval_sd3_bf16"] = (read_launches(counted), {})
+        _expect("eval_sd3_bf16", paths["eval_sd3_bf16"][0], zero=(
+            "flash_attention_packed_int8", "quant_k_int8", "fused_gelu_quant",
+            "fused_quant_rows", "fused_adaln_quant"))
+        check(np.array_equal(again, out["images"]["bf16"][:1]),
+              "[eval] sd3: a bf16 batch did not repeat bit for bit")
+        log(f"[eval] sd3 ({sd3_s:.1f}s, both pipelines built): launches {_nonzero(launches)}; "
+            f"the bf16 policy's batch alone: {_nonzero(paths['eval_sd3_bf16'][0])}; repeated "
+            f"bit for bit")
+        sets.update({f"sd3_{mode}": im for mode, im in out["images"].items()})
+        del out, again
+        torch.cuda.empty_cache()
+
+        # ---- the FID and RMSE entries on the quality images as PNGs
+        counted = reset_launches()
+        png_dir = os.path.join(EVAL_DIR, "png")
+        os.makedirs(png_dir)
+        for name, im in sets.items():
+            for i, a in enumerate(im):
+                write_png(os.path.join(png_dir, f"{name}_{i}.png"), a)
+        npz = os.path.join(EVAL_DIR, "ref.npz")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # its values are logged below
+            stats = fid.main(["ref", "--images", png_dir, "--out", npz])
+            value = fid.main(["calc", "--images", png_dir, "--ref", npz])
+        fid_s = time.perf_counter() - t0
+        sigma = fid.FeatureStats.load(npz).finalize()[1]
+        bound = fid.self_distance_bound(sigma)
+        rmse, per = mse.rmse_between_dirs(png_dir, png_dir)
+        for k, v in read_launches(counted).items():
+            fid_launches[k] += v
+        paths["eval_fid"] = (fid_launches, {"inception_ms": inc_ms, "inception_wall_ms": wall_ms,
+                                            "images_s": images_s, "fid_s": fid_s})
+        _expect("eval_fid", fid_launches, zero=tuple(k for k in fid_launches if "." not in k))
+        log(f"[eval] fid ref + calc on {stats.count} PNGs of the sets above ({fid_s:.1f}s): FID "
+            f"of the set against itself {value} (tr(Σ) {np.trace(sigma)}, bound {bound}: "
+            f"D·√ε·λmax, the eigh form's rounding floor); RMSE of the directory against itself "
+            f"{rmse} over {len(per)} images")
+        check(abs(value) <= bound, f"[eval] FID of a set against itself {value} > {bound}")
+        check(rmse == 0.0 and len(per) == stats.count, f"[eval] RMSE against itself {rmse}")
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    log(f"[eval] {card}: the phase in {time.perf_counter() - t_phase:.1f}s")
+    return paths
+
+
 def phase_notebook(ckpt_path, card, seed=0):
     """`run_prompt_diffusion.main` once per NOTEBOOK_TASKS at NOTEBOOK_SIZE² and
     NOTEBOOK_STEPS DDIM steps, on the SD1.5 checkpoint `ckpt_path` and on a
@@ -3005,6 +3417,7 @@ def main():
     del int8_pipe
     torch.cuda.empty_cache()
     paths.update(phase_ckpt(slice_pipe, slice_img1, card))
+    paths.update(phase_eval(slice_pipe, slice_img1, card))
     del slice_pipe
     torch.cuda.empty_cache()
     paths["sd3"] = phase_sd3()

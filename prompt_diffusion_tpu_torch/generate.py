@@ -14,8 +14,10 @@ sampled support pair) and its output layout: one subdirectory per task
 and a file an ldm `.ckpt`/`.safetensors`; for sd3 a diffusers folder.
 `--random-init` uses random weights (seed `--seed`) instead. The
 pipelines run exact bf16, as the root generate.py's do. Decoding the data root
-needs PIL, as the root generate.py does. `--compute-fid` is refused: the
-evaluation is not ported yet (ROADMAP queue 1, item 3).
+needs PIL, as the root generate.py does. `--compute-fid` also writes each
+image to `<out-dir>/fid/<task>/<name>.png`, the flat per-task directories
+that `python -m prompt_diffusion_tpu_torch.evaluation.fid calc --images`
+reads against a `ref` of the real images.
 
 Ranks: with `torch.distributed` initialized, rank r of w takes batches
 r, r + w, ...; otherwise one process takes all.
@@ -55,7 +57,7 @@ def parse_args(argv=None):
     p.add_argument("--black-support", action="store_true",
                    help="zero the support pair (generate_train.py ablation)")
     p.add_argument("--compute-fid", action="store_true",
-                   help="not ported yet (ROADMAP queue 1, item 3)")
+                   help="also write each image to <out-dir>/fid/<task>/ for evaluation.fid")
     p.add_argument("--max-batches", type=int, default=None)
     p.add_argument("--tokenizer-assets", default=None)
     p.add_argument("--t5-assets", default=None,
@@ -85,15 +87,16 @@ def _random_init(pipe, seed: int, device: str) -> None:
         random_init_(m, gen)
 
 
-def build_sd15(args) -> Callable:
+def build_sd15(args, **models) -> Callable:
     """The SD1.5 pipeline of `args` and its batch function
-    gen(ids, neg, pair, query, generator, prompts) -> images."""
+    gen(ids, neg, pair, query, generator, prompts) -> images. `models`
+    (with `--random-init`) are models of other widths for `create`."""
     import torch
 
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
 
     if args.random_init:
-        pipe = PromptDiffusionSD15.create(device=args.device)
+        pipe = PromptDiffusionSD15.create(**models, device=args.device)
         _random_init(pipe, args.seed, args.device)
     elif os.path.isdir(args.ckpt):
         pipe = PromptDiffusionSD15.from_diffusers_folder(args.ckpt, device=args.device)
@@ -173,10 +176,12 @@ def batch_iters(args) -> list:
 
 def generate_batches(gen: Callable, tok: Callable, iters: Iterable, dataset: str, out_dir: str,
                      generator, black_support: bool = False, max_batches: Optional[int] = None,
-                     rank: int = 0, world: int = 1, log: Callable = print) -> int:
+                     rank: int = 0, world: int = 1, log: Callable = print,
+                     compute_fid: bool = False) -> int:
     """The entry's batch loop over decoded batches: the support and query
     of each batch, `gen` on its prompts, one PNG per image under
-    `out_dir/<task>/`. Conditions stay in [0, 1] and support images in
+    `out_dir/<task>/` (and with `compute_fid` under `out_dir/fid/<task>/`
+    too). Conditions stay in [0, 1] and support images in
     [-1, 1], the convention of both reference trainers and the diffusers
     generate flow. Returns the images written."""
     os.makedirs(out_dir, exist_ok=True)
@@ -206,22 +211,26 @@ def generate_batches(gen: Callable, tok: Callable, iters: Iterable, dataset: str
             imgs = gen(np.asarray(tok(prompts)), np.asarray(tok([""] * len(prompts))), pair,
                        np.asarray(query, np.float32), generator, list(prompts))
             arr = imgs.float().cpu().numpy()
-            task_dir = os.path.join(out_dir, task)
-            os.makedirs(task_dir, exist_ok=True)
+            dirs = [os.path.join(out_dir, task)]
+            if compute_fid:
+                dirs.append(os.path.join(out_dir, "fid", task))
+            for d in dirs:
+                os.makedirs(d, exist_ok=True)
             for name, im in zip(names, arr):
-                write_png(os.path.join(task_dir, f"{name}.png"), im)
+                for d in dirs:
+                    write_png(os.path.join(d, f"{name}.png"), im)
             n_done += len(arr)
             log(f"[{rank}/{world}] {task} batch {bi}: {n_done} images")
     log(f"rank {rank}: wrote {n_done} images -> {out_dir}")
     return n_done
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
+def main(argv: Optional[Sequence[str]] = None, tokenizer: Optional[Callable] = None,
+         **models) -> int:
+    """The entry. A caller may pass the `tokenizer` (else
+    `--tokenizer-assets`') and, with `--random-init --stack sd15`, models
+    of other widths for `PromptDiffusionSD15.create`."""
     args = parse_args(argv)
-    if args.compute_fid:
-        print("--compute-fid: FID evaluation is not ported yet (ROADMAP queue 1, item 3)",
-              file=sys.stderr)
-        return 2
     if args.stack == "sd3" and args.sampler != "ddim":
         print("--sampler applies to sd15 only; SD3 uses flow-match Euler", file=sys.stderr)
         return 2
@@ -232,14 +241,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
 
-    tok = load_tokenizer(args.tokenizer_assets)
-    gen = build_sd15(args) if args.stack == "sd15" else build_sd3(args)
+    tok = tokenizer or load_tokenizer(args.tokenizer_assets)
+    gen = build_sd15(args, **models) if args.stack == "sd15" else build_sd3(args)
     iters = batch_iters(args)
     rank, world = rank_world()
     generator = torch.Generator(device=args.device).manual_seed(args.seed + rank)
     generate_batches(gen, tok, iters, args.dataset, args.out_dir, generator,
                      black_support=args.black_support, max_batches=args.max_batches,
-                     rank=rank, world=world)
+                     rank=rank, world=world, compute_fid=args.compute_fid)
     return 0
 
 

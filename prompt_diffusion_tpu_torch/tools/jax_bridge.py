@@ -11,7 +11,10 @@ is mechanical:
     dropped: `stem_norm/GroupNorm_0/scale` -> `stem_norm.weight`;
   * a transposed-conv kernel (Flax `ConvTranspose`: (kh, kw, in, out),
     spatially flipped against torch, `annotators/midas.py::convt_kernel`)
-    -> unflipped (in, out, kh, kw), at the paths the caller names.
+    -> unflipped (in, out, kh, kw), at the paths the caller names;
+  * the FID Inception's inference BN leaves `bn_scale`, `bn_bias`,
+    `bn_mean`, `bn_var` -> `bn.weight`, `bn.bias`, `bn.running_mean`,
+    `bn.running_var` (`evaluation/inception.py`, named as pytorch-fid).
 Each pipeline names its namespaces (`jax_modules()`): SD1.5 {"unet",
 "controlnet", "vae", "clip"}, SD3 {"transformer", "controlnet", "down_proj",
 "vae", "clip_l", "clip_g"} and "t5" when it holds a T5 encoder. A single
@@ -43,12 +46,19 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+# the Inception ConvBN's BN leaves (Flax) -> the port's `bn` submodule
+_BN_LEAVES = {"bn_scale": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+              "bn_var": "running_var"}
+
+
 def torch_name(path) -> str:
     """The port's state-dict key of a Flax leaf path (a tuple of names)."""
     *mods, leaf = path
     mods = [m for m in mods if m != "GroupNorm_0"]
     if leaf in ("kernel", "scale", "embedding"):
         leaf = "weight"
+    elif leaf in _BN_LEAVES:
+        mods, leaf = mods + ["bn"], _BN_LEAVES[leaf]
     return ".".join(mods + [leaf])
 
 
@@ -168,15 +178,19 @@ def jax_params_from_module(module: nn.Module) -> dict:
     transposed conv (flipped back), `embedding` under an `nn.Embedding`
     and `scale` under any other module (the norms); biases and bare
     parameters (CLIP's `position_embedding`, T5's
-    `relative_attention_bias`) keep their names. A dropped `GroupNorm_0`
-    scope is not restored."""
+    `relative_attention_bias`) keep their names; a `bn` submodule with
+    running statistics (the FID Inception's) folds back into its parent's
+    `bn_*` leaves. A dropped `GroupNorm_0` scope is not restored."""
     owners = dict(module.named_modules())
+    bn_leaves = {v: k for k, v in _BN_LEAVES.items()}
     tree: dict = {}
     for key, t in module.state_dict().items():
         mod_name, _, leaf = key.rpartition(".")
         owner = owners[mod_name]
         a = t.detach().float().cpu().numpy()
-        if leaf == "weight":
+        if mod_name.rpartition(".")[2] == "bn" and hasattr(owner, "running_mean"):
+            mod_name, leaf = mod_name.rpartition(".")[0], bn_leaves[leaf]
+        elif leaf == "weight":
             if isinstance(owner, nn.ConvTranspose2d):
                 a, leaf = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
             elif isinstance(owner, nn.Conv2d):

@@ -2,8 +2,9 @@
 `t5_tokenizer`, `coco_val` and `laion_meta` against the originals on tiny
 data roots written here (ids and batches equal), the entry's batch loop on
 a tiny SD1.5 pipeline (the root generate.py's file layout, PNGs that decode to
-the images `generate` gives, the support choice, rank sharding), and its
-refusals (`--compute-fid` names ROADMAP queue 1, item 3)."""
+the images `generate` gives, the support choice, rank sharding), the whole
+entry with `--compute-fid` (the `fid/<task>/` copies, which `evaluation.fid`
+reads), and its refusals."""
 
 import json
 import os
@@ -271,8 +272,33 @@ def test_batch_loop_shards_by_rank(coco_root, tiny_gen, tmp_path, monkeypatch):
         f"{name}.png" for name in names[2:4]]
 
 
+def test_compute_fid_writes_the_fid_dump(coco_root, tmp_path, capsys):
+    """`main --compute-fid` on a tiny pipeline: each task PNG also under
+    `<out>/fid/<task>/`, byte for byte; `evaluation.fid calc` of that
+    directory against a `ref` of itself reads 0 (within the eigh form's
+    rounding floor)."""
+    from prompt_diffusion_tpu_torch.evaluation import fid
+
+    out = str(tmp_path / "out")
+    argv = ["--data-root", coco_root, "--dataset", "coco", "--tasks", "hed", "--random-init",
+            "--compute-fid", "--resolution", str(RES), "--batch-size", "2", "--steps", "2",
+            "--out-dir", out, "--device", "cpu"]
+    assert entry.main(argv, tokenizer=tiny_tok, **tiny_models()) == 0
+    names = sorted(os.listdir(os.path.join(out, "hed")))
+    assert sorted(os.listdir(out)) == ["fid", "hed"] and len(names) == 4
+    assert sorted(os.listdir(os.path.join(out, "fid", "hed"))) == names
+    for name in names:
+        with open(os.path.join(out, "hed", name), "rb") as a, \
+                open(os.path.join(out, "fid", "hed", name), "rb") as b:
+            assert a.read() == b.read()
+    fid_dir, ref = os.path.join(out, "fid", "hed"), str(tmp_path / "ref.npz")
+    fid.main(["ref", "--images", fid_dir, "--out", ref, "--device", "cpu"])
+    value = fid.main(["calc", "--images", fid_dir, "--ref", ref, "--device", "cpu"])
+    assert abs(value) <= fid.self_distance_bound(fid.FeatureStats.load(ref).finalize()[1])
+    capsys.readouterr()
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--compute-fid", "--random-init"], "ROADMAP queue 1, item 3"),
     (["--stack", "sd3", "--sampler", "unipc", "--random-init"], "sd15 only"),
     ([], "--ckpt is required")])
 def test_entry_refusals(tmp_path, capsys, argv, match):

@@ -201,6 +201,11 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.training.image_logger, "
             "prompt_diffusion_tpu_torch.train_sd15, prompt_diffusion_tpu_torch.finetune_sd15, "
             "prompt_diffusion_tpu_torch.train_sd3, prompt_diffusion_tpu_torch.tools.profile_train, "
+            "prompt_diffusion_tpu_torch.evaluation, prompt_diffusion_tpu_torch.evaluation.ssim, "
+            "prompt_diffusion_tpu_torch.evaluation.mse, prompt_diffusion_tpu_torch.evaluation.fid, "
+            "prompt_diffusion_tpu_torch.evaluation.inception, "
+            "prompt_diffusion_tpu_torch.utils.config, prompt_diffusion_tpu_torch.utils.profiling, "
+            "prompt_diffusion_tpu_torch.tools.int8_quality, "
             "chip_smoke; "
             "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu', 'tools') "
             "if m in sys.modules]; "
