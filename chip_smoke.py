@@ -2,6 +2,7 @@
 """Drives the PyTorch port's main path once on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dist-only   # the build and [dist] alone, on every card
 
 Phases, each printed as it ends; any failure raises and exits non-zero
 without the final `"ok": true` line:
@@ -215,7 +216,32 @@ without the final `"ok": true` line:
                and VAE bit-unchanged, the ControlNet and down_proj moved,
                K2 and K3 forward and backward; seconds per step, samples/s
                and peak memory beside the card's name and power limit;
- 13. a JSON line of the kernels, then {"ok": true, "device": {...}}.
+ 13. dist    - sharded training, FID and tensor parallelism over every card
+               the machine shows (W = torch.cuda.device_count()), through
+               `torchrun --standalone --nproc-per-node=W chip_smoke.py
+               --dist-child DIR` (one process a card, within DIST_TIMEOUT):
+               `train_sd15.main` with [train]'s arguments and --num-fsdp W
+               (3 steps, saves at 0 and 2): every rank's gathered masters
+               equal; at W = 1 the losses and both checkpoint files
+               bit-equal to [train]'s run; at W > 1, against a one-card
+               run on the same global batches, the losses and grad norms
+               within DIST_LOSS_BOUND / DIST_NORM_BOUND, the masters and
+               EMA after the first update by `update_agreement`'s element
+               rule and after the last within DIST_UPDATE_L2_BOUND, Adam's
+               moments after both within DIST_MOMENT_L2_BOUND, and
+               the step-2 checkpoint restored on one card with the ranks'
+               masters;
+               s/step, samples/s, peak memory and the
+               state's bytes by rank; `evaluation.fid ref --sharded` on
+               [eval]'s 64 Inception images as PNGs against the
+               single-process statistics (bit-equal at W = 1); one
+               full-width SD3 ControlNet + MMDiT CFG velocity under bf16
+               (N(0, 1/fan_in) weights) with `apply_tp` at tensor width W
+               against the unsharded one (bit-equal at W = 1, EPS_REL_BOUND
+               above); the launches of the path's kernels summed over the
+               ranks; and, in this process, the native decoder's images/s
+               against PIL's on [train]'s JPEGs (or why it did not build);
+ 14. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
 work (`bound_ms`: bytes over 3.35 TB/s, tensor-core operations over the
 dense peak or a softmax's exponentials over ~3.9e12/s, whichever is
@@ -292,6 +318,35 @@ TRAIN_DIR = os.path.join(REPO, "build", "train_smoke")
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_STEPS, TRAIN_IMAGES = 8, 512, 3, 12
 GRAD_BATCH = 2
 SD3_TRAIN_BATCH, SD3_TRAIN_STEPS = 1, 3
+# `[dist]`: `torchrun` over every card the machine shows (W of them), within
+# DIST_TIMEOUT seconds: train_sd15 as `[train]` runs it with --num-fsdp W;
+# `evaluation.fid ref --sharded` on `[eval]`'s Inception batch of 64 as PNGs;
+# one full-width SD3 ControlNet + MMDiT CFG velocity under bf16 with
+# `apply_tp` at tensor width W. At W > 1, against a one-card run on the
+# same global batches: the losses within DIST_LOSS_BOUND and the grad
+# norms within DIST_NORM_BOUND (each about ten times the largest reading
+# on four H100s: 5.5e-5 and 6.7e-4); the masters and EMA after the first
+# update (checkpoint 0) by `update_agreement`'s element rule, and after
+# the last (checkpoint 2) within DIST_UPDATE_L2_BOUND, relative L2 of the
+# updates (about four times the 0.026-0.028 read there); Adam's moments,
+# which hold the exchanged gradient, within DIST_MOMENT_L2_BOUND after
+# both (a dropped or misplaced exchange moves them by order one; the
+# config's warm-up makes the first updates 1e-10 to 2e-8, below most
+# masters' fp32 rounding, so the moments carry the check); the TP velocity within EPS_REL_BOUND (relative L2) of
+# the unsharded one, the FID statistics within FID_SHARD_REL_BOUND of the
+# largest entry (features of other batch compositions). At W = 1 all
+# bit-equal. The native
+# decoder's images/s against PIL's on `[train]`'s JPEGs at batch
+# NATIVE_BATCH.
+DIST_DIR = os.path.join(REPO, "build", "dist_smoke")
+DIST_TIMEOUT = 600
+DIST_LOSS_BOUND, DIST_NORM_BOUND, DIST_UPDATE_L2_BOUND = 5e-4, 5e-3, 0.1
+DIST_MOMENT_L2_BOUND = 0.1
+FID_SHARD_REL_BOUND = 1e-4
+# `update_agreement`: tests/test_torch_parallel.py's rule for an update
+UPDATE_RTOL, UPDATE_LIVE = 5e-3, 1e-3
+TP_SEED, TP_TIMESTEP, TP_CONTEXT = 9000, 500.0, 333
+NATIVE_BATCH, NATIVE_REPS = 8, 5
 # MiDaS as `bench.py --config annotate --annotator midas` runs it
 MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
 # K3's calls per CFG epsilon evaluation of the SD1.5 bf16 step (ControlNet +
@@ -1086,6 +1141,10 @@ PATH_KERNELS = {
               "fused_layer_norm"),
     # SD3 training: the joint attention and the VAE (K2), the VAE's GroupNorm
     "train_sd3": ("flash_attention", "fused_group_norm"),
+    # [dist]: the sharded SD1.5 step (K1-K4 and their backwards), the TP
+    # MMDiT's joint attention on W / 24 of the heads (K2); FID: convolutions
+    "dist": ("flash_attention_packed", "flash_attention", "fused_group_norm",
+             "fused_layer_norm"),
     # the annotation entry's batch with canny, hed, depth, normal and seg
     "annotate": ("fused_group_norm", "flash_attention_packed", "fused_layer_norm"),
     **{tag: tuple(k for k, n in counts.items() if n and "." not in k)
@@ -1765,8 +1824,12 @@ def ckpt_serve(path, tmp):
     """`serve.main --ckpt` under the int8 policy; its PNGs against
     `SD15Adapter.execute` of the same requests on a pipeline loaded from
     the same file."""
+    import contextlib
     import gc
+    import io
+    import re
 
+    import numpy as np
     import torch
 
     from prompt_diffusion_tpu_torch import serve
@@ -1776,11 +1839,21 @@ def ckpt_serve(path, tmp):
     from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy
 
     out = os.path.join(tmp, "served")
+    said = io.StringIO()
     t = time.perf_counter()
-    rc = serve.main(["--ckpt", path, "--policy", "int8", "--steps", str(REQ_STEPS), "--demo",
-                     "--out-dir", out])
+    try:
+        with contextlib.redirect_stdout(said):
+            rc = serve.main(["--ckpt", path, "--policy", "int8", "--steps", str(REQ_STEPS),
+                             "--demo", "--out-dir", out])
+    finally:
+        log(said.getvalue().rstrip())
     serve_s = time.perf_counter() - t
     check(rc == 0, f"[ckpt] serve.main returned {rc}")
+    # the comparison below runs the four requests as one batch, as the entry must
+    runs = re.search(r"\((\d+) batched runs\)", said.getvalue())
+    check(runs is not None and runs.group(1) == "1",
+          f"[ckpt] serve.main --demo ran its {len(serve.DEMO_PROMPTS)} requests in "
+          f"{runs.group(1) if runs else 'an unknown number of'} batches, not 1")
     gc.collect()
     torch.cuda.empty_cache()
     pipe = PromptDiffusionSD15.from_single_file(path, policy=int8_policy(), vae_int8=True)
@@ -1790,8 +1863,12 @@ def ckpt_serve(path, tmp):
     direct = to_png_values(SD15Adapter(pipe).execute(reqs).float().cpu().numpy())
     for i, want in enumerate(direct):
         got = read_png(os.path.join(out, f"req{i}.png"))
-        check(got.shape == want.shape and (got == want).all(),
-              f"[ckpt] served req{i}.png differs from SD15Adapter.execute on the loaded file")
+        check(got.shape == want.shape, f"[ckpt] served req{i}.png is {got.shape}, not "
+                                       f"{want.shape}")
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        check(not diff.any(),
+              f"[ckpt] served req{i}.png differs from SD15Adapter.execute on the loaded file "
+              f"in {int((diff > 0).sum())} of {diff.size} values, by up to {int(diff.max())}")
     log(f"[ckpt] serve.main --ckpt --policy int8 --steps {REQ_STEPS} --demo: the whole entry "
         f"(load, warm-up, 4 requests, PNGs) in {serve_s:.2f}s; its {len(direct)} PNGs decode "
         f"to SD15Adapter.execute of the same requests on a pipeline loaded from the same file")
@@ -2711,6 +2788,16 @@ def _quality(argv, tag, **pipes):
     return out, launches
 
 
+def inception_batch():
+    """`[eval]`'s Inception batch: INCEPTION_BATCH random images in [0, 1]
+    at INCEPTION_SIZE², from seed 7000 on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(7000)
+    return torch.rand((INCEPTION_BATCH, INCEPTION_SIZE, INCEPTION_SIZE, 3), generator=g,
+                      device="cuda")
+
+
 def phase_eval(slice_pipe, slice_img1, card):
     """Evaluation on the card: `utils.config.create_model` on a full-width
     cldm_v15-format YAML (the names, shapes and dtypes of [slice]'s
@@ -2781,9 +2868,7 @@ def phase_eval(slice_pipe, slice_img1, card):
         # ---- the Inception extractor at batch 64, against fp32 on the CPU
         counted = reset_launches()
         model = create_inception(seed=0, device="cuda")
-        g = torch.Generator(device="cuda").manual_seed(7000)
-        x = torch.rand((INCEPTION_BATCH, INCEPTION_SIZE, INCEPTION_SIZE, 3), generator=g,
-                       device="cuda")
+        x = inception_batch()
         with torch.inference_mode():
             feats = model(x)
             check(tuple(feats.shape) == (INCEPTION_BATCH, 2048), f"features {tuple(feats.shape)}")
@@ -3157,12 +3242,24 @@ def backward_times():
                                exps=b * h * n * n)
         rows[label] = {"ms": ms, "sdpa_bwd_ms": lib, "bound_ms": bound, "bound_term": term}
 
-    def norm(label, fn, inputs):
+    def norm(label, fn, inputs, library=None):
         gx = torch.randn_like(inputs[0])
         ms = device_ms(lambda: recompute_grads(fn, gx, inputs, (True,) * 3), iters=3, warmup=1)
         # x and its gradient read, dx written
         bound, term = roofline(3 * inputs[0].numel() * inputs[0].element_size())
         rows[label] = {"ms": ms, "bound_ms": bound, "bound_term": term}
+        if library is not None:
+            rows[label]["library_ms"] = device_ms(lambda: library(gx), iters=3, warmup=1)
+
+    def layer_norm_library(x, w, b):
+        """The one PyTorch call that computes LayerNorm's gradient (dx,
+        dscale, dshift) from the saved statistics: aten's
+        native_layer_norm_backward, on bf16 scale and shift (aten takes one
+        dtype)."""
+        w, b = w.to(x.dtype), b.to(x.dtype)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(x, [x.shape[-1]], w, b, 1e-5)
+        return lambda g: torch.ops.aten.native_layer_norm_backward(
+            g, x, [x.shape[-1]], mean, rstd, w, b, [True, True, True])
 
     attn("K1 (8,4096,320) H=8", lambda q, k, v: fa._packed_ref(q, k, v, 8, 40 ** -0.5),
          [bf(8, 4096, 320) for _ in range(3)], 8, (8, 4096, 8, 40))
@@ -3174,13 +3271,40 @@ def backward_times():
     cl = lambda t: t.contiguous(memory_format=torch.channels_last)
     norm("K3 (8,320,64,64) SiLU", gn, (cl(bf(8, 320, 64, 64)), f32(320), f32(320)))
     norm("K3 (1,128,1024,1024) SiLU", gn, (cl(bf(1, 128, 1024, 1024)), f32(128), f32(128)))
-    norm("K4 (32768,320)", lambda x_, s_, b_: _torch_layer_norm(x_, s_, b_, 1e-5),
-         (bf(8, 4096, 320), f32(320), f32(320)))
+    ln_in = (bf(8, 4096, 320), f32(320), f32(320))
+    norm("K4 (32768,320)", lambda x_, s_, b_: _torch_layer_norm(x_, s_, b_, 1e-5), ln_in,
+         library=layer_norm_library(*ln_in))
     for label, r in rows.items():
         log(f"[train] backward {label}: plain recompute device_ms={r['ms']}"
             + (f" sdpa_backward_device_ms={r['sdpa_bwd_ms']}" if "sdpa_bwd_ms" in r else "")
+            + (f" native_layer_norm_backward_device_ms={r['library_ms']}"
+               if "library_ms" in r else "")
             + f" bound_ms={r['bound_ms']} ({r['bound_term']})")
     return rows
+
+
+def train_setup():
+    """`[train]`'s SD1.5 run, before it starts: a fresh synthetic data root
+    under TRAIN_DIR, the batch decoder the entries' default `--loader
+    auto` takes (native where it builds on this host, else PIL, the reason
+    printed), the entry's arguments and log directory."""
+    import shutil
+
+    from prompt_diffusion_tpu_torch import native
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    root = write_edit_root(os.path.join(TRAIN_DIR, "data"))
+    log(f"[train] data root: {TRAIN_IMAGES} random {TRAIN_SIZE}² images with 4 conditions "
+        f"and a caption each, in {time.perf_counter() - t0:.1f}s")
+    # the entries' default `--loader auto` makes the same choice and prints it
+    loader = native.choose_decoder("auto", lambda m: log(f"[train] {m}"))
+    logdir = os.path.join(TRAIN_DIR, "sd15")
+    argv = ["--data-root", root, "--logdir", logdir, "--batch-size", str(TRAIN_BATCH),
+            "--accum-steps", "1", "--resolution", str(TRAIN_SIZE), "--use-checkpoint",
+            "--use-ema", "--ckpt-every", "2", "--image-log-every", "0", "--seed", "0",
+            "--device", "cuda"]
+    return root, argv, logdir, loader
 
 
 def phase_train(card):
@@ -3190,8 +3314,12 @@ def phase_train(card):
     root: TRAIN_STEPS steps saving at step 2, the saved state restored bit
     for bit, one `--resume`d step; the frozen models bit-unchanged and the
     ControlNet moved; the gradient check; the backward times; then SD3 at
-    full width through `train_sd3.main` (batch 1 at 1024²). Returns {path
-    tag: (launches, timing)}."""
+    full width through `train_sd3.main` (batch 1 at 1024²). The batches
+    decode natively where the decoder builds on this host, else through PIL
+    (`--loader pil`, the reason printed). Returns ({path tag: (launches,
+    timing)}, what `[dist]` repeats: the data root, the SD1.5 arguments,
+    its log directory, losses and loader); the files stay for `[dist]`,
+    which removes them."""
     import shutil
 
     import numpy as np
@@ -3202,18 +3330,10 @@ def phase_train(card):
     from prompt_diffusion_tpu_torch.training import sd15 as tr
     from prompt_diffusion_tpu_torch.training.optimizer import step_generator
 
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     out = {}
     try:
-        root = write_edit_root(os.path.join(TRAIN_DIR, "data"))
-        log(f"[train] data root: {TRAIN_IMAGES} random {TRAIN_SIZE}² images with 4 conditions "
-            f"and a caption each, in {time.perf_counter() - t0:.1f}s")
-        logdir = os.path.join(TRAIN_DIR, "sd15")
-        argv = ["--data-root", root, "--logdir", logdir, "--batch-size", str(TRAIN_BATCH),
-                "--accum-steps", "1", "--resolution", str(TRAIN_SIZE), "--use-checkpoint",
-                "--use-ema", "--ckpt-every", "2", "--image-log-every", "0", "--seed", "0",
-                "--device", "cuda"]
+        root, argv, logdir, loader = train_setup()
         torch.cuda.reset_peak_memory_stats()
         counted = reset_launches()
         t = time.perf_counter()
@@ -3360,10 +3480,418 @@ def phase_train(card):
                                         "state_gib": state_gb, "losses": losses3})
         del run3, pipe3, ref3
         torch.cuda.empty_cache()
-    finally:
+    except BaseException:
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        raise
     log(f"[train] the phase in {time.perf_counter() - t0:.1f}s")
+    return out, {"root": root, "argv": argv, "logdir": logdir, "losses": losses,
+                 "loader": loader}
+
+
+def masters_digest(state):
+    """sha256 of the state's fp32 masters, whole (gathered with a mesh:
+    every rank calls), end to end in the names' order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, t in state.tensors().items():
+        if k.startswith("master/"):
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_inputs(dev):
+    """One SD3 CFG velocity evaluation's inputs at 1024² (a (1, 16, 128,
+    128) latent, its condition and support pair latents, TP_CONTEXT text
+    tokens of 4096 and a pooled 2048, uncond || cond), from TP_SEED + 1."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    lat = SD3_SIZE // 8
+    return {"x": r(1, 16, lat, lat), "cond": r(2, 16, lat, lat), "pair": r(2, 16, lat, lat),
+            "ctx": r(2, TP_CONTEXT, 4096), "pooled": r(2, 2048)}
+
+
+def tp_velocity(tr, cn, inp):
+    """The guided velocity (CFG SD3_CFG) of one denoise step: ControlNet,
+    then the MMDiT with its residuals, on the uncond || cond batch."""
+    import torch
+
+    with torch.no_grad():
+        x2 = torch.cat([inp["x"], inp["x"]])
+        t2 = torch.full((2,), TP_TIMESTEP, device=x2.device)
+        control = cn(x2, t2, inp["cond"], inp["pair"], inp["ctx"], inp["pooled"])
+        v_u, v_c = tr(x2, t2, inp["ctx"], inp["pooled"],
+                      block_controlnet_hidden_states=control).chunk(2)
+        return v_u + SD3_CFG * (v_c - v_u)
+
+
+def dist_child(outdir):
+    """One rank of `[dist]`, under torchrun: train_sd15.main on the mesh
+    (--num-fsdp W), the sharded FID entry, the SD3 TP velocity; writes
+    rank<r>.json in `outdir`."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main() runs [train]
+    torch.backends.cudnn.allow_tf32 = False
+    from prompt_diffusion_tpu_torch import train_sd15
+    from prompt_diffusion_tpu_torch.evaluation import fid
+    from prompt_diffusion_tpu_torch.models.controlnet_sd3 import SD3ControlNet
+    from prompt_diffusion_tpu_torch.models.mmdit_sd3 import SD3Transformer
+    from prompt_diffusion_tpu_torch.parallel.tensor_parallel import apply_tp, make_tp_mesh
+
+    with open(os.path.join(outdir, "args.json")) as f:
+        args = json.load(f)
+    w = int(os.environ["WORLD_SIZE"])
+    out = {"world": w}
+    counted = reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = train_sd15.main(args["train_argv"] + ["--num-fsdp", str(w)])
+    torch.cuda.synchronize()
+    rank = dist.get_rank()
+    state = run["state"]
+    out.update(rank=rank, train_s=time.perf_counter() - t, step_s=run["step_s"],
+               losses=[m["loss"] for m in run["metrics"]],
+               grad_norms=[m["grad_norm"] for m in run["metrics"]],
+               peak_bytes=torch.cuda.max_memory_allocated(), state_bytes=state.local_bytes(),
+               whole_state_bytes=sum(4 * p.numel() for p in state.params) * len(state.flat),
+               masters=masters_digest(state), train_launches=read_launches(counted))
+    del run, state
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    stats = fid.main(["ref", "--images", args["png_dir"], "--out", args["fid_out"], "--sharded",
+                      "--device", "cuda"])
+    out.update(fid_s=time.perf_counter() - t, fid_count=stats.count)
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    with torch.device(dev):
+        tr, cn = SD3Transformer(), SD3ControlNet()
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    # N(0, 1 / fan_in): under N(0, 0.02) the AdaLN gates are ~1e-3 and the
+    # blocks' residual updates round away in bf16, which would hide the split
+    fan_in_init_(tr, gen, gain=1.0)
+    fan_in_init_(cn, gen, gain=1.0)
+    inp = tp_inputs(dev)
+    ref = tp_velocity(tr, cn, inp)
+    heads = tr.blocks_0.heads
+    out["tp_width"] = w if heads % w == 0 else None
+    if out["tp_width"]:
+        mesh = make_tp_mesh(num_tensor=w)
+        apply_tp(tr, mesh)
+        apply_tp(cn, mesh)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = tp_velocity(tr, cn, inp)
+        torch.cuda.synchronize()
+        out.update(tp_s=time.perf_counter() - t, tp_heads=tr.blocks_0.heads,
+                   tp_equal=bool(torch.equal(got, ref)),
+                   tp_rel=((got - ref).norm() / ref.norm()).item(),
+                   tp_finite=bool(torch.isfinite(got).all()))
+    out["launches"] = read_launches(counted)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def one_card_run(handoff, world):
+    """train_sd15's [train] run on one card fed the global batches of a
+    `world`-rank run (each the ranks' shards, concatenated): its losses and
+    grad norms, its masters before the first step, its state's tensors
+    after the first, its state, and the first update's learning rate."""
+    import numpy as np
+
+    from prompt_diffusion_tpu_torch import train_sd15
+    from prompt_diffusion_tpu_torch.data.edit_dataset import BatchLoader, EditDataset
+    from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
+    from prompt_diffusion_tpu_torch.training import sd15 as tr
+
+    pipe = train_sd15.build_pipe(False, "cuda", True)
+    train_sd15.init_weights(pipe, 0)
+    cfg = tr.SD15TrainConfig(use_ema=True, accum_steps=1)
+    state = tr.init_train_state(cfg, pipe, seed=1)
+    before = {k.split("/", 1)[1]: t.clone() for k, t in state.tensors().items()
+              if k.startswith("master/")}
+    ds = EditDataset(handoff["root"], resolution=TRAIN_SIZE)
+    tok = load_tokenizer(None)
+    its = [BatchLoader(ds, TRAIN_BATCH // world, seed=0, tokenizer=tok, shard_id=r,
+                       num_shards=world, decoder=handoff["loader"]).iterate()
+           for r in range(world)]
+    step, losses, norms = tr.make_train_step(pipe, cfg), [], []
+    for _ in range(TRAIN_STEPS):
+        parts = [next(it) for it in its]
+        batch = {k: np.concatenate([b[k] for b in parts])
+                 for k in ("image", "query", "example_pair", "token_ids")}
+        batch["null_ids"] = parts[0]["null_ids"]
+        m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if len(losses) == 1:
+            first = {k: t.clone() for k, t in state.tensors().items()}
+    for it in its:
+        it.close()
+    return losses, norms, before, first, state, tr.lr_schedule(cfg)(0)
+
+
+def update_agreement(got, want, before, lr):
+    """The ranks' state `got` ({kind/name: whole tensor}, as a checkpoint
+    holds it) against the one-card run's `want` after as many updates from
+    the masters `before`. For the masters and the EMA the element rule of
+    tests/test_torch_parallel.py for one update at rate `lr`: where the
+    one-card run's first moment exceeds UPDATE_LIVE of its largest
+    ("live"), the update (after - before) within UPDATE_RTOL relative
+    (1e-10 absolute) of the one-card run's, elsewhere within 2 lr (AdamW
+    moves a parameter by about lr whatever its gradient, so one whose
+    gradient is at the rounding noise may step either way), each plus one
+    fp32 rounding of the parameter (an update below it moves the master by
+    a rounding or none). After several updates the rule does not hold (a
+    parameter whose steps cancel has no relative size); the relative L2
+    difference of the updates is read there. For Adam's moments (mu, nu,
+    which hold the exchanged and clipped gradient) the relative L2
+    difference. Returns {kind: {"live": elements, "outside": elements
+    outside the rule, "rel_l2": the relative L2 difference}}."""
+    import torch
+
+    big = max(float(want[f"mu/{n}"].abs().max()) for n in before)
+    eps = torch.finfo(torch.float32).eps
+    out = {}
+    for kind in ("master", "ema", "mu", "nu"):
+        r = {"live": 0, "outside": 0}
+        num = den = 0.0
+        for n, b in before.items():
+            b = b.double()
+            base = b if kind in ("master", "ema") else 0.0
+            dw = want[f"{kind}/{n}"].double() - base
+            err = (got[f"{kind}/{n}"].to(dw.device).double() - base - dw).abs()
+            if kind in ("master", "ema"):
+                live = want[f"mu/{n}"].abs() > UPDATE_LIVE * big
+                bound = torch.where(live, UPDATE_RTOL * dw.abs() + 1e-10,
+                                    torch.full_like(dw, 2 * lr)) + eps * b.abs()
+                r["live"] += int(live.sum())
+                r["outside"] += int((err > bound).sum())
+            num += float(torch.sum(err * err))
+            den += float(torch.sum(dw * dw))
+        r["rel_l2"] = (num / den) ** 0.5
+        out[kind] = r
     return out
+
+
+def native_rate(root):
+    """Images/s of the native decoder and of PIL on NATIVE_BATCH of the data
+    root's 512² JPEGs (the median of NATIVE_REPS batches each), and the
+    largest difference between the two."""
+    import glob
+
+    import numpy as np
+
+    from prompt_diffusion_tpu_torch import native
+
+    paths = sorted(glob.glob(os.path.join(root, "laion_nonhuman", "*", "*.jpg")))[:NATIVE_BATCH]
+    rate = {}
+    for name, fn in (("native", native.load_batch), ("pil", native.load_batch_pil)):
+        times = []
+        for _ in range(NATIVE_REPS):
+            t = time.perf_counter()
+            fn(paths, TRAIN_SIZE, True)
+            times.append(time.perf_counter() - t)
+        rate[name] = len(paths) / float(np.median(times))
+    diff = float(np.abs(native.load_batch(paths, TRAIN_SIZE, True)
+                        - native.load_batch_pil(paths, TRAIN_SIZE, True)).max())
+    return rate, diff
+
+
+def phase_dist(card, handoff):
+    """Sharded training, FID and tensor parallelism over every card the
+    machine shows, W of them, through `torchrun` (see DIST_DIR's comment
+    for the checks); the native decoder's rate. Returns (launches summed
+    over the ranks, timing). Removes `[train]`'s files at its end."""
+    import shutil
+    import signal
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.evaluation import fid
+    from prompt_diffusion_tpu_torch.serve import write_png
+
+    w = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    try:
+        if handoff["loader"] == "native":
+            rate, diff = native_rate(handoff["root"])
+            log(f"[dist] native decoder on {NATIVE_BATCH} of [train]'s {TRAIN_SIZE}² JPEGs "
+                f"(host CPU, 8 threads): {rate['native']:.1f} images/s, PIL "
+                f"{rate['pil']:.1f} images/s (x{rate['native'] / rate['pil']:.2f}); largest "
+                f"difference {diff}")
+        else:
+            rate = None
+            log("[dist] native decoder: not built on this host (see [train]); no rate")
+
+        png_dir = os.path.join(DIST_DIR, "png")
+        os.makedirs(png_dir)
+        for i, a in enumerate(inception_batch().cpu().numpy()):
+            write_png(os.path.join(png_dir, f"{i}.png"), a)
+        single_npz = os.path.join(DIST_DIR, "single.npz")
+        single = fid.main(["ref", "--images", png_dir, "--out", single_npz, "--device", "cuda"])
+        torch.cuda.empty_cache()
+
+        logdir = os.path.join(DIST_DIR, "sd15")
+        argv = list(handoff["argv"])
+        argv[argv.index("--logdir") + 1] = logdir
+        args = {"train_argv": argv + ["--max-steps", str(TRAIN_STEPS)], "png_dir": png_dir,
+                "fid_out": os.path.join(DIST_DIR, "sharded.npz")}
+        with open(os.path.join(DIST_DIR, "args.json"), "w") as f:
+            json.dump(args, f)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc-per-node={w}", os.path.join(REPO, "chip_smoke.py"), "--dist-child",
+               DIST_DIR]
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=REPO, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            raise RuntimeError(f"[dist] torchrun did not end within {DIST_TIMEOUT}s")
+        launch_s = time.perf_counter() - t
+        check(rc == 0, f"[dist] torchrun exited {rc}")
+        ranks = []
+        for r in range(w):
+            with open(os.path.join(DIST_DIR, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        r0 = ranks[0]
+        launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+        steady = float(np.mean(r0["step_s"][1:]))
+        log(f"[dist] {card}: torchrun over {w} card(s) in {launch_s:.1f}s (process start, build "
+            f"loads and the three parts): train_sd15 --num-fsdp {w} (mesh 1x{w}), "
+            f"{TRAIN_STEPS} steps of a global batch of {TRAIN_BATCH} in {r0['train_s']:.1f}s; "
+            f"seconds per step {r0['step_s']}; {steady:.3f} s/step and "
+            f"{TRAIN_BATCH / steady:.2f} samples/s after the first; peak device memory by rank "
+            f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB; the sharded state "
+            f"(fp32 masters, moments, EMA) {[round(r['state_bytes'] / 2**30, 3) for r in ranks]}"
+            f" GiB a rank of {r0['whole_state_bytes'] / 2**30:.3f} GiB whole; losses "
+            f"{r0['losses']}")
+        check(all(r["masters"] == r0["masters"] for r in ranks),
+              "[dist] the ranks' gathered masters differ")
+        check(all(r["losses"] == r0["losses"] for r in ranks), "[dist] the ranks report "
+              "other losses")
+        saved = sorted(int(n) for n in os.listdir(os.path.join(logdir, "checkpoints"))
+                       if n.isdigit())
+        check(saved == [0, 2], f"[dist] saved steps {saved}")
+        if w == 1:
+            import filecmp
+
+            same_files = all(
+                filecmp.cmp(os.path.join(handoff["logdir"], "checkpoints", str(step), name),
+                            os.path.join(logdir, "checkpoints", str(step), name), shallow=False)
+                for step in saved for name in ("state.safetensors", "meta.json"))
+            log(f"[dist] W = 1: losses bit-equal to [train]'s "
+                f"{r0['losses'] == handoff['losses']}; checkpoints 0 and 2 byte-equal to "
+                f"[train]'s {same_files}")
+            check(r0["losses"] == handoff["losses"], f"[dist] losses {r0['losses']} are not "
+                  f"[train]'s {handoff['losses']}")
+            check(same_files, "[dist] the saved state differs from [train]'s")
+        else:
+            from prompt_diffusion_tpu_torch.tools import safetensors_io
+            from prompt_diffusion_tpu_torch.training import checkpoint as ckpt
+
+            one_losses, one_norms, before, first, state, lr0 = one_card_run(handoff, w)
+            # the ranks' state after the first and the last step, as rank 0
+            # gathered and wrote it
+            theirs = lambda step: safetensors_io.load_file(
+                os.path.join(logdir, "checkpoints", str(step), "state.safetensors"))
+            agree = {"first": update_agreement(theirs(0), first, before, lr0),
+                     "last": update_agreement(theirs(2), state.tensors(), before, lr0)}
+            del before, first
+            manager = ckpt.make_manager(os.path.join(logdir, "checkpoints"), save_every=2)
+            _, at = ckpt.restore_state(manager, state)
+            manager.close()
+            restored = masters_digest(state)
+            del state
+            torch.cuda.empty_cache()
+            rel = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], one_losses)]
+            rel_norm = [abs(a - b) / abs(b) for a, b in zip(r0["grad_norms"], one_norms)]
+            log(f"[dist] W = {w}: one card on the same global batches: losses {one_losses}, "
+                f"relative differences {rel} (bound {DIST_LOSS_BOUND}); grad norms "
+                f"{one_norms} against the ranks' {r0['grad_norms']}, relative differences "
+                f"{rel_norm} (bound {DIST_NORM_BOUND})")
+            for when, n in (("first", 1), ("last", TRAIN_STEPS)):
+                log(f"[dist] W = {w}: the ranks' state after {n} update(s) against one card's, "
+                    f"relative L2: " + ", ".join(f"{k} {r['rel_l2']}"
+                                                 for k, r in agree[when].items()))
+            for kind in ("master", "ema"):
+                r = agree["first"][kind]
+                log(f"[dist] W = {w}: the first {kind} update (lr {lr0}): {r['outside']} "
+                    f"elements outside the rule ({r['live']} live)")
+            log(f"[dist] W = {w}: step {at} restored on one card, masters equal to the ranks' "
+                f"{restored == r0['masters']}")
+            check(max(rel) <= DIST_LOSS_BOUND, f"[dist] losses {rel} apart")
+            check(max(rel_norm) <= DIST_NORM_BOUND, f"[dist] grad norms {rel_norm} apart")
+            for when in ("first", "last"):
+                for kind, r in agree[when].items():
+                    if kind in ("master", "ema") and when == "first":
+                        check(r["outside"] == 0, f"[dist] the ranks' first {kind} update "
+                              f"differs from one card's: {r}")
+                    bound = DIST_MOMENT_L2_BOUND if kind in ("mu", "nu") else (
+                        DIST_UPDATE_L2_BOUND if when == "last" else None)
+                    if bound is not None:
+                        check(r["rel_l2"] <= bound, f"[dist] the ranks' {kind} after the {when} "
+                              f"update differs from one card's: {r}")
+            check(at == 2 and restored == r0["masters"], "[dist] the restored state differs")
+
+        sharded = fid.FeatureStats.load(args["fid_out"])
+        dsum = float(np.abs(sharded.raw_sum - single.raw_sum).max())
+        douter = float(np.abs(sharded.raw_outer - single.raw_outer).max())
+        log(f"[dist] fid ref --sharded over {w} rank(s) in {r0['fid_s']:.1f}s: {sharded.count} "
+            f"images; against the single-process statistics: largest difference of Σx {dsum}, "
+            f"of Σxxᵀ {douter}")
+        check(sharded.count == single.count == INCEPTION_BATCH, "[dist] FID counts")
+        if w == 1:
+            check(dsum == 0.0 and douter == 0.0, "[dist] sharded FID statistics differ")
+        else:
+            check(dsum <= FID_SHARD_REL_BOUND * np.abs(single.raw_sum).max()
+                  and douter <= FID_SHARD_REL_BOUND * np.abs(single.raw_outer).max(),
+                  "[dist] sharded FID statistics too far")
+
+        if r0["tp_width"]:
+            log(f"[dist] SD3 ControlNet + MMDiT at full width, bf16, one CFG velocity at "
+                f"{SD3_SIZE}² with {TP_CONTEXT} text tokens: apply_tp at tensor width "
+                f"{r0['tp_width']} ({r0['tp_heads']} heads a rank) in {r0['tp_s']:.3f}s; "
+                f"against the unsharded velocity: bit-equal {r0['tp_equal']}, relative L2 "
+                f"{r0['tp_rel']}")
+            check(all(r["tp_finite"] for r in ranks), "[dist] TP velocity not finite")
+            if w == 1:
+                check(r0["tp_equal"], "[dist] TP at width 1 differs from the unsharded step")
+            else:
+                check(max(r["tp_rel"] for r in ranks) <= EPS_REL_BOUND,
+                      "[dist] the TP velocity is too far from the unsharded one")
+        else:
+            log(f"[dist] TP: 24 heads do not divide over {w} cards; not run")
+        log(f"[dist] launches over the ranks (train, FID, TP): {trained(launches, 'dist')}; "
+            f"the SD1.5 steps alone on rank 0: {trained(r0['train_launches'], 'dist')}")
+        for name in PATH_KERNELS["dist"]:
+            check(launches[name] > 0, f"kernel {name} was not launched on the dist path")
+        for name in ("flash_attention_packed", "fused_group_norm", "fused_layer_norm"):
+            check(launches[f"{name}.backward"] > 0, f"[dist] no backward of {name}")
+        timing = {"world": w, "launch_s": launch_s, "step_s": r0["step_s"],
+                  "steady_step_s": steady, "samples_per_s": TRAIN_BATCH / steady,
+                  "peak_bytes": [r["peak_bytes"] for r in ranks],
+                  "state_bytes": [r["state_bytes"] for r in ranks], "losses": r0["losses"],
+                  "fid_s": r0["fid_s"], "tp_rel": r0.get("tp_rel"), "native_rate": rate}
+    finally:
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    log(f"[dist] the phase in {time.perf_counter() - t_phase:.1f}s")
+    return launches, timing
 
 
 def main():
@@ -3428,7 +3956,10 @@ def main():
     paths.update(phase_annotators(card, dpt, batches, paths["midas"][1]))
     del dpt, batches
     torch.cuda.empty_cache()
-    paths.update(phase_train(card))
+    train_paths, handoff = phase_train(card)
+    paths.update(train_paths)
+    torch.cuda.empty_cache()
+    paths["dist"] = phase_dist(card, handoff)
     for tag in ("slice", "int8", "sd3"):
         timing = paths[tag][1]
         per_req = timing["request_s"]
@@ -3470,5 +4001,47 @@ def main():
     return 0
 
 
+def dist_only():
+    """`python3 chip_smoke.py --dist-only`: the build and `[dist]` alone,
+    for a machine with several cards (no kernel JSON, no contract line). At
+    W = 1 `[train]`'s SD1.5 run goes first, as `[dist]` compares with it."""
+    import shutil
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from prompt_diffusion_tpu_torch import train_sd15
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+    from prompt_diffusion_tpu_torch.tools import timing
+
+    card = timing.card()
+    log(f"[device] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+        f"| {torch.cuda.device_count()} device(s)")
+    t0 = time.perf_counter()
+    cuda_ext()
+    log(f"[build] nvcc + load {time.perf_counter() - t0:.1f}s")
+    try:
+        root, argv, logdir, loader = train_setup()
+        losses = None
+        if torch.cuda.device_count() == 1:
+            run = train_sd15.main(argv + ["--max-steps", str(TRAIN_STEPS)])
+            losses = [m["loss"] for m in run["metrics"]]
+            del run
+            torch.cuda.empty_cache()
+    except BaseException:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+        raise
+    phase_dist(card, {"root": root, "argv": argv, "logdir": logdir, "losses": losses,
+                      "loader": loader})
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--dist-child"]:
+        sys.exit(dist_child(sys.argv[2]))
+    sys.exit(dist_only() if sys.argv[1:2] == ["--dist-only"] else main())

@@ -14,9 +14,11 @@ used (the reference reuses the query image, edit_dataset.py:140), and
 tensors on the width, against hint_channels=6).
 
 The index is built once, sampling is NumPy-Generator-seeded, and
-`BatchLoader` prefetches decoded batches on a thread pool. Images decode
-through PIL only: the JAX package's native C++ batch decoder (`native/`)
-is not ported yet (ROADMAP queue 1), so the loader has no native path.
+`BatchLoader` prefetches decoded batches on a thread pool. With
+`decoder="native"` (the default, the JAX package's path wherever its
+library builds) one call of the C++ decoder (`native/`) decodes a whole
+batch's images; `decoder="pil"` decodes each sample through PIL. A native
+decoder that does not build raises; it does not switch to PIL.
 """
 
 from __future__ import annotations
@@ -111,7 +113,8 @@ class EditDataset:
         return self.max_task_size
 
     def sample_paths(self, rng: np.random.Generator, i: int) -> dict:
-        """Pick (query, support) records without decoding."""
+        """Pick (query, support) records without decoding — lets the batch
+        loader hand all image paths to the native C++ decoder at once."""
         task = self.task_list[rng.integers(len(self.task_list))]
         files = self.file_mapping[task]
         rec = files[i % len(files)]
@@ -161,7 +164,8 @@ class BatchLoader:
 
     Yields dicts of stacked numpy arrays (+ list of prompts). Shard-aware:
     pass (shard_id, num_shards) so multi-host training reads disjoint data
-    (replaces DDP's DistributedSampler)."""
+    (replaces DDP's DistributedSampler). `decoder` is "native" (the C++
+    batch decoder; needs a `sample_paths()` dataset) or "pil"."""
 
     def __init__(
         self,
@@ -174,7 +178,14 @@ class BatchLoader:
         num_shards: int = 1,
         tokenizer=None,
         max_tokens: int = 77,
+        decoder: str = "native",
     ):
+        if decoder not in ("native", "pil"):
+            raise ValueError(f"decoder {decoder!r}: 'native' or 'pil'")
+        if decoder == "native" and not hasattr(dataset, "sample_paths"):
+            raise ValueError("decoder='native' needs a dataset with sample_paths(); "
+                             "pass decoder='pil'")
+        self.decoder = decoder
         self.ds = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -187,11 +198,41 @@ class BatchLoader:
 
     def _make_batch(self, rng: np.random.Generator, indices) -> dict:
         seeds = rng.integers(0, 2**31, size=len(indices))
-        batch = self._make_batch_pil(seeds, indices)
+        if self.decoder == "native":
+            batch = self._make_batch_native(seeds, indices)
+        else:
+            batch = self._make_batch_pil(seeds, indices)
         if self.tokenizer is not None:
             batch["token_ids"] = self.tokenizer(batch["prompt"], self.max_tokens)
             batch["null_ids"] = self.tokenizer([""], self.max_tokens)
         return batch
+
+    def _make_batch_native(self, seeds, indices):
+        """One C++ call decodes the whole batch's images
+        (prompt_diffusion_tpu_torch.native)."""
+        from prompt_diffusion_tpu_torch.native import load_batch
+
+        recs = [
+            self.ds.sample_paths(np.random.default_rng(s), i)
+            for s, i in zip(seeds, indices)
+        ]
+        res = self.ds.resolution
+        n = len(recs)
+        m11 = load_batch(
+            [r["image_path"] for r in recs] + [r["support_image_path"] for r in recs],
+            res, to_m11=True, n_threads=self.num_threads,
+        )
+        p01 = load_batch(
+            [r["query_path"] for r in recs] + [r["support_cond_path"] for r in recs],
+            res, to_m11=False, n_threads=self.num_threads,
+        )
+        return {
+            "image": m11[:n],
+            "query": p01[:n],
+            "example_pair": np.concatenate([p01[n:], m11[n:]], axis=-1),
+            "prompt": [r["prompt"] for r in recs],
+            "task": [r["task"] for r in recs],
+        }
 
     def _make_batch_pil(self, seeds, indices):
         from concurrent.futures import ThreadPoolExecutor

@@ -22,8 +22,16 @@ eval/fid.py):
     `Image.BILINEAR`, as the JAX CLI reads them (PIL's filter antialiases
     when it shrinks).
 
-The feature pass sharded over several devices (`--sharded`, `mesh=`) needs
-the port's `parallel/`, which is ROADMAP queue 1, item 4: it is refused.
+The feature pass sharded over several ranks (`--sharded` under
+`torchrun`, `mesh=`): each rank computes the features of its rows of every
+full multiple of the world size, and the float64 (Σx, Σxxᵀ, n) are summed
+over the ranks once, at the end (the reference's per-rank feature pass and
+NCCL all_reduce, eval/fid.py:53-77). A batch's remainder is counted once,
+on rank 0, as the JAX package counts it on one device. On one rank the
+statistics are the single-process ones bit for bit.
+
+    torchrun --standalone --nproc-per-node=4 -m prompt_diffusion_tpu_torch.evaluation.fid \
+        ref --images DIR --out ref.npz --sharded
 """
 
 from __future__ import annotations
@@ -33,10 +41,6 @@ import os
 from typing import Callable, Iterator, Tuple
 
 import numpy as np
-
-SHARDED_REFUSAL = ("the sharded feature pass needs the port's parallel/ (torch.distributed), "
-                   "which is ROADMAP queue 1, item 4")
-
 
 @dataclasses.dataclass
 class FeatureStats:
@@ -110,25 +114,73 @@ def compute_stats_from_iterator(feature_fn: Callable, batches: Iterator[np.ndarr
                                 feature_dim: int, device="cuda") -> FeatureStats:
     """Streams batches (B, H, W, 3) in [0, 1] through `feature_fn` on
     `device` (the card unless the caller asks for the CPU) -> stats."""
+    return compute_stats_from_iterator_sharded(feature_fn, batches, feature_dim, None, device)
+
+
+def compute_stats_from_iterator_sharded(feature_fn: Callable, batches: Iterator[np.ndarray],
+                                        feature_dim: int, mesh, device="cuda") -> FeatureStats:
+    """`compute_stats_from_iterator` over every rank of `mesh` (each rank
+    iterates the same batches; None is one process): each rank takes its
+    rows of the largest multiple of the world size in each batch, rank 0
+    the remainder too; the statistics are summed over the ranks at the
+    end."""
     import torch
 
+    from prompt_diffusion_tpu_torch.parallel.mesh import batch_slice, is_rank0, world_size
+
+    w = world_size(mesh)
     stats = FeatureStats.zero(feature_dim)
     with torch.inference_mode():
         for batch in batches:
-            x = torch.as_tensor(np.asarray(batch, np.float32)).to(device)
-            stats = stats.update(feature_fn(x).float().cpu().numpy())
-    return stats
+            batch = np.asarray(batch, np.float32)
+            n_full = len(batch) // w * w
+            parts = [batch_slice(batch[:n_full], mesh)] if n_full else []
+            if n_full < len(batch) and is_rank0(mesh):
+                parts.append(batch[n_full:])
+            for part in parts:
+                x = torch.as_tensor(part).to(device)
+                stats = stats.update(feature_fn(x).float().cpu().numpy())
+    return _all_reduce_stats(stats, mesh, device)
+
+
+def _all_reduce_stats(stats: FeatureStats, mesh, device) -> FeatureStats:
+    """The sum of every rank's statistics, in float64 (one all-reduce)."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.parallel.mesh import sum_over_ranks, world_size
+
+    if world_size(mesh) == 1:
+        return stats
+    d = len(stats.raw_sum)
+    flat = np.concatenate([stats.raw_sum, stats.raw_outer.ravel(), [float(stats.count)]])
+    total = sum_over_ranks(torch.from_numpy(flat).to(device), mesh).cpu().numpy()
+    return FeatureStats(total[:d], total[d:d + d * d].reshape(d, d), int(total[-1]))
+
+
+def compute_stats_sharded(feature_fn: Callable, images: np.ndarray, mesh,
+                          device="cuda") -> FeatureStats:
+    """The statistics of `images` (N, H, W, 3) in [0, 1] with the feature
+    pass sharded over every rank of `mesh`; N must divide by the world
+    size."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.parallel.mesh import batch_slice, world_size
+
+    if len(images) % world_size(mesh):
+        raise ValueError(f"batch {len(images)} not divisible by {world_size(mesh)} ranks")
+    with torch.inference_mode():
+        x = torch.as_tensor(np.asarray(batch_slice(images, mesh), np.float32)).to(device)
+        feats = feature_fn(x).float().cpu().numpy()
+    return _all_reduce_stats(FeatureStats.zero(feats.shape[1]).update(feats), mesh, device)
 
 
 def fid_between_dirs(feature_fn, feature_dim: int, dir_gen: str, ref_stats_path: str,
                      batch_size: int = 32, mesh=None, device="cuda") -> float:
     """FID between an image directory and saved reference stats — the
-    library form of the CLI's `calc` mode (which calls this). A `mesh` is
-    refused (ROADMAP queue 1, item 4)."""
-    if mesh is not None:
-        raise NotImplementedError(SHARDED_REFUSAL)
-    stats = compute_stats_from_iterator(feature_fn, _image_dir_batches(dir_gen, batch_size),
-                                        feature_dim, device)
+    library form of the CLI's `calc` mode (which calls this); with a
+    `mesh`, the feature pass sharded over its ranks."""
+    stats = compute_stats_from_iterator_sharded(
+        feature_fn, _image_dir_batches(dir_gen, batch_size), feature_dim, mesh, device)
     mu_g, sig_g = stats.finalize()
     mu_r, sig_r = FeatureStats.load(ref_stats_path).finalize()
     return frechet_distance(mu_g, sig_g, mu_r, sig_r)
@@ -172,24 +224,36 @@ def main(argv=None):
     p.add_argument("--ref", default=None)
     p.add_argument("--out", default="fid_ref.npz")
     p.add_argument("--batch", type=int, default=32)
-    p.add_argument("--sharded", action="store_true", help="refused: ROADMAP queue 1, item 4")
+    p.add_argument("--sharded", action="store_true",
+                   help="under torchrun: shard the feature pass over every rank")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.sharded:
-        p.error(f"--sharded: {SHARDED_REFUSAL}")
     if args.mode == "calc" and not args.ref:
         p.error("calc mode requires --ref (run `ref` mode first)")
 
-    feature_fn, dim = default_feature_fn(args.device)
+    from prompt_diffusion_tpu_torch.parallel.mesh import (
+        is_rank0,
+        launched,
+        make_mesh,
+        mesh_device,
+    )
+
+    mesh, device = None, args.device
+    if args.sharded and launched():  # one process: the single-device pass, as JAX's
+        mesh = make_mesh(device=args.device)
+        device = mesh_device(mesh)
+    feature_fn, dim = default_feature_fn(device)
     if args.mode == "ref":
-        stats = compute_stats_from_iterator(
-            feature_fn, _image_dir_batches(args.images, args.batch), dim, args.device)
-        stats.save(args.out)
-        print(f"saved reference stats ({stats.count} images) → {args.out}")
+        stats = compute_stats_from_iterator_sharded(
+            feature_fn, _image_dir_batches(args.images, args.batch), dim, mesh, device)
+        if is_rank0(mesh):
+            stats.save(args.out)
+            print(f"saved reference stats ({stats.count} images) → {args.out}")
         return stats
-    fid = fid_between_dirs(feature_fn, dim, args.images, args.ref, args.batch,
-                           device=args.device)
-    print(f"FID: {fid:.4f}")
+    fid = fid_between_dirs(feature_fn, dim, args.images, args.ref, args.batch, mesh=mesh,
+                           device=device)
+    if is_rank0(mesh):
+        print(f"FID: {fid:.4f}")
     return fid
 
 

@@ -11,6 +11,10 @@ with the meta-dataset's tuning loader (`data/laion_meta.py`), whose
 supports come from a fixed set of `--num-supports` file groups (shots=1,
 finetune_promptdiffusion_sd15.py:739-753), so the ControlNet adapts to
 one unseen task from a handful of examples. Weights as in `train_sd15`.
+Under `torchrun` the step is sharded as `train_sd15`'s (`--num-fsdp`,
+`--batch-size` global); every rank draws the tuning loader's global batch,
+seeded alike, and takes its rows. The meta dataset decodes with PIL, as
+the JAX package's does.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ def parse_args(argv=None):
     p.add_argument("--num-supports", type=int, default=15)
     p.add_argument("--init-ckpt", default=None)
     p.add_argument("--ckpt-every", type=int, default=100)
+    p.add_argument("--num-fsdp", type=int, default=1,
+                   help="fsdp width of the mesh under torchrun (must divide the world)")
     p.add_argument("--tokenizer-assets", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true")
@@ -60,7 +66,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     from prompt_diffusion_tpu_torch.data.laion_meta import ControlDataModule
     from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
-    from prompt_diffusion_tpu_torch.train_sd15 import build_pipe, init_weights
+    from prompt_diffusion_tpu_torch.parallel.mesh import batch_slice, is_rank0
+    from prompt_diffusion_tpu_torch.train_sd15 import build_pipe, distributed, init_weights
     from prompt_diffusion_tpu_torch.training import checkpoint as ckpt
     from prompt_diffusion_tpu_torch.training.image_logger import MetricLogger
     from prompt_diffusion_tpu_torch.training.sd15 import (
@@ -69,10 +76,11 @@ def main(argv=None) -> dict:
         make_train_step,
     )
 
-    pipe = build_pipe(args.tiny, args.device)
+    mesh, device = distributed(args.num_fsdp, args.batch_size, args.device)
+    pipe = build_pipe(args.tiny, device)
     init_weights(pipe, args.seed, args.init_ckpt)
     cfg = SD15TrainConfig(learning_rate=args.lr, sd_locked=True)
-    state = init_train_state(cfg, pipe, seed=args.seed + 1)
+    state = init_train_state(cfg, pipe, seed=args.seed + 1, mesh=mesh)
     manager = ckpt.make_manager(f"{args.logdir}/checkpoints", save_every=args.ckpt_every)
     tokenizer = load_tokenizer(args.tokenizer_assets)
 
@@ -88,16 +96,20 @@ def main(argv=None) -> dict:
     it = iter(loader)
     t0 = time.perf_counter()
     for step in range(args.max_steps):
-        metrics = {k: float(v) for k, v in step_fn(state, meta_batch(next(it), tokenizer)).items()}
+        batch = meta_batch(next(it), tokenizer)
+        batch = {k: v if k == "null_ids" else batch_slice(v, mesh) for k, v in batch.items()}
+        metrics = {k: float(v) for k, v in step_fn(state, batch).items()}
         history.append(metrics)
         if step % 20 == 0:
-            print(f"step {step} loss {metrics['loss']:.4f} ({time.perf_counter() - t0:.1f}s)")
+            if is_rank0(mesh):
+                print(f"step {step} loss {metrics['loss']:.4f} ({time.perf_counter() - t0:.1f}s)")
             t0 = time.perf_counter()
             mlog.log(step, metrics)
         ckpt.save_state(manager, step, state)
     ckpt.save_final(manager, args.max_steps - 1, state)
     manager.close()
-    print("done")
+    if is_rank0(mesh):
+        print("done")
     return {"pipe": pipe, "state": state, "metrics": history}
 
 

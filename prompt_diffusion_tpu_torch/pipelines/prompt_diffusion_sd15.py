@@ -232,6 +232,18 @@ class PromptDiffusionSD15:
             return DPMTables.create(self.schedule, num_steps)
         return DDIMTables.create(self.schedule, num_steps, eta=eta)
 
+    def draw_noise(self, query: torch.Tensor, generator: Optional[torch.Generator] = None,
+                   init_noise: Optional[torch.Tensor] = None, **_) -> dict:
+        """What `generate` draws from `generator` before its loop, for the
+        whole batch of `query`: x_T (B, H/8, W/8, 4) fp32 as `init_noise`,
+        unless it is given. Takes `generate`'s keyword arguments (the rest
+        ignored); `pipelines/sharded.py` draws through it."""
+        if init_noise is None:
+            b, img_h, img_w = query.shape[:3]
+            init_noise = torch.randn((b, img_h // 8, img_w // 8, 4), generator=generator,
+                                     device=self.device, dtype=torch.float32)
+        return {"init_noise": init_noise.to(device=self.device, dtype=torch.float32)}
+
     @torch.no_grad()
     def generate(
         self,
@@ -264,7 +276,6 @@ class PromptDiffusionSD15:
             raise ValueError(f"eta>0 is DDIM-only (got sampler={sampler!r})")
         validate_window(control_guidance_start, control_guidance_end)
         self.check_inputs(token_ids, neg_token_ids, example_pair, query)
-        b, img_h, img_w, _ = query.shape
         tables = self.sampler_tables(sampler, num_steps, eta)
         keep = None
         if not is_default_window(control_guidance_start, control_guidance_end):
@@ -272,12 +283,7 @@ class PromptDiffusionSD15:
                                     control_guidance_start, control_guidance_end)
         eps_fn = self.make_eps_fn(token_ids, neg_token_ids, example_pair, query,
                                   guidance_scale, control_scale, guess_mode, control_keep=keep)
-        if init_noise is None:
-            x = torch.randn((b, img_h // 8, img_w // 8, 4), generator=generator,
-                            device=self.device, dtype=torch.float32)
-        else:
-            x = init_noise.to(device=self.device, dtype=torch.float32)
-        x = x.permute(_NCHW)
+        x = self.draw_noise(query, generator, init_noise)["init_noise"].permute(_NCHW)
         if sampler == "unipc":
             x = unipc_sample_loop(eps_fn, x, tables)
         elif sampler in ("dpm++", "dpm"):

@@ -218,9 +218,10 @@ class PromptDiffusionSD3:
 
     @torch.no_grad()
     def encode_support_pair(self, cond: torch.Tensor, gt: torch.Tensor,
-                            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                            generator: Optional[torch.Generator] = None,
+                            noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`support_pair_latents` without gradients (inference)."""
-        return self.support_pair_latents(cond, gt, generator)
+        return self.support_pair_latents(cond, gt, generator, noise)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
@@ -252,6 +253,27 @@ class PromptDiffusionSD3:
                     raise ValueError(f"{name}[{key!r}] batch {ids[key].shape[0]} != image "
                                      f"batch {b}")
 
+    def draw_noise(self, control_image: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   pair_noise: Optional[torch.Tensor] = None,
+                   cond_noise: Optional[torch.Tensor] = None,
+                   init_noise: Optional[torch.Tensor] = None, **_) -> dict:
+        """What `generate` draws from `generator`, in its order, for the
+        whole batch of `control_image`: the VAE sampling noise of the
+        support pair, then of the query condition ((B, z, H/8, W/8) NCHW
+        fp32, as the moments are), then x_T as `init_noise` ((B, H/8, W/8,
+        z) NHWC), each unless given. Takes `generate`'s keyword arguments
+        (the rest ignored); `pipelines/sharded.py` draws through it."""
+        b, img_h, img_w = control_image.shape[:3]
+        shape = (b, self.vae.config.z_channels, img_h // 8, img_w // 8)
+        draw = lambda given: (torch.randn(shape, generator=generator, device=self.device)
+                              if given is None else given)
+        pair_noise = draw(pair_noise)
+        cond_noise = draw(cond_noise)
+        if init_noise is None:
+            init_noise = draw(None).permute(_NHWC)
+        return {"pair_noise": pair_noise, "cond_noise": cond_noise, "init_noise": init_noise}
+
     @torch.no_grad()
     def generate(
         self,
@@ -270,24 +292,24 @@ class PromptDiffusionSD3:
         t5_seq: Optional[torch.Tensor] = None,  # staged T5 states of the prompt
         neg_t5_seq: Optional[torch.Tensor] = None,  # ... and of the negative prompt
         generator: Optional[torch.Generator] = None,
+        pair_noise: Optional[torch.Tensor] = None,  # (B, z, H/8, W/8) NCHW
+        cond_noise: Optional[torch.Tensor] = None,  # (B, z, H/8, W/8) NCHW
     ) -> torch.Tensor:
-        """Returns images (B, H, W, 3) in [0, 1], fp32. The VAE sampling
-        noise of the support pair and the query condition, then x_T unless
-        `init_noise` is given, are drawn from `generator`."""
+        """Returns images (B, H, W, 3) in [0, 1], fp32. What is not given of
+        the VAE sampling noise and x_T is drawn from `generator` first
+        (`draw_noise`)."""
         validate_window(control_guidance_start, control_guidance_end)
         windowed = not is_default_window(control_guidance_start, control_guidance_end)
         self.check_inputs(prompt_ids, neg_prompt_ids, control_image, support_cond, support_image)
-        b, img_h, img_w, _ = control_image.shape
+        b = control_image.shape[0]
+        noise = self.draw_noise(control_image, generator, pair_noise, cond_noise, init_noise)
         velocity_fn = self.make_velocity_fn(prompt_ids, neg_prompt_ids, control_image,
                                             support_cond, support_image, guidance_scale,
                                             t5_seq=t5_seq, neg_t5_seq=neg_t5_seq,
-                                            generator=generator)
+                                            pair_noise=noise["pair_noise"],
+                                            cond_noise=noise["cond_noise"])
         timesteps, sigmas = make_inference_sigmas(num_steps, shift=shift)
-        if init_noise is None:
-            x = torch.randn((b, self.vae.config.z_channels, img_h // 8, img_w // 8),
-                            generator=generator, device=self.device)
-        else:
-            x = init_noise.to(device=self.device, dtype=torch.float32).permute(_NCHW)
+        x = noise["init_noise"].to(device=self.device, dtype=torch.float32).permute(_NCHW)
         for i in range(num_steps):
             t_b = torch.full((b,), float(np.float32(timesteps[i])), device=self.device)
             cond_scale = controlnet_conditioning_scale
@@ -300,9 +322,10 @@ class PromptDiffusionSD3:
     @torch.no_grad()
     def make_velocity_fn(self, prompt_ids, neg_prompt_ids, control_image, support_cond,
                          support_image, guidance_scale: float = 7.0, t5_seq=None,
-                         neg_t5_seq=None, generator: Optional[torch.Generator] = None):
+                         neg_t5_seq=None, generator: Optional[torch.Generator] = None,
+                         pair_noise=None, cond_noise=None):
         """Encodes the prompts, the support pair and the query condition once
-        (the VAE sampling noise from `generator`, pair first) and returns
+        (the VAE sampling noise given, or from `generator`, pair first) and returns
         `velocity_fn(x, t_b, conditioning_scale=1.0)`: ControlNet + MMDiT on
         the uncond || cond double batch and the classifier-free guidance,
         for NCHW latents x and (B,) fp32 timesteps."""
@@ -313,8 +336,8 @@ class PromptDiffusionSD3:
                                            neg_prompt_ids.get("t5"), t5_seq=neg_t5_seq)
         context2 = torch.cat([ctx_u, ctx_c])  # uncond first
         pooled2 = torch.cat([pool_u, pool_c])
-        pair_lat = self.encode_support_pair(support_cond, support_image, generator)
-        cond_lat = self._encode_vae(_nchw(control_image, dev), generator)
+        pair_lat = self.encode_support_pair(support_cond, support_image, generator, pair_noise)
+        cond_lat = self._encode_vae(_nchw(control_image, dev), generator, cond_noise)
         pair2, cond2 = torch.cat([pair_lat] * 2), torch.cat([cond_lat] * 2)
 
         def velocity_fn(x, t_b, conditioning_scale=1.0):

@@ -84,9 +84,14 @@ def make_request(tok, prompt: str, seed: int, resolution: int, steps: int, sampl
 
 def run_demo(server, tok, resolution: int, steps: int, sampler: str, out_dir: str) -> list:
     """Submits the demo prompts at once, writes `req{i}.png` for each;
-    returns the paths."""
-    futs = [server.submit(make_request(tok, p, i, resolution, steps, sampler, 7.0 + i))
+    returns the paths. Every request is built before the first is
+    submitted: a request built while the server's flush window runs could
+    miss it and land in a batch of its own, which changes the int8 images
+    (the per-tensor activation scale spans the batch)."""
+    reqs = [make_request(tok, p, i, resolution, steps, sampler, 7.0 + i)
             for i, p in enumerate(DEMO_PROMPTS)]
+    runs_before = server.stats["batches"]  # the warm-up's runs are not the demo's
+    futs = [server.submit(r) for r in reqs]
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
     paths = []
@@ -94,7 +99,7 @@ def run_demo(server, tok, resolution: int, steps: int, sampler: str, out_dir: st
         paths.append(os.path.join(out_dir, f"req{i}.png"))
         write_png(paths[-1], fut.result())
     print(f"served {len(futs)} requests in {time.perf_counter() - t0:.1f}s "
-          f"({server.stats['batches']} batched runs) -> {out_dir}/")
+          f"({server.stats['batches'] - runs_before} batched runs) -> {out_dir}/")
     return paths
 
 

@@ -6,7 +6,7 @@
         [--use-checkpoint] [--use-ema] [--device cuda] [--tiny]
 
 The counterpart of the root `train_sd15.py` (the reference's `train.py`
-and `train_promptdiffusion_sd15.py`) on one device: `EditDataset` batches
+and `train_promptdiffusion_sd15.py`): `EditDataset` batches
 (`data/edit_dataset.py`), the ControlNet step of `training/sd15.py`,
 checkpoints with resume (`training/checkpoint.py`), the EMA, image and
 metric logs. Reference recipe (train.py:204,259-260): lr 1e-4, batch 64,
@@ -16,9 +16,22 @@ recomputes the UNet's and ControlNet's blocks in the backward pass
 `--init-ckpt` takes a reference `.ckpt` or `.safetensors`; one without
 ControlNet weights gets the UNet encoder's (`tool_add_control.py`).
 Without it the weights are random (`random_init_`, from `--seed`).
-`--tiny` builds the root driver's tiny widths (a CPU-sized run);
-`--num-fsdp` above 1 is refused (the port's sharded trainer is ROADMAP
-queue 1, item 4).
+`--tiny` builds the root driver's tiny widths (a CPU-sized run).
+
+Under `torchrun` the run is sharded over every rank (`parallel/mesh.py`):
+
+    torchrun --standalone --nproc-per-node=4 -m prompt_diffusion_tpu_torch.train_sd15 \
+        --data-root DIR --num-fsdp 2 ...
+
+builds a (world / num_fsdp) x num_fsdp (data, fsdp) mesh, one card a rank;
+`--batch-size` stays global and each rank's loader reads its shard of the
+data set, batch / world samples a step; the trainable state is ZeRO-
+sharded over `fsdp`; only rank 0 logs and writes checkpoints (the one-card
+format, restorable at any world size). Without `torchrun` the run is the
+one-device run, and a `--num-fsdp` other than 1 is refused. `--loader
+native` decodes the batches with the C++ decoder (`native/`; a failed
+build raises), `--loader pil` with PIL; the default `auto` takes native
+where it builds on this host, else PIL, and prints which and why.
 """
 
 from __future__ import annotations
@@ -46,7 +59,10 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every", type=int, default=1000)
     p.add_argument("--ckpt-keep", type=int, default=None)
     p.add_argument("--image-log-every", type=int, default=500)
-    p.add_argument("--num-fsdp", type=int, default=1)
+    p.add_argument("--num-fsdp", type=int, default=1,
+                   help="fsdp width of the mesh under torchrun (must divide the world)")
+    p.add_argument("--loader", choices=["auto", "native", "pil"], default="auto",
+                   help="image decoder of the batch loader (auto: native where it builds)")
     p.add_argument("--tokenizer-assets", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tiny", action="store_true",
@@ -57,10 +73,26 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_fsdp(num_fsdp: int) -> None:
-    if num_fsdp > 1:
-        raise SystemExit(f"--num-fsdp {num_fsdp}: the port trains on one device; sharded "
-                         "training (DDP/FSDP/TP) is ROADMAP queue 1, item 4")
+def distributed(num_fsdp: int, batch_size: int, device: str):
+    """(mesh, device) of the run: under `torchrun` the (data, fsdp) mesh
+    over every rank and this rank's device; else (None, device). Refuses a
+    `--num-fsdp` that does not divide the world and a global batch the
+    world does not divide."""
+    from prompt_diffusion_tpu_torch.parallel.mesh import launched, make_mesh, mesh_device
+
+    if not launched():
+        if num_fsdp != 1:
+            raise SystemExit(f"--num-fsdp {num_fsdp} does not divide the world size 1 "
+                             "(launch the entry under torchrun to shard it)")
+        return None, device
+    try:
+        mesh = make_mesh(num_fsdp=num_fsdp, device=device)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if batch_size % mesh.size():
+        raise SystemExit(f"--batch-size {batch_size} must be divisible by the mesh's "
+                         f"{mesh.size()} data-parallel ranks")
+    return mesh, str(mesh_device(mesh))
 
 
 def build_pipe(tiny: bool, device: str, use_checkpoint: bool = False):
@@ -122,13 +154,16 @@ def init_weights(pipe, seed: int, init_ckpt=None) -> None:
 def main(argv=None) -> dict:
     """Runs the trainer; returns {"pipe", "state", "metrics" and "step_s"
     (each step's metrics, and its seconds from the batch's host work to the
-    update's end, the checkpoint save left out), "start_step"}."""
+    update's end, the checkpoint save left out), "start_step", "mesh"
+    (None without torchrun)}."""
     args = parse_args(argv)
-    refuse_fsdp(args.num_fsdp)
+    mesh, device = distributed(args.num_fsdp, args.batch_size, args.device)
     import torch
 
     from prompt_diffusion_tpu_torch.data.edit_dataset import BatchLoader, EditDataset
     from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
+    from prompt_diffusion_tpu_torch.native import choose_decoder
+    from prompt_diffusion_tpu_torch.parallel.mesh import batch_rank, is_rank0, world_size
     from prompt_diffusion_tpu_torch.training import checkpoint as ckpt
     from prompt_diffusion_tpu_torch.training.image_logger import ImageLogger, MetricLogger
     from prompt_diffusion_tpu_torch.training.sd15 import (
@@ -137,25 +172,28 @@ def main(argv=None) -> dict:
         make_train_step,
     )
 
-    pipe = build_pipe(args.tiny, args.device, args.use_checkpoint)
+    lead = is_rank0(mesh)  # logs, prints and writes checkpoints
+    pipe = build_pipe(args.tiny, device, args.use_checkpoint)
     init_weights(pipe, args.seed, args.init_ckpt)
     cfg = SD15TrainConfig(learning_rate=args.lr, sd_locked=args.sd_locked,
                           use_ema=args.use_ema, accum_steps=args.accum_steps,
                           parameterization=args.parameterization)
-    state = init_train_state(cfg, pipe, seed=args.seed + 1)
+    state = init_train_state(cfg, pipe, seed=args.seed + 1, mesh=mesh)
 
     manager = ckpt.make_manager(f"{args.logdir}/checkpoints", save_every=args.ckpt_every,
                                 keep=args.ckpt_keep)
     start_step = ckpt.resume(manager, state) if args.resume else 0
-    if start_step:
+    if start_step and lead:
         print(f"resumed from step {start_step}")
 
     tokenizer = load_tokenizer(args.tokenizer_assets)
     dataset = EditDataset(args.data_root, task_list=args.tasks, resolution=args.resolution)
-    loader = BatchLoader(dataset, batch_size=args.batch_size, seed=args.seed,
-                         tokenizer=tokenizer)
+    loader = BatchLoader(dataset, batch_size=args.batch_size // world_size(mesh),
+                         seed=args.seed, tokenizer=tokenizer, shard_id=batch_rank(mesh),
+                         num_shards=world_size(mesh),
+                         decoder=choose_decoder(args.loader, print if lead else lambda m: None))
     step_fn = make_train_step(pipe, cfg)
-    imlog = ImageLogger(args.logdir, freq=args.image_log_every)
+    imlog = ImageLogger(args.logdir, freq=args.image_log_every)  # both write on rank 0 only
     mlog = MetricLogger(args.logdir)
 
     history, step_s = [], []
@@ -172,7 +210,8 @@ def main(argv=None) -> dict:
         if step % 50 == 0:
             dt = time.perf_counter() - t0
             t0 = time.perf_counter()
-            print(f"step {step} loss {metrics['loss']:.4f} ({dt:.2f}s/50 steps)")
+            if lead:
+                print(f"step {step} loss {metrics['loss']:.4f} ({dt:.2f}s/50 steps)")
             mlog.log(step, metrics)
         ckpt.save_state(manager, step, state)  # at multiples of --ckpt-every
         if args.image_log_every > 0 and step % args.image_log_every == 0:
@@ -182,9 +221,10 @@ def main(argv=None) -> dict:
     it.close()
     ckpt.save_final(manager, args.max_steps - 1, state)
     manager.close()
-    print("done")
+    if lead:
+        print("done")
     return {"pipe": pipe, "state": state, "metrics": history, "step_s": step_s,
-            "start_step": start_step}
+            "start_step": start_step, "mesh": mesh}
 
 
 if __name__ == "__main__":

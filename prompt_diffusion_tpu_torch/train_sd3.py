@@ -8,7 +8,7 @@ default.
         [--device cuda] [--tiny]
 
 The counterpart of the root `train_sd3.py` (the reference's
-`train_promptdiffusion_sd3.py`) on one device: logit-normal timestep
+`train_promptdiffusion_sd3.py`): logit-normal timestep
 sampling, the sigma-weighted flow-matching MSE, the ControlNet and
 down_proj trained, the transformer, the VAE and the text encoders frozen
 (`training/sd3.py`). Weights are random, from `--seed` (as in the root
@@ -17,7 +17,10 @@ driver). The text of each batch goes through CLIP-L and CLIP-bigG; with
 of the data set before training and is freed (the reference precomputes
 and frees its encoders, :1058-1080), else its slots are zeros as in the
 root driver. Conditions come from the loader in [0, 1] and are mapped to
-[-1, 1] for the VAE, the root driver's recorded choice.
+[-1, 1] for the VAE, the root driver's recorded choice. Under `torchrun`
+the run is sharded as `train_sd15`'s (`--num-fsdp`, global `--batch-size`,
+each rank's loader on its shard, rank 0 logging and writing checkpoints);
+`--loader auto|native|pil` picks the batch decoder as there.
 """
 
 from __future__ import annotations
@@ -45,7 +48,10 @@ def parse_args(argv=None):
     p.add_argument("--ckpt-every", type=int, default=1000)
     p.add_argument("--ckpt-keep", type=int, default=3)
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--num-fsdp", type=int, default=1)
+    p.add_argument("--num-fsdp", type=int, default=1,
+                   help="fsdp width of the mesh under torchrun (must divide the world)")
+    p.add_argument("--loader", choices=["auto", "native", "pil"], default="auto",
+                   help="image decoder of the batch loader (auto: native where it builds)")
     p.add_argument("--tokenizer-assets", default=None)
     p.add_argument("--t5-assets", default=None,
                    help="dir with tokenizer.json or spiece.model: T5-XXL runs staged over "
@@ -114,16 +120,18 @@ def dataset_prompts(dataset) -> list:
 
 def main(argv=None) -> dict:
     """Runs the trainer; returns {"pipe", "state", "metrics", "step_s",
-    "start_step"} (as `train_sd15.main`)."""
+    "start_step", "mesh"} (as `train_sd15.main`)."""
     args = parse_args(argv)
-    from prompt_diffusion_tpu_torch.train_sd15 import refuse_fsdp
+    from prompt_diffusion_tpu_torch.train_sd15 import distributed
 
-    refuse_fsdp(args.num_fsdp)
+    mesh, device = distributed(args.num_fsdp, args.batch_size, args.device)
     import torch
 
     from prompt_diffusion_tpu_torch.data.edit_dataset import BatchLoader, EditDataset
     from prompt_diffusion_tpu_torch.data.t5_tokenizer import load_t5_tokenizer
     from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
+    from prompt_diffusion_tpu_torch.native import choose_decoder
+    from prompt_diffusion_tpu_torch.parallel.mesh import batch_rank, is_rank0, world_size
     from prompt_diffusion_tpu_torch.training import checkpoint as ckpt
     from prompt_diffusion_tpu_torch.training.image_logger import MetricLogger
     from prompt_diffusion_tpu_torch.training.sd3 import (
@@ -134,7 +142,7 @@ def main(argv=None) -> dict:
     from prompt_diffusion_tpu_torch.utils.dtypes import random_init_
 
     t5_tok = load_t5_tokenizer(args.t5_assets)
-    pipe = build_pipe(args.tiny, args.device, with_t5=t5_tok is not None)
+    pipe = build_pipe(args.tiny, device, with_t5=t5_tok is not None)
     gen = torch.Generator(device=pipe.device).manual_seed(args.seed)
     for m in pipe.jax_modules().values():
         random_init_(m, gen)
@@ -145,16 +153,19 @@ def main(argv=None) -> dict:
     cfg = SD3TrainConfig(learning_rate=args.lr, use_ema=args.use_ema,
                          accum_steps=args.accum_steps, weighting_scheme=args.weighting_scheme,
                          precondition_outputs=args.precondition_outputs)
-    state = init_sd3_train_state(cfg, pipe, seed=args.seed + 1)
+    state = init_sd3_train_state(cfg, pipe, seed=args.seed + 1, mesh=mesh)
     manager = ckpt.make_manager(f"{args.logdir}/checkpoints", save_every=args.ckpt_every,
                                 keep=args.ckpt_keep)
     start_step = ckpt.resume(manager, state) if args.resume else 0
-    if start_step:
+    if start_step and is_rank0(mesh):
         print(f"resumed from step {start_step}")
 
     tokenizer = load_tokenizer(args.tokenizer_assets)
-    loader = BatchLoader(dataset, batch_size=args.batch_size, seed=args.seed,
-                         tokenizer=tokenizer)
+    loader = BatchLoader(dataset, batch_size=args.batch_size // world_size(mesh),
+                         seed=args.seed, tokenizer=tokenizer, shard_id=batch_rank(mesh),
+                         num_shards=world_size(mesh),
+                         decoder=choose_decoder(args.loader,
+                                                print if is_rank0(mesh) else lambda m: None))
     step_fn = make_sd3_train_step(pipe, cfg)
     mlog = MetricLogger(args.logdir)
 
@@ -182,16 +193,19 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         if step % 50 == 0:
-            print(f"step {step} loss {metrics['loss']:.4f} ({time.perf_counter() - t0:.1f}s)")
+            if is_rank0(mesh):
+                print(f"step {step} loss {metrics['loss']:.4f} "
+                      f"({time.perf_counter() - t0:.1f}s)")
             t0 = time.perf_counter()
             mlog.log(step, metrics)
         ckpt.save_state(manager, step, state)
     it.close()
     ckpt.save_final(manager, args.max_steps - 1, state)
     manager.close()
-    print("done")
+    if is_rank0(mesh):
+        print("done")
     return {"pipe": pipe, "state": state, "metrics": history, "step_s": step_s,
-            "start_step": start_step}
+            "start_step": start_step, "mesh": mesh}
 
 
 if __name__ == "__main__":

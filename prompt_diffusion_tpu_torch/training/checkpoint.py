@@ -12,6 +12,12 @@ directory with a step's name is always whole. `save` keeps the orbax
 rules: a step is saved when it is a multiple of `save_every` and later than
 the latest saved step, or when forced; after each save only the newest
 `keep` steps stay (None keeps all).
+
+A sharded state (`TrainState(mesh=)`) is saved in the same one-card
+format: every rank takes part in the gather of the whole tensors, global
+rank 0 decides whether to save (from its files, so every rank agrees) and
+writes; every rank restores its chunk from the file, so a checkpoint saved
+at any world size restores at any other.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Optional, Tuple
 
+from prompt_diffusion_tpu_torch.parallel.mesh import barrier, is_rank0, rank0_value
 from prompt_diffusion_tpu_torch.tools import safetensors_io
 
 _TENSORS, _META = "state.safetensors", "meta.json"
@@ -55,9 +62,13 @@ class CheckpointManager:
     def save(self, step: int, state, force: bool = False) -> bool:
         """Saves `state` (a `TrainState`) as step `step` when the rules above
         allow it or `force`; returns whether it did."""
-        if not force and not self.should_save(step):
+        mesh = getattr(state, "mesh", None)
+        if not rank0_value(force or self.should_save(step), mesh):
             return False
-        tensors = {k: t.detach().to("cpu", copy=True) for k, t in state.tensors().items()}
+        tensors = state.tensors()  # with a mesh: gathered on every rank
+        if not is_rank0(mesh):
+            return True
+        tensors = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
         meta = state.meta()
         future = self._pool.submit(self._write, step, tensors, meta)
         with self._lock:
@@ -87,7 +98,7 @@ class CheckpointManager:
         path = os.path.join(self.directory, str(step))
         with open(os.path.join(path, _META)) as f:
             meta = json.load(f)
-        dev = state.master[0].device if state.master else "cpu"
+        dev = state.params[0].device if state.params else "cpu"
         state.load(safetensors_io.load_file(os.path.join(path, _TENSORS), device=dev), meta)
 
     def close(self) -> None:
@@ -111,7 +122,9 @@ def restore_state(manager: CheckpointManager, template, step: Optional[int] = No
     of the same run. Returns (state, restored step), or (template, None)
     when there is no checkpoint."""
     manager.wait_until_finished()
-    step = step if step is not None else manager.latest_step()
+    mesh = getattr(template, "mesh", None)
+    barrier(mesh)
+    step = rank0_value(step if step is not None else manager.latest_step(), mesh)
     if step is None:
         return template, None
     manager.restore(step, template)
@@ -135,7 +148,9 @@ def save_final(manager: CheckpointManager, step: int, state) -> None:
     `save_every`, and without it the last partial interval of updates
     would be lost. Nothing happens when `step` is already saved."""
     manager.wait_until_finished()
-    if manager.latest_step() != step:
+    mesh = getattr(state, "mesh", None)
+    if rank0_value(manager.latest_step() != step, mesh):
         manager.save(step, state, force=True)
     manager.wait_until_finished()
+    barrier(mesh)  # every rank sees the files rank 0 wrote
 

@@ -15,10 +15,12 @@ import torch
 
 
 class EMA:
-    """fp32 copies of `params` (never aliases), and the update count."""
+    """fp32 copies of `params` (never aliases), and the update count;
+    `copy=False` keeps the fp32 tensors `params` themselves as the average
+    (buffers the caller owns, as `TrainState`'s flat EMA chunk)."""
 
-    def __init__(self, params: Sequence[torch.Tensor]):
-        self.params = [p.detach().float().clone() for p in params]
+    def __init__(self, params: Sequence[torch.Tensor], copy: bool = True):
+        self.params = [p.detach().float().clone() if copy else p for p in params]
         self.count = 0
 
     @torch.no_grad()

@@ -18,6 +18,12 @@ hold the compute dtype and an fp32 master in the `TrainState`
 (`training/optimizer.py`). Each micro-step draws the VAE's sampling noise,
 t, the noise and the dropout uniforms from a generator seeded by (seed,
 step) (`step_generator`), or takes them from `draws=`.
+
+With a mesh on the state (`init_train_state(..., mesh=)`), each rank's
+batch is its rows of the global batch; the draws are made (or given) for
+the global batch and each rank takes its rows (`parallel.mesh.batch_slice`),
+so a sharded step computes the one-rank step on the same global batch. The
+loss and grad_norm reported are global.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from typing import Dict, Mapping, NamedTuple, Optional
 import torch
 
 from prompt_diffusion_tpu_torch.models.vae import sample_from_moments
+from prompt_diffusion_tpu_torch.parallel.mesh import batch_slice, mean_over_ranks, world_size
 from prompt_diffusion_tpu_torch.training.lr_schedules import lambda_linear
 from prompt_diffusion_tpu_torch.training.optimizer import (
     AdamW,
@@ -104,13 +111,14 @@ def make_optimizer(cfg: SD15TrainConfig) -> AdamW:
     return AdamW(lr_schedule(cfg), cfg.weight_decay, cfg.max_grad_norm, cfg.accum_steps)
 
 
-def init_train_state(cfg: SD15TrainConfig, pipe, seed: int = 0) -> TrainState:
+def init_train_state(cfg: SD15TrainConfig, pipe, seed: int = 0, mesh=None) -> TrainState:
     """The state of a run at step 0: the trainable set of `pipe` (the only
     tensors that then record gradients), its masters, zero moments and the
-    EMA's copy; draws seeded from `seed`."""
+    EMA's copy (this rank's chunks of them with a `mesh`); draws seeded
+    from `seed`."""
     for m in pipe.jax_modules().values():
         m.requires_grad_(False)
-    return TrainState(trainable_params(pipe, cfg), cfg.accum_steps, cfg.use_ema, seed)
+    return TrainState(trainable_params(pipe, cfg), cfg.accum_steps, cfg.use_ema, seed, mesh)
 
 
 def device_batch(batch: Mapping, device) -> Dict[str, torch.Tensor]:
@@ -166,6 +174,8 @@ def make_train_step(pipe, cfg: SD15TrainConfig, opt: Optional[AdamW] = None):
       example_pair (B, H, W, 6) condition [0, 1] || image [-1, 1]
       token_ids    (B, 77) prompt ids
       null_ids     (1, 77) ids of the empty prompt
+    With a mesh on the state, `batch` is this rank's rows and `draws`
+    (given or made) cover the global batch.
     metrics: loss, grad_norm (the micro-step gradient before clipping,
     over the trainable set; JAX's metric also counts the frozen UNet
     encoder's gradient under `sd_locked=False`, which the port does not
@@ -178,13 +188,14 @@ def make_train_step(pipe, cfg: SD15TrainConfig, opt: Optional[AdamW] = None):
         b = device_batch(batch, dev)
         if draws is None:
             n, _, h, w = b["image"].shape
-            shape = (n, pipe.vae.config.z_channels, h // 8, w // 8)
+            shape = (n * world_size(state.mesh), pipe.vae.config.z_channels, h // 8, w // 8)
             draws = make_draws(step_generator(state.seed, state.step, dev), shape,
                                pipe.schedule.num_timesteps)
-        loss = sd15_loss(pipe, cfg, b, draws)
+        loss = sd15_loss(pipe, cfg, b, batch_slice(draws, state.mesh))
         loss.backward()
         metrics = {"lr": schedule(state.step // cfg.accum_steps), "step": state.step}
         grad_norm = finish_step(state, opt, cfg.ema_decay)
-        return {"loss": loss.detach(), "grad_norm": grad_norm, **metrics}
+        return {"loss": mean_over_ranks(loss.detach(), state.mesh), "grad_norm": grad_norm,
+                **metrics}
 
     return train_step

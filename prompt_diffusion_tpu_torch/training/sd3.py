@@ -13,7 +13,8 @@ Counterpart of `prompt_diffusion_tpu/training/sd3.py`
     (:1284-1309).
 The ControlNet and down_proj train; the transformer, the VAE and the text
 encoders are frozen (the text embeddings come precomputed in the batch).
-Optimizer, masters, EMA and draws as in `training/sd15.py`.
+Optimizer, masters, EMA, draws and the sharded step as in
+`training/sd15.py`.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 
+from prompt_diffusion_tpu_torch.parallel.mesh import batch_slice, mean_over_ranks, world_size
 from prompt_diffusion_tpu_torch.schedulers.flow_match import (
     FlowMatchSchedule,
     logit_normal_timestep_density,
@@ -79,14 +81,14 @@ def make_sd3_optimizer(cfg: SD3TrainConfig) -> AdamW:
                  cfg.accum_steps)
 
 
-def init_sd3_train_state(cfg: SD3TrainConfig, pipe, seed: int = 0) -> TrainState:
+def init_sd3_train_state(cfg: SD3TrainConfig, pipe, seed: int = 0, mesh=None) -> TrainState:
     """The state at step 0 over the ControlNet and down_proj, the only
-    tensors that then record gradients."""
+    tensors that then record gradients (this rank's chunks with a `mesh`)."""
     for m in pipe.jax_modules().values():
         m.requires_grad_(False)
     named = {f"{ns}.{n}": p for ns in ("controlnet", "down_proj")
              for n, p in getattr(pipe, ns).named_parameters()}
-    return TrainState(named, cfg.accum_steps, cfg.use_ema, seed)
+    return TrainState(named, cfg.accum_steps, cfg.use_ema, seed, mesh)
 
 
 def sd3_device_batch(batch: Mapping, device) -> Dict[str, torch.Tensor]:
@@ -139,7 +141,9 @@ def make_sd3_train_step(pipe, cfg: SD3TrainConfig, opt: Optional[AdamW] = None):
       support_cond  (B, H, W, 3) support condition
       support_image (B, H, W, 3) support image
       context       (B, L, joint_dim) precomputed joint text embedding
-      pooled        (B, pooled_dim) precomputed pooled embedding"""
+      pooled        (B, pooled_dim) precomputed pooled embedding
+    With a mesh on the state, `batch` is this rank's rows and `draws`
+    (given or made) cover the global batch."""
     if cfg.weighting_scheme not in WEIGHTING_SCHEMES:
         raise ValueError(f"weighting_scheme {cfg.weighting_scheme!r}: one of "
                          f"{WEIGHTING_SCHEMES}")
@@ -151,12 +155,13 @@ def make_sd3_train_step(pipe, cfg: SD3TrainConfig, opt: Optional[AdamW] = None):
         b = sd3_device_batch(batch, dev)
         if draws is None:
             n, h, w, _ = b["image"].shape
-            shape = (n, pipe.vae.config.z_channels, h // 8, w // 8)
+            shape = (n * world_size(state.mesh), pipe.vae.config.z_channels, h // 8, w // 8)
             draws = make_sd3_draws(step_generator(state.seed, state.step, dev), shape)
-        loss = sd3_loss(pipe, cfg, sched, b, draws)
+        loss = sd3_loss(pipe, cfg, sched, b, batch_slice(draws, state.mesh))
         loss.backward()
         step = state.step
         grad_norm = finish_step(state, opt, cfg.ema_decay)
-        return {"loss": loss.detach(), "grad_norm": grad_norm, "step": step}
+        return {"loss": mean_over_ranks(loss.detach(), state.mesh), "grad_norm": grad_norm,
+                "step": step}
 
     return train_step

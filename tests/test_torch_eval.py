@@ -137,15 +137,30 @@ def test_self_distance_bound_holds_at_the_floor():
     assert abs(fid.frechet_distance(mu, sigma, mu, sigma)) <= bound < 1e-3 * np.trace(sigma)
 
 
-def test_fid_sharded_is_refused(tmp_path, capsys):
-    """The sharded feature pass waits for the port's parallel/ (ROADMAP
-    queue 1, item 4): refused by the CLI and by `fid_between_dirs`."""
-    with pytest.raises(SystemExit) as e:
-        fid.main(["calc", "--images", str(tmp_path), "--ref", "r.npz", "--sharded"])
-    assert e.value.code == 2
-    assert "ROADMAP queue 1, item 4" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        fid.fid_between_dirs(None, 2048, str(tmp_path), "r.npz", mesh=object())
+def test_fid_sharded_is_refused(tmp_path, monkeypatch):
+    """What was refused runs: `--sharded` without torchrun is the
+    single-process pass (JAX's on one device), so its statistics equal the
+    plain CLI's bit for bit (a small feature function stands in for the
+    Inception); the sharded pass over several ranks is held by
+    tests/test_torch_parallel.py."""
+    from PIL import Image
+
+    rng = np.random.default_rng(2)
+    for i in range(5):
+        Image.fromarray(rng.integers(0, 255, (20, 24, 3), dtype=np.uint8)).save(
+            tmp_path / f"{i}.png")
+    w = torch.from_numpy(rng.normal(size=(3, 8)).astype(np.float32))
+    monkeypatch.setattr(fid, "default_feature_fn",
+                        lambda device: (lambda x: x.mean(dim=(1, 2)) @ w, 8))
+    for var in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    plain = fid.main(["ref", "--images", str(tmp_path), "--out", str(tmp_path / "a.npz"),
+                      "--batch", "2", "--device", "cpu"])
+    sharded = fid.main(["ref", "--images", str(tmp_path), "--out", str(tmp_path / "b.npz"),
+                        "--batch", "2", "--device", "cpu", "--sharded"])
+    assert plain.count == sharded.count == 5
+    assert np.array_equal(plain.raw_sum, sharded.raw_sum)
+    assert np.array_equal(plain.raw_outer, sharded.raw_outer)
 
 
 def test_fid_defaults_to_the_card():

@@ -206,6 +206,10 @@ def test_port_imports_no_jax():
             "prompt_diffusion_tpu_torch.evaluation.inception, "
             "prompt_diffusion_tpu_torch.utils.config, prompt_diffusion_tpu_torch.utils.profiling, "
             "prompt_diffusion_tpu_torch.tools.int8_quality, "
+            "prompt_diffusion_tpu_torch.parallel, prompt_diffusion_tpu_torch.parallel.mesh, "
+            "prompt_diffusion_tpu_torch.parallel.tensor_parallel, "
+            "prompt_diffusion_tpu_torch.pipelines.sharded, "
+            "prompt_diffusion_tpu_torch.native, "
             "chip_smoke; "
             "bad = [m for m in ('jax', 'flax', 'prompt_diffusion_tpu', 'tools') "
             "if m in sys.modules]; "

@@ -395,3 +395,26 @@ def test_serve_entry_demo_and_refusals(pipe, tmp_path, capsys):
             np.clip(np.rint(want * 255), 0, 255).astype(np.uint8))
     with pytest.raises(SystemExit):
         serve.main(["--sampler", "euler"])
+
+
+def test_demo_requests_batch_whatever_their_build_time(tmp_path, capsys):
+    """`run_demo` builds every request before it submits the first, so a
+    slow tokenizer cannot make a request miss the flush window and run in a
+    batch of its own (under int8 the images change with the batch); the
+    runs it prints are its own, not the warm-up's."""
+
+    class Blank(PipelineAdapter):
+        def execute(self, padded):
+            return torch.zeros(len(padded), RES, RES, 3)
+
+    def slow_tok(texts):
+        time.sleep(0.1)  # two calls a request: longer than the window
+        return ptok.HashTokenizer()(texts)
+
+    srv = GenerationServer(None, ServerConfig(max_batch=4, flush_ms=50.0), adapter=Blank())
+    with srv:
+        srv.warmup(serve.make_request(ptok.HashTokenizer(), "warmup", 0, RES, STEPS, "ddim"))
+        assert srv.stats["batches"] == 3  # buckets 1, 2 and 4
+        paths = serve.run_demo(srv, slow_tok, RES, STEPS, "ddim", str(tmp_path / "out"))
+    assert srv.stats["batches"] == 4 and len(paths) == 4
+    assert "(1 batched runs)" in capsys.readouterr().out

@@ -260,10 +260,13 @@ def _batches(loader_cls, ds, n, **kw):
     return out
 
 
-def test_edit_dataset_copy_matches_original(data_root, monkeypatch):
+@pytest.mark.parametrize("decoder", ["pil", "native"])
+def test_edit_dataset_copy_matches_original(data_root, monkeypatch, decoder):
     """The same index, samples and batches (three epochs' worth) as the
-    JAX package's EditDataset and BatchLoader on its PIL path."""
-    monkeypatch.setattr(jed.BatchLoader, "_make_batch_native", lambda self, s, i: None)
+    JAX package's EditDataset and BatchLoader, on its PIL path (its native
+    path patched away) and on its native path."""
+    if decoder == "pil":
+        monkeypatch.setattr(jed.BatchLoader, "_make_batch_native", lambda self, s, i: None)
     pd, jd = ped.EditDataset(data_root, resolution=32), jed.EditDataset(data_root, resolution=32)
     assert len(pd) == len(jd) == 9
     for task in pd.task_list:
@@ -273,7 +276,8 @@ def test_edit_dataset_copy_matches_original(data_root, monkeypatch):
     assert a.keys() == b.keys()
     for k in a:
         assert np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k]
-    for pb, jb in zip(_batches(ped.BatchLoader, pd, 9), _batches(jed.BatchLoader, jd, 9)):
+    for pb, jb in zip(_batches(ped.BatchLoader, pd, 9, decoder=decoder),
+                      _batches(jed.BatchLoader, jd, 9)):
         assert pb.keys() == jb.keys()
         for k in pb:
             assert np.array_equal(pb[k], jb[k]) if isinstance(pb[k], np.ndarray) else pb[k] == jb[k]
@@ -376,12 +380,21 @@ def test_finetune_sd15_entry(data_root, tmp_path):
     assert sorted(os.listdir(tmp_path / "checkpoints")) == ["0", "1"]
 
 
-def test_entries_refuse_fsdp_and_default_to_the_card(data_root):
+def test_entries_refuse_fsdp_and_default_to_the_card(data_root, monkeypatch):
+    """Both entries run on the card by default, decode natively where the
+    decoder builds (`--loader auto`), and refuse a --num-fsdp that does not
+    divide the world: without torchrun the world is one process."""
     for mod in (train_sd15, finetune_sd15):
         assert mod.parse_args(["--data-root", "x", "--task", "t"] if mod is finetune_sd15
                               else ["--data-root", "x"]).device == "cuda"
-    with pytest.raises(SystemExit, match="queue 1, item 4"):
+    assert train_sd15.parse_args(["--data-root", "x"]).loader == "auto"
+    for var in ("WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(SystemExit, match="--num-fsdp 2 does not divide the world size 1"):
         train_sd15.main(["--data-root", data_root, "--num-fsdp", "2", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="--num-fsdp 2 does not divide the world size 1"):
+        finetune_sd15.main(["--data-root", data_root, "--task", "canny", "--num-fsdp", "2",
+                            "--device", "cpu"])
 
 
 def test_use_checkpoint_is_a_config_field():

@@ -171,7 +171,8 @@ def test_train_sd3_entry_staged_t5_and_resume(tmp_path_factory):
     """`train_sd3 --tiny --device cpu` with a T5 tokenizer: T5 runs staged
     over the data set's prompts and is freed; 3 steps, then `--resume` to
     4 starts at step 3; the transformer and VAE stay unchanged, the
-    ControlNet and down_proj move; `--num-fsdp 2` is refused."""
+    ControlNet and down_proj move; `--num-fsdp 2` is refused without
+    torchrun (a world of one)."""
     root = make_edit_root(str(tmp_path_factory.mktemp("sd3data")), res=64)
     assets = tmp_path_factory.mktemp("t5")
     (assets / "tokenizer.json").write_text(json.dumps(
@@ -197,5 +198,5 @@ def test_train_sd3_entry_staged_t5_and_resume(tmp_path_factory):
                    for k, v in getattr(fresh, name).state_dict().items())
         assert same == (name not in ("controlnet", "down_proj")), name
     assert train_sd3.parse_args(["--data-root", "x"]).device == "cuda"
-    with pytest.raises(SystemExit, match="queue 1, item 4"):
+    with pytest.raises(SystemExit, match="--num-fsdp 2 does not divide the world size 1"):
         train_sd3.main(["--data-root", root, "--num-fsdp", "2", "--device", "cpu"])
