@@ -54,16 +54,29 @@ without the final `"ok": true` line:
                call and a second call bit-equal. The attention lab modes
                at the SD1.5 64² and SD3 joint shapes, with K1's bounds
                (the no-softmax mode's output is no average of V: its
-               bound is relative);
+               bound is relative). K1, K2 at D <= 128 and K9 run the
+               `wgmma` kernel of `attention_sm90.cuh`; at each such case
+               the parent design (`fa_narrow_kernel`, `int8_attn_kernel`)
+               runs too, within the same bound, and its device ms is
+               printed beside the kernel's; the plan of
+               `ops/flash_attention.py` (query rows, key tile, shared
+               memory) must equal the build's at every instantiation;
+               and K9's Q codes, which never leave the kernel's
+               registers, are read back through its output
+               (`k9_code_probe`) at every int8 instantiation and must
+               equal the plain quantizer's in every row;
   4. slice   - SD1.5 at full width (default configs, bf16, random weights
                from a seed) answers two 512² requests of batch 2 with 8 DDIM
                steps and CFG 9; checks the images, that every kernel of the
                path was launched during the requests, that request 1 again
-               under the profiler launches K3's and K9p's kernels once per
-               wrapper call and none of their parent designs' device
-               functions (`one_launch_per_call`; so do the int8, sd3 and
-               midas phases), that one CFG epsilon evaluation makes 88 K3
-               calls, and one CFG epsilon
+               under the profiler launches K3's, K9p's, the sm90
+               attention kernels' (K1 and K2 together with the wide
+               kernel above D = 128) and K9's once per wrapper call and
+               none of their parent designs' device functions
+               (`one_launch_per_call`; so do the int8, serve, ckpt, eval,
+               sd3, midas, midas_int8, seg, train and dist phases), that
+               one CFG epsilon evaluation makes 88 K3 calls, and one CFG
+               epsilon
                evaluation (t=999) against the same call on the plain ops
                (relative L2 <= 5e-2 over the uncond and cond outputs; the
                guided epsilon no farther from an fp32 evaluation than the
@@ -863,6 +876,150 @@ def kernel_cases(gen):
     return cases
 
 
+def parent_call(name, args):
+    """The parent design's call on a K1, K2 or K9 case the sm90 kernel
+    runs (`fa_narrow_kernel` at its tile, `int8_attn_kernel` at its query
+    rows, both with the same inputs), or None."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+
+    if name == "flash_attention_packed":
+        q, k, v, h, scale = args
+        d = q.shape[-1] // h
+        views = [t.unflatten(-1, (h, d)) for t in (q, k, v)]
+        if fa.attention_route("online", d) != "sm90":
+            return None
+        return lambda: fa._launch(*views, scale, "online", fa.kernel_tile(d)).flatten(2)
+    if name == "flash_attention":
+        q, k, v = args
+        d = q.shape[-1]
+        if fa.attention_route("online", d) != "sm90":
+            return None
+        return lambda: fa._launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d))
+    if name == "flash_attention_packed_int8":
+        q, k, v, h = args
+        return lambda: fa._int8_launch(q, k, v, h, (q.shape[-1] // h) ** -0.5, False,
+                                       fa.int8_block_q(q.shape[1]))
+    return None
+
+
+def sm90_plan_check():
+    """The plan of `ops/flash_attention.py` (query rows, key tile, shared
+    memory per block) against the sm90 kernel as built, at every
+    instantiation."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    ext, rows = cuda_ext(), []
+    for d, int8, nc in ([(d, False, fa.sm90_consumers(d, False)) for d in fa.SM90_HEAD_DIMS]
+                        + [(d, True, nc) for d in fa.SM90_INT8_HEAD_DIMS
+                           for nc in sorted({2, fa.sm90_consumers(d, True)})]):
+        plan = fa.sm90_plan(d, int8, nc)
+        built = (ext.attention_sm90_block_q(d, int8, nc), ext.attention_sm90_block_k(d, int8, nc),
+                 ext.attention_sm90_smem(d, int8, nc))
+        rows.append(f"D={d}{' int8' if int8 else ''} on {nc} {built}")
+        check(built == (plan.block_q, plan.block_k, plan.smem),
+              f"sm90_plan({d}, {int8}, {nc}) gives {(plan.block_q, plan.block_k, plan.smem)}, "
+              f"the build {built}")
+    log("[kernels] sm90 plan = build (block_q, block_k, smem bytes): " + "; ".join(rows))
+
+
+# K9's Q codes read back through its output (`k9_code_probe`): (D, query
+# rows) cases that take every int8 instantiation of the sm90 kernel (three
+# consumers at 380 rows against K9_PROBE_KEYS keys, two at 250; D = 128
+# runs two), K9_PROBE_HEADS heads a sample, K9_PROBE_SCALE the softmax scale
+K9_PROBE_CASES = ((32, 380), (32, 250), (64, 380), (64, 250), (128, 250))
+K9_PROBE_HEADS, K9_PROBE_KEYS, K9_PROBE_SCALE = 32, 330, 8000.0
+
+
+def k9_code_probe(d, nq, seed=0):
+    """CPU inputs (q, k, v, heads, scale) on which K9's output reads, bit
+    by bit, each query row's int8 code at one dimension, and those codes
+    by the plain quantizer (B, nq, H).
+
+    Sample b, head h probes dimension p = b H + h (D / H samples, so every
+    dimension is probed). Each Q row holds its largest value M at
+    dimension m (code 127), M / 127 at u (code 1), the probed value x at p
+    and at p' (code c, the same twice), and smaller values elsewhere. Key
+    i (i = -127..127) has codes i at p and p', -(i^2 // 127) at m and
+    -(i^2 % 127) at u, and 0 elsewhere, so its logit is 2 i c - i^2 =
+    c^2 - (c - i)^2 in integer sums: key c wins by at least 1, which the
+    scale makes 31 nats or more. The other keys (filler, codes -127 at m
+    and u) and every key's place are shuffled. V of key i holds the bits of
+    i + 127 in columns 0..7, so the output's columns 0..7 round to the bits
+    of c + 127 (`k9_probe_read`). Half the rows put x at an exact tie of
+    the rounding (M = 127 2^e, x = (k + 1/2) 2^e: ties go to even), the
+    others draw M and x at random; K's codes are K9p's exactly (its
+    largest value is 127, its scale 1)."""
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.flash_attention import _int8_scale
+
+    h, nk = K9_PROBE_HEADS, K9_PROBE_KEYS
+    b = d // h
+    rng = np.random.default_rng(seed)
+    bf16 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
+    big = bf16(rng.uniform(0.5, 4.0, (b, nq, h))).float().numpy()
+    e = rng.integers(-7, -4, (b, nq, h)).astype(np.float32)
+    tie = (np.arange(nq) % 2 == 0)[None, :, None]
+    big = np.where(tie, 127 * 2.0 ** e, big)
+    x = bf16(rng.uniform(-1, 1, (b, nq, h)) * big).float().numpy()
+    x = np.where(tie, (rng.integers(-127, 127, (b, nq, h)) + 0.5) * 2.0 ** e, x)
+    q = rng.uniform(-0.9, 0.9, (b, nq, h, d)) * big[..., None]
+    keys = np.arange(-127, 128)
+    k = np.zeros((b, nk, h, d))
+    v = np.zeros((b, nk, h, d))
+    for bi in range(b):
+        for hi in range(h):
+            p = bi * h + hi
+            p2, m, u = (p + d // 2) % d, (p + 1) % d, (p + d // 2 + 1) % d
+            q[bi, :, hi, m], q[bi, :, hi, u] = big[bi, :, hi], big[bi, :, hi] / 127
+            q[bi, :, hi, p] = q[bi, :, hi, p2] = x[bi, :, hi]
+            place = rng.permutation(nk)
+            real, filler = place[:len(keys)], place[len(keys):]
+            k[bi, real, hi, p] = k[bi, real, hi, p2] = keys
+            k[bi, real, hi, m], k[bi, real, hi, u] = -(keys ** 2 // 127), -(keys ** 2 % 127)
+            k[bi, filler, hi, m] = k[bi, filler, hi, u] = -127
+            v[bi, real, hi, :8] = ((keys[:, None] + 127) >> np.arange(8)) & 1
+    q, k, v = (bf16(t.reshape(b, t.shape[1], h * d)) for t in (q, k, v))
+    qf = q.float().view(b, nq, h, d)
+    codes = torch.clamp(torch.round(qf / _int8_scale(qf.abs().amax(-1, keepdim=True))),
+                        -127, 127)
+    probed = torch.arange(b * h).view(b, 1, h, 1).expand(b, nq, h, 1)
+    return (q, k, v, h, K9_PROBE_SCALE), codes.gather(-1, probed)[..., 0].to(torch.int64)
+
+
+def k9_probe_read(out, heads):
+    """The codes a `k9_code_probe` output reads, (B, nq, H), and the largest
+    distance of its columns 0..7 from a bit."""
+    import torch
+
+    bits = out.float().cpu().unflatten(-1, (heads, -1))[..., :8]
+    code = (bits.round().to(torch.int64) << torch.arange(8)).sum(-1) - 127
+    return code, (bits - bits.round()).abs().max().item()
+
+
+def k9_codes_check():
+    """K9's Q codes against the plain quantizer's at every int8
+    instantiation of the sm90 kernel (`k9_code_probe`): every row equal."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    for d, nq in K9_PROBE_CASES:
+        args, want = k9_code_probe(d, nq)
+        q, k, v, h, scale = args
+        nc = fa.sm90_consumers(d, True, nq, k.shape[1])
+        out = fa.flash_attention_packed_int8(q.cuda(), k.cuda(), v.cuda(), h, scale)
+        got, off = k9_probe_read(out, h)
+        wrong = int((got != want).sum())
+        rows.append(f"D={d} N={nq} on {nc} consumers: {wrong} of {want.numel()} codes differ, "
+                    f"bits within {off:.3g}")
+        check(wrong == 0 and off < 0.25, f"K9's Q codes at D={d} N={nq} on {nc} consumers: "
+                                         f"{wrong} differ from the plain quantizer's, bits "
+                                         f"within {off}")
+    log("[kernels] K9's Q codes read back through its output: " + "; ".join(rows))
+
+
 def compare_quant(out, ref):
     """(max abs error of the dequantized values, largest relative scale
     error, largest code difference, share of equal codes)."""
@@ -966,6 +1123,11 @@ def phase_kernels(gen):
             extra["err_vs_plain_bf16"] = (out.float() - ref_bf16.float()).abs().max().item()
             msg += f" err_vs_plain_bf16={extra['err_vs_plain_bf16']}"
             del ref_bf16
+        parent = parent_call(name, args)
+        if parent is not None:  # the parent design on the same inputs, in its own bounds
+            extra["parent_max_abs_err"] = (parent().float() - ref.float()).abs().max().item()
+            msg += f" parent_max_abs_err={extra['parent_max_abs_err']}"
+            ok = ok and extra["parent_max_abs_err"] <= bound
         one = name in ONE_LAUNCH and kind != "grad"  # a gradient case runs many kernels
         if kind == "quant" or one:  # K5's, K3's, K9p's and K12's backward's sums cross blocks
             again = fn(*args)
@@ -984,6 +1146,8 @@ def phase_kernels(gen):
         with plain_ops():
             plain_ms = device_ms(lambda: fn(*args), iters=PLAIN_ITERS, warmup=1)
         lib_ms = None if library is None else device_ms(library)
+        if parent is not None:
+            extra["parent_ms"] = device_ms(parent)
         if name.startswith("conv3x3_int8"):  # the bar an int8 conv must clear to pay
             extra["bf16_conv_ms"] = device_ms(bf16_conv(gen, *args[0].shape, args[2].shape[0]))
         profiled_s += time.perf_counter() - t
@@ -992,6 +1156,7 @@ def phase_kernels(gen):
         bound_by = "bytes" if bound_term == "bytes" else "operations"
         log(f"[kernels] {name} {label}: {msg} device_ms={ms} plain_device_ms={plain_ms} "
             f"library_device_ms={lib_ms} wall_ms={wall_ms} bound_ms={bound_ms} ({bound_term})"
+            + ("" if parent is None else f" parent_device_ms={extra['parent_ms']}")
             + ("" if "bf16_conv_ms" not in extra else f" bf16_conv_device_ms="
                f"{extra['bf16_conv_ms']} (cuDNN bf16, not the same function)"))
         check(ok, f"{name} {label}: outside its bound: {msg}")
@@ -1033,7 +1198,7 @@ def k3_k5_statistics(gen):
 
 
 KERNELS = {  # name -> (route, source, TPU kernel it replaces)
-    "flash_attention_packed": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_packed": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                                "prompt_diffusion_tpu/ops/flash_attention.py:322"),
     "flash_attention": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
                         "prompt_diffusion_tpu/ops/flash_attention.py:163"),
@@ -1049,7 +1214,7 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                           "prompt_diffusion_tpu/ops/fused_act.py:144"),
     "conv3x3_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_conv.cu",
                      "prompt_diffusion_tpu/ops/int8_conv.py:174"),
-    "flash_attention_packed_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
+    "flash_attention_packed_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                                     "prompt_diffusion_tpu/ops/flash_attention.py:375"),
     "fused_gelu_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                          "prompt_diffusion_tpu/ops/fused_act.py:101"),
@@ -1090,17 +1255,36 @@ ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
 DEVICE_FUNCTIONS = {
     "conv3x3_int8": ("conv3x3_int8_kernel", "splitk_epilogue_kernel"),
     "conv3x3_int8_xshift": ("conv3x3_int8_xshift_kernel", "splitk_epilogue_kernel"),
-    "flash_attention_packed_int8": ("k_head_quant_kernel", "int8_attn_kernel"),
+    "flash_attention_packed_int8": ("k_head_quant_kernel", "attn_sm90_int8_kernel"),
     "flash_attention_packed_int8_rowk": ("k_row_codes_kernel", "int8_attn_kernel"),
+    # K1 and K2: the warpgroup kernel at D <= 128, the wide one above (K2 at
+    # the VAE's 512)
+    "flash_attention_packed": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
+    "flash_attention": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
     "quant_k_int8": ("k_head_quant_kernel", "k_row_codes_kernel"),
 }
-# on the paths: each call of these wrappers is one launch of its device
-# function, and no device function of their parent designs runs
-# (`one_launch_per_call`)
-PATH_ONE_LAUNCH = {"fused_group_norm": "gn_float_kernel", "quant_k_int8": "k_head_quant_kernel",
-                   "fused_adaln": "adaln_float_kernel", "fused_adaln_bwd": "adaln_bwd_kernel"}
+# on the paths: each call of these wrappers is one launch of one of its
+# device functions (wrappers that share device functions are counted
+# together: K1 and K2 launch the sm90 bf16 kernel, K2 also the wide one),
+# and no device function of their parent designs runs
+# (`one_launch_per_call`): K1's and K2's narrow parent and K9's parent stay
+# for the lab modes
+PATH_ONE_LAUNCH = {"fused_group_norm": ("gn_float_kernel",),
+                   "quant_k_int8": ("k_head_quant_kernel",),
+                   "fused_adaln": ("adaln_float_kernel",), "fused_adaln_bwd": ("adaln_bwd_kernel",),
+                   "flash_attention_packed": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
+                   "flash_attention": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
+                   "flash_attention_packed_int8": ("attn_sm90_int8_kernel",)}
 PARENT_FUNCTIONS = ("gn_stats_kernel", "gn_combine_kernel", "gn_apply_kernel", "k_amax_kernel",
-                    "k_codes_kernel", "adaln_kernel")
+                    "k_codes_kernel", "adaln_kernel", "fa_narrow_kernel", "int8_attn_kernel")
+# further sources a kernel's wrapper launches from
+SOURCES_ALSO = {
+    "flash_attention_packed": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_bf16.cu",),
+    "flash_attention": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
+                        "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_bf16.cu"),
+    "flash_attention_packed_int8": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_int8.cu",
+                                    "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu"),
+}
 # further TPU kernels a kernel stands for: the lab kernels that compute the
 # same function as one above
 ALSO_REPLACES = {
@@ -1253,34 +1437,62 @@ def read_launches(counted):
     return launches
 
 
+def _counts():
+    """The launch and backward counts as they stand (`reset_launches` zeroes
+    them), for `_add_counts` to restore."""
+    counted = wrappers()
+    return ({n: w.launches for n, w in counted.items()}, counted["fused_group_norm"].relu_launches,
+            {n: counted[n].backward_calls for n in DIFFERENTIABLE})
+
+
+def _add_counts(saved):
+    """Adds counts saved by `_counts` back to the counters."""
+    counted = wrappers()
+    launches, relu, backward = saved
+    for n, w in counted.items():
+        w.launches += launches[n]
+    counted["fused_group_norm"].relu_launches += relu
+    for n in DIFFERENTIABLE:
+        counted[n].backward_calls += backward[n]
+
+
 def one_launch_per_call(tag, fn):
-    """Runs `fn` under the profiler: each call of a PATH_ONE_LAUNCH wrapper
-    made during the run is one launch of its device function, and no
+    """Runs `fn` under the profiler: the calls of the PATH_ONE_LAUNCH
+    wrappers made during the run are as many launches of their device
+    functions (wrappers sharing device functions counted together), and no
     device function of the parent designs runs (a trace that lost
     activities is taken again, up to `timing.PROFILE_TRIES` runs in all).
-    Returns (fn's result, the launches of the run)."""
+    The counts of a caller that counts across the run go on. Returns (fn's
+    result, the launches of the run)."""
     from prompt_diffusion_tpu_torch.tools.timing import (
         PROFILE_TRIES,
         device_kernels,
         device_trace,
     )
 
+    groups = {}
+    for w, fs in PATH_ONE_LAUNCH.items():
+        groups.setdefault(fs, []).append(w)
+    saved = _counts()
     for attempt in range(PROFILE_TRIES):
         counted = reset_launches()
         with device_trace() as prof:
             out = fn()
         launches = read_launches(counted)
         names = [name for name, _, _ in device_kernels(prof)]
-        found = {w: sum(f in n for n in names) for w, f in PATH_ONE_LAUNCH.items()}
+        found = {fs: sum(any(f in n for f in fs) for n in names) for fs in groups}
+        calls = {fs: sum(launches[w] for w in ws) for fs, ws in groups.items()}
         parents = sorted({n for n in names if any(f in n for f in PARENT_FUNCTIONS)})
-        if all(found[w] == launches[w] for w in found) or attempt == PROFILE_TRIES - 1:
+        if found == calls or attempt == PROFILE_TRIES - 1:
             break
+    _add_counts(saved)
     log(f"[{tag}] under the profiler: " + ", ".join(
-        f"{w} {launches[w]} calls, {found[w]} launches of {f}" for w, f in PATH_ONE_LAUNCH.items())
-        + f"; device functions of the parent designs: {parents or 'none'}")
-    for w, f in PATH_ONE_LAUNCH.items():
-        check(found[w] == launches[w], f"[{tag}] {w}: {launches[w]} calls but {found[w]} "
-                                       f"launches of {f}")
+        f"{' + '.join(ws)} {calls[fs]} calls, {found[fs]} launches of {' or '.join(fs)}"
+        for fs, ws in groups.items()) + f"; device functions of the parent designs: "
+        f"{parents or 'none'}")
+    for fs, ws in groups.items():
+        check(found[fs] == calls[fs], f"[{tag}] {' + '.join(ws)}: {calls[fs]} calls but "
+                                      f"{found[fs]} launches of {' or '.join(fs)}")
     check(not parents, f"[{tag}] the parent designs ran: {parents}")
     return out, launches
 
@@ -1588,9 +1800,12 @@ def phase_serve(pipe, card):
     unipc = {r.seed for r in reqs if r.sampler == "unipc"}
     check(any({r.seed for r in padded} == unipc for padded, _ in batches),
           "[serve] the four UniPC requests did not run as one batch")
-    # check 3: the kernels of the int8 path ran on the server's path
+    # check 3: the kernels of the int8 path ran on the server's path, one
+    # launch per call (the first batch again through the server's adapter,
+    # under the profiler)
     for name in PATH_KERNELS["serve"]:
         check(launches[name] > 0, f"kernel {name} was not launched on the serve path")
+    one_launch_per_call("serve", lambda: pipe.generate(**SD15Adapter(pipe).inputs(batches[0][0])))
     # check 2: the server adds nothing; also the direct call's seconds per request
     adapter, direct_s, served_s = SD15Adapter(pipe), {}, {}
     for padded, secs in batches:
@@ -2003,9 +2218,9 @@ def phase_ckpt(pipe, img1, card):
     try:
         counted = reset_launches()
         timing, files = ckpt_sd15(pipe, img1, CKPT_DIR)
-        timing.update(ckpt_serve(files["ckpt"], CKPT_DIR))
+        timing.update(one_launch_per_call("ckpt", lambda: ckpt_serve(files["ckpt"], CKPT_DIR))[0])
         timing.update(ckpt_generate(files["safetensors"], CKPT_DIR))
-        timing["sd3"] = ckpt_sd3(CKPT_DIR)
+        timing["sd3"] = one_launch_per_call("ckpt_sd3", lambda: ckpt_sd3(CKPT_DIR))[0]
         launches = read_launches(counted)
         timing["phase_s"] = time.perf_counter() - t0
         notebook = phase_notebook(files["ckpt"], card)
@@ -2859,6 +3074,9 @@ def phase_eval(slice_pipe, slice_img1, card):
         paths["eval_config"] = (read_launches(counted), {"build_s": build_s, "request_s": req_s})
         _expect("eval_config", paths["eval_config"][0])
         check(torch.equal(img, slice_img1), "[eval] create_model's request 1 differs from [slice]'s")
+        img, _ = one_launch_per_call("eval", lambda: pipe.generate(
+            **sd15_request(0), num_steps=REQ_STEPS, guidance_scale=CFG))
+        check(torch.equal(img, slice_img1), "[eval] request 1 under the profiler differs")
         log(f"[eval] create_model({os.path.basename(path)}): built in {build_s:.1f}s, every "
             f"state-dict name, shape and dtype equal to create()'s; with [slice]'s weights "
             f"request 1 bit-equal to [slice]'s ({req_s:.3f}s)")
@@ -3179,9 +3397,7 @@ def grad_check(pipe, seed=6000):
         return (loss.item(), terms.detach().flatten(),
                 torch.cat([x.float().flatten() for x in grads]))
 
-    counted = reset_launches()
-    kern = run(pipe)
-    launches = read_launches(counted)
+    kern, launches = one_launch_per_call("train", lambda: run(pipe))
     with plain_ops():
         plain = run(pipe)
         ref = run(twin32)
@@ -3578,7 +3794,7 @@ def dist_child(outdir):
     fan_in_init_(tr, gen, gain=1.0)
     fan_in_init_(cn, gen, gain=1.0)
     inp = tp_inputs(dev)
-    ref = tp_velocity(tr, cn, inp)
+    ref, _ = one_launch_per_call(f"dist rank {dist.get_rank()}", lambda: tp_velocity(tr, cn, inp))
     heads = tr.blocks_0.heads
     out["tp_width"] = w if heads % w == 0 else None
     if out["tp_width"]:
@@ -3933,6 +4149,8 @@ def main():
     log(f"[build] nvcc + load {nvcc_s:.1f}s; first launch of every kernel "
         f"(Triton compile included) {time.perf_counter() - t0 - nvcc_s:.1f}s")
 
+    sm90_plan_check()
+    k9_codes_check()
     results = phase_kernels(gen)
     k3_k5 = k3_k5_statistics(gen)
     paths, slice_pipe, slice_img1 = phase_path("slice", default_policy(), False, fp32_policy(),
@@ -3983,6 +4201,8 @@ def main():
         also = {"replaces_also": ALSO_REPLACES[name]} if name in ALSO_REPLACES else {}
         if name in DEVICE_FUNCTIONS:
             also["device_functions"] = DEVICE_FUNCTIONS[name]
+        if name in SOURCES_ALSO:
+            also["sources_also"] = SOURCES_ALSO[name]
         if name == "fused_group_norm":  # the ReLU epilogue's share of the launches
             also["relu_launches"] = sum(launches["fused_group_norm.relu"]
                                         for launches, _ in paths.values()

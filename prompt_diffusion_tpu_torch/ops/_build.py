@@ -39,8 +39,10 @@ def cuda_ext():
     return load(
         name="pd_torch_kernels",
         sources=[os.path.join(_CSRC, name)
-                 for name in ("binding.cpp", "flash_attention.cu", "int8_conv.cu",
-                              "int8_attention.cu", "row_quant.cu", "gn_quant.cu")],
+                 for name in ("binding.cpp", "flash_attention.cu", "attention_sm90.cu",
+                              "attention_sm90_bf16.cu", "attention_sm90_int8.cu",
+                              "int8_conv.cu", "int8_attention.cu", "row_quant.cu",
+                              "gn_quant.cu")],
         build_directory=BUILD_DIR,
         extra_cflags=["-O3", "-std=c++17"],
         extra_cuda_cflags=_CUDA_FLAGS,

@@ -43,6 +43,15 @@ extern "C" int pd_int8_attention_fwd(
     int64_t q_sb, int64_t q_sn, int64_t k_sb, int64_t k_sn,
     int64_t v_sb, int64_t v_sn, int64_t o_sb, int64_t o_sn,
     float scale, int block_q, void* stream);
+extern "C" int pd_attention_sm90_fwd(
+    const void* q, const void* k, const void* sk, const void* v, void* o, int int8,
+    int batch, int heads, int nq, int nk, int d,
+    int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
+    int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
+    float scale, int consumers, void* stream);
+extern "C" int pd_attention_sm90_smem(int d, int int8, int consumers);
+extern "C" int pd_attention_sm90_block_k(int d, int int8, int consumers);
+extern "C" int pd_attention_sm90_block_q(int d, int int8, int consumers);
 extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int64_t x_sn,
                             int batch, int n, int c, const void* sc, int sc_bf16, int64_t sc_sb,
                             int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
@@ -139,6 +148,23 @@ void int8_attention_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, bool row_k, uint
   }
 }
 
+void attention_sm90_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, uintptr_t v, uintptr_t o,
+                        bool int8, int batch, int heads, int nq, int nk, int d,
+                        int64_t q_sb, int64_t q_sn, int64_t q_sh,
+                        int64_t k_sb, int64_t k_sn, int64_t k_sh,
+                        int64_t v_sb, int64_t v_sn, int64_t v_sh,
+                        int64_t o_sb, int64_t o_sn, int64_t o_sh, double scale,
+                        int consumers, uintptr_t stream) {
+  const int err = pd_attention_sm90_fwd(
+      ptr(q), ptr(k), ptr(sk), ptr(v), ptr(o), int8 ? 1 : 0, batch, heads, nq, nk, d,
+      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, o_sb, o_sn, o_sh,
+      static_cast<float>(scale), consumers, ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("attention_sm90_fwd launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 void row_quant(int op, uintptr_t x, bool x_bf16, int64_t x_sb, int64_t x_sn, int batch, int n,
                int c, uintptr_t sc, bool sc_bf16, int64_t sc_sb, int64_t sc_sc, uintptr_t sh,
                bool sh_bf16, int64_t sh_sb, int64_t sh_sc, double eps, int tpr, int vpt,
@@ -229,6 +255,17 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("int8_attention_fwd", &int8_attention_fwd,
         "int8-QK^T attention forward over packed (B, N, H*D) tensors: bf16 Q and V, "
         "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k; block_q 64 or 128");
+  m.def("attention_sm90_fwd", &attention_sm90_fwd,
+        "Attention forward on warpgroup tensor cores over strided (B, N, H, D) views: bf16 "
+        "Q, K, V (K1, K2; D 40, 64, 80, 128), or bf16 Q and V with int8 K codes and (B, H) "
+        "fp32 scales (K9; D 32, 64, 128); `consumers` warpgroups of 64 query rows");
+  m.def("attention_sm90_smem", &pd_attention_sm90_smem,
+        "Shared-memory bytes of a block of the sm90 attention kernel at head dim d (int8: K9) "
+        "on `consumers` warpgroups as built (-1: not instantiated)");
+  m.def("attention_sm90_block_k", &pd_attention_sm90_block_k,
+        "Keys per tile of the sm90 attention kernel as built (-1: not instantiated)");
+  m.def("attention_sm90_block_q", &pd_attention_sm90_block_q,
+        "Query rows per block of the sm90 attention kernel as built (-1: not instantiated)");
   m.def("row_quant", &row_quant,
         "Rows -> int8 codes and fp32 row scales: op 0 tanh-GELU (K10), op 1 AdaLN with "
         "per-sample (B, C) scale and shift views (K13), op 2 GEGLU of [h | gate] rows (K7), "

@@ -6,6 +6,12 @@
 //     D = 40 at 64² latents, 80 at 32²);
 //   * flash_attention (_fa_kernel), (B, N, H, D) attention of the VAE
 //     mid-block (K2, D = 512).
+// On the paths K1 and K2 at D 40, 64, 80 and 128 run attention_sm90.cuh's
+// `wgmma` kernel (ops/flash_attention.py::attention_route); the narrow
+// kernel below is its parent design, kept for the lab modes, for head
+// dimensions the sm90 kernel does not instantiate, and for
+// tools/attn_tune.py to time beside it. The wide kernel runs K2 at D = 512
+// (any call above D = 128).
 // Packed (B, N, H*D) memory is exactly the (B, N, H, D) layout, so one
 // strided kernel serves both and no head transposes are made.
 //

@@ -6,8 +6,11 @@
 // Replaces the TPU kernel prompt_diffusion_tpu/ops/flash_attention.py::
 // flash_attention_packed_int8 (_fa_packed_fullk_int8_kernel): the joint
 // attention of every SD3 MMDiT and ControlNet block, and of the MiDaS ViT,
-// in the int8 serving mode. Per (batch, head) it computes, in the TPU
-// kernel's order:
+// in the int8 serving mode. On the paths its prologue (K9p, below) runs
+// before attention_sm90.cuh's `wgmma` kernel (ops/flash_attention.py::
+// attention_route); `int8_attn_kernel` below is that kernel's parent
+// design, kept for the lab's per-row-K mode and for tools/attn_tune.py to
+// time beside it. Per (batch, head) it computes, in the TPU kernel's order:
 //
 //   sq[i]   = max(max_d |q[i, d]| / 127, 1e-8)           (IEEE division)
 //   qc[i,d] = clip(rint(q[i, d] / sq[i]), -127, 127)       (int8)

@@ -6,17 +6,27 @@ Replaces `prompt_diffusion_tpu/ops/flash_attention.py`:
   * K2 `flash_attention` ((B, N, H, D) attention, the VAE mid-block);
   * K9 `flash_attention_packed_int8` (packed int8-QK^T attention, the SD3
     joint attention of the int8 serving mode).
-K1 and K2 go through one hand-written CUDA source, `csrc/flash_attention.cu`
-(its header says what bounds it and how it is laid out): a narrow kernel
-for D <= 128 with its tile chosen per head dimension (`kernel_tile`) and a
-wide one for the VAE's D = 512. Packed memory is the (B, N, H, D) layout,
-so the kernels read either through strides. Inputs on the card are bf16;
-logits and softmax are fp32, P is rounded to bf16 before P.V, and P.V
-accumulates in fp32. K9 is its own CUDA kernel with a K-quantizing
-prologue, `csrc/int8_attention.cu` (`quant_k_int8`, then K9 at
-`int8_block_q` query rows per block). The prologue's per-head mode, K9p,
-is one cooperative launch of an all-resident grid whose one barrier
-carries each head's amax (`quant_k_plan`).
+On the card one function, `attention_route`, states which hand-written
+kernel a call runs, by mode, head dimension and dtype:
+  * K1 and K2 at D in SM90_HEAD_DIMS (40, 64, 80, 128) and K9 with per-head
+    K run `csrc/attention_sm90.cuh`: `wgmma` warpgroups fed by TMA, a
+    producer warpgroup and two or three consumer warpgroups taking turns
+    (its header says what bounds it and how it is laid out; `sm90_plan`,
+    `sm90_consumers` and `sm90_tensor_maps` state its tiles, shared memory
+    and tensor maps);
+  * K2 at the VAE's D = 512 (any call above D = 128) runs the wide kernel
+    of `csrc/flash_attention.cu`; other head dims up to 128 and the lab
+    modes its narrow kernel at a tile of LAB_TILES (`kernel_tile`), the
+    parent design of the sm90 kernel;
+  * K9's lab mode with per-row K runs `csrc/int8_attention.cu`'s
+    `int8_attn_kernel` (at `int8_block_q` query rows per block), the sm90
+    int8 kernel's parent.
+Packed memory is the (B, N, H, D) layout, so the kernels read either
+through strides. Inputs on the card are bf16; logits and softmax are fp32,
+P is rounded to bf16 before P.V, and P.V accumulates in fp32. K9 quantizes
+K first (`quant_k_int8`): its per-head mode, K9p, is one cooperative launch
+of an all-resident grid whose one barrier carries each head's amax
+(`quant_k_plan`).
 
 The lab kernels of `tools/attn_variants.py`, `attn_lab2.py`, `attn_lab3.py`
 and `attn_int8_lab.py` are modes of the same two sources (the bf16 modes
@@ -79,8 +89,189 @@ _MODES = {"online": 0, "no_softmax": 1, "two_pass": 2}
 
 
 def kernel_tile(d: int) -> tuple:
-    """The (block_q, block_k) tile K1 and K2 run at head dimension `d`."""
+    """The (block_q, block_k) tile of `flash_attention.cu` at head dimension
+    `d`: K1's and K2's where `attention_route` takes them there."""
     return WIDE_TILE if d > NARROW_D else NARROW_TILE
+
+
+# csrc/attention_sm90.cuh: K1 and K2 in the online mode at SM90_HEAD_DIMS,
+# K9 with per-head K at SM90_INT8_HEAD_DIMS. A block is one producer
+# warpgroup and `sm90_consumers` consumer warpgroups of SM90_CONSUMER_ROWS
+# query rows (three at D <= SM90_WIDE_CONSUMERS_D, else two); K and V tiles
+# of SM90_BLOCK_K keys (K9 on three consumers: SM90_INT8_BLOCK_K) in rings
+# of SM90_STAGES stages; every shared tile row one SWIZZLE_SPAN-byte swizzle
+# span; at most SMEM_PER_BLOCK bytes of shared memory a block (the H100's
+# 227 KB)
+SM90_HEAD_DIMS, SM90_INT8_HEAD_DIMS = (40, 64, 80, 128), (32, 64, 128)
+SM90_CONSUMER_ROWS, SM90_STAGES, SM90_WIDE_CONSUMERS_D = 64, 2, 64
+SM90_BLOCK_K, SM90_INT8_BLOCK_K = 128, 112
+# K9 on three consumers does a unit of padded work (query rows x keys, each
+# rounded up to its tile) ~1.1x faster than on two: at the SD3 joint shape
+# 0.5417 device ms for 4608 x 4480 against 0.5832 for 4480 x 4480
+# (`tools/attn_tune.py --part sm90`, NVIDIA H100 80GB HBM3, 700 W)
+SM90_INT8_THREE_CONSUMER_GAIN = 1.1
+SWIZZLE_SPAN, SMEM_PER_BLOCK = 128, 232448
+_ROUTE_MODES = ("online", "tiled", "no_softmax", "two_pass", "int8", "int8_rowk")
+
+
+def attention_route(mode: str, d: int, dtype=torch.bfloat16) -> str:
+    """The kernel a call on the card runs. `mode`: "online" (K1, K2),
+    "tiled", "no_softmax", "two_pass" (the labs at a chosen tile), "int8"
+    (K9) or "int8_rowk" (the lab's per-row K). Returns "sm90" or
+    "int8_sm90" (csrc/attention_sm90.cuh), "narrow" or "wide"
+    (flash_attention.cu's fa_narrow_kernel, fa_wide_kernel) or
+    "int8_parent" (int8_attention.cu's int8_attn_kernel). Raises
+    ValueError for what no kernel takes: the kernels read bf16."""
+    if mode not in _ROUTE_MODES:
+        raise ValueError(f"unknown attention mode {mode!r}; one of {_ROUTE_MODES}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"the attention kernels take bf16 inputs, not {dtype}")
+    if mode == "int8":
+        if d not in SM90_INT8_HEAD_DIMS:
+            raise ValueError(f"head dim {d} not supported {SM90_INT8_HEAD_DIMS}")
+        return "int8_sm90"
+    if mode == "int8_rowk":
+        return "int8_parent"
+    if d > NARROW_D:
+        return "wide"
+    return "sm90" if mode == "online" and d in SM90_HEAD_DIMS else "narrow"
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan:
+    """How `attention_sm90.cuh` lays out a block at head dimension `d`
+    (`int8`: K9, whose K arrives as int8 codes): its consumer warpgroups,
+    query rows and threads, key tile and stages; the 128-byte column blocks of a
+    Q or V row (bf16) and of a K row; the depth of Q.K^T (D rounded up to
+    wgmma's k16 over zero pads, or D in k32 steps for int8 codes) and the
+    N of P.V (D); the dynamic shared memory of a block (Q, the K and V
+    stages, the 1024-byte alignment slack)."""
+
+    d: int
+    int8: bool
+    consumers: int
+    stages: int = SM90_STAGES
+
+    @property
+    def block_k(self) -> int:
+        """Keys of a tile: 128; 112 for K9 on three consumers, whose 160
+        registers a thread hold 128-key tiles only with spills."""
+        return SM90_INT8_BLOCK_K if self.int8 and self.consumers == 3 else SM90_BLOCK_K
+
+    @property
+    def block_q(self) -> int:
+        return SM90_CONSUMER_ROWS * self.consumers
+
+    @property
+    def threads(self) -> int:
+        """The producer warpgroup and the consumers, 128 threads each."""
+        return 128 * (1 + self.consumers)
+
+    @property
+    def qv_blocks(self) -> int:
+        return -(-2 * self.d // SWIZZLE_SPAN)
+
+    @property
+    def k_blocks(self) -> int:
+        return -(-self.d // SWIZZLE_SPAN) if self.int8 else self.qv_blocks
+
+    @property
+    def qk_depth(self) -> int:
+        return self.d if self.int8 else -(-self.d // 16) * 16
+
+    @property
+    def pv_n(self) -> int:
+        return self.d
+
+    @property
+    def row_pad(self) -> int:
+        """Zero columns past D in a bf16 Q or V tile row (TMA's fill)."""
+        return self.qv_blocks * SWIZZLE_SPAN // 2 - self.d
+
+    @property
+    def smem(self) -> int:
+        span = SWIZZLE_SPAN
+        return (self.qv_blocks * self.block_q * span
+                + self.stages * (self.k_blocks + self.qv_blocks) * self.block_k * span + 1024)
+
+    def grid(self, batch: int, heads: int, nq: int) -> tuple:
+        return -(-nq // self.block_q), batch * heads
+
+
+def sm90_consumers(d: int, int8: bool, nq: Optional[int] = None,
+                   nk: Optional[int] = None) -> int:
+    """Consumer warpgroups of a block: three at D <= 64 (more rows in
+    flight hide the softmax's latency; `tools/attn_tune.py --part sm90`
+    times two beside them), two above, where the O accumulator leaves no
+    room for a third. K9 at D <= 64 with `nq` queries and `nk` keys keeps
+    two where three would pad the work by more than they gain
+    (SM90_INT8_THREE_CONSUMER_GAIN): UniFormer's N = 1024 is whole 128-row
+    and 128-key tiles, but 1152 rows and 1120 keys on three."""
+    if d > SM90_WIDE_CONSUMERS_D:
+        return 2
+    if int8 and nq is not None and nk is not None:
+        padded = lambda n, tile: -(-n // tile) * tile
+        three = padded(nq, 3 * SM90_CONSUMER_ROWS) * padded(nk, SM90_INT8_BLOCK_K)
+        two = padded(nq, 2 * SM90_CONSUMER_ROWS) * padded(nk, SM90_BLOCK_K)
+        if three > SM90_INT8_THREE_CONSUMER_GAIN * two:
+            return 2
+    return 3
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_plan(d: int, int8: bool = False, consumers: Optional[int] = None) -> Sm90Plan:
+    """The plan of the sm90 kernel at head dimension `d` on `consumers`
+    warpgroups (`sm90_consumers(d, int8)` by default); ValueError where it
+    is not instantiated."""
+    dims = SM90_INT8_HEAD_DIMS if int8 else SM90_HEAD_DIMS
+    if d not in dims:
+        raise ValueError(f"the sm90 {'int8 ' if int8 else ''}kernel takes head dims {dims}, "
+                         f"not {d}")
+    default = sm90_consumers(d, int8)
+    consumers = default if consumers is None else consumers
+    if consumers != default and not (int8 and consumers == 2):
+        raise ValueError(f"the sm90 kernel at D = {d} runs {default} consumers"
+                         + (" (K9 also 2)" if int8 and default == 3 else "") + f", not {consumers}")
+    return Sm90Plan(d=d, int8=int8, consumers=consumers)
+
+
+def sm90_check_view(name: str, t: torch.Tensor) -> None:
+    """Raise ValueError where cuTensorMapEncodeTiled would refuse the sm90
+    kernel's map of the (B, N, H, D) view `t`: it needs a dense head
+    dimension, a 16-byte aligned base, and the strides of the dimensions
+    of extent above 1 positive multiples of 16 bytes below 2^40 (one of
+    extent 1 takes stride 16, as the kernel's encoder gives it). The check
+    each launch makes; `sm90_tensor_map` states the whole map."""
+    es = t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+            size > 1 and (st <= 0 or st * es % 16 or st * es >= 1 << 40)
+            for st, size in zip(t.stride()[:3], t.shape[:3])):
+        raise ValueError(f"{name}: TMA needs a dense head dimension, a 16-byte aligned base "
+                         f"and strides that are positive multiples of 16 bytes, got element "
+                         f"strides {t.stride()}")
+
+
+def sm90_tensor_map(name: str, t: torch.Tensor, rows: int) -> tuple:
+    """The TMA tensor map the sm90 kernel encodes for a (B, N, H, D) view
+    `t`: (name, element bytes, dims (D, N, H, B), byte strides (N, H, B),
+    box). Raises ValueError for a map cuTensorMapEncodeTiled refuses
+    (`sm90_check_view`; the box is one swizzle span of values by `rows`
+    rows, at most 256, of one head of one sample)."""
+    sm90_check_view(name, t)
+    es = t.element_size()
+    b, n, h, d = t.shape
+    strides = tuple(st * es if size > 1 else 16
+                    for st, size in ((t.stride(1), n), (t.stride(2), h), (t.stride(0), b)))
+    box = (SWIZZLE_SPAN // es, rows, 1, 1)
+    if max(box) > 256:
+        raise ValueError(f"{name}: box {box} exceeds TMA's 256 values a dimension")
+    return name, es, (d, n, h, b), strides, box
+
+
+def sm90_tensor_maps(plan: Sm90Plan, q, k, v) -> tuple:
+    """The maps of q, k (K9: its int8 codes) and v (`sm90_tensor_map`)."""
+    return tuple(sm90_tensor_map(name, t, rows) for name, t, rows in
+                 (("q", q, plan.block_q), ("k", k, plan.block_k), ("v", v, plan.block_k)))
 
 
 def _check(q, k, v, scale: float, mode: str, tile: tuple) -> None:
@@ -105,15 +296,40 @@ def _check(q, k, v, scale: float, mode: str, tile: tuple) -> None:
         raise ValueError(f"tiles {tuple(tile)} are not instantiated; one of {LAB_TILES}")
 
 
-def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] = None
-            ) -> torch.Tensor:
-    """Run the CUDA kernel on (B, N, H, D) views at `tile` (K1's and K2's
-    own by default); returns a contiguous (B, Nq, H, D) tensor."""
+def _sm90_launch(q, k, v, scale: float, sk: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`attention_sm90.cuh` on (B, N, H, D) views that `sm90_check_view`
+    passed: bf16 q, k, v (K1, K2), or with `sk` K9's (B, H) scales and k
+    its int8 codes; returns a contiguous (B, Nq, H, D) bf16 tensor."""
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     b, nq, h, d = q.shape
+    int8 = sk is not None
+    plan = sm90_plan(d, int8, sm90_consumers(d, int8, nq, k.shape[1]))
+    out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        cuda_ext().attention_sm90_fwd(
+            q.data_ptr(), k.data_ptr(), sk.data_ptr() if int8 else 0, v.data_ptr(),
+            out.data_ptr(), int8, b, h, nq, k.shape[1], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale), plan.consumers, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] = None
+            ) -> torch.Tensor:
+    """Run a CUDA kernel on (B, N, H, D) views: the kernel `attention_route`
+    names for `mode` without a tile (K1's and K2's), `flash_attention.cu`
+    at `tile` with one; returns a contiguous (B, Nq, H, D) tensor."""
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    b, nq, h, d = q.shape
+    _check(q, k, v, scale, mode, kernel_tile(d) if tile is None else tile)
+    route = attention_route(mode if tile is None or mode != "online" else "tiled", d, q.dtype)
+    if route == "sm90":
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            sm90_check_view(name, t)
+        return _sm90_launch(q, k, v, scale)
     tile = kernel_tile(d) if tile is None else tile
-    _check(q, k, v, scale, mode, tile)
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().flash_attention_fwd(
@@ -404,14 +620,25 @@ def _check_int8(q, k, v, num_heads: int, scale: float, block_q: int) -> None:
 
 def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
                  block_q: Optional[int] = None) -> torch.Tensor:
-    """K's prologue, then K9 at `block_q` query rows per block
-    (`int8_block_q` by default); returns a contiguous (B, Nq, H*D) tensor."""
+    """K's prologue, then the kernel `attention_route` names (the sm90
+    kernel for per-head K), or with `block_q` the parent `int8_attn_kernel`
+    at that many query rows per block (`int8_block_q` by default, and for
+    per-row K); returns a contiguous (B, Nq, H*D) tensor."""
     b, nq, hd = q.shape
+    route = "int8_parent" if block_q is not None else None
     block_q = int8_block_q(nq) if block_q is None else block_q
     _check_int8(q, k, v, num_heads, scale, block_q)
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
+    d = hd // num_heads
+    route = route or attention_route("int8_rowk" if row_k else "int8", d, q.dtype)
+    heads = lambda t: t.unflatten(-1, (num_heads, d))
+    if route == "int8_sm90":  # Q's and V's maps before the prologue runs; K9p's codes are dense
+        sm90_check_view("q", heads(q))
+        sm90_check_view("v", heads(v))
     kc, sk = quant_k_int8(k, num_heads, row_k)
+    if route == "int8_sm90":
+        return _sm90_launch(heads(q), heads(kc), heads(v), scale, sk).view(b, nq, hd)
     out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().int8_attention_fwd(

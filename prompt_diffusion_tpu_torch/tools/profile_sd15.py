@@ -26,7 +26,9 @@ compiles, cuDNN heuristics). Then:
     the trace, by kernel name (`EPILOGUE_NAMES`);
   * under either policy, K3's device ms and launches per step from the
     trace, and those of its parent design (`K3_K9P_NAMES`; the bf16 step
-    makes 88 K3 calls).
+    makes 88 K3 calls); and the attention kernels' (`ATTN_NAMES`: K1 and
+    K2 on `attention_sm90.cuh` and on `flash_attention.cu`'s wide kernel,
+    and from an older checkout the narrow parent).
 Needs one CUDA device.
 """
 
@@ -73,6 +75,15 @@ K3_K9P_NAMES = (("K3", ("gn_float_kernel",)),
                 ("K9p", ("k_head_quant_kernel",)),
                 ("K9p's parent (amax, codes)", ("k_amax_kernel", "k_codes_kernel")),
                 ("memsets", ("Memset",)))
+
+
+# the attention kernels by a part of their name: K1 and K2 on
+# `attention_sm90.cuh` (and K9 there under int8), on `flash_attention.cu`'s
+# wide kernel (D > 128), and the parents (`fa_narrow_kernel`,
+# `int8_attn_kernel`), which an older checkout's paths launch
+ATTN_NAMES = (("K1/K2 sm90", ("attn_sm90_bf16_kernel",)), ("K1/K2 wide", ("fa_wide_kernel",)),
+              ("K1/K2 narrow parent", ("fa_narrow_kernel",)),
+              ("K9 sm90", ("attn_sm90_int8_kernel",)), ("K9 parent", ("int8_attn_kernel",)))
 
 
 def print_named(by_name, count, unit, table=K3_K9P_NAMES):
@@ -343,6 +354,7 @@ def main(argv=None) -> int:
     rest = sum(us for _, (_, us) in ranked[TOP:])
     print(f"  {rest / STEPS / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
     print_named(by_name, STEPS, "step", K3_K9P_NAMES[:2])
+    print_named(by_name, STEPS, "step", ATTN_NAMES)
     if args.int8:
         k8 = [(n, us) for name, (n, us) in by_name.items()
               if "conv3x3_int8" in name or "splitk_epilogue" in name]

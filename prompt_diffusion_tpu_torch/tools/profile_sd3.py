@@ -20,7 +20,8 @@ compiles, cuDNN heuristics). Then:
     epilogue kernels K10, K11 and K13 and of the copy kernels
     (`KERNEL_NAMES`; the former K11 wrapper copied each of its 71
     attention slices per step to contiguous rows first), and of K9p and
-    its parent design (`profile_sd15.K3_K9P_NAMES`);
+    its parent design (`profile_sd15.K3_K9P_NAMES`), and of the attention
+    kernels (`profile_sd15.ATTN_NAMES`: K9 and its parent);
   * a torch.profiler trace of one VAE decode: its device ms, busy share
     and launches, and K3's device ms and launches in it (the bf16 VAE's
     GroupNorms; the denoise step makes no K3 call);
@@ -37,6 +38,7 @@ import time
 import torch
 
 from prompt_diffusion_tpu_torch.tools.profile_sd15 import (
+    ATTN_NAMES,
     K3_K9P_NAMES,
     _wall_ms,
     print_int8_gemm_bound,
@@ -143,6 +145,7 @@ def main() -> int:
         print(f"[profile] {label} ({key}): {sum(us for _, us in hits) / STEPS / 1e3:.3f} device "
               f"ms, {sum(n for n, _ in hits) / STEPS:.0f} launches per step")
     print_named(by_name, STEPS, "step", K3_K9P_NAMES[2:])
+    print_named(by_name, STEPS, "step", ATTN_NAMES)
 
     with device_trace() as prof:
         torch.cuda.synchronize()

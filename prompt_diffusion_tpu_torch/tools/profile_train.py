@@ -30,9 +30,11 @@ import torch
 from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels, device_trace
 
 STEPS, TOP = 2, 25  # steps traced, kernel names printed
-# the device functions of K1-K4 by a part of their name (`flash_attention.cu`'s
-# narrow and wide kernels, K3's `gn_float_kernel`, K4's Triton `ln_kernel`)
-KERNEL_NAMES = (("K1/K2 attention", ("fa_narrow_kernel", "fa_wide_kernel")),
+# the device functions of K1-K4 by a part of their name (`attention_sm90.cuh`'s
+# kernel and `flash_attention.cu`'s wide one, and the narrow parent that an
+# older checkout launches; K3's `gn_float_kernel`, K4's Triton `ln_kernel`)
+KERNEL_NAMES = (("K1/K2 attention", ("attn_sm90_bf16_kernel", "fa_narrow_kernel",
+                                     "fa_wide_kernel")),
                 ("K3 GroupNorm", ("gn_float_kernel",)), ("K4 LayerNorm", ("ln_kernel",)))
 
 

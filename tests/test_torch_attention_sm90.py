@@ -1,0 +1,561 @@
+"""PyTorch port, the warpgroup attention kernels of
+`ops/csrc/attention_sm90.cuh` (K1, K2 at D <= 128 and K9) on the CPU: the
+route `attention_route` states by mode, head dimension and dtype, the plan
+(tiles, warpgroups, shared memory, the zero pads at D = 40 and 80) and the
+TMA tensor maps at the paths' shapes, the refusals before any build, and a
+torch emulation of the kernel's order of work (128- or 112-key tiles, P rounded to
+bf16 against the running maximum, O rescaled when a row maximum of a warp's
+16 rows moved, one division at the end) held against the JAX package's
+`flash_attention_packed`, `flash_attention` and
+`flash_attention_packed_int8` kernels in interpret mode. The kernels
+themselves run only on the card (`chip_smoke.py`, `tools/attn_tune.py
+--part sm90`)."""
+
+import contextlib
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from prompt_diffusion_tpu.ops import flash_attention as jflash
+from prompt_diffusion_tpu_torch.ops import _build
+from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(2)
+
+LOG2E = 1.4426950408889634
+
+
+def _normal(rng, shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _f32(x):
+    return np.float32(x)
+
+
+# ---- the route -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode,d,route", [
+    ("online", 40, "sm90"), ("online", 64, "sm90"), ("online", 80, "sm90"),
+    ("online", 128, "sm90"),
+    # head dims the sm90 kernel does not instantiate stay on the parent
+    ("online", 32, "narrow"), ("online", 8, "narrow"), ("online", 48, "narrow"),
+    ("online", 96, "narrow"),
+    # above 128 the wide kernel (the VAE's 512)
+    ("online", 160, "wide"), ("online", 512, "wide"),
+    # the lab modes run the parent at their tile
+    ("tiled", 40, "narrow"), ("tiled", 64, "narrow"), ("no_softmax", 40, "narrow"),
+    ("two_pass", 64, "narrow"), ("two_pass", 80, "narrow"),
+    ("int8", 32, "int8_sm90"), ("int8", 64, "int8_sm90"), ("int8", 128, "int8_sm90"),
+    ("int8_rowk", 64, "int8_parent"), ("int8_rowk", 32, "int8_parent"),
+])
+def test_attention_route(mode, d, route):
+    """One function states which kernel a call on the card runs."""
+    assert fa.attention_route(mode, d, torch.bfloat16) == route
+
+
+@pytest.mark.parametrize("mode,d,dtype", [
+    ("online", 40, torch.float32), ("online", 64, torch.float16), ("int8", 64, torch.float32),
+    ("int8", 40, torch.bfloat16), ("int8", 80, torch.bfloat16), ("packed", 64, torch.bfloat16),
+])
+def test_attention_route_refuses(mode, d, dtype):
+    """The kernels read bf16; K9 takes D 32, 64, 128; modes are named."""
+    with pytest.raises(ValueError):
+        fa.attention_route(mode, d, dtype)
+
+
+def _no_build(monkeypatch):
+    def built():
+        raise AssertionError("the extension was built")
+
+    monkeypatch.setattr(_build, "cuda_ext", built)
+
+
+def _as_if_on_the_card(monkeypatch):
+    """The launches' device context without a card: a CPU tensor then
+    reaches the point where the kernel's extension is asked for."""
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+
+
+def _record_sm90(monkeypatch):
+    calls = []
+
+    def fake(q, k, v, scale, sk=None):
+        calls.append((tuple(q.shape), sk is not None))
+        return torch.zeros(q.shape, dtype=torch.bfloat16)
+
+    monkeypatch.setattr(fa, "_sm90_launch", fake)
+    return calls
+
+
+@pytest.mark.parametrize("d,sm90", [(40, True), (64, True), (80, True), (128, True),
+                                    (32, False), (512, False)])
+def test_launch_takes_the_route(d, sm90, monkeypatch):
+    """K1's and K2's launch (no tile) goes to the sm90 kernel at its head
+    dims and to `flash_attention.cu` elsewhere; with a tile (the labs)
+    always to `flash_attention.cu`."""
+    _no_build(monkeypatch)
+    _as_if_on_the_card(monkeypatch)
+    calls = _record_sm90(monkeypatch)
+    q = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
+    if sm90:
+        fa._launch(q, q, q, 0.125)
+        assert calls == [((1, 64, 2, d), False)]
+    else:
+        with pytest.raises(AssertionError, match="extension was built"):
+            fa._launch(q, q, q, 0.125)
+        assert calls == []
+    if d <= fa.NARROW_D:
+        with pytest.raises(AssertionError, match="extension was built"):
+            fa._launch(q, q, q, 0.125, "online", fa.NARROW_TILE)
+        assert len(calls) == (1 if sm90 else 0)
+
+
+def test_int8_launch_takes_the_route(monkeypatch):
+    """K9 (per-head K) goes to the sm90 kernel with K9p's codes and scales;
+    a block_q or per-row K to the parent `int8_attn_kernel`."""
+    _no_build(monkeypatch)
+    _as_if_on_the_card(monkeypatch)
+    calls = _record_sm90(monkeypatch)
+    x = torch.zeros(1, 64, 256, dtype=torch.bfloat16)
+    out = fa._int8_launch(x, x, x, 4, 0.125)
+    assert out.shape == (1, 64, 256) and calls == [((1, 64, 4, 64), True)]
+    for kwargs in ({"block_q": 64}, {"row_k": True}):
+        with pytest.raises(AssertionError, match="extension was built"):
+            fa._int8_launch(x, x, x, 4, 0.125, **kwargs)
+    assert len(calls) == 1
+
+
+# ---- the plan --------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d,int8,consumers,block_k,qk_depth,row_pad,qv_blocks,k_blocks,smem", [
+    (40, False, 3, 128, 48, 24, 1, 1, 91136),    # SD1.5 64²: Q.K^T over 48, 40..63 zeros
+    (64, False, 3, 128, 64, 0, 1, 1, 91136),     # ViT-B, UniFormer, MMDiT joint
+    (80, False, 2, 128, 80, 48, 2, 2, 164864),   # SD1.5 32²: two column blocks, 80..127 zeros
+    (128, False, 2, 128, 128, 0, 2, 2, 164864),
+    (32, True, 3, 112, 32, 32, 1, 1, 82944),
+    (64, True, 3, 112, 64, 0, 1, 1, 82944),      # K9 on the paths: codes' rows 64..127 zeros
+    (128, True, 2, 128, 128, 0, 2, 1, 132096),
+])
+def test_sm90_plan(d, int8, consumers, block_k, qk_depth, row_pad, qv_blocks, k_blocks, smem):
+    """A producer warpgroup and consumer warpgroups of 64 query rows each
+    (three at D <= 64), 128-key tiles (112 for K9 on three consumers) in
+    rings of 2 stages, tile rows of one 128-byte swizzle span, shared
+    memory within the H100's 227 KB."""
+    plan = fa.sm90_plan(d, int8)
+    assert plan.consumers == consumers == fa.sm90_consumers(d, int8)
+    assert (plan.block_q, plan.threads) == (64 * consumers, 128 * (1 + consumers))
+    assert (plan.block_k, plan.stages) == (block_k, 2) and block_k % 16 == 0
+    assert (plan.qk_depth, plan.row_pad, plan.qv_blocks, plan.k_blocks) == (
+        qk_depth, row_pad, qv_blocks, k_blocks)
+    assert plan.qk_depth % (32 if int8 else 16) == 0 and plan.pv_n == d and d % 8 == 0
+    assert plan.smem == smem <= fa.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("b,n,h,int8,grid", [
+    (4, 4096, 8, False, (22, 32)),     # the paths' CFG batch 4 at 64²: 704 blocks of 192 rows
+    (2, 4429, 24, False, (24, 48)),    # the MMDiT joint attention: 1,152
+    (16, 1024, 5, False, (6, 80)),     # UniFormer stage 3: 480
+    (16, 1025, 12, True, (6, 192)),    # the ViT-B under int8: 1,152 rows for 1,025
+    (2, 4429, 24, True, (24, 48)),     # K9 at the SD3 joint attention
+])
+def test_sm90_grid(b, n, h, int8, grid):
+    plan = fa.sm90_plan(64, int8)
+    assert plan.grid(b, h, n) == grid
+
+
+@pytest.mark.parametrize("d,int8,nq,consumers", [
+    (64, True, 4429, 3),   # the SD3 joint attention: 4608 x 4480 padded on three, 4480² on two
+    (64, True, 1025, 3),   # the DPT ViT-B: 1152 x 1120 on three, 1152² on two
+    (64, True, 1024, 2),   # UniFormer: whole 128-tiles on two, 1152 x 1120 on three
+    (64, True, 1100, 3),
+    (32, True, 1024, 2),
+    (128, True, 4429, 2),  # two above D = 64
+    (64, False, 1024, 3),  # bf16 runs three at D <= 64 whatever the shape
+    (40, False, 4096, 3),
+    (80, False, 1024, 2),
+])
+def test_sm90_consumers_per_shape(d, int8, nq, consumers):
+    """K9 keeps two consumers where three would pad its work by more than
+    SM90_INT8_THREE_CONSUMER_GAIN; the plan at two has 128-key tiles."""
+    assert fa.sm90_consumers(d, int8, nq, nq) == consumers
+    plan = fa.sm90_plan(d, int8, consumers)
+    assert plan.block_q == 64 * consumers
+    assert plan.block_k == (112 if int8 and consumers == 3 else 128)
+    assert plan.smem <= fa.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("d,int8,consumers", [(48, False, None), (96, False, None),
+                                              (512, False, None), (40, True, None),
+                                              (80, True, None), (64, False, 2), (128, True, 3),
+                                              (64, True, 4)])
+def test_sm90_plan_refuses(d, int8, consumers):
+    with pytest.raises(ValueError):
+        fa.sm90_plan(d, int8, consumers)
+
+
+def _views(b, n, h, d, layout):
+    """(B, N, H, D) bf16 views of q, k, v as the paths pass them: packed
+    projections, column slices of one qkv projection, or the MMDiT's
+    (B, N, H*D) viewed as (B, N, H, D)."""
+    if layout == "qkv slices":
+        return tuple(t.unflatten(-1, (h, d)) for t in
+                     torch.zeros(b, n, 3 * h * d, dtype=torch.bfloat16).chunk(3, dim=-1))
+    return tuple(torch.zeros(b, n, h * d, dtype=torch.bfloat16).unflatten(-1, (h, d))
+                 for _ in range(3))
+
+
+@pytest.mark.parametrize("b,n,h,d,layout,int8", [
+    (8, 4096, 8, 40, "packed", False),
+    (4, 1024, 8, 80, "packed", False),
+    (2, 1100, 2, 40, "packed", False),
+    (16, 1024, 5, 64, "qkv slices", False),
+    (16, 1025, 12, 64, "qkv slices", False),
+    (2, 4429, 24, 64, "packed", False),
+    (2, 4429, 24, 64, "packed", True),
+    (16, 1025, 12, 64, "qkv slices", True),
+    (2, 77, 3, 32, "packed", True),
+    (2, 77, 3, 128, "qkv slices", True),
+])
+def test_sm90_tensor_maps_legal(b, n, h, d, layout, int8):
+    """Every map at the paths' shapes: 4-D over (D, N, H, B), strides
+    multiples of 16 bytes, a box of one 128-byte swizzle span (64 bf16 or
+    128 int8 codes) by 128 rows; D past its extent arrives as TMA's zeros.
+    K9's K is K9p's contiguous codes."""
+    plan = fa.sm90_plan(d, int8)
+    q, k, v = _views(b, n, h, d, layout)
+    if int8:
+        k = torch.zeros(b, n, h * d, dtype=torch.int8).unflatten(-1, (h, d))
+    maps = fa.sm90_tensor_maps(plan, q, k, v)
+    assert [m[0] for m in maps] == ["q", "k", "v"]
+    for name, es, dims, strides, box in maps:
+        assert dims == (d, n, h, b)
+        assert all(st > 0 and st % 16 == 0 for st in strides)
+        assert box[0] * es == fa.SWIZZLE_SPAN  # the inner box bytes: one swizzle span
+        blocks = plan.k_blocks if name == "k" else plan.qv_blocks
+        assert (blocks - 1) * box[0] < d <= blocks * box[0]  # the column blocks cover D
+        assert box[1] == (plan.block_q if name == "q" else plan.block_k) <= 256
+        assert box[2:] == (1, 1)
+        assert es == (1 if int8 and name == "k" else 2)
+    width = (3 if layout == "qkv slices" else 1) * h * d * 2
+    assert maps[0][3] == (width, d * 2, n * width)
+
+
+def _refused(case):
+    """(q, k, v, scale) for each input the sm90 route refuses."""
+    bf16 = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    x = bf16(2, 64, 2, 64)
+    cases = {
+        "fp32": (x.float(), x.float(), x.float(), 0.125),
+        "k batch broadcast (stride 0)": (x, bf16(1, 64, 2, 64).expand(2, 64, 2, 64), x, 0.125),
+        "v row stride not a multiple of 8": (x, x, bf16(2, 64, 2, 68)[..., :64], 0.125),
+        "q base not 16-byte aligned": (
+            torch.zeros(2 * 64 * 128 + 1, dtype=torch.bfloat16)[1:].view(2, 64, 2, 64), x, x,
+            0.125),
+        "non-positive scale": (x, x, x, -1.0),
+        "keys disagree": (x, bf16(2, 32, 2, 64), x, 0.125),
+    }
+    return cases[case]
+
+
+@pytest.mark.parametrize("case", ["fp32", "k batch broadcast (stride 0)",
+                                  "v row stride not a multiple of 8", "q base not 16-byte aligned",
+                                  "non-positive scale", "keys disagree"])
+def test_sm90_refuses_before_build(case, monkeypatch):
+    """What the sm90 kernel or its tensor maps refuse raises ValueError in
+    the wrapper before the extension is built: no fallback."""
+    _no_build(monkeypatch)
+    q, k, v, scale = _refused(case)
+    with pytest.raises(ValueError):
+        fa._launch(q, k, v, scale)
+
+
+def test_int8_sm90_refuses_before_the_prologue(monkeypatch):
+    """K9's tensor maps of Q and V are checked before K9p runs."""
+    _no_build(monkeypatch)
+    monkeypatch.setattr(fa, "quant_k_int8", lambda *a, **k: pytest.fail("K9p ran"))
+    x = torch.zeros(2, 64, 256, dtype=torch.bfloat16)
+    v = torch.zeros(1, 64, 256, dtype=torch.bfloat16).expand(2, 64, 256)
+    with pytest.raises(ValueError):
+        fa._int8_launch(x, x, v, 4, 0.125)
+
+
+# ---- the order of work -------------------------------------------------------
+
+
+def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16):
+    """The sm90 kernel's order of work on (B, N, H, D) float tensors holding
+    the inputs' values, in fp32: per key tile (the plan's) the logits (bf16: fp32
+    products; int8: exact integer sums of the per-row Q codes and K9p's
+    per-head K codes), only the tile's real keys (the kernel's -inf tail),
+    the running row maximum in log2 units over the unscaled logits times c
+    (bf16: scale * log2(e); int8: sq * (skh * scale) * log2(e)), p =
+    2^(s * c - m) with one rounding of s * c - m (FFMA), the sum over the
+    fp32 p, p rounded to bf16 when `v` is bf16, O *= corr where a row
+    maximum of the warp's `warp_rows` rows moved, then O += p.V in fp32,
+    and O / l once, in v's dtype. Returns (O, the Q codes or None)."""
+    b, nq, h, d = q.shape
+    nk = k.shape[1]
+    block_k = block_k or fa.sm90_plan(d, int8, fa.sm90_consumers(d, int8, nq, nk)).block_k
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, N, D)
+    codes = None
+    if int8:
+        sq = fa._int8_scale(qf.abs().amax(dim=-1, keepdim=True))
+        codes = torch.clamp(torch.round(qf / sq), -127, 127)
+        kc, skh = fa._quant_k_per_head(k.reshape(b, nk, h * d), h)
+        kf = kc.float().view(b, nk, h, d).permute(0, 2, 1, 3)
+        c = (sq * (skh * _f32(scale)).view(b, h, 1, 1)) * _f32(LOG2E)
+        qf = codes
+    else:
+        c = torch.full((b, h, nq, 1), _f32(scale) * _f32(LOG2E))
+    m = torch.full((b, h, nq, 1), -np.inf)
+    l = torch.zeros(b, h, nq, 1)
+    o = torch.zeros(b, h, nq, d)
+    pad = -nq % warp_rows
+    for j0 in range(0, nk, block_k):
+        kt, vt = kf[:, :, j0:j0 + block_k], vf[:, :, j0:j0 + block_k]
+        if int8:
+            s = (qf.double() @ kt.double().transpose(-1, -2)).float()
+        else:
+            s = qf @ kt.transpose(-1, -2)
+        mx = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+        corr = torch.exp2(m - mx)
+        m = mx
+        p = torch.exp2((s.double() * c.double() - m.double()).float())
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        moved = torch.nn.functional.pad(corr != 1, (0, 0, 0, pad))
+        moved = moved.view(b, h, -1, warp_rows).any(dim=-1).repeat_interleave(warp_rows, dim=2)
+        o = torch.where(moved[:, :, :nq, None], o * corr, o)
+        o = o + p.to(v.dtype).float() @ vt
+    return (o / l).to(v.dtype).permute(0, 2, 1, 3), codes
+
+
+def _as(x, dtype):
+    return torch.from_numpy(np.array(x)).to(dtype)
+
+
+def _packed_case(rng, b, nq, nk, h, d, slices):
+    """bf16-valued q (B, Nq, H*D), k, v (B, Nk, H*D) as numpy, q, k and v
+    as column slices of one qkv projection with `slices` (Nq = Nk)."""
+    if slices:
+        qkv = _normal(rng, (b, nq, 3 * h * d))
+        return np.split(qkv, 3, axis=-1)
+    return _normal(rng, (b, nq, h * d)), _normal(rng, (b, nk, h * d)), _normal(rng, (b, nk, h * d))
+
+
+def _bf16_values(*xs):
+    return [np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in xs]
+
+
+# bf16 against the JAX kernel (P rounded against the row's final maximum)
+# differs by one bf16 step of each P (2^-8 relative between the two
+# roundings) and one of each output: 2^-8 (max|V| + max|O|), and fp32's
+# order of sums below that
+def _bf16_bound(v, ref):
+    return 2.0 ** -8 * (np.abs(v).max() + np.abs(ref).max())
+
+
+PACKED = [  # (B, Nq, Nk, H, D, qkv slices)
+    (2, 200, 200, 3, 40, False),   # two key tiles, the second ragged
+    (1, 130, 300, 2, 80, False),   # a ragged query tail, three key tiles
+    (2, 160, 160, 2, 64, True),    # column slices of one qkv projection
+    (1, 77, 77, 2, 40, True),      # one short tile
+]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d,slices", PACKED)
+def test_emulation_matches_jax_packed_fp32(b, nq, nk, h, d, slices):
+    """In fp32 (no P rounding) the order of work is K1's function: within
+    1e-5 of `flash_attention_packed` (the full-K TPU kernel in interpret
+    mode); fp32's own order of sums is all that differs."""
+    rng = np.random.default_rng(nq + d)
+    q, k, v = _packed_case(rng, b, nq, nk, h, d, slices)
+    scale = d ** -0.5
+    ref = np.asarray(jflash.flash_attention_packed(jnp.asarray(q), jnp.asarray(k),
+                                                   jnp.asarray(v), h, scale))
+    heads = lambda x: torch.from_numpy(np.ascontiguousarray(x)).unflatten(-1, (h, d))
+    got, _ = _emulate(heads(q), heads(k), heads(v), scale)
+    np.testing.assert_allclose(got.reshape(b, nq, h * d).numpy(), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,nq,nk,h,d,slices", PACKED)
+def test_emulation_matches_jax_packed_bf16(b, nq, nk, h, d, slices):
+    """On bf16 inputs, P rounded to bf16 against the running maximum:
+    within one bf16 step of P and of the output of the JAX kernel."""
+    rng = np.random.default_rng(nq + d + 1)
+    q, k, v = _bf16_values(*_packed_case(rng, b, nq, nk, h, d, slices))
+    scale = d ** -0.5
+    ref = np.asarray(jflash.flash_attention_packed(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)), h, scale).astype(jnp.float32))
+    heads = lambda x: _as(np.ascontiguousarray(x), torch.bfloat16).unflatten(-1, (h, d))
+    got, _ = _emulate(heads(q), heads(k), heads(v), scale)
+    err = np.abs(got.float().reshape(b, nq, h * d).numpy() - ref).max()
+    assert err <= _bf16_bound(v, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,h,d", [(2, 200, 200, 2, 64), (1, 77, 260, 3, 40)])
+def test_emulation_matches_jax_flash_attention(b, nq, nk, h, d, dtype):
+    """K2's (B, N, H, D) layout against `flash_attention` (the online TPU
+    kernel in interpret mode): fp32 within 1e-5, bf16 within one bf16 step
+    of P and of the output."""
+    rng = np.random.default_rng(nk + d)
+    q, k, v = _normal(rng, (b, nq, h, d)), _normal(rng, (b, nk, h, d)), _normal(rng, (b, nk, h, d))
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    if dtype == "bfloat16":
+        q, k, v = _bf16_values(q, k, v)
+    ref = np.asarray(jflash.flash_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+                     .astype(jnp.float32))
+    got, _ = _emulate(_as(q, tdt), _as(k, tdt), _as(v, tdt), d ** -0.5)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= (1e-5 if dtype == "float32" else _bf16_bound(v, ref))
+
+
+def _jax_int8_attention(q, k, v, num_heads, scale):
+    """The TPU kernel `_fa_packed_fullk_int8_kernel` in interpret mode, with
+    the host-side K quantization of `flash_attention.py:391-395` written out
+    (the public wrapper takes the bf16 kernel on a CPU backend)."""
+    b, n, hd = q.shape
+    d = hd // num_heads
+    nk = k.shape[1]
+    kf = k.astype(jnp.float32).reshape(b, nk, num_heads, d)
+    skh = jnp.maximum(jnp.max(jnp.abs(kf), axis=(1, 3)) / 127.0, 1e-8)
+    ki = jnp.clip(jnp.round(kf / skh[:, None, :, None]), -127, 127).astype(jnp.int8)
+    ki = ki.reshape(b, nk, hd)
+    row = lambda i: (i, 0, 0)
+    return pl.pallas_call(
+        functools.partial(jflash._fa_packed_fullk_int8_kernel, scale=scale, num_heads=num_heads),
+        out_shape=jax.ShapeDtypeStruct((b, n, hd), q.dtype),
+        grid=(b,),
+        in_specs=[pl.BlockSpec((1, n, hd), row), pl.BlockSpec((1, nk, hd), row),
+                  pl.BlockSpec((1, 1, num_heads), row), pl.BlockSpec((1, nk, hd), row)],
+        out_specs=pl.BlockSpec((1, n, hd), row),
+        interpret=True,
+    )(q, ki, skh[:, None, :], v)
+
+
+INT8 = [  # (B, Nq, Nk, H, D, qkv slices)
+    (2, 200, 200, 2, 64, False),
+    (1, 130, 300, 2, 32, False),
+    (2, 160, 160, 2, 64, True),
+    (1, 77, 77, 1, 128, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,h,d,slices", INT8)
+def test_emulation_matches_jax_int8(b, nq, nk, h, d, slices, dtype):
+    """K9's order of work against the TPU int8 kernel in interpret mode:
+    its Q codes bit-equal to the TPU kernel's and to the plain version's
+    quantization; the output with fp32 V within 1e-5 (the logits' scaling
+    folds log2(e) into one factor: fp32 rounding of the exponent only),
+    with bf16 inputs within one bf16 step of P and of the output."""
+    rng = np.random.default_rng(nk + d + 7)
+    q, k, v = _packed_case(rng, b, nq, nk, h, d, slices)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    if dtype == "bfloat16":
+        q, k, v = _bf16_values(q, k, v)
+    q, k, v = (np.ascontiguousarray(x) for x in (q, k, v))
+    scale = d ** -0.5
+    ref = np.asarray(_jax_int8_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)), h, scale)
+                     .astype(jnp.float32))
+    heads = lambda x: _as(x, tdt).unflatten(-1, (h, d))
+    got, codes = _emulate(heads(q), heads(k), heads(v), scale, int8=True)
+    # the Q codes: the TPU kernel's (`_fa_packed_fullk_int8_kernel`) and the
+    # plain version's quantization, per (row, head)
+    qh = jnp.asarray(q, jdt).astype(jnp.float32).reshape(b, nq, h, d)
+    sq = jnp.maximum(jnp.max(jnp.abs(qh), axis=-1, keepdims=True) / 127.0, 1e-8)
+    jcodes = np.asarray(jnp.clip(jnp.round(qh / sq), -127, 127)).transpose(0, 2, 1, 3)
+    assert np.array_equal(codes.numpy(), jcodes)
+    qt = heads(q).float()
+    pcodes = torch.clamp(torch.round(qt / fa._int8_scale(qt.abs().amax(-1, keepdim=True))),
+                         -127, 127).permute(0, 2, 1, 3)
+    assert torch.equal(codes, pcodes)
+    err = np.abs(got.float().reshape(b, nq, h * d).numpy() - ref).max()
+    assert err <= (1e-5 if dtype == "float32" else _bf16_bound(v, ref))
+
+
+def test_emulation_rescale_rule_is_exact():
+    """O is rescaled only where a row maximum of the warp's 16 rows moved,
+    which is exact: elsewhere corr is 2^0 = 1. An emulation that always
+    rescales gives the same bits."""
+    rng = np.random.default_rng(3)
+    q, k, v = (_as(_normal(rng, (1, 64, 2, 40)), torch.bfloat16) for _ in range(3))
+    k[:, 130:] = 0  # later tiles' maxima below the first's for some rows
+    got, _ = _emulate(q, k, v, 40 ** -0.5, block_k=32)
+    always, _ = _emulate(q, k, v, 40 ** -0.5, block_k=32, warp_rows=1)
+    assert torch.equal(got, always)
+
+
+@pytest.mark.parametrize("d,nq", [(32, 380), (32, 250), (64, 380), (64, 250), (128, 250)])
+def test_k9_code_probe_reads_every_code(d, nq):
+    """chip_smoke.py's `k9_code_probe`: on its inputs K9's output reads each
+    query row's Q code at the probed dimension, so the check on the card
+    holds the kernel's codes, which never leave its registers, to the plain
+    quantizer's. Here the kernel's order of work (`_emulate`, at the plan's
+    key tile) and the plain version read exactly the plain codes, every
+    bit column within 2^-7 of a bit (the winning key's P rounded to bf16
+    against the fp32 sum, 2^-8, and the output's bf16 rounding). The TPU
+    int8 kernel in interpret mode reads them too, but where a quotient
+    q / sq lies within 1e-4 of a rounding tie without being one: XLA's
+    compiled CPU division is not the IEEE quotient (-63.499996 comes out
+    -63.500004), the reason the port divides per IEEE. The codes cover
+    -127..127; half the rows sit at exact rounding ties, where rounding
+    half away from zero gives other codes; the cases take every int8
+    instantiation of the sm90 kernel."""
+    import chip_smoke
+
+    assert (d, nq) in chip_smoke.K9_PROBE_CASES
+    (q, k, v, h, scale), want = chip_smoke.k9_code_probe(d, nq)
+    nk = k.shape[1]
+    assert {(dd, fa.sm90_consumers(dd, True, n, nk)) for dd, n in chip_smoke.K9_PROBE_CASES} == {
+        (32, 3), (32, 2), (64, 3), (64, 2), (128, 2)}
+    assert want.shape == (d // h, nq, h) and set(want.unique().tolist()) == set(range(-127, 128))
+    outs = {"plain": fa.flash_attention_packed_int8(q, k, v, h, scale)}
+    heads = lambda t: t.unflatten(-1, (h, d))
+    outs["emulation"] = _emulate(heads(q), heads(k), heads(v), scale, int8=True)[0].flatten(2)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v))
+    outs["TPU kernel"] = torch.from_numpy(np.asarray(
+        _jax_int8_attention(jq, jk, jv, h, scale).astype(jnp.float32)))
+    qf = q.float().view(d // h, nq, h, d)
+    x = qf / fa._int8_scale(qf.abs().amax(-1, keepdim=True))
+    probed = x.gather(-1, torch.arange(d).view(d // h, 1, h, 1).expand(d // h, nq, h, 1))[..., 0]
+    frac = probed - probed.floor()
+    assert (frac == 0.5)[:, ::2].all()
+    near_tie = ((frac - 0.5).abs() < 1e-4) & (frac != 0.5)
+    for name, out in outs.items():
+        got, off = chip_smoke.k9_probe_read(out, h)
+        same = got == want
+        assert (same | near_tie).all() if name == "TPU kernel" else same.all(), name
+        assert off <= 2.0 ** -7, name
+    away = torch.clamp(torch.trunc(probed + 0.5 * probed.sign()), -127, 127).to(torch.int64)
+    assert (away != want).sum() > want.numel() // 8
+
+
+def test_chip_smoke_checks_the_new_kernels_and_not_the_parents():
+    """chip_smoke.py counts one launch of the sm90 kernels per K1, K2 and K9
+    call on the paths (K1 and K2 together, with the wide kernel above
+    D = 128) and fails a path that launches a parent; the names it matches
+    by substring do not contain each other."""
+    import chip_smoke
+
+    one = chip_smoke.PATH_ONE_LAUNCH
+    assert one["flash_attention_packed"] == one["flash_attention"] == (
+        "attn_sm90_bf16_kernel", "fa_wide_kernel")
+    assert one["flash_attention_packed_int8"] == ("attn_sm90_int8_kernel",)
+    assert {"fa_narrow_kernel", "int8_attn_kernel"} <= set(chip_smoke.PARENT_FUNCTIONS)
+    new = {f for fs in one.values() for f in fs}
+    for parent in chip_smoke.PARENT_FUNCTIONS:
+        assert not any(parent in f or f in parent for f in new), parent
+    assert chip_smoke.DEVICE_FUNCTIONS["flash_attention_packed_int8"] == (
+        "k_head_quant_kernel", "attn_sm90_int8_kernel")
+    assert chip_smoke.KERNELS["flash_attention_packed"][1].endswith("attention_sm90.cuh")

@@ -3,8 +3,10 @@
 (bit for bit), `compute_stats_from_iterator` with one fixed linear feature
 map in both frameworks (1e-6 relative), and the FID CLI: `ref` then
 `calc` on a PNG directory (a set against itself reads 0 within the eigh
-form's rounding floor, `fid.self_distance_bound`), `--sharded` and
-`mesh=` refused naming ROADMAP."""
+form's rounding floor, `fid.self_distance_bound`), and `--sharded`
+without torchrun: the single-process pass, its statistics the plain CLI's
+bit for bit (the sharded pass over several ranks, with `mesh=`, is held by
+tests/test_torch_parallel.py)."""
 
 import inspect
 import os
