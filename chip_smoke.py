@@ -55,12 +55,15 @@ without the final `"ok": true` line:
                at the SD1.5 64² and SD3 joint shapes, with K1's bounds
                (the no-softmax mode's output is no average of V: its
                bound is relative). K1, K2 at D <= 128 and K9 run the
-               `wgmma` kernel of `attention_sm90.cuh`; at each such case
-               the parent design (`fa_narrow_kernel`, `int8_attn_kernel`)
-               runs too, within the same bound, and its device ms is
-               printed beside the kernel's; the plan of
-               `ops/flash_attention.py` (query rows, key tile, shared
-               memory) must equal the build's at every instantiation;
+               `wgmma` kernel of `attention_sm90.cuh`, K2 at the VAE's
+               D = 512 that of `attention_sm90_wide.cuh`; at each such
+               case the parent design (`fa_narrow_kernel`,
+               `fa_wide_kernel`, `int8_attn_kernel`) runs too, within the
+               same bound, and its device ms is printed beside the
+               kernel's; the plans of `ops/flash_attention.py` (query
+               rows, key tile, shared memory; the wide kernel's stages,
+               registers and consumers too) must equal the build's at
+               every instantiation;
                and K9's Q codes, which never leave the kernel's
                registers, are read back through its output
                (`k9_code_probe`) at every int8 instantiation and must
@@ -70,8 +73,8 @@ without the final `"ok": true` line:
                steps and CFG 9; checks the images, that every kernel of the
                path was launched during the requests, that request 1 again
                under the profiler launches K3's, K9p's, the sm90
-               attention kernels' (K1 and K2 together with the wide
-               kernel above D = 128) and K9's once per wrapper call and
+               attention kernels' (K1 and K2 together, the wide sm90
+               kernel at D = 512) and K9's once per wrapper call and
                none of their parent designs' device functions
                (`one_launch_per_call`; so do the int8, serve, ckpt, eval,
                sd3, midas, midas_int8, seg, train and dist phases), that
@@ -877,9 +880,10 @@ def kernel_cases(gen):
 
 
 def parent_call(name, args):
-    """The parent design's call on a K1, K2 or K9 case the sm90 kernel
-    runs (`fa_narrow_kernel` at its tile, `int8_attn_kernel` at its query
-    rows, both with the same inputs), or None."""
+    """The parent design's call on a K1, K2 or K9 case an sm90 kernel runs
+    (`fa_narrow_kernel` at its tile, `fa_wide_kernel` at D = 512,
+    `int8_attn_kernel` at its query rows, all with the same inputs), or
+    None."""
     from prompt_diffusion_tpu_torch.ops import flash_attention as fa
 
     if name == "flash_attention_packed":
@@ -892,7 +896,7 @@ def parent_call(name, args):
     if name == "flash_attention":
         q, k, v = args
         d = q.shape[-1]
-        if fa.attention_route("online", d) != "sm90":
+        if fa.attention_route("online", d) not in ("sm90", "wide_sm90"):
             return None
         return lambda: fa._launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d))
     if name == "flash_attention_packed_int8":
@@ -920,6 +924,11 @@ def sm90_plan_check():
         check(built == (plan.block_q, plan.block_k, plan.smem),
               f"sm90_plan({d}, {int8}, {nc}) gives {(plan.block_q, plan.block_k, plan.smem)}, "
               f"the build {built}")
+    wide = fa.wide_plan(fa.WIDE_HEAD_DIM)
+    built = tuple(ext.attention_sm90_wide_plan(i) for i in range(7))
+    want = (wide.rows, wide.block_k, wide.smem, wide.stages, *wide.regs, wide.consumers)
+    rows.append(f"D={wide.d} wide (rows, block_k, smem, stages, regs, consumers) {built}")
+    check(built == want, f"wide_plan({wide.d}) gives {want}, the build {built}")
     log("[kernels] sm90 plan = build (block_q, block_k, smem bytes): " + "; ".join(rows))
 
 
@@ -1200,7 +1209,7 @@ def k3_k5_statistics(gen):
 KERNELS = {  # name -> (route, source, TPU kernel it replaces)
     "flash_attention_packed": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                                "prompt_diffusion_tpu/ops/flash_attention.py:322"),
-    "flash_attention": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_wide.cuh",
                         "prompt_diffusion_tpu/ops/flash_attention.py:163"),
     "fused_group_norm": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/gn_quant.cu",
                          "prompt_diffusion_tpu/ops/fused_group_norm.py:128"),
@@ -1257,30 +1266,32 @@ DEVICE_FUNCTIONS = {
     "conv3x3_int8_xshift": ("conv3x3_int8_xshift_kernel", "splitk_epilogue_kernel"),
     "flash_attention_packed_int8": ("k_head_quant_kernel", "attn_sm90_int8_kernel"),
     "flash_attention_packed_int8_rowk": ("k_row_codes_kernel", "int8_attn_kernel"),
-    # K1 and K2: the warpgroup kernel at D <= 128, the wide one above (K2 at
-    # the VAE's 512)
-    "flash_attention_packed": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
-    "flash_attention": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
+    # K1 and K2: the warpgroup kernel at D <= 128, the wide warpgroup kernel
+    # at the VAE's 512
+    "flash_attention_packed": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
+    "flash_attention": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
     "quant_k_int8": ("k_head_quant_kernel", "k_row_codes_kernel"),
 }
 # on the paths: each call of these wrappers is one launch of one of its
 # device functions (wrappers that share device functions are counted
-# together: K1 and K2 launch the sm90 bf16 kernel, K2 also the wide one),
-# and no device function of their parent designs runs
+# together: K1 and K2 launch the sm90 bf16 kernel, K2 at D = 512 the wide
+# sm90 kernel), and no device function of their parent designs runs
 # (`one_launch_per_call`): K1's and K2's narrow parent and K9's parent stay
-# for the lab modes
+# for the lab modes, K2's wide parent for head dims above 128 other than 512
 PATH_ONE_LAUNCH = {"fused_group_norm": ("gn_float_kernel",),
                    "quant_k_int8": ("k_head_quant_kernel",),
                    "fused_adaln": ("adaln_float_kernel",), "fused_adaln_bwd": ("adaln_bwd_kernel",),
-                   "flash_attention_packed": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
-                   "flash_attention": ("attn_sm90_bf16_kernel", "fa_wide_kernel"),
+                   "flash_attention_packed": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
+                   "flash_attention": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
                    "flash_attention_packed_int8": ("attn_sm90_int8_kernel",)}
 PARENT_FUNCTIONS = ("gn_stats_kernel", "gn_combine_kernel", "gn_apply_kernel", "k_amax_kernel",
-                    "k_codes_kernel", "adaln_kernel", "fa_narrow_kernel", "int8_attn_kernel")
+                    "k_codes_kernel", "adaln_kernel", "fa_narrow_kernel", "int8_attn_kernel",
+                    "fa_wide_kernel")
 # further sources a kernel's wrapper launches from
 SOURCES_ALSO = {
     "flash_attention_packed": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_bf16.cu",),
-    "flash_attention": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
+    "flash_attention": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_wide.cu",
+                        "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                         "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_bf16.cu"),
     "flash_attention_packed_int8": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_int8.cu",
                                     "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu"),

@@ -8,7 +8,8 @@
 //     the DPT ViT-B and UniFormer at D = 64);
 //   * flash_attention (:163, pallas_call :105), (B, N, H, D) attention (K2:
 //     the MMDiT's joint attention under the bf16 policy, D = 64); K2 at
-//     D = 512 (the VAE) stays on `fa_wide_kernel` in flash_attention.cu;
+//     D = 512 (the VAE) runs attention_sm90_wide.cuh, which includes this
+//     header for its helpers;
 //   * flash_attention_packed_int8 (:375, pallas_call :402), int8 Q.K^T with
 //     per-row Q and per-(batch, head) K scales (K9: the SD3 MMDiT and
 //     ControlNet, DPT ViT-B and UniFormer under int8, D = 64), after K9's

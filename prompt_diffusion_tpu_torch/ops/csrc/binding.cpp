@@ -52,6 +52,12 @@ extern "C" int pd_attention_sm90_fwd(
 extern "C" int pd_attention_sm90_smem(int d, int int8, int consumers);
 extern "C" int pd_attention_sm90_block_k(int d, int int8, int consumers);
 extern "C" int pd_attention_sm90_block_q(int d, int int8, int consumers);
+extern "C" int pd_attention_sm90_wide_fwd(
+    const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
+    int d, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
+    int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
+    float scale, void* stream);
+extern "C" int pd_attention_sm90_wide_plan(int item);
 extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int64_t x_sn,
                             int batch, int n, int c, const void* sc, int sc_bf16, int64_t sc_sb,
                             int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
@@ -165,6 +171,20 @@ void attention_sm90_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, uintptr_t v, uin
   }
 }
 
+void attention_sm90_wide_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o, int batch,
+                             int heads, int nq, int nk, int d, int64_t q_sb, int64_t q_sn,
+                             int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
+                             int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb,
+                             int64_t o_sn, int64_t o_sh, double scale, uintptr_t stream) {
+  const int err = pd_attention_sm90_wide_fwd(
+      ptr(q), ptr(k), ptr(v), ptr(o), batch, heads, nq, nk, d, q_sb, q_sn, q_sh, k_sb, k_sn,
+      k_sh, v_sb, v_sn, v_sh, o_sb, o_sn, o_sh, static_cast<float>(scale), ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("attention_sm90_wide_fwd launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
 void row_quant(int op, uintptr_t x, bool x_bf16, int64_t x_sb, int64_t x_sn, int batch, int n,
                int c, uintptr_t sc, bool sc_bf16, int64_t sc_sb, int64_t sc_sc, uintptr_t sh,
                bool sh_bf16, int64_t sh_sb, int64_t sh_sc, double eps, int tpr, int vpt,
@@ -266,6 +286,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Keys per tile of the sm90 attention kernel as built (-1: not instantiated)");
   m.def("attention_sm90_block_q", &pd_attention_sm90_block_q,
         "Query rows per block of the sm90 attention kernel as built (-1: not instantiated)");
+  m.def("attention_sm90_wide_fwd", &attention_sm90_wide_fwd,
+        "K2 at D = 512 on warpgroup tensor cores over strided bf16 (B, N, H, 512) views");
+  m.def("attention_sm90_wide_plan", &pd_attention_sm90_wide_plan,
+        "The wide sm90 kernel's layout as built: 0 query rows, 1 key tile, 2 shared memory, "
+        "3 stages, 4 producer registers, 5 consumer registers, 6 consumers (-1: other)");
   m.def("row_quant", &row_quant,
         "Rows -> int8 codes and fp32 row scales: op 0 tanh-GELU (K10), op 1 AdaLN with "
         "per-sample (B, C) scale and shift views (K13), op 2 GEGLU of [h | gate] rows (K7), "

@@ -7,11 +7,11 @@
 //   * flash_attention (_fa_kernel), (B, N, H, D) attention of the VAE
 //     mid-block (K2, D = 512).
 // On the paths K1 and K2 at D 40, 64, 80 and 128 run attention_sm90.cuh's
-// `wgmma` kernel (ops/flash_attention.py::attention_route); the narrow
-// kernel below is its parent design, kept for the lab modes, for head
-// dimensions the sm90 kernel does not instantiate, and for
-// tools/attn_tune.py to time beside it. The wide kernel runs K2 at D = 512
-// (any call above D = 128).
+// `wgmma` kernel and K2 at D = 512 attention_sm90_wide.cuh's
+// (ops/flash_attention.py::attention_route); the narrow and wide kernels
+// below are their parent designs, kept for the lab modes, for head
+// dimensions the sm90 kernels do not instantiate (above 128: D = 160, which
+// no path runs), and for tools/attn_tune.py to time beside them.
 // Packed (B, N, H*D) memory is exactly the (B, N, H, D) layout, so one
 // strided kernel serves both and no head transposes are made.
 //

@@ -14,10 +14,14 @@ kernel a call runs, by mode, head dimension and dtype:
     (its header says what bounds it and how it is laid out; `sm90_plan`,
     `sm90_consumers` and `sm90_tensor_maps` state its tiles, shared memory
     and tensor maps);
-  * K2 at the VAE's D = 512 (any call above D = 128) runs the wide kernel
-    of `csrc/flash_attention.cu`; other head dims up to 128 and the lab
-    modes its narrow kernel at a tile of LAB_TILES (`kernel_tile`), the
-    parent design of the sm90 kernel;
+  * K2 at the VAE's D = 512 runs `csrc/attention_sm90_wide.cuh`: two
+    consumer warpgroups own 256 of O's columns each over the same 64 query
+    rows, the logits summed from two half-depth partials (`wide_plan`
+    states its layout, `WidePlan.grid` its grid);
+  * other head dims above 128 run the wide kernel of
+    `csrc/flash_attention.cu` (the parent of the D = 512 kernel); other
+    head dims up to 128 and the lab modes its narrow kernel at a tile of
+    LAB_TILES (`kernel_tile`), the parent design of the sm90 kernel;
   * K9's lab mode with per-row K runs `csrc/int8_attention.cu`'s
     `int8_attn_kernel` (at `int8_block_q` query rows per block), the sm90
     int8 kernel's parent.
@@ -118,10 +122,12 @@ def attention_route(mode: str, d: int, dtype=torch.bfloat16) -> str:
     """The kernel a call on the card runs. `mode`: "online" (K1, K2),
     "tiled", "no_softmax", "two_pass" (the labs at a chosen tile), "int8"
     (K9) or "int8_rowk" (the lab's per-row K). Returns "sm90" or
-    "int8_sm90" (csrc/attention_sm90.cuh), "narrow" or "wide"
-    (flash_attention.cu's fa_narrow_kernel, fa_wide_kernel) or
-    "int8_parent" (int8_attention.cu's int8_attn_kernel). Raises
-    ValueError for what no kernel takes: the kernels read bf16."""
+    "int8_sm90" (csrc/attention_sm90.cuh), "wide_sm90"
+    (csrc/attention_sm90_wide.cuh, the online mode at WIDE_HEAD_DIM),
+    "narrow" or "wide" (flash_attention.cu's fa_narrow_kernel,
+    fa_wide_kernel) or "int8_parent" (int8_attention.cu's
+    int8_attn_kernel). Raises ValueError for what no kernel takes: the
+    kernels read bf16."""
     if mode not in _ROUTE_MODES:
         raise ValueError(f"unknown attention mode {mode!r}; one of {_ROUTE_MODES}")
     if dtype != torch.bfloat16:
@@ -133,7 +139,7 @@ def attention_route(mode: str, d: int, dtype=torch.bfloat16) -> str:
     if mode == "int8_rowk":
         return "int8_parent"
     if d > NARROW_D:
-        return "wide"
+        return "wide_sm90" if mode == "online" and d == WIDE_HEAD_DIM else "wide"
     return "sm90" if mode == "online" and d in SM90_HEAD_DIMS else "narrow"
 
 
@@ -235,6 +241,89 @@ def sm90_plan(d: int, int8: bool = False, consumers: Optional[int] = None) -> Sm
     return Sm90Plan(d=d, int8=int8, consumers=consumers)
 
 
+# csrc/attention_sm90_wide.cuh: K2 in the online mode at WIDE_HEAD_DIM. A
+# CTA is one producer warpgroup and WIDE_CONSUMERS consumer warpgroups over
+# the same WIDE_ROWS query rows, each owning D / WIDE_CONSUMERS columns of O
+# and half the depth of Q.K^T; K and V tiles of WIDE_BLOCK_K keys in rings
+# of SM90_STAGES stages, every row of Q, K and V 2 D / SWIZZLE_SPAN column
+# blocks; one CTA a query block. `setmaxnreg` gives the producer and each
+# consumer WIDE_REGS registers a thread.
+WIDE_HEAD_DIM, WIDE_ROWS, WIDE_BLOCK_K, WIDE_CONSUMERS = 512, 64, 32, 2
+WIDE_REGS = (40, 232)
+REGISTERS_PER_SM = 65536
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """How `attention_sm90_wide.cuh` lays out a CTA at head dimension `d`:
+    its consumer warpgroups, query rows and threads, key tile and stages,
+    the 128-byte column blocks of a row, O's columns and Q.K^T's depth per
+    consumer, the dynamic shared memory (Q, the K and V
+    stages, the two consumers' partial logits in two buffers, the
+    1024-byte alignment slack) and the registers of a CTA."""
+
+    d: int
+    consumers: int = WIDE_CONSUMERS
+    rows: int = WIDE_ROWS
+    block_k: int = WIDE_BLOCK_K
+    stages: int = SM90_STAGES
+    regs: tuple = WIDE_REGS  # (producer, consumer) registers a thread
+
+    @property
+    def threads(self) -> int:
+        return 128 * (1 + self.consumers)
+
+    @property
+    def column_blocks(self) -> int:
+        return 2 * self.d // SWIZZLE_SPAN
+
+    @property
+    def consumer_cols(self) -> int:
+        """O's columns, and Q.K^T's depth, of one consumer."""
+        return self.d // self.consumers
+
+    @property
+    def partial_bytes(self) -> int:
+        """One consumer's fp32 partial logits of a tile."""
+        return self.rows * self.block_k * 4
+
+    @property
+    def smem(self) -> int:
+        span = SWIZZLE_SPAN
+        return (self.column_blocks * self.rows * span
+                + self.stages * 2 * self.column_blocks * self.block_k * span
+                + 2 * self.consumers * self.partial_bytes + 1024)
+
+    @property
+    def registers(self) -> int:
+        producer, consumer = self.regs
+        return 128 * (producer + self.consumers * consumer)
+
+    def grid(self, batch: int, heads: int, nq: int) -> tuple:
+        """(query blocks, B * H): the last block's rows past N are read as
+        zeros and not stored."""
+        return -(-nq // self.rows), batch * heads
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(d: int) -> WidePlan:
+    """The plan of the wide sm90 kernel at head dimension `d`; ValueError
+    where it is not instantiated."""
+    if d != WIDE_HEAD_DIM:
+        raise ValueError(f"the wide sm90 kernel takes head dim {WIDE_HEAD_DIM}, not {d}")
+    return WidePlan(d=d)
+
+
+def wide_tensor_maps(plan: WidePlan, q, k, v) -> tuple:
+    """The maps of q, k and v the wide kernel encodes (`sm90_tensor_map`):
+    Q in boxes of the CTA's rows, K and V of the key tile."""
+    return tuple(sm90_tensor_map(name, t, rows) for name, t, rows in
+                 (("q", q, plan.rows), ("k", k, plan.block_k), ("v", v, plan.block_k)))
+
+
+_TMA_STRIDE_LIMIT = 1 << 40  # bytes: cuTensorMapEncodeTiled's bound on a stride
+
+
 def sm90_check_view(name: str, t: torch.Tensor) -> None:
     """Raise ValueError where cuTensorMapEncodeTiled would refuse the sm90
     kernel's map of the (B, N, H, D) view `t`: it needs a dense head
@@ -243,12 +332,15 @@ def sm90_check_view(name: str, t: torch.Tensor) -> None:
     extent 1 takes stride 16, as the kernel's encoder gives it). The check
     each launch makes; `sm90_tensor_map` states the whole map."""
     es = t.element_size()
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(
-            size > 1 and (st <= 0 or st * es % 16 or st * es >= 1 << 40)
-            for st, size in zip(t.stride()[:3], t.shape[:3])):
+    st, sh = t.stride(), t.shape
+    s0, s1, s2 = st[0] * es, st[1] * es, st[2] * es  # written out: this runs on every launch
+    if (st[3] != 1 or t.data_ptr() % 16
+            or (sh[0] > 1 and (s0 <= 0 or s0 % 16 or s0 >= _TMA_STRIDE_LIMIT))
+            or (sh[1] > 1 and (s1 <= 0 or s1 % 16 or s1 >= _TMA_STRIDE_LIMIT))
+            or (sh[2] > 1 and (s2 <= 0 or s2 % 16 or s2 >= _TMA_STRIDE_LIMIT))):
         raise ValueError(f"{name}: TMA needs a dense head dimension, a 16-byte aligned base "
                          f"and strides that are positive multiples of 16 bytes, got element "
-                         f"strides {t.stride()}")
+                         f"strides {st}")
 
 
 def sm90_tensor_map(name: str, t: torch.Tensor, rows: int) -> tuple:
@@ -283,11 +375,13 @@ def _check(q, k, v, scale: float, mode: str, tile: tuple) -> None:
     nk = k.shape[1]
     if k.shape != (b, nk, h, d) or v.shape != (b, nk, h, d):
         raise ValueError(f"q/k/v shapes disagree: {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    device = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise ValueError(f"{name} must be bf16 on {q.device}, got {t.dtype} on {t.device}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {t.stride()}")
+        if t.dtype != torch.bfloat16 or t.device != device:
+            raise ValueError(f"{name} must be bf16 on {device}, got {t.dtype} on {t.device}")
+        st = t.stride()
+        if st[3] != 1 or st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {st}")
     if d % 8 or d > 512:
         raise ValueError(f"head dim {d} not supported (needs D % 8 == 0 and D <= 512)")
     if d > NARROW_D and (mode != "online" or tuple(tile) != WIDE_TILE):
@@ -315,6 +409,22 @@ def _sm90_launch(q, k, v, scale: float, sk: Optional[torch.Tensor] = None) -> to
     return out
 
 
+def _wide_launch(q, k, v, scale: float) -> torch.Tensor:
+    """`attention_sm90_wide.cuh` on (B, N, H, 512) bf16 views that
+    `sm90_check_view` passed; returns a contiguous (B, Nq, H, D) bf16
+    tensor."""
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    b, nq, h, d = q.shape
+    out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        cuda_ext().attention_sm90_wide_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[1], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    return out
+
+
 def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] = None
             ) -> torch.Tensor:
     """Run a CUDA kernel on (B, N, H, D) views: the kernel `attention_route`
@@ -325,9 +435,11 @@ def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] =
     b, nq, h, d = q.shape
     _check(q, k, v, scale, mode, kernel_tile(d) if tile is None else tile)
     route = attention_route(mode if tile is None or mode != "online" else "tiled", d, q.dtype)
-    if route == "sm90":
+    if route in ("sm90", "wide_sm90"):
         for name, t in (("q", q), ("k", k), ("v", v)):
             sm90_check_view(name, t)
+        if route == "wide_sm90":
+            return _wide_launch(q, k, v, scale)
         return _sm90_launch(q, k, v, scale)
     tile = kernel_tile(d) if tile is None else tile
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)

@@ -1,6 +1,7 @@
-"""K1's and K9's tiles and what bounds them, on the card.
+"""K1's, K2's and K9's tiles and what bounds them, on the card.
 
-    python3 -m prompt_diffusion_tpu_torch.tools.attn_tune [--iters N] [--part sweep|int8|ablate]
+    python3 -m prompt_diffusion_tpu_torch.tools.attn_tune [--iters N]
+        [--part sweep|int8|ablate|sm90|wide|host] [--quick]
 
   sweep     the online mode of `ops/csrc/flash_attention.cu` at every tile
             of `LAB_TILES` on K1's shapes in the SD1.5 paths (CFG batch 4
@@ -38,7 +39,30 @@
             and of each other copy, and the host us a call spends in the
             wrapper. With `--quick` only the kernel's copy,
             its errors and its times beside SDPA (no parent: the extension
-            is not built).
+            is not built);
+  wide      K2 at the VAE's D = 512 (`ops/csrc/attention_sm90_wide.cuh`):
+            an L2 probe first (a kernel in which every block re-reads a
+            buffer the size of K and V at the SD3 VAE shape, 33.5 MB, from
+            L2; the card's L2 read rate in TB/s, which bounds what a CTA
+            per SM without shared K/V tiles can reach); copies of the
+            source built by nvcc in parallel (the kernel, and ablated
+            copies without the exponentials, the P.V products, the K/V
+            copies after the first stages, the exchange of the partial
+            logits, the Q.K^T products) beside the parent
+            (`flash_attention.cu`'s `fa_wide_kernel`); the plan of
+            `ops/flash_attention.py::wide_plan` against the build; ptxas's
+            registers and spills; the SASS counts (`HGMMA`, no `HMMA`) of
+            the kernel and of the parent; the error against the plain
+            version in fp32 on the VAE shapes and ragged ones; then, in
+            turns, the device ms of the kernel, the parent and SDPA at the
+            three VAE shapes of `chip_smoke.py`, each ablated copy, and the
+            host us a call of the wrapper and of the parent's; with
+            `--quick` no extension build (no wrapper host times).
+  host      where the sm90 wrappers' host time goes at K1's, K2's and K9's
+            path shapes: host us a call of the whole wrapper, of its three
+            `sm90_check_view` calls, of the plan lookups, of the bare
+            extension call (its three tensor-map encodes included), and of
+            the parent's wrapper.
 
 The K1 parts' times are CUDA-event medians. It needs one CUDA card and
 nvcc; without a card it exits 2.
@@ -50,6 +74,7 @@ import argparse
 import ctypes
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -336,15 +361,20 @@ def _plain(q, k, v, h, int8):
     return (fa._torch_int8_attention if int8 else fa._packed_ref)(*args).float()
 
 
-def _host_us(fn, calls=200):
-    """Host microseconds a call spends before it returns (enqueue only)."""
+def _host_us(fn, calls=50, rounds=5):
+    """Host microseconds a call spends before it returns (enqueue only):
+    the median of `rounds` rounds of `calls` calls after a round of
+    warm-up, the device drained between rounds."""
+    per_call = []
+    for r in range(rounds + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        if r:
+            per_call.append((time.perf_counter() - t) / calls * 1e6)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(calls):
-        fn()
-    host = (time.perf_counter() - t) / calls * 1e6
-    torch.cuda.synchronize()
-    return host
+    return statistics.median(per_call)
 
 
 def sm90(gen, iters, quick=False):
@@ -432,7 +462,286 @@ def sm90(gen, iters, quick=False):
                   f"{device_ms(acall, iters=iters):.4f}", flush=True)
 
 
-PARTS = {"sweep": sweep, "int8": int8, "ablate": ablate, "sm90": sm90}
+# a kernel in which every block re-reads the whole buffer from L2 in 16-byte
+# loads that skip L1 (ld.global.cg), starting at its own offset; one word
+# per block keeps the loads live
+_L2_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void l2_probe_kernel(const uint4* __restrict__ buf, size_t n, uint32_t* out) {
+  uint32_t acc = 0;
+  const size_t start = (static_cast<size_t>(blockIdx.x) * 7919 * blockDim.x) % n;
+  for (size_t i = threadIdx.x; i < n; i += 4 * blockDim.x) {
+    uint4 a[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      size_t j = start + i + u * blockDim.x;
+      if (j >= n) j -= n;
+      a[u] = __ldcg(buf + j);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc ^= a[u].x ^ a[u].y ^ a[u].z ^ a[u].w;
+  }
+  if (acc == 0x9e3779b9u) out[blockIdx.x] = acc;
+}
+extern "C" int pd_l2_probe(const void* buf, size_t bytes, int blocks, int threads, void* out,
+                           void* stream) {
+  l2_probe_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(buf), bytes / 16, static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+# K2's VAE shapes (B, N, H, D) in `chip_smoke.py`: SD1.5 at 512² (batch 4),
+# SD3 at 1024², ragged; and short ones that cross the key and query tails
+WIDE_SHAPES = ((4, 4096, 1, 512), (1, 16384, 1, 512), (1, 1100, 1, 512))
+WIDE_CHECKS = ((2, 77, 2, 512), (1, 130, 1, 512), (1, 33, 3, 512)) + WIDE_SHAPES
+_WIDE = os.path.join(_CSRC_DIR, "attention_sm90_wide.cu")
+WIDE_COPIES = {"kernel": (), "no exponentials": ("-DPD_SM90_ABLATE=1",),
+               "no P.V products": ("-DPD_SM90_ABLATE=2",),
+               "no K/V copies after the first stages": ("-DPD_SM90_ABLATE=4",),
+               "no exchange of the partial logits": ("-DPD_SM90_ABLATE=32",),
+               "no Q.K^T products": ("-DPD_SM90_ABLATE=64",)}
+# the instructions whose order in the kernel's SASS `_sass_order` prints:
+# warpgroup products, their waits, exponentials, named and mbarrier syncs
+_ORDER_OPS = ("HGMMA", "WARPGROUP.DEPBAR", "WARPGROUP.ARRIVE", "MUFU.EX2", "BAR.SYNC",
+              "BAR.ARV", "SYNCS")
+# L2_PROBE_BYTES: K and V at the SD3 VAE shape, (1, 16384, 1, 512) bf16 each
+L2_PROBE_BYTES, L2_PROBE_BLOCKS_PER_SM = 2 * 16384 * 512 * 2, 2
+
+
+def _wide_fn(lib):
+    fn = ctypes.CDLL(lib).pd_attention_sm90_wide_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _parent_fn(lib):
+    fn = ctypes.CDLL(lib).pd_flash_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _strided_call(fn, q, k, v, tail):
+    """A call of a library's launch on (B, N, H, D) q, k, v with `tail`
+    (the arguments after the scale); returns (call, out)."""
+    b, nq, h, d = q.shape
+    out = torch.empty_like(q)
+
+    def call():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[1],
+                 d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+                 d ** -0.5, *tail, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: {err}")
+
+    return call, out
+
+
+def _sass_order(lib, name):
+    """The order of `_ORDER_OPS` in the SASS of `lib`'s first kernel whose
+    mangled name holds `name`, with runs counted: where the waits for the
+    products fall against the exponentials."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", lib],
+                         capture_output=True, text=True, check=True).stdout
+    seq, cur = [], False
+    for line in out.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            if cur:
+                break
+            cur = name in m.group(1)
+        elif cur:
+            op = next((o for o in _ORDER_OPS if re.search(rf"\b{re.escape(o)}\b", line)), None)
+            if op:
+                if seq and seq[-1][0] == op:
+                    seq[-1][1] += 1
+                else:
+                    seq.append([op, 1])
+    return " ".join(f"{op}x{n}" if n > 1 else op for op, n in seq)
+
+
+def l2_probe(lib, iters):
+    """The card's L2 read rate (TB/s): every block re-reads a buffer of
+    L2_PROBE_BYTES, which stays in the 50 MB L2 after the warm-up."""
+    fn = ctypes.CDLL(lib).pd_l2_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    buf = torch.randint(0, 1 << 30, (L2_PROBE_BYTES // 4,), dtype=torch.int32, device="cuda")
+    blocks = sms * L2_PROBE_BLOCKS_PER_SM
+    out = torch.zeros(blocks, dtype=torch.int32, device="cuda")
+    call = lambda: fn(buf.data_ptr(), L2_PROBE_BYTES, blocks, 512, out.data_ptr(),
+                      torch.cuda.current_stream().cuda_stream)
+    ms = device_ms(call, iters=iters)
+    rate = blocks * L2_PROBE_BYTES / (ms * 1e-3) / 1e12
+    print(f"[attn_tune] wide L2 probe: {blocks} blocks ({L2_PROBE_BLOCKS_PER_SM} per SM) each "
+          f"re-reading {L2_PROBE_BYTES / 1e6:.1f} MB: {ms:.4f} device ms, {rate:.2f} TB/s from L2",
+          flush=True)
+    return rate
+
+
+def wide(gen, iters, quick=False):
+    """K2 at D = 512: the L2 probe, the build, plan, ptxas and SASS report,
+    errors, then times beside the parent, SDPA and the ablated copies, and
+    the wrappers' host us."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    builds = {}
+    for name, flags in WIDE_COPIES.items():
+        lib = os.path.join(OUT_DIR, f"wide_{re.sub(r'\W+', '_', name)}.so")
+        builds[name] = lib, _nvcc(_WIDE, lib, "-shared", "-Xcompiler", "-fPIC", *flags)
+    parent_lib, parent_proc = _compile("wide parent", [])
+    probe_src = os.path.join(OUT_DIR, "l2_probe.cu")
+    open(probe_src, "w").write(_L2_PROBE)
+    probe_lib = os.path.join(OUT_DIR, "l2_probe.so")
+    probe_proc = _nvcc(probe_src, probe_lib, "-shared", "-Xcompiler", "-fPIC")
+    if not quick:
+        from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+        cuda_ext()
+    for lib, proc in ((probe_lib, probe_proc), (parent_lib, parent_proc)):
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {lib}:\n{out[-3000:]}")
+    l2_probe(probe_lib, iters)
+    fns = {}
+    for name, (lib, proc) in builds.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {lib}:\n{out[-4000:]}")
+        fns[name] = _wide_fn(lib)
+        if name == "kernel":  # the others are ablated
+            rows, warnings = _ptxas(out, ("attn_sm90_wide_kernel",))
+            for kname, info in rows.items():
+                print(f"[attn_tune] wide ptxas ({name}) {_demangled(kname)}: {info}", flush=True)
+            print(f"[attn_tune] wide ptxas ({name}) warnings: {warnings or 'none'}", flush=True)
+            for kname, ops in _sass_counts(lib, ("attn_sm90_wide_kernel",)).items():
+                print(f"[attn_tune] wide sass ({name}) {_demangled(kname)}: {ops}", flush=True)
+            print(f"[attn_tune] wide sass order: {_sass_order(lib, 'attn_sm90_wide_kernel')}",
+                  flush=True)
+    for kname, ops in _sass_counts(parent_lib, ("fa_wide_kernel",)).items():
+        print(f"[attn_tune] wide sass (parent) {kname}: {ops}", flush=True)
+    parent = _parent_fn(parent_lib)
+    plan_fn = ctypes.CDLL(builds["kernel"][0]).pd_attention_sm90_wide_plan
+    plan = fa.wide_plan(512)
+    built = tuple(plan_fn(i) for i in range(7))
+    want = (plan.rows, plan.block_k, plan.smem, plan.stages, *plan.regs, plan.consumers)
+    print(f"[attn_tune] wide plan (rows, block_k, smem, stages, producer regs, consumer regs, "
+          f"consumers) {built} as built, {want} in the plan", flush=True)
+    if built != want:
+        raise RuntimeError(f"wide_plan disagrees with the build: {built}")
+    bf = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    for b, n, h, d in WIDE_CHECKS:
+        q, k, v = bf(b, n, h, d), bf(b, n, h, d), bf(b, n, h, d)
+        ref = fa._torch_attention(q.float(), k.float(), v.float(), d ** -0.5)
+        errs = {}
+        for name, (fn, tail) in (("kernel", (fns["kernel"], ())),
+                                 ("parent", (parent, (0, *fa.WIDE_TILE)))):
+            call, out = _strided_call(fn, q, k, v, tail)
+            call()
+            torch.cuda.synchronize()
+            errs[name] = (out.float() - ref).abs().max().item(), bool(torch.isfinite(out).all())
+        print(f"[attn_tune] wide check ({b},{n},{h},{d}): largest output "
+              f"{ref.abs().max().item():.4g}; max_abs_err, finite: "
+              + "; ".join(f"{c}={e:.3g},{f}" for c, (e, f) in errs.items()), flush=True)
+        del ref
+    for b, n, h, d in WIDE_SHAPES:
+        q, k, v = bf(b, n, h, d), bf(b, n, h, d), bf(b, n, h, d)
+        cands = {"kernel": _strided_call(fns["kernel"], q, k, v, ())[0],
+                 "parent": _strided_call(parent, q, k, v, (0, *fa.WIDE_TILE))[0]}
+        cands["sdpa"] = lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2)
+                                                                 for t in (q, k, v)))
+        times = {c: [] for c in cands}
+        for c in list(cands) + list(cands)[::-1]:
+            times[c].append(device_ms(cands[c], iters=iters))
+        bound = 4 * b * n * n * h * d / 989e12 * 1e3
+        print(f"[attn_tune] wide time ({b},{n},{h},{d}): device_ms "
+              + " ".join(f"{c}={'/'.join(f'{t:.4f}' for t in ts)}" for c, ts in times.items())
+              + f" bound={bound:.4f} (products at 989 TFLOP/s)", flush=True)
+        for name, fn in fns.items():
+            if name == "kernel":
+                continue
+            acall = _strided_call(fn, q, k, v, ())[0]
+            print(f"[attn_tune] wide copy ({b},{n},{h},{d}): {name} "
+                  f"device_ms={device_ms(acall, iters=iters):.4f}", flush=True)
+        if not quick:
+            row = _wrapper_host_us(q.flatten(2), k.flatten(2), v.flatten(2), h)
+            print(f"[attn_tune] wide host ({b},{n},{h},{d}): "
+                  + " ".join(f"{k}={u:.1f}" for k, u in row.items()), flush=True)
+
+
+def _wrappers(q, k, v, heads, int8):
+    """(the wrapper's call, its parent design's call) of K1, K2 (packed (B,
+    N, H*D) inputs viewed as (B, N, H, D)) or K9."""
+    if int8:
+        scale = (q.shape[-1] // heads) ** -0.5
+        return (lambda: fa._int8_launch(q, k, v, heads, scale),
+                lambda: fa._int8_launch(q, k, v, heads, scale, False,
+                                        fa.int8_block_q(q.shape[1])))
+    q, k, v = (t.unflatten(-1, (heads, -1)) for t in (q, k, v))
+    d = q.shape[-1]
+    return (lambda: fa._launch(q, k, v, d ** -0.5),
+            lambda: fa._launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d)))
+
+
+def _wrapper_host_us(q, k, v, heads, int8=False):
+    """Host us a call of K1's, K2's or K9's wrapper and of its parent's
+    wrapper."""
+    wrapper, parent = _wrappers(q, k, v, heads, int8)
+    return {"wrapper": _host_us(wrapper), "parent": _host_us(parent)}
+
+
+def host(gen, iters):
+    """Where the sm90 wrappers' host us go, at the path shapes of K1, K2
+    and K9 and K2's two VAE shapes: the whole wrapper, its three
+    `sm90_check_view` calls, the plan lookups, the bare extension call, the
+    parent's wrapper. It runs against an older checkout too
+    (`PYTHONPATH=<checkout> python3 <this file> --part host`): what that
+    build lacks (the wide sm90 kernel) is left out of its rows."""
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    ext = cuda_ext()
+    shapes = list(SM90_SHAPES) + [("K2 VAE", b, n, h, d, False, False)
+                                  for b, n, h, d in WIDE_SHAPES[:2]]
+    for label, b, n, h, d, int8, slices in shapes:
+        q, k, v = _sm90_inputs(gen, b, n, h, d, slices)
+        row = _wrapper_host_us(q, k, v, h, int8)
+        q4, k4, v4 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
+        row["check_view x3"] = _host_us(lambda: [fa.sm90_check_view(nm, t) for nm, t in
+                                                 (("q", q4), ("k", k4), ("v", v4))])
+        out = torch.empty_like(q4)
+        stream = torch.cuda.current_stream().cuda_stream
+        bare = None
+        if d > fa.NARROW_D:
+            if hasattr(fa, "wide_plan"):
+                row["plan"] = _host_us(lambda: fa.wide_plan(d))
+                args = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out.data_ptr(), b, h, n, n,
+                        d, *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
+                        *out.stride()[:3], d ** -0.5, stream)
+                bare = lambda: ext.attention_sm90_wide_fwd(*args)
+        else:
+            kc, sk = fa._quant_k_per_head(k, h) if int8 else (k, None)
+            kk = kc.unflatten(-1, (h, d))
+            row["plan"] = _host_us(lambda: fa.sm90_plan(d, int8, fa.sm90_consumers(d, int8, n, n)))
+            args = (q4.data_ptr(), kk.data_ptr(), sk.data_ptr() if int8 else 0, v4.data_ptr(),
+                    out.data_ptr(), int8, b, h, n, n, d, *q4.stride()[:3], *kk.stride()[:3],
+                    *v4.stride()[:3], *out.stride()[:3], d ** -0.5,
+                    fa.sm90_consumers(d, int8, n, n), stream)
+            bare = lambda: ext.attention_sm90_fwd(*args)
+        if bare is not None:
+            row["bare call"] = _host_us(bare)
+        print(f"[attn_tune] host {label} ({b},{n},{h * d}) H={h}: host_us "
+              + " ".join(f"{k}={u:.1f}" for k, u in row.items()), flush=True)
+
+
+PARTS = {"sweep": sweep, "int8": int8, "ablate": ablate, "sm90": sm90, "wide": wide,
+         "host": host}
 
 
 def main(argv=None) -> int:
@@ -441,7 +750,8 @@ def main(argv=None) -> int:
     ap.add_argument("--part", choices=PARTS, action="append",
                     help="a part to run (repeatable; all when not given)")
     ap.add_argument("--quick", action="store_true",
-                    help="sm90: the kernel's own copy, errors and times beside SDPA only")
+                    help="sm90, wide: no extension build (sm90: the kernel's own copy, errors "
+                         "and times beside SDPA only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("attn_tune: no CUDA device", file=sys.stderr)
@@ -450,8 +760,8 @@ def main(argv=None) -> int:
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for part in args.part or PARTS:
-        if part == "sm90":
-            sm90(gen, args.iters, args.quick)
+        if part in ("sm90", "wide"):
+            PARTS[part](gen, args.iters, args.quick)
         else:
             PARTS[part](gen, args.iters)
     return 0

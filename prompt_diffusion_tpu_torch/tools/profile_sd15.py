@@ -1,6 +1,7 @@
 """Where the time of one SD1.5 request goes on the card.
 
     python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 [--int8 [--conv-variant xshift]]
+    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 --vae
 
 Builds SD1.5 at the default widths (bf16 policy, or with `--int8` the int8
 W8A8 serving policy with the int8 VAE, its 3x3 convs through K8's
@@ -29,6 +30,10 @@ compiles, cuDNN heuristics). Then:
     makes 88 K3 calls); and the attention kernels' (`ATTN_NAMES`: K1 and
     K2 on `attention_sm90.cuh` and on `flash_attention.cu`'s wide kernel,
     and from an older checkout the narrow parent).
+With `--vae`, the bf16 VAE decode of one request alone: its wall time
+(median of 3) and a torch.profiler trace of one decode, with the device
+ms and launches of K2 at D = 512 (`attention_sm90_wide.cuh`, or the
+parent `fa_wide_kernel` from an older checkout) and of K3.
 Needs one CUDA device.
 """
 
@@ -78,12 +83,34 @@ K3_K9P_NAMES = (("K3", ("gn_float_kernel",)),
 
 
 # the attention kernels by a part of their name: K1 and K2 on
-# `attention_sm90.cuh` (and K9 there under int8), on `flash_attention.cu`'s
-# wide kernel (D > 128), and the parents (`fa_narrow_kernel`,
-# `int8_attn_kernel`), which an older checkout's paths launch
-ATTN_NAMES = (("K1/K2 sm90", ("attn_sm90_bf16_kernel",)), ("K1/K2 wide", ("fa_wide_kernel",)),
+# `attention_sm90.cuh` (and K9 there under int8), K2 at D = 512 on
+# `attention_sm90_wide.cuh`, and the parents (`fa_wide_kernel`,
+# `fa_narrow_kernel`, `int8_attn_kernel`), which an older checkout's paths
+# launch
+ATTN_NAMES = (("K1/K2 sm90", ("attn_sm90_bf16_kernel",)),
+              ("K2 wide sm90", ("attn_sm90_wide_kernel",)),
+              ("K1/K2 wide parent", ("fa_wide_kernel",)),
               ("K1/K2 narrow parent", ("fa_narrow_kernel",)),
               ("K9 sm90", ("attn_sm90_int8_kernel",)), ("K9 parent", ("int8_attn_kernel",)))
+
+
+def trace_by_name(fn):
+    """One call of `fn` under the profiler: ({kernel name: (launches, device
+    us)}, device busy us, wall us, device launches)."""
+    with device_trace() as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = device_kernels(prof)
+    if not kernels:
+        raise RuntimeError("the profiler recorded no device activity")
+    by_name = {}
+    for name, s, e in kernels:
+        n, us = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, us + (e - s))
+    return by_name, busy_us([(s, e) for _, s, e in kernels]), wall_us, len(kernels)
 
 
 def print_named(by_name, count, unit, table=K3_K9P_NAMES):
@@ -298,6 +325,8 @@ def main(argv=None) -> int:
                         help="the int8 W8A8 serving policy and the int8 VAE")
     parser.add_argument("--conv-variant", choices=("im2col", "xshift"), default="im2col",
                         help="K8's variant for the int8 3x3 convs")
+    parser.add_argument("--vae", action="store_true",
+                        help="the VAE decode alone: wall ms and its trace (K2 at D = 512, K3)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sd15: no CUDA device", file=sys.stderr)
@@ -305,6 +334,17 @@ def main(argv=None) -> int:
     policy = f"int8, K8 {args.conv_variant}" if args.int8 else "bf16"
     print(f"[profile] {card()}; policy {policy}")
     pipe, request, x = build(int8=args.int8, conv_variant=args.conv_variant)
+    if args.vae:
+        decode = lambda: pipe.decode_latents(x.permute(0, 2, 3, 1))
+        decode()  # warm-up
+        print(f"[profile] VAE decode (batch {BATCH}, {SIZE}²): {_wall_ms(decode):.3f} ms wall, "
+              f"median of 3")
+        by_name, busy, wall_us, launches = trace_by_name(decode)
+        print(f"[profile] one VAE decode under the profiler: {wall_us / 1e3:.3f} ms wall, device "
+              f"busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), {launches} device "
+              f"launches")
+        print_named(by_name, 1, "VAE decode", ATTN_NAMES[1:3] + K3_K9P_NAMES[:1])
+        return 0
     t = torch.full((BATCH,), 999, dtype=torch.int32, device="cuda")
     eps_fn = pipe.make_eps_fn(**request, guidance_scale=CFG)
     pair2 = torch.cat([request["example_pair"]] * 2).permute(0, 3, 1, 2)

@@ -1,6 +1,6 @@
 """Where the time of one SD3 request goes on the card.
 
-    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd3
+    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd3 [--vae]
 
 Builds SD3 Prompt-Diffusion at full width in the int8 serving mode of
 `bench.py --config sd3` (MMDiT 24 x 1536, the 12-block ControlNet,
@@ -27,11 +27,17 @@ compiles, cuDNN heuristics). Then:
     GroupNorms; the denoise step makes no K3 call);
   * the int8 GEMMs of one step and the least time they could take with the
     dequant fused into them (G1 in ROADMAP.md).
+With `--vae`, the request's VAE parts alone (no T5, no denoise step): the
+wall time of each (median of 3), then a torch.profiler trace of one
+request's three of them, with the device ms and launches of K2 at D =
+512 per request (`profile_sd15.ATTN_NAMES`: `attention_sm90_wide.cuh`, or
+the parent `fa_wide_kernel` from an older checkout) and of K3.
 Needs one CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
@@ -43,6 +49,7 @@ from prompt_diffusion_tpu_torch.tools.profile_sd15 import (
     _wall_ms,
     print_int8_gemm_bound,
     print_named,
+    trace_by_name,
 )
 from prompt_diffusion_tpu_torch.tools.timing import busy_us, card, device_kernels, device_trace
 
@@ -59,8 +66,43 @@ KERNEL_NAMES = (("K10", "gelu_quant_kernel"), ("K13", "adaln_quant_kernel"),
                 ("a Triton K13", "adaln_kernel"), ("copies and casts", "copy_kernel"))
 
 
+def vae_parts(pipe, gen):
+    """The request's VAE parts (the support pair through `down_proj`, the
+    query condition, the decode) on seeded inputs: {name: call}."""
+    img = lambda: torch.rand((BATCH, SIZE, SIZE, 3), generator=gen, device="cuda") * 2 - 1
+    cond, gt, control = img(), img(), img()
+    control_nchw = control.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    x = torch.randn((BATCH, pipe.vae.config.z_channels, SIZE // 8, SIZE // 8), generator=gen,
+                    device="cuda")
+    return {"VAE encode, pair": lambda: pipe.encode_support_pair(cond, gt, gen),
+            "VAE encode, query": lambda: pipe._encode_vae(control_nchw, gen),
+            "VAE decode": lambda: pipe.decode_latents(x)}
+
+
+def vae_only(pipe, gen):
+    """`--vae`: the wall ms of each VAE part, then one request's VAE parts
+    under the profiler with K2's (D = 512) and K3's device ms."""
+    parts = vae_parts(pipe, gen)
+    for fn in parts.values():  # warm-up
+        fn()
+    print(f"[profile] VAE parts of a request (batch {BATCH}, {SIZE}²), wall ms, median of 3:")
+    for name, fn in parts.items():
+        print(f"  {name:18s} {_wall_ms(fn):9.3f}")
+    by_name, busy, wall_us, launches = trace_by_name(lambda: [fn() for fn in parts.values()])
+    print(f"[profile] one request's VAE parts under the profiler: {wall_us / 1e3:.3f} ms wall, "
+          f"device busy {busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), {launches} "
+          f"device launches")
+    print_named(by_name, 1, "request", [row for row in ATTN_NAMES if "wide" in row[0]]
+                + list(K3_K9P_NAMES[:1]))
+    return 0
+
+
 @torch.no_grad()
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--vae", action="store_true",
+                        help="the request's VAE parts alone: wall ms and a trace (K2, K3)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_sd3: no CUDA device", file=sys.stderr)
         return 2
@@ -68,8 +110,14 @@ def main() -> int:
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd3 import PromptDiffusionSD3
     from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
 
-    print(f"[profile] {card()}; SD3, int8 policy, staged T5")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.vae:
+        print(f"[profile] {card()}; SD3, int8 policy, the request's VAE parts")
+        pipe = PromptDiffusionSD3.create(policy=int8_policy(), device="cuda")
+        for m in (pipe.down_proj, pipe.vae):
+            random_init_(m, gen)
+        return vae_only(pipe, gen)
+    print(f"[profile] {card()}; SD3, int8 policy, staged T5")
     with torch.device("cuda"):
         t5 = T5Encoder()
     random_init_(t5.eval().requires_grad_(False), gen)

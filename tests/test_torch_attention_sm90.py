@@ -47,8 +47,8 @@ def _f32(x):
     # head dims the sm90 kernel does not instantiate stay on the parent
     ("online", 32, "narrow"), ("online", 8, "narrow"), ("online", 48, "narrow"),
     ("online", 96, "narrow"),
-    # above 128 the wide kernel (the VAE's 512)
-    ("online", 160, "wide"), ("online", 512, "wide"),
+    # above 128 the wide kernel; the VAE's 512 its wide sm90 successor
+    ("online", 160, "wide"), ("online", 512, "wide_sm90"),
     # the lab modes run the parent at their tile
     ("tiled", 40, "narrow"), ("tiled", 64, "narrow"), ("no_softmax", 40, "narrow"),
     ("two_pass", 64, "narrow"), ("two_pass", 80, "narrow"),
@@ -95,16 +95,26 @@ def _record_sm90(monkeypatch):
 
 
 @pytest.mark.parametrize("d,sm90", [(40, True), (64, True), (80, True), (128, True),
-                                    (32, False), (512, False)])
+                                    (32, False), (512, "wide")])
 def test_launch_takes_the_route(d, sm90, monkeypatch):
     """K1's and K2's launch (no tile) goes to the sm90 kernel at its head
-    dims and to `flash_attention.cu` elsewhere; with a tile (the labs)
-    always to `flash_attention.cu`."""
+    dims, to the wide sm90 kernel at D = 512 and to `flash_attention.cu`
+    elsewhere; with a tile (the labs, the wide parent) always to
+    `flash_attention.cu`."""
     _no_build(monkeypatch)
     _as_if_on_the_card(monkeypatch)
     calls = _record_sm90(monkeypatch)
+    wide = []
+    monkeypatch.setattr(fa, "_wide_launch", lambda q, k, v, scale: wide.append(
+        tuple(q.shape)) or torch.zeros(q.shape, dtype=torch.bfloat16))
     q = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
-    if sm90:
+    if sm90 == "wide":
+        fa._launch(q, q, q, 0.125)
+        assert wide == [(1, 64, 2, d)] and calls == []
+        with pytest.raises(AssertionError, match="extension was built"):
+            fa._launch(q, q, q, 0.125, "online", fa.WIDE_TILE)
+        assert len(wide) == 1
+    elif sm90:
         fa._launch(q, q, q, 0.125)
         assert calls == [((1, 64, 2, d), False)]
     else:
@@ -543,19 +553,24 @@ def test_k9_code_probe_reads_every_code(d, nq):
 
 def test_chip_smoke_checks_the_new_kernels_and_not_the_parents():
     """chip_smoke.py counts one launch of the sm90 kernels per K1, K2 and K9
-    call on the paths (K1 and K2 together, with the wide kernel above
-    D = 128) and fails a path that launches a parent; the names it matches
+    call on the paths (K1 and K2 together, with the wide sm90 kernel at
+    D = 512) and fails a path that launches a parent; the names it matches
     by substring do not contain each other."""
     import chip_smoke
 
     one = chip_smoke.PATH_ONE_LAUNCH
     assert one["flash_attention_packed"] == one["flash_attention"] == (
-        "attn_sm90_bf16_kernel", "fa_wide_kernel")
+        "attn_sm90_bf16_kernel", "attn_sm90_wide_kernel")
     assert one["flash_attention_packed_int8"] == ("attn_sm90_int8_kernel",)
-    assert {"fa_narrow_kernel", "int8_attn_kernel"} <= set(chip_smoke.PARENT_FUNCTIONS)
+    assert {"fa_narrow_kernel", "int8_attn_kernel", "fa_wide_kernel"} <= set(
+        chip_smoke.PARENT_FUNCTIONS)
     new = {f for fs in one.values() for f in fs}
     for parent in chip_smoke.PARENT_FUNCTIONS:
         assert not any(parent in f or f in parent for f in new), parent
     assert chip_smoke.DEVICE_FUNCTIONS["flash_attention_packed_int8"] == (
         "k_head_quant_kernel", "attn_sm90_int8_kernel")
     assert chip_smoke.KERNELS["flash_attention_packed"][1].endswith("attention_sm90.cuh")
+    assert chip_smoke.KERNELS["flash_attention"][1].endswith("attention_sm90_wide.cuh")
+    assert any(src.endswith("attention_sm90_wide.cu")
+               for src in chip_smoke.SOURCES_ALSO["flash_attention"])
+    assert chip_smoke.DEVICE_FUNCTIONS["flash_attention"][1] == "attn_sm90_wide_kernel"
