@@ -66,8 +66,12 @@ without the final `"ok": true` line:
                every instantiation;
                and K9's Q codes, which never leave the kernel's
                registers, are read back through its output
-               (`k9_code_probe`) at every int8 instantiation and must
-               equal the plain quantizer's in every row;
+               (`k9_code_probe`) at every int8 instantiation (D = 40 and
+               80 too) and must equal the plain quantizer's in every row;
+               K9 and K9p at SD1.5's self-attention with
+               `int8_attention` ((8,4096,320) and (8,1024,640), H=8),
+               each K9 reading printed beside K1's and SDPA's at the same
+               shape (`k9_sd15_yardsticks`);
   4. slice   - SD1.5 at full width (default configs, bf16, random weights
                from a seed) answers two 512² requests of batch 2 with 8 DDIM
                steps and CFG 9; checks the images, that every kernel of the
@@ -92,7 +96,16 @@ without the final `"ok": true` line:
                pipeline built with `conv_variant="xshift"` (same weights)
                answers request 1 through K8's xshift kernel, bit-equal to
                the im2col pipeline's images, with both variants' seconds
-               per step;
+               per step; then pipelines built with each SD1.5 int8
+               option (`INT8_OPTIONS`: `int8_attention=True`, the 64² and
+               32² self-attention through K9; `fused_geglu=False`, the
+               GEGLU without K7), same weights: request 1 and a bit-exact
+               repeat under the profiler, one CFG epsilon evaluation's
+               launches (K9 and K9p 14 and K1 0; K7 0), that evaluation
+               against the plain ops and an fp32-compute twin with the
+               option (both within 1.25x the plain ops' distance), and
+               seconds per request and step beside the plain int8
+               pipeline's;
   6. serve   - the micro-batching GenerationServer (max_batch 4, flush
                50 ms, warmed) over the int8 pipeline of phase 5: a burst of
                eight 512² requests at 8 steps (four UniPC, two DPM-Solver++,
@@ -368,6 +381,12 @@ MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
 # K3's calls per CFG epsilon evaluation of the SD1.5 bf16 step (ControlNet +
 # UNet): every GroupNorm of at least 2^18 elements
 SD15_K3_PER_STEP = 88
+# launches per CFG epsilon evaluation (ControlNet + UNet) of the SD1.5 int8
+# options: K9 and K9p at every kernel-eligible self-attention (the 64² and
+# 32² latents: 5 + 5 in the UNet, 2 + 2 in the ControlNet) with
+# `int8_attention`, K1's 14 there then 0; K7's 23 (16 UNet, 7 ControlNet)
+# 0 with `fused_geglu=False`
+SD15_ELIGIBLE_ATTN_PER_STEP, SD15_K7_PER_STEP = 14, 23
 # launches per DPT-Hybrid forward ("fused_group_norm.relu": K3's launches
 # with the ReLU epilogue, among its 52): 1 stem + 16 blocks x 3 + 3
 # downsample GroupNorms, 1 + 16 x 2 of them with ReLU; 12 ViT blocks
@@ -568,6 +587,7 @@ def kernel_cases(gen):
         flash_attention_tiled,
         flash_attention_two_pass,
         quant_k_int8,
+        sm90_plan,
     )
     from prompt_diffusion_tpu_torch.ops.fused_act import (
         fused_geglu_quant,
@@ -672,18 +692,35 @@ def kernel_cases(gen):
     cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h} UniFormer qkv slices",
                   flash_attention_packed_int8, (q, k, v, h), "float", ATTN_BOUND,
                   (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n), None))
+    uniformer_k = k
+    # K9 at SD1.5's self-attention with `int8_attention` (CFG batch 8 at
+    # 64² and 32², D = 40 and 80), the softmax scale folded into q and the
+    # kernel at scale 1 as CrossAttention calls it; K1's cases at the same
+    # shapes above hold the yardsticks (`k9_sd15_yardsticks`)
+    sd15_k = {}
+    for b, n, hd, h in K9_SD15_SHAPES:
+        q = bf16(randn(b, n, hd) * (hd // h) ** -0.5)
+        k, v = bf16(randn(b, n, hd)), bf16(randn(b, n, hd))
+        sd15_k[(b, n, hd, h)] = k
+        cases.append(("flash_attention_packed_int8", f"({b},{n},{hd}) H={h} SD1.5",
+                      flash_attention_packed_int8, (q, k, v, h, 1.0), "float", ATTN_BOUND,
+                      (8 * b * n * hd, 2 * b * n * n * hd, 2 * b * n * n * hd, b * h * n * n),
+                      None))
     # K9's prologue, K to int8 codes and scales, bit-equal to its plain
     # version: per head at the SD3 joint shape and on the ViT-B's and
     # UniFormer's K column slices, per key row at the lab's SD3 shape (the
-    # ROWK mode's)
+    # ROWK mode's), and at SD1.5's two shapes of K9 in the layout the sm90
+    # kernel reads (heads `Sm90Plan.k_head_bytes` apart: 48 at D = 40)
     for b, n, hd, h, per_row, k, site in (
             (2, 4429, 1536, 24, False, bf16(randn(2, 4429, 1536)), ""),
             (16, 1025, 768, 12, False, vit_k, " ViT-B K slice"),
             (2, 4250, 1536, 24, True, bf16(randn(2, 4250, 1536)), ""),
-            (16, 1024, 320, 5, False, k, " UniFormer K slice")):
+            (16, 1024, 320, 5, False, uniformer_k, " UniFormer K slice"),
+            *((*shape, False, k, " SD1.5") for shape, k in sd15_k.items())):
         scales = b * h * (n if per_row else 1)
+        head_bytes = sm90_plan(hd // h, True).k_head_bytes if site == " SD1.5" else None
         cases.append(("quant_k_int8", f"({b},{n},{hd}) H={h}" + (" per row" if per_row else "")
-                      + site, quant_k_int8, (k, h, per_row),
+                      + site, quant_k_int8, (k, h, per_row, head_bytes),
                       "exact", 0.0, (3 * b * n * hd + 4 * scales, 0, 0), None))
     gn_shapes = (((8, 320, 64, 64), 1e-5, 0.0), ((4, 128, 512, 512), 1e-6, 4.0))
     for name, fn, kind, bound, out_bytes in (
@@ -900,9 +937,11 @@ def parent_call(name, args):
             return None
         return lambda: fa._launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d))
     if name == "flash_attention_packed_int8":
-        q, k, v, h = args
-        return lambda: fa._int8_launch(q, k, v, h, (q.shape[-1] // h) ** -0.5, False,
-                                       fa.int8_block_q(q.shape[1]))
+        q, k, v, h, *scale = args
+        if q.shape[-1] // h not in fa.INT8_PARENT_HEAD_DIMS:  # SD1.5's 40 and 80
+            return None
+        scale = scale[0] if scale else (q.shape[-1] // h) ** -0.5
+        return lambda: fa._int8_launch(q, k, v, h, scale, False, fa.int8_block_q(q.shape[1]))
     return None
 
 
@@ -934,10 +973,16 @@ def sm90_plan_check():
 
 # K9's Q codes read back through its output (`k9_code_probe`): (D, query
 # rows) cases that take every int8 instantiation of the sm90 kernel (three
-# consumers at 380 rows against K9_PROBE_KEYS keys, two at 250; D = 128
-# runs two), K9_PROBE_HEADS heads a sample, K9_PROBE_SCALE the softmax scale
-K9_PROBE_CASES = ((32, 380), (32, 250), (64, 380), (64, 250), (128, 250))
-K9_PROBE_HEADS, K9_PROBE_KEYS, K9_PROBE_SCALE = 32, 330, 8000.0
+# consumers at 380 rows against K9_PROBE_KEYS keys, two at 250; D = 80 and
+# 128 run two), K9_PROBE_HEADS[D] heads a sample (a divisor of D),
+# K9_PROBE_SCALE the softmax scale
+K9_PROBE_CASES = ((32, 380), (32, 250), (40, 380), (40, 250), (64, 380), (64, 250), (80, 250),
+                  (128, 250))
+K9_PROBE_HEADS = {32: 32, 40: 8, 64: 32, 80: 8, 128: 32}
+K9_PROBE_KEYS, K9_PROBE_SCALE = 330, 8000.0
+# K9 (and K9p) at SD1.5's self-attention under `int8_attention`: (B, N, H*D,
+# H) at CFG batch 8, 64² (D = 40) and 32² (D = 80), K1's headline shapes
+K9_SD15_SHAPES = ((8, 4096, 320, 8), (8, 1024, 640, 8))
 
 
 def k9_code_probe(d, nq, seed=0):
@@ -964,7 +1009,7 @@ def k9_code_probe(d, nq, seed=0):
 
     from prompt_diffusion_tpu_torch.ops.flash_attention import _int8_scale
 
-    h, nk = K9_PROBE_HEADS, K9_PROBE_KEYS
+    h, nk = K9_PROBE_HEADS[d], K9_PROBE_KEYS
     b = d // h
     rng = np.random.default_rng(seed)
     bf16 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
@@ -1178,6 +1223,23 @@ def phase_kernels(gen):
     return results
 
 
+def k9_sd15_yardsticks(results):
+    """K9's and K9p's device ms at SD1.5's shapes beside K1's and SDPA's at
+    the same shape (K1's cases of this run) and the bound; each K9 case
+    gains `k1_ms` and `sdpa_ms`."""
+    for b, n, hd, h in K9_SD15_SHAPES:
+        label = f"({b},{n},{hd}) H={h}"
+        k9 = next(c for c in results["flash_attention_packed_int8"]
+                  if c["case"] == f"{label} SD1.5")
+        k9p = next(c for c in results["quant_k_int8"] if c["case"] == f"{label} SD1.5")
+        k1 = next(c for c in results["flash_attention_packed"] if c["case"] == label)
+        k9.update(k1_ms=k1["ms"], sdpa_ms=k1["library_ms"])
+        log(f"[kernels] K9 at SD1.5 {label} D={hd // h}: device_ms={k9['ms']} (K9p "
+            f"{k9p['ms']} of it alone) beside K1 {k1['ms']} and SDPA {k1['library_ms']} at the "
+            f"same shape; bound_ms={k9['bound_ms']} ({k9['bound_term']}); K9/K1 "
+            f"{k9['ms'] / k1['ms']:.3f}")
+
+
 def k3_k5_statistics(gen):
     """K3 and K5 take their group statistics from one code path: on one
     fp32 tensor at the SD1.5 64² site (SiLU), K3's output (fp32, so its
@@ -1323,6 +1385,13 @@ PATH_KERNELS = {
              "quant_k_int8", "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
     # request 1 again through a pipeline built with conv_variant="xshift"
     "int8_xshift": ("conv3x3_int8_xshift", "fused_group_norm_quant", "flash_attention_packed"),
+    # request 1 again with each SD1.5 int8 option (`INT8_OPTIONS`): K9 and
+    # K9p in K1's place; the GEGLU without K7
+    "int8_attention": ("flash_attention_packed_int8", "quant_k_int8", "flash_attention",
+                       "fused_group_norm_quant", "fused_layer_norm_quant", "fused_geglu_quant",
+                       "conv3x3_int8"),
+    "int8_unfused_geglu": ("flash_attention_packed", "flash_attention", "fused_group_norm_quant",
+                           "fused_layer_norm_quant", "conv3x3_int8"),
     # the bf16 VAE's GroupNorm and mid-block attention, the int8 MMDiT's four
     "sd3": ("flash_attention", "fused_group_norm", "flash_attention_packed_int8",
             "quant_k_int8", "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant"),
@@ -1508,13 +1577,14 @@ def one_launch_per_call(tag, fn):
     return out, launches
 
 
-def twin(pipe, policy):
+def twin(pipe, policy, **options):
     """The pipeline with copies of its UNet and ControlNet under another
-    policy (same weights), sharing its VAE and text encoder."""
+    policy (same weights) and `create`'s `options`, sharing its VAE and
+    text encoder."""
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
 
     other = PromptDiffusionSD15.create(policy=policy, vae=pipe.vae,
-                                       text_encoder=pipe.text_encoder, device="cuda")
+                                       text_encoder=pipe.text_encoder, device="cuda", **options)
     other.unet.load_state_dict(pipe.unet.state_dict())
     other.controlnet.load_state_dict(pipe.controlnet.state_dict())
     return other
@@ -1705,10 +1775,105 @@ def phase_path(tag, policy, vae_int8, ref_policy, info_policy=None, seed=0, keep
         paths["int8_xshift"] = (launches_x, {"request_s": [s_x], "step_s": step_x,
                                              "im2col_step_s": step_s})
         del xpipe, eps_x
+        paths.update(int8_options(pipe, policy, vae_int8, ref_policy, answer, (s1, s2, s1b),
+                                  step_s, r, x, t))
     if keep_pipe:
         return paths, pipe, img1
     del pipe
     torch.cuda.empty_cache()
+    return paths
+
+
+# the SD1.5 int8 serving options (`create`'s keyword arguments), each a
+# path of `[int8]`, and what a CFG epsilon evaluation must launch under it:
+# {wrapper: calls}
+INT8_OPTIONS = {
+    "int8_attention": ({"int8_attention": True},
+                       {"flash_attention_packed_int8": SD15_ELIGIBLE_ATTN_PER_STEP,
+                        "quant_k_int8": SD15_ELIGIBLE_ATTN_PER_STEP, "flash_attention_packed": 0,
+                        "fused_geglu_quant": SD15_K7_PER_STEP}),
+    "int8_unfused_geglu": ({"fused_geglu": False},
+                           {"fused_geglu_quant": 0, "flash_attention_packed_int8": 0,
+                            "flash_attention_packed": SD15_ELIGIBLE_ATTN_PER_STEP}),
+}
+
+
+def int8_options(pipe, policy, vae_int8, ref_policy, answer, plain_s, plain_step_s, r, x, t):
+    """`[int8]` under each SD1.5 int8 option (`INT8_OPTIONS`), on pipelines
+    built with it and `pipe`'s weights: request 1, its bit-exact repeat
+    (under the profiler: one device launch per wrapper call, no parent
+    design), the launches of one CFG epsilon evaluation (t=999) by
+    wrapper, that evaluation against the plain ops (relative L2 over the
+    uncond and cond outputs within FP32_RATIO_BOUND times the plain ops'
+    own distance from an fp32-compute evaluation with the option) and the
+    guided epsilon no farther from that fp32 evaluation than
+    FP32_RATIO_BOUND times the plain ops'; seconds per request and per
+    step beside the plain int8 pipeline's (`plain_s`, `plain_step_s`).
+    Returns {path tag: (launches, timing)}."""
+    import numpy as np
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.tools.timing import time_ms
+
+    rel = lambda a, b: ((a - b).norm() / b.norm()).item()
+    paths = {}
+    for tag, (options, per_step) in INT8_OPTIONS.items():
+        opipe = PromptDiffusionSD15.create(policy=policy, vae_int8=vae_int8, device="cuda",
+                                           **options)
+        for name, m in opipe.jax_modules().items():
+            m.load_state_dict(pipe.jax_modules()[name].state_dict())
+        counted = reset_launches()
+        img, s_o = answer(0, opipe)
+        launches = {name: w.launches for name, w in counted.items()}
+        (again, s_again), _ = one_launch_per_call(tag, lambda: answer(0, opipe))
+        check(torch.equal(img, again), f"[{tag}] request 1 repeated gave other images")
+        check(tuple(img.shape) == (REQ_BATCH, REQ_SIZE, REQ_SIZE, 3)
+              and torch.isfinite(img).all().item()
+              and img.min().item() >= 0.0 and img.max().item() <= 1.0,
+              f"[{tag}] images {tuple(img.shape)} not finite in [0, 1]")
+        for name in PATH_KERNELS[tag]:
+            check(launches[name] > 0, f"kernel {name} was not launched on the {tag} path")
+        eps_fns = {gs: opipe.make_eps_fn(**r, guidance_scale=gs) for gs in (0.0, 1.0, CFG)}
+        with torch.no_grad():
+            counted = reset_launches()
+            kern_cfg = eps_fns[CFG](x, t)
+            step = {name: counted[name].launches for name in per_step}
+            kern = {gs: f(x, t) for gs, f in eps_fns.items()}
+            check(torch.equal(kern[CFG], kern_cfg), f"[{tag}] the epsilon evaluation repeated "
+                                                    f"gave other values")
+            with plain_ops():
+                plain = {gs: f(x, t) for gs, f in eps_fns.items()}
+                ref = twin(opipe, ref_policy, **options)
+                eps32 = {gs: ref.make_eps_fn(**r, guidance_scale=gs)(x, t) for gs in eps_fns}
+                del ref
+            step_s = time_ms(lambda: eps_fns[CFG](x, t), iters=5, warmup=1) / 1e3
+        log(f"[{tag}] request 1: {s_o:.3f}s, repeated bit-exactly in {s_again:.3f}s under the "
+            f"profiler (plain int8 pipeline: {plain_s[0]:.3f}s, {plain_s[1]:.3f}s, "
+            f"{plain_s[2]:.3f}s); launches {launches}")
+        log(f"[{tag}] launches per CFG epsilon evaluation (ControlNet + UNet): {step} "
+            f"(expected {per_step})")
+        check(step == per_step, f"[{tag}] launches per step {step}, expected {per_step}")
+        branches = lambda e: torch.cat([e[0.0], e[1.0]])
+        rel_b, rel_b32 = rel(branches(kern), branches(plain)), rel(branches(plain), branches(eps32))
+        rel_k32, rel_p32 = rel(kern[CFG], eps32[CFG]), rel(plain[CFG], eps32[CFG])
+        log(f"[{tag}] eps (t=999), kernels vs plain ops: rel L2 {rel_b} over the uncond and cond "
+            f"outputs (bound {FP32_RATIO_BOUND * rel_b32}; the plain ops' own distance from the "
+            f"fp32-compute evaluation there: {rel_b32}); guided against the fp32-compute "
+            f"evaluation: kernels {rel_k32}, plain ops {rel_p32} (bound {FP32_RATIO_BOUND}x the "
+            f"plain ops')")
+        check(np.isfinite(rel_b) and rel_b <= FP32_RATIO_BOUND * rel_b32,
+              f"[{tag}] eps rel L2 {rel_b} > {FP32_RATIO_BOUND} x {rel_b32}")
+        check(rel_k32 <= FP32_RATIO_BOUND * rel_p32,
+              f"[{tag}] kernels {rel_k32} vs plain {rel_p32} from the fp32-compute evaluation")
+        log(f"[{tag}] seconds per request {s_o:.3f} (plain int8 {plain_s[1]:.3f}), per denoise "
+            f"step {step_s:.4f} (plain int8 {plain_step_s:.4f})")
+        paths[tag] = (launches, {"request_s": [s_o, s_again], "step_s": step_s,
+                                 "plain_request_s": list(plain_s), "plain_step_s": plain_step_s,
+                                 "launches_per_step": step})
+        del opipe, eps_fns, kern, plain, eps32
+        torch.cuda.empty_cache()
     return paths
 
 
@@ -4163,6 +4328,7 @@ def main():
     sm90_plan_check()
     k9_codes_check()
     results = phase_kernels(gen)
+    k9_sd15_yardsticks(results)
     k3_k5 = k3_k5_statistics(gen)
     paths, slice_pipe, slice_img1 = phase_path("slice", default_policy(), False, fp32_policy(),
                                                keep_pipe=True)

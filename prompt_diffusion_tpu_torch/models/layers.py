@@ -10,7 +10,12 @@ Under a policy with `quant="int8"` (the W8A8 serving mode) the hot convs
 and denses are `QuantConv` / `QuantDense` with the same state dict, and
 the norms that feed them emit (int8, scale) pairs from their kernels' int8
 epilogues: GroupNorm one scale per sample (K5), LayerNorm and GEGLU one per
-row (K6, K7).
+row (K6, K7). Two serving options of that mode, set on the modules by
+`PromptDiffusionSD15.create` (the JAX package's `PD_SD15_INT8_ATTN` and
+`PD_SD15_FUSED_GEGLU=0`): `CrossAttention.int8_attention` sends the
+kernel-eligible self-attention through K9 instead of K1, and
+`GEGLUFeedForward.fused_geglu = False` replaces K7 by the GEGLU in the
+compute dtype and `out`'s dynamic per-tensor quantization.
 """
 
 from __future__ import annotations
@@ -23,7 +28,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from prompt_diffusion_tpu_torch.ops.attention import _flash_eligible, dot_product_attention
-from prompt_diffusion_tpu_torch.ops.flash_attention import flash_attention_packed
+from prompt_diffusion_tpu_torch.ops.flash_attention import (
+    flash_attention_packed,
+    flash_attention_packed_int8,
+)
 from prompt_diffusion_tpu_torch.ops.fused_act import fused_geglu_quant
 from prompt_diffusion_tpu_torch.ops.fused_group_norm import fused_group_norm_quant, group_norm_auto
 from prompt_diffusion_tpu_torch.ops.fused_layer_norm import fused_layer_norm_quant, layer_norm_auto
@@ -205,7 +213,10 @@ class ScaledDense(nn.Linear):
 class CrossAttention(nn.Module):
     """Multi-head attention; self-attention when `context` is None. In int8
     mode the projections are `QuantDense`s and `x` (and the self-attention
-    context) may be a pre-quantized (int8, per-row scale) pair."""
+    context) may be a pre-quantized (int8, per-row scale) pair; with
+    `int8_attention` set the attention that takes a kernel runs K9
+    (int8 Q.K^T) instead of K1. The attribute is read at call time and is
+    honoured in int8 mode only."""
 
     def __init__(self, query_dim: int, context_dim: int, heads: int, dim_head: int,
                  policy: DTypePolicy):
@@ -213,6 +224,7 @@ class CrossAttention(nn.Module):
         inner = heads * dim_head
         dt = policy.compute_dtype
         self.heads, self.dim_head = heads, dim_head
+        self.quant, self.int8_attention = _int8(policy), False
         # softmax scale folded into the query projection; attention runs at scale 1
         scale = dim_head ** -0.5
         if _int8(policy):
@@ -230,7 +242,9 @@ class CrossAttention(nn.Module):
         context = x if context is None else context
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
         if _flash_eligible(q, k, None):
-            out = flash_attention_packed(q, k, v, self.heads, scale=1.0)
+            attend = (flash_attention_packed_int8 if self.quant and self.int8_attention
+                      else flash_attention_packed)
+            out = attend(q, k, v, self.heads, scale=1.0)
         else:
             split = lambda t: t.unflatten(-1, (self.heads, self.dim_head))
             out = dot_product_attention(split(q), split(k), split(v), scale=1.0,
@@ -242,13 +256,15 @@ class CrossAttention(nn.Module):
 class GEGLUFeedForward(nn.Module):
     """Linear -> h * gelu_erf(gate) -> Linear. In int8 mode both linears
     are `QuantDense`s and the GEGLU runs in K7, which hands `out` an
-    (int8, per-row scale) pair."""
+    (int8, per-row scale) pair; with `fused_geglu` cleared (read at call
+    time) it runs in the compute dtype and `out` quantizes its input per
+    tensor."""
 
     def __init__(self, dim: int, policy: DTypePolicy, mult: int = 4):
         super().__init__()
         inner = dim * mult
         dt = policy.compute_dtype
-        self.quant = _int8(policy)
+        self.quant, self.fused_geglu = _int8(policy), True
         if self.quant:
             self.proj = QuantDense(dim, inner * 2, out_dtype=dt)
             self.out = QuantDense(inner, dim, out_dtype=dt)
@@ -257,7 +273,7 @@ class GEGLUFeedForward(nn.Module):
             self.out = Dense(inner, dim, dtype=dt)
 
     def forward(self, x):
-        if self.quant:
+        if self.quant and self.fused_geglu:
             return self.out(fused_geglu_quant(self.proj(x)))
         h, gate = self.proj(x).chunk(2, dim=-1)
         return self.out(h * F.gelu(gate))

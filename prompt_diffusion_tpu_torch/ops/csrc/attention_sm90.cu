@@ -15,9 +15,10 @@ using namespace pd_sm90;
 // (B, N, H, D) views with element strides (batch, row, head) and a dense
 // head dimension, 16-byte aligned bases and strides (checked by the Python
 // wrapper). bf16: D in {40, 64, 80, 128}; int8 (K9): `k` holds K9p's codes
-// (element strides of the codes), `sk` its (B, H) scales, D in {32, 64,
-// 128}. `consumers`: warpgroups of 64 query rows, the plan's
-// (`sm90_consumers`).
+// (element strides of the codes), `sk` its (B, H) scales, D in {32, 40,
+// 64, 80, 128} (K's strides multiples of 16 bytes: at D = 40 K9p writes
+// heads 48 bytes apart). `consumers`: warpgroups of 64 query rows, the
+// plan's (`sm90_consumers`).
 extern "C" int pd_attention_sm90_fwd(
     const void* q, const void* k, const void* sk, const void* v, void* o, int int8,
     int batch, int heads, int nq, int nk, int d,
@@ -25,7 +26,7 @@ extern "C" int pd_attention_sm90_fwd(
     int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
     float scale, int consumers, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
-  const bool d_ok = int8 ? (d == 32 || d == 64 || d == 128)
+  const bool d_ok = int8 ? (d == 32 || d == 40 || d == 64 || d == 80 || d == 128)
                          : (d == 40 || d == 64 || d == 80 || d == 128);
   if (!d_ok || !consumers_ok(d, int8 != 0, consumers) || nq <= 0 || nk <= 0 || batch <= 0 ||
       heads <= 0 || static_cast<int64_t>(batch) * heads > 65535 || !(scale > 0.f) ||

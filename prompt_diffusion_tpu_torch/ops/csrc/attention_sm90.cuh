@@ -12,7 +12,8 @@
 //     header for its helpers;
 //   * flash_attention_packed_int8 (:375, pallas_call :402), int8 Q.K^T with
 //     per-row Q and per-(batch, head) K scales (K9: the SD3 MMDiT and
-//     ControlNet, DPT ViT-B and UniFormer under int8, D = 64), after K9's
+//     ControlNet, DPT ViT-B and UniFormer under int8, D = 64; the SD1.5
+//     UNet and ControlNet with `int8_attention`, D = 40 and 80), after K9's
 //     prologue `k_head_quant_kernel` (int8_attention.cu), unchanged.
 // Its parents, `fa_narrow_kernel` (flash_attention.cu) and
 // `int8_attn_kernel` (int8_attention.cu), issue Ampere's mma.sync from
@@ -65,7 +66,19 @@
 //     shared memory (K-major, D padded to a multiple of 16: 40 -> 48 over
 //     zeros), or, in K9, m64n128k32 s8 -> s32 with Q's codes in registers:
 //     each consumer quantizes its 64 rows from the swizzled Q tile straight
-//     into the register-A fragments (per warp m16n8k32's A layout);
+//     into the register-A fragments (per warp m16n8k32's A layout), D
+//     padded to a multiple of 32 (40 -> 64, 80 -> 96). The Q codes past D
+//     are 0: they come from TMA's zero fill of the bf16 tile, so whatever
+//     K's tile holds there adds nothing to the exact integer sums;
+//   * K9's K codes at D = 40: a dense (B, N, H, D) layout of them has a
+//     40-byte head stride, which a tensor map cannot take (strides are
+//     multiples of 16 bytes), and a map over the packed rows whose box
+//     starts at column h*D (not 16-byte aligned) faults on the card
+//     (`cudaErrorIllegalInstruction`). So K9p writes the codes with their
+//     heads 48 bytes apart, (B, N, H, 48) memory whose last 8 bytes a head
+//     stay unwritten: the map's extent stays D, and TMA fills the box's
+//     columns past D with zeros (`ops/flash_attention.py::Sm90Plan.
+//     k_head_bytes`). At D = 32, 64, 80 and 128 the codes stay dense;
 //   * P.V is `wgmma` m64nDk16 bf16 with P in registers (the fp32
 //     accumulator of two adjacent 8-key tiles is the A fragment of one
 //     k16 step) and V read from shared memory as the MN-major (transposed)
@@ -157,10 +170,14 @@ struct Plan {
   static constexpr int OFF_K = Q_BYTES;
   static constexpr int OFF_V = OFF_K + NS * K_STAGE;
   static constexpr int SMEM = smem_bytes(D, INT8, NC);
-  static constexpr int KSTEPS = INT8 ? D / 32 : (D + 15) / 16;  // k-steps of Q.K^T
+  static constexpr int KSTEPS = INT8 ? (D + 31) / 32 : (D + 15) / 16;  // k-steps of Q.K^T
   static_assert(SMEM == OFF_V + NS * V_STAGE + 1024 && SMEM <= SMEM_MAX, "shared memory");
   static_assert(consumers_ok(D, INT8, NC), "consumers");
-  static_assert(D % 8 == 0 && D <= 128 && (!INT8 || D % 32 == 0), "head dimension");
+  static_assert(D % 8 == 0 && D <= 128, "head dimension");
+  // the depth of Q.K^T within a Q tile row (bf16) and a K tile row
+  static_assert(KSTEPS * (INT8 ? 32 : 16) <= QB * 64 &&
+                    KSTEPS * (INT8 ? 32 : 16) <= KB * SPAN / (INT8 ? 1 : 2),
+                "depth of Q.K^T");
 };
 
 struct Params {
@@ -587,7 +604,7 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
 
   // K9: Q's s8 A fragments (rows g, g + 8 of the warp; bytes 4t.. and
   // 16 + 4t.. of each k32 step) and per row c_r = sq * (skh * scale) * log2(e)
-  uint32_t qa[INT8 ? D / 32 : 1][4];
+  uint32_t qa[INT8 ? L::KSTEPS : 1][4];
   float kf[2];
   mbar_wait(q_full, 0);
   if constexpr (INT8) {
@@ -604,7 +621,7 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
     };
     float amax[2] = {0.f, 0.f};
 #pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
+    for (int kk = 0; kk < L::KSTEPS; ++kk) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
 #pragma unroll
@@ -623,7 +640,7 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
       kf[r] = __fmul_rn(__fmul_rn(sq[r], hs), LOG2E);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
+    for (int kk = 0; kk < L::KSTEPS; ++kk) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
 #pragma unroll

@@ -33,7 +33,7 @@ extern "C" int pd_conv3x3_int8_xshift(const void* x, const void* w, const void* 
 extern "C" int pd_int8_quant_k_occupancy(int d, int threads);
 extern "C" int pd_int8_quant_k_head(const void* k, int64_t k_sb, int64_t k_sn, int batch,
                                     int heads, int nk, int d, int rows, int threads, int bps,
-                                    void* ws, void* sk, void* codes, void* stream);
+                                    void* ws, void* sk, void* codes, int code_d, void* stream);
 extern "C" int pd_int8_quant_k_rows(const void* k, int64_t k_sb, int64_t k_sn, int batch,
                                     int heads, int nk, int d, void* sk, void* codes,
                                     void* stream);
@@ -120,9 +120,9 @@ int int8_quant_k_occupancy(int d, int threads) { return pd_int8_quant_k_occupanc
 
 void int8_quant_k_head(uintptr_t k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk,
                        int d, int rows, int threads, int bps, uintptr_t ws, uintptr_t sk,
-                       uintptr_t codes, uintptr_t stream) {
+                       uintptr_t codes, int code_d, uintptr_t stream) {
   const int err = pd_int8_quant_k_head(ptr(k), k_sb, k_sn, batch, heads, nk, d, rows, threads,
-                                       bps, ptr(ws), ptr(sk), ptr(codes), ptr(stream));
+                                       bps, ptr(ws), ptr(sk), ptr(codes), code_d, ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("int8_quant_k_head launch failed: ") +
                              pd_cuda_error_string(err));
@@ -267,8 +267,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K9p: blocks per SM of the per-head K quantization at head dim d and `threads` "
         "threads (negative: a CUDA error)");
   m.def("int8_quant_k_head", &int8_quant_k_head,
-        "K9p: packed bf16 K (B, N, H*D) -> contiguous int8 codes and (B, H) fp32 scales, one "
-        "cooperative launch; the plan of ops/flash_attention.py::quant_k_plan");
+        "K9p: packed bf16 K (B, N, H*D) -> int8 codes with heads code_d bytes apart (code_d = "
+        "D: contiguous) and (B, H) fp32 scales, one cooperative launch; the plan of "
+        "ops/flash_attention.py::quant_k_plan");
   m.def("int8_quant_k_rows", &int8_quant_k_rows,
         "The lab's per-row K quantization: packed bf16 K (B, N, H*D) -> contiguous int8 codes "
         "and (B, H, N) fp32 scales");
@@ -278,7 +279,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("attention_sm90_fwd", &attention_sm90_fwd,
         "Attention forward on warpgroup tensor cores over strided (B, N, H, D) views: bf16 "
         "Q, K, V (K1, K2; D 40, 64, 80, 128), or bf16 Q and V with int8 K codes and (B, H) "
-        "fp32 scales (K9; D 32, 64, 128); `consumers` warpgroups of 64 query rows");
+        "fp32 scales (K9; D 32, 40, 64, 80, 128); `consumers` warpgroups of 64 query rows");
   m.def("attention_sm90_smem", &pd_attention_sm90_smem,
         "Shared-memory bytes of a block of the sm90 attention kernel at head dim d (int8: K9) "
         "on `consumers` warpgroups as built (-1: not instantiated)");

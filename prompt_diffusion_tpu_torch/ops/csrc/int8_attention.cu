@@ -44,8 +44,16 @@
 // writes the codes of its rows, re-read from L2 (the SD3 K is 27 MB), with
 // the quotient k * (1/skh) and one FMA correction (`rq::quotient`, equal
 // to __fdiv_rn). Codes and scales are bit-equal to `_quant_k_per_head`.
+// Head widths 32, 40, 64, 80 and 128 (the SD1.5 UNet's 40 and 80 under
+// `int8_attention`): a thread's 16-byte vector holds 8 values of one head
+// whatever D (D % 8 == 0; 5 and 10 vectors a head at 40 and 80), so the
+// per-head amax and the exchange are the same code at every width. The
+// codes' heads lie `code_d` bytes apart (D, or for the sm90 kernel's
+// tensor map at D = 40 48: attention_sm90.cuh), the bytes past D of a
+// head unwritten.
 // The per-row mode of the lab (`k_row_codes_kernel`) is one plain launch:
-// a row's scale is a shuffle across the D/8 lanes that hold it.
+// a row's scale is a shuffle across the D/8 lanes that hold it (D/8
+// divides 32: 32, 64 and 128 only, as the parent kernel).
 //
 // What bounds it on the H100 (`tools/timing.py::roofline`): at the SD3
 // joint shape (B 2, N 4429, H 24, D 64) the 0.94 G exponentials, ~0.24 ms
@@ -526,7 +534,8 @@ struct HeadQuantParams {
   int cv, rows, bps;  // 16-byte vectors per key row; rows in flight; blocks per sample
   float* ws;          // grid * heads block amaxes
   float* sk;          // (B, H)
-  int8_t* codes;      // (B, Nk, H*D), contiguous
+  int8_t* codes;      // (B, Nk, H, code_d) bytes, the first D of each head written
+  int code_d;         // bytes from one head's codes to the next's: D, or more
 };
 
 // the int8 code of x at scale s (r = 1/s): clip(rint(x / s), -127, 127)
@@ -614,7 +623,8 @@ __global__ void __launch_bounds__(HQ_MAX_THREADS) k_head_quant_kernel(const Head
 
   // the codes of the block's rows, 8 bytes a thread and row
   const float s = s_skh[v / CH], rcp = s_rcp[v / CH];
-  int8_t* out = p.codes + (int64_t)b * p.nk * (H * D) + v * 8;
+  const int64_t row = (int64_t)H * p.code_d;  // bytes of a key row's codes
+  int8_t* out = p.codes + b * p.nk * row + (v / CH) * p.code_d + (v % CH) * 8;
   for (int n = n0 + r; active && n < n1; n += HQ_UNROLL * R) {
     uint4 raw[HQ_UNROLL];
     load(n, raw);
@@ -629,7 +639,7 @@ __global__ void __launch_bounds__(HQ_MAX_THREADS) k_head_quant_kernel(const Head
               (code8r(x[3], s, rcp) << 24);
         w.y = code8r(x[4], s, rcp) | (code8r(x[5], s, rcp) << 8) | (code8r(x[6], s, rcp) << 16) |
               (code8r(x[7], s, rcp) << 24);
-        *reinterpret_cast<uint2*>(out + (int64_t)m * (H * D)) = w;
+        *reinterpret_cast<uint2*>(out + m * row) = w;
       }
     }
   }
@@ -696,7 +706,9 @@ int launch_d(const Params& p, int batch, int d, cudaStream_t s) {
 void* head_quant_kernel(int d) {
   switch (d) {
     case 32: return reinterpret_cast<void*>(k_head_quant_kernel<32>);
+    case 40: return reinterpret_cast<void*>(k_head_quant_kernel<40>);
     case 64: return reinterpret_cast<void*>(k_head_quant_kernel<64>);
+    case 80: return reinterpret_cast<void*>(k_head_quant_kernel<80>);
     case 128: return reinterpret_cast<void*>(k_head_quant_kernel<128>);
     default: return nullptr;
   }
@@ -728,17 +740,20 @@ extern "C" int pd_int8_quant_k_occupancy(int d, int threads) {
 
 // K9p on `stream`: returns the launch's cudaError_t (0 = queued). Packed
 // bf16 K (B, Nk, H*D) with element strides k_sb, k_sn and 16-byte aligned
-// rows -> int8 codes (B, Nk, H*D), contiguous, and fp32 scales (B, H); ws:
+// rows -> int8 codes, heads `code_d` bytes apart (B, Nk, H, code_d; code_d
+// = D: contiguous (B, Nk, H*D); above D a multiple of 8, its bytes past D
+// unwritten), and fp32 scales (B, H); ws:
 // batch * bps * heads floats. The plan (key rows in flight, threads per
 // block, blocks per sample) comes from `quant_k_plan`; its grid of batch *
 // bps blocks must be resident at once (the cooperative launch refuses it
 // otherwise).
 extern "C" int pd_int8_quant_k_head(const void* k, int64_t k_sb, int64_t k_sn, int batch,
                                     int heads, int nk, int d, int rows, int threads, int bps,
-                                    void* ws, void* sk, void* codes, void* stream) {
+                                    void* ws, void* sk, void* codes, int code_d, void* stream) {
   void* kernel = head_quant_kernel(d);
   const int cv = d > 0 ? heads * d / 8 : 0;
-  if (kernel == nullptr || nk <= 0 || batch <= 0 || heads <= 0 || heads > HQ_MAX_HEADS ||
+  if (kernel == nullptr || code_d < d || code_d % 8 != 0 || nk <= 0 || batch <= 0 ||
+      heads <= 0 || heads > HQ_MAX_HEADS ||
       rows < 1 || threads < cv * rows || threads % 32 != 0 || threads > HQ_MAX_THREADS ||
       bps < 1 || bps > nk || (int64_t)batch * bps > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -755,6 +770,7 @@ extern "C" int pd_int8_quant_k_head(const void* k, int64_t k_sb, int64_t k_sn, i
   p.ws = static_cast<float*>(ws);
   p.sk = static_cast<float*>(sk);
   p.codes = static_cast<int8_t*>(codes);
+  p.code_d = code_d;
   void* args[] = {&p};
   return static_cast<int>(cudaLaunchCooperativeKernel(kernel, dim3(batch * bps), dim3(threads),
                                                       args, 0,

@@ -5,11 +5,13 @@ Replaces `prompt_diffusion_tpu/ops/flash_attention.py`:
   * K1 `flash_attention_packed` (packed (B, N, H*D) self-attention);
   * K2 `flash_attention` ((B, N, H, D) attention, the VAE mid-block);
   * K9 `flash_attention_packed_int8` (packed int8-QK^T attention, the SD3
-    joint attention of the int8 serving mode).
+    joint attention of the int8 serving mode; the SD1.5 self-attention
+    with `int8_attention`).
 On the card one function, `attention_route`, states which hand-written
 kernel a call runs, by mode, head dimension and dtype:
   * K1 and K2 at D in SM90_HEAD_DIMS (40, 64, 80, 128) and K9 with per-head
-    K run `csrc/attention_sm90.cuh`: `wgmma` warpgroups fed by TMA, a
+    K (SM90_INT8_HEAD_DIMS: 32, 40, 64, 80, 128) run
+    `csrc/attention_sm90.cuh`: `wgmma` warpgroups fed by TMA, a
     producer warpgroup and two or three consumer warpgroups taking turns
     (its header says what bounds it and how it is laid out; `sm90_plan`,
     `sm90_consumers` and `sm90_tensor_maps` state its tiles, shared memory
@@ -23,14 +25,16 @@ kernel a call runs, by mode, head dimension and dtype:
     head dims up to 128 and the lab modes its narrow kernel at a tile of
     LAB_TILES (`kernel_tile`), the parent design of the sm90 kernel;
   * K9's lab mode with per-row K runs `csrc/int8_attention.cu`'s
-    `int8_attn_kernel` (at `int8_block_q` query rows per block), the sm90
-    int8 kernel's parent.
+    `int8_attn_kernel` (at `int8_block_q` query rows per block, D in
+    INT8_PARENT_HEAD_DIMS), the sm90 int8 kernel's parent.
 Packed memory is the (B, N, H, D) layout, so the kernels read either
 through strides. Inputs on the card are bf16; logits and softmax are fp32,
 P is rounded to bf16 before P.V, and P.V accumulates in fp32. K9 quantizes
-K first (`quant_k_int8`): its per-head mode, K9p, is one cooperative launch
-of an all-resident grid whose one barrier carries each head's amax
-(`quant_k_plan`).
+K first: its per-head mode, K9p, is one cooperative launch of an
+all-resident grid whose one barrier carries each head's amax
+(`quant_k_plan`); K9's wrapper launches it and the sm90 kernel on one
+scratch allocation, with the plans worked out once per shape
+(`_int8_sm90_setup`). `quant_k_int8` runs the prologue alone.
 
 The lab kernels of `tools/attn_variants.py`, `attn_lab2.py`, `attn_lab3.py`
 and `attn_int8_lab.py` are modes of the same two sources (the bf16 modes
@@ -106,7 +110,7 @@ def kernel_tile(d: int) -> tuple:
 # of SM90_STAGES stages; every shared tile row one SWIZZLE_SPAN-byte swizzle
 # span; at most SMEM_PER_BLOCK bytes of shared memory a block (the H100's
 # 227 KB)
-SM90_HEAD_DIMS, SM90_INT8_HEAD_DIMS = (40, 64, 80, 128), (32, 64, 128)
+SM90_HEAD_DIMS, SM90_INT8_HEAD_DIMS = (40, 64, 80, 128), (32, 40, 64, 80, 128)
 SM90_CONSUMER_ROWS, SM90_STAGES, SM90_WIDE_CONSUMERS_D = 64, 2, 64
 SM90_BLOCK_K, SM90_INT8_BLOCK_K = 128, 112
 # K9 on three consumers does a unit of padded work (query rows x keys, each
@@ -149,9 +153,10 @@ class Sm90Plan:
     (`int8`: K9, whose K arrives as int8 codes): its consumer warpgroups,
     query rows and threads, key tile and stages; the 128-byte column blocks of a
     Q or V row (bf16) and of a K row; the depth of Q.K^T (D rounded up to
-    wgmma's k16 over zero pads, or D in k32 steps for int8 codes) and the
-    N of P.V (D); the dynamic shared memory of a block (Q, the K and V
-    stages, the 1024-byte alignment slack)."""
+    wgmma's k16, or for int8 codes its k32, over zero pads: Q's are TMA's
+    zero fill) and the N of P.V (D); the dynamic shared memory of a block
+    (Q, the K and V stages, the 1024-byte alignment slack); and the bytes
+    between the heads of K9's codes (`k_head_bytes`)."""
 
     d: int
     int8: bool
@@ -183,7 +188,18 @@ class Sm90Plan:
 
     @property
     def qk_depth(self) -> int:
-        return self.d if self.int8 else -(-self.d // 16) * 16
+        step = 32 if self.int8 else 16
+        return -(-self.d // step) * step
+
+    @property
+    def k_head_bytes(self) -> int:
+        """Bytes from one head's K codes to the next's as K9p writes them
+        for the kernel: D rounded up to 16, since a tensor map takes only
+        strides of whole 16 bytes (48 at D = 40, whose last 8 bytes a head
+        stay unwritten and lie past the map's extent D, so TMA reads zeros
+        there; a map over dense codes whose box starts at column h*D
+        faults on the card)."""
+        return -(-self.d // 16) * 16 if self.int8 else 2 * self.d
 
     @property
     def pv_n(self) -> int:
@@ -324,15 +340,19 @@ def wide_tensor_maps(plan: WidePlan, q, k, v) -> tuple:
 _TMA_STRIDE_LIMIT = 1 << 40  # bytes: cuTensorMapEncodeTiled's bound on a stride
 
 
-def sm90_check_view(name: str, t: torch.Tensor) -> None:
+def sm90_check_view(name: str, t: torch.Tensor, heads: Optional[int] = None) -> None:
     """Raise ValueError where cuTensorMapEncodeTiled would refuse the sm90
-    kernel's map of the (B, N, H, D) view `t`: it needs a dense head
-    dimension, a 16-byte aligned base, and the strides of the dimensions
-    of extent above 1 positive multiples of 16 bytes below 2^40 (one of
-    extent 1 takes stride 16, as the kernel's encoder gives it). The check
-    each launch makes; `sm90_tensor_map` states the whole map."""
+    kernel's map of the (B, N, H, D) view `t` (with `heads`: of a packed
+    (B, N, H*D) `t` read as that view): it needs a dense head dimension, a
+    16-byte aligned base, and the strides of the dimensions of extent
+    above 1 positive multiples of 16 bytes below 2^40 (one of extent 1
+    takes stride 16, as the kernel's encoder gives it). The check each
+    launch makes; `sm90_tensor_map` states the whole map."""
     es = t.element_size()
     st, sh = t.stride(), t.shape
+    if heads is not None:  # the packed rows' view, without building it
+        d = sh[2] // heads
+        st, sh = (st[0], st[1], d * st[2], st[2]), (sh[0], sh[1], heads, d)
     s0, s1, s2 = st[0] * es, st[1] * es, st[2] * es  # written out: this runs on every launch
     if (st[3] != 1 or t.data_ptr() % 16
             or (sh[0] > 1 and (s0 <= 0 or s0 % 16 or s0 >= _TMA_STRIDE_LIMIT))
@@ -361,7 +381,9 @@ def sm90_tensor_map(name: str, t: torch.Tensor, rows: int) -> tuple:
 
 
 def sm90_tensor_maps(plan: Sm90Plan, q, k, v) -> tuple:
-    """The maps of q, k (K9: its int8 codes) and v (`sm90_tensor_map`)."""
+    """The maps of q, k (K9: its int8 codes as K9p writes them,
+    `quant_k_int8(..., head_bytes=plan.k_head_bytes)`) and v
+    (`sm90_tensor_map`)."""
     return tuple(sm90_tensor_map(name, t, rows) for name, t, rows in
                  (("q", q, plan.block_q), ("k", k, plan.block_k), ("v", v, plan.block_k)))
 
@@ -390,21 +412,19 @@ def _check(q, k, v, scale: float, mode: str, tile: tuple) -> None:
         raise ValueError(f"tiles {tuple(tile)} are not instantiated; one of {LAB_TILES}")
 
 
-def _sm90_launch(q, k, v, scale: float, sk: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """`attention_sm90.cuh` on (B, N, H, D) views that `sm90_check_view`
-    passed: bf16 q, k, v (K1, K2), or with `sk` K9's (B, H) scales and k
-    its int8 codes; returns a contiguous (B, Nq, H, D) bf16 tensor."""
+def _sm90_launch(q, k, v, scale: float) -> torch.Tensor:
+    """`attention_sm90.cuh` on bf16 (B, N, H, D) views that
+    `sm90_check_view` passed (K1, K2; K9's launch is `_int8_sm90_launch`);
+    returns a contiguous (B, Nq, H, D) bf16 tensor."""
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     b, nq, h, d = q.shape
-    int8 = sk is not None
-    plan = sm90_plan(d, int8, sm90_consumers(d, int8, nq, k.shape[1]))
+    plan = sm90_plan(d)
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().attention_sm90_fwd(
-            q.data_ptr(), k.data_ptr(), sk.data_ptr() if int8 else 0, v.data_ptr(),
-            out.data_ptr(), int8, b, h, nq, k.shape[1], d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            q.data_ptr(), k.data_ptr(), 0, v.data_ptr(), out.data_ptr(), False, b, h, nq,
+            k.shape[1], d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float(scale), plan.consumers, torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -692,7 +712,11 @@ def _int8_attention(wrapper, row_k, q, k, v, num_heads, scale):
     return out
 
 
-INT8_HEAD_DIMS, INT8_BLOCK_Q = (32, 64, 128), (64, 128)
+# K9 and its per-head prologue K9p at INT8_HEAD_DIMS (the sm90 kernel);
+# the parent `int8_attn_kernel` (a `block_q`, or per-row K) and the per-row
+# prologue at INT8_PARENT_HEAD_DIMS (a row's D / 8 lanes divide a warp)
+INT8_HEAD_DIMS, INT8_PARENT_HEAD_DIMS = SM90_INT8_HEAD_DIMS, (32, 64, 128)
+INT8_BLOCK_Q = (64, 128)
 
 
 def int8_block_q(nq: int) -> int:
@@ -712,45 +736,45 @@ def _check_packed_bf16(name, t, device):
         raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {t.stride()}")
 
 
-def _check_int8(q, k, v, num_heads: int, scale: float, block_q: int) -> None:
-    """Raise ValueError for what K9 and its prologue refuse, before any build."""
+def _check_int8(q, k, v, num_heads: int, scale: float, block_q: Optional[int] = None) -> None:
+    """Raise ValueError for what K9 on the sm90 kernel (`block_q` None) or
+    on its parent at `block_q` query rows, and K9p, refuse, before any
+    build."""
     b, nq, hd = q.shape
     nk = k.shape[1]
     if k.shape != (b, nk, hd) or v.shape != (b, nk, hd) or hd % num_heads:
         raise ValueError(f"q/k/v shapes disagree: {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)} with {num_heads} heads")
-    if hd // num_heads not in INT8_HEAD_DIMS:
-        raise ValueError(f"head dim {hd // num_heads} not supported {INT8_HEAD_DIMS}")
+    dims = INT8_HEAD_DIMS if block_q is None else INT8_PARENT_HEAD_DIMS
+    if hd // num_heads not in dims:
+        raise ValueError(f"head dim {hd // num_heads} not supported {dims}")
     if not scale > 0:
         raise ValueError(f"scale {scale} must be positive (the kernel takes the row maximum "
                          "before scaling)")
-    if block_q not in INT8_BLOCK_Q:
+    if block_q is not None and block_q not in INT8_BLOCK_Q:
         raise ValueError(f"block_q {block_q} is not instantiated; one of {INT8_BLOCK_Q}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_packed_bf16(name, t, q.device)
+    if block_q is None:  # the sm90 kernel's maps of Q and V (K9p writes K's codes)
+        sm90_check_view("q", q, num_heads)
+        sm90_check_view("v", v, num_heads)
 
 
 def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
                  block_q: Optional[int] = None) -> torch.Tensor:
-    """K's prologue, then the kernel `attention_route` names (the sm90
-    kernel for per-head K), or with `block_q` the parent `int8_attn_kernel`
-    at that many query rows per block (`int8_block_q` by default, and for
-    per-row K); returns a contiguous (B, Nq, H*D) tensor."""
+    """The kernel `attention_route` names after K's prologue: the sm90
+    kernel for per-head K (`_int8_sm90_launch`), or with `block_q` the
+    parent `int8_attn_kernel` at that many query rows per block
+    (`int8_block_q` by default, and for per-row K); returns a contiguous
+    (B, Nq, H*D) tensor."""
+    if block_q is None and not row_k:
+        return _int8_sm90_launch(q, k, v, num_heads, scale)
     b, nq, hd = q.shape
-    route = "int8_parent" if block_q is not None else None
     block_q = int8_block_q(nq) if block_q is None else block_q
     _check_int8(q, k, v, num_heads, scale, block_q)
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
-    d = hd // num_heads
-    route = route or attention_route("int8_rowk" if row_k else "int8", d, q.dtype)
-    heads = lambda t: t.unflatten(-1, (num_heads, d))
-    if route == "int8_sm90":  # Q's and V's maps before the prologue runs; K9p's codes are dense
-        sm90_check_view("q", heads(q))
-        sm90_check_view("v", heads(v))
     kc, sk = quant_k_int8(k, num_heads, row_k)
-    if route == "int8_sm90":
-        return _sm90_launch(heads(q), heads(kc), heads(v), scale, sk).view(b, nq, hd)
     out = torch.empty((b, nq, hd), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().int8_attention_fwd(
@@ -758,6 +782,53 @@ def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
             b, num_heads, nq, k.shape[1], hd // num_heads, q.stride(0), q.stride(1),
             kc.stride(0), kc.stride(1), v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             scale, block_q, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _int8_sm90_setup(b: int, nq: int, nk: int, num_heads: int, d: int, device: int) -> tuple:
+    """What K9's launch on the card `device` needs at a shape, worked out
+    once: the sm90 plan (its consumers for these lengths), K9p's plan (the
+    card's occupancy and SM count asked once) and the layout of its one
+    scratch allocation: K's codes (B, Nk, H, plan.k_head_bytes) at byte 0,
+    their (B, H) fp32 scales at `off_sk`, K9p's workspace at `off_ws`,
+    `nbytes` in all. Returns (plan, K9p's plan, off_sk, off_ws, nbytes)."""
+    plan = sm90_plan(d, True, sm90_consumers(d, True, nq, nk))
+    qk = quant_k_plan(b, nk, num_heads, d, occupancy=lambda t: _quant_k_occupancy(device, d, t),
+                      sms=torch.cuda.get_device_properties(device).multi_processor_count)
+    off_sk = -(-b * nk * num_heads * plan.k_head_bytes // 16) * 16
+    off_ws = off_sk + 4 * b * num_heads
+    return plan, qk, off_sk, off_ws, off_ws + 4 * qk.workspace
+
+
+def _int8_sm90_launch(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+    """K9 with per-head K on the card: K9p's launch into a scratch
+    allocation (codes, scales, workspace), then the sm90 kernel's on it,
+    on one stream in one device context; the plans come from
+    `_int8_sm90_setup`. Counts K9p's launch in `quant_k_int8.launches`.
+    Returns a contiguous (B, Nq, H*D) bf16 tensor."""
+    b, nq, hd = q.shape
+    nk = k.shape[1]
+    _check_int8(q, k, v, num_heads, scale)
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    ext = cuda_ext()
+    d = hd // num_heads
+    device = q.device
+    plan, qk, off_sk, off_ws, nbytes = _int8_sm90_setup(b, nq, nk, num_heads, d, device.index)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    out = torch.empty((b, nq, hd), dtype=torch.bfloat16, device=device)
+    codes, kd = scratch.data_ptr(), plan.k_head_bytes
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ext.int8_quant_k_head(k.data_ptr(), k.stride(0), k.stride(1), b, num_heads, nk, d,
+                              qk.rows, qk.threads, qk.bps, codes + off_ws, codes + off_sk, codes,
+                              kd, stream)
+        quant_k_int8.launches += 1
+        ext.attention_sm90_fwd(q.data_ptr(), codes, codes + off_sk, v.data_ptr(), out.data_ptr(),
+                               True, b, num_heads, nq, nk, d, q.stride(0), q.stride(1), d,
+                               nk * num_heads * kd, num_heads * kd, kd, v.stride(0), v.stride(1),
+                               d, nq * hd, hd, d, scale, plan.consumers, stream)
     return out
 
 
@@ -851,21 +922,31 @@ def _quant_k_occupancy(device: int, d: int, threads: int) -> int:
     return blocks
 
 
-def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False):
+def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False,
+                 head_bytes: Optional[int] = None):
     """K9's prologue: packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32
     scales), one scale per (batch, head) (B, H), or per (batch, head, key
-    row) (B, H, N) with `per_row`. On CUDA one launch of
-    `csrc/int8_attention.cu`: K9p (`k_head_quant_kernel`, `quant_k_plan`)
-    per head, `k_row_codes_kernel` per row; bit-equal to the plain
-    versions `_quant_k_per_head` and `_quant_k_per_row`, which the CPU
-    takes."""
+    row) (B, H, N) with `per_row` (D in INT8_PARENT_HEAD_DIMS). On CUDA one
+    launch of `csrc/int8_attention.cu`: K9p (`k_head_quant_kernel`,
+    `quant_k_plan`) per head, `k_row_codes_kernel` per row; bit-equal to
+    the plain versions `_quant_k_per_head` and `_quant_k_per_row`, which
+    the CPU takes. Per head with `head_bytes` (a multiple of 8, at least D; K9's
+    `Sm90Plan.k_head_bytes`) the codes' heads lie that many bytes apart,
+    as the sm90 kernel reads them: a (B, N, H, D) view of (B, N, H,
+    head_bytes) memory (on the CPU the plain codes viewed so)."""
+    if head_bytes is not None and per_row:
+        raise ValueError("head_bytes lays out per-head codes; the per-row codes are dense")
     if not use_kernel(k):
-        return (_quant_k_per_row if per_row else _quant_k_per_head)(k, num_heads)
+        codes, scales = (_quant_k_per_row if per_row else _quant_k_per_head)(k, num_heads)
+        return (codes, scales) if head_bytes is None else (codes.unflatten(-1, (num_heads, -1)),
+                                                           scales)
     b, nk, hd = k.shape
-    if hd % num_heads or hd // num_heads not in INT8_HEAD_DIMS:
-        raise ValueError(f"head dim of {hd} / {num_heads} not supported {INT8_HEAD_DIMS}")
+    dims = INT8_PARENT_HEAD_DIMS if per_row else INT8_HEAD_DIMS
+    if hd % num_heads or hd // num_heads not in dims:
+        raise ValueError(f"head dim of {hd} / {num_heads} not supported {dims}")
     _check_packed_bf16("k", k, k.device)
     d = hd // num_heads
+    _check_head_bytes(head_bytes, d)
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     ext = cuda_ext()
@@ -881,29 +962,39 @@ def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False):
         plan = quant_k_plan(b, nk, num_heads, d,
                             occupancy=lambda t: _quant_k_occupancy(dev, d, t),
                             sms=torch.cuda.get_device_properties(dev).multi_processor_count)
-        codes, scales = _quant_k_head(k, plan)
+        codes, scales = _quant_k_head(k, plan, head_bytes)
     quant_k_int8.launches += 1
     return codes, scales
 
 
-def _quant_k_head(k: torch.Tensor, plan: QuantKPlan):
+def _check_head_bytes(head_bytes: Optional[int], d: int) -> None:
+    if head_bytes is not None and (head_bytes < d or head_bytes % 8):
+        raise ValueError(f"head_bytes {head_bytes}: a multiple of 8, at least D = {d}")
+
+
+def _quant_k_head(k: torch.Tensor, plan: QuantKPlan, head_bytes: Optional[int] = None):
     """K9p's launch on a checked K at `plan` (`tools/quant_tune.py` gives
-    the plans of its sweep)."""
+    the plans of its sweep): dense (B, N, H*D) codes, or with `head_bytes`
+    the (B, N, H, D) view of codes whose heads lie that many bytes apart."""
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     b, nk, hd = k.shape
     if (plan.batch, plan.nk, plan.heads * plan.d) != (b, nk, hd):
         raise ValueError(f"the plan covers {(plan.batch, plan.nk, plan.heads, plan.d)}, not "
                          f"K {tuple(k.shape)}")
-    codes = torch.empty((b, nk, hd), dtype=torch.int8, device=k.device)
+    _check_head_bytes(head_bytes, plan.d)
+    kd = plan.d if head_bytes is None else head_bytes
+    codes = torch.empty((b, nk, plan.heads, kd), dtype=torch.int8, device=k.device)
     scales = torch.empty((b, plan.heads), dtype=torch.float32, device=k.device)
     ws = torch.empty((plan.workspace,), dtype=torch.float32, device=k.device)
     with torch.cuda.device(k.device):
         cuda_ext().int8_quant_k_head(k.data_ptr(), k.stride(0), k.stride(1), b, plan.heads, nk,
                                      plan.d, plan.rows, plan.threads, plan.bps, ws.data_ptr(),
-                                     scales.data_ptr(), codes.data_ptr(),
+                                     scales.data_ptr(), codes.data_ptr(), kd,
                                      torch.cuda.current_stream().cuda_stream)
-    return codes, scales
+    if head_bytes is None:
+        return codes.view(b, nk, hd), scales
+    return codes[..., :plan.d], scales
 
 
 quant_k_int8.launches = 0

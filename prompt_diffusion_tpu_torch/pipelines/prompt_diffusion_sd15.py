@@ -29,6 +29,7 @@ import torch
 
 from prompt_diffusion_tpu_torch.models.clip_text import CLIPTextModel
 from prompt_diffusion_tpu_torch.models.controlnet_sd15 import ControlNetSD15
+from prompt_diffusion_tpu_torch.models.layers import CrossAttention, GEGLUFeedForward
 from prompt_diffusion_tpu_torch.models.unet_sd15 import UNetSD15
 from prompt_diffusion_tpu_torch.models.vae import AutoencoderKL
 from prompt_diffusion_tpu_torch.ops.int8_conv import VARIANTS
@@ -56,6 +57,28 @@ SAMPLERS = ("ddim", "plms", "unipc", "dpm++", "dpm")
 Scale = Union[float, torch.Tensor]
 
 
+def set_serving_options(model: torch.nn.Module, conv_variant: Optional[str] = None,
+                        int8_attention: Optional[bool] = None,
+                        fused_geglu: Optional[bool] = None) -> None:
+    """Sets the int8 serving options on every module of `model` that has
+    them (None leaves one as it is): K8's variant on each `QuantConv`,
+    `int8_attention` on each `CrossAttention`, `fused_geglu` on each
+    `GEGLUFeedForward`."""
+    for mod in model.modules():
+        if isinstance(mod, QuantConv) and conv_variant is not None:
+            mod.conv_variant = conv_variant
+        elif isinstance(mod, CrossAttention) and int8_attention is not None:
+            mod.int8_attention = int8_attention
+        elif isinstance(mod, GEGLUFeedForward) and fused_geglu is not None:
+            mod.fused_geglu = fused_geglu
+
+
+def _int8_modules(model: torch.nn.Module) -> bool:
+    """Whether `model` runs the int8 policy's attention and feed-forward."""
+    return any(isinstance(m, (CrossAttention, GEGLUFeedForward)) and m.quant
+               for m in model.modules())
+
+
 @dataclasses.dataclass
 class PromptDiffusionSD15:
     """The four models and the noise schedule."""
@@ -70,7 +93,8 @@ class PromptDiffusionSD15:
     def create(cls, unet=None, controlnet=None, vae=None, text_encoder=None,
                schedule=None, policy: Optional[DTypePolicy] = None,
                vae_int8: bool = False, device: torch.device | str = "cuda",
-               conv_variant: str = "im2col"):
+               conv_variant: str = "im2col", int8_attention: bool = False,
+               fused_geglu: bool = True):
         """Builds the default SD1.5 models (or takes the given ones) on
         `device` (the card unless the caller asks for the CPU), in eval
         mode, with 4-D weights in channels_last memory.
@@ -81,7 +105,15 @@ class PromptDiffusionSD15:
         per request). `conv_variant` ("im2col" or "xshift") sets the int8
         3x3 conv kernel's variant on every `QuantConv` of the models,
         built or given; both give the same bits (the JAX package's
-        `PD_INT8_CONV_XSHIFT`)."""
+        `PD_INT8_CONV_XSHIFT`). Two options of the int8 UNet and ControlNet
+        are set on every module of both, built or given, as the JAX
+        package's switches set them: `int8_attention=True`
+        (`PD_SD15_INT8_ATTN`) runs their kernel-eligible self-attention
+        (the 64² and 32² latents) through K9 instead of K1;
+        `fused_geglu=False` (`PD_SD15_FUSED_GEGLU=0`) replaces K7 by the
+        GEGLU in the compute dtype and the dynamic per-tensor quantization
+        of the feed-forward's `out`. With neither model under an int8
+        policy, either option raises ValueError: it would not run."""
         if conv_variant not in VARIANTS:
             raise ValueError(f"unknown conv_variant {conv_variant!r}; one of {VARIANTS}")
         with torch.device(device):
@@ -96,11 +128,15 @@ class PromptDiffusionSD15:
                 vae=vae or AutoencoderKL(),
                 text_encoder=text_encoder or CLIPTextModel(),
             )
-        for m in models.values():
+        options = (int8_attention, fused_geglu) != (False, True)
+        if options and not any(_int8_modules(models[n]) for n in ("unet", "controlnet")):
+            raise ValueError("int8_attention and fused_geglu=False are options of the int8 "
+                             "policy, and neither the UNet nor the ControlNet is under it")
+        for name, m in models.items():
             m.to(device=device, memory_format=torch.channels_last).eval().requires_grad_(False)
-            for mod in m.modules():
-                if isinstance(mod, QuantConv):
-                    mod.conv_variant = conv_variant
+            denoiser = name in ("unet", "controlnet")
+            set_serving_options(m, conv_variant, int8_attention if denoiser else None,
+                                fused_geglu if denoiser else None)
         return cls(**models, schedule=schedule or DiffusionSchedule.create())
 
     # ---- loaders (the reference pipeline's mixins,
@@ -109,28 +145,33 @@ class PromptDiffusionSD15:
     @classmethod
     def from_single_file(cls, path: str, policy: Optional[DTypePolicy] = None,
                          vae_int8: bool = False, device: torch.device | str = "cuda",
-                         conv_variant: str = "im2col", **create_kwargs):
+                         conv_variant: str = "im2col", int8_attention: bool = False,
+                         fused_geglu: bool = True, **create_kwargs):
         """The pipeline from a reference `.ckpt` or `.safetensors`
         (FromSingleFileMixin): built through `create` on the meta device,
         so nothing is initialised, then loaded onto `device` with the
-        dtypes and memory formats `create` gives. `create_kwargs` are
-        models built on the meta device (other widths) or a `schedule`."""
+        dtypes and memory formats `create` gives, with `create`'s serving
+        options. `create_kwargs` are models built on the meta device (other
+        widths) or a `schedule`."""
         from prompt_diffusion_tpu_torch.tools.loaders import from_single_file
 
         return from_single_file(path, policy=policy, vae_int8=vae_int8, device=device,
-                                conv_variant=conv_variant, **create_kwargs)
+                                conv_variant=conv_variant, int8_attention=int8_attention,
+                                fused_geglu=fused_geglu, **create_kwargs)
 
     @classmethod
     def from_diffusers_folder(cls, root: str, policy: Optional[DTypePolicy] = None,
                               vae_int8: bool = False, device: torch.device | str = "cuda",
-                              conv_variant: str = "im2col", **create_kwargs):
+                              conv_variant: str = "im2col", int8_attention: bool = False,
+                              fused_geglu: bool = True, **create_kwargs):
         """The pipeline from a prompt-diffusion-diffusers folder, built as
         `from_single_file` builds it (a folder without text_encoder/ needs
         a loaded `text_encoder=`)."""
         from prompt_diffusion_tpu_torch.tools.loaders import from_diffusers_folder
 
         return from_diffusers_folder(root, policy=policy, vae_int8=vae_int8, device=device,
-                                     conv_variant=conv_variant, **create_kwargs)
+                                     conv_variant=conv_variant, int8_attention=int8_attention,
+                                     fused_geglu=fused_geglu, **create_kwargs)
 
     def load_lora_weights(self, path_or_sd, scale: float = 1.0) -> dict:
         """Folds a diffusers-format LoRA into the UNet and CLIP in place

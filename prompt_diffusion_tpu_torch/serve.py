@@ -2,13 +2,17 @@
 Prompt-Diffusion requests through the micro-batching server.
 
     python -m prompt_diffusion_tpu_torch.serve --demo [--ckpt FILE]
-        [--policy bf16|int8] [--max-batch 4] [--steps 50] [--resolution 512]
-        [--sampler ddim] [--vocab DIR] [--out-dir served_images] [--device cuda]
+        [--policy bf16|int8 [--int8-attention] [--unfused-geglu]] [--max-batch 4]
+        [--steps 50] [--resolution 512] [--sampler ddim] [--vocab DIR]
+        [--out-dir served_images] [--device cuda]
 
 `--ckpt` names a reference `.ckpt` or `.safetensors` (an ldm checkpoint in
 the four reference namespaces), loaded under `--policy` through
 `PromptDiffusionSD15.from_single_file`; without it the weights are random
-(`random_init_`, seed 0), a mechanics demo. `--demo` submits 4 concurrent
+(`random_init_`, seed 0), a mechanics demo. Under `--policy int8`,
+`--int8-attention` runs the UNet's and ControlNet's 64² and 32²
+self-attention through K9 (int8 Q.K^T) and `--unfused-geglu` their GEGLU
+without K7 (`create(int8_attention=True, fused_geglu=False)`). `--demo` submits 4 concurrent
 requests with different prompts, seeds and guidance scales (they share one
 batched run) and writes each image as a PNG (the standard library's zlib;
 no imaging package needed). The counterpart of `examples/serve.py`.
@@ -52,8 +56,8 @@ def write_png(path: str, image: np.ndarray) -> None:
 def build_pipeline(policy: str, device: str, seed: int = 0, ckpt=None, **create_kwargs):
     """SD1.5, exact bf16 or the int8 serving mode with the int8 VAE: from
     the checkpoint `ckpt` (`create_kwargs`: models built on the meta
-    device, for other widths), else at the default widths with random
-    weights from `seed`."""
+    device, for other widths, and `create`'s int8 options), else at the
+    default widths with random weights from `seed`."""
     import torch
 
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
@@ -112,6 +116,10 @@ def main(argv=None, tokenizer=None, **create_kwargs) -> int:
                    help="reference .ckpt/.safetensors (omit for random weights)")
     p.add_argument("--vocab", default=None, help="CLIP BPE vocab dir (else hash ids)")
     p.add_argument("--policy", choices=("bf16", "int8"), default="int8")
+    p.add_argument("--int8-attention", action="store_true",
+                   help="int8: the 64² and 32² self-attention through K9 (int8 Q.K^T)")
+    p.add_argument("--unfused-geglu", action="store_true",
+                   help="int8: the GEGLU without K7, then a per-tensor quantization")
     p.add_argument("--resolution", type=int, default=512)
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--sampler", choices=SAMPLERS, default="ddim")
@@ -120,6 +128,12 @@ def main(argv=None, tokenizer=None, **create_kwargs) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--demo", action="store_true")
     args = p.parse_args(argv)
+    if (args.int8_attention or args.unfused_geglu) and args.policy != "int8":
+        p.error("--int8-attention and --unfused-geglu take --policy int8")
+    if args.int8_attention:
+        create_kwargs["int8_attention"] = True
+    if args.unfused_geglu:
+        create_kwargs["fused_geglu"] = False
 
     from prompt_diffusion_tpu_torch.data.tokenizer import load_tokenizer
     from prompt_diffusion_tpu_torch.serving import GenerationServer, ServerConfig

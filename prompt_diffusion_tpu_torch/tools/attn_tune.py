@@ -34,8 +34,10 @@
             parents' (`fa_narrow_kernel`, `int8_attn_kernel`); the kernel's
             error against the plain version in fp32 at every head dim and
             tail; then, in turns, the device ms of the sm90 kernel (K9 also
-            on the consumer count its plan did not take), its parent and
-            SDPA (where one call computes the function) at the path shapes,
+            on the consumer count its plan did not take, and beside K1's
+            kernel on the same inputs), its parent (where one takes the head
+            width) and SDPA (for K9 a yardstick: another function) at the
+            path shapes,
             and of each other copy, and the host us a call spends in the
             wrapper. With `--quick` only the kernel's copy,
             its errors and its times beside SDPA (no parent: the extension
@@ -62,7 +64,9 @@
             path shapes: host us a call of the whole wrapper, of its three
             `sm90_check_view` calls, of the plan lookups, of the bare
             extension call (its three tensor-map encodes included), and of
-            the parent's wrapper.
+            the parent's wrapper (where one takes the head width); for K9
+            also its checks, its setup lookup, its two allocations and K9p's
+            bare launch (what this package has of them).
 
 The K1 parts' times are CUDA-event medians. It needs one CUDA card and
 nvcc; without a card it exits 2.
@@ -242,15 +246,20 @@ SM90_SHAPES = (
     ("K9 SD3 joint", 2, 4429, 24, 64, True, False),
     ("K9 DPT ViT-B", 16, 1025, 12, 64, True, True),
     ("K9 UniFormer stage 3", 16, 1024, 5, 64, True, True),
+    ("K9 SD1.5 64² CFG 8", 8, 4096, 8, 40, True, False),
+    ("K9 SD1.5 32² CFG 8", 8, 1024, 8, 80, True, False),
 )
 # every instantiation, with ragged and short key and query lengths
-SM90_CHECKS = tuple((f"D={d}{' int8' if i8 else ''} N={n}", 2, n, 3, d, i8, sl)
+# (K9 at D = 40 on 4 heads: its code rows must be whole 16-byte units)
+SM90_CHECKS = tuple((f"D={d}{' int8' if i8 else ''} N={n}", 2, n, 4 if i8 and d == 40 else 3, d,
+                     i8, sl)
                     for d, i8 in ((40, False), (64, False), (80, False), (128, False),
-                                  (32, True), (64, True), (128, True))
+                                  (32, True), (40, True), (64, True), (80, True), (128, True))
                     for n, sl in ((77, False), (1100, True)))
 # the sm90 kernel's instantiations: (D, int8, consumers)
 SM90_INSTANCES = ((40, False, 3), (64, False, 3), (80, False, 2), (128, False, 2),
-                  (32, True, 3), (32, True, 2), (64, True, 3), (64, True, 2), (128, True, 2))
+                  (32, True, 3), (32, True, 2), (40, True, 3), (40, True, 2), (64, True, 3),
+                  (64, True, 2), (80, True, 2), (128, True, 2))
 # nvcc flags of each copy of the source (`attention_sm90.cuh`'s header): the
 # kernel and the ablated copies
 SM90_COPIES = {"kernel": (), "no exponentials": ("-DPD_SM90_ABLATE=1",),
@@ -330,18 +339,31 @@ def _sm90_fn(lib):
     return fn
 
 
+def _k9_codes(k, h):
+    """The plain prologue's codes of packed K as a (B, N, H, D) view laid
+    out as K9p writes them for the sm90 kernel (heads
+    `Sm90Plan.k_head_bytes` apart; dense in a package without it), and
+    the (B, H) scales."""
+    b, n, hd = k.shape
+    d = hd // h
+    codes, sk = fa._quant_k_per_head(k, h)
+    kd = getattr(fa.sm90_plan(d, True), "k_head_bytes", d)
+    k4 = torch.zeros((b, n, h, kd), dtype=torch.int8, device=k.device)[..., :d]
+    k4.copy_(codes.unflatten(-1, (h, d)))
+    return k4, sk
+
+
 def _sm90_call(fn, q, k, v, h, int8, consumers=None):
     """A call of a library copy on packed (B, N, H*D) inputs on `consumers`
     warpgroups (the plan's by default; K9: codes and scales from the plain
-    prologue, bit-equal to K9p); returns (call, out)."""
+    prologue, bit-equal to K9p, laid out as K9p writes them for the kernel:
+    heads `Sm90Plan.k_head_bytes` apart); returns (call, out)."""
     b, nq, hd = q.shape
     d = hd // h
     consumers = consumers or fa.sm90_consumers(d, int8, nq, k.shape[1])
-    sk = None
-    if int8:
-        k, sk = fa._quant_k_per_head(k, h)
     heads = lambda t: t.unflatten(-1, (h, d))
-    q4, k4, v4 = heads(q), heads(k), heads(v)
+    k4, sk = _k9_codes(k, h) if int8 else (heads(k), None)
+    q4, v4 = heads(q), heads(v)
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device="cuda")
 
     def call():
@@ -433,14 +455,18 @@ def sm90(gen, iters, quick=False):
             other = 5 - fa.sm90_consumers(d, int8, n, n)
             cands[f"sm90 on {other} consumers"] = _sm90_call(fns["kernel"], q, k, v, h, int8,
                                                               other)[0]
-        if not int8:
-            cands["sdpa"] = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
-                                                                   scale=scale)
+        # SDPA (for K9 a yardstick: another function) and, beside K9, K1's
+        # sm90 kernel on the same inputs
+        cands["sdpa"] = lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                               scale=scale)
+        if int8:
+            cands["k1 sm90"] = _sm90_call(fns["kernel"], q, k, v, h, False)[0]
         if not quick:
             if int8:  # both with K9p, the prologue
                 cands["wrapper"] = lambda: fa._int8_launch(q, k, v, h, scale)
-                cands["parent"] = lambda: fa._int8_launch(q, k, v, h, scale, False,
-                                                          fa.int8_block_q(n))
+                if d in getattr(fa, "INT8_PARENT_HEAD_DIMS", (32, 64, 128)):
+                    cands["parent"] = lambda: fa._int8_launch(q, k, v, h, scale, False,
+                                                              fa.int8_block_q(n))
             else:
                 q4, k4, v4 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
                 cands["wrapper"] = lambda: fa._launch(q4, k4, v4, scale)
@@ -692,9 +718,36 @@ def _wrappers(q, k, v, heads, int8):
 
 def _wrapper_host_us(q, k, v, heads, int8=False):
     """Host us a call of K1's, K2's or K9's wrapper and of its parent's
-    wrapper."""
+    wrapper (where the parent takes the head width)."""
     wrapper, parent = _wrappers(q, k, v, heads, int8)
-    return {"wrapper": _host_us(wrapper), "parent": _host_us(parent)}
+    row = {"wrapper": _host_us(wrapper)}
+    if not int8 or q.shape[-1] // heads in getattr(fa, "INT8_PARENT_HEAD_DIMS", (32, 64, 128)):
+        row["parent"] = _host_us(parent)
+    return row
+
+
+def _k9_parts_host_us(q, k, v, h):
+    """Host us of the parts of K9's wrapper: its checks, the setup lookup
+    (cached), the two allocations, K9p's bare launch."""
+    b, n, hd = q.shape
+    d = hd // h
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    ext = cuda_ext()
+    plan, qk, off_sk, off_ws, nbytes = fa._int8_sm90_setup(b, n, n, h, d, q.device.index)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    codes = scratch.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    return {
+        "checks": _host_us(lambda: fa._check_int8(q, k, v, h, d ** -0.5)),
+        "setup": _host_us(lambda: fa._int8_sm90_setup(b, n, n, h, d, q.device.index)),
+        "alloc x2": _host_us(lambda: (torch.empty(nbytes, dtype=torch.uint8, device=q.device),
+                                      torch.empty((b, n, hd), dtype=torch.bfloat16,
+                                                  device=q.device))),
+        "K9p bare": _host_us(lambda: ext.int8_quant_k_head(
+            k.data_ptr(), k.stride(0), k.stride(1), b, h, n, d, qk.rows, qk.threads, qk.bps,
+            codes + off_ws, codes + off_sk, codes, plan.k_head_bytes, stream)),
+    }
 
 
 def host(gen, iters):
@@ -711,7 +764,13 @@ def host(gen, iters):
                                   for b, n, h, d in WIDE_SHAPES[:2]]
     for label, b, n, h, d, int8, slices in shapes:
         q, k, v = _sm90_inputs(gen, b, n, h, d, slices)
-        row = _wrapper_host_us(q, k, v, h, int8)
+        try:
+            row = _wrapper_host_us(q, k, v, h, int8)
+        except ValueError as e:  # an older package without K9 at this head width
+            print(f"[attn_tune] host {label}: refused ({e})", flush=True)
+            continue
+        if int8 and hasattr(fa, "_int8_sm90_setup"):
+            row.update(_k9_parts_host_us(q, k, v, h))
         q4, k4, v4 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
         row["check_view x3"] = _host_us(lambda: [fa.sm90_check_view(nm, t) for nm, t in
                                                  (("q", q4), ("k", k4), ("v", v4))])
@@ -726,8 +785,7 @@ def host(gen, iters):
                         *out.stride()[:3], d ** -0.5, stream)
                 bare = lambda: ext.attention_sm90_wide_fwd(*args)
         else:
-            kc, sk = fa._quant_k_per_head(k, h) if int8 else (k, None)
-            kk = kc.unflatten(-1, (h, d))
+            kk, sk = _k9_codes(k, h) if int8 else (k4, None)
             row["plan"] = _host_us(lambda: fa.sm90_plan(d, int8, fa.sm90_consumers(d, int8, n, n)))
             args = (q4.data_ptr(), kk.data_ptr(), sk.data_ptr() if int8 else 0, v4.data_ptr(),
                     out.data_ptr(), int8, b, h, n, n, d, *q4.stride()[:3], *kk.stride()[:3],

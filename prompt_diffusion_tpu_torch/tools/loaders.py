@@ -70,8 +70,9 @@ def build_on_meta(cls, device, create_kwargs, **kw):
     initialised, and the namespaces left to load. A model in
     `create_kwargs` built on the meta device takes the default's place; a
     loaded one is kept (moved to `device`, prepared as `create` prepares
-    its models) and its namespace is not loaded."""
-    from prompt_diffusion_tpu_torch.ops.quant import QuantConv
+    its models, its serving options among them) and its namespace is not
+    loaded."""
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import set_serving_options
 
     loaded = {k: m for k, m in create_kwargs.items()
               if isinstance(m, nn.Module) and not any(t.is_meta for t in m.state_dict().values())}
@@ -79,31 +80,35 @@ def build_on_meta(cls, device, create_kwargs, **kw):
                       **{k: v for k, v in create_kwargs.items() if k not in loaded})
     for attr, m in loaded.items():
         m.to(device=device, memory_format=torch.channels_last).eval().requires_grad_(False)
-        for mod in m.modules():
-            if isinstance(mod, QuantConv) and "conv_variant" in kw:
-                mod.conv_variant = kw["conv_variant"]
+        denoiser = attr in ("unet", "controlnet")
+        set_serving_options(m, kw.get("conv_variant"),
+                            kw.get("int8_attention") if denoiser else None,
+                            kw.get("fused_geglu") if denoiser else None)
         setattr(pipe, attr, m)
     kept = {id(m) for m in loaded.values()}
     return pipe, {n for n, m in pipe.jax_modules().items() if id(m) not in kept}
 
 
-def _sd15(policy, vae_int8, conv_variant, device, create_kwargs):
+def _sd15(device, create_kwargs, **options):
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
 
-    return build_on_meta(PromptDiffusionSD15, device, create_kwargs, policy=policy,
-                         vae_int8=vae_int8, conv_variant=conv_variant)
+    return build_on_meta(PromptDiffusionSD15, device, create_kwargs, **options)
 
 
 def from_single_file(path: str, policy=None, vae_int8: bool = False,
                      device: torch.device | str = "cuda", conv_variant: str = "im2col",
+                     int8_attention: bool = False, fused_geglu: bool = True,
                      **create_kwargs):
     """An SD1.5 PromptDiffusionSD15 from a reference-format `.ckpt` or
     `.safetensors` (`cldm/model.py` loader semantics): built through
     `create` on the meta device (`create_kwargs`: models built on the meta
     device, e.g. other widths, loaded models to keep, a `schedule`), then
     every other namespace loaded onto `device`, strictly; the rule tables
-    follow the models' configs."""
-    pipe, todo = _sd15(policy, vae_int8, conv_variant, device, create_kwargs)
+    follow the models' configs. `conv_variant`, `int8_attention` and
+    `fused_geglu` are `PromptDiffusionSD15.create`'s serving options."""
+    pipe, todo = _sd15(device, create_kwargs, policy=policy, vae_int8=vae_int8,
+                       conv_variant=conv_variant, int8_attention=int8_attention,
+                       fused_geglu=fused_geglu)
     sds = import_ldm_checkpoint(path, unet_cfg=pipe.unet.config,
                                 vae_ch_mult=pipe.vae.config.ch_mult,
                                 vae_num_res_blocks=pipe.vae.config.num_res_blocks,
@@ -114,13 +119,16 @@ def from_single_file(path: str, policy=None, vae_int8: bool = False,
 
 def from_diffusers_folder(root: str, policy=None, vae_int8: bool = False,
                           device: torch.device | str = "cuda", conv_variant: str = "im2col",
+                          int8_attention: bool = False, fused_geglu: bool = True,
                           **create_kwargs):
     """An SD1.5 PromptDiffusionSD15 from a prompt-diffusion-diffusers
     folder, built as `from_single_file` builds it. A folder without
     text_encoder/ loads the other three namespaces only; its CLIP must
     then come loaded in `create_kwargs` (`text_encoder=`), else this
     raises."""
-    pipe, todo = _sd15(policy, vae_int8, conv_variant, device, create_kwargs)
+    pipe, todo = _sd15(device, create_kwargs, policy=policy, vae_int8=vae_int8,
+                       conv_variant=conv_variant, int8_attention=int8_attention,
+                       fused_geglu=fused_geglu)
     sds = import_diffusers_folder(root, unet_cfg=pipe.unet.config)
     sds = {n: sd for n, sd in sds.items() if n in todo}
     load_state_dicts(pipe, sds, namespaces=set(sds), device=device)

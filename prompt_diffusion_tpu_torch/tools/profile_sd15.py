@@ -1,11 +1,14 @@
 """Where the time of one SD1.5 request goes on the card.
 
-    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 [--int8 [--conv-variant xshift]]
+    python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 [--int8 [--conv-variant xshift]
+        [--int8-attention] [--unfused-geglu]]
     python3 -m prompt_diffusion_tpu_torch.tools.profile_sd15 --vae
 
 Builds SD1.5 at the default widths (bf16 policy, or with `--int8` the int8
 W8A8 serving policy with the int8 VAE, its 3x3 convs through K8's
-`--conv-variant`; random weights from a seed), the configurations
+`--conv-variant`, with `--int8-attention` the 64² and 32² self-attention
+through K9 and with `--unfused-geglu` the GEGLU without K7; random weights
+from a seed), the configurations
 `chip_smoke.py` runs, and one request of batch 2 at 512² with CFG 9. Every part runs once to warm up (kernel builds, Triton
 compiles, cuDNN heuristics). Then:
   * the wall time of each part of the request, synchronised, median of 3:
@@ -298,15 +301,17 @@ def print_int8_epilogues(step):
               f"bound {bound:.3f} ms, {launches:g} device launches")
 
 
-def build(int8=False, seed=0, conv_variant="im2col"):
+def build(int8=False, seed=0, conv_variant="im2col", int8_attention=False, fused_geglu=True):
     """SD1.5 at the default configs with `random_init_` weights (bf16, or
-    the int8 policy with the int8 VAE and K8's `conv_variant`), and one
-    request's inputs, on the card."""
+    the int8 policy with the int8 VAE, K8's `conv_variant` and `create`'s
+    `int8_attention` and `fused_geglu`), and one request's inputs, on the
+    card."""
     from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
     from prompt_diffusion_tpu_torch.utils.dtypes import default_policy, int8_policy, random_init_
 
     pipe = PromptDiffusionSD15.create(policy=int8_policy() if int8 else default_policy(),
-                                      vae_int8=int8, device="cuda", conv_variant=conv_variant)
+                                      vae_int8=int8, device="cuda", conv_variant=conv_variant,
+                                      int8_attention=int8_attention, fused_geglu=fused_geglu)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder):
         random_init_(m, gen)
@@ -325,15 +330,25 @@ def main(argv=None) -> int:
                         help="the int8 W8A8 serving policy and the int8 VAE")
     parser.add_argument("--conv-variant", choices=("im2col", "xshift"), default="im2col",
                         help="K8's variant for the int8 3x3 convs")
+    parser.add_argument("--int8-attention", action="store_true",
+                        help="int8: the 64² and 32² self-attention through K9")
+    parser.add_argument("--unfused-geglu", action="store_true",
+                        help="int8: the GEGLU without K7, then a per-tensor quantization")
     parser.add_argument("--vae", action="store_true",
                         help="the VAE decode alone: wall ms and its trace (K2 at D = 512, K3)")
     args = parser.parse_args(argv)
+    if (args.int8_attention or args.unfused_geglu) and not args.int8:
+        parser.error("--int8-attention and --unfused-geglu take --int8")
     if not torch.cuda.is_available():
         print("profile_sd15: no CUDA device", file=sys.stderr)
         return 2
-    policy = f"int8, K8 {args.conv_variant}" if args.int8 else "bf16"
+    policy = (f"int8, K8 {args.conv_variant}" + (", int8 attention" if args.int8_attention
+                                                 else "")
+              + (", unfused GEGLU" if args.unfused_geglu else "")) if args.int8 else "bf16"
     print(f"[profile] {card()}; policy {policy}")
-    pipe, request, x = build(int8=args.int8, conv_variant=args.conv_variant)
+    pipe, request, x = build(int8=args.int8, conv_variant=args.conv_variant,
+                             int8_attention=args.int8_attention,
+                             fused_geglu=not args.unfused_geglu)
     if args.vae:
         decode = lambda: pipe.decode_latents(x.permute(0, 2, 3, 1))
         decode()  # warm-up
@@ -393,7 +408,7 @@ def main(argv=None) -> int:
         print(f"  {us / STEPS / 1e3:9.3f} {n / STEPS:6.0f}  {name[:110]}")
     rest = sum(us for _, (_, us) in ranked[TOP:])
     print(f"  {rest / STEPS / 1e3:9.3f}         (the other {max(0, len(ranked) - TOP)} names)")
-    print_named(by_name, STEPS, "step", K3_K9P_NAMES[:2])
+    print_named(by_name, STEPS, "step", K3_K9P_NAMES[:3 if args.int8_attention else 2])
     print_named(by_name, STEPS, "step", ATTN_NAMES)
     if args.int8:
         k8 = [(n, us) for name, (n, us) in by_name.items()

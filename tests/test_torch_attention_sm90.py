@@ -12,18 +12,16 @@ themselves run only on the card (`chip_smoke.py`, `tools/attn_tune.py
 --part sm90`)."""
 
 import contextlib
-import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 from prompt_diffusion_tpu.ops import flash_attention as jflash
 from prompt_diffusion_tpu_torch.ops import _build
 from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+from tests.torch_port_util import jax_int8_attention as _jax_int8_attention
 
 torch.set_num_threads(2)
 
@@ -53,6 +51,8 @@ def _f32(x):
     ("tiled", 40, "narrow"), ("tiled", 64, "narrow"), ("no_softmax", 40, "narrow"),
     ("two_pass", 64, "narrow"), ("two_pass", 80, "narrow"),
     ("int8", 32, "int8_sm90"), ("int8", 64, "int8_sm90"), ("int8", 128, "int8_sm90"),
+    # SD1.5's heads under `int8_attention`: 64² and 32² self-attention
+    ("int8", 40, "int8_sm90"), ("int8", 80, "int8_sm90"),
     ("int8_rowk", 64, "int8_parent"), ("int8_rowk", 32, "int8_parent"),
 ])
 def test_attention_route(mode, d, route):
@@ -62,10 +62,12 @@ def test_attention_route(mode, d, route):
 
 @pytest.mark.parametrize("mode,d,dtype", [
     ("online", 40, torch.float32), ("online", 64, torch.float16), ("int8", 64, torch.float32),
-    ("int8", 40, torch.bfloat16), ("int8", 80, torch.bfloat16), ("packed", 64, torch.bfloat16),
+    ("int8", 48, torch.bfloat16), ("int8", 96, torch.bfloat16), ("packed", 64, torch.bfloat16),
+    ("int8", 160, torch.bfloat16),  # SD1.5's 16² and 8² heads stay on the plain path
 ])
 def test_attention_route_refuses(mode, d, dtype):
-    """The kernels read bf16; K9 takes D 32, 64, 128; modes are named."""
+    """The kernels read bf16; K9 takes D 32, 40, 64, 80, 128; modes are
+    named."""
     with pytest.raises(ValueError):
         fa.attention_route(mode, d, dtype)
 
@@ -127,19 +129,36 @@ def test_launch_takes_the_route(d, sm90, monkeypatch):
         assert len(calls) == (1 if sm90 else 0)
 
 
-def test_int8_launch_takes_the_route(monkeypatch):
-    """K9 (per-head K) goes to the sm90 kernel with K9p's codes and scales;
-    a block_q or per-row K to the parent `int8_attn_kernel`."""
+@pytest.mark.parametrize("hd,h", [(256, 4), (320, 8), (640, 8)])
+def test_int8_launch_takes_the_route(hd, h, monkeypatch):
+    """K9 (per-head K) goes to the sm90 kernel after K9p
+    (`_int8_sm90_launch`), at SD1.5's D = 40 and 80 too; a block_q or
+    per-row K to the parent `int8_attn_kernel` (which takes neither 40 nor
+    80)."""
     _no_build(monkeypatch)
     _as_if_on_the_card(monkeypatch)
-    calls = _record_sm90(monkeypatch)
-    x = torch.zeros(1, 64, 256, dtype=torch.bfloat16)
-    out = fa._int8_launch(x, x, x, 4, 0.125)
-    assert out.shape == (1, 64, 256) and calls == [((1, 64, 4, 64), True)]
+    calls = []
+    monkeypatch.setattr(fa, "_int8_sm90_launch", lambda q, k, v, heads, scale: calls.append(
+        (tuple(q.shape), heads)) or torch.zeros(q.shape, dtype=torch.bfloat16))
+    x = torch.zeros(1, 64, hd, dtype=torch.bfloat16)
+    out = fa._int8_launch(x, x, x, h, 0.125)
+    assert out.shape == (1, 64, hd) and calls == [((1, 64, hd), h)]
     for kwargs in ({"block_q": 64}, {"row_k": True}):
-        with pytest.raises(AssertionError, match="extension was built"):
-            fa._int8_launch(x, x, x, 4, 0.125, **kwargs)
+        with pytest.raises(AssertionError if hd == 256 else ValueError,
+                           match="extension was built" if hd == 256 else "head dim"):
+            fa._int8_launch(x, x, x, h, 0.125, **kwargs)
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("hd,h", [(320, 8), (640, 8), (1536, 24), (120, 3)])
+def test_int8_sm90_launch_reaches_the_build(hd, h, monkeypatch):
+    """K9's inputs at SD1.5's 64² and 32² heads, the SD3 joint attention
+    and three heads of 40 pass every check of `_int8_sm90_launch` and
+    reach the build (its refusals are not vacuous)."""
+    _no_build(monkeypatch)
+    x = torch.zeros(2, 64, hd, dtype=torch.bfloat16)
+    with pytest.raises(AssertionError, match="extension was built"):
+        fa._int8_sm90_launch(x, x, x, h, 0.125)
 
 
 # ---- the plan --------------------------------------------------------------
@@ -153,6 +172,8 @@ def test_int8_launch_takes_the_route(monkeypatch):
     (32, True, 3, 112, 32, 32, 1, 1, 82944),
     (64, True, 3, 112, 64, 0, 1, 1, 82944),      # K9 on the paths: codes' rows 64..127 zeros
     (128, True, 2, 128, 128, 0, 2, 1, 132096),
+    (40, True, 3, 112, 64, 24, 1, 1, 82944),     # K9 at SD1.5 64²: Q.K^T over 64, two k32 steps
+    (80, True, 2, 128, 96, 48, 2, 1, 132096),    # K9 at SD1.5 32²: three k32 steps
 ])
 def test_sm90_plan(d, int8, consumers, block_k, qk_depth, row_pad, qv_blocks, k_blocks, smem):
     """A producer warpgroup and consumer warpgroups of 64 query rows each
@@ -191,6 +212,9 @@ def test_sm90_grid(b, n, h, int8, grid):
     (64, False, 1024, 3),  # bf16 runs three at D <= 64 whatever the shape
     (40, False, 4096, 3),
     (80, False, 1024, 2),
+    (40, True, 4096, 3),   # SD1.5 64²: 4224 x 4144 on three, 4096² on two (1.04x)
+    (40, True, 1024, 2),   # 1152 x 1120 against 1024² (1.23x)
+    (80, True, 1024, 2),   # two above D = 64
 ])
 def test_sm90_consumers_per_shape(d, int8, nq, consumers):
     """K9 keeps two consumers where three would pad its work by more than
@@ -203,9 +227,9 @@ def test_sm90_consumers_per_shape(d, int8, nq, consumers):
 
 
 @pytest.mark.parametrize("d,int8,consumers", [(48, False, None), (96, False, None),
-                                              (512, False, None), (40, True, None),
-                                              (80, True, None), (64, False, 2), (128, True, 3),
-                                              (64, True, 4)])
+                                              (512, False, None), (48, True, None),
+                                              (96, True, None), (64, False, 2), (128, True, 3),
+                                              (64, True, 4), (80, True, 3), (160, True, None)])
 def test_sm90_plan_refuses(d, int8, consumers):
     with pytest.raises(ValueError):
         fa.sm90_plan(d, int8, consumers)
@@ -233,6 +257,8 @@ def _views(b, n, h, d, layout):
     (16, 1025, 12, 64, "qkv slices", True),
     (2, 77, 3, 32, "packed", True),
     (2, 77, 3, 128, "qkv slices", True),
+    (8, 1024, 8, 80, "packed", True),     # K9 at SD1.5 32²: 80-byte head stride of the codes
+    (4, 1024, 8, 80, "qkv slices", True),
 ])
 def test_sm90_tensor_maps_legal(b, n, h, d, layout, int8):
     """Every map at the paths' shapes: 4-D over (D, N, H, B), strides
@@ -256,6 +282,56 @@ def test_sm90_tensor_maps_legal(b, n, h, d, layout, int8):
         assert es == (1 if int8 and name == "k" else 2)
     width = (3 if layout == "qkv slices" else 1) * h * d * 2
     assert maps[0][3] == (width, d * 2, n * width)
+
+
+@pytest.mark.parametrize("b,n,h,layout", [(8, 4096, 8, "packed"), (4, 4096, 8, "qkv slices"),
+                                           (2, 1100, 3, "packed")])
+def test_sm90_k_map_at_d40(b, n, h, layout):
+    """K9 at D = 40 (SD1.5 64²): dense codes would have a 40-byte head
+    stride, which no map takes, so K9p writes the heads 48 bytes apart
+    (`Sm90Plan.k_head_bytes`) and the map over their (B, N, H, D) view
+    keeps the extent D: TMA reads zeros past it, as in Q's and V's boxes,
+    which make Q's codes there 0. Any head count works (120-byte rows at
+    three heads of dense codes would not)."""
+    plan = fa.sm90_plan(40, True)
+    assert (plan.k_head_bytes, plan.qk_depth) == (48, 64)
+    assert [fa.sm90_plan(d, True).k_head_bytes for d in (32, 64, 80, 128)] == [32, 64, 80, 128]
+    q, _, v = _views(b, n, h, 40, layout)
+    dense = torch.zeros(b, n, h * 40, dtype=torch.int8).unflatten(-1, (h, 40))
+    with pytest.raises(ValueError):
+        fa.sm90_tensor_map("k", dense, plan.block_k)
+    codes = torch.zeros(b, n, h, plan.k_head_bytes, dtype=torch.int8)[..., :40]
+    maps = fa.sm90_tensor_maps(plan, q, codes, v)
+    name, es, dims, strides, box = maps[1]
+    assert (name, es, dims, box) == ("k", 1, (40, n, h, b), (128, plan.block_k, 1, 1))
+    assert strides == (h * 48, 48, n * h * 48) and all(st % 16 == 0 for st in strides)
+    for _, es, dims, _, box in (maps[0], maps[2]):
+        assert dims == (40, n, h, b) and box[0] * es == fa.SWIZZLE_SPAN
+    assert plan.qk_depth <= box[0]  # Q.K^T's depth within one box of Q
+
+
+@pytest.mark.parametrize("case", ["packed", "qkv slice", "batch broadcast", "row stride 644",
+                                  "misaligned base", "one sample broadcast"])
+def test_sm90_check_view_of_packed_rows(case):
+    """`sm90_check_view(name, t, heads)` on a packed (B, N, H*D) tensor
+    accepts and refuses what it does on the (B, N, H, D) view of it, which
+    K9's wrapper no longer builds."""
+    bf16 = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    t = {"packed": bf16(2, 64, 320), "qkv slice": bf16(2, 64, 960)[..., 320:640],
+         "batch broadcast": bf16(1, 64, 320).expand(2, 64, 320),
+         "row stride 644": bf16(2, 64, 644)[..., :320],
+         "misaligned base": bf16(2 * 64 * 320 + 1)[1:].view(2, 64, 320),
+         "one sample broadcast": bf16(1, 64, 320).expand(1, 64, 320)}[case]
+
+    def refused(*args):
+        try:
+            fa.sm90_check_view("q", *args)
+        except ValueError:
+            return True
+        return False
+
+    assert refused(t, 8) == refused(t.unflatten(-1, (8, 40)))
+    assert refused(t, 8) == (case in ("batch broadcast", "row stride 644", "misaligned base"))
 
 
 def _refused(case):
@@ -288,13 +364,41 @@ def test_sm90_refuses_before_build(case, monkeypatch):
 
 
 def test_int8_sm90_refuses_before_the_prologue(monkeypatch):
-    """K9's tensor maps of Q and V are checked before K9p runs."""
+    """K9's tensor maps of Q and V are checked before K9p runs (before the
+    extension is built)."""
     _no_build(monkeypatch)
     monkeypatch.setattr(fa, "quant_k_int8", lambda *a, **k: pytest.fail("K9p ran"))
     x = torch.zeros(2, 64, 256, dtype=torch.bfloat16)
     v = torch.zeros(1, 64, 256, dtype=torch.bfloat16).expand(2, 64, 256)
     with pytest.raises(ValueError):
         fa._int8_launch(x, x, v, 4, 0.125)
+
+
+@pytest.mark.parametrize("case", ["k row stride 324", "D = 48", "D = 160", "q row stride 644",
+                                  "v batch broadcast", "q base misaligned"])
+def test_int8_sm90_refuses_sd15_shapes_before_build(case, monkeypatch):
+    """What K9 refuses at SD1.5's widths raises ValueError before any
+    build: K rows K9p cannot load in 16-byte vectors, head dims it does
+    not instantiate (the 16² and 8² heads, 160, stay on the plain path), Q
+    and V strides TMA refuses."""
+    _no_build(monkeypatch)
+    bf16 = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    x, heads = bf16(2, 64, 320), 8
+    q = k = v = x
+    if case == "k row stride 324":
+        k = bf16(2, 64, 324)[..., :320]
+    elif case == "D = 48":
+        q = k = v = bf16(2, 64, 384)
+    elif case == "D = 160":
+        heads = 2
+    elif case == "q row stride 644":
+        q = bf16(2, 64, 644)[..., :320]
+    elif case == "v batch broadcast":
+        v = bf16(1, 64, 320).expand(2, 64, 320)
+    else:
+        q = torch.zeros(2 * 64 * 320 + 1, dtype=torch.bfloat16)[1:].view(2, 64, 320)
+    with pytest.raises(ValueError):
+        fa._int8_launch(q, k, v, heads, 0.125)
 
 
 # ---- the order of work -------------------------------------------------------
@@ -429,34 +533,13 @@ def test_emulation_matches_jax_flash_attention(b, nq, nk, h, d, dtype):
     assert err <= (1e-5 if dtype == "float32" else _bf16_bound(v, ref))
 
 
-def _jax_int8_attention(q, k, v, num_heads, scale):
-    """The TPU kernel `_fa_packed_fullk_int8_kernel` in interpret mode, with
-    the host-side K quantization of `flash_attention.py:391-395` written out
-    (the public wrapper takes the bf16 kernel on a CPU backend)."""
-    b, n, hd = q.shape
-    d = hd // num_heads
-    nk = k.shape[1]
-    kf = k.astype(jnp.float32).reshape(b, nk, num_heads, d)
-    skh = jnp.maximum(jnp.max(jnp.abs(kf), axis=(1, 3)) / 127.0, 1e-8)
-    ki = jnp.clip(jnp.round(kf / skh[:, None, :, None]), -127, 127).astype(jnp.int8)
-    ki = ki.reshape(b, nk, hd)
-    row = lambda i: (i, 0, 0)
-    return pl.pallas_call(
-        functools.partial(jflash._fa_packed_fullk_int8_kernel, scale=scale, num_heads=num_heads),
-        out_shape=jax.ShapeDtypeStruct((b, n, hd), q.dtype),
-        grid=(b,),
-        in_specs=[pl.BlockSpec((1, n, hd), row), pl.BlockSpec((1, nk, hd), row),
-                  pl.BlockSpec((1, 1, num_heads), row), pl.BlockSpec((1, nk, hd), row)],
-        out_specs=pl.BlockSpec((1, n, hd), row),
-        interpret=True,
-    )(q, ki, skh[:, None, :], v)
-
-
 INT8 = [  # (B, Nq, Nk, H, D, qkv slices)
     (2, 200, 200, 2, 64, False),
     (1, 130, 300, 2, 32, False),
     (2, 160, 160, 2, 64, True),
     (1, 77, 77, 1, 128, True),
+    (2, 200, 260, 2, 40, False),   # SD1.5's heads under `int8_attention`
+    (1, 150, 150, 2, 80, True),
 ]
 
 
@@ -506,7 +589,8 @@ def test_emulation_rescale_rule_is_exact():
     assert torch.equal(got, always)
 
 
-@pytest.mark.parametrize("d,nq", [(32, 380), (32, 250), (64, 380), (64, 250), (128, 250)])
+@pytest.mark.parametrize("d,nq", [(32, 380), (32, 250), (64, 380), (64, 250), (128, 250),
+                                  (40, 380), (40, 250), (80, 250)])
 def test_k9_code_probe_reads_every_code(d, nq):
     """chip_smoke.py's `k9_code_probe`: on its inputs K9's output reads each
     query row's Q code at the probed dimension, so the check on the card
@@ -528,7 +612,7 @@ def test_k9_code_probe_reads_every_code(d, nq):
     (q, k, v, h, scale), want = chip_smoke.k9_code_probe(d, nq)
     nk = k.shape[1]
     assert {(dd, fa.sm90_consumers(dd, True, n, nk)) for dd, n in chip_smoke.K9_PROBE_CASES} == {
-        (32, 3), (32, 2), (64, 3), (64, 2), (128, 2)}
+        (32, 3), (32, 2), (40, 3), (40, 2), (64, 3), (64, 2), (80, 2), (128, 2)}
     assert want.shape == (d // h, nq, h) and set(want.unique().tolist()) == set(range(-127, 128))
     outs = {"plain": fa.flash_attention_packed_int8(q, k, v, h, scale)}
     heads = lambda t: t.unflatten(-1, (h, d))

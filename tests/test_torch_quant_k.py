@@ -16,10 +16,11 @@ from prompt_diffusion_tpu_torch.ops import flash_attention as fa
 torch.set_num_threads(2)
 
 # (B, N, H * D, H) of the SD3 joint attention (CFG batch 2, 4096 + 333
-# tokens) and of the DPT-Hybrid ViT-B (batch 16, 1025 tokens), and ragged
-# ones at the other head dimensions
+# tokens), of the DPT-Hybrid ViT-B (batch 16, 1025 tokens) and of the SD1.5
+# self-attention under `int8_attention` (CFG batch 8 at 64² and 32², D = 40
+# and 80), and ragged ones at the other head dimensions
 SHAPES = [(2, 4429, 1536, 24), (16, 1025, 768, 12), (3, 77, 256, 2), (2, 100, 512, 16),
-          (1, 5, 4096, 32)]
+          (1, 5, 4096, 32), (8, 4096, 320, 8), (8, 1024, 640, 8), (2, 77, 120, 3)]
 
 
 def _covers(plan: fa.QuantKPlan, capacity: int):
@@ -55,6 +56,8 @@ def test_quant_k_plan_covers_every_value_once(shape, occ):
 @pytest.mark.parametrize("shape,rows,threads,bps", [
     ((2, 4429, 1536, 24), 1, 192, 264),   # SD3: 192 vectors a key row, 528 blocks
     ((16, 1025, 768, 12), 2, 192, 33),    # the ViT-B K slice: two rows of 96 vectors
+    ((8, 4096, 320, 8), 6, 256, 66),      # SD1.5 64²: six rows of 40 vectors (5 a head)
+    ((8, 1024, 640, 8), 3, 256, 66),      # SD1.5 32²: three rows of 80 vectors (10 a head)
 ])
 def test_quant_k_plan_at_the_main_shapes(shape, rows, threads, bps):
     """The plan at the assumed occupancy: QK_BLOCKS_PER_SM blocks an SM
@@ -92,7 +95,8 @@ def _no_build(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["fp32", "head dim 48", "rows not dense", "misaligned",
-                                  "another shape's plan"])
+                                  "another shape's plan", "per row at head dim 40",
+                                  "head_bytes 44", "head_bytes below D", "head_bytes per row"])
 def test_quant_k_int8_refuses_before_build(case, monkeypatch):
     """What K9p refuses raises ValueError in the wrapper (a plan of another
     shape in the launch that takes one), before the extension is built or
@@ -110,17 +114,24 @@ def test_quant_k_int8_refuses_before_build(case, monkeypatch):
         k = torch.zeros(2, 64, 3072, dtype=torch.bfloat16)[..., ::2]
     elif case == "misaligned":
         k = torch.zeros(2, 64, 1540, dtype=torch.bfloat16)[..., 4:]
-    else:
+    elif case == "per row at head dim 40":  # the per-row prologue takes D 32, 64, 128
+        k = torch.zeros(2, 64, 320, dtype=torch.bfloat16)
+        heads = 8
+    elif case == "another shape's plan":
         plan = fa.quant_k_plan(2, 65, 24, 64)
+    head_bytes = {"head_bytes 44": 44, "head_bytes below D": 56,
+                  "head_bytes per row": 64}.get(case)
     with pytest.raises(ValueError):
         if plan is None:
-            fa.quant_k_int8(k, heads)
+            fa.quant_k_int8(k, heads, case in ("per row at head dim 40", "head_bytes per row"),
+                            head_bytes)
         else:  # the launch that takes a given plan (`tools/quant_tune.py`'s sweep)
             fa._quant_k_head(k, plan)
 
 
-@pytest.mark.parametrize("shape", [(2, 4429, 1536, 24), (16, 1025, 768, 12)],
-                         ids=["SD3", "ViT-B"])
+@pytest.mark.parametrize("shape", [(2, 4429, 1536, 24), (16, 1025, 768, 12),
+                                   (8, 4096, 320, 8), (8, 1024, 640, 8)],
+                         ids=["SD3", "ViT-B", "SD1.5 64²", "SD1.5 32²"])
 def test_quant_k_int8_accepts_the_model_inputs(shape, monkeypatch):
     """The paths' K (the ViT-B's as a column slice of its qkv projection)
     passes every check and reaches the build (the refusals above are not
@@ -159,14 +170,16 @@ def _emulate(k, heads, plan):
     return torch.from_numpy(q.astype(np.int8).reshape(b_, n_, hd)), torch.from_numpy(s)
 
 
-@pytest.mark.parametrize("case", ["SD3-like", "ViT-like slice", "D 128 ragged", "D 32"])
+@pytest.mark.parametrize("case", ["SD3-like", "ViT-like slice", "D 128 ragged", "D 32", "D 40",
+                                  "D 80 slice"])
 def test_quant_k_emulation_matches_the_plain_version(case):
     """K9p's order of work, emulated at a plan of many blocks per sample
     (sms=3) against `_quant_k_per_head`: codes and scales bit-equal (a max
     is exact in any order, and both divide in IEEE fp32)."""
     rng = np.random.default_rng(12)
     b, n, hd, h, row = {"SD3-like": (2, 300, 384, 6, 384), "ViT-like slice": (3, 65, 192, 3, 576),
-                        "D 128 ragged": (2, 77, 256, 2, 256), "D 32": (2, 200, 128, 4, 128)}[case]
+                        "D 128 ragged": (2, 77, 256, 2, 256), "D 32": (2, 200, 128, 4, 128),
+                        "D 40": (2, 300, 320, 8, 320), "D 80 slice": (3, 90, 160, 2, 480)}[case]
     full = torch.from_numpy((2 * rng.normal(size=(b, n, row))).astype(np.float32)).bfloat16()
     k = full[..., hd:2 * hd] if row != hd else full
     plan = fa.quant_k_plan(b, n, h, hd // h, occupancy=lambda t: 2, sms=3)
@@ -186,3 +199,16 @@ def test_cpu_tensors_take_the_plain_version():
         plain = (fa._quant_k_per_row if per_row else fa._quant_k_per_head)(k, 2)
         assert torch.equal(q, plain[0]) and torch.equal(s, plain[1])
     assert fa.quant_k_int8.launches == before
+
+
+@pytest.mark.parametrize("d,head_bytes", [(40, 48), (80, 80), (64, None)])
+def test_quant_k_int8_head_bytes_on_the_cpu(d, head_bytes):
+    """K9p's per-head codes laid out for the sm90 kernel (heads
+    `head_bytes` apart: 48 at D = 40): on the CPU the plain codes as a
+    (B, N, H, D) view, the same values; without it dense (B, N, H*D)."""
+    k = torch.randn(2, 33, 4 * d).bfloat16()
+    codes, scales = fa.quant_k_int8(k, 4, head_bytes=head_bytes)
+    plain, plain_scales = fa._quant_k_per_head(k, 4)
+    want = plain if head_bytes is None else plain.unflatten(-1, (4, d))
+    assert codes.shape == want.shape and torch.equal(codes, want)
+    assert torch.equal(scales, plain_scales)

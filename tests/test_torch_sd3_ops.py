@@ -5,14 +5,11 @@ interpret mode and its CPU paths; the T5 buckets and encoder, the gelu
 CLIP, the flow-matching tables and step, and the control window. Inputs
 come from numpy seeds; each test states its bound."""
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 from prompt_diffusion_tpu.models import clip_text as jclip
 from prompt_diffusion_tpu.models import t5_text as jt5
@@ -32,6 +29,7 @@ from prompt_diffusion_tpu_torch.pipelines import control_window as win
 from prompt_diffusion_tpu_torch.schedulers import flow_match as fm
 from prompt_diffusion_tpu_torch.tools.jax_bridge import state_dict_from_jax
 from prompt_diffusion_tpu_torch.utils.dtypes import fp32_policy
+from tests.torch_port_util import jax_int8_attention as _jax_int8_attention
 from tests.torch_port_util import randomize
 
 torch.set_num_threads(2)
@@ -107,28 +105,6 @@ def test_cpu_tensors_take_the_plain_sd3_versions():
 
 
 # ---- K9 int8-QK^T attention --------------------------------------------
-
-
-def _jax_int8_attention(q, k, v, num_heads, scale):
-    """The TPU kernel `_fa_packed_fullk_int8_kernel` in interpret mode, with
-    the host-side K quantization of `flash_attention.py:391-395` written
-    out (the public wrapper takes the bf16 kernel on a CPU backend)."""
-    b, n, hd = q.shape
-    d = hd // num_heads
-    kf = k.astype(jnp.float32).reshape(b, n, num_heads, d)
-    skh = jnp.maximum(jnp.max(jnp.abs(kf), axis=(1, 3)) / 127.0, 1e-8)
-    ki = jnp.clip(jnp.round(kf / skh[:, None, :, None]), -127, 127).astype(jnp.int8)
-    ki = ki.reshape(b, n, hd)
-    row = lambda i: (i, 0, 0)
-    return pl.pallas_call(
-        functools.partial(jflash._fa_packed_fullk_int8_kernel, scale=scale, num_heads=num_heads),
-        out_shape=jax.ShapeDtypeStruct((b, n, hd), q.dtype),
-        grid=(b,),
-        in_specs=[pl.BlockSpec((1, n, hd), row), pl.BlockSpec((1, n, hd), row),
-                  pl.BlockSpec((1, 1, num_heads), row), pl.BlockSpec((1, n, hd), row)],
-        out_specs=pl.BlockSpec((1, n, hd), row),
-        interpret=True,
-    )(q, ki, skh[:, None, :], v)
 
 
 @pytest.mark.parametrize("dtype,atol", [(np.float32, 1e-5), ("bfloat16", 2e-2)])
@@ -209,7 +185,9 @@ def _int8_refused(case):
     x = bf16(64, 256)  # 4 heads of 64
     misaligned = torch.zeros(64 * 256 + 1, dtype=torch.bfloat16)[1:].view(1, 64, 256)
     cases = {
-        "head dim 40": (bf16(64, 160),) * 3 + (4, 0.125, None),
+        # the parent kernel takes D 32, 64, 128; the sm90 kernel 40 and 80 too
+        "head dim 40": (bf16(64, 160),) * 3 + (4, 0.125, 64),
+        "head dim 48": (bf16(64, 192),) * 3 + (4, 0.125, None),
         "q fp32": (x.float(), x, x, 4, 0.125, None),
         "k fp32 (the prologue reads bf16)": (x, x.float(), x, 4, 0.125, None),
         "k row stride not a multiple of 8": (x, bf16(64, 260)[..., :256], x, 4, 0.125, None),
@@ -222,7 +200,8 @@ def _int8_refused(case):
 
 
 @pytest.mark.parametrize("case", [
-    "head dim 40", "q fp32", "k fp32 (the prologue reads bf16)",
+    "head dim 40", "head dim 48", "q fp32",
+    "k fp32 (the prologue reads bf16)",
     "k row stride not a multiple of 8", "k base not 16-byte aligned", "v keys disagree",
     "non-positive scale", "block_q not instantiated"])
 def test_int8_attention_refuses_before_build(case, monkeypatch):

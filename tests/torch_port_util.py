@@ -72,3 +72,35 @@ def make_edit_root(root, groups=2, per_group=5, res=32,
             with open(os.path.join(base, f"img{i}.txt"), "w") as f:
                 f.write(f"a photograph {g} {i}")
     return root
+
+
+def jax_int8_attention(q, k, v, num_heads, scale):
+    """The TPU kernel `_fa_packed_fullk_int8_kernel` in interpret mode on
+    packed (B, N, H*D) JAX arrays, with the host-side K quantization of
+    `flash_attention.py:391-395` written out (the public wrapper takes the
+    bf16 kernel on a CPU backend). Any head width; Nk may differ from Nq."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    from prompt_diffusion_tpu.ops import flash_attention as jflash
+
+    b, n, hd = q.shape
+    d = hd // num_heads
+    nk = k.shape[1]
+    kf = k.astype(jnp.float32).reshape(b, nk, num_heads, d)
+    skh = jnp.maximum(jnp.max(jnp.abs(kf), axis=(1, 3)) / 127.0, 1e-8)
+    ki = jnp.clip(jnp.round(kf / skh[:, None, :, None]), -127, 127).astype(jnp.int8)
+    ki = ki.reshape(b, nk, hd)
+    row = lambda i: (i, 0, 0)
+    return pl.pallas_call(
+        functools.partial(jflash._fa_packed_fullk_int8_kernel, scale=scale, num_heads=num_heads),
+        out_shape=jax.ShapeDtypeStruct((b, n, hd), q.dtype),
+        grid=(b,),
+        in_specs=[pl.BlockSpec((1, n, hd), row), pl.BlockSpec((1, nk, hd), row),
+                  pl.BlockSpec((1, 1, num_heads), row), pl.BlockSpec((1, nk, hd), row)],
+        out_specs=pl.BlockSpec((1, n, hd), row),
+        interpret=True,
+    )(q, ki, skh[:, None, :], v)
