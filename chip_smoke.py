@@ -54,16 +54,22 @@ without the final `"ok": true` line:
                call and a second call bit-equal. The attention lab modes
                at the SD1.5 64² and SD3 joint shapes, with K1's bounds
                (the no-softmax mode's output is no average of V: its
-               bound is relative). K1, K2 at D <= 128 and K9 run the
+               bound is relative); L1 (online, at K1's tile and at
+               64-key tiles) and L3 (two passes, at D = 40 and 64) on
+               the sm90 kernel's lab instantiations
+               (`attention_sm90_lab.cu`), one device launch per call,
+               each printed beside K1's kernel on the same inputs. K1,
+               K2 at D <= 128 and K9 run the
                `wgmma` kernel of `attention_sm90.cuh`, K2 at the VAE's
                D = 512 that of `attention_sm90_wide.cuh`; at each such
-               case the parent design (`fa_narrow_kernel`,
-               `fa_wide_kernel`, `int8_attn_kernel`) runs too, within the
-               same bound, and its device ms is printed beside the
-               kernel's; the plans of `ops/flash_attention.py` (query
-               rows, key tile, shared memory; the wide kernel's stages,
-               registers and consumers too) must equal the build's at
-               every instantiation;
+               case (and at L1's and L3's) the parent design
+               (`fa_narrow_kernel`, `fa_wide_kernel`,
+               `int8_attn_kernel`) runs too, within the same bound, and
+               its device ms is printed beside the kernel's; the plans of
+               `ops/flash_attention.py` (query rows, key tile, shared
+               memory; the wide kernel's stages, registers and consumers
+               too; the lab modes' shared memory) must equal the build's
+               at every instantiation;
                and K9's Q codes, which never leave the kernel's
                registers, are read back through its output
                (`k9_code_probe`) at every int8 instantiation (D = 40 and
@@ -191,7 +197,11 @@ without the final `"ok": true` line:
                call one launch of each under the profiler;
  10. labs    - the attention lab entry point
                (`prompt_diffusion_tpu_torch.tools.attn_lab`), every lab at
-               two timed iterations;
+               two timed iterations, under the profiler: every L1 and L3
+               call one launch of the sm90 kernel's lab instantiations,
+               `fa_narrow_kernel` only from the parent's own launch (L2
+               and the `[parent]` rows), the parent's rows within the
+               variants' bound;
  11. midas   - the MiDaS DPT-Hybrid depth annotator at full width (ViT-B
                768 x 12, ResNetV2 (3, 4, 9), features 256; random weights
                from a seed; bf16) on two batches of 16 images at 512², as
@@ -892,17 +902,19 @@ def kernel_cases(gen):
             nbytes = b * h * w * (cin + out_bytes * cout) + 9 * cin * cout + 4 * (b + 2 * cout)
             cases.append((name, label, fn, args, "exact", 0.0,
                           (nbytes, 2 * b * h * w * cout * 9 * cin, 0), None))
-    # the attention lab modes at the SD1.5 64² self-attention (B, N, H, D),
-    # the two-pass mode also at heads padded to 64, and the per-row-K int8
+    # the attention lab modes at the SD1.5 64² self-attention (B, N, H, D):
+    # L1 at K1's tile and at 64-key tiles, L2 at its parent tile, L3 at K1's
+    # tile, also at heads of 64 (lab3's padding); then the per-row-K int8
     # mode at the SD3 joint shape
     b, n, h = 8, 4096, 8
     sdpa = lambda q, k, v, s: (lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=s))
     for name, fn, d, bq, bk, lib in (
-            ("flash_attention_tiled", flash_attention_tiled, 40, 128, 128, True),
+            ("flash_attention_tiled", flash_attention_tiled, 40, 192, 128, True),
+            ("flash_attention_tiled", flash_attention_tiled, 40, 192, 64, True),
             ("attention_no_softmax", attention_no_softmax, 40, 64, 64, False),
-            ("flash_attention_two_pass", flash_attention_two_pass, 40, 64, 64, True),
-            ("flash_attention_two_pass", flash_attention_two_pass, 64, 128, 64, True)):
+            ("flash_attention_two_pass", flash_attention_two_pass, 40, 192, 128, True),
+            ("flash_attention_two_pass", flash_attention_two_pass, 64, 192, 128, True)):
         q, k, v = (bf16(randn(b, n, h, d)) for _ in range(3))
         cases.append((name, f"({b},{n},{h},{d}) bq{bq} bk{bk}", fn,
                       (q, k, v, d ** -0.5, bq, bk), "float", ATTN_BOUND,
@@ -917,10 +929,11 @@ def kernel_cases(gen):
 
 
 def parent_call(name, args):
-    """The parent design's call on a K1, K2 or K9 case an sm90 kernel runs
-    (`fa_narrow_kernel` at its tile, `fa_wide_kernel` at D = 512,
-    `int8_attn_kernel` at its query rows, all with the same inputs), or
-    None."""
+    """The parent design's call on a K1, K2, K9, L1 or L3 case an sm90
+    kernel runs (`fa_narrow_kernel` at its tile, the lab modes' at
+    `lab_parent_tile`, `fa_wide_kernel` at D = 512, `int8_attn_kernel` at
+    its query rows, all with the same inputs, through the parent's own
+    launches), or None."""
     from prompt_diffusion_tpu_torch.ops import flash_attention as fa
 
     if name == "flash_attention_packed":
@@ -929,13 +942,17 @@ def parent_call(name, args):
         views = [t.unflatten(-1, (h, d)) for t in (q, k, v)]
         if fa.attention_route("online", d) != "sm90":
             return None
-        return lambda: fa._launch(*views, scale, "online", fa.kernel_tile(d)).flatten(2)
+        return lambda: fa._parent_launch(*views, scale, "online", fa.kernel_tile(d)).flatten(2)
     if name == "flash_attention":
         q, k, v = args
         d = q.shape[-1]
         if fa.attention_route("online", d) not in ("sm90", "wide_sm90"):
             return None
-        return lambda: fa._launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d))
+        return lambda: fa._parent_launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d))
+    if name in ("flash_attention_tiled", "flash_attention_two_pass"):
+        q, k, v, scale, *tile = args
+        mode = "online" if name == "flash_attention_tiled" else "two_pass"
+        return lambda: fa._parent_launch(q, k, v, scale, mode, fa.lab_parent_tile(tuple(tile)))
     if name == "flash_attention_packed_int8":
         q, k, v, h, *scale = args
         if q.shape[-1] // h not in fa.INT8_PARENT_HEAD_DIMS:  # SD1.5's 40 and 80
@@ -943,6 +960,19 @@ def parent_call(name, args):
         scale = scale[0] if scale else (q.shape[-1] // h) ** -0.5
         return lambda: fa._int8_launch(q, k, v, h, scale, False, fa.int8_block_q(q.shape[1]))
     return None
+
+
+def k1_call(name, args):
+    """K1 on an L1 or L3 case's inputs (contiguous (B, N, H, D), the
+    packed layout), the yardstick of the lab modes on the sm90 kernel, or
+    None."""
+    from prompt_diffusion_tpu_torch.ops.flash_attention import flash_attention_packed
+
+    if name not in ("flash_attention_tiled", "flash_attention_two_pass"):
+        return None
+    q, k, v, scale, *_ = args
+    return lambda: flash_attention_packed(q.flatten(2), k.flatten(2), v.flatten(2), q.shape[2],
+                                          scale)
 
 
 def sm90_plan_check():
@@ -963,12 +993,22 @@ def sm90_plan_check():
         check(built == (plan.block_q, plan.block_k, plan.smem),
               f"sm90_plan({d}, {int8}, {nc}) gives {(plan.block_q, plan.block_k, plan.smem)}, "
               f"the build {built}")
+    for mode, dims in fa.SM90_LAB_HEAD_DIMS.items():
+        for d in dims:
+            for tile in fa.sm90_lab_tiles(d, mode):
+                plan = fa.sm90_lab_plan(d, mode, tile)
+                built = ext.attention_sm90_lab_smem(d, fa._MODES[mode], plan.consumers,
+                                                    plan.block_k)
+                rows.append(f"{mode} D={d} {tile} {built}")
+                check(built == plan.smem, f"sm90_lab_plan({d}, {mode}, {tile}) gives {plan.smem} "
+                                          f"bytes of shared memory, the build {built}")
     wide = fa.wide_plan(fa.WIDE_HEAD_DIM)
     built = tuple(ext.attention_sm90_wide_plan(i) for i in range(7))
     want = (wide.rows, wide.block_k, wide.smem, wide.stages, *wide.regs, wide.consumers)
     rows.append(f"D={wide.d} wide (rows, block_k, smem, stages, regs, consumers) {built}")
     check(built == want, f"wide_plan({wide.d}) gives {want}, the build {built}")
-    log("[kernels] sm90 plan = build (block_q, block_k, smem bytes): " + "; ".join(rows))
+    log("[kernels] sm90 plan = build (block_q, block_k, smem bytes; the lab modes' smem "
+        "bytes): " + "; ".join(rows))
 
 
 # K9's Q codes read back through its output (`k9_code_probe`): (D, query
@@ -1177,7 +1217,7 @@ def phase_kernels(gen):
             extra["err_vs_plain_bf16"] = (out.float() - ref_bf16.float()).abs().max().item()
             msg += f" err_vs_plain_bf16={extra['err_vs_plain_bf16']}"
             del ref_bf16
-        parent = parent_call(name, args)
+        parent, k1 = parent_call(name, args), k1_call(name, args)
         if parent is not None:  # the parent design on the same inputs, in its own bounds
             extra["parent_max_abs_err"] = (parent().float() - ref.float()).abs().max().item()
             msg += f" parent_max_abs_err={extra['parent_max_abs_err']}"
@@ -1202,6 +1242,8 @@ def phase_kernels(gen):
         lib_ms = None if library is None else device_ms(library)
         if parent is not None:
             extra["parent_ms"] = device_ms(parent)
+        if k1 is not None:
+            extra["k1_ms"] = device_ms(k1)
         if name.startswith("conv3x3_int8"):  # the bar an int8 conv must clear to pay
             extra["bf16_conv_ms"] = device_ms(bf16_conv(gen, *args[0].shape, args[2].shape[0]))
         profiled_s += time.perf_counter() - t
@@ -1211,6 +1253,7 @@ def phase_kernels(gen):
         log(f"[kernels] {name} {label}: {msg} device_ms={ms} plain_device_ms={plain_ms} "
             f"library_device_ms={lib_ms} wall_ms={wall_ms} bound_ms={bound_ms} ({bound_term})"
             + ("" if parent is None else f" parent_device_ms={extra['parent_ms']}")
+            + ("" if k1 is None else f" k1_device_ms={extra['k1_ms']} (K1 on the same inputs)")
             + ("" if "bf16_conv_ms" not in extra else f" bf16_conv_device_ms="
                f"{extra['bf16_conv_ms']} (cuDNN bf16, not the same function)"))
         check(ok, f"{name} {label}: outside its bound: {msg}")
@@ -1300,11 +1343,11 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                         "prompt_diffusion_tpu/ops/fused_adaln.py:127"),
     "conv3x3_int8_xshift": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_conv.cu",
                             "prompt_diffusion_tpu/ops/int8_conv.py:103"),
-    "flash_attention_tiled": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_tiled": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                               "tools/attn_variants.py:41"),
     "attention_no_softmax": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
                              "tools/attn_variants.py:41"),
-    "flash_attention_two_pass": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+    "flash_attention_two_pass": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                                  "tools/attn_variants.py:76"),
     "flash_attention_packed_int8_rowk": (
         "cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
@@ -1319,11 +1362,16 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
 # (K12's gradient case, which runs both K12 kernels and plain ops, aside)
 ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
               "fused_group_norm_quant", "fused_layer_norm_quant", "fused_quant_rows",
-              "fused_group_norm", "quant_k_int8", "fused_adaln", "fused_adaln_bwd")
+              "fused_group_norm", "quant_k_int8", "fused_adaln", "fused_adaln_bwd",
+              "flash_attention_tiled", "flash_attention_two_pass")
 # the device functions a wrapper launches, where it launches more than one
 # (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
-# split-K sum and epilogue where its plan splits K)
+# split-K sum and epilogue where its plan splits K), or where its source
+# holds other kernels' too (L1 and L3: the sm90 kernel's lab
+# instantiations)
 DEVICE_FUNCTIONS = {
+    "flash_attention_tiled": ("attn_sm90_lab_kernel",),
+    "flash_attention_two_pass": ("attn_sm90_lab_kernel",),
     "conv3x3_int8": ("conv3x3_int8_kernel", "splitk_epilogue_kernel"),
     "conv3x3_int8_xshift": ("conv3x3_int8_xshift_kernel", "splitk_epilogue_kernel"),
     "flash_attention_packed_int8": ("k_head_quant_kernel", "attn_sm90_int8_kernel"),
@@ -1337,15 +1385,19 @@ DEVICE_FUNCTIONS = {
 # on the paths: each call of these wrappers is one launch of one of its
 # device functions (wrappers that share device functions are counted
 # together: K1 and K2 launch the sm90 bf16 kernel, K2 at D = 512 the wide
-# sm90 kernel), and no device function of their parent designs runs
-# (`one_launch_per_call`): K1's and K2's narrow parent and K9's parent stay
-# for the lab modes, K2's wide parent for head dims above 128 other than 512
+# sm90 kernel, L1 and L3 the sm90 kernel's lab instantiations), and no
+# device function of their parent designs runs (`one_launch_per_call`):
+# K1's and K2's narrow parent stays for the no-softmax lab mode (L2) and
+# K9's for the per-row-K one (L4), K2's wide parent for head dims above 128
+# other than 512
 PATH_ONE_LAUNCH = {"fused_group_norm": ("gn_float_kernel",),
                    "quant_k_int8": ("k_head_quant_kernel",),
                    "fused_adaln": ("adaln_float_kernel",), "fused_adaln_bwd": ("adaln_bwd_kernel",),
                    "flash_attention_packed": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
                    "flash_attention": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
-                   "flash_attention_packed_int8": ("attn_sm90_int8_kernel",)}
+                   "flash_attention_packed_int8": ("attn_sm90_int8_kernel",),
+                   "flash_attention_tiled": ("attn_sm90_lab_kernel",),
+                   "flash_attention_two_pass": ("attn_sm90_lab_kernel",)}
 PARENT_FUNCTIONS = ("gn_stats_kernel", "gn_combine_kernel", "gn_apply_kernel", "k_amax_kernel",
                     "k_codes_kernel", "adaln_kernel", "fa_narrow_kernel", "int8_attn_kernel",
                     "fa_wide_kernel")
@@ -1357,6 +1409,10 @@ SOURCES_ALSO = {
                         "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_bf16.cu"),
     "flash_attention_packed_int8": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_int8.cu",
                                     "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu"),
+    "flash_attention_tiled": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab.cu",
+                              "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cu"),
+    "flash_attention_two_pass": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab.cu",
+                                 "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cu"),
 }
 # further TPU kernels a kernel stands for: the lab kernels that compute the
 # same function as one above
@@ -2667,20 +2723,49 @@ def phase_adaln(seed=5000):
 
 def phase_labs():
     """The attention lab entry point at LAB_ITERS timed iterations per
-    variant: every variant within ATTN_REL_BOUND of its largest plain
-    output."""
+    variant, under the profiler: every variant, and the parent's row beside
+    an L1 or L3 variant, within ATTN_REL_BOUND of its largest plain output;
+    the L1 and L3 calls as many launches of the sm90 kernel's lab
+    instantiations, and `fa_narrow_kernel` launched only by the parent's own
+    launch (L2 and the `[parent]` rows), so by no L1 or L3 call (a trace
+    that lost activities is taken again, up to `timing.PROFILE_TRIES` runs
+    in all)."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
     from prompt_diffusion_tpu_torch.tools import attn_lab
+    from prompt_diffusion_tpu_torch.tools.timing import (
+        PROFILE_TRIES,
+        device_kernels,
+        device_trace,
+    )
 
-    counted = reset_launches()
-    t0 = time.perf_counter()
-    rows = [row for lab_rows in attn_lab.run(iters=LAB_ITERS).values() for row in lab_rows]
-    seconds = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in counted.items()}
-    log(f"[labs] {len(rows)} variants in {seconds:.1f}s; launches "
-        f"{ {k: launches[k] for k in PATH_KERNELS['labs']} }")
+    for attempt in range(PROFILE_TRIES):
+        counted = reset_launches()
+        parent_before = fa._parent_launch.launches
+        t0 = time.perf_counter()
+        with device_trace() as prof:
+            rows = [row for lab_rows in attn_lab.run(iters=LAB_ITERS).values()
+                    for row in lab_rows]
+        seconds = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in counted.items()}
+        names = [name for name, _, _ in device_kernels(prof)]
+        calls = (launches["flash_attention_tiled"] + launches["flash_attention_two_pass"],
+                 fa._parent_launch.launches - parent_before)
+        found = (sum("attn_sm90_lab_kernel" in nm for nm in names),
+                 sum("fa_narrow_kernel" in nm for nm in names))
+        if found == calls or attempt == PROFILE_TRIES - 1:
+            break
+    log(f"[labs] {len(rows)} variants in {seconds:.1f}s (under the profiler); launches "
+        f"{ {k: launches[k] for k in PATH_KERNELS['labs']} }; L1 + L3 {calls[0]} calls, "
+        f"{found[0]} launches of attn_sm90_lab_kernel; the parent's launch {calls[1]} calls "
+        f"(L2 and the [parent] rows), {found[1]} launches of fa_narrow_kernel")
+    check(found == calls, f"[labs] L1 + L3 calls and the parent's launches {calls}, but "
+                          f"{found} launches of attn_sm90_lab_kernel and fa_narrow_kernel")
     for row in rows:
         check(row["err_over_max"] <= ATTN_REL_BOUND,
               f"lab variant {row['variant']}: error {row['err_over_max']} of its largest output")
+        check(row.get("parent_err_over_max", 0.0) <= ATTN_REL_BOUND,
+              f"lab variant {row['variant']}'s parent: error {row.get('parent_err_over_max')} of "
+              f"its largest output")
     for name in PATH_KERNELS["labs"]:
         check(launches[name] > 0, f"kernel {name} was not launched on the labs path")
     return launches, {"seconds": seconds}

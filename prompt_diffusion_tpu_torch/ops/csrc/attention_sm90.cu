@@ -1,8 +1,8 @@
 // The C interface of the sm90 attention kernel (attention_sm90.cuh holds the
 // kernel and its notes): the checks, the TMA tensor maps built on the host
 // per call, and the launch of the instantiation (attention_sm90_bf16.cu,
-// attention_sm90_int8.cu); the plan as built, for ops/flash_attention.py's
-// checks.
+// attention_sm90_int8.cu, attention_sm90_lab.cu); the plan as built, for
+// ops/flash_attention.py's checks.
 
 #include "attention_sm90.cuh"
 
@@ -57,6 +57,44 @@ extern "C" int pd_attention_sm90_fwd(
               : launch_bf16(d, tq, tk, tv, p, batch, s);
 }
 
+// Launches a lab mode on `stream`: `mode` 0 (kOnline, L1) or 2 (kTwoPass,
+// L3) over bf16 (B, N, H, D) views as pd_attention_sm90_fwd takes them, on
+// `consumers` warpgroups of 64 query rows and `block_k`-key tiles; returns
+// the launch's cudaError_t (0 = queued), cudaErrorInvalidValue for a shape,
+// stride, mode or tile not instantiated (`lab_ok`) or a tensor map
+// cuTensorMapEncodeTiled refuses.
+extern "C" int pd_attention_sm90_lab_fwd(
+    const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
+    int d, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
+    int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
+    float scale, int mode, int consumers, int block_k, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (!lab_ok(d, mode, consumers, block_k) || nq <= 0 || nk <= 0 || batch <= 0 || heads <= 0 ||
+      static_cast<int64_t>(batch) * heads > 65535 || !(scale > 0.f)) {
+    return bad;
+  }
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!encode(fn, &tq, false, q, d, nq, heads, batch, q_sn, q_sh, q_sb, 64 * consumers) ||
+      !encode(fn, &tk, false, k, d, nk, heads, batch, k_sn, k_sh, k_sb, block_k) ||
+      !encode(fn, &tv, false, v, d, nk, heads, batch, v_sn, v_sh, v_sb, block_k)) {
+    return bad;
+  }
+  Params p;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o_sb = o_sb;
+  p.o_sn = o_sn;
+  p.o_sh = o_sh;
+  p.sk = nullptr;
+  p.heads = heads;
+  p.nq = nq;
+  p.nk = nk;
+  p.scale = scale;
+  return launch_lab(d, mode, consumers, block_k, tq, tk, tv, p, batch,
+                    static_cast<cudaStream_t>(stream));
+}
+
 // A block's query rows, key tile and dynamic shared memory at head
 // dimension d (int8: K9) on `consumers` warpgroups, as this build lays them
 // out; -1 where not instantiated.
@@ -69,5 +107,13 @@ extern "C" int pd_attention_sm90_block_k(int d, int int8, int consumers) {
 }
 
 extern "C" int pd_attention_sm90_smem(int d, int int8, int consumers) {
-  return consumers_ok(d, int8 != 0, consumers) ? smem_bytes(d, int8 != 0, consumers) : -1;
+  return consumers_ok(d, int8 != 0, consumers)
+             ? smem_bytes(d, int8 != 0, consumers, block_k(int8 != 0, consumers))
+             : -1;
+}
+
+// The dynamic shared memory of a lab mode's block as built; -1 where not
+// instantiated.
+extern "C" int pd_attention_sm90_lab_smem(int d, int mode, int consumers, int block_k) {
+  return lab_ok(d, mode, consumers, block_k) ? smem_bytes(d, false, consumers, block_k) : -1;
 }

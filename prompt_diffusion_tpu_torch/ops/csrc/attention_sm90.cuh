@@ -1,5 +1,6 @@
 // Attention forward on Hopper's warpgroup tensor cores (sm_90a): K1 and K2
-// at head dimensions up to 128 (bf16), and K9 (int8 Q.K^T, bf16 P.V).
+// at head dimensions up to 128 (bf16), K9 (int8 Q.K^T, bf16 P.V), and the
+// attention lab's online (L1) and two-pass (L3) modes.
 //
 // Replaces, on the paths, the TPU kernels of
 // prompt_diffusion_tpu/ops/flash_attention.py:
@@ -17,8 +18,11 @@
 //     prologue `k_head_quant_kernel` (int8_attention.cu), unchanged.
 // Its parents, `fa_narrow_kernel` (flash_attention.cu) and
 // `int8_attn_kernel` (int8_attention.cu), issue Ampere's mma.sync from
-// ldmatrix fragments and stay only as the lab modes' kernels and the
-// parent design that tools/attn_tune.py times beside this one.
+// ldmatrix fragments. They stay as the parent designs that
+// tools/attn_tune.py and the lab time beside this one, for head dimensions
+// this kernel does not instantiate, and as the kernels of the lab modes
+// this one does not take: no softmax (L2, `fa_narrow_kernel`) and per-row
+// K scales (L4, `int8_attn_kernel`).
 //
 // Numerics, as the parents': logits, running max and running sum in fp32;
 // the row maximum over the unscaled logits (bf16) or the exact integer
@@ -100,6 +104,38 @@
 // the P.V's wait forced into the arms of the rescale branch, so that a
 // softmax overlaps its own P.V (0.533; K9 0.553 against 0.540: within the
 // spread); K9 on three consumers at 96-key tiles (0.566 against 0.540).
+//
+// The lab modes (attention_sm90_lab.cu, `attn_sm90_lab_kernel`) are
+// instantiations of the same block with the mode and the key tile as
+// template parameters: two or three consumers (three at D <= 64), 64- or
+// 128-key tiles (`lab_ok`). kOnline, the lab's online softmax at a chosen
+// tile (tools/attn_variants.py::_online_kernel), is K1's loop. kTwoPass
+// stands for the full-K kernels of attn_variants.py, attn_lab2.py and
+// attn_lab3.py, which hold a whole logits row and take one softmax: as the
+// parent's two-pass mode, it makes two passes over the keys.
+//   * the producer streams every K tile once (pass 1), then K and V (pass
+//     2); the K ring's stage and phase run on across both passes (tile j
+//     of pass 2 is ring tile nkt + j), and the V ring idles in pass 1;
+//   * pass 1: Q.K^T in the consumers' turns, the key tail masked on the
+//     last tile, the row maximum of the unscaled logits (scaled once, as
+//     in K1), each K stage released after its wait;
+//   * pass 2: K1's step with m fixed: p = 2^(s * c - m), one FFMA into
+//     ex2, l the sum of the fp32 P, P rounded to bf16 against the exact row
+//     maximum, P.V in fp32, one division at the end: no correction of l or
+//     O and no warp vote. The numbers are the parent two-pass mode's
+//     (flash_attention.cu): only the order of the fp32 sums moves.
+// It computes Q.K^T twice, 1.5x K1's products: at (8,4096,8,64) 0.417 ms
+// of bf16 operations against the function's bound of 0.278. Measured
+// (`tools/attn_tune.py --part lab`, device ms at B = 8, N = 4096, H = 8;
+// NVIDIA H100 80GB HBM3, 700 W): L1 on K1's tile 0.533 (K1's own 0.52-0.54);
+// L3 on K1's tile 0.649-0.656 at D = 40, 0.691-0.697 at 64, 1.092 at 128
+// (SDPA 0.580, 0.601, 0.860; the parent's best tile 1.37-4.6). Pass 1 costs
+// about its products: L3 less K1 at D = 40 is 0.12 ms, against 0.104 ms of
+// padded Q.K^T at the tensor cores' peak. No one unit bounds L3: without
+// the exponentials it saves 4-7%, without the P.V products 1-6%, without
+// the K/V copies after the first stages 3-8%; without the ping-pong D = 64
+// runs 10% slower. 64-key tiles and two consumers lose at every shape (L3
+// at D = 40: 0.869-1.046).
 // One build-time switch, PD_SM90_ABLATE, is for tools/attn_tune.py's
 // ablated copies: it takes a part out (1 the exponentials, 2 the P.V
 // products, 4 the K/V copies after the first stages, 8 the ping-pong); an
@@ -139,15 +175,25 @@ __host__ __device__ constexpr int block_k(bool int8, int nc) {
 // 65536 (40 * 128 + 232 * 256, 32 * 128 + 160 * 384)
 __host__ __device__ constexpr int producer_regs(int nc) { return nc == 2 ? 40 : 32; }
 __host__ __device__ constexpr int consumer_regs(int nc) { return nc == 2 ? 232 : 160; }
+// the modes, numbered as flash_attention.cu's: K1's online softmax, and the
+// lab's two passes over the keys
+constexpr int kOnline = 0, kTwoPass = 2;
+// the lab modes' instantiations (attention_sm90_lab.cu): kOnline at D = 40
+// (L1), kTwoPass at D = 40, 64 and 128 (L3 and its heads padded to 64 and
+// 128); two or three consumers (three at D <= 64), 64- or 128-key tiles
+__host__ __device__ constexpr bool lab_ok(int d, int mode, int nc, int bk) {
+  return (mode == kOnline ? d == 40 : mode == kTwoPass && (d == 40 || d == 64 || d == 128)) &&
+         (nc == 2 || (nc == 3 && d <= 64)) && (bk == 64 || bk == 128);
+}
 // 128-byte column blocks of a bf16 Q or V row, of a K row
 __host__ __device__ constexpr int qv_blocks(int d) { return (2 * d + SPAN - 1) / SPAN; }
 __host__ __device__ constexpr int k_blocks(int d, bool int8) {
   return int8 ? (d + SPAN - 1) / SPAN : qv_blocks(d);
 }
-// dynamic shared memory of a block: Q, the K and V stages, the alignment slack
-__host__ __device__ constexpr int smem_bytes(int d, bool int8, int nc) {
-  return (qv_blocks(d) * 64 * nc + NS * (k_blocks(d, int8) + qv_blocks(d)) * block_k(int8, nc)) *
-             SPAN + 1024;
+// dynamic shared memory of a block: Q, the K and V stages of bk-key tiles,
+// the alignment slack
+__host__ __device__ constexpr int smem_bytes(int d, bool int8, int nc, int bk) {
+  return (qv_blocks(d) * 64 * nc + NS * (k_blocks(d, int8) + qv_blocks(d)) * bk) * SPAN + 1024;
 }
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ABLATE = PD_SM90_ABLATE;
@@ -156,10 +202,10 @@ constexpr int ABL_NO_EXP = 1, ABL_NO_PV = 2, ABL_NO_COPY = 4, ABL_NO_PINGPONG = 
 // Shared memory of a block: Q (QB column blocks of BQ rows), then NS K
 // stages (KB blocks of BK rows), then NS V stages (QB blocks of BK rows),
 // every block 1024-byte aligned; the mbarriers are static.
-template <int D, bool INT8, int NC_>
+template <int D, bool INT8, int NC_, int BK_ = block_k(INT8, NC_)>
 struct Plan {
   static constexpr int NC = NC_;
-  static constexpr int BK = block_k(INT8, NC);     // keys of a tile
+  static constexpr int BK = BK_;                   // keys of a tile
   static constexpr int BQ = 64 * NC;               // query rows of a block
   static constexpr int NTHREADS = 128 * (1 + NC);  // the producer warpgroup, then the consumers
   static constexpr int QB = qv_blocks(D);
@@ -169,10 +215,12 @@ struct Plan {
   static constexpr int V_STAGE = QB * BK * SPAN;
   static constexpr int OFF_K = Q_BYTES;
   static constexpr int OFF_V = OFF_K + NS * K_STAGE;
-  static constexpr int SMEM = smem_bytes(D, INT8, NC);
+  static constexpr int SMEM = smem_bytes(D, INT8, NC, BK);
   static constexpr int KSTEPS = INT8 ? (D + 31) / 32 : (D + 15) / 16;  // k-steps of Q.K^T
   static_assert(SMEM == OFF_V + NS * V_STAGE + 1024 && SMEM <= SMEM_MAX, "shared memory");
-  static_assert(consumers_ok(D, INT8, NC), "consumers");
+  // three consumers' O accumulators fit their registers only at D <= 64
+  static_assert(NC == 2 || (NC == 3 && D <= 64), "consumers");
+  static_assert(BK == 64 || BK == 112 || BK == 128, "key tile");
   static_assert(D % 8 == 0 && D <= 128, "head dimension");
   // the depth of Q.K^T within a Q tile row (bf16) and a K tile row
   static_assert(KSTEPS * (INT8 ? 32 : 16) <= QB * 64 &&
@@ -310,6 +358,21 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[64], uint64_t da, uint6
                    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
                    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
                    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+               : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x 64) = or += A (64 x 16, shared) * B (64 x 16, shared, K-major)^T, bf16 into fp32
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+                   "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+                   "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+                   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+                   "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+                   "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+                   "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+                   "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
                : "l"(da), "l"(db), "r"(acc));
 }
 
@@ -501,10 +564,13 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* smem) {
 
 // ---- the kernel ------------------------------------------------------------------
 
-template <int D, bool INT8, int NC_>
+// MODE: kOnline (K1, K2, K9, L1) or kTwoPass (L3, bf16 only); BK_: the key
+// tile
+template <int D, bool INT8, int NC_, int BK_ = block_k(INT8, NC_), int MODE = kOnline>
 __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorMap* tk,
                                           const CUtensorMap* tv, const Params& p) {
-  using L = Plan<D, INT8, NC_>;
+  static_assert(MODE == kOnline || (MODE == kTwoPass && !INT8), "mode");
+  using L = Plan<D, INT8, NC_, BK_>;
   using A = typename Acc<INT8>::type;
   constexpr int NC = L::NC, BQ = L::BQ, CT = 128 * NC;  // consumers, query rows, consumer threads
   constexpr int BK = L::BK;
@@ -527,6 +593,9 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
   const int q0 = blockIdx.x * BQ;
   const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
   const int nkt = (p.nk + BK - 1) / BK;
+  // K ring tiles ahead of the key loop: kTwoPass's pass 1 streams every K
+  // tile once, so key tile j of the loop is ring tile k0 + j
+  const int k0 = MODE == kTwoPass ? nkt : 0;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -549,19 +618,35 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
       mbar_expect_tx(q_full, L::Q_BYTES);
 #pragma unroll
       for (int qb = 0; qb < L::QB; ++qb) tma_load(s_base + qb * BQ * SPAN, tq, q_full, qb * 64, q0, h, b);
+      if constexpr (MODE == kTwoPass) {  // pass 1: K alone, ring tiles 0 .. nkt - 1
+        for (int j = 0; j < nkt; ++j) {
+          const int s = j % NS;
+          mbar_wait(empty_k(s), ((j / NS) & 1) ^ 1);  // the first round finds the stages free
+          if (!(ABLATE & ABL_NO_COPY) || j < NS) {
+            mbar_expect_tx(full_k(s), L::K_STAGE);
+#pragma unroll
+            for (int kb = 0; kb < L::KB; ++kb) {
+              tma_load(k_tile(s) + kb * BK * SPAN, tk, full_k(s), kb * KE, j * BK, h, b);
+            }
+          } else {
+            mbar_arrive(full_k(s));
+          }
+        }
+      }
       for (int j = 0; j < nkt; ++j) {
-        const int s = j % NS;
+        const int s = j % NS, sk = (k0 + j) % NS;  // the V and K ring stages of key tile j
         const uint32_t ph = ((j / NS) & 1) ^ 1;  // the first round finds the stages free
+        const uint32_t phk = (((k0 + j) / NS) & 1) ^ 1;
         const bool copy = !(ABLATE & ABL_NO_COPY) || j < NS;
-        mbar_wait(empty_k(s), ph);
+        mbar_wait(empty_k(sk), phk);
         if (copy) {
-          mbar_expect_tx(full_k(s), L::K_STAGE);
+          mbar_expect_tx(full_k(sk), L::K_STAGE);
 #pragma unroll
           for (int kb = 0; kb < L::KB; ++kb) {
-            tma_load(k_tile(s) + kb * BK * SPAN, tk, full_k(s), kb * KE, j * BK, h, b);
+            tma_load(k_tile(sk) + kb * BK * SPAN, tk, full_k(sk), kb * KE, j * BK, h, b);
           }
         } else {
-          mbar_arrive(full_k(s));
+          mbar_arrive(full_k(sk));
         }
         mbar_wait(empty_v(s), ph);
         if (copy) {
@@ -693,17 +778,12 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
     }
     wgmma_commit();
   };
-  // tile j's logits in s to probabilities (fp32, in place), the new row
-  // maxima and sums; corr: the factor of the rows' earlier O. Straight-line
-  // code: ptxas keeps a wgmma group in flight only across code without
-  // branches, so the key tail (`masked`, the last tile) is masked by
-  // selects in a separate instantiation.
-  auto softmax = [&](int j, float (&corr)[2], auto masked) {
-    if constexpr (INT8) {
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) put_f(s[i], s32_to_f32(s[i]));
-    }
-    if constexpr (decltype(masked)::value) {  // the key tail to -inf
+  // the key tail of tile j's logits to -inf where `masked` (the last tile).
+  // Straight-line code: ptxas keeps a wgmma group in flight only across
+  // code without branches, so the tail is masked by selects in a separate
+  // instantiation.
+  auto mask_tail = [&](int j, auto masked) {
+    if constexpr (decltype(masked)::value) {
 #pragma unroll
       for (int n = 0; n < NS8; ++n) {
         const int col = j * BK + n * 8 + 2 * t;
@@ -714,8 +794,12 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
         put_f(s[4 * n + 3], out1 ? -INFINITY : as_f(s[4 * n + 3]));
       }
     }
-    // the row maxima in four partial chains each (a maximum is exact in any
-    // order): a short dependency chain ahead of the exponentials
+  };
+  // the row maxima of rows g and g + 8 over m and the tile's logits, in
+  // log2 units (scaled once: c > 0), in four partial chains each (a
+  // maximum is exact in any order): a short dependency chain ahead of the
+  // exponentials
+  auto new_max = [&](float (&mx)[2]) {
     float r0[4], r1[4];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
@@ -727,14 +811,27 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
       r0[n % 4] = fmaxf(r0[n % 4], fmaxf(as_f(s[4 * n]), as_f(s[4 * n + 1])));
       r1[n % 4] = fmaxf(r1[n % 4], fmaxf(as_f(s[4 * n + 2]), as_f(s[4 * n + 3])));
     }
-    const float mx[2] = {
-        fmaxf(m[0], quad_max(fmaxf(fmaxf(r0[0], r0[1]), fmaxf(r0[2], r0[3]))) * kf[0]),
-        fmaxf(m[1], quad_max(fmaxf(fmaxf(r1[0], r1[1]), fmaxf(r1[2], r1[3]))) * kf[1])};
+    mx[0] = fmaxf(m[0], quad_max(fmaxf(fmaxf(r0[0], r0[1]), fmaxf(r0[2], r0[3]))) * kf[0]);
+    mx[1] = fmaxf(m[1], quad_max(fmaxf(fmaxf(r1[0], r1[1]), fmaxf(r1[2], r1[3]))) * kf[1]);
+  };
+  // tile j's logits in s to probabilities (fp32, in place) and the row
+  // sums; kOnline also the new row maxima and corr, the factor of the rows'
+  // earlier O (kTwoPass: m is the exact row maximum, from pass 1)
+  auto softmax = [&](int j, float (&corr)[2], auto masked) {
+    if constexpr (INT8) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      corr[r] = ex2(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
-      m[r] = mx[r];
-      l[r] *= corr[r];
+      for (int i = 0; i < BK / 2; ++i) put_f(s[i], s32_to_f32(s[i]));
+    }
+    mask_tail(j, masked);
+    if constexpr (MODE == kOnline) {
+      float mx[2];
+      new_max(mx);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        corr[r] = ex2(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+        m[r] = mx[r];
+        l[r] *= corr[r];
+      }
     }
 #pragma unroll
     for (int n = 0; n < NS8; ++n) {  // p = 2^(s * c - m), one FFMA
@@ -761,15 +858,40 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
     }
   };
   const bool ragged = p.nk % BK != 0;  // the last tile holds the key tail
+  if constexpr (MODE == kTwoPass) {
+    // pass 1: the exact row maxima, each tile's Q.K^T in this consumer's
+    // turn, its K stage released after the wait
+    auto max_step = [&](int j, auto masked) {
+      const int st = j % NS;
+      mbar_wait(full_k(st), (j / NS) & 1);
+      my_turn();
+      issue_qk(st);
+      their_turn();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_arrive(empty_k(st));
+      mask_tail(j, masked);
+      float mx[2];
+      new_max(mx);
+      m[0] = mx[0];
+      m[1] = mx[1];
+    };
+    for (int j = 0; j < nkt - 1; ++j) max_step(j, Flag<false>());
+    if (ragged) {
+      max_step(nkt - 1, Flag<true>());
+    } else {
+      max_step(nkt - 1, Flag<false>());
+    }
+  }
   // tile 0: S only
   float corr[2];
-  mbar_wait(full_k(0), 0);
+  mbar_wait(full_k(k0 % NS), (k0 / NS) & 1);
   my_turn();
-  issue_qk(0);
+  issue_qk(k0 % NS);
   their_turn();
   wgmma_wait<0>();
   fence_regs(s);
-  mbar_arrive(empty_k(0));
+  mbar_arrive(empty_k(k0 % NS));
   if (ragged && nkt == 1) {
     softmax(0, corr, Flag<true>());
   } else {
@@ -779,8 +901,8 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
   // tile j: S_j, then P_{j-1} V_{j-1} behind it; the softmax of S_j while
   // that product runs
   auto step = [&](int j, auto masked) {
-    const int st = j % NS, prev = (j - 1) % NS;
-    mbar_wait(full_k(st), (j / NS) & 1);
+    const int st = (k0 + j) % NS, prev = (j - 1) % NS;
+    mbar_wait(full_k(st), ((k0 + j) / NS) & 1);
     my_turn();
     issue_qk(st);
     mbar_wait(full_v(prev), ((j - 1) / NS) & 1);
@@ -793,13 +915,15 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
     wgmma_wait<0>();  // the P.V in flight, then O *= corr where a row maximum of the warp moved
     fence_regs(o);
     fence_regs(pa);
-    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+    if constexpr (MODE == kOnline) {
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        o[4 * n] *= corr[0];
-        o[4 * n + 1] *= corr[0];
-        o[4 * n + 2] *= corr[1];
-        o[4 * n + 3] *= corr[1];
+        for (int n = 0; n < NO; ++n) {
+          o[4 * n] *= corr[0];
+          o[4 * n + 1] *= corr[0];
+          o[4 * n + 2] *= corr[1];
+          o[4 * n + 3] *= corr[1];
+        }
       }
     }
     mbar_arrive(empty_v(prev));
@@ -862,6 +986,16 @@ __global__ void __launch_bounds__(Plan<D, true, NC>::NTHREADS, 1)
   attn_sm90<D, true, NC>(&tq, &tk, &tv, p);
 }
 
+// The lab modes L1 (kOnline) and L3 (kTwoPass) on bf16 Q, K, V, at BK-key
+// tiles on NC consumers (attention_sm90_lab.cu)
+template <int D, int NC, int BK, int MODE>
+__global__ void __launch_bounds__(Plan<D, false, NC, BK>::NTHREADS, 1)
+    attn_sm90_lab_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, const Params p) {
+  attn_sm90<D, false, NC, BK, MODE>(&tq, &tk, &tv, p);
+}
+
 // ---- launches --------------------------------------------------------------------
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -910,22 +1044,14 @@ inline bool encode(EncodeTiled fn, CUtensorMap* map, bool bytes, const void* bas
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Internal linkage: a function-local static of a function with external
-// linkage is one object across every library loaded in the process
-// (STB_GNU_UNIQUE), so another library's build of this header (attn_tune's
-// copies) would mark this library's kernels as set up.
-template <int D, bool INT8, int NC>
-static int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                  const Params& p, int batch, cudaStream_t stream) {
-  using L = Plan<D, INT8, NC>;
-  void (*kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const Params);
-  if constexpr (INT8) {
-    kernel = attn_sm90_int8_kernel<D, NC>;
-  } else {
-    kernel = attn_sm90_bf16_kernel<D>;
-  }
-  // the shared-memory limit, set once per instantiation and device
-  static bool smem_set[MAX_DEVICES] = {};
+typedef void (*Kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const Params);
+
+// `kernel` with plan L, a block per query block of one (batch, head); the
+// shared-memory limit set once per device (`smem_set`: the instantiation's).
+template <typename L>
+static int launch_plan(Kernel kernel, bool (&smem_set)[MAX_DEVICES], const CUtensorMap& tq,
+                       const CUtensorMap& tk, const CUtensorMap& tv, const Params& p, int batch,
+                       cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -939,13 +1065,41 @@ static int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMa
   return static_cast<int>(cudaGetLastError());
 }
 
+// Internal linkage: a function-local static of a function with external
+// linkage is one object across every library loaded in the process
+// (STB_GNU_UNIQUE), so another library's build of this header (attn_tune's
+// copies) would mark this library's kernels as set up.
+template <int D, bool INT8, int NC>
+static int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                  const Params& p, int batch, cudaStream_t stream) {
+  static bool smem_set[MAX_DEVICES] = {};
+  if constexpr (INT8) {
+    return launch_plan<Plan<D, true, NC>>(attn_sm90_int8_kernel<D, NC>, smem_set, tq, tk, tv, p,
+                                          batch, stream);
+  } else {
+    return launch_plan<Plan<D, false, NC>>(attn_sm90_bf16_kernel<D>, smem_set, tq, tk, tv, p,
+                                           batch, stream);
+  }
+}
+
+template <int D, int NC, int BK, int MODE>
+static int launch_lab_at(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                         const Params& p, int batch, cudaStream_t stream) {
+  static bool smem_set[MAX_DEVICES] = {};
+  return launch_plan<Plan<D, false, NC, BK>>(attn_sm90_lab_kernel<D, NC, BK, MODE>, smem_set, tq,
+                                             tk, tv, p, batch, stream);
+}
+
 // The launches of each instantiation, one translation unit per dtype
-// (attention_sm90_bf16.cu, attention_sm90_int8.cu) so that the build
-// compiles them side by side; cudaErrorInvalidValue for a head dimension
-// or consumer count not instantiated.
+// (attention_sm90_bf16.cu, attention_sm90_int8.cu) and one for the lab
+// modes (attention_sm90_lab.cu) so that the build compiles them side by
+// side; cudaErrorInvalidValue for a head dimension, consumer count, mode
+// or key tile not instantiated.
 int launch_bf16(int d, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                 const Params& p, int batch, cudaStream_t stream);
 int launch_int8(int d, int nc, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                 const Params& p, int batch, cudaStream_t stream);
+int launch_lab(int d, int mode, int nc, int bk, const CUtensorMap& tq, const CUtensorMap& tk,
+               const CUtensorMap& tv, const Params& p, int batch, cudaStream_t stream);
 
 }  // namespace pd_sm90

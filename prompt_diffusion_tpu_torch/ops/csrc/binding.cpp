@@ -52,6 +52,12 @@ extern "C" int pd_attention_sm90_fwd(
 extern "C" int pd_attention_sm90_smem(int d, int int8, int consumers);
 extern "C" int pd_attention_sm90_block_k(int d, int int8, int consumers);
 extern "C" int pd_attention_sm90_block_q(int d, int int8, int consumers);
+extern "C" int pd_attention_sm90_lab_fwd(
+    const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
+    int d, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
+    int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
+    float scale, int mode, int consumers, int block_k, void* stream);
+extern "C" int pd_attention_sm90_lab_smem(int d, int mode, int consumers, int block_k);
 extern "C" int pd_attention_sm90_wide_fwd(
     const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
     int d, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
@@ -167,6 +173,21 @@ void attention_sm90_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, uintptr_t v, uin
       static_cast<float>(scale), consumers, ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("attention_sm90_fwd launch failed: ") +
+                             pd_cuda_error_string(err));
+  }
+}
+
+void attention_sm90_lab_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o, int batch,
+                            int heads, int nq, int nk, int d, int64_t q_sb, int64_t q_sn,
+                            int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh, int64_t v_sb,
+                            int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
+                            double scale, int mode, int consumers, int block_k, uintptr_t stream) {
+  const int err = pd_attention_sm90_lab_fwd(
+      ptr(q), ptr(k), ptr(v), ptr(o), batch, heads, nq, nk, d, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
+      v_sb, v_sn, v_sh, o_sb, o_sn, o_sh, static_cast<float>(scale), mode, consumers, block_k,
+      ptr(stream));
+  if (err != 0) {
+    throw std::runtime_error(std::string("attention_sm90_lab_fwd launch failed: ") +
                              pd_cuda_error_string(err));
   }
 }
@@ -287,6 +308,13 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Keys per tile of the sm90 attention kernel as built (-1: not instantiated)");
   m.def("attention_sm90_block_q", &pd_attention_sm90_block_q,
         "Query rows per block of the sm90 attention kernel as built (-1: not instantiated)");
+  m.def("attention_sm90_lab_fwd", &attention_sm90_lab_fwd,
+        "The attention lab's online (mode 0, L1) and two-pass (mode 2, L3) modes on warpgroup "
+        "tensor cores over strided bf16 (B, N, H, D) views, on `consumers` warpgroups of 64 "
+        "query rows and `block_k`-key tiles");
+  m.def("attention_sm90_lab_smem", &pd_attention_sm90_lab_smem,
+        "Shared-memory bytes of a block of a lab mode of the sm90 kernel at head dim d, mode, "
+        "consumers and key tile as built (-1: not instantiated)");
   m.def("attention_sm90_wide_fwd", &attention_sm90_wide_fwd,
         "K2 at D = 512 on warpgroup tensor cores over strided bf16 (B, N, H, 512) views");
   m.def("attention_sm90_wide_plan", &pd_attention_sm90_wide_plan,

@@ -20,10 +20,17 @@ kernel a call runs, by mode, head dimension and dtype:
     consumer warpgroups own 256 of O's columns each over the same 64 query
     rows, the logits summed from two half-depth partials (`wide_plan`
     states its layout, `WidePlan.grid` its grid);
+  * the lab modes L1 (`flash_attention_tiled`) and L3
+    (`flash_attention_two_pass`) at the head dims of SM90_LAB_HEAD_DIMS
+    run `csrc/attention_sm90_lab.cu`'s instantiations of the same kernel
+    at a tile of SM90_LAB_TILES (`sm90_lab_plan`); at any other head dim
+    or tile a CUDA tensor is refused;
   * other head dims above 128 run the wide kernel of
     `csrc/flash_attention.cu` (the parent of the D = 512 kernel); other
-    head dims up to 128 and the lab modes its narrow kernel at a tile of
-    LAB_TILES (`kernel_tile`), the parent design of the sm90 kernel;
+    head dims up to 128 and the no-softmax lab mode its narrow kernel at a
+    tile of LAB_TILES (`kernel_tile`), the parent design of the sm90
+    kernel, which `_parent_launch` also runs at any mode and tile of its
+    own (the parent's times beside the new kernel's);
   * K9's lab mode with per-row K runs `csrc/int8_attention.cu`'s
     `int8_attn_kernel` (at `int8_block_q` query rows per block, D in
     INT8_PARENT_HEAD_DIMS), the sm90 int8 kernel's parent.
@@ -37,17 +44,18 @@ scratch allocation, with the plans worked out once per shape
 (`_int8_sm90_setup`). `quant_k_int8` runs the prologue alone.
 
 The lab kernels of `tools/attn_variants.py`, `attn_lab2.py`, `attn_lab3.py`
-and `attn_int8_lab.py` are modes of the same two sources (the bf16 modes
-of the narrow kernel, D <= 128), each with its own wrapper and launch
-count:
-  * `flash_attention_tiled`: online softmax with chosen query and key tiles
-    (`_online_kernel`);
-  * `attention_no_softmax`: O = sum_j bf16(s_ij * scale) V_j
-    (`_online_kernel` with do_softmax=False);
-  * `flash_attention_two_pass`: the exact row maximum first, then one
-    softmax with no rescaling (the full-K kernels);
-  * `flash_attention_packed_int8_rowk`: K9 with one K scale per key row
-    (`_kernel_v2`); `_kernel_v3` is K9 itself.
+and `attn_int8_lab.py` are modes of the same kernels, each with its own
+wrapper and launch count:
+  * `flash_attention_tiled` (L1): online softmax with chosen query and key
+    tiles (`_online_kernel`), K1's loop on the sm90 kernel;
+  * `attention_no_softmax` (L2): O = sum_j bf16(s_ij * scale) V_j
+    (`_online_kernel` with do_softmax=False), the narrow kernel's mode;
+  * `flash_attention_two_pass` (L3): the exact row maximum first, then one
+    softmax with no rescaling (the full-K kernels), the sm90 kernel's
+    two-pass mode;
+  * `flash_attention_packed_int8_rowk` (L4): K9 with one K scale per key
+    row (`_kernel_v2`), the parent `int8_attn_kernel`; `_kernel_v3` is K9
+    itself.
 `prompt_diffusion_tpu_torch/tools/attn_lab.py` runs them.
 """
 
@@ -93,7 +101,9 @@ NARROW_D, WIDE_TILE = 128, (64, 32)
 # K1's tile: the fastest of LAB_TILES at both SD1.5 heads, D = 40 (64²) and
 # 80 (32²), in the paths' CFG batch (`tools/attn_tune.py`, PERF.md)
 NARROW_TILE = (128, 64)
-_MODES = {"online": 0, "no_softmax": 1, "two_pass": 2}
+# the kernels' mode codes (csrc/flash_attention.cu, attention_sm90.cuh); the
+# lab's "tiled" (L1) is the online mode at a chosen tile
+_MODES = {"online": 0, "tiled": 0, "no_softmax": 1, "two_pass": 2}
 
 
 def kernel_tile(d: int) -> tuple:
@@ -120,18 +130,27 @@ SM90_BLOCK_K, SM90_INT8_BLOCK_K = 128, 112
 SM90_INT8_THREE_CONSUMER_GAIN = 1.1
 SWIZZLE_SPAN, SMEM_PER_BLOCK = 128, 232448
 _ROUTE_MODES = ("online", "tiled", "no_softmax", "two_pass", "int8", "int8_rowk")
+# csrc/attention_sm90_lab.cu: the lab modes L1 ("tiled") and L3
+# ("two_pass") on the sm90 kernel at these head dims (L3 also at lab3's
+# heads padded from 40 to 64 and 128), at (block_q, block_k) tiles of
+# SM90_LAB_TILES: SM90_CONSUMER_ROWS query rows per consumer warpgroup (two,
+# or three at D <= SM90_WIDE_CONSUMERS_D) and 64- or 128-key tiles
+SM90_LAB_HEAD_DIMS = {"tiled": (40,), "two_pass": (40, 64, 128)}
+SM90_LAB_TILES = ((128, 64), (128, 128), (192, 64), (192, 128))
 
 
 def attention_route(mode: str, d: int, dtype=torch.bfloat16) -> str:
     """The kernel a call on the card runs. `mode`: "online" (K1, K2),
     "tiled", "no_softmax", "two_pass" (the labs at a chosen tile), "int8"
     (K9) or "int8_rowk" (the lab's per-row K). Returns "sm90" or
-    "int8_sm90" (csrc/attention_sm90.cuh), "wide_sm90"
+    "int8_sm90" (csrc/attention_sm90.cuh; the labs' "tiled" and "two_pass"
+    at SM90_LAB_HEAD_DIMS through csrc/attention_sm90_lab.cu), "wide_sm90"
     (csrc/attention_sm90_wide.cuh, the online mode at WIDE_HEAD_DIM),
     "narrow" or "wide" (flash_attention.cu's fa_narrow_kernel,
-    fa_wide_kernel) or "int8_parent" (int8_attention.cu's
-    int8_attn_kernel). Raises ValueError for what no kernel takes: the
-    kernels read bf16."""
+    fa_wide_kernel; for "tiled" and "two_pass" only the parent has that
+    head dim, `_parent_launch`, and their wrappers refuse a CUDA tensor
+    there) or "int8_parent" (int8_attention.cu's int8_attn_kernel).
+    Raises ValueError for what no kernel takes: the kernels read bf16."""
     if mode not in _ROUTE_MODES:
         raise ValueError(f"unknown attention mode {mode!r}; one of {_ROUTE_MODES}")
     if dtype != torch.bfloat16:
@@ -144,7 +163,9 @@ def attention_route(mode: str, d: int, dtype=torch.bfloat16) -> str:
         return "int8_parent"
     if d > NARROW_D:
         return "wide_sm90" if mode == "online" and d == WIDE_HEAD_DIM else "wide"
-    return "sm90" if mode == "online" and d in SM90_HEAD_DIMS else "narrow"
+    if mode == "online":
+        return "sm90" if d in SM90_HEAD_DIMS else "narrow"
+    return "sm90" if d in SM90_LAB_HEAD_DIMS.get(mode, ()) else "narrow"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,17 +177,22 @@ class Sm90Plan:
     wgmma's k16, or for int8 codes its k32, over zero pads: Q's are TMA's
     zero fill) and the N of P.V (D); the dynamic shared memory of a block
     (Q, the K and V stages, the 1024-byte alignment slack); and the bytes
-    between the heads of K9's codes (`k_head_bytes`)."""
+    between the heads of K9's codes (`k_head_bytes`). A lab mode's plan
+    (`sm90_lab_plan`) names its key tile (`key_tile`)."""
 
     d: int
     int8: bool
     consumers: int
     stages: int = SM90_STAGES
+    key_tile: Optional[int] = None
 
     @property
     def block_k(self) -> int:
-        """Keys of a tile: 128; 112 for K9 on three consumers, whose 160
-        registers a thread hold 128-key tiles only with spills."""
+        """Keys of a tile: the lab's `key_tile`, else 128; 112 for K9 on
+        three consumers, whose 160 registers a thread hold 128-key tiles
+        only with spills."""
+        if self.key_tile is not None:
+            return self.key_tile
         return SM90_INT8_BLOCK_K if self.int8 and self.consumers == 3 else SM90_BLOCK_K
 
     @property
@@ -255,6 +281,56 @@ def sm90_plan(d: int, int8: bool = False, consumers: Optional[int] = None) -> Sm
         raise ValueError(f"the sm90 kernel at D = {d} runs {default} consumers"
                          + (" (K9 also 2)" if int8 and default == 3 else "") + f", not {consumers}")
     return Sm90Plan(d=d, int8=int8, consumers=consumers)
+
+
+def sm90_lab_tile(d: int) -> tuple:
+    """K1's (block_q, block_k) tile at head dim `d`: the lab wrappers'
+    default."""
+    return SM90_CONSUMER_ROWS * sm90_consumers(d, False), SM90_BLOCK_K
+
+
+def sm90_lab_tiles(d: int, mode: str) -> tuple:
+    """The tiles of SM90_LAB_TILES instantiated for the lab mode `mode` at
+    head dim `d` (none where the mode does not take `d`): three consumers
+    only at D <= SM90_WIDE_CONSUMERS_D."""
+    if d not in SM90_LAB_HEAD_DIMS.get(mode, ()):
+        return ()
+    return tuple(t for t in SM90_LAB_TILES
+                 if t[0] <= 2 * SM90_CONSUMER_ROWS or d <= SM90_WIDE_CONSUMERS_D)
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_lab_plan(d: int, mode: str, tile: Optional[tuple] = None) -> Sm90Plan:
+    """The plan of a lab mode on the sm90 kernel ("tiled": L1, "two_pass":
+    L3) at head dim `d` and a (block_q, block_k) `tile` of SM90_LAB_TILES
+    (`sm90_lab_tile(d)` by default): block_q / SM90_CONSUMER_ROWS consumer
+    warpgroups and block_k-key tiles. ValueError where it is not
+    instantiated: another mode, head dim or tile, three consumers above
+    D = SM90_WIDE_CONSUMERS_D, or more shared memory than a block has."""
+    dims = SM90_LAB_HEAD_DIMS.get(mode)
+    if dims is None:
+        raise ValueError(f"the sm90 kernel runs the lab modes {tuple(SM90_LAB_HEAD_DIMS)}, "
+                         f"not {mode!r}")
+    if d not in dims:
+        raise ValueError(f"the sm90 kernel's {mode} mode takes head dims {dims}, not {d}")
+    tile = sm90_lab_tile(d) if tile is None else tuple(tile)
+    if tile not in sm90_lab_tiles(d, mode):
+        raise ValueError(f"tiles {tile} are not instantiated at D = {d}; one of "
+                         f"{sm90_lab_tiles(d, mode)}")
+    plan = Sm90Plan(d=d, int8=False, consumers=tile[0] // SM90_CONSUMER_ROWS, key_tile=tile[1])
+    if plan.smem > SMEM_PER_BLOCK:
+        raise ValueError(f"the {mode} plan at D = {d}, tiles {tile} needs {plan.smem} bytes of "
+                         f"shared memory, above {SMEM_PER_BLOCK}")
+    return plan
+
+
+def lab_parent_tile(tile: tuple) -> tuple:
+    """The parent's tile (LAB_TILES) that the lab times beside the sm90
+    kernel's `tile`: the same key tile, and the parent's 4 or 8 warps of
+    16 rows (64 or 128 query rows) beside two or three consumer warpgroups
+    of 64."""
+    block_q, block_k = tile
+    return block_q - SM90_CONSUMER_ROWS, block_k
 
 
 # csrc/attention_sm90_wide.cuh: K2 in the online mode at WIDE_HEAD_DIM. A
@@ -388,8 +464,9 @@ def sm90_tensor_maps(plan: Sm90Plan, q, k, v) -> tuple:
                  (("q", q, plan.block_q), ("k", k, plan.block_k), ("v", v, plan.block_k)))
 
 
-def _check(q, k, v, scale: float, mode: str, tile: tuple) -> None:
-    """Raise ValueError for what the kernel refuses, before any build."""
+def _check(q, k, v, scale: float) -> None:
+    """Raise ValueError for the inputs no attention kernel takes, before any
+    build."""
     b, nq, h, d = q.shape
     if not scale > 0:
         raise ValueError(f"scale {scale} must be positive (the kernel takes the row maximum "
@@ -406,16 +483,13 @@ def _check(q, k, v, scale: float, mode: str, tile: tuple) -> None:
             raise ValueError(f"{name} rows must be dense and 16-byte aligned, strides {st}")
     if d % 8 or d > 512:
         raise ValueError(f"head dim {d} not supported (needs D % 8 == 0 and D <= 512)")
-    if d > NARROW_D and (mode != "online" or tuple(tile) != WIDE_TILE):
-        raise ValueError(f"head dim {d} > {NARROW_D} runs only the online mode at {WIDE_TILE}")
-    if d <= NARROW_D and tuple(tile) not in LAB_TILES:
-        raise ValueError(f"tiles {tuple(tile)} are not instantiated; one of {LAB_TILES}")
 
 
 def _sm90_launch(q, k, v, scale: float) -> torch.Tensor:
     """`attention_sm90.cuh` on bf16 (B, N, H, D) views that
-    `sm90_check_view` passed (K1, K2; K9's launch is `_int8_sm90_launch`);
-    returns a contiguous (B, Nq, H, D) bf16 tensor."""
+    `sm90_check_view` passed (K1, K2; K9's launch is `_int8_sm90_launch`,
+    the lab modes' `_lab_sm90_launch`); returns a contiguous (B, Nq, H, D)
+    bf16 tensor."""
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     b, nq, h, d = q.shape
@@ -445,23 +519,64 @@ def _wide_launch(q, k, v, scale: float) -> torch.Tensor:
     return out
 
 
-def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] = None
-            ) -> torch.Tensor:
-    """Run a CUDA kernel on (B, N, H, D) views: the kernel `attention_route`
-    names for `mode` without a tile (K1's and K2's), `flash_attention.cu`
-    at `tile` with one; returns a contiguous (B, Nq, H, D) tensor."""
+def _lab_sm90_launch(q, k, v, scale: float, mode: str, tile: tuple) -> torch.Tensor:
+    """`attention_sm90_lab.cu`: the lab mode `mode` ("tiled", "two_pass")
+    on bf16 (B, N, H, D) views at `tile` (`sm90_lab_plan`); every refusal
+    before any build. Returns a contiguous (B, Nq, H, D) bf16 tensor."""
+    b, nq, h, d = q.shape
+    _check(q, k, v, scale)
+    plan = sm90_lab_plan(d, mode, tuple(tile))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        sm90_check_view(name, t)
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
-    b, nq, h, d = q.shape
-    _check(q, k, v, scale, mode, kernel_tile(d) if tile is None else tile)
-    route = attention_route(mode if tile is None or mode != "online" else "tiled", d, q.dtype)
+    out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        cuda_ext().attention_sm90_lab_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[1], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], float(scale),
+            _MODES[mode], plan.consumers, plan.block_k,
+            torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _launch(q, k, v, scale: float) -> torch.Tensor:
+    """K1's and K2's launch on (B, N, H, D) views: the kernel
+    `attention_route("online", D)` names, the parent `flash_attention.cu`
+    at `kernel_tile(D)` where no sm90 kernel takes D; returns a contiguous
+    (B, Nq, H, D) tensor."""
+    d = q.shape[-1]
+    _check(q, k, v, scale)
+    route = attention_route("online", d, q.dtype)
     if route in ("sm90", "wide_sm90"):
         for name, t in (("q", q), ("k", k), ("v", v)):
             sm90_check_view(name, t)
         if route == "wide_sm90":
             return _wide_launch(q, k, v, scale)
         return _sm90_launch(q, k, v, scale)
-    tile = kernel_tile(d) if tile is None else tile
+    return _parent_launch(q, k, v, scale, "online", kernel_tile(d))
+
+
+def _parent_launch(q, k, v, scale: float, mode: str, tile: tuple) -> torch.Tensor:
+    """`flash_attention.cu`, the parent design, on (B, N, H, D) views:
+    `fa_narrow_kernel` in `mode` ("online", "no_softmax", "two_pass") at a
+    `tile` of LAB_TILES up to D = NARROW_D, `fa_wide_kernel` online at
+    WIDE_TILE above. The no-softmax lab mode and K1/K2 at head dims no sm90
+    kernel takes run it; so do the parent's times beside the sm90 kernels
+    (`chip_smoke.py`, the lab, `tools/attn_tune.py`). Counts its launches
+    in `_parent_launch.launches`. Returns a contiguous (B, Nq, H, D)
+    tensor."""
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    b, nq, h, d = q.shape
+    _check(q, k, v, scale)
+    tile = tuple(tile)
+    if mode not in _MODES:
+        raise ValueError(f"the parent runs the modes {tuple(_MODES)}, not {mode!r}")
+    if d > NARROW_D and (mode != "online" or tile != WIDE_TILE):
+        raise ValueError(f"head dim {d} > {NARROW_D} runs only the online mode at {WIDE_TILE}")
+    if d <= NARROW_D and tile not in LAB_TILES:
+        raise ValueError(f"tiles {tile} are not instantiated; one of {LAB_TILES}")
     out = torch.empty((b, nq, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().flash_attention_fwd(
@@ -470,7 +585,11 @@ def _launch(q, k, v, scale: float, mode: str = "online", tile: Optional[tuple] =
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
             float(scale), _MODES[mode], *tile,
             torch.cuda.current_stream().cuda_stream)
+    _parent_launch.launches += 1
     return out
+
+
+_parent_launch.launches = 0
 
 
 # samples per chunk of an attention backward's recompute: the chunk's fp32
@@ -574,41 +693,56 @@ def _torch_attention_no_softmax(q, k, v, scale: float):
     return torch.matmul(p, v.float().permute(0, 2, 1, 3)).permute(0, 2, 1, 3).to(v.dtype)
 
 
-def _lab(wrapper, mode, plain, q, k, v, scale, block_q, block_k):
-    if (block_q, block_k) not in LAB_TILES:
-        raise ValueError(f"tiles ({block_q}, {block_k}) are not instantiated; one of {LAB_TILES}")
+def _lab_sm90(wrapper, mode, q, k, v, scale, block_q, block_k):
+    """L1 and L3: the plain version on the CPU, the sm90 kernel's lab mode
+    on the card at (block_q, block_k) of SM90_LAB_TILES (K1's tile at D
+    where None), any other tile refused on both."""
+    default_q, default_k = sm90_lab_tile(q.shape[-1])
+    tile = (default_q if block_q is None else block_q, default_k if block_k is None else block_k)
+    if tile not in SM90_LAB_TILES:
+        raise ValueError(f"tiles {tile} are not instantiated; one of {SM90_LAB_TILES}")
     if not use_kernel(q):
-        return plain(q, k, v, float(scale))
-    out = _launch(q, k, v, float(scale), mode, (block_q, block_k))
+        return _torch_attention(q, k, v, float(scale))
+    out = _lab_sm90_launch(q, k, v, float(scale), mode, tile)
     wrapper.launches += 1
     return out
 
 
 def flash_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                          block_q: int = 64, block_k: int = 64) -> torch.Tensor:
-    """Lab: softmax attention over (B, N, H, D) with an online softmax over
-    key tiles of `block_k` and `block_q` query rows per block (K1's kernel
-    at other tiles; `attn_variants.py::_online_kernel`)."""
-    return _lab(flash_attention_tiled, "online", _torch_attention, q, k, v, scale, block_q,
-                block_k)
+                          block_q: Optional[int] = None,
+                          block_k: Optional[int] = None) -> torch.Tensor:
+    """Lab L1: softmax attention over (B, N, H, D) with an online softmax
+    over key tiles of `block_k` and `block_q` query rows per block
+    (`attn_variants.py::_online_kernel`): K1's loop on the sm90 kernel at a
+    tile of SM90_LAB_TILES (K1's tile by default), head dims
+    SM90_LAB_HEAD_DIMS["tiled"]."""
+    return _lab_sm90(flash_attention_tiled, "tiled", q, k, v, scale, block_q, block_k)
 
 
 def attention_no_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                          block_q: int = 64, block_k: int = 64) -> torch.Tensor:
-    """Lab: O = sum_j bf16(s_ij * scale) V_j over (B, N, H, D), no max, exp
-    or division (`attn_variants.py::_online_kernel`, do_softmax=False)."""
-    return _lab(attention_no_softmax, "no_softmax", _torch_attention_no_softmax, q, k, v, scale,
-                block_q, block_k)
+    """Lab L2: O = sum_j bf16(s_ij * scale) V_j over (B, N, H, D), no max,
+    exp or division (`attn_variants.py::_online_kernel`,
+    do_softmax=False): the parent's narrow kernel at a tile of LAB_TILES."""
+    if (block_q, block_k) not in LAB_TILES:
+        raise ValueError(f"tiles ({block_q}, {block_k}) are not instantiated; one of {LAB_TILES}")
+    if not use_kernel(q):
+        return _torch_attention_no_softmax(q, k, v, float(scale))
+    out = _parent_launch(q, k, v, float(scale), "no_softmax", (block_q, block_k))
+    attention_no_softmax.launches += 1
+    return out
 
 
 def flash_attention_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                             block_q: int = 64, block_k: int = 64) -> torch.Tensor:
-    """Lab: softmax attention over (B, N, H, D) in two passes over the keys,
-    the exact row maximum, then exp(s - m), its sum and P.V with no
-    rescaling (the full-K kernels of `attn_variants.py`, `attn_lab2.py`
-    and `attn_lab3.py`; K9's structure in bf16)."""
-    return _lab(flash_attention_two_pass, "two_pass", _torch_attention, q, k, v, scale, block_q,
-                block_k)
+                             block_q: Optional[int] = None,
+                             block_k: Optional[int] = None) -> torch.Tensor:
+    """Lab L3: softmax attention over (B, N, H, D) in two passes over the
+    keys, the exact row maximum, then exp(s - m), its sum and P.V with no
+    rescaling (the full-K kernels of `attn_variants.py`, `attn_lab2.py` and
+    `attn_lab3.py`): the sm90 kernel's two-pass mode at a tile of
+    SM90_LAB_TILES (K1's tile by default), head dims
+    SM90_LAB_HEAD_DIMS["two_pass"]."""
+    return _lab_sm90(flash_attention_two_pass, "two_pass", q, k, v, scale, block_q, block_k)
 
 
 flash_attention_tiled.launches = attention_no_softmax.launches = 0

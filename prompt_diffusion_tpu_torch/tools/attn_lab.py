@@ -3,10 +3,10 @@ module, a section and a `--lab` name each.
 
     python3 -m prompt_diffusion_tpu_torch.tools.attn_lab [--lab variants|lab2|lab3|int8] [--iters N]
 
-  variants  tools/attn_variants.py: online softmax across query and key
-            tiles, the no-softmax pass, the full-K kernels (BHND and
-            packed) as the two-pass mode; SD1.5 64² self-attention,
-            B=8, N=4096, H=8, D=40.
+  variants  tools/attn_variants.py: online softmax (L1) across query and
+            key tiles, the no-softmax pass (L2), the full-K kernels (BHND
+            and packed) as the two-pass mode (L3); SD1.5 64²
+            self-attention, B=8, N=4096, H=8, D=40.
   lab2      tools/attn_lab2.py: the packed full-K kernel with the scale in
             the kernel, with q pre-scaled in bf16 (scale 1), across query
             tiles, and with the heads as a batch dimension.
@@ -22,13 +22,21 @@ JAX labs' scan method), its TFLOP/s over 4·B·H·N²·D (the labs' count), the
 time of `scaled_dot_product_attention` on the same inputs for the softmax
 variants, the least time the card could take (`tools/timing.py::roofline`)
 and the max abs error against the plain version evaluated in fp32 on the
-same bf16 inputs. It needs one CUDA card; without one it exits 2.
+same bf16 inputs. L1 and L3 run the warpgroup kernel
+(`ops/csrc/attention_sm90_lab.cu`) at every tile it instantiates at their
+D (`sm90_lab_tiles`); beside each, a `[parent]` line gives the parent
+design (`flash_attention.cu`'s `fa_narrow_kernel`, through
+`_parent_launch`) at the tile of `lab_parent_tile`: its time and its
+error against the same plain version. It needs one CUDA card; without one
+it exits 2.
 
 The TPU kernels' knobs and what stands for them here:
-  * block_q 128-2048 -> BQ 64 or 128 query rows per block: a block's
-    shared memory (227 KB) and registers hold far fewer rows than VMEM;
-  * block_k -> BK 32, 64 or 128 keys per tile; the full-K kernels' whole
-    logits row -> the two-pass mode;
+  * block_q 128-2048 -> L1 and L3: 64 query rows per consumer warpgroup,
+    128 or 192 a block (two or three consumers; three at D <= 64); L2 and
+    the parent: 64 or 128 (4 or 8 warps). A block's shared memory (227
+    KB) and registers hold far fewer rows than VMEM;
+  * block_k -> L1 and L3: 64 or 128 keys per tile; L2 and the parent 32,
+    64 or 128; the full-K kernels' whole logits row -> the two-pass mode;
   * dimension_semantics ("parallel") -> none: every grid axis of a CUDA
     launch runs in parallel over the 132 SMs;
   * vmem_limit_bytes -> the dynamic shared memory the launch asks for;
@@ -46,13 +54,15 @@ import torch.nn.functional as F
 
 from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
 from prompt_diffusion_tpu_torch.ops.flash_attention import (
-    LAB_TILES,
+    _parent_launch,
     attention_no_softmax,
     flash_attention_packed,
     flash_attention_packed_int8,
     flash_attention_packed_int8_rowk,
     flash_attention_tiled,
     flash_attention_two_pass,
+    lab_parent_tile,
+    sm90_lab_tiles,
 )
 from prompt_diffusion_tpu_torch.tools.timing import card, roofline, time_ms
 
@@ -67,30 +77,47 @@ def _fp32(args):
                  for a in args)
 
 
-def measure(name, fn, args, work, iters, library=None, reference=None):
+def measure(name, fn, args, work, iters, library=None, reference=None, parent=None):
     """One variant: kernel ms, TFLOP/s over `work` (bytes, int8 ops, bf16
     ops, lab FLOPs, exponentials), library ms, bound and max abs error
     against the plain version of `fn` in fp32 on the same inputs, or
-    against `reference()` (run under `plain_ops`) over its columns."""
+    against `reference()` (run under `plain_ops`) over its columns. With
+    `parent` (`_parent`: a call on the same inputs and its tile) also the
+    parent design's ms and error, printed on a `[parent]` line."""
     nbytes, int8_ops, bf16_ops, flops, exps = work
     out = fn(*args)
     with plain_ops():
         ref = fn(*_fp32(args)) if reference is None else reference()
-    out = out[..., :ref.shape[-1]]
-    err = (out.float() - ref.float()).abs().max().item()
-    rel = err / ref.abs().max().item()
+    err_of = lambda o: (o[..., :ref.shape[-1]].float() - ref.float()).abs().max().item()
+    err, top = err_of(out), ref.abs().max().item()
+    parent_err = None if parent is None else err_of(parent[0](*args))
     del out, ref
     ms = time_ms(lambda: fn(*args), iters=iters)
     lib_ms = None if library is None else time_ms(library, iters=iters)
     bound_ms, bound_by = roofline(nbytes, int8_ops, bf16_ops, exps)
     row = {"variant": name, "ms": ms, "tflops": flops / ms / 1e9, "sdpa_ms": lib_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-           "err_over_max": rel}
+           "err_over_max": err / top}
     lib = "" if lib_ms is None else f" sdpa_ms={lib_ms:.4f}"
     print(f"[attn_lab] {name:40s} ms={ms:.4f} TFLOP/s={row['tflops']:.1f}{lib} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
-          f"(/max {rel:.3g})", flush=True)
+          f"(/max {err / top:.3g})", flush=True)
+    if parent is not None:
+        call, tile = parent
+        row.update(parent_tile=tile, parent_ms=time_ms(lambda: call(*args), iters=iters),
+                   parent_max_abs_err=parent_err, parent_err_over_max=parent_err / top)
+        print(f"[attn_lab] [parent] {name:31s} fa_narrow_kernel bq{tile[0]} bk{tile[1]} "
+              f"ms={row['parent_ms']:.4f} TFLOP/s={flops / row['parent_ms'] / 1e9:.1f} "
+              f"max_abs_err={parent_err:.3g} (/max {parent_err / top:.3g})", flush=True)
     return row
+
+
+def _parent(mode, tile, scale, view=lambda t: t):
+    """The parent design beside the sm90 kernel's lab mode at `tile`: its
+    `mode` at `lab_parent_tile(tile)` on the (B, N, H, D) `view` of the
+    variant's arguments; (call, its tile)."""
+    ptile = lab_parent_tile(tile)
+    return (lambda q, k, v: _parent_launch(view(q), view(k), view(v), scale, mode, ptile)), ptile
 
 
 def _inputs(gen, shape, n=3, scale=1.0):
@@ -115,27 +142,27 @@ def lab_variants(gen, iters):
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
     work = _bf16_work(B, N, H, D)
     rows = []
-    for bq, bk in LAB_TILES:
-        rows.append(measure(f"online bq{bq} bk{bk}",
-                            lambda q, k, v, bq=bq, bk=bk: flash_attention_tiled(q, k, v, scale,
-                                                                                 bq, bk),
-                            bnhd, work, iters, sdpa))
+    for tile in sm90_lab_tiles(D, "tiled"):
+        rows.append(measure(f"online bq{tile[0]} bk{tile[1]}",
+                            lambda q, k, v, tile=tile: flash_attention_tiled(q, k, v, scale, *tile),
+                            bnhd, work, iters, sdpa, parent=_parent("online", tile, scale)))
     for bq in (64, 128):
         rows.append(measure(f"online-nosoftmax bq{bq} bk64",
                             lambda q, k, v, bq=bq: attention_no_softmax(q, k, v, scale, bq, 64),
                             bnhd, _bf16_work(B, N, H, D, softmax=False), iters))
-    for bq, bk in ((64, 64), (128, 64), (64, 128)):
-        rows.append(measure(f"fullk (two-pass) bq{bq} bk{bk}",
-                            lambda q, k, v, bq=bq, bk=bk: flash_attention_two_pass(
-                                q, k, v, scale, bq, bk),
-                            bnhd, work, iters, sdpa))
+    for tile in sm90_lab_tiles(D, "two_pass"):
+        rows.append(measure(f"fullk (two-pass) bq{tile[0]} bk{tile[1]}",
+                            lambda q, k, v, tile=tile: flash_attention_two_pass(
+                                q, k, v, scale, *tile),
+                            bnhd, work, iters, sdpa, parent=_parent("two_pass", tile, scale)))
     packed = [t.transpose(1, 2).reshape(B, N, H * D) for t in (q, k, v)]
     heads = lambda t: t.view(B, N, H, D)
-    for bq in (64, 128):
-        rows.append(measure(f"fullk_packed (two-pass) bq{bq}",
-                            lambda q, k, v, bq=bq: flash_attention_two_pass(
-                                heads(q), heads(k), heads(v), scale, bq, 64),
-                            packed, work, iters, sdpa))
+    for tile in ((128, 64), (192, 64)):
+        rows.append(measure(f"fullk_packed (two-pass) bq{tile[0]} bk{tile[1]}",
+                            lambda q, k, v, tile=tile: flash_attention_two_pass(
+                                heads(q), heads(k), heads(v), scale, *tile),
+                            packed, work, iters, sdpa,
+                            parent=_parent("two_pass", tile, scale, heads)))
     rows.append(measure("current packed (K1)",
                         lambda q, k, v: flash_attention_packed(q, k, v, H, scale),
                         packed, work, iters, sdpa))
@@ -157,15 +184,16 @@ def lab_lab2(gen, iters):
     sdpa = lambda q_, s_: (lambda: F.scaled_dot_product_attention(
         *(heads(t).transpose(1, 2) for t in (q_, k, v)), scale=s_))
     work = _bf16_work(B, N, H, D)
-    two_pass = lambda s_, bq: (lambda q_, k_, v_: flash_attention_two_pass(
-        heads(q_), heads(k_), heads(v_), s_, bq, 64))
-    runs = (("A  packed fullk bq64 (scale in kernel)", q, scale, 64),
-            ("B  prescaled-q bq64", q_scaled, 1.0, 64),
-            ("C  prescaled-q bq128", q_scaled, 1.0, 128),
-            ("D  batched-heads bq64 (= B's grid)", q_scaled, 1.0, 64),
-            ("D2 batched-heads bq128 (= C's grid)", q_scaled, 1.0, 128))
-    return [measure(name, two_pass(s_, bq), (q_, k, v), work, iters, sdpa(q_, s_))
-            for name, q_, s_, bq in runs]
+    two_pass = lambda s_, tile: (lambda q_, k_, v_: flash_attention_two_pass(
+        heads(q_), heads(k_), heads(v_), s_, *tile))
+    runs = (("A  packed fullk bq128 (scale in kernel)", q, scale, (128, 64)),
+            ("B  prescaled-q bq128", q_scaled, 1.0, (128, 64)),
+            ("C  prescaled-q bq192", q_scaled, 1.0, (192, 64)),
+            ("D  batched-heads bq128 (= B's grid)", q_scaled, 1.0, (128, 64)),
+            ("D2 batched-heads bq192 (= C's grid)", q_scaled, 1.0, (192, 64)))
+    return [measure(name, two_pass(s_, tile), (q_, k, v), work, iters, sdpa(q_, s_),
+                    parent=_parent("two_pass", tile, s_, heads))
+            for name, q_, s_, tile in runs]
 
 
 # ---- tools/attn_lab3.py ----------------------------------------------------
@@ -183,13 +211,14 @@ def lab_lab3(gen, iters):
         padded = [F.pad(t, (0, dp - D)) for t in (q, k, v)]
         sdpa = lambda p=padded: F.scaled_dot_product_attention(
             *(t.transpose(1, 2) for t in p), scale=1.0)
-        for bq in (64, 128):
+        for tile in sm90_lab_tiles(dp, "two_pass"):
             rows.append(measure(
-                f"P{dp} (two-pass) bq{bq}",
-                lambda q_, k_, v_, bq=bq: flash_attention_two_pass(q_, k_, v_, 1.0, bq, 64),
+                f"P{dp} (two-pass) bq{tile[0]} bk{tile[1]}",
+                lambda q_, k_, v_, tile=tile: flash_attention_two_pass(q_, k_, v_, 1.0, *tile),
                 padded, (8 * B * N * H * dp, 0, 4 * B * H * N * N * dp, 4 * B * H * N * N * D,
                          B * H * N * N),
-                iters, sdpa, reference=lambda: flash_attention_two_pass(*_fp32((q, k, v)), 1.0)))
+                iters, sdpa, reference=lambda: flash_attention_two_pass(*_fp32((q, k, v)), 1.0),
+                parent=_parent("two_pass", tile, 1.0)))
     return rows
 
 

@@ -1,7 +1,7 @@
 """K1's, K2's and K9's tiles and what bounds them, on the card.
 
     python3 -m prompt_diffusion_tpu_torch.tools.attn_tune [--iters N]
-        [--part sweep|int8|ablate|sm90|wide|host] [--quick]
+        [--part sweep|int8|ablate|sm90|wide|host|lab|sass] [--quick] [--csrc DIR]
 
   sweep     the online mode of `ops/csrc/flash_attention.cu` at every tile
             of `LAB_TILES` on K1's shapes in the SD1.5 paths (CFG batch 4
@@ -60,6 +60,27 @@
             three VAE shapes of `chip_smoke.py`, each ablated copy, and the
             host us a call of the wrapper and of the parent's; with
             `--quick` no extension build (no wrapper host times).
+  lab       the attention lab's online (L1) and two-pass (L3) modes on the
+            sm90 kernel (`ops/csrc/attention_sm90_lab.cu`): copies of the
+            source (its C interface, K1's and the lab's instantiations;
+            K9's launches left out) built by nvcc in parallel into
+            libraries under `build/attn_tune/` (the kernel, and the ablated
+            copies of `sm90`), with ptxas's registers, spills and warnings
+            and the SASS counts of every lab instantiation; the lab plans'
+            shared memory against the build's; the error against the plain
+            version in fp32 of every instantiation at ragged lengths; then,
+            in turns, the device ms of every tile the lab runs at the
+            lab's shapes ((8,4096,8,40) for L1 and L3, (8,4096,8,64) and
+            (8,4096,8,128) for L3), of the parent (`fa_narrow_kernel`, an
+            nvcc copy of `flash_attention.cu`) at `lab_parent_tile`, of
+            K1's kernel on the same inputs and of SDPA, beside the bound;
+            then each ablated copy at K1's tile. With `--quick` no
+            ablated copies. Nothing here needs the extension;
+  sass      SHA-1 digests of the SASS of every K1 and K9 instantiation
+            (`attention_sm90_bf16.cu`, `attention_sm90_int8.cu` built by
+            nvcc into cubins from `--csrc`, this package's sources by
+            default): against another checkout's digests they show whether
+            a change of the shared header moved those kernels' code;
   host      where the sm90 wrappers' host time goes at K1's, K2's and K9's
             path shapes: host us a call of the whole wrapper, of its three
             `sm90_check_view` calls, of the plan lookups, of the bare
@@ -87,7 +108,7 @@ import torch
 import torch.nn.functional as F
 
 from prompt_diffusion_tpu_torch.ops import flash_attention as fa
-from prompt_diffusion_tpu_torch.tools.timing import card, device_ms, time_ms
+from prompt_diffusion_tpu_torch.tools.timing import card, device_ms, roofline, time_ms
 
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ops", "csrc")
 _CSRC = os.path.join(_CSRC_DIR, "flash_attention.cu")
@@ -122,7 +143,8 @@ def sweep(gen, iters):
         q, k, v = _inputs(gen, b, n, h, d)
         sdpa = time_ms(lambda: F.scaled_dot_product_attention(
             *(t.transpose(1, 2) for t in (q, k, v))), iters=iters)
-        times = {tile: time_ms(lambda tile=tile: fa._launch(q, k, v, d ** -0.5, "online", tile),
+        times = {tile: time_ms(lambda tile=tile: fa._parent_launch(q, k, v, d ** -0.5, "online",
+                                                                   tile),
                                iters=iters) for tile in fa.LAB_TILES}
         best = min(times, key=times.get)
         print(f"[attn_tune] sweep ({b},{n},{h},{d}) sdpa_ms={sdpa:.4f} "
@@ -470,8 +492,8 @@ def sm90(gen, iters, quick=False):
             else:
                 q4, k4, v4 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
                 cands["wrapper"] = lambda: fa._launch(q4, k4, v4, scale)
-                cands["parent"] = lambda: fa._launch(q4, k4, v4, scale, "online",
-                                                     fa.kernel_tile(d))
+                cands["parent"] = lambda: fa._parent_launch(q4, k4, v4, scale, "online",
+                                                            fa.kernel_tile(d))
         times = {c: [] for c in cands}
         for c in list(cands) + list(cands)[::-1]:
             times[c].append(device_ms(cands[c], iters=iters))
@@ -702,6 +724,166 @@ def wide(gen, iters, quick=False):
                   + " ".join(f"{k}={u:.1f}" for k, u in row.items()), flush=True)
 
 
+_LAB = tuple(os.path.join(_CSRC_DIR, f) for f in ("attention_sm90.cu", "attention_sm90_bf16.cu",
+                                                   "attention_sm90_lab.cu"))
+# K9's launches, which the lab part's copies leave out (its instantiations
+# take the longest to build): every call refused
+_NO_INT8 = r"""
+#include "attention_sm90.cuh"
+namespace pd_sm90 {
+int launch_int8(int, int, const CUtensorMap&, const CUtensorMap&, const CUtensorMap&,
+                const Params&, int, cudaStream_t) {
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+}  // namespace pd_sm90
+"""
+# the lab modes' shapes on the sm90 kernel: (label, B, N, H, D, mode): the
+# lab's SD1.5 64² self-attention, and lab3's heads padded to 64 and 128
+LAB_SHAPES = (("L1 SD1.5 64²", 8, 4096, 8, 40, "tiled"),
+              ("L3 SD1.5 64²", 8, 4096, 8, 40, "two_pass"),
+              ("L3 heads padded to 64", 8, 4096, 8, 64, "two_pass"),
+              ("L3 heads padded to 128", 8, 4096, 8, 128, "two_pass"))
+
+
+def _lab_fn(lib):
+    fn = ctypes.CDLL(lib).pd_attention_sm90_lab_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lab_tail(mode, tile):
+    """The lab entry's arguments after the scale: mode, consumers, key tile."""
+    return fa._MODES[mode], tile[0] // fa.SM90_CONSUMER_ROWS, tile[1]
+
+
+def lab(gen, iters, quick=False):
+    """L1 and L3 on the sm90 kernel: the build, ptxas and SASS report, the
+    plans, errors, then times beside the parent, K1, SDPA and the ablated
+    copies."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    stub = os.path.join(OUT_DIR, "no_int8.cu")
+    open(stub, "w").write(_NO_INT8)
+    t0 = time.perf_counter()
+    builds = {}
+    for name, flags in SM90_COPIES.items():
+        if quick and flags:
+            continue
+        lib = os.path.join(OUT_DIR, f"lab_{re.sub(r'\W+', '_', name)}.so")
+        builds[name] = lib, _nvcc(_LAB + (stub,), lib, "-shared", "-Xcompiler", "-fPIC",
+                                  f"-I{_CSRC_DIR}", *flags)
+    parent_lib, parent_proc = _compile("lab parent", [])
+    out, _ = parent_proc.communicate()
+    if parent_proc.returncode:
+        raise RuntimeError(f"nvcc failed on {parent_lib}:\n{out[-3000:]}")
+    fns = {}
+    for name, (lib, proc) in builds.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {lib}:\n{out[-4000:]}")
+        fns[name] = _lab_fn(lib)
+        if name == "kernel":
+            print(f"[attn_tune] lab build: {time.perf_counter() - t0:.1f}s", flush=True)
+            rows, warnings = _ptxas(out, ("attn_sm90_lab_kernel", "attn_sm90_bf16_kernel"))
+            for kname, info in rows.items():
+                print(f"[attn_tune] lab ptxas {_demangled(kname)}: {info}", flush=True)
+            print(f"[attn_tune] lab ptxas warnings: {warnings or 'none'}", flush=True)
+            for kname, ops in _sass_counts(lib, ("attn_sm90_lab_kernel",)).items():
+                print(f"[attn_tune] lab sass {_demangled(kname)}: {ops}", flush=True)
+    lib = ctypes.CDLL(builds["kernel"][0])
+    instances = [(mode, d, tile) for mode, dims in fa.SM90_LAB_HEAD_DIMS.items() for d in dims
+                 for tile in fa.sm90_lab_tiles(d, mode)]
+    for mode, d, tile in instances:
+        plan = fa.sm90_lab_plan(d, mode, tile)
+        built = lib.pd_attention_sm90_lab_smem(d, *_lab_tail(mode, tile))
+        print(f"[attn_tune] lab plan {mode} D={d} {tile}: smem {built} as built, {plan.smem} in "
+              f"the plan", flush=True)
+        if built != plan.smem:
+            raise RuntimeError(f"sm90_lab_plan({d}, {mode}, {tile}) disagrees with the build")
+    parent, k1 = _parent_fn(parent_lib), _sm90_fn(builds["kernel"][0])
+    bf = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
+    for mode, d, tile in instances:
+        for n in (77, 1100):
+            q, k, v = bf(2, n, 3, d), bf(2, n, 3, d), bf(2, n, 3, d)
+            call, out = _strided_call(fns["kernel"], q, k, v, _lab_tail(mode, tile))
+            call()
+            ref = fa._torch_attention(q.float(), k.float(), v.float(), d ** -0.5)
+            err = (out.float() - ref).abs().max().item()
+            print(f"[attn_tune] lab check {mode} D={d} {tile[0]}x{tile[1]} (2,{n},3,{d}): "
+                  f"max_abs_err={err:.3g} ({err / ref.abs().max().item():.3g} of the largest "
+                  f"output) finite={bool(torch.isfinite(out).all())}", flush=True)
+    for label, b, n, h, d, mode in LAB_SHAPES:
+        q, k, v = bf(b, n, h, d), bf(b, n, h, d), bf(b, n, h, d)
+        cands = {}
+        for tile in fa.sm90_lab_tiles(d, mode):
+            cands[f"sm90 {tile[0]}x{tile[1]}"] = _strided_call(fns["kernel"], q, k, v,
+                                                               _lab_tail(mode, tile))[0]
+        for tile in fa.sm90_lab_tiles(d, mode):
+            ptile = fa.lab_parent_tile(tile)
+            cands[f"parent {ptile[0]}x{ptile[1]}"] = _strided_call(
+                parent, q, k, v, (fa._MODES[mode], *ptile))[0]
+        cands["k1 sm90"] = _sm90_call(k1, q.flatten(2), k.flatten(2), v.flatten(2), h, False)[0]
+        cands["sdpa"] = lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2)
+                                                                 for t in (q, k, v)))
+        times = {c: [] for c in cands}
+        for c in list(cands) + list(cands)[::-1]:
+            times[c].append(device_ms(cands[c], iters=iters))
+        bound_ms, bound_by = roofline(8 * b * n * h * d, 0, 4 * b * h * n * n * d, b * h * n * n)
+        print(f"[attn_tune] lab time {label} ({b},{n},{h},{d}) {mode}: device_ms "
+              + " ".join(f"{c}={'/'.join(f'{t:.4f}' for t in ts)}" for c, ts in times.items())
+              + f" bound={bound_ms:.4f} ({bound_by})", flush=True)
+        for name, fn in fns.items():
+            if name == "kernel":
+                continue
+            acall = _strided_call(fn, q, k, v, _lab_tail(mode, fa.sm90_lab_tile(d)))[0]
+            print(f"[attn_tune] lab copy {label} {mode}: {name} "
+                  f"device_ms={device_ms(acall, iters=iters):.4f}", flush=True)
+
+
+def sass(csrc):
+    """SHA-1 digests of the SASS of every K1 and K9 instantiation built from
+    the sources in `csrc`, each instruction without its address and
+    encoding; the instructions themselves go to
+    `build/attn_tune/sass_<digest of csrc's path>/<kernel>.sass`, for a
+    diff."""
+    import hashlib
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tag = hashlib.sha1(os.path.abspath(csrc).encode()).hexdigest()[:8]
+    procs = {}
+    for unit in ("attention_sm90_bf16.cu", "attention_sm90_int8.cu"):
+        cubin = os.path.join(OUT_DIR, f"sass_{tag}_{unit}.cubin")
+        procs[unit] = cubin, _nvcc(os.path.join(csrc, unit), cubin, "-cubin")
+    for unit, (cubin, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {unit}:\n{out[-3000:]}")
+        dump = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True, check=True).stdout
+        funcs, cur = {}, None
+        for line in dump.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                cur = m.group(1)
+                funcs[cur] = []
+            elif cur:
+                ins = re.sub(r"/\*.*?\*/", "", line).strip()
+                if ins:
+                    funcs[cur].append(" ".join(ins.split()))
+        keep = os.path.join(OUT_DIR, f"sass_{tag}")
+        os.makedirs(keep, exist_ok=True)
+        for name, lines in sorted(funcs.items()):
+            digest = hashlib.sha1("\n".join(lines).encode()).hexdigest()[:16]
+            with open(os.path.join(keep, re.sub(r"\W+", "_", _demangled(name)) + ".sass"),
+                      "w") as f:
+                f.write("\n".join(lines) + "\n")
+            print(f"[attn_tune] sass {os.path.abspath(csrc)} {_demangled(name)}: {digest} "
+                  f"({len(lines)} lines)", flush=True)
+
+
 def _wrappers(q, k, v, heads, int8):
     """(the wrapper's call, its parent design's call) of K1, K2 (packed (B,
     N, H*D) inputs viewed as (B, N, H, D)) or K9."""
@@ -713,7 +895,7 @@ def _wrappers(q, k, v, heads, int8):
     q, k, v = (t.unflatten(-1, (heads, -1)) for t in (q, k, v))
     d = q.shape[-1]
     return (lambda: fa._launch(q, k, v, d ** -0.5),
-            lambda: fa._launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d)))
+            lambda: fa._parent_launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d)))
 
 
 def _wrapper_host_us(q, k, v, heads, int8=False):
@@ -799,7 +981,7 @@ def host(gen, iters):
 
 
 PARTS = {"sweep": sweep, "int8": int8, "ablate": ablate, "sm90": sm90, "wide": wide,
-         "host": host}
+         "host": host, "lab": lab, "sass": sass}
 
 
 def main(argv=None) -> int:
@@ -809,7 +991,9 @@ def main(argv=None) -> int:
                     help="a part to run (repeatable; all when not given)")
     ap.add_argument("--quick", action="store_true",
                     help="sm90, wide: no extension build (sm90: the kernel's own copy, errors "
-                         "and times beside SDPA only)")
+                         "and times beside SDPA only); lab: no ablated copies")
+    ap.add_argument("--csrc", default=_CSRC_DIR,
+                    help="sass: the directory of the sources to digest (this package's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("attn_tune: no CUDA device", file=sys.stderr)
@@ -818,7 +1002,9 @@ def main(argv=None) -> int:
           flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for part in args.part or PARTS:
-        if part in ("sm90", "wide"):
+        if part == "sass":
+            sass(args.csrc)
+        elif part in ("sm90", "wide", "lab"):
             PARTS[part](gen, args.iters, args.quick)
         else:
             PARTS[part](gen, args.iters)

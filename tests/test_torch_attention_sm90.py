@@ -1,15 +1,18 @@
 """PyTorch port, the warpgroup attention kernels of
-`ops/csrc/attention_sm90.cuh` (K1, K2 at D <= 128 and K9) on the CPU: the
-route `attention_route` states by mode, head dimension and dtype, the plan
+`ops/csrc/attention_sm90.cuh` (K1, K2 at D <= 128, K9, and the lab modes
+L1 and L3 of `attention_sm90_lab.cu`) on the CPU: the route
+`attention_route` states by mode, head dimension and dtype, the plans
 (tiles, warpgroups, shared memory, the zero pads at D = 40 and 80) and the
-TMA tensor maps at the paths' shapes, the refusals before any build, and a
-torch emulation of the kernel's order of work (128- or 112-key tiles, P rounded to
-bf16 against the running maximum, O rescaled when a row maximum of a warp's
-16 rows moved, one division at the end) held against the JAX package's
+TMA tensor maps at the paths' shapes, the refusals before any build, the
+arguments the lab wrappers hand the extension, and a torch emulation of
+the kernel's order of work (64-, 112- or 128-key tiles, P rounded to bf16
+against the running maximum, O rescaled when a row maximum of a warp's 16
+rows moved, one division at the end; the two-pass mode's exact row maximum
+first and no rescale) held against the JAX package's
 `flash_attention_packed`, `flash_attention` and
-`flash_attention_packed_int8` kernels in interpret mode. The kernels
-themselves run only on the card (`chip_smoke.py`, `tools/attn_tune.py
---part sm90`)."""
+`flash_attention_packed_int8` kernels and the JAX labs' `_online_kernel`
+and `_fullk_kernel` in interpret mode. The kernels themselves run only on
+the card (`chip_smoke.py`, `tools/attn_tune.py --part sm90|lab`)."""
 
 import contextlib
 
@@ -22,6 +25,7 @@ from prompt_diffusion_tpu.ops import flash_attention as jflash
 from prompt_diffusion_tpu_torch.ops import _build
 from prompt_diffusion_tpu_torch.ops import flash_attention as fa
 from tests.torch_port_util import jax_int8_attention as _jax_int8_attention
+from tests.torch_port_util import jax_lab, jax_lab_bhnd
 
 torch.set_num_threads(2)
 
@@ -47,9 +51,13 @@ def _f32(x):
     ("online", 96, "narrow"),
     # above 128 the wide kernel; the VAE's 512 its wide sm90 successor
     ("online", 160, "wide"), ("online", 512, "wide_sm90"),
-    # the lab modes run the parent at their tile
-    ("tiled", 40, "narrow"), ("tiled", 64, "narrow"), ("no_softmax", 40, "narrow"),
-    ("two_pass", 64, "narrow"), ("two_pass", 80, "narrow"),
+    # L1 and L3 run the sm90 kernel at the head dims it instantiates for
+    # them; elsewhere only the parent has them (`_parent_launch`); L2 runs
+    # the parent
+    ("tiled", 40, "sm90"), ("tiled", 64, "narrow"), ("tiled", 80, "narrow"),
+    ("tiled", 128, "narrow"), ("no_softmax", 40, "narrow"), ("no_softmax", 64, "narrow"),
+    ("no_softmax", 128, "narrow"), ("two_pass", 40, "sm90"), ("two_pass", 64, "sm90"),
+    ("two_pass", 80, "narrow"), ("two_pass", 128, "sm90"),
     ("int8", 32, "int8_sm90"), ("int8", 64, "int8_sm90"), ("int8", 128, "int8_sm90"),
     # SD1.5's heads under `int8_attention`: 64² and 32² self-attention
     ("int8", 40, "int8_sm90"), ("int8", 80, "int8_sm90"),
@@ -99,9 +107,9 @@ def _record_sm90(monkeypatch):
 @pytest.mark.parametrize("d,sm90", [(40, True), (64, True), (80, True), (128, True),
                                     (32, False), (512, "wide")])
 def test_launch_takes_the_route(d, sm90, monkeypatch):
-    """K1's and K2's launch (no tile) goes to the sm90 kernel at its head
-    dims, to the wide sm90 kernel at D = 512 and to `flash_attention.cu`
-    elsewhere; with a tile (the labs, the wide parent) always to
+    """K1's and K2's launch goes to the sm90 kernel at its head dims, to
+    the wide sm90 kernel at D = 512 and to `flash_attention.cu` elsewhere;
+    the parent's explicit launch (a mode and a tile) always to
     `flash_attention.cu`."""
     _no_build(monkeypatch)
     _as_if_on_the_card(monkeypatch)
@@ -114,7 +122,7 @@ def test_launch_takes_the_route(d, sm90, monkeypatch):
         fa._launch(q, q, q, 0.125)
         assert wide == [(1, 64, 2, d)] and calls == []
         with pytest.raises(AssertionError, match="extension was built"):
-            fa._launch(q, q, q, 0.125, "online", fa.WIDE_TILE)
+            fa._parent_launch(q, q, q, 0.125, "online", fa.WIDE_TILE)
         assert len(wide) == 1
     elif sm90:
         fa._launch(q, q, q, 0.125)
@@ -125,7 +133,7 @@ def test_launch_takes_the_route(d, sm90, monkeypatch):
         assert calls == []
     if d <= fa.NARROW_D:
         with pytest.raises(AssertionError, match="extension was built"):
-            fa._launch(q, q, q, 0.125, "online", fa.NARROW_TILE)
+            fa._parent_launch(q, q, q, 0.125, "online", fa.NARROW_TILE)
         assert len(calls) == (1 if sm90 else 0)
 
 
@@ -159,6 +167,141 @@ def test_int8_sm90_launch_reaches_the_build(hd, h, monkeypatch):
     x = torch.zeros(2, 64, hd, dtype=torch.bfloat16)
     with pytest.raises(AssertionError, match="extension was built"):
         fa._int8_sm90_launch(x, x, x, h, 0.125)
+
+
+class _FakeExt:
+    """The extension's lab and parent attention entries, recording the
+    arguments each call hands them."""
+
+    def __init__(self):
+        self.calls = []
+
+    def attention_sm90_lab_fwd(self, *args):
+        self.calls.append(("lab", args))
+
+    def flash_attention_fwd(self, *args):
+        self.calls.append(("parent", args))
+
+
+def _fake_card(monkeypatch):
+    """CPU tensors taken as on the card by the wrappers, with the extension
+    replaced by a `_FakeExt` and the current stream by stream 0."""
+    _as_if_on_the_card(monkeypatch)
+    ext = _FakeExt()
+    monkeypatch.setattr(_build, "cuda_ext", lambda: ext)
+    monkeypatch.setattr(fa, "use_kernel", lambda t: True)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda *a: type("Stream", (), {"cuda_stream": 0})())
+    return ext
+
+
+LAB_LAUNCHES = [  # (wrapper, mode code, D, tiles): every instantiation of the lab modes
+    *(("tiled", 0, 40, tile) for tile in fa.SM90_LAB_TILES),
+    *(("two_pass", 2, d, tile) for d in (40, 64) for tile in fa.SM90_LAB_TILES),
+    ("two_pass", 2, 128, (128, 64)), ("two_pass", 2, 128, (128, 128)),
+]
+
+
+@pytest.mark.parametrize("mode,code,d,tile", LAB_LAUNCHES)
+def test_lab_wrappers_reach_the_sm90_launch(mode, code, d, tile, monkeypatch):
+    """On the card L1 and L3 hand the lab entry of the sm90 kernel their
+    views (strides of (B, N, H, D) views of (B, H, N, D) memory, as the
+    lab's BHND inputs), the mode, and the plan's consumers and key tile;
+    each call counts one launch; the parent is not called."""
+    ext = _fake_card(monkeypatch)
+    wrapper = fa.flash_attention_tiled if mode == "tiled" else fa.flash_attention_two_pass
+    b, n, h = 2, 96, 3
+    q, k, v = (torch.zeros(b, h, n, d, dtype=torch.bfloat16).transpose(1, 2) for _ in range(3))
+    before = wrapper.launches
+    out = wrapper(q, k, v, 0.2, *tile)
+    assert out.shape == (b, n, h, d) and wrapper.launches == before + 1
+    ((kind, args),) = ext.calls
+    plan = fa.sm90_lab_plan(d, mode, tile)
+    assert kind == "lab" and (plan.block_q, plan.block_k) == tile
+    assert args[4:9] == (b, h, n, n, d)
+    assert args[9:12] == q.stride()[:3] == (h * n * d, d, n * d)
+    assert args[21:] == (pytest.approx(0.2), code, plan.consumers, plan.block_k, 0)
+
+
+@pytest.mark.parametrize("mode,d", [("tiled", 40), ("two_pass", 40), ("two_pass", 64),
+                                    ("two_pass", 128)])
+def test_lab_wrappers_default_to_k1s_tile(mode, d, monkeypatch):
+    """Without a tile L1 and L3 run K1's plan at their D: three consumers
+    at D <= 64, two above, 128-key tiles."""
+    ext = _fake_card(monkeypatch)
+    wrapper = fa.flash_attention_tiled if mode == "tiled" else fa.flash_attention_two_pass
+    q = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
+    wrapper(q, q, q, 0.2)
+    k1 = fa.sm90_plan(d)
+    assert ext.calls[0][1][-3:-1] == (k1.consumers, k1.block_k) == (
+        fa.sm90_consumers(d, False), 128)
+
+
+def _lab_refused(case):
+    """(wrapper, q, k, v, tile) for each input the lab modes refuse on the
+    card."""
+    bf16 = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
+    x40, x128 = bf16(2, 64, 2, 40), bf16(2, 64, 2, 128)
+    tiled, two_pass = fa.flash_attention_tiled, fa.flash_attention_two_pass
+    return {
+        "L1 at D = 64": (tiled, bf16(2, 64, 2, 64), None, None, None),
+        "L1 at D = 80": (tiled, bf16(2, 64, 2, 80), None, None, None),
+        "L3 at D = 80": (two_pass, bf16(2, 64, 2, 80), None, None, None),
+        "L3 at D = 32": (two_pass, bf16(2, 64, 2, 32), None, None, None),
+        "L3 on three consumers at D = 128": (two_pass, x128, None, None, (192, 128)),
+        "L3 on three consumers at D = 128, 64 keys": (two_pass, x128, None, None, (192, 64)),
+        "L1 at a parent tile": (tiled, x40, None, None, (64, 64)),
+        "L3 at a parent tile": (two_pass, x40, None, None, (128, 32)),
+        "L3 fp32": (two_pass, x40.float(), None, None, None),
+        "L1 k batch broadcast": (tiled, x40, bf16(1, 64, 2, 40).expand(2, 64, 2, 40), None, None),
+        "L3 v row stride not 16 bytes": (two_pass, x40, None, bf16(2, 64, 2, 44)[..., :40], None),
+        "L3 q base misaligned": (two_pass, torch.zeros(2 * 64 * 80 + 1, dtype=torch.bfloat16)[1:]
+                                 .view(2, 64, 2, 40), None, None, None),
+    }[case]
+
+
+LAB_REFUSALS = ["L1 at D = 64", "L1 at D = 80", "L3 at D = 80", "L3 at D = 32",
+                "L3 on three consumers at D = 128", "L3 on three consumers at D = 128, 64 keys",
+                "L1 at a parent tile", "L3 at a parent tile", "L3 fp32", "L1 k batch broadcast",
+                "L3 v row stride not 16 bytes", "L3 q base misaligned"]
+
+
+@pytest.mark.parametrize("case", LAB_REFUSALS)
+def test_lab_refuses_before_build(case, monkeypatch):
+    """What the lab modes' sm90 instantiations do not take raises
+    ValueError on the card before the extension is built: no fallback to
+    the parent or to the plain version, and no launch counted."""
+    _as_if_on_the_card(monkeypatch)
+    _no_build(monkeypatch)
+    monkeypatch.setattr(fa, "use_kernel", lambda t: True)
+    monkeypatch.setattr(fa, "_parent_launch", lambda *a: pytest.fail("the parent ran"))
+    monkeypatch.setattr(fa, "_torch_attention", lambda *a: pytest.fail("the plain version ran"))
+    wrapper, q, k, v, tile = _lab_refused(case)
+    before = wrapper.launches
+    with pytest.raises(ValueError):
+        wrapper(q, q if k is None else k, q if v is None else v, 0.2,
+                *(tile if tile else (None, None)))
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("mode,code,tile", [("online", 0, (128, 64)), ("two_pass", 2, (64, 64)),
+                                            ("two_pass", 2, (128, 128)),
+                                            ("no_softmax", 1, (64, 64))])
+def test_parent_reachable_through_its_launch(mode, code, tile, monkeypatch):
+    """The parent design's explicit launch: `flash_attention.cu` in any of
+    its modes at a tile of LAB_TILES (the lab's `[parent]` rows,
+    chip_smoke's parent times), counted in `_parent_launch.launches`; a
+    tile of SM90_LAB_TILES only is refused before any build."""
+    ext = _fake_card(monkeypatch)
+    q = torch.zeros(2, 64, 2, 40, dtype=torch.bfloat16)
+    before = fa._parent_launch.launches
+    fa._parent_launch(q, q, q, 0.2, mode, tile)
+    ((kind, args),) = ext.calls
+    assert kind == "parent" and args[-4:] == (code, *tile, 0)
+    assert fa._parent_launch.launches == before + 1
+    _no_build(monkeypatch)
+    with pytest.raises(ValueError, match="not instantiated"):
+        fa._parent_launch(q, q, q, 0.2, mode, (192, 128))
 
 
 # ---- the plan --------------------------------------------------------------
@@ -233,6 +376,52 @@ def test_sm90_consumers_per_shape(d, int8, nq, consumers):
 def test_sm90_plan_refuses(d, int8, consumers):
     with pytest.raises(ValueError):
         fa.sm90_plan(d, int8, consumers)
+
+
+@pytest.mark.parametrize("mode,d,tile,consumers,smem", [
+    ("tiled", 40, (128, 64), 2, 50176), ("tiled", 40, (128, 128), 2, 82944),
+    ("tiled", 40, (192, 64), 3, 58368), ("tiled", 40, (192, 128), 3, 91136),
+    ("two_pass", 40, (128, 64), 2, 50176), ("two_pass", 40, (192, 128), 3, 91136),
+    ("two_pass", 64, (128, 64), 2, 50176), ("two_pass", 64, (128, 128), 2, 82944),
+    ("two_pass", 64, (192, 64), 3, 58368), ("two_pass", 64, (192, 128), 3, 91136),
+    ("two_pass", 128, (128, 64), 2, 99328), ("two_pass", 128, (128, 128), 2, 164864),
+])
+def test_sm90_lab_plan(mode, d, tile, consumers, smem):
+    """A lab tile of SM90_LAB_TILES is 64 query rows per consumer and 64 or
+    128 keys; three consumers only at D <= 64; every plan within the H100's
+    227 KB; at K1's tile the plan is K1's."""
+    plan = fa.sm90_lab_plan(d, mode, tile)
+    assert tile in fa.SM90_LAB_TILES
+    assert (plan.block_q, plan.block_k, plan.consumers) == (*tile, consumers)
+    assert plan.threads == 128 * (1 + consumers) and plan.stages == 2 and not plan.int8
+    assert plan.smem == smem <= fa.SMEM_PER_BLOCK
+    assert (consumers == 3) <= (d <= fa.SM90_WIDE_CONSUMERS_D)
+    if tile == fa.sm90_lab_tile(d):
+        k1 = fa.sm90_plan(d)
+        assert (plan.block_q, plan.block_k, plan.smem) == (k1.block_q, k1.block_k, k1.smem)
+        assert fa.sm90_lab_plan(d, mode) == plan
+
+
+def test_sm90_lab_tiles_and_head_dims():
+    """SM90_LAB_TILES: two or three consumers by 64 or 128 keys; L1 at the
+    lab's D = 40, L3 also at lab3's heads padded to 64 and 128."""
+    assert sorted(fa.SM90_LAB_TILES) == [(128, 64), (128, 128), (192, 64), (192, 128)]
+    assert fa.SM90_LAB_HEAD_DIMS == {"tiled": (40,), "two_pass": (40, 64, 128)}
+    assert set(fa.SM90_LAB_HEAD_DIMS["two_pass"]) <= set(fa.SM90_HEAD_DIMS)
+    for tile in fa.SM90_LAB_TILES:
+        assert fa.lab_parent_tile(tile) in fa.LAB_TILES
+        assert fa.lab_parent_tile(tile)[1] == tile[1]
+
+
+@pytest.mark.parametrize("mode,d,tile", [
+    ("tiled", 64, None), ("tiled", 80, None), ("tiled", 128, None), ("two_pass", 80, None),
+    ("two_pass", 32, None), ("two_pass", 128, (192, 64)), ("two_pass", 128, (192, 128)),
+    ("tiled", 40, (64, 64)), ("two_pass", 40, (128, 32)), ("two_pass", 40, (256, 128)),
+    ("no_softmax", 40, None), ("online", 40, None),
+])
+def test_sm90_lab_plan_refuses(mode, d, tile):
+    with pytest.raises(ValueError):
+        fa.sm90_lab_plan(d, mode, tile)
 
 
 def _views(b, n, h, d, layout):
@@ -404,7 +593,7 @@ def test_int8_sm90_refuses_sd15_shapes_before_build(case, monkeypatch):
 # ---- the order of work -------------------------------------------------------
 
 
-def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16):
+def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16, two_pass=False):
     """The sm90 kernel's order of work on (B, N, H, D) float tensors holding
     the inputs' values, in fp32: per key tile (the plan's) the logits (bf16: fp32
     products; int8: exact integer sums of the per-row Q codes and K9p's
@@ -414,7 +603,10 @@ def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16):
     2^(s * c - m) with one rounding of s * c - m (FFMA), the sum over the
     fp32 p, p rounded to bf16 when `v` is bf16, O *= corr where a row
     maximum of the warp's `warp_rows` rows moved, then O += p.V in fp32,
-    and O / l once, in v's dtype. Returns (O, the Q codes or None)."""
+    and O / l once, in v's dtype. With `two_pass` (L3) a first pass over
+    the key tiles takes the exact row maximum (each tile's maximum times
+    c), and the second sums p and p.V against it with no correction.
+    Returns (O, the Q codes or None)."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
     block_k = block_k or fa.sm90_plan(d, int8, fa.sm90_consumers(d, int8, nq, nk)).block_k
@@ -433,20 +625,26 @@ def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16):
     l = torch.zeros(b, h, nq, 1)
     o = torch.zeros(b, h, nq, d)
     pad = -nq % warp_rows
+    logits = lambda kt: ((qf.double() @ kt.double().transpose(-1, -2)).float() if int8
+                         else qf @ kt.transpose(-1, -2))
+    if two_pass:  # pass 1: the exact row maximum, tile by tile
+        for j0 in range(0, nk, block_k):
+            m = torch.maximum(m, logits(kf[:, :, j0:j0 + block_k]).amax(dim=-1, keepdim=True) * c)
     for j0 in range(0, nk, block_k):
         kt, vt = kf[:, :, j0:j0 + block_k], vf[:, :, j0:j0 + block_k]
-        if int8:
-            s = (qf.double() @ kt.double().transpose(-1, -2)).float()
-        else:
-            s = qf @ kt.transpose(-1, -2)
-        mx = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
-        corr = torch.exp2(m - mx)
-        m = mx
+        s = logits(kt)
+        if not two_pass:
+            mx = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
+            corr = torch.exp2(m - mx)
+            m = mx
         p = torch.exp2((s.double() * c.double() - m.double()).float())
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        moved = torch.nn.functional.pad(corr != 1, (0, 0, 0, pad))
-        moved = moved.view(b, h, -1, warp_rows).any(dim=-1).repeat_interleave(warp_rows, dim=2)
-        o = torch.where(moved[:, :, :nq, None], o * corr, o)
+        if two_pass:
+            l = l + p.sum(dim=-1, keepdim=True)
+        else:
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            moved = torch.nn.functional.pad(corr != 1, (0, 0, 0, pad))
+            moved = moved.view(b, h, -1, warp_rows).any(dim=-1).repeat_interleave(warp_rows, dim=2)
+            o = torch.where(moved[:, :, :nq, None], o * corr, o)
         o = o + p.to(v.dtype).float() @ vt
     return (o / l).to(v.dtype).permute(0, 2, 1, 3), codes
 
@@ -589,6 +787,81 @@ def test_emulation_rescale_rule_is_exact():
     assert torch.equal(got, always)
 
 
+variants = jax_lab("attn_variants")
+
+LAB_EMULATION = [  # (B, H, N, D, block_k): N whole tiles of the JAX lab's 32 query rows and keys
+    (2, 2, 256, 40, 64), (1, 2, 256, 40, 128), (2, 1, 192, 64, 64), (1, 2, 256, 64, 128),
+    (1, 1, 256, 128, 64), (1, 2, 128, 128, 128),
+]
+
+
+def _lab_inputs(rng, b, h, n, d, dtype):
+    """numpy (B, H, N, D) q, k, v (bf16 values for bf16), the JAX lab's
+    arrays and the port's (B, N, H, D) views of the same values."""
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    qkv = [_normal(rng, (b, h, n, d)) for _ in range(3)]
+    if dtype == "bfloat16":
+        qkv = _bf16_values(*qkv)
+    return qkv, [jnp.asarray(a, jdt) for a in qkv], [_as(a, tdt).transpose(1, 2) for a in qkv]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,d,block_k", LAB_EMULATION)
+def test_two_pass_emulation_matches_jax_fullk(b, h, n, d, block_k, dtype):
+    """L3's order of work (the exact row maximum from a first pass over
+    64- or 128-key tiles, then p, its sum and P.V with no rescale) against
+    the JAX lab's `_fullk_kernel` (a whole logits row, one softmax) in
+    interpret mode: fp32 within 1e-5, bf16 within one bf16 step of P and of
+    the output (the lab rounds P against the same exact maximum)."""
+    rng = np.random.default_rng(n + d + block_k)
+    qkv, jqkv, views = _lab_inputs(rng, b, h, n, d, dtype)
+    scale = d ** -0.5
+    ref = np.asarray(jax_lab_bhnd(variants._fullk_kernel, jqkv, 32, scale=scale)
+                     .astype(jnp.float32))
+    got, _ = _emulate(*views, scale, block_k=block_k, two_pass=True)
+    err = np.abs(got.float().transpose(1, 2).numpy() - ref).max()
+    assert err <= (1e-5 if dtype == "float32" else _bf16_bound(qkv[2], ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,d,block_k", [c for c in LAB_EMULATION if c[3] == 40])
+def test_online_emulation_matches_jax_lab(b, h, n, d, block_k, dtype):
+    """L1's order of work (K1's, at 64- or 128-key tiles) against the JAX
+    lab's `_online_kernel` at the same key tile in interpret mode: fp32
+    within 1e-5, bf16 within one bf16 step of P and of the output."""
+    rng = np.random.default_rng(n + d + block_k + 1)
+    qkv, jqkv, views = _lab_inputs(rng, b, h, n, d, dtype)
+    scale = d ** -0.5
+    ref = np.asarray(jax_lab_bhnd(variants._online_kernel, jqkv, 64, scale=scale,
+                                  block_k=block_k).astype(jnp.float32))
+    got, _ = _emulate(*views, scale, block_k=block_k)
+    err = np.abs(got.float().transpose(1, 2).numpy() - ref).max()
+    assert err <= (1e-5 if dtype == "float32" else _bf16_bound(qkv[2], ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,nq,nk,h,d,block_k", [(1, 77, 260, 3, 40, 64), (2, 130, 200, 2, 64, 128),
+                                                 (1, 100, 70, 2, 128, 64)])
+def test_two_pass_emulation_ragged_matches_jax(b, nq, nk, h, d, block_k, dtype):
+    """L3 with a ragged key tail (masked to -inf in both passes) and query
+    tail against `flash_attention` (the online TPU kernel in interpret
+    mode; the labs take whole tiles only): fp32 within 1e-5, bf16 within
+    one bf16 step of P and of the output."""
+    rng = np.random.default_rng(nq + nk + d)
+    q, k, v = _normal(rng, (b, nq, h, d)), _normal(rng, (b, nk, h, d)), _normal(rng, (b, nk, h, d))
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    if dtype == "bfloat16":
+        q, k, v = _bf16_values(q, k, v)
+    ref = np.asarray(jflash.flash_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)))
+                     .astype(jnp.float32))
+    got, _ = _emulate(_as(q, tdt), _as(k, tdt), _as(v, tdt), d ** -0.5, block_k=block_k,
+                      two_pass=True)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= (1e-5 if dtype == "float32" else _bf16_bound(v, ref))
+
+
 @pytest.mark.parametrize("d,nq", [(32, 380), (32, 250), (64, 380), (64, 250), (128, 250),
                                   (40, 380), (40, 250), (80, 250)])
 def test_k9_code_probe_reads_every_code(d, nq):
@@ -658,3 +931,17 @@ def test_chip_smoke_checks_the_new_kernels_and_not_the_parents():
     assert any(src.endswith("attention_sm90_wide.cu")
                for src in chip_smoke.SOURCES_ALSO["flash_attention"])
     assert chip_smoke.DEVICE_FUNCTIONS["flash_attention"][1] == "attn_sm90_wide_kernel"
+    # L1 and L3: one launch of the lab instantiations per call, none of the
+    # parent, counted in `[kernels]` and on the `[labs]` path; L2 and L4
+    # keep their parents
+    for name in ("flash_attention_tiled", "flash_attention_two_pass"):
+        assert one[name] == ("attn_sm90_lab_kernel",) and name in chip_smoke.ONE_LAUNCH
+        assert chip_smoke.KERNELS[name][1].endswith("attention_sm90.cuh")
+        assert any(src.endswith("attention_sm90_lab.cu") for src in chip_smoke.SOURCES_ALSO[name])
+        assert name in chip_smoke.PATH_KERNELS["labs"]
+    for name, parent in (("attention_no_softmax", "flash_attention.cu"),
+                         ("flash_attention_packed_int8_rowk", "int8_attention.cu")):
+        assert chip_smoke.KERNELS[name][1].endswith(parent) and name not in one
+    assert not any("attn_sm90_lab_kernel" in f or f in "attn_sm90_lab_kernel"
+                   for f in chip_smoke.PARENT_FUNCTIONS + ("attn_sm90_bf16_kernel",
+                                                           "attn_sm90_int8_kernel"))

@@ -7,8 +7,6 @@ by file path. Inputs come from numpy seeds; fp32 V within 1e-5, bf16 within
 2e-2 (one bf16 step of the output and of P)."""
 
 import functools
-import importlib.util
-import os
 
 import jax
 import jax.numpy as jnp
@@ -19,28 +17,21 @@ from jax.experimental import pallas as pl
 
 from prompt_diffusion_tpu_torch.ops.flash_attention import (
     LAB_TILES,
+    SM90_LAB_TILES,
     attention_no_softmax,
     flash_attention_packed_int8,
     flash_attention_packed_int8_rowk,
     flash_attention_tiled,
     flash_attention_two_pass,
 )
+from tests.torch_port_util import jax_lab, jax_lab_bhnd
 
 torch.set_num_threads(2)
 
-TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
 DTYPES = [(np.float32, 1e-5), ("bfloat16", 2e-2)]
 
-
-def _load(name):
-    spec = importlib.util.spec_from_file_location(f"jax_lab_{name}", os.path.join(TOOLS, f"{name}.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-variants, lab2, lab3, int8_lab = (_load(n) for n in ("attn_variants", "attn_lab2", "attn_lab3",
-                                                     "attn_int8_lab"))
+variants, lab2, lab3, int8_lab = (jax_lab(n) for n in ("attn_variants", "attn_lab2", "attn_lab3",
+                                                       "attn_int8_lab"))
 
 
 def _dtypes(dtype):
@@ -55,21 +46,6 @@ def _qkv(seed, shape, scale=1.0):
 
 def _close(got, ref, atol):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), atol=atol)
-
-
-def _bhnd_call(kernel, qkv, block_q, **kw):
-    """A lab kernel over (B, H, N, D) blocks of `block_q` query rows and the
-    whole K and V, as `attn_variants.make_variant` builds it."""
-    b, h, n, d = qkv[0].shape
-    kv = pl.BlockSpec((1, 1, n, d), lambda i, j, qb: (i, j, 0, 0))
-    return pl.pallas_call(
-        functools.partial(kernel, **kw),
-        out_shape=jax.ShapeDtypeStruct((b, h, n, d), qkv[0].dtype),
-        grid=(b, h, n // block_q),
-        in_specs=[pl.BlockSpec((1, 1, block_q, d), lambda i, j, qb: (i, j, qb, 0)), kv, kv],
-        out_specs=pl.BlockSpec((1, 1, block_q, d), lambda i, j, qb: (i, j, qb, 0)),
-        interpret=True,
-    )(*qkv)
 
 
 def _packed_call(kernel, qkv, block_q, **kw):
@@ -103,7 +79,7 @@ def test_online_plain_matches_lab(block_q, block_k, dtype, atol):
     jdt, tdt = _dtypes(dtype)
     qkv = _qkv(block_q + block_k, (2, 2, 128, 40))
     scale = 40 ** -0.5
-    ref = _bhnd_call(variants._online_kernel, [jnp.asarray(a, jdt) for a in qkv], block_q,
+    ref = jax_lab_bhnd(variants._online_kernel, [jnp.asarray(a, jdt) for a in qkv], block_q,
                      scale=scale, block_k=block_k)
     got = flash_attention_tiled(*(_bnhd(a, tdt) for a in qkv), scale)
     assert got.dtype == tdt and got.shape == (2, 128, 2, 40)
@@ -119,7 +95,7 @@ def test_no_softmax_plain_matches_lab(dtype, atol):
     q, k, v = _qkv(5, (1, 2, 64, 40))
     v = v / 8
     scale = 40 ** -0.5
-    ref = _bhnd_call(variants._online_kernel, [jnp.asarray(a, jdt) for a in (q, k, v)], 32,
+    ref = jax_lab_bhnd(variants._online_kernel, [jnp.asarray(a, jdt) for a in (q, k, v)], 32,
                      scale=scale, block_k=32, do_softmax=False)
     got = attention_no_softmax(*(_bnhd(a, tdt) for a in (q, k, v)), scale)
     assert got.dtype == tdt
@@ -133,7 +109,7 @@ def test_two_pass_plain_matches_fullk_bhnd(dtype, atol):
     jdt, tdt = _dtypes(dtype)
     qkv = _qkv(6, (2, 2, 96, 40))
     scale = 40 ** -0.5
-    ref = _bhnd_call(variants._fullk_kernel, [jnp.asarray(a, jdt) for a in qkv], 32, scale=scale)
+    ref = jax_lab_bhnd(variants._fullk_kernel, [jnp.asarray(a, jdt) for a in qkv], 32, scale=scale)
     got = flash_attention_two_pass(*(_bnhd(a, tdt) for a in qkv), scale)
     _close(got.transpose(1, 2), ref, atol)
 
@@ -263,14 +239,17 @@ def test_int8_row_scales_change_the_result():
 
 
 def test_lab_tiles_outside_the_instantiated_set_raise():
+    """Each wrapper against its own tile set, on the CPU as on the card: L1
+    and L3 take SM90_LAB_TILES (the sm90 kernel's), L2 LAB_TILES (the
+    parent's narrow kernel); a tile of the other set is refused."""
     q = torch.zeros(1, 64, 1, 40)
-    for fn in (flash_attention_tiled, attention_no_softmax, flash_attention_two_pass):
-        for block_q, block_k in LAB_TILES:
+    for fn, tiles in ((flash_attention_tiled, SM90_LAB_TILES), (attention_no_softmax, LAB_TILES),
+                      (flash_attention_two_pass, SM90_LAB_TILES)):
+        for block_q, block_k in tiles:
             assert fn(q, q, q, 1.0, block_q, block_k).shape == q.shape
-        with pytest.raises(ValueError, match="not instantiated"):
-            fn(q, q, q, 1.0, 256, 64)
-        with pytest.raises(ValueError, match="not instantiated"):
-            fn(q, q, q, 1.0, 64, 16)
+        for other in sorted(set(LAB_TILES + SM90_LAB_TILES) - set(tiles)) + [(256, 64), (64, 16)]:
+            with pytest.raises(ValueError, match="not instantiated"):
+                fn(q, q, q, 1.0, *other)
 
 
 def test_cpu_tensors_take_the_plain_lab_versions():
@@ -284,3 +263,41 @@ def test_cpu_tensors_take_the_plain_lab_versions():
         fn(x, x, x, 0.2)
     flash_attention_packed_int8_rowk(x.flatten(2), x.flatten(2), x.flatten(2), 2)
     assert [f.launches for f in counted] == before
+
+
+def test_lab_entry_runs_every_tile_beside_its_parent(monkeypatch):
+    """The lab entry's bf16 labs (`tools/attn_lab.py`) at a tiny size on
+    the CPU, the timer and the parent's launch replaced by stand-ins: L1
+    and L3 run every tile the sm90 kernel instantiates at their D
+    (`sm90_lab_tiles`), each row beside the parent in its mode at
+    `lab_parent_tile`, and every row, the parent's too, lies within 2e-2
+    of its largest plain output (bf16 against fp32)."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+    from prompt_diffusion_tpu_torch.tools import attn_lab
+
+    parents = []
+
+    def parent(q, k, v, scale, mode, tile):
+        assert tile in LAB_TILES and mode in ("online", "two_pass")
+        parents.append((mode, tile, q.shape[-1]))
+        return fa._torch_attention(q, k, v, scale)
+
+    monkeypatch.setattr(attn_lab, "_parent_launch", parent)
+    monkeypatch.setattr(attn_lab, "time_ms", lambda fn, iters=10: (fn(), 1.0)[1])
+    monkeypatch.setattr(attn_lab, "B", 1)
+    monkeypatch.setattr(attn_lab, "N", 96)
+    monkeypatch.setattr(attn_lab, "H", 2)
+    rows = attn_lab.run(labs=("variants", "lab2", "lab3"), iters=1, device="cpu")
+    tiles = lambda d: [fa.lab_parent_tile(t) for t in fa.sm90_lab_tiles(d, "two_pass")]
+    online = [fa.lab_parent_tile(t) for t in fa.sm90_lab_tiles(40, "tiled")]
+    assert [r.get("parent_tile") for r in rows["variants"]] == (
+        online + [None, None] + tiles(40) + [(64, 64), (128, 64)] + [None])
+    assert [r["parent_tile"] for r in rows["lab2"]] == [(64, 64), (64, 64), (128, 64), (64, 64),
+                                                        (128, 64)]
+    assert [r["parent_tile"] for r in rows["lab3"]] == tiles(64) + tiles(128)
+    assert parents[::2] == parents[1::2]  # the error's call, then the timed one
+    assert [(m, d) for m, _, d in parents[::2]] == (
+        [("online", 40)] * 4 + [("two_pass", 40)] * 11 + [("two_pass", 64)] * 4
+        + [("two_pass", 128)] * 2)
+    for row in (r for lab in rows.values() for r in lab):
+        assert row["err_over_max"] <= 2e-2 and row.get("parent_err_over_max", 0.0) <= 2e-2

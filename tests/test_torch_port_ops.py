@@ -91,7 +91,10 @@ def test_attention_kernel_refuses_before_build(case, monkeypatch):
     monkeypatch.setattr(_build, "cuda_ext", built)
     q, scale, mode, tile = _refused(case)
     with pytest.raises(ValueError):
-        fa._launch(q, q, q, scale, mode, tile)
+        if tile is None:
+            fa._launch(q, q, q, scale)
+        else:
+            fa._parent_launch(q, q, q, scale, mode, tile)
 
 
 # the epilogue: False none, True SiLU, "relu" ReLU (the MiDaS backbone's)

@@ -104,3 +104,36 @@ def jax_int8_attention(q, k, v, num_heads, scale):
         out_specs=pl.BlockSpec((1, n, hd), row),
         interpret=True,
     )(q, ki, skh[:, None, :], v)
+
+
+def jax_lab(name):
+    """A JAX attention lab of `tools/` (no package), loaded by file path."""
+    import importlib.util
+
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools")
+    spec = importlib.util.spec_from_file_location(f"jax_lab_{name}",
+                                                  os.path.join(tools, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def jax_lab_bhnd(kernel, qkv, block_q, **kw):
+    """A lab kernel over (B, H, N, D) blocks of `block_q` query rows and the
+    whole K and V in interpret mode, as `attn_variants.make_variant` builds
+    it."""
+    import functools
+
+    import jax
+    from jax.experimental import pallas as pl
+
+    b, h, n, d = qkv[0].shape
+    kv = pl.BlockSpec((1, 1, n, d), lambda i, j, qb: (i, j, 0, 0))
+    return pl.pallas_call(
+        functools.partial(kernel, **kw),
+        out_shape=jax.ShapeDtypeStruct((b, h, n, d), qkv[0].dtype),
+        grid=(b, h, n // block_q),
+        in_specs=[pl.BlockSpec((1, 1, block_q, d), lambda i, j, qb: (i, j, qb, 0)), kv, kv],
+        out_specs=pl.BlockSpec((1, 1, block_q, d), lambda i, j, qb: (i, j, qb, 0)),
+        interpret=True,
+    )(*qkv)
