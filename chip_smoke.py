@@ -54,15 +54,18 @@ without the final `"ok": true` line:
                call and a second call bit-equal. The attention lab modes
                at the SD1.5 64² and SD3 joint shapes, with K1's bounds
                (the no-softmax mode's output is no average of V: its
-               bound is relative); L1 (online, at K1's tile and at
-               64-key tiles) and L3 (two passes, at D = 40 and 64) on
-               the sm90 kernel's lab instantiations
-               (`attention_sm90_lab.cu`), one device launch per call,
-               each printed beside K1's kernel on the same inputs. K1,
+               bound is relative); L1 (online) and L2 (no softmax), each
+               at K1's tile and at 64-key tiles, and L3 (two passes, at
+               D = 40 and 64) on the sm90 kernel's lab instantiations
+               (`attention_sm90_lab.cu`, `_lab_two_pass.cu`), one device
+               launch per call, each printed beside K1's kernel on the
+               same inputs; L4 (per-row K) on its per-row-K int8
+               instantiation, one launch of its prologue
+               `k_row_codes_kernel` and one of the kernel per call. K1,
                K2 at D <= 128 and K9 run the
                `wgmma` kernel of `attention_sm90.cuh`, K2 at the VAE's
                D = 512 that of `attention_sm90_wide.cuh`; at each such
-               case (and at L1's and L3's) the parent design
+               case (and at the lab modes') the parent design
                (`fa_narrow_kernel`, `fa_wide_kernel`,
                `int8_attn_kernel`) runs too, within the same bound, and
                its device ms is printed beside the kernel's; the plans of
@@ -197,11 +200,12 @@ without the final `"ok": true` line:
                call one launch of each under the profiler;
  10. labs    - the attention lab entry point
                (`prompt_diffusion_tpu_torch.tools.attn_lab`), every lab at
-               two timed iterations, under the profiler: every L1 and L3
-               call one launch of the sm90 kernel's lab instantiations,
-               `fa_narrow_kernel` only from the parent's own launch (L2
-               and the `[parent]` rows), the parent's rows within the
-               variants' bound;
+               two timed iterations, under the profiler: every L1, L2
+               and L3 call one launch of the sm90 kernel's bf16 lab
+               instantiations, every L4 call one of its per-row-K one,
+               `fa_narrow_kernel` and `int8_attn_kernel` only from the
+               parents' own launches (the `[parent]` rows), the parents'
+               rows within the variants' bound;
  11. midas   - the MiDaS DPT-Hybrid depth annotator at full width (ViT-B
                768 x 12, ResNetV2 (3, 4, 9), features 256; random weights
                from a seed; bf16) on two batches of 16 images at 512², as
@@ -903,16 +907,17 @@ def kernel_cases(gen):
             cases.append((name, label, fn, args, "exact", 0.0,
                           (nbytes, 2 * b * h * w * cout * 9 * cin, 0), None))
     # the attention lab modes at the SD1.5 64² self-attention (B, N, H, D):
-    # L1 at K1's tile and at 64-key tiles, L2 at its parent tile, L3 at K1's
-    # tile, also at heads of 64 (lab3's padding); then the per-row-K int8
-    # mode at the SD3 joint shape
+    # L1 and L2 at K1's tile and at 64-key tiles, L3 at K1's tile, also at
+    # heads of 64 (lab3's padding); then the per-row-K int8 mode (L4) at the
+    # SD3 joint shape
     b, n, h = 8, 4096, 8
     sdpa = lambda q, k, v, s: (lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=s))
     for name, fn, d, bq, bk, lib in (
             ("flash_attention_tiled", flash_attention_tiled, 40, 192, 128, True),
             ("flash_attention_tiled", flash_attention_tiled, 40, 192, 64, True),
-            ("attention_no_softmax", attention_no_softmax, 40, 64, 64, False),
+            ("attention_no_softmax", attention_no_softmax, 40, 192, 128, False),
+            ("attention_no_softmax", attention_no_softmax, 40, 192, 64, False),
             ("flash_attention_two_pass", flash_attention_two_pass, 40, 192, 128, True),
             ("flash_attention_two_pass", flash_attention_two_pass, 64, 192, 128, True)):
         q, k, v = (bf16(randn(b, n, h, d)) for _ in range(3))
@@ -929,11 +934,11 @@ def kernel_cases(gen):
 
 
 def parent_call(name, args):
-    """The parent design's call on a K1, K2, K9, L1 or L3 case an sm90
-    kernel runs (`fa_narrow_kernel` at its tile, the lab modes' at
+    """The parent design's call on a K1, K2, K9 or lab case an sm90 kernel
+    runs (`fa_narrow_kernel` at its tile, the bf16 lab modes' at
     `lab_parent_tile`, `fa_wide_kernel` at D = 512, `int8_attn_kernel` at
-    its query rows, all with the same inputs, through the parent's own
-    launches), or None."""
+    its query rows, per head or, for L4, per key row, all with the same
+    inputs, through the parents' own launches), or None."""
     from prompt_diffusion_tpu_torch.ops import flash_attention as fa
 
     if name == "flash_attention_packed":
@@ -949,26 +954,28 @@ def parent_call(name, args):
         if fa.attention_route("online", d) not in ("sm90", "wide_sm90"):
             return None
         return lambda: fa._parent_launch(q, k, v, d ** -0.5, "online", fa.kernel_tile(d))
-    if name in ("flash_attention_tiled", "flash_attention_two_pass"):
+    if name in LAB_MODES:
         q, k, v, scale, *tile = args
-        mode = "online" if name == "flash_attention_tiled" else "two_pass"
+        mode = LAB_MODES[name]
         return lambda: fa._parent_launch(q, k, v, scale, mode, fa.lab_parent_tile(tuple(tile)))
+    if name == "flash_attention_packed_int8_rowk":
+        q, k, v, h = args
+        return lambda: fa._int8_parent_launch(q, k, v, h, (q.shape[-1] // h) ** -0.5, True)
     if name == "flash_attention_packed_int8":
         q, k, v, h, *scale = args
         if q.shape[-1] // h not in fa.INT8_PARENT_HEAD_DIMS:  # SD1.5's 40 and 80
             return None
         scale = scale[0] if scale else (q.shape[-1] // h) ** -0.5
-        return lambda: fa._int8_launch(q, k, v, h, scale, False, fa.int8_block_q(q.shape[1]))
+        return lambda: fa._int8_parent_launch(q, k, v, h, scale)
     return None
 
 
 def k1_call(name, args):
-    """K1 on an L1 or L3 case's inputs (contiguous (B, N, H, D), the
-    packed layout), the yardstick of the lab modes on the sm90 kernel, or
-    None."""
+    """K1 on a bf16 lab case's inputs (contiguous (B, N, H, D), the packed
+    layout), the yardstick of the lab modes on the sm90 kernel, or None."""
     from prompt_diffusion_tpu_torch.ops.flash_attention import flash_attention_packed
 
-    if name not in ("flash_attention_tiled", "flash_attention_two_pass"):
+    if name not in LAB_MODES:
         return None
     q, k, v, scale, *_ = args
     return lambda: flash_attention_packed(q.flatten(2), k.flatten(2), v.flatten(2), q.shape[2],
@@ -1002,6 +1009,14 @@ def sm90_plan_check():
                 rows.append(f"{mode} D={d} {tile} {built}")
                 check(built == plan.smem, f"sm90_lab_plan({d}, {mode}, {tile}) gives {plan.smem} "
                                           f"bytes of shared memory, the build {built}")
+    for d in fa.SM90_ROWK_HEAD_DIMS:  # L4 on both of K9's plans (three consumers at N = 4250)
+        for nq in (4250, 1024):
+            plan = fa.sm90_rowk_plan(d, nq, nq)
+            built = ext.attention_sm90_lab_smem(d, fa.SM90_ROWK_MODE, plan.consumers,
+                                                plan.block_k)
+            rows.append(f"int8_rowk D={d} ({plan.block_q}, {plan.block_k}) {built}")
+            check(built == plan.smem, f"sm90_rowk_plan({d}, {nq}, {nq}) gives {plan.smem} bytes "
+                                      f"of shared memory, the build {built}")
     wide = fa.wide_plan(fa.WIDE_HEAD_DIM)
     built = tuple(ext.attention_sm90_wide_plan(i) for i in range(7))
     want = (wide.rows, wide.block_k, wide.smem, wide.stages, *wide.regs, wide.consumers)
@@ -1150,6 +1165,7 @@ def phase_kernels(gen):
     from prompt_diffusion_tpu_torch.ops.flash_attention import LAB_TILES, WIDE_TILE
     from prompt_diffusion_tpu_torch.tools.conv_tune import bf16_conv
     from prompt_diffusion_tpu_torch.tools.timing import (
+        device_launch_names,
         device_launches,
         device_ms,
         roofline,
@@ -1223,7 +1239,9 @@ def phase_kernels(gen):
             msg += f" parent_max_abs_err={extra['parent_max_abs_err']}"
             ok = ok and extra["parent_max_abs_err"] <= bound
         one = name in ONE_LAUNCH and kind != "grad"  # a gradient case runs many kernels
-        if kind == "quant" or one:  # K5's, K3's, K9p's and K12's backward's sums cross blocks
+        each = DEVICE_FUNCTIONS[name] if name in EACH_ONCE else ()
+        # K5's, K3's, K9p's and K12's backward's sums cross blocks
+        if kind == "quant" or one or each:
             again = fn(*args)
             pairs = zip(out, again) if isinstance(out, tuple) else ((out, again),)
             extra["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
@@ -1234,9 +1252,15 @@ def phase_kernels(gen):
             extra["launches_per_call"] = device_launches(lambda: fn(*args))
             msg += f"; {extra['launches_per_call']} device launches per call (1 required)"
             ok = ok and extra["launches_per_call"] == 1
+        if each:
+            per_call = device_launch_names(lambda: fn(*args))
+            extra["launches_per_call"] = per_call
+            msg += f"; device launches per call {per_call} (one of each of {each} required)"
+            ok = ok and sum(per_call.values()) == len(each) and all(
+                sum(n for nm, n in per_call.items() if f in nm) == 1 for f in each)
         del out, ref
         t = time.perf_counter()
-        ms = device_ms(lambda: fn(*args), launches=1 if one else None)
+        ms = device_ms(lambda: fn(*args), launches=1 if one else len(each) or None)
         with plain_ops():
             plain_ms = device_ms(lambda: fn(*args), iters=PLAIN_ITERS, warmup=1)
         lib_ms = None if library is None else device_ms(library)
@@ -1345,25 +1369,33 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                             "prompt_diffusion_tpu/ops/int8_conv.py:103"),
     "flash_attention_tiled": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                               "tools/attn_variants.py:41"),
-    "attention_no_softmax": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/flash_attention.cu",
+    "attention_no_softmax": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                              "tools/attn_variants.py:41"),
     "flash_attention_two_pass": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
                                  "tools/attn_variants.py:76"),
     "flash_attention_packed_int8_rowk": (
-        "cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
+        "cuda", "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cuh",
         "tools/attn_int8_lab.py:46"),
     # K9's prologue: the K quantization of K9's own function, which JAX
     # computes in XLA beside its Pallas call
     "quant_k_int8": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu",
                      "prompt_diffusion_tpu/ops/flash_attention.py:391"),
 }
+# the bf16 lab wrappers on the sm90 kernel, by the mode their parent
+# `flash_attention.cu` runs beside them (`_parent_launch`)
+LAB_MODES = {"flash_attention_tiled": "online", "attention_no_softmax": "no_softmax",
+             "flash_attention_two_pass": "two_pass"}
 # kernels whose wrapper must issue exactly one device launch per call (no
 # cast or copy of its inputs), counted in a profiler trace in `[kernels]`
 # (K12's gradient case, which runs both K12 kernels and plain ops, aside)
 ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
               "fused_group_norm_quant", "fused_layer_norm_quant", "fused_quant_rows",
               "fused_group_norm", "quant_k_int8", "fused_adaln", "fused_adaln_bwd",
-              "flash_attention_tiled", "flash_attention_two_pass")
+              *LAB_MODES)
+# wrappers that launch several device functions, each exactly once per call
+# in `[kernels]` (L4: its per-row prologue, then the sm90 kernel), counted by
+# name in a profiler trace: DEVICE_FUNCTIONS[name], one launch each
+EACH_ONCE = ("flash_attention_packed_int8_rowk",)
 # the device functions a wrapper launches, where it launches more than one
 # (K9's wrapper runs its prologue, then the attention kernel; K8's adds the
 # split-K sum and epilogue where its plan splits K), or where its source
@@ -1371,11 +1403,12 @@ ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
 # instantiations)
 DEVICE_FUNCTIONS = {
     "flash_attention_tiled": ("attn_sm90_lab_kernel",),
+    "attention_no_softmax": ("attn_sm90_lab_kernel",),
     "flash_attention_two_pass": ("attn_sm90_lab_kernel",),
     "conv3x3_int8": ("conv3x3_int8_kernel", "splitk_epilogue_kernel"),
     "conv3x3_int8_xshift": ("conv3x3_int8_xshift_kernel", "splitk_epilogue_kernel"),
     "flash_attention_packed_int8": ("k_head_quant_kernel", "attn_sm90_int8_kernel"),
-    "flash_attention_packed_int8_rowk": ("k_row_codes_kernel", "int8_attn_kernel"),
+    "flash_attention_packed_int8_rowk": ("k_row_codes_kernel", "attn_sm90_rowk_kernel"),
     # K1 and K2: the warpgroup kernel at D <= 128, the wide warpgroup kernel
     # at the VAE's 512
     "flash_attention_packed": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
@@ -1385,11 +1418,11 @@ DEVICE_FUNCTIONS = {
 # on the paths: each call of these wrappers is one launch of one of its
 # device functions (wrappers that share device functions are counted
 # together: K1 and K2 launch the sm90 bf16 kernel, K2 at D = 512 the wide
-# sm90 kernel, L1 and L3 the sm90 kernel's lab instantiations), and no
-# device function of their parent designs runs (`one_launch_per_call`):
-# K1's and K2's narrow parent stays for the no-softmax lab mode (L2) and
-# K9's for the per-row-K one (L4), K2's wide parent for head dims above 128
-# other than 512
+# sm90 kernel, L1, L2 and L3 the sm90 kernel's bf16 lab instantiations, L4
+# its per-row-K one), and no device function of their parent designs runs
+# (`one_launch_per_call`): the parents stay for their own timed launches
+# (`_parent_launch`, `_int8_parent_launch`) and K2's wide parent for head
+# dims above 128 other than 512
 PATH_ONE_LAUNCH = {"fused_group_norm": ("gn_float_kernel",),
                    "quant_k_int8": ("k_head_quant_kernel",),
                    "fused_adaln": ("adaln_float_kernel",), "fused_adaln_bwd": ("adaln_bwd_kernel",),
@@ -1397,7 +1430,9 @@ PATH_ONE_LAUNCH = {"fused_group_norm": ("gn_float_kernel",),
                    "flash_attention": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
                    "flash_attention_packed_int8": ("attn_sm90_int8_kernel",),
                    "flash_attention_tiled": ("attn_sm90_lab_kernel",),
-                   "flash_attention_two_pass": ("attn_sm90_lab_kernel",)}
+                   "attention_no_softmax": ("attn_sm90_lab_kernel",),
+                   "flash_attention_two_pass": ("attn_sm90_lab_kernel",),
+                   "flash_attention_packed_int8_rowk": ("attn_sm90_rowk_kernel",)}
 PARENT_FUNCTIONS = ("gn_stats_kernel", "gn_combine_kernel", "gn_apply_kernel", "k_amax_kernel",
                     "k_codes_kernel", "adaln_kernel", "fa_narrow_kernel", "int8_attn_kernel",
                     "fa_wide_kernel")
@@ -1411,8 +1446,16 @@ SOURCES_ALSO = {
                                     "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu"),
     "flash_attention_tiled": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab.cu",
                               "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cu"),
-    "flash_attention_two_pass": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab.cu",
-                                 "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cu"),
+    "attention_no_softmax": ("prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab.cu",
+                             "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cu"),
+    "flash_attention_two_pass": (
+        "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab_two_pass.cu",
+        "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab.cu",
+        "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cu"),
+    "flash_attention_packed_int8_rowk": (
+        "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90_lab.cu",
+        "prompt_diffusion_tpu_torch/ops/csrc/attention_sm90.cu",
+        "prompt_diffusion_tpu_torch/ops/csrc/int8_attention.cu"),
 }
 # further TPU kernels a kernel stands for: the lab kernels that compute the
 # same function as one above
@@ -2724,10 +2767,11 @@ def phase_adaln(seed=5000):
 def phase_labs():
     """The attention lab entry point at LAB_ITERS timed iterations per
     variant, under the profiler: every variant, and the parent's row beside
-    an L1 or L3 variant, within ATTN_REL_BOUND of its largest plain output;
-    the L1 and L3 calls as many launches of the sm90 kernel's lab
-    instantiations, and `fa_narrow_kernel` launched only by the parent's own
-    launch (L2 and the `[parent]` rows), so by no L1 or L3 call (a trace
+    a lab variant on the sm90 kernel, within ATTN_REL_BOUND of its largest
+    plain output; the L1, L2 and L3 calls as many launches of the sm90
+    kernel's bf16 lab instantiations and the L4 calls of its per-row-K one,
+    and `fa_narrow_kernel` and `int8_attn_kernel` launched only by the
+    parents' own launches (the `[parent]` rows), so by no lab call (a trace
     that lost activities is taken again, up to `timing.PROFILE_TRIES` runs
     in all)."""
     from prompt_diffusion_tpu_torch.ops import flash_attention as fa
@@ -2738,9 +2782,11 @@ def phase_labs():
         device_trace,
     )
 
+    functions = ("attn_sm90_lab_kernel", "attn_sm90_rowk_kernel", "fa_narrow_kernel",
+                 "int8_attn_kernel")
     for attempt in range(PROFILE_TRIES):
         counted = reset_launches()
-        parent_before = fa._parent_launch.launches
+        parents_before = (fa._parent_launch.launches, fa._int8_parent_launch.launches)
         t0 = time.perf_counter()
         with device_trace() as prof:
             rows = [row for lab_rows in attn_lab.run(iters=LAB_ITERS).values()
@@ -2748,18 +2794,21 @@ def phase_labs():
         seconds = time.perf_counter() - t0
         launches = {name: w.launches for name, w in counted.items()}
         names = [name for name, _, _ in device_kernels(prof)]
-        calls = (launches["flash_attention_tiled"] + launches["flash_attention_two_pass"],
-                 fa._parent_launch.launches - parent_before)
-        found = (sum("attn_sm90_lab_kernel" in nm for nm in names),
-                 sum("fa_narrow_kernel" in nm for nm in names))
+        calls = (sum(launches[name] for name in LAB_MODES),
+                 launches["flash_attention_packed_int8_rowk"],
+                 fa._parent_launch.launches - parents_before[0],
+                 fa._int8_parent_launch.launches - parents_before[1])
+        found = tuple(sum(f in nm for nm in names) for f in functions)
         if found == calls or attempt == PROFILE_TRIES - 1:
             break
     log(f"[labs] {len(rows)} variants in {seconds:.1f}s (under the profiler); launches "
-        f"{ {k: launches[k] for k in PATH_KERNELS['labs']} }; L1 + L3 {calls[0]} calls, "
-        f"{found[0]} launches of attn_sm90_lab_kernel; the parent's launch {calls[1]} calls "
-        f"(L2 and the [parent] rows), {found[1]} launches of fa_narrow_kernel")
-    check(found == calls, f"[labs] L1 + L3 calls and the parent's launches {calls}, but "
-                          f"{found} launches of attn_sm90_lab_kernel and fa_narrow_kernel")
+        f"{ {k: launches[k] for k in PATH_KERNELS['labs']} }; L1 + L2 + L3 {calls[0]} calls, "
+        f"{found[0]} launches of attn_sm90_lab_kernel; L4 {calls[1]} calls, {found[1]} launches "
+        f"of attn_sm90_rowk_kernel; the parents' launches (the [parent] rows) {calls[2]} and "
+        f"{calls[3]} calls, {found[2]} launches of fa_narrow_kernel and {found[3]} of "
+        f"int8_attn_kernel")
+    check(found == calls, f"[labs] L1 + L2 + L3 calls, L4 calls and the parents' launches "
+                          f"{calls}, but {found} launches of {functions}")
     for row in rows:
         check(row["err_over_max"] <= ATTN_REL_BOUND,
               f"lab variant {row['variant']}: error {row['err_over_max']} of its largest output")

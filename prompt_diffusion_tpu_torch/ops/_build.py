@@ -41,7 +41,7 @@ def cuda_ext():
         sources=[os.path.join(_CSRC, name)
                  for name in ("binding.cpp", "flash_attention.cu", "attention_sm90.cu",
                               "attention_sm90_bf16.cu", "attention_sm90_int8.cu",
-                              "attention_sm90_lab.cu",
+                              "attention_sm90_lab.cu", "attention_sm90_lab_two_pass.cu",
                               "attention_sm90_wide.cu",
                               "int8_conv.cu", "int8_attention.cu", "row_quant.cu",
                               "gn_quant.cu")],

@@ -1,8 +1,8 @@
 // The C interface of the sm90 attention kernel (attention_sm90.cuh holds the
 // kernel and its notes): the checks, the TMA tensor maps built on the host
 // per call, and the launch of the instantiation (attention_sm90_bf16.cu,
-// attention_sm90_int8.cu, attention_sm90_lab.cu); the plan as built, for
-// ops/flash_attention.py's checks.
+// attention_sm90_int8.cu, attention_sm90_lab.cu, _lab_two_pass.cu); the
+// plan as built, for ops/flash_attention.py's checks.
 
 #include "attention_sm90.cuh"
 
@@ -57,28 +57,35 @@ extern "C" int pd_attention_sm90_fwd(
               : launch_bf16(d, tq, tk, tv, p, batch, s);
 }
 
-// Launches a lab mode on `stream`: `mode` 0 (kOnline, L1) or 2 (kTwoPass,
-// L3) over bf16 (B, N, H, D) views as pd_attention_sm90_fwd takes them, on
-// `consumers` warpgroups of 64 query rows and `block_k`-key tiles; returns
-// the launch's cudaError_t (0 = queued), cudaErrorInvalidValue for a shape,
-// stride, mode or tile not instantiated (`lab_ok`) or a tensor map
-// cuTensorMapEncodeTiled refuses.
+// Launches a lab mode on `stream`: `mode` 0 (kOnline, L1), 1 (kNoSoftmax,
+// L2) or 2 (kTwoPass, L3) over bf16 (B, N, H, D) views as
+// pd_attention_sm90_fwd takes them, or 3 (kRowK, L4) with `k` the per-row
+// prologue's int8 codes (element strides of the codes) and `sk` its fp32
+// scales, (B, H) rows of nk scales `sk_pitch` floats apart (a multiple of
+// 4); on `consumers` warpgroups of 64 query rows and `block_k`-key tiles.
+// Returns the launch's cudaError_t (0 = queued), cudaErrorInvalidValue for
+// a shape, stride, mode or tile not instantiated (`lab_ok`) or a tensor
+// map cuTensorMapEncodeTiled refuses.
 extern "C" int pd_attention_sm90_lab_fwd(
-    const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
-    int d, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
-    int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
-    float scale, int mode, int consumers, int block_k, void* stream) {
+    const void* q, const void* k, const void* sk, int64_t sk_pitch, const void* v, void* o,
+    int batch, int heads, int nq, int nk, int d, int64_t q_sb, int64_t q_sn, int64_t q_sh,
+    int64_t k_sb, int64_t k_sn, int64_t k_sh, int64_t v_sb, int64_t v_sn, int64_t v_sh,
+    int64_t o_sb, int64_t o_sn, int64_t o_sh, float scale, int mode, int consumers, int block_k,
+    void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const bool row_k = mode == kRowK;
   if (!lab_ok(d, mode, consumers, block_k) || nq <= 0 || nk <= 0 || batch <= 0 || heads <= 0 ||
-      static_cast<int64_t>(batch) * heads > 65535 || !(scale > 0.f)) {
+      static_cast<int64_t>(batch) * heads > 65535 || !(scale > 0.f) ||
+      (row_k && (sk == nullptr || sk_pitch < nk || sk_pitch % 4 != 0))) {
     return bad;
   }
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, tsk;
   if (!encode(fn, &tq, false, q, d, nq, heads, batch, q_sn, q_sh, q_sb, 64 * consumers) ||
-      !encode(fn, &tk, false, k, d, nk, heads, batch, k_sn, k_sh, k_sb, block_k) ||
-      !encode(fn, &tv, false, v, d, nk, heads, batch, v_sn, v_sh, v_sb, block_k)) {
+      !encode(fn, &tk, row_k, k, d, nk, heads, batch, k_sn, k_sh, k_sb, block_k) ||
+      !encode(fn, &tv, false, v, d, nk, heads, batch, v_sn, v_sh, v_sb, block_k) ||
+      (row_k && !encode_scales(fn, &tsk, sk, nk, batch * heads, sk_pitch, block_k))) {
     return bad;
   }
   Params p;
@@ -91,7 +98,7 @@ extern "C" int pd_attention_sm90_lab_fwd(
   p.nq = nq;
   p.nk = nk;
   p.scale = scale;
-  return launch_lab(d, mode, consumers, block_k, tq, tk, tv, p, batch,
+  return launch_lab(d, mode, consumers, block_k, tq, tk, tv, row_k ? &tsk : nullptr, p, batch,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -112,8 +119,10 @@ extern "C" int pd_attention_sm90_smem(int d, int int8, int consumers) {
              : -1;
 }
 
-// The dynamic shared memory of a lab mode's block as built; -1 where not
-// instantiated.
+// The dynamic shared memory of a lab mode's block as built (kRowK: int8 K
+// tiles and the key scales' stages); -1 where not instantiated.
 extern "C" int pd_attention_sm90_lab_smem(int d, int mode, int consumers, int block_k) {
-  return lab_ok(d, mode, consumers, block_k) ? smem_bytes(d, false, consumers, block_k) : -1;
+  return lab_ok(d, mode, consumers, block_k)
+             ? smem_bytes(d, mode == kRowK, consumers, block_k, mode == kRowK)
+             : -1;
 }

@@ -1,6 +1,7 @@
 // Attention forward on Hopper's warpgroup tensor cores (sm_90a): K1 and K2
 // at head dimensions up to 128 (bf16), K9 (int8 Q.K^T, bf16 P.V), and the
-// attention lab's online (L1) and two-pass (L3) modes.
+// attention lab's online (L1), no-softmax (L2), two-pass (L3) and per-row-K
+// int8 (L4) modes.
 //
 // Replaces, on the paths, the TPU kernels of
 // prompt_diffusion_tpu/ops/flash_attention.py:
@@ -19,10 +20,10 @@
 // Its parents, `fa_narrow_kernel` (flash_attention.cu) and
 // `int8_attn_kernel` (int8_attention.cu), issue Ampere's mma.sync from
 // ldmatrix fragments. They stay as the parent designs that
-// tools/attn_tune.py and the lab time beside this one, for head dimensions
-// this kernel does not instantiate, and as the kernels of the lab modes
-// this one does not take: no softmax (L2, `fa_narrow_kernel`) and per-row
-// K scales (L4, `int8_attn_kernel`).
+// tools/attn_tune.py and the lab time beside this one (their explicit
+// launches, ops/flash_attention.py's `_parent_launch` and
+// `_int8_parent_launch`), and `fa_narrow_kernel` for K1's head dimensions
+// this kernel does not instantiate. No lab mode runs them any more.
 //
 // Numerics, as the parents': logits, running max and running sum in fp32;
 // the row maximum over the unscaled logits (bf16) or the exact integer
@@ -105,11 +106,31 @@
 // softmax overlaps its own P.V (0.533; K9 0.553 against 0.540: within the
 // spread); K9 on three consumers at 96-key tiles (0.566 against 0.540).
 //
-// The lab modes (attention_sm90_lab.cu, `attn_sm90_lab_kernel`) are
-// instantiations of the same block with the mode and the key tile as
-// template parameters: two or three consumers (three at D <= 64), 64- or
-// 128-key tiles (`lab_ok`). kOnline, the lab's online softmax at a chosen
-// tile (tools/attn_variants.py::_online_kernel), is K1's loop. kTwoPass
+// The lab modes (attention_sm90_lab.cu, attention_sm90_lab_two_pass.cu;
+// `attn_sm90_lab_kernel`, L4 `attn_sm90_rowk_kernel`) are instantiations of
+// the same block with the mode and the key tile as template parameters:
+// two or three consumers (three at D <= 64), 64- or 128-key tiles
+// (`lab_ok`; L4 on K9's plans). kOnline, the lab's online softmax at a
+// chosen tile (tools/attn_variants.py::_online_kernel), is K1's loop.
+// kNoSoftmax (L2, the same lab kernel with do_softmax=False) is its turn
+// without the softmax: O = sum_j bf16(s_ij * scale) V_j, each tile's
+// Q.K^T, one FMUL by the scale and the round to bf16 into P.V's A
+// fragments, P.V into fp32 O, O stored as it is: no maximum, exponential,
+// sum, warp vote or division, and no key-tail mask (K's and V's rows past
+// N arrive as zeros, so s = 0 and P = 0 there). P is elementwise, so only
+// the order of the fp32 sums of s and of O moves, not where P's rounding
+// falls. kRowK (L4, tools/attn_int8_lab.py::_kernel_v2) is K9 with one K
+// scale per (batch, key row, head), from the prologue
+// `k_row_codes_kernel`: the scale enters each logit before the row
+// maximum, x = f32(s32) * sk_j (one FMUL), the maximum over x, then p =
+// 2^(x * c - m) with c = sq * scale * log2(e), one FFMA as in K9 (the
+// plain version and the parent round (f32(s32) * (sq * sk_j)) * scale:
+// another order of the same three factors). A tile's key scales arrive by
+// TMA (a 2-D map over the (B * H) rows of scales, their pitch rounded up
+// to 4 floats by the prologue: the map's strides are whole 16 bytes; the
+// keys past N arrive as zeros and are masked) into a ring of their own
+// beside K's, read with LDS in the softmax and released once read: K9's
+// three consumers hold no spare registers for them. kTwoPass
 // stands for the full-K kernels of attn_variants.py, attn_lab2.py and
 // attn_lab3.py, which hold a whole logits row and take one softmax: as the
 // parent's two-pass mode, it makes two passes over the keys.
@@ -135,7 +156,12 @@
 // the exponentials it saves 4-7%, without the P.V products 1-6%, without
 // the K/V copies after the first stages 3-8%; without the ping-pong D = 64
 // runs 10% slower. 64-key tiles and two consumers lose at every shape (L3
-// at D = 40: 0.869-1.046).
+// at D = 40: 0.869-1.046). L2 on K1's tile 0.408 (64-key tiles 0.518; the
+// parent's best tile 0.857): its copies bind it, without the K/V copies
+// after the first stages 0.296, without the P.V products 0.401, without
+// the ping-pong 0.410. L4 at (2,4250,24,64) on three consumers 0.563-0.578
+// (two 0.697-0.722; the parent 0.908-0.920): no one unit, without the
+// exponentials -6%, without the P.V products -10%, without the copies 0%.
 // One build-time switch, PD_SM90_ABLATE, is for tools/attn_tune.py's
 // ablated copies: it takes a part out (1 the exponentials, 2 the P.V
 // products, 4 the K/V copies after the first stages, 8 the ping-pong); an
@@ -175,25 +201,38 @@ __host__ __device__ constexpr int block_k(bool int8, int nc) {
 // 65536 (40 * 128 + 232 * 256, 32 * 128 + 160 * 384)
 __host__ __device__ constexpr int producer_regs(int nc) { return nc == 2 ? 40 : 32; }
 __host__ __device__ constexpr int consumer_regs(int nc) { return nc == 2 ? 232 : 160; }
-// the modes, numbered as flash_attention.cu's: K1's online softmax, and the
-// lab's two passes over the keys
-constexpr int kOnline = 0, kTwoPass = 2;
-// the lab modes' instantiations (attention_sm90_lab.cu): kOnline at D = 40
-// (L1), kTwoPass at D = 40, 64 and 128 (L3 and its heads padded to 64 and
-// 128); two or three consumers (three at D <= 64), 64- or 128-key tiles
+// the modes, numbered as flash_attention.cu's: K1's online softmax, the
+// lab's no-softmax sum and its two passes over the keys; then the lab's
+// int8 mode with one K scale per key row (K9's online softmax)
+constexpr int kOnline = 0, kNoSoftmax = 1, kTwoPass = 2, kRowK = 3;
+// the lab modes' instantiations (attention_sm90_lab.cu,
+// attention_sm90_lab_two_pass.cu): kOnline and kNoSoftmax at D = 40 (L1,
+// L2), kTwoPass at D = 40, 64 and 128 (L3 and its heads padded to 64 and
+// 128), on two or three consumers (three at D <= 64) and 64- or 128-key
+// tiles; kRowK at D = 64 (L4) on K9's plans: three consumers at 112-key
+// tiles or two at 128
 __host__ __device__ constexpr bool lab_ok(int d, int mode, int nc, int bk) {
-  return (mode == kOnline ? d == 40 : mode == kTwoPass && (d == 40 || d == 64 || d == 128)) &&
-         (nc == 2 || (nc == 3 && d <= 64)) && (bk == 64 || bk == 128);
+  return mode == kRowK
+             ? d == 64 && (nc == 2 || nc == 3) && bk == block_k(true, nc)
+             : (mode == kOnline || mode == kNoSoftmax
+                    ? d == 40
+                    : mode == kTwoPass && (d == 40 || d == 64 || d == 128)) &&
+                   (nc == 2 || (nc == 3 && d <= 64)) && (bk == 64 || bk == 128);
 }
 // 128-byte column blocks of a bf16 Q or V row, of a K row
 __host__ __device__ constexpr int qv_blocks(int d) { return (2 * d + SPAN - 1) / SPAN; }
 __host__ __device__ constexpr int k_blocks(int d, bool int8) {
   return int8 ? (d + SPAN - 1) / SPAN : qv_blocks(d);
 }
+// bytes of a stage of kRowK's key scales: a tile's bk fp32 scales, 128-byte
+// aligned (TMA's destination)
+__host__ __device__ constexpr int scale_stage(int bk) { return (4 * bk + SPAN - 1) / SPAN * SPAN; }
 // dynamic shared memory of a block: Q, the K and V stages of bk-key tiles,
-// the alignment slack
-__host__ __device__ constexpr int smem_bytes(int d, bool int8, int nc, int bk) {
-  return (qv_blocks(d) * 64 * nc + NS * (k_blocks(d, int8) + qv_blocks(d)) * bk) * SPAN + 1024;
+// the key scales' stages (kRowK), the alignment slack
+__host__ __device__ constexpr int smem_bytes(int d, bool int8, int nc, int bk,
+                                             bool row_k = false) {
+  return (qv_blocks(d) * 64 * nc + NS * (k_blocks(d, int8) + qv_blocks(d)) * bk) * SPAN +
+         (row_k ? NS * scale_stage(bk) : 0) + 1024;
 }
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ABLATE = PD_SM90_ABLATE;
@@ -201,8 +240,9 @@ constexpr int ABL_NO_EXP = 1, ABL_NO_PV = 2, ABL_NO_COPY = 4, ABL_NO_PINGPONG = 
 
 // Shared memory of a block: Q (QB column blocks of BQ rows), then NS K
 // stages (KB blocks of BK rows), then NS V stages (QB blocks of BK rows),
-// every block 1024-byte aligned; the mbarriers are static.
-template <int D, bool INT8, int NC_, int BK_ = block_k(INT8, NC_)>
+// every block 1024-byte aligned, then with ROWK NS stages of the key
+// scales; the mbarriers are static.
+template <int D, bool INT8, int NC_, int BK_ = block_k(INT8, NC_), bool ROWK = false>
 struct Plan {
   static constexpr int NC = NC_;
   static constexpr int BK = BK_;                   // keys of a tile
@@ -215,9 +255,12 @@ struct Plan {
   static constexpr int V_STAGE = QB * BK * SPAN;
   static constexpr int OFF_K = Q_BYTES;
   static constexpr int OFF_V = OFF_K + NS * K_STAGE;
-  static constexpr int SMEM = smem_bytes(D, INT8, NC, BK);
+  static constexpr int S_STAGE = ROWK ? scale_stage(BK) : 0;  // key scales (kRowK)
+  static constexpr int OFF_S = OFF_V + NS * V_STAGE;
+  static constexpr int SMEM = smem_bytes(D, INT8, NC, BK, ROWK);
   static constexpr int KSTEPS = INT8 ? (D + 31) / 32 : (D + 15) / 16;  // k-steps of Q.K^T
-  static_assert(SMEM == OFF_V + NS * V_STAGE + 1024 && SMEM <= SMEM_MAX, "shared memory");
+  static_assert(SMEM == OFF_S + NS * S_STAGE + 1024 && SMEM <= SMEM_MAX, "shared memory");
+  static_assert(!ROWK || INT8, "key scales of int8 codes");
   // three consumers' O accumulators fit their registers only at D <= 64
   static_assert(NC == 2 || (NC == 3 && D <= 64), "consumers");
   static_assert(BK == 64 || BK == 112 || BK == 128, "key tile");
@@ -271,6 +314,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// box (c0.., c1) of a 2-D tensor map (kRowK's key scales) into shared memory
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -564,13 +616,17 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* smem) {
 
 // ---- the kernel ------------------------------------------------------------------
 
-// MODE: kOnline (K1, K2, K9, L1) or kTwoPass (L3, bf16 only); BK_: the key
+// MODE: kOnline (K1, K2, K9, L1), kNoSoftmax (L2) or kTwoPass (L3), both
+// bf16 only, or kRowK (L4, int8 only; `tsk` its key scales); BK_: the key
 // tile
 template <int D, bool INT8, int NC_, int BK_ = block_k(INT8, NC_), int MODE = kOnline>
 __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorMap* tk,
-                                          const CUtensorMap* tv, const Params& p) {
-  static_assert(MODE == kOnline || (MODE == kTwoPass && !INT8), "mode");
-  using L = Plan<D, INT8, NC_, BK_>;
+                                          const CUtensorMap* tv, const Params& p,
+                                          const CUtensorMap* tsk = nullptr) {
+  static_assert(MODE == kOnline || ((MODE == kNoSoftmax || MODE == kTwoPass) && !INT8) ||
+                    (MODE == kRowK && INT8),
+                "mode");
+  using L = Plan<D, INT8, NC_, BK_, MODE == kRowK>;
   using A = typename Acc<INT8>::type;
   constexpr int NC = L::NC, BQ = L::BQ, CT = 128 * NC;  // consumers, query rows, consumer threads
   constexpr int BK = L::BK;
@@ -578,7 +634,7 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
   constexpr int NO = D / 8;      // 8-column tiles of O
   constexpr int NP = BK / 16;    // k16 steps of P.V
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 4 * NS];
+  __shared__ __align__(8) uint64_t bars[1 + (MODE == kRowK ? 6 : 4) * NS];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t s_base = smem_u32(smem);
   const uint32_t bar0 = smem_u32(bars);
@@ -587,6 +643,8 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
   auto full_v = [&](int s) { return bar0 + 8 * (1 + NS + s); };
   auto empty_k = [&](int s) { return bar0 + 8 * (1 + 2 * NS + s); };
   auto empty_v = [&](int s) { return bar0 + 8 * (1 + 3 * NS + s); };
+  auto full_s = [&](int s) { return bar0 + 8 * (1 + 4 * NS + s); };   // kRowK's key scales
+  auto empty_s = [&](int s) { return bar0 + 8 * (1 + 5 * NS + s); };
   auto k_tile = [&](int s) { return s_base + L::OFF_K + s * L::K_STAGE; };
   auto v_tile = [&](int s) { return s_base + L::OFF_V + s * L::V_STAGE; };
 
@@ -605,6 +663,13 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
       mbar_init(full_v(s), 1);
       mbar_init(empty_k(s), CT);
       mbar_init(empty_v(s), CT);
+    }
+    if constexpr (MODE == kRowK) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(full_s(s), 1);
+        mbar_init(empty_s(s), CT);
+      }
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -648,6 +713,11 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
         } else {
           mbar_arrive(full_k(sk));
         }
+        if constexpr (MODE == kRowK) {  // the tile's key scales: row b * H + h of the map
+          mbar_wait(empty_s(s), ph);
+          mbar_expect_tx(full_s(s), 4 * BK);
+          tma_load_2d(s_base + L::OFF_S + s * L::S_STAGE, tsk, full_s(s), j * BK, blockIdx.y);
+        }
         mbar_wait(empty_v(s), ph);
         if (copy) {
           mbar_expect_tx(full_v(s), L::V_STAGE);
@@ -689,11 +759,13 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
 
   // K9: Q's s8 A fragments (rows g, g + 8 of the warp; bytes 4t.. and
   // 16 + 4t.. of each k32 step) and per row c_r = sq * (skh * scale) * log2(e)
+  // (kRowK: sq * scale * log2(e); the key scale is in the logit)
   uint32_t qa[INT8 ? L::KSTEPS : 1][4];
   float kf[2];
   mbar_wait(q_full, 0);
   if constexpr (INT8) {
-    const float hs = __fmul_rn(p.sk[b * p.heads + h], p.scale);  // skh * scale
+    const float hs =
+        MODE == kRowK ? p.scale : __fmul_rn(p.sk[b * p.heads + h], p.scale);  // skh * scale
     const int rows[2] = {c * 64 + warp * 16 + g, c * 64 + warp * 16 + g + 8};
     // 4 bf16 of row r from column col (col % 4 == 0) of the swizzled Q tile
     auto load4 = [&](float (&x)[4], int r, int col) {
@@ -815,15 +887,38 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
     mx[1] = fmaxf(m[1], quad_max(fmaxf(fmaxf(r1[0], r1[1]), fmaxf(r1[2], r1[3]))) * kf[1]);
   };
   // tile j's logits in s to probabilities (fp32, in place) and the row
-  // sums; kOnline also the new row maxima and corr, the factor of the rows'
-  // earlier O (kTwoPass: m is the exact row maximum, from pass 1)
+  // sums; kOnline and kRowK also the new row maxima and corr, the factor of
+  // the rows' earlier O (kTwoPass: m is the exact row maximum, from pass 1).
+  // kNoSoftmax: the logits times the scale alone, no maximum, exponential
+  // or sum; the key tail needs no mask there, since rows past N arrive as
+  // zeros for K (s = 0, so P = 0) and for V.
   auto softmax = [&](int j, float (&corr)[2], auto masked) {
-    if constexpr (INT8) {
+    if constexpr (MODE == kNoSoftmax) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = __fmul_rn(s[i], p.scale);
+      return;
+    }
+    if constexpr (MODE == kRowK) {
+      // x = f32(s32) * sk_j: each key's scale before the row maximum, from
+      // the tile's stage of scales (LDS; released once read)
+      const int st = j % NS;
+      mbar_wait(full_s(st), (j / NS) & 1);
+      const float* sks = reinterpret_cast<const float*>(smem + L::OFF_S + st * L::S_STAGE);
+#pragma unroll
+      for (int n = 0; n < NS8; ++n) {
+        const float2 skj = *reinterpret_cast<const float2*>(sks + n * 8 + 2 * t);
+        put_f(s[4 * n], __fmul_rn(s32_to_f32(s[4 * n]), skj.x));
+        put_f(s[4 * n + 1], __fmul_rn(s32_to_f32(s[4 * n + 1]), skj.y));
+        put_f(s[4 * n + 2], __fmul_rn(s32_to_f32(s[4 * n + 2]), skj.x));
+        put_f(s[4 * n + 3], __fmul_rn(s32_to_f32(s[4 * n + 3]), skj.y));
+      }
+      mbar_arrive(empty_s(st));
+    } else if constexpr (INT8) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) put_f(s[i], s32_to_f32(s[i]));
     }
     mask_tail(j, masked);
-    if constexpr (MODE == kOnline) {
+    if constexpr (MODE == kOnline || MODE == kRowK) {
       float mx[2];
       new_max(mx);
 #pragma unroll
@@ -857,7 +952,8 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
       pa[kk][3] = pack_bf16(as_f(s[8 * kk + 6]), as_f(s[8 * kk + 7]));
     }
   };
-  const bool ragged = p.nk % BK != 0;  // the last tile holds the key tail
+  // the last tile holds the key tail (kNoSoftmax masks none)
+  const bool ragged = MODE != kNoSoftmax && p.nk % BK != 0;
   if constexpr (MODE == kTwoPass) {
     // pass 1: the exact row maxima, each tile's Q.K^T in this consumer's
     // turn, its K stage released after the wait
@@ -915,7 +1011,7 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
     wgmma_wait<0>();  // the P.V in flight, then O *= corr where a row maximum of the warp moved
     fence_regs(o);
     fence_regs(pa);
-    if constexpr (MODE == kOnline) {
+    if constexpr (MODE == kOnline || MODE == kRowK) {
       if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
         for (int n = 0; n < NO; ++n) {
@@ -952,7 +1048,22 @@ __device__ __forceinline__ void attn_sm90(const CUtensorMap* tq, const CUtensorM
   // start-up hand-offs to each other stay behind at the block's end)
   if (pingpong && c == 0) named_sync<CT>(1);
 
-  // O / l, stored as bf16 pairs straight from the accumulators
+  // O / l (kNoSoftmax: O), stored as bf16 pairs straight from the
+  // accumulators
+  if constexpr (MODE == kNoSoftmax) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = q0 + c * 64 + warp * 16 + g + 8 * r;
+      if (qi >= p.nq) continue;
+      __nv_bfloat16* orow = p.o + b * p.o_sb + static_cast<int64_t>(qi) * p.o_sn + h * p.o_sh;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(o[4 * n + 2 * r], o[4 * n + 2 * r + 1]);
+      }
+    }
+    return;
+  }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
 #pragma unroll
@@ -986,14 +1097,26 @@ __global__ void __launch_bounds__(Plan<D, true, NC>::NTHREADS, 1)
   attn_sm90<D, true, NC>(&tq, &tk, &tv, p);
 }
 
-// The lab modes L1 (kOnline) and L3 (kTwoPass) on bf16 Q, K, V, at BK-key
-// tiles on NC consumers (attention_sm90_lab.cu)
+// The lab modes L1 (kOnline), L2 (kNoSoftmax) and L3 (kTwoPass) on bf16 Q,
+// K, V, at BK-key tiles on NC consumers (attention_sm90_lab.cu,
+// attention_sm90_lab_two_pass.cu)
 template <int D, int NC, int BK, int MODE>
 __global__ void __launch_bounds__(Plan<D, false, NC, BK>::NTHREADS, 1)
     attn_sm90_lab_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv, const Params p) {
   attn_sm90<D, false, NC, BK, MODE>(&tq, &tk, &tv, p);
+}
+
+// The lab mode L4 (kRowK): K9 on NC consumers with the key scales of tsk,
+// a (B * H, pitch) fp32 map (attention_sm90_lab.cu)
+template <int D, int NC>
+__global__ void __launch_bounds__(Plan<D, true, NC, block_k(true, NC), true>::NTHREADS, 1)
+    attn_sm90_rowk_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tsk, const Params p) {
+  attn_sm90<D, true, NC, block_k(true, NC), kRowK>(&tq, &tk, &tv, p, &tsk);
 }
 
 // ---- launches --------------------------------------------------------------------
@@ -1044,14 +1167,26 @@ inline bool encode(EncodeTiled fn, CUtensorMap* map, bool bytes, const void* bas
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-typedef void (*Kernel)(const CUtensorMap, const CUtensorMap, const CUtensorMap, const Params);
+// kRowK's key scales: a 2-D map over `rows` fp32 rows of `n` scales each,
+// `pitch` floats apart (a multiple of 4: a stride of whole 16 bytes), in
+// boxes of one row's `box` scales; the columns past n arrive as zeros.
+inline bool encode_scales(EncodeTiled fn, CUtensorMap* map, const void* base, int n, int rows,
+                          int64_t pitch, int box) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch * 4)};
+  const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(box), 1};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, boxd,
+            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
-// `kernel` with plan L, a block per query block of one (batch, head); the
-// shared-memory limit set once per device (`smem_set`: the instantiation's).
-template <typename L>
-static int launch_plan(Kernel kernel, bool (&smem_set)[MAX_DEVICES], const CUtensorMap& tq,
-                       const CUtensorMap& tk, const CUtensorMap& tv, const Params& p, int batch,
-                       cudaStream_t stream) {
+// `kernel` with plan L on the tensor maps `maps`, a block per query block
+// of one (batch, head); the shared-memory limit set once per device
+// (`smem_set`: the instantiation's).
+template <typename L, typename Kernel, typename... Maps>
+static int launch_plan(Kernel kernel, bool (&smem_set)[MAX_DEVICES], const Params& p, int batch,
+                       cudaStream_t stream, const Maps&... maps) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1061,7 +1196,7 @@ static int launch_plan(Kernel kernel, bool (&smem_set)[MAX_DEVICES], const CUten
     if (dev < MAX_DEVICES) smem_set[dev] = true;
   }
   const dim3 grid((p.nq + L::BQ - 1) / L::BQ, batch * p.heads);
-  kernel<<<grid, L::NTHREADS, L::SMEM, stream>>>(tq, tk, tv, p);
+  kernel<<<grid, L::NTHREADS, L::SMEM, stream>>>(maps..., p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1074,32 +1209,43 @@ static int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMa
                   const Params& p, int batch, cudaStream_t stream) {
   static bool smem_set[MAX_DEVICES] = {};
   if constexpr (INT8) {
-    return launch_plan<Plan<D, true, NC>>(attn_sm90_int8_kernel<D, NC>, smem_set, tq, tk, tv, p,
-                                          batch, stream);
+    return launch_plan<Plan<D, true, NC>>(attn_sm90_int8_kernel<D, NC>, smem_set, p, batch, stream,
+                                          tq, tk, tv);
   } else {
-    return launch_plan<Plan<D, false, NC>>(attn_sm90_bf16_kernel<D>, smem_set, tq, tk, tv, p,
-                                           batch, stream);
+    return launch_plan<Plan<D, false, NC>>(attn_sm90_bf16_kernel<D>, smem_set, p, batch, stream,
+                                           tq, tk, tv);
   }
 }
 
+// a lab mode's instantiation: kRowK's (BK its plan's) with its key scales'
+// map tsk, the bf16 modes' without
 template <int D, int NC, int BK, int MODE>
 static int launch_lab_at(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                         const Params& p, int batch, cudaStream_t stream) {
+                         const CUtensorMap* tsk, const Params& p, int batch, cudaStream_t stream) {
   static bool smem_set[MAX_DEVICES] = {};
-  return launch_plan<Plan<D, false, NC, BK>>(attn_sm90_lab_kernel<D, NC, BK, MODE>, smem_set, tq,
-                                             tk, tv, p, batch, stream);
+  if constexpr (MODE == kRowK) {
+    return launch_plan<Plan<D, true, NC, BK, true>>(attn_sm90_rowk_kernel<D, NC>, smem_set, p,
+                                                    batch, stream, tq, tk, tv, *tsk);
+  } else {
+    return launch_plan<Plan<D, false, NC, BK>>(attn_sm90_lab_kernel<D, NC, BK, MODE>, smem_set, p,
+                                               batch, stream, tq, tk, tv);
+  }
 }
 
 // The launches of each instantiation, one translation unit per dtype
-// (attention_sm90_bf16.cu, attention_sm90_int8.cu) and one for the lab
-// modes (attention_sm90_lab.cu) so that the build compiles them side by
-// side; cudaErrorInvalidValue for a head dimension, consumer count, mode
-// or key tile not instantiated.
+// (attention_sm90_bf16.cu, attention_sm90_int8.cu) and two for the lab
+// modes (attention_sm90_lab.cu: L1, L2, L4 and the lab's dispatch;
+// attention_sm90_lab_two_pass.cu: L3) so that the build compiles them side
+// by side; cudaErrorInvalidValue for a head dimension, consumer count, mode
+// or key tile not instantiated. `tsk`: kRowK's key scales (null otherwise).
 int launch_bf16(int d, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                 const Params& p, int batch, cudaStream_t stream);
 int launch_int8(int d, int nc, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                 const Params& p, int batch, cudaStream_t stream);
 int launch_lab(int d, int mode, int nc, int bk, const CUtensorMap& tq, const CUtensorMap& tk,
-               const CUtensorMap& tv, const Params& p, int batch, cudaStream_t stream);
+               const CUtensorMap& tv, const CUtensorMap* tsk, const Params& p, int batch,
+               cudaStream_t stream);
+int launch_two_pass(int d, int nc, int bk, const CUtensorMap& tq, const CUtensorMap& tk,
+                    const CUtensorMap& tv, const Params& p, int batch, cudaStream_t stream);
 
 }  // namespace pd_sm90

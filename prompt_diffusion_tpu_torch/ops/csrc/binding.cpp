@@ -35,8 +35,8 @@ extern "C" int pd_int8_quant_k_head(const void* k, int64_t k_sb, int64_t k_sn, i
                                     int heads, int nk, int d, int rows, int threads, int bps,
                                     void* ws, void* sk, void* codes, int code_d, void* stream);
 extern "C" int pd_int8_quant_k_rows(const void* k, int64_t k_sb, int64_t k_sn, int batch,
-                                    int heads, int nk, int d, void* sk, void* codes,
-                                    void* stream);
+                                    int heads, int nk, int d, void* sk, int64_t sk_pitch,
+                                    void* codes, void* stream);
 extern "C" int pd_int8_attention_fwd(
     const void* q, const void* k, const void* sk, int row_k, const void* v, void* o,
     int batch, int heads, int nq, int nk, int d,
@@ -53,10 +53,11 @@ extern "C" int pd_attention_sm90_smem(int d, int int8, int consumers);
 extern "C" int pd_attention_sm90_block_k(int d, int int8, int consumers);
 extern "C" int pd_attention_sm90_block_q(int d, int int8, int consumers);
 extern "C" int pd_attention_sm90_lab_fwd(
-    const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
-    int d, int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh,
-    int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
-    float scale, int mode, int consumers, int block_k, void* stream);
+    const void* q, const void* k, const void* sk, int64_t sk_pitch, const void* v, void* o,
+    int batch, int heads, int nq, int nk, int d, int64_t q_sb, int64_t q_sn, int64_t q_sh,
+    int64_t k_sb, int64_t k_sn, int64_t k_sh, int64_t v_sb, int64_t v_sn, int64_t v_sh,
+    int64_t o_sb, int64_t o_sn, int64_t o_sh, float scale, int mode, int consumers, int block_k,
+    void* stream);
 extern "C" int pd_attention_sm90_lab_smem(int d, int mode, int consumers, int block_k);
 extern "C" int pd_attention_sm90_wide_fwd(
     const void* q, const void* k, const void* v, void* o, int batch, int heads, int nq, int nk,
@@ -136,8 +137,8 @@ void int8_quant_k_head(uintptr_t k, int64_t k_sb, int64_t k_sn, int batch, int h
 }
 
 void int8_quant_k_rows(uintptr_t k, int64_t k_sb, int64_t k_sn, int batch, int heads, int nk,
-                       int d, uintptr_t sk, uintptr_t codes, uintptr_t stream) {
-  const int err = pd_int8_quant_k_rows(ptr(k), k_sb, k_sn, batch, heads, nk, d, ptr(sk),
+                       int d, uintptr_t sk, int64_t sk_pitch, uintptr_t codes, uintptr_t stream) {
+  const int err = pd_int8_quant_k_rows(ptr(k), k_sb, k_sn, batch, heads, nk, d, ptr(sk), sk_pitch,
                                        ptr(codes), ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("int8_quant_k_rows launch failed: ") +
@@ -177,15 +178,16 @@ void attention_sm90_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, uintptr_t v, uin
   }
 }
 
-void attention_sm90_lab_fwd(uintptr_t q, uintptr_t k, uintptr_t v, uintptr_t o, int batch,
-                            int heads, int nq, int nk, int d, int64_t q_sb, int64_t q_sn,
-                            int64_t q_sh, int64_t k_sb, int64_t k_sn, int64_t k_sh, int64_t v_sb,
-                            int64_t v_sn, int64_t v_sh, int64_t o_sb, int64_t o_sn, int64_t o_sh,
-                            double scale, int mode, int consumers, int block_k, uintptr_t stream) {
+void attention_sm90_lab_fwd(uintptr_t q, uintptr_t k, uintptr_t sk, int64_t sk_pitch,
+                            uintptr_t v, uintptr_t o, int batch, int heads, int nq, int nk, int d,
+                            int64_t q_sb, int64_t q_sn, int64_t q_sh, int64_t k_sb, int64_t k_sn,
+                            int64_t k_sh, int64_t v_sb, int64_t v_sn, int64_t v_sh, int64_t o_sb,
+                            int64_t o_sn, int64_t o_sh, double scale, int mode, int consumers,
+                            int block_k, uintptr_t stream) {
   const int err = pd_attention_sm90_lab_fwd(
-      ptr(q), ptr(k), ptr(v), ptr(o), batch, heads, nq, nk, d, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
-      v_sb, v_sn, v_sh, o_sb, o_sn, o_sh, static_cast<float>(scale), mode, consumers, block_k,
-      ptr(stream));
+      ptr(q), ptr(k), ptr(sk), sk_pitch, ptr(v), ptr(o), batch, heads, nq, nk, d, q_sb, q_sn, q_sh,
+      k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, o_sb, o_sn, o_sh, static_cast<float>(scale), mode,
+      consumers, block_k, ptr(stream));
   if (err != 0) {
     throw std::runtime_error(std::string("attention_sm90_lab_fwd launch failed: ") +
                              pd_cuda_error_string(err));
@@ -293,7 +295,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "ops/flash_attention.py::quant_k_plan");
   m.def("int8_quant_k_rows", &int8_quant_k_rows,
         "The lab's per-row K quantization: packed bf16 K (B, N, H*D) -> contiguous int8 codes "
-        "and (B, H, N) fp32 scales");
+        "and fp32 scales, (B, H) rows of N scales `sk_pitch` floats apart");
   m.def("int8_attention_fwd", &int8_attention_fwd,
         "int8-QK^T attention forward over packed (B, N, H*D) tensors: bf16 Q and V, "
         "int8 K codes with (B, H) fp32 scales, or (B, H, Nk) ones with row_k; block_q 64 or 128");
@@ -309,9 +311,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("attention_sm90_block_q", &pd_attention_sm90_block_q,
         "Query rows per block of the sm90 attention kernel as built (-1: not instantiated)");
   m.def("attention_sm90_lab_fwd", &attention_sm90_lab_fwd,
-        "The attention lab's online (mode 0, L1) and two-pass (mode 2, L3) modes on warpgroup "
-        "tensor cores over strided bf16 (B, N, H, D) views, on `consumers` warpgroups of 64 "
-        "query rows and `block_k`-key tiles");
+        "The attention lab's online (mode 0, L1), no-softmax (1, L2) and two-pass (2, L3) "
+        "modes on warpgroup tensor cores over strided bf16 (B, N, H, D) views, and its int8 "
+        "mode with per-row K scales (3, L4: K the int8 codes, sk (B*H) rows of scales "
+        "`sk_pitch` floats apart), on `consumers` warpgroups of 64 query rows and "
+        "`block_k`-key tiles");
   m.def("attention_sm90_lab_smem", &pd_attention_sm90_lab_smem,
         "Shared-memory bytes of a block of a lab mode of the sm90 kernel at head dim d, mode, "
         "consumers and key tile as built (-1: not instantiated)");

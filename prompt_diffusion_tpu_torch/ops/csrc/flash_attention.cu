@@ -9,20 +9,19 @@
 // On the paths K1 and K2 at D 40, 64, 80 and 128 run attention_sm90.cuh's
 // `wgmma` kernel and K2 at D = 512 attention_sm90_wide.cuh's
 // (ops/flash_attention.py::attention_route), and so do the lab's online
-// (L1) and two-pass (L3) modes at the head dimensions attention_sm90_lab.cu
-// instantiates. The narrow and wide kernels below are their parent designs,
-// kept for the no-softmax lab mode (L2), for head dimensions the sm90
-// kernels do not instantiate (above 128: D = 160, which no path runs), and
-// for the lab, chip_smoke.py and tools/attn_tune.py to time beside them
-// (ops/flash_attention.py::_parent_launch).
+// (L1), no-softmax (L2) and two-pass (L3) modes at the head dimensions
+// attention_sm90_lab.cu and _lab_two_pass.cu instantiate. The narrow and
+// wide kernels below are their parent designs, kept for head dimensions
+// the sm90 kernels do not instantiate (above 128: D = 160, which no path
+// runs), and for the lab, chip_smoke.py and tools/attn_tune.py to time
+// beside them (ops/flash_attention.py::_parent_launch).
 // Packed (B, N, H*D) memory is exactly the (B, N, H, D) layout, so one
 // strided kernel serves both and no head transposes are made.
 //
 // The narrow kernel, with its query and key tiles as template parameters
 // and a mode, was the first design of the attention lab kernels of
-// tools/attn_variants.py, attn_lab2.py and attn_lab3.py, and still runs
-// kNoSoftmax; the other two modes are the parent of attention_sm90.cuh's
-// lab instantiations:
+// tools/attn_variants.py, attn_lab2.py and attn_lab3.py; its three modes
+// are the parents of attention_sm90.cuh's lab instantiations:
 //   * kOnline: softmax attention with an online softmax (`_online_kernel`
 //     with do_softmax=True); K1 was this mode;
 //   * kNoSoftmax: O = sum_j bf16(s_ij * scale) V_j, no max, exp or

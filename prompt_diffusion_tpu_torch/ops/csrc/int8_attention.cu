@@ -9,8 +9,9 @@
 // in the int8 serving mode. On the paths its prologue (K9p, below) runs
 // before attention_sm90.cuh's `wgmma` kernel (ops/flash_attention.py::
 // attention_route); `int8_attn_kernel` below is that kernel's parent
-// design, kept for the lab's per-row-K mode and for tools/attn_tune.py to
-// time beside it. Per (batch, head) it computes, in the TPU kernel's order:
+// design, kept for the lab, chip_smoke.py and tools/attn_tune.py to time
+// beside it (ops/flash_attention.py::_int8_parent_launch). Per (batch,
+// head) it computes, in the TPU kernel's order:
 //
 //   sq[i]   = max(max_d |q[i, d]| / 127, 1e-8)           (IEEE division)
 //   qc[i,d] = clip(rint(q[i, d] / sq[i]), -127, 127)       (int8)
@@ -93,12 +94,14 @@
 //   * at D <= 64 the registers are capped at 128 so that an SM holds 16
 //     warps.
 //
-// ROWK mode: tools/attn_int8_lab.py's v2 (`_kernel_v2`), K quantized per
-// (batch, key row, head) by `k_row_codes_kernel` (sk (B, H, Nk)); the
-// logits are f32(s32) * (sq[i] * sk[j]) * scale in that order, so the row
-// maximum is taken over the scaled logits. The block stages the key tile's
-// BK scales beside the codes; everything else is K9's. The lab's v3
-// (`_kernel_v3`, per-head scales) is K9 itself.
+// ROWK mode: tools/attn_int8_lab.py's v2 (`_kernel_v2`, L4; on the card it
+// runs attention_sm90.cuh's per-row-K mode, and this one beside it), K
+// quantized per (batch, key row, head) by `k_row_codes_kernel` (sk (B, H)
+// rows of Nk scales, at pitch Nk here); the logits are f32(s32) * (sq[i] *
+// sk[j]) * scale in that order, so the row maximum is taken over the
+// scaled logits. The block stages the key tile's BK scales beside the
+// codes; everything else is K9's. The lab's v3 (`_kernel_v3`, per-head
+// scales) is K9 itself.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -647,12 +650,15 @@ __global__ void __launch_bounds__(HQ_MAX_THREADS) k_head_quant_kernel(const Head
 
 // The lab's per-row mode: the codes of 8 values a thread, written
 // contiguous (B, Nk, H*D), and the row's scale, the amax of its D values
-// over the D/8 lanes that hold them, into sk (B, H, Nk).
+// over the D/8 lanes that hold them, into sk (B, H) rows of Nk scales
+// `sk_pitch` floats apart (Nk for the parent; the sm90 kernel's map takes a
+// pitch of whole 16 bytes).
 template <int D>
 __global__ void __launch_bounds__(QK_THREADS) k_row_codes_kernel(const __nv_bfloat16* k,
                                                                  int64_t k_sb, int64_t k_sn,
                                                                  int batch, int heads, int nk,
-                                                                 float* sk, int8_t* codes) {
+                                                                 int64_t sk_pitch, float* sk,
+                                                                 int8_t* codes) {
   constexpr int CH = D / 8;  // lanes of one head's row; divides 32
   const int64_t row_ch = (int64_t)heads * CH;
   const int64_t total = (int64_t)batch * nk * row_ch;
@@ -672,7 +678,7 @@ __global__ void __launch_bounds__(QK_THREADS) k_row_codes_kernel(const __nv_bflo
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
   }
   const float s = fmaxf(__fdiv_rn(mx, 127.f), 1e-8f);
-  if (live && c % CH == 0) sk[((int64_t)b * heads + h) * nk + n] = s;
+  if (live && c % CH == 0) sk[((int64_t)b * heads + h) * sk_pitch + n] = s;
   if (!live) return;
   uint2 out;
   out.x = code8(x[0], s) | (code8(x[1], s) << 8) | (code8(x[2], s) << 16) | (code8(x[3], s) << 24);
@@ -716,10 +722,11 @@ void* head_quant_kernel(int d) {
 
 template <int D>
 int quant_k_rows(const __nv_bfloat16* k, int64_t k_sb, int64_t k_sn, int batch, int heads,
-                 int nk, float* sk, int8_t* codes, cudaStream_t s) {
+                 int nk, int64_t sk_pitch, float* sk, int8_t* codes, cudaStream_t s) {
   const int64_t chunks = (int64_t)batch * nk * heads * (D / 8);
   const unsigned blocks = static_cast<unsigned>((chunks + QK_THREADS - 1) / QK_THREADS);
-  k_row_codes_kernel<D><<<blocks, QK_THREADS, 0, s>>>(k, k_sb, k_sn, batch, heads, nk, sk, codes);
+  k_row_codes_kernel<D><<<blocks, QK_THREADS, 0, s>>>(k, k_sb, k_sn, batch, heads, nk, sk_pitch,
+                                                      sk, codes);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -779,19 +786,22 @@ extern "C" int pd_int8_quant_k_head(const void* k, int64_t k_sb, int64_t k_sn, i
 
 // The lab's per-row K quantization, on `stream`; returns the launch's
 // cudaError_t (0 = queued). Packed bf16 K as K9p's -> int8 codes (B, Nk,
-// H*D), contiguous, and fp32 scales (B, H, Nk).
+// H*D), contiguous, and fp32 scales, (B, H) rows of Nk scales `sk_pitch`
+// (at least Nk) floats apart.
 extern "C" int pd_int8_quant_k_rows(const void* k, int64_t k_sb, int64_t k_sn, int batch,
-                                    int heads, int nk, int d, void* sk, void* codes,
-                                    void* stream) {
-  if (nk <= 0 || batch <= 0 || heads <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                    int heads, int nk, int d, void* sk, int64_t sk_pitch,
+                                    void* codes, void* stream) {
+  if (nk <= 0 || batch <= 0 || heads <= 0 || sk_pitch < nk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   auto* skp = static_cast<float*>(sk);
   auto* cp = static_cast<int8_t*>(codes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return quant_k_rows<32>(kp, k_sb, k_sn, batch, heads, nk, skp, cp, s);
-    case 64: return quant_k_rows<64>(kp, k_sb, k_sn, batch, heads, nk, skp, cp, s);
-    case 128: return quant_k_rows<128>(kp, k_sb, k_sn, batch, heads, nk, skp, cp, s);
+    case 32: return quant_k_rows<32>(kp, k_sb, k_sn, batch, heads, nk, sk_pitch, skp, cp, s);
+    case 64: return quant_k_rows<64>(kp, k_sb, k_sn, batch, heads, nk, sk_pitch, skp, cp, s);
+    case 128: return quant_k_rows<128>(kp, k_sb, k_sn, batch, heads, nk, sk_pitch, skp, cp, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,20 +20,23 @@ kernel a call runs, by mode, head dimension and dtype:
     consumer warpgroups own 256 of O's columns each over the same 64 query
     rows, the logits summed from two half-depth partials (`wide_plan`
     states its layout, `WidePlan.grid` its grid);
-  * the lab modes L1 (`flash_attention_tiled`) and L3
-    (`flash_attention_two_pass`) at the head dims of SM90_LAB_HEAD_DIMS
-    run `csrc/attention_sm90_lab.cu`'s instantiations of the same kernel
-    at a tile of SM90_LAB_TILES (`sm90_lab_plan`); at any other head dim
-    or tile a CUDA tensor is refused;
+  * the lab modes L1 (`flash_attention_tiled`), L2
+    (`attention_no_softmax`) and L3 (`flash_attention_two_pass`) at the
+    head dims of SM90_LAB_HEAD_DIMS run `csrc/attention_sm90_lab.cu`'s and
+    `attention_sm90_lab_two_pass.cu`'s instantiations of the same kernel
+    at a tile of SM90_LAB_TILES (`sm90_lab_plan`), and L4
+    (`flash_attention_packed_int8_rowk`) at SM90_ROWK_HEAD_DIMS its int8
+    instantiation with per-key scales on K9's plan (`sm90_rowk_plan`); at
+    any other head dim or tile a CUDA tensor is refused;
   * other head dims above 128 run the wide kernel of
     `csrc/flash_attention.cu` (the parent of the D = 512 kernel); other
-    head dims up to 128 and the no-softmax lab mode its narrow kernel at a
-    tile of LAB_TILES (`kernel_tile`), the parent design of the sm90
-    kernel, which `_parent_launch` also runs at any mode and tile of its
-    own (the parent's times beside the new kernel's);
-  * K9's lab mode with per-row K runs `csrc/int8_attention.cu`'s
-    `int8_attn_kernel` (at `int8_block_q` query rows per block, D in
-    INT8_PARENT_HEAD_DIMS), the sm90 int8 kernel's parent.
+    head dims up to 128 its narrow kernel at a tile of LAB_TILES
+    (`kernel_tile`), the parent design of the sm90 kernel, which
+    `_parent_launch` also runs at any mode and tile of its own (the
+    parent's times beside the new kernel's); `_int8_parent_launch` runs
+    `csrc/int8_attention.cu`'s `int8_attn_kernel` (at `int8_block_q`
+    query rows per block, D in INT8_PARENT_HEAD_DIMS), the sm90 int8
+    kernel's parent, the same way.
 Packed memory is the (B, N, H, D) layout, so the kernels read either
 through strides. Inputs on the card are bf16; logits and softmax are fp32,
 P is rounded to bf16 before P.V, and P.V accumulates in fp32. K9 quantizes
@@ -49,13 +52,15 @@ wrapper and launch count:
   * `flash_attention_tiled` (L1): online softmax with chosen query and key
     tiles (`_online_kernel`), K1's loop on the sm90 kernel;
   * `attention_no_softmax` (L2): O = sum_j bf16(s_ij * scale) V_j
-    (`_online_kernel` with do_softmax=False), the narrow kernel's mode;
+    (`_online_kernel` with do_softmax=False), the sm90 kernel's turn
+    without the softmax;
   * `flash_attention_two_pass` (L3): the exact row maximum first, then one
     softmax with no rescaling (the full-K kernels), the sm90 kernel's
     two-pass mode;
   * `flash_attention_packed_int8_rowk` (L4): K9 with one K scale per key
-    row (`_kernel_v2`), the parent `int8_attn_kernel`; `_kernel_v3` is K9
-    itself.
+    row (`_kernel_v2`), the sm90 int8 kernel with each key's scale in its
+    logit before the row maximum, after the per-row prologue; `_kernel_v3`
+    is K9 itself.
 `prompt_diffusion_tpu_torch/tools/attn_lab.py` runs them.
 """
 
@@ -130,26 +135,35 @@ SM90_BLOCK_K, SM90_INT8_BLOCK_K = 128, 112
 SM90_INT8_THREE_CONSUMER_GAIN = 1.1
 SWIZZLE_SPAN, SMEM_PER_BLOCK = 128, 232448
 _ROUTE_MODES = ("online", "tiled", "no_softmax", "two_pass", "int8", "int8_rowk")
-# csrc/attention_sm90_lab.cu: the lab modes L1 ("tiled") and L3
-# ("two_pass") on the sm90 kernel at these head dims (L3 also at lab3's
-# heads padded from 40 to 64 and 128), at (block_q, block_k) tiles of
-# SM90_LAB_TILES: SM90_CONSUMER_ROWS query rows per consumer warpgroup (two,
-# or three at D <= SM90_WIDE_CONSUMERS_D) and 64- or 128-key tiles
-SM90_LAB_HEAD_DIMS = {"tiled": (40,), "two_pass": (40, 64, 128)}
+# csrc/attention_sm90_lab.cu, attention_sm90_lab_two_pass.cu: the lab modes
+# L1 ("tiled"), L2 ("no_softmax") and L3 ("two_pass") on the sm90 kernel at
+# these head dims (L3 also at lab3's heads padded from 40 to 64 and 128),
+# at (block_q, block_k) tiles of SM90_LAB_TILES: SM90_CONSUMER_ROWS query
+# rows per consumer warpgroup (two, or three at D <= SM90_WIDE_CONSUMERS_D)
+# and 64- or 128-key tiles; L4 (per-row K) at SM90_ROWK_HEAD_DIMS on K9's
+# plans, lab mode code SM90_ROWK_MODE, its key scales in a ring of
+# SM90_STAGES stages of SM90_SCALE_ALIGN-byte aligned rows, their rows a
+# pitch of whole SM90_SCALE_PITCH floats apart (a TMA stride: 16 bytes)
+SM90_LAB_HEAD_DIMS = {"tiled": (40,), "no_softmax": (40,), "two_pass": (40, 64, 128)}
 SM90_LAB_TILES = ((128, 64), (128, 128), (192, 64), (192, 128))
+SM90_ROWK_HEAD_DIMS, SM90_ROWK_MODE = (64,), 3
+SM90_SCALE_ALIGN, SM90_SCALE_PITCH = 128, 4
 
 
 def attention_route(mode: str, d: int, dtype=torch.bfloat16) -> str:
     """The kernel a call on the card runs. `mode`: "online" (K1, K2),
     "tiled", "no_softmax", "two_pass" (the labs at a chosen tile), "int8"
     (K9) or "int8_rowk" (the lab's per-row K). Returns "sm90" or
-    "int8_sm90" (csrc/attention_sm90.cuh; the labs' "tiled" and "two_pass"
-    at SM90_LAB_HEAD_DIMS through csrc/attention_sm90_lab.cu), "wide_sm90"
+    "int8_sm90" (csrc/attention_sm90.cuh; the labs' "tiled", "no_softmax"
+    and "two_pass" at SM90_LAB_HEAD_DIMS through the lab instantiations,
+    "int8_rowk" at SM90_ROWK_HEAD_DIMS), "wide_sm90"
     (csrc/attention_sm90_wide.cuh, the online mode at WIDE_HEAD_DIM),
     "narrow" or "wide" (flash_attention.cu's fa_narrow_kernel,
-    fa_wide_kernel; for "tiled" and "two_pass" only the parent has that
-    head dim, `_parent_launch`, and their wrappers refuse a CUDA tensor
-    there) or "int8_parent" (int8_attention.cu's int8_attn_kernel).
+    fa_wide_kernel; for the lab modes only the parent has that head dim,
+    `_parent_launch`, and their wrappers refuse a CUDA tensor there) or
+    "int8_parent" (int8_attention.cu's int8_attn_kernel: the per-row-K
+    lab mode's head dims that only the parent has, `_int8_parent_launch`;
+    its wrapper refuses a CUDA tensor there).
     Raises ValueError for what no kernel takes: the kernels read bf16."""
     if mode not in _ROUTE_MODES:
         raise ValueError(f"unknown attention mode {mode!r}; one of {_ROUTE_MODES}")
@@ -160,7 +174,7 @@ def attention_route(mode: str, d: int, dtype=torch.bfloat16) -> str:
             raise ValueError(f"head dim {d} not supported {SM90_INT8_HEAD_DIMS}")
         return "int8_sm90"
     if mode == "int8_rowk":
-        return "int8_parent"
+        return "int8_sm90" if d in SM90_ROWK_HEAD_DIMS else "int8_parent"
     if d > NARROW_D:
         return "wide_sm90" if mode == "online" and d == WIDE_HEAD_DIM else "wide"
     if mode == "online":
@@ -178,13 +192,16 @@ class Sm90Plan:
     zero fill) and the N of P.V (D); the dynamic shared memory of a block
     (Q, the K and V stages, the 1024-byte alignment slack); and the bytes
     between the heads of K9's codes (`k_head_bytes`). A lab mode's plan
-    (`sm90_lab_plan`) names its key tile (`key_tile`)."""
+    (`sm90_lab_plan`) names its key tile (`key_tile`); L4's
+    (`sm90_rowk_plan`, `row_k`) adds a ring of the key scales' stages
+    (`scale_stage`) and the pitch of their rows (`scale_pitch`)."""
 
     d: int
     int8: bool
     consumers: int
     stages: int = SM90_STAGES
     key_tile: Optional[int] = None
+    row_k: bool = False
 
     @property
     def block_k(self) -> int:
@@ -237,10 +254,25 @@ class Sm90Plan:
         return self.qv_blocks * SWIZZLE_SPAN // 2 - self.d
 
     @property
+    def scale_stage(self) -> int:
+        """Bytes of a stage of L4's key scales: a tile's fp32 scales,
+        SM90_SCALE_ALIGN-byte aligned (TMA's destination); 0 elsewhere."""
+        align = SM90_SCALE_ALIGN
+        return -(-4 * self.block_k // align) * align if self.row_k else 0
+
+    def scale_pitch(self, nk: int) -> int:
+        """Floats between two (batch, head) rows of L4's key scales as the
+        prologue writes them for the kernel's map: `nk` rounded up to
+        SM90_SCALE_PITCH (a stride of whole 16 bytes; at the lab's N = 4250
+        a dense row is 17,000 bytes, which no map takes)."""
+        return -(-nk // SM90_SCALE_PITCH) * SM90_SCALE_PITCH
+
+    @property
     def smem(self) -> int:
         span = SWIZZLE_SPAN
         return (self.qv_blocks * self.block_q * span
-                + self.stages * (self.k_blocks + self.qv_blocks) * self.block_k * span + 1024)
+                + self.stages * (self.k_blocks + self.qv_blocks) * self.block_k * span
+                + self.stages * self.scale_stage + 1024)
 
     def grid(self, batch: int, heads: int, nq: int) -> tuple:
         return -(-nq // self.block_q), batch * heads
@@ -322,6 +354,18 @@ def sm90_lab_plan(d: int, mode: str, tile: Optional[tuple] = None) -> Sm90Plan:
         raise ValueError(f"the {mode} plan at D = {d}, tiles {tile} needs {plan.smem} bytes of "
                          f"shared memory, above {SMEM_PER_BLOCK}")
     return plan
+
+
+@functools.lru_cache(maxsize=None)
+def sm90_rowk_plan(d: int, nq: int, nk: int) -> Sm90Plan:
+    """L4's plan on the sm90 kernel at head dim `d` for `nq` queries and
+    `nk` keys: K9's (`sm90_consumers(d, True, nq, nk)` consumers, 112-key
+    tiles on three, 128 on two) with the key scales' ring. ValueError at a
+    head dim not in SM90_ROWK_HEAD_DIMS."""
+    if d not in SM90_ROWK_HEAD_DIMS:
+        raise ValueError(f"the sm90 kernel's per-row-K mode takes head dims "
+                         f"{SM90_ROWK_HEAD_DIMS}, not {d}")
+    return Sm90Plan(d=d, int8=True, consumers=sm90_consumers(d, True, nq, nk), row_k=True)
 
 
 def lab_parent_tile(tile: tuple) -> tuple:
@@ -520,9 +564,10 @@ def _wide_launch(q, k, v, scale: float) -> torch.Tensor:
 
 
 def _lab_sm90_launch(q, k, v, scale: float, mode: str, tile: tuple) -> torch.Tensor:
-    """`attention_sm90_lab.cu`: the lab mode `mode` ("tiled", "two_pass")
-    on bf16 (B, N, H, D) views at `tile` (`sm90_lab_plan`); every refusal
-    before any build. Returns a contiguous (B, Nq, H, D) bf16 tensor."""
+    """`attention_sm90_lab.cu`: the lab mode `mode` ("tiled", "no_softmax",
+    "two_pass") on bf16 (B, N, H, D) views at `tile` (`sm90_lab_plan`);
+    every refusal before any build. Returns a contiguous (B, Nq, H, D) bf16
+    tensor."""
     b, nq, h, d = q.shape
     _check(q, k, v, scale)
     plan = sm90_lab_plan(d, mode, tuple(tile))
@@ -533,9 +578,9 @@ def _lab_sm90_launch(q, k, v, scale: float, mode: str, tile: tuple) -> torch.Ten
     out = torch.empty((b, nq, h, d), dtype=torch.bfloat16, device=q.device)
     with torch.cuda.device(q.device):
         cuda_ext().attention_sm90_lab_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[1], d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], float(scale),
-            _MODES[mode], plan.consumers, plan.block_k,
+            q.data_ptr(), k.data_ptr(), 0, 0, v.data_ptr(), out.data_ptr(), b, h, nq, k.shape[1],
+            d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+            float(scale), _MODES[mode], plan.consumers, plan.block_k,
             torch.cuda.current_stream().cuda_stream)
     return out
 
@@ -561,10 +606,10 @@ def _parent_launch(q, k, v, scale: float, mode: str, tile: tuple) -> torch.Tenso
     """`flash_attention.cu`, the parent design, on (B, N, H, D) views:
     `fa_narrow_kernel` in `mode` ("online", "no_softmax", "two_pass") at a
     `tile` of LAB_TILES up to D = NARROW_D, `fa_wide_kernel` online at
-    WIDE_TILE above. The no-softmax lab mode and K1/K2 at head dims no sm90
-    kernel takes run it; so do the parent's times beside the sm90 kernels
-    (`chip_smoke.py`, the lab, `tools/attn_tune.py`). Counts its launches
-    in `_parent_launch.launches`. Returns a contiguous (B, Nq, H, D)
+    WIDE_TILE above. K1/K2 at head dims no sm90 kernel takes run it; so do
+    the parent's times beside the sm90 kernels (`chip_smoke.py`, the lab,
+    `tools/attn_tune.py`). Counts its launches in
+    `_parent_launch.launches`. Returns a contiguous (B, Nq, H, D)
     tensor."""
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
@@ -694,15 +739,16 @@ def _torch_attention_no_softmax(q, k, v, scale: float):
 
 
 def _lab_sm90(wrapper, mode, q, k, v, scale, block_q, block_k):
-    """L1 and L3: the plain version on the CPU, the sm90 kernel's lab mode
-    on the card at (block_q, block_k) of SM90_LAB_TILES (K1's tile at D
-    where None), any other tile refused on both."""
+    """L1, L2 and L3: the plain version on the CPU, the sm90 kernel's lab
+    mode on the card at (block_q, block_k) of SM90_LAB_TILES (K1's tile at
+    D where None), any other tile refused on both."""
     default_q, default_k = sm90_lab_tile(q.shape[-1])
     tile = (default_q if block_q is None else block_q, default_k if block_k is None else block_k)
     if tile not in SM90_LAB_TILES:
         raise ValueError(f"tiles {tile} are not instantiated; one of {SM90_LAB_TILES}")
     if not use_kernel(q):
-        return _torch_attention(q, k, v, float(scale))
+        plain = _torch_attention_no_softmax if mode == "no_softmax" else _torch_attention
+        return plain(q, k, v, float(scale))
     out = _lab_sm90_launch(q, k, v, float(scale), mode, tile)
     wrapper.launches += 1
     return out
@@ -720,17 +766,14 @@ def flash_attention_tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
 
 
 def attention_no_softmax(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                         block_q: int = 64, block_k: int = 64) -> torch.Tensor:
+                         block_q: Optional[int] = None,
+                         block_k: Optional[int] = None) -> torch.Tensor:
     """Lab L2: O = sum_j bf16(s_ij * scale) V_j over (B, N, H, D), no max,
     exp or division (`attn_variants.py::_online_kernel`,
-    do_softmax=False): the parent's narrow kernel at a tile of LAB_TILES."""
-    if (block_q, block_k) not in LAB_TILES:
-        raise ValueError(f"tiles ({block_q}, {block_k}) are not instantiated; one of {LAB_TILES}")
-    if not use_kernel(q):
-        return _torch_attention_no_softmax(q, k, v, float(scale))
-    out = _parent_launch(q, k, v, float(scale), "no_softmax", (block_q, block_k))
-    attention_no_softmax.launches += 1
-    return out
+    do_softmax=False): the sm90 kernel's turn without the softmax at a tile
+    of SM90_LAB_TILES (K1's tile by default), head dims
+    SM90_LAB_HEAD_DIMS["no_softmax"]."""
+    return _lab_sm90(attention_no_softmax, "no_softmax", q, k, v, scale, block_q, block_k)
 
 
 def flash_attention_two_pass(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -827,8 +870,11 @@ flash_attention_packed_int8.launches = 0
 def flash_attention_packed_int8_rowk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      num_heads: int,
                                      scale: Optional[float] = None) -> torch.Tensor:
-    """Lab: K9 with one K scale per (batch, key row, head), the logits
-    f32(s32) * (sq * sk) * scale (`attn_int8_lab.py::_kernel_v2`)."""
+    """Lab L4: K9 with one K scale per (batch, key row, head), the logits
+    f32(s32) * (sq * sk) * scale (`attn_int8_lab.py::_kernel_v2`): on the
+    card the per-row prologue (`quant_k_int8(..., per_row=True)`), then the
+    sm90 int8 kernel with each key's scale in its logit before the row
+    maximum (`sm90_rowk_plan`), head dims SM90_ROWK_HEAD_DIMS."""
     return _int8_attention(flash_attention_packed_int8_rowk, True, q, k, v, num_heads, scale)
 
 
@@ -847,7 +893,7 @@ def _int8_attention(wrapper, row_k, q, k, v, num_heads, scale):
 
 
 # K9 and its per-head prologue K9p at INT8_HEAD_DIMS (the sm90 kernel);
-# the parent `int8_attn_kernel` (a `block_q`, or per-row K) and the per-row
+# the parent `int8_attn_kernel` (`_int8_parent_launch`) and the per-row
 # prologue at INT8_PARENT_HEAD_DIMS (a row's D / 8 lanes divide a warp)
 INT8_HEAD_DIMS, INT8_PARENT_HEAD_DIMS = SM90_INT8_HEAD_DIMS, (32, 64, 128)
 INT8_BLOCK_Q = (64, 128)
@@ -873,7 +919,7 @@ def _check_packed_bf16(name, t, device):
 def _check_int8(q, k, v, num_heads: int, scale: float, block_q: Optional[int] = None) -> None:
     """Raise ValueError for what K9 on the sm90 kernel (`block_q` None) or
     on its parent at `block_q` query rows, and K9p, refuse, before any
-    build."""
+    build (L4's head dims are checked by `sm90_rowk_plan`)."""
     b, nq, hd = q.shape
     nk = k.shape[1]
     if k.shape != (b, nk, hd) or v.shape != (b, nk, hd) or hd % num_heads:
@@ -894,15 +940,53 @@ def _check_int8(q, k, v, num_heads: int, scale: float, block_q: Optional[int] = 
         sm90_check_view("v", v, num_heads)
 
 
-def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
-                 block_q: Optional[int] = None) -> torch.Tensor:
+def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False) -> torch.Tensor:
     """The kernel `attention_route` names after K's prologue: the sm90
-    kernel for per-head K (`_int8_sm90_launch`), or with `block_q` the
-    parent `int8_attn_kernel` at that many query rows per block
-    (`int8_block_q` by default, and for per-row K); returns a contiguous
-    (B, Nq, H*D) tensor."""
-    if block_q is None and not row_k:
-        return _int8_sm90_launch(q, k, v, num_heads, scale)
+    int8 kernel, for per-head K (`_int8_sm90_launch`) or per-row K
+    (`_int8_rowk_sm90_launch`); returns a contiguous (B, Nq, H*D) bf16
+    tensor."""
+    if row_k:
+        return _int8_rowk_sm90_launch(q, k, v, num_heads, scale)
+    return _int8_sm90_launch(q, k, v, num_heads, scale)
+
+
+def _int8_rowk_sm90_launch(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+    """L4 on the card: the per-row prologue `k_row_codes_kernel` (codes
+    (B, Nk, H*D), scales in rows `plan.scale_pitch(Nk)` floats apart),
+    then the sm90 kernel's per-row-K mode on them (`sm90_rowk_plan`), on
+    one stream in one device context; every refusal before any build.
+    Counts the prologue's launch in `quant_k_int8.launches`. Returns a
+    contiguous (B, Nq, H*D) bf16 tensor."""
+    b, nq, hd = q.shape
+    nk = k.shape[1]
+    if hd % num_heads:
+        raise ValueError(f"{num_heads} heads do not divide {hd} columns")
+    d = hd // num_heads
+    plan = sm90_rowk_plan(d, nq, nk)
+    _check_int8(q, k, v, num_heads, scale)
+    from prompt_diffusion_tpu_torch.ops._build import cuda_ext
+
+    kc, sk = quant_k_int8(k, num_heads, per_row=True, scale_pitch=plan.scale_pitch(nk))
+    out = torch.empty((b, nq, hd), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        cuda_ext().attention_sm90_lab_fwd(
+            q.data_ptr(), kc.data_ptr(), sk.data_ptr(), sk.stride(1), v.data_ptr(),
+            out.data_ptr(), b, num_heads, nq, nk, d, q.stride(0), q.stride(1), d, kc.stride(0),
+            kc.stride(1), d, v.stride(0), v.stride(1), d, out.stride(0), out.stride(1), d, scale,
+            SM90_ROWK_MODE, plan.consumers, plan.block_k, torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _int8_parent_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
+                        block_q: Optional[int] = None) -> torch.Tensor:
+    """`int8_attention.cu`'s `int8_attn_kernel`, the parent design of the
+    sm90 int8 kernel, after its prologue (`quant_k_int8`, per head or per
+    key row): at `block_q` query rows per block (`int8_block_q` by
+    default), D in INT8_PARENT_HEAD_DIMS. No wrapper runs it; the parent's
+    times beside K9 and L4 do (`chip_smoke.py`, the lab,
+    `tools/attn_tune.py`). Counts its launches in
+    `_int8_parent_launch.launches`. Returns a contiguous (B, Nq, H*D)
+    tensor."""
     b, nq, hd = q.shape
     block_q = int8_block_q(nq) if block_q is None else block_q
     _check_int8(q, k, v, num_heads, scale, block_q)
@@ -916,7 +1000,11 @@ def _int8_launch(q, k, v, num_heads: int, scale: float, row_k: bool = False,
             b, num_heads, nq, k.shape[1], hd // num_heads, q.stride(0), q.stride(1),
             kc.stride(0), kc.stride(1), v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             scale, block_q, torch.cuda.current_stream().cuda_stream)
+    _int8_parent_launch.launches += 1
     return out
+
+
+_int8_parent_launch.launches = 0
 
 
 @functools.lru_cache(maxsize=256)
@@ -1057,7 +1145,7 @@ def _quant_k_occupancy(device: int, d: int, threads: int) -> int:
 
 
 def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False,
-                 head_bytes: Optional[int] = None):
+                 head_bytes: Optional[int] = None, scale_pitch: Optional[int] = None):
     """K9's prologue: packed (B, N, H*D) K -> (int8 codes (B, N, H*D), fp32
     scales), one scale per (batch, head) (B, H), or per (batch, head, key
     row) (B, H, N) with `per_row` (D in INT8_PARENT_HEAD_DIMS). On CUDA one
@@ -1067,9 +1155,19 @@ def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False,
     the CPU takes. Per head with `head_bytes` (a multiple of 8, at least D; K9's
     `Sm90Plan.k_head_bytes`) the codes' heads lie that many bytes apart,
     as the sm90 kernel reads them: a (B, N, H, D) view of (B, N, H,
-    head_bytes) memory (on the CPU the plain codes viewed so)."""
+    head_bytes) memory (on the CPU the plain codes viewed so). Per row
+    with `scale_pitch` (a multiple of SM90_SCALE_PITCH, at least N; L4's
+    `Sm90Plan.scale_pitch`) the scales' (batch, head) rows lie that many
+    floats apart, as the sm90 kernel's map reads them: a (B, H, N) view of
+    (B, H, scale_pitch) memory whose floats past N stay unwritten (on the
+    CPU the plain scales)."""
     if head_bytes is not None and per_row:
         raise ValueError("head_bytes lays out per-head codes; the per-row codes are dense")
+    if scale_pitch is not None and not per_row:
+        raise ValueError("scale_pitch lays out per-row scales; the per-head scales are (B, H)")
+    if scale_pitch is not None and (scale_pitch < k.shape[1] or scale_pitch % SM90_SCALE_PITCH):
+        raise ValueError(f"scale_pitch {scale_pitch}: a multiple of {SM90_SCALE_PITCH}, at least "
+                         f"N = {k.shape[1]}")
     if not use_kernel(k):
         codes, scales = (_quant_k_per_row if per_row else _quant_k_per_head)(k, num_heads)
         return (codes, scales) if head_bytes is None else (codes.unflatten(-1, (num_heads, -1)),
@@ -1085,12 +1183,14 @@ def quant_k_int8(k: torch.Tensor, num_heads: int, per_row: bool = False,
 
     ext = cuda_ext()
     if per_row:
+        pitch = nk if scale_pitch is None else scale_pitch
         codes = torch.empty((b, nk, hd), dtype=torch.int8, device=k.device)
-        scales = torch.empty((b, num_heads, nk), dtype=torch.float32, device=k.device)
+        scales = torch.empty((b, num_heads, pitch), dtype=torch.float32, device=k.device)
         with torch.cuda.device(k.device):
             ext.int8_quant_k_rows(k.data_ptr(), k.stride(0), k.stride(1), b, num_heads, nk, d,
-                                  scales.data_ptr(), codes.data_ptr(),
+                                  scales.data_ptr(), pitch, codes.data_ptr(),
                                   torch.cuda.current_stream().cuda_stream)
+        scales = scales[..., :nk]
     else:
         dev = k.device.index if k.device.index is not None else torch.cuda.current_device()
         plan = quant_k_plan(b, nk, num_heads, d,

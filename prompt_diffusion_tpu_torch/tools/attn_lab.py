@@ -3,9 +3,9 @@ module, a section and a `--lab` name each.
 
     python3 -m prompt_diffusion_tpu_torch.tools.attn_lab [--lab variants|lab2|lab3|int8] [--iters N]
 
-  variants  tools/attn_variants.py: online softmax (L1) across query and
-            key tiles, the no-softmax pass (L2), the full-K kernels (BHND
-            and packed) as the two-pass mode (L3); SD1.5 64²
+  variants  tools/attn_variants.py: online softmax (L1) and the
+            no-softmax pass (L2) across query and key tiles, the full-K
+            kernels (BHND and packed) as the two-pass mode (L3); SD1.5 64²
             self-attention, B=8, N=4096, H=8, D=40.
   lab2      tools/attn_lab2.py: the packed full-K kernel with the scale in
             the kernel, with q pre-scaled in bf16 (scale 1), across query
@@ -14,7 +14,7 @@ module, a section and a `--lab` name each.
             first 40 columns are held against the D = 40 plain version.
   int8      tools/attn_int8_lab.py at the SD3 joint shape (2, 4250, 24, 64),
             q = k = v as the lab runs it: v1 and v3 are K9, v2 is K9 with
-            per-row K scales, beside K1 in bf16; scheme error against
+            per-row K scales (L4), beside K1 in bf16; scheme error against
             exact attention at N = 1178.
 
 Every variant prints the kernel's median time over CUDA events (not the
@@ -22,21 +22,26 @@ JAX labs' scan method), its TFLOP/s over 4·B·H·N²·D (the labs' count), the
 time of `scaled_dot_product_attention` on the same inputs for the softmax
 variants, the least time the card could take (`tools/timing.py::roofline`)
 and the max abs error against the plain version evaluated in fp32 on the
-same bf16 inputs. L1 and L3 run the warpgroup kernel
-(`ops/csrc/attention_sm90_lab.cu`) at every tile it instantiates at their
-D (`sm90_lab_tiles`); beside each, a `[parent]` line gives the parent
-design (`flash_attention.cu`'s `fa_narrow_kernel`, through
-`_parent_launch`) at the tile of `lab_parent_tile`: its time and its
-error against the same plain version. It needs one CUDA card; without one
-it exits 2.
+same bf16 inputs. L1, L2 and L3 run the warpgroup kernel
+(`ops/csrc/attention_sm90_lab.cu`, `_lab_two_pass.cu`) at every tile it
+instantiates at their D (`sm90_lab_tiles`); beside each, a `[parent]` line
+gives the parent design (`flash_attention.cu`'s `fa_narrow_kernel`,
+through `_parent_launch`) at the tile of `lab_parent_tile`: its time and
+its error against the same plain version. L4 (v2) runs the warpgroup
+kernel's int8 mode with per-key scales on K9's plan, its `[parent]` line
+`int8_attention.cu`'s `int8_attn_kernel` (`_int8_parent_launch`, at
+`int8_block_q` rows), both with their prologue. It needs one CUDA card;
+without one it exits 2.
 
 The TPU kernels' knobs and what stands for them here:
-  * block_q 128-2048 -> L1 and L3: 64 query rows per consumer warpgroup,
-    128 or 192 a block (two or three consumers; three at D <= 64); L2 and
-    the parent: 64 or 128 (4 or 8 warps). A block's shared memory (227
-    KB) and registers hold far fewer rows than VMEM;
-  * block_k -> L1 and L3: 64 or 128 keys per tile; L2 and the parent 32,
-    64 or 128; the full-K kernels' whole logits row -> the two-pass mode;
+  * block_q 128-2048 -> L1, L2 and L3: 64 query rows per consumer
+    warpgroup, 128 or 192 a block (two or three consumers; three at D <=
+    64); L4: K9's plan (192 rows at the lab's N); the parent: 64 or 128
+    (4 or 8 warps). A block's shared memory (227 KB) and registers hold
+    far fewer rows than VMEM;
+  * block_k -> L1, L2 and L3: 64 or 128 keys per tile; L4: 112 (K9's on
+    three consumers); the parent 32, 64 or 128; the full-K kernels' whole
+    logits row -> the two-pass mode;
   * dimension_semantics ("parallel") -> none: every grid axis of a CUDA
     launch runs in parallel over the 132 SMs;
   * vmem_limit_bytes -> the dynamic shared memory the launch asks for;
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 
 from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
 from prompt_diffusion_tpu_torch.ops.flash_attention import (
+    _int8_parent_launch,
     _parent_launch,
     attention_no_softmax,
     flash_attention_packed,
@@ -61,6 +67,7 @@ from prompt_diffusion_tpu_torch.ops.flash_attention import (
     flash_attention_packed_int8_rowk,
     flash_attention_tiled,
     flash_attention_two_pass,
+    int8_block_q,
     lab_parent_tile,
     sm90_lab_tiles,
 )
@@ -70,6 +77,7 @@ LABS = ("variants", "lab2", "lab3", "int8")
 B, N, H, D = 8, 4096, 8, 40  # the bf16 labs: SD1.5 64² self-attention, CFG batch 8
 INT8_B, INT8_N, INT8_H, INT8_D = 2, 4096 + 154, 24, 64  # SD3 joint attention
 INT8_CHECK_N = 1024 + 154  # attn_int8_lab.py's correctness length
+INT8_PARENT_BLOCK_K = 64  # int8_attn_kernel's key tile (csrc/int8_attention.cu)
 
 
 def _fp32(args):
@@ -82,8 +90,9 @@ def measure(name, fn, args, work, iters, library=None, reference=None, parent=No
     ops, lab FLOPs, exponentials), library ms, bound and max abs error
     against the plain version of `fn` in fp32 on the same inputs, or
     against `reference()` (run under `plain_ops`) over its columns. With
-    `parent` (`_parent`: a call on the same inputs and its tile) also the
-    parent design's ms and error, printed on a `[parent]` line."""
+    `parent` (`_parent`, `_int8_parent`: a call on the same inputs, its
+    tile and its kernel's name) also the parent design's ms and error,
+    printed on a `[parent]` line."""
     nbytes, int8_ops, bf16_ops, flops, exps = work
     out = fn(*args)
     with plain_ops():
@@ -103,10 +112,10 @@ def measure(name, fn, args, work, iters, library=None, reference=None, parent=No
           f"bound_ms={bound_ms:.4f} ({bound_by}) max_abs_err={err:.3g} "
           f"(/max {err / top:.3g})", flush=True)
     if parent is not None:
-        call, tile = parent
+        call, tile, kernel = parent
         row.update(parent_tile=tile, parent_ms=time_ms(lambda: call(*args), iters=iters),
                    parent_max_abs_err=parent_err, parent_err_over_max=parent_err / top)
-        print(f"[attn_lab] [parent] {name:31s} fa_narrow_kernel bq{tile[0]} bk{tile[1]} "
+        print(f"[attn_lab] [parent] {name:31s} {kernel} bq{tile[0]} bk{tile[1]} "
               f"ms={row['parent_ms']:.4f} TFLOP/s={flops / row['parent_ms'] / 1e9:.1f} "
               f"max_abs_err={parent_err:.3g} (/max {parent_err / top:.3g})", flush=True)
     return row
@@ -115,9 +124,18 @@ def measure(name, fn, args, work, iters, library=None, reference=None, parent=No
 def _parent(mode, tile, scale, view=lambda t: t):
     """The parent design beside the sm90 kernel's lab mode at `tile`: its
     `mode` at `lab_parent_tile(tile)` on the (B, N, H, D) `view` of the
-    variant's arguments; (call, its tile)."""
+    variant's arguments; (call, its tile, its kernel)."""
     ptile = lab_parent_tile(tile)
-    return (lambda q, k, v: _parent_launch(view(q), view(k), view(v), scale, mode, ptile)), ptile
+    return ((lambda q, k, v: _parent_launch(view(q), view(k), view(v), scale, mode, ptile)),
+            ptile, "fa_narrow_kernel")
+
+
+def _int8_parent(heads, scale, nq):
+    """The parent design beside L4: `int8_attn_kernel` with per-row K at
+    `int8_block_q(nq)` query rows (its tile: those rows and its 64-key
+    tiles); (call, its tile, its kernel)."""
+    return ((lambda q, k, v: _int8_parent_launch(q, k, v, heads, scale, True)),
+            (int8_block_q(nq), INT8_PARENT_BLOCK_K), "int8_attn_kernel")
 
 
 def _inputs(gen, shape, n=3, scale=1.0):
@@ -146,10 +164,11 @@ def lab_variants(gen, iters):
         rows.append(measure(f"online bq{tile[0]} bk{tile[1]}",
                             lambda q, k, v, tile=tile: flash_attention_tiled(q, k, v, scale, *tile),
                             bnhd, work, iters, sdpa, parent=_parent("online", tile, scale)))
-    for bq in (64, 128):
-        rows.append(measure(f"online-nosoftmax bq{bq} bk64",
-                            lambda q, k, v, bq=bq: attention_no_softmax(q, k, v, scale, bq, 64),
-                            bnhd, _bf16_work(B, N, H, D, softmax=False), iters))
+    for tile in sm90_lab_tiles(D, "no_softmax"):
+        rows.append(measure(f"online-nosoftmax bq{tile[0]} bk{tile[1]}",
+                            lambda q, k, v, tile=tile: attention_no_softmax(q, k, v, scale, *tile),
+                            bnhd, _bf16_work(B, N, H, D, softmax=False), iters,
+                            parent=_parent("no_softmax", tile, scale)))
     for tile in sm90_lab_tiles(D, "two_pass"):
         rows.append(measure(f"fullk (two-pass) bq{tile[0]} bk{tile[1]}",
                             lambda q, k, v, tile=tile: flash_attention_two_pass(
@@ -244,12 +263,13 @@ def lab_int8(gen, iters):
     sdpa = lambda: F.scaled_dot_product_attention(heads(x), heads(x), heads(x), scale=scale)
     ops = 2 * b * n * n * h * d
     int8_work = (8 * b * n * h * d, ops, ops, 2 * ops, b * h * n * n)
-    runs = (("v1 shipped int8 (K9)", flash_attention_packed_int8, int8_work),
-            ("v2 int8-QK/bf16-PV (per-row K)", flash_attention_packed_int8_rowk, int8_work),
-            ("v3 +per-head K scale (K9)", flash_attention_packed_int8, int8_work),
-            ("bf16 packed (K1, baseline)", flash_attention_packed, _bf16_work(b, n, h, d)))
+    runs = (("v1 shipped int8 (K9)", flash_attention_packed_int8, int8_work, None),
+            ("v2 int8-QK/bf16-PV (per-row K)", flash_attention_packed_int8_rowk, int8_work,
+             _int8_parent(h, scale, n)),
+            ("v3 +per-head K scale (K9)", flash_attention_packed_int8, int8_work, None),
+            ("bf16 packed (K1, baseline)", flash_attention_packed, _bf16_work(b, n, h, d), None))
     return [measure(name, lambda q, k, v, fn=fn: fn(q, k, v, h, scale), (x, x, x), work, iters,
-                    sdpa) for name, fn, work in runs]
+                    sdpa, parent=parent) for name, fn, work, parent in runs]
 
 
 RUNS = {"variants": lab_variants, "lab2": lab_lab2, "lab3": lab_lab3, "int8": lab_int8}

@@ -60,24 +60,29 @@
             three VAE shapes of `chip_smoke.py`, each ablated copy, and the
             host us a call of the wrapper and of the parent's; with
             `--quick` no extension build (no wrapper host times).
-  lab       the attention lab's online (L1) and two-pass (L3) modes on the
-            sm90 kernel (`ops/csrc/attention_sm90_lab.cu`): copies of the
-            source (its C interface, K1's and the lab's instantiations;
-            K9's launches left out) built by nvcc in parallel into
-            libraries under `build/attn_tune/` (the kernel, and the ablated
-            copies of `sm90`), with ptxas's registers, spills and warnings
-            and the SASS counts of every lab instantiation; the lab plans'
-            shared memory against the build's; the error against the plain
-            version in fp32 of every instantiation at ragged lengths; then,
-            in turns, the device ms of every tile the lab runs at the
-            lab's shapes ((8,4096,8,40) for L1 and L3, (8,4096,8,64) and
-            (8,4096,8,128) for L3), of the parent (`fa_narrow_kernel`, an
-            nvcc copy of `flash_attention.cu`) at `lab_parent_tile`, of
-            K1's kernel on the same inputs and of SDPA, beside the bound;
-            then each ablated copy at K1's tile. With `--quick` no
-            ablated copies. Nothing here needs the extension;
-  sass      SHA-1 digests of the SASS of every K1 and K9 instantiation
-            (`attention_sm90_bf16.cu`, `attention_sm90_int8.cu` built by
+  lab       the attention lab's online (L1), no-softmax (L2), two-pass (L3)
+            and per-row-K int8 (L4) modes on the sm90 kernel
+            (`ops/csrc/attention_sm90_lab.cu`, `_lab_two_pass.cu`): copies
+            of the source (its C interface, K1's and the lab's
+            instantiations; K9's launches left out) built by nvcc in
+            parallel into libraries under `build/attn_tune/` (the kernel,
+            and the ablated copies of `sm90`), with ptxas's registers,
+            spills and warnings and the SASS counts of every lab
+            instantiation; the lab plans' shared memory against the
+            build's; the error against the plain version in fp32 of every
+            instantiation at ragged lengths; then, in turns, the device ms
+            of every tile the lab runs at the lab's shapes ((8,4096,8,40)
+            for L1, L2 and L3, (8,4096,8,64) and (8,4096,8,128) for L3;
+            L4 at (2,4250,24,64) on both of K9's plans, the prologue's
+            codes and scales made beforehand), of the parent (nvcc copies
+            of `flash_attention.cu`'s `fa_narrow_kernel` at
+            `lab_parent_tile`, and for L4 of `int8_attention.cu`'s
+            `int8_attn_kernel`), of K1's kernel on the same inputs and of
+            SDPA (not for L2, which has no softmax), beside the bound; then
+            each ablated copy at K1's tile (L4: its plan's). With `--quick`
+            no ablated copies. Nothing here needs the extension;
+  sass      SHA-1 digests of the SASS of every K1, K9 and lab
+            instantiation (the translation units of `SASS_UNITS` built by
             nvcc into cubins from `--csrc`, this package's sources by
             default): against another checkout's digests they show whether
             a change of the shared header moved those kernels' code;
@@ -248,8 +253,8 @@ def int8(gen, iters):
                        for _ in range(3))
         times = {64: [], 128: []}
         for bq in (64, 128, 128, 64):
-            times[bq].append(device_ms(lambda bq=bq: fa._int8_launch(q, k, v, h, d ** -0.5,
-                                                                    per_row, bq), iters=iters))
+            times[bq].append(device_ms(lambda bq=bq: fa._int8_parent_launch(
+                q, k, v, h, d ** -0.5, per_row, bq), iters=iters))
         print(f"[attn_tune] int8 {label} ({b},{n},{hd}) H={h}: device_ms " + " ".join(
             f"bq{bq}={'/'.join(f'{t:.4f}' for t in ts)}" for bq, ts in times.items())
             + f" int8_block_q={fa.int8_block_q(n)}", flush=True)
@@ -487,8 +492,7 @@ def sm90(gen, iters, quick=False):
             if int8:  # both with K9p, the prologue
                 cands["wrapper"] = lambda: fa._int8_launch(q, k, v, h, scale)
                 if d in getattr(fa, "INT8_PARENT_HEAD_DIMS", (32, 64, 128)):
-                    cands["parent"] = lambda: fa._int8_launch(q, k, v, h, scale, False,
-                                                              fa.int8_block_q(n))
+                    cands["parent"] = lambda: fa._int8_parent_launch(q, k, v, h, scale)
             else:
                 q4, k4, v4 = (t.unflatten(-1, (h, d)) for t in (q, k, v))
                 cands["wrapper"] = lambda: fa._launch(q4, k4, v4, scale)
@@ -725,7 +729,8 @@ def wide(gen, iters, quick=False):
 
 
 _LAB = tuple(os.path.join(_CSRC_DIR, f) for f in ("attention_sm90.cu", "attention_sm90_bf16.cu",
-                                                   "attention_sm90_lab.cu"))
+                                                   "attention_sm90_lab.cu",
+                                                   "attention_sm90_lab_two_pass.cu"))
 # K9's launches, which the lab part's copies leave out (its instantiations
 # take the longest to build): every call refused
 _NO_INT8 = r"""
@@ -738,30 +743,140 @@ int launch_int8(int, int, const CUtensorMap&, const CUtensorMap&, const CUtensor
 }  // namespace pd_sm90
 """
 # the lab modes' shapes on the sm90 kernel: (label, B, N, H, D, mode): the
-# lab's SD1.5 64² self-attention, and lab3's heads padded to 64 and 128
+# lab's SD1.5 64² self-attention, lab3's heads padded to 64 and 128, and
+# the int8 lab's SD3 joint length (per-row K)
 LAB_SHAPES = (("L1 SD1.5 64²", 8, 4096, 8, 40, "tiled"),
+              ("L2 SD1.5 64²", 8, 4096, 8, 40, "no_softmax"),
               ("L3 SD1.5 64²", 8, 4096, 8, 40, "two_pass"),
               ("L3 heads padded to 64", 8, 4096, 8, 64, "two_pass"),
-              ("L3 heads padded to 128", 8, 4096, 8, 128, "two_pass"))
+              ("L3 heads padded to 128", 8, 4096, 8, 128, "two_pass"),
+              ("L4 SD3 joint (lab)", 2, 4250, 24, 64, "int8_rowk"))
+_LAB_KERNELS = ("attn_sm90_lab_kernel", "attn_sm90_rowk_kernel")
 
 
 def _lab_fn(lib):
     fn = ctypes.CDLL(lib).pd_attention_sm90_lab_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
-                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12 + [ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def _lab_tail(mode, tile):
-    """The lab entry's arguments after the scale: mode, consumers, key tile."""
-    return fa._MODES[mode], tile[0] // fa.SM90_CONSUMER_ROWS, tile[1]
+def _int8_parent_fn(lib):
+    fn = ctypes.CDLL(lib).pd_int8_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_int64] * 8
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _lab_tiles(d, mode, nq=None):
+    """The tiles a lab mode instantiates at `d`: SM90_LAB_TILES' legal ones,
+    or L4's two plans (K9's on three and on two consumers), the plan's for
+    `nq` first."""
+    if mode != "int8_rowk":
+        return fa.sm90_lab_tiles(d, mode)
+    tiles = [(fa.SM90_CONSUMER_ROWS * nc, fa.Sm90Plan(d=d, int8=True, consumers=nc).block_k)
+             for nc in (3, 2)]
+    if nq is not None and fa.sm90_rowk_plan(d, nq, nq).consumers == 2:
+        tiles.reverse()
+    return tuple(tiles)
+
+
+def _lab_smem(d, mode, tile):
+    """The lab plan's shared memory at a tile of `_lab_tiles`."""
+    if mode == "int8_rowk":
+        plan = fa.Sm90Plan(d=d, int8=True, consumers=tile[0] // fa.SM90_CONSUMER_ROWS, row_k=True)
+        return plan.smem
+    return fa.sm90_lab_plan(d, mode, tile).smem
+
+
+def _lab_code(mode):
+    return fa.SM90_ROWK_MODE if mode == "int8_rowk" else fa._MODES[mode]
+
+
+def _rowk_operands(k, h):
+    """L4's K operands from the plain per-row prologue (bit-equal to
+    `k_row_codes_kernel`): packed (B, N, H*D) K -> its codes as a (B, N,
+    H, D) view and the (B, H, N) scales laid out as the kernel's map reads
+    them, rows `Sm90Plan.scale_pitch(N)` floats apart."""
+    b, n, hd = k.shape
+    codes, sk = fa._quant_k_per_row(k, h)
+    pitch = fa.Sm90Plan(d=hd // h, int8=True, consumers=3, row_k=True).scale_pitch(n)
+    rows = torch.zeros((b, h, pitch), dtype=torch.float32, device=k.device)[..., :n]
+    rows.copy_(sk)
+    return codes.unflatten(-1, (h, hd // h)), rows
+
+
+def _lab_call(fn, q, k, v, mode, tile, h=None):
+    """A call of a library copy's lab entry on (B, N, H, D) bf16 views of
+    q, k and v at `tile`, or for L4 on packed (B, N, H*D) ones of `h`
+    heads with the plain prologue's codes and scales; returns (call,
+    out)."""
+    sk, pitch = None, 0
+    if mode == "int8_rowk":
+        d = q.shape[-1] // h
+        k, sk = _rowk_operands(k, h)
+        pitch = sk.stride(1)
+        q, v = (t.unflatten(-1, (h, d)) for t in (q, v))
+    b, nq, hh, d = q.shape
+    out = torch.empty((b, nq, hh, d), dtype=torch.bfloat16, device=q.device)
+    tail = (_lab_code(mode), tile[0] // fa.SM90_CONSUMER_ROWS, tile[1])
+
+    def call():
+        err = fn(q.data_ptr(), k.data_ptr(), None if sk is None else sk.data_ptr(), pitch,
+                 v.data_ptr(), out.data_ptr(), b, hh, nq, k.shape[1], d, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], d ** -0.5, *tail,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"attention_sm90_lab launch failed: {err}")
+
+    return call, out.flatten(2) if mode == "int8_rowk" else out
+
+
+def _int8_parent_call(fn, q, k, v, h):
+    """L4's parent `int8_attn_kernel` (an nvcc copy of
+    `int8_attention.cu`) on packed (B, N, H*D) inputs with the plain
+    prologue's dense codes and scales, at `int8_block_q` query rows per
+    block; returns (call, out)."""
+    b, n, hd = q.shape
+    codes, sk = fa._quant_k_per_row(k, h)
+    out = torch.empty_like(q)
+
+    def call():
+        err = fn(q.data_ptr(), codes.data_ptr(), sk.data_ptr(), 1, v.data_ptr(), out.data_ptr(),
+                 b, h, n, n, hd // h, q.stride(0), q.stride(1), codes.stride(0), codes.stride(1),
+                 v.stride(0), v.stride(1), out.stride(0), out.stride(1), (hd // h) ** -0.5,
+                 fa.int8_block_q(n), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"int8_attention launch failed: {err}")
+
+    return call, out
+
+
+def _lab_plain(q, k, v, mode, h=None):
+    """A lab mode's plain version in fp32 on the same bf16 inputs."""
+    args = (q.float(), k.float(), v.float())
+    if mode == "int8_rowk":
+        return fa._torch_int8_attention(*args, h, (q.shape[-1] // h) ** -0.5, row_k=True)
+    plain = fa._torch_attention_no_softmax if mode == "no_softmax" else fa._torch_attention
+    return plain(*args, q.shape[-1] ** -0.5)
+
+
+def _lab_work(b, n, h, d, mode):
+    """(bytes, int8 ops, bf16 ops, exponentials) of a lab mode's call."""
+    ops = 2 * b * h * n * n * d
+    if mode == "int8_rowk":
+        return 8 * b * n * h * d, ops, ops, b * h * n * n
+    return 8 * b * n * h * d, 0, 2 * ops, 0 if mode == "no_softmax" else b * h * n * n
 
 
 def lab(gen, iters, quick=False):
-    """L1 and L3 on the sm90 kernel: the build, ptxas and SASS report, the
-    plans, errors, then times beside the parent, K1, SDPA and the ablated
-    copies."""
+    """L1, L2, L3 and L4 on the sm90 kernel: the build, ptxas and SASS
+    report, the plans, errors, then times beside the parent, K1, SDPA and
+    the ablated copies."""
     os.makedirs(OUT_DIR, exist_ok=True)
     stub = os.path.join(OUT_DIR, "no_int8.cu")
     open(stub, "w").write(_NO_INT8)
@@ -773,10 +888,14 @@ def lab(gen, iters, quick=False):
         lib = os.path.join(OUT_DIR, f"lab_{re.sub(r'\W+', '_', name)}.so")
         builds[name] = lib, _nvcc(_LAB + (stub,), lib, "-shared", "-Xcompiler", "-fPIC",
                                   f"-I{_CSRC_DIR}", *flags)
+    int8_lib = os.path.join(OUT_DIR, "lab_int8_parent.so")
+    int8_proc = _nvcc(os.path.join(_CSRC_DIR, "int8_attention.cu"), int8_lib, "-shared",
+                      "-Xcompiler", "-fPIC")
     parent_lib, parent_proc = _compile("lab parent", [])
-    out, _ = parent_proc.communicate()
-    if parent_proc.returncode:
-        raise RuntimeError(f"nvcc failed on {parent_lib}:\n{out[-3000:]}")
+    for lib, proc in ((parent_lib, parent_proc), (int8_lib, int8_proc)):
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {lib}:\n{out[-3000:]}")
     fns = {}
     for name, (lib, proc) in builds.items():
         out, _ = proc.communicate()
@@ -785,66 +904,90 @@ def lab(gen, iters, quick=False):
         fns[name] = _lab_fn(lib)
         if name == "kernel":
             print(f"[attn_tune] lab build: {time.perf_counter() - t0:.1f}s", flush=True)
-            rows, warnings = _ptxas(out, ("attn_sm90_lab_kernel", "attn_sm90_bf16_kernel"))
+            rows, warnings = _ptxas(out, _LAB_KERNELS + ("attn_sm90_bf16_kernel",))
             for kname, info in rows.items():
                 print(f"[attn_tune] lab ptxas {_demangled(kname)}: {info}", flush=True)
             print(f"[attn_tune] lab ptxas warnings: {warnings or 'none'}", flush=True)
-            for kname, ops in _sass_counts(lib, ("attn_sm90_lab_kernel",)).items():
+            for kname, ops in _sass_counts(lib, _LAB_KERNELS).items():
                 print(f"[attn_tune] lab sass {_demangled(kname)}: {ops}", flush=True)
     lib = ctypes.CDLL(builds["kernel"][0])
-    instances = [(mode, d, tile) for mode, dims in fa.SM90_LAB_HEAD_DIMS.items() for d in dims
-                 for tile in fa.sm90_lab_tiles(d, mode)]
+    modes = dict(fa.SM90_LAB_HEAD_DIMS, int8_rowk=fa.SM90_ROWK_HEAD_DIMS)
+    instances = [(mode, d, tile) for mode, dims in modes.items() for d in dims
+                 for tile in _lab_tiles(d, mode)]
     for mode, d, tile in instances:
-        plan = fa.sm90_lab_plan(d, mode, tile)
-        built = lib.pd_attention_sm90_lab_smem(d, *_lab_tail(mode, tile))
-        print(f"[attn_tune] lab plan {mode} D={d} {tile}: smem {built} as built, {plan.smem} in "
+        built = lib.pd_attention_sm90_lab_smem(d, _lab_code(mode), tile[0] // fa.SM90_CONSUMER_ROWS,
+                                               tile[1])
+        want = _lab_smem(d, mode, tile)
+        print(f"[attn_tune] lab plan {mode} D={d} {tile}: smem {built} as built, {want} in "
               f"the plan", flush=True)
-        if built != plan.smem:
-            raise RuntimeError(f"sm90_lab_plan({d}, {mode}, {tile}) disagrees with the build")
+        if built != want:
+            raise RuntimeError(f"the lab plan of {mode} at D = {d}, {tile} disagrees with the "
+                               f"build")
     parent, k1 = _parent_fn(parent_lib), _sm90_fn(builds["kernel"][0])
+    int8_parent = _int8_parent_fn(int8_lib)
     bf = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
     for mode, d, tile in instances:
         for n in (77, 1100):
-            q, k, v = bf(2, n, 3, d), bf(2, n, 3, d), bf(2, n, 3, d)
-            call, out = _strided_call(fns["kernel"], q, k, v, _lab_tail(mode, tile))
+            h = 3
+            if mode == "int8_rowk":
+                q, k, v = bf(2, n, h * d), bf(2, n, h * d), bf(2, n, h * d)
+            else:
+                q, k, v = bf(2, n, h, d), bf(2, n, h, d), bf(2, n, h, d)
+            call, out = _lab_call(fns["kernel"], q, k, v, mode, tile, h)
             call()
-            ref = fa._torch_attention(q.float(), k.float(), v.float(), d ** -0.5)
+            ref = _lab_plain(q, k, v, mode, h)
             err = (out.float() - ref).abs().max().item()
-            print(f"[attn_tune] lab check {mode} D={d} {tile[0]}x{tile[1]} (2,{n},3,{d}): "
+            print(f"[attn_tune] lab check {mode} D={d} {tile[0]}x{tile[1]} {tuple(q.shape)}: "
                   f"max_abs_err={err:.3g} ({err / ref.abs().max().item():.3g} of the largest "
                   f"output) finite={bool(torch.isfinite(out).all())}", flush=True)
     for label, b, n, h, d, mode in LAB_SHAPES:
-        q, k, v = bf(b, n, h, d), bf(b, n, h, d), bf(b, n, h, d)
+        int8 = mode == "int8_rowk"
+        shape = (b, n, h * d) if int8 else (b, n, h, d)
+        q, k, v = bf(*shape), bf(*shape), bf(*shape)
         cands = {}
-        for tile in fa.sm90_lab_tiles(d, mode):
-            cands[f"sm90 {tile[0]}x{tile[1]}"] = _strided_call(fns["kernel"], q, k, v,
-                                                               _lab_tail(mode, tile))[0]
-        for tile in fa.sm90_lab_tiles(d, mode):
-            ptile = fa.lab_parent_tile(tile)
-            cands[f"parent {ptile[0]}x{ptile[1]}"] = _strided_call(
-                parent, q, k, v, (fa._MODES[mode], *ptile))[0]
-        cands["k1 sm90"] = _sm90_call(k1, q.flatten(2), k.flatten(2), v.flatten(2), h, False)[0]
-        cands["sdpa"] = lambda: F.scaled_dot_product_attention(*(t.transpose(1, 2)
-                                                                 for t in (q, k, v)))
+        for tile in _lab_tiles(d, mode, n):
+            cands[f"sm90 {tile[0]}x{tile[1]}"] = _lab_call(fns["kernel"], q, k, v, mode, tile,
+                                                           h)[0]
+        if int8:
+            cands[f"parent bq{fa.int8_block_q(n)}"] = _int8_parent_call(int8_parent, q, k, v, h)[0]
+        else:
+            for tile in fa.sm90_lab_tiles(d, mode):
+                ptile = fa.lab_parent_tile(tile)
+                cands[f"parent {ptile[0]}x{ptile[1]}"] = _strided_call(
+                    parent, q, k, v, (fa._MODES[mode], *ptile))[0]
+        flat = (q, k, v) if int8 else (q.flatten(2), k.flatten(2), v.flatten(2))
+        cands["k1 sm90"] = _sm90_call(k1, *flat, h, False)[0]
+        heads = (lambda t: t.view(b, n, h, d).transpose(1, 2)) if int8 else (
+            lambda t: t.transpose(1, 2))
+        if mode != "no_softmax":
+            cands["sdpa"] = lambda: F.scaled_dot_product_attention(*(heads(t) for t in (q, k, v)))
         times = {c: [] for c in cands}
         for c in list(cands) + list(cands)[::-1]:
             times[c].append(device_ms(cands[c], iters=iters))
-        bound_ms, bound_by = roofline(8 * b * n * h * d, 0, 4 * b * h * n * n * d, b * h * n * n)
+        bound_ms, bound_by = roofline(*_lab_work(b, n, h, d, mode))
         print(f"[attn_tune] lab time {label} ({b},{n},{h},{d}) {mode}: device_ms "
               + " ".join(f"{c}={'/'.join(f'{t:.4f}' for t in ts)}" for c, ts in times.items())
               + f" bound={bound_ms:.4f} ({bound_by})", flush=True)
         for name, fn in fns.items():
             if name == "kernel":
                 continue
-            acall = _strided_call(fn, q, k, v, _lab_tail(mode, fa.sm90_lab_tile(d)))[0]
+            tile = _lab_tiles(d, mode, n)[0] if int8 else fa.sm90_lab_tile(d)
+            acall = _lab_call(fn, q, k, v, mode, tile, h)[0]
             print(f"[attn_tune] lab copy {label} {mode}: {name} "
                   f"device_ms={device_ms(acall, iters=iters):.4f}", flush=True)
 
 
+# the translation units of K1's, K9's and the lab modes' instantiations
+# (an older checkout holds L3's in attention_sm90_lab.cu)
+SASS_UNITS = ("attention_sm90_bf16.cu", "attention_sm90_int8.cu", "attention_sm90_lab.cu",
+              "attention_sm90_lab_two_pass.cu")
+
+
 def sass(csrc):
-    """SHA-1 digests of the SASS of every K1 and K9 instantiation built from
-    the sources in `csrc`, each instruction without its address and
-    encoding; the instructions themselves go to
+    """SHA-1 digests of the SASS of every K1, K9 and lab instantiation
+    built from the sources in `csrc` (the translation units of SASS_UNITS
+    it holds), each instruction without its address and encoding; the
+    instructions themselves go to
     `build/attn_tune/sass_<digest of csrc's path>/<kernel>.sass`, for a
     diff."""
     import hashlib
@@ -854,7 +997,7 @@ def sass(csrc):
     os.makedirs(OUT_DIR, exist_ok=True)
     tag = hashlib.sha1(os.path.abspath(csrc).encode()).hexdigest()[:8]
     procs = {}
-    for unit in ("attention_sm90_bf16.cu", "attention_sm90_int8.cu"):
+    for unit in (u for u in SASS_UNITS if os.path.exists(os.path.join(csrc, u))):
         cubin = os.path.join(OUT_DIR, f"sass_{tag}_{unit}.cubin")
         procs[unit] = cubin, _nvcc(os.path.join(csrc, unit), cubin, "-cubin")
     for unit, (cubin, proc) in procs.items():
@@ -890,8 +1033,7 @@ def _wrappers(q, k, v, heads, int8):
     if int8:
         scale = (q.shape[-1] // heads) ** -0.5
         return (lambda: fa._int8_launch(q, k, v, heads, scale),
-                lambda: fa._int8_launch(q, k, v, heads, scale, False,
-                                        fa.int8_block_q(q.shape[1])))
+                lambda: fa._int8_parent_launch(q, k, v, heads, scale))
     q, k, v = (t.unflatten(-1, (heads, -1)) for t in (q, k, v))
     d = q.shape[-1]
     return (lambda: fa._launch(q, k, v, d ** -0.5),

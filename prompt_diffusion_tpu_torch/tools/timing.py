@@ -199,6 +199,12 @@ def device_launches(fn, iters=5, warmup=1):
     return len(_device_trace(fn, iters, warmup, "device_launches")) / iters
 
 
+def device_launch_names(fn, iters=5, warmup=1):
+    """{name: device activities of that name per call of `fn`}."""
+    names = [name for name, _, _ in _device_trace(fn, iters, warmup, "device_launch_names")]
+    return {name: names.count(name) / iters for name in sorted(set(names))}
+
+
 def roofline(nbytes, int8_ops=0.0, bf16_ops=0.0, exps=0.0):
     """(bound_ms, bound_by): the largest of the bytes over the memory rate,
     the tensor-core operations over their dense peaks and the exponentials

@@ -1,6 +1,7 @@
 """PyTorch port, the warpgroup attention kernels of
 `ops/csrc/attention_sm90.cuh` (K1, K2 at D <= 128, K9, and the lab modes
-L1 and L3 of `attention_sm90_lab.cu`) on the CPU: the route
+L1, L2, L3 and L4 of `attention_sm90_lab.cu`, `_lab_two_pass.cu`) on the
+CPU: the route
 `attention_route` states by mode, head dimension and dtype, the plans
 (tiles, warpgroups, shared memory, the zero pads at D = 40 and 80) and the
 TMA tensor maps at the paths' shapes, the refusals before any build, the
@@ -8,10 +9,12 @@ arguments the lab wrappers hand the extension, and a torch emulation of
 the kernel's order of work (64-, 112- or 128-key tiles, P rounded to bf16
 against the running maximum, O rescaled when a row maximum of a warp's 16
 rows moved, one division at the end; the two-pass mode's exact row maximum
-first and no rescale) held against the JAX package's
+first and no rescale; the no-softmax mode's scaled logits rounded to bf16
+and summed tile by tile; the per-row-K mode's key scale in each logit
+before the row maximum) held against the JAX package's
 `flash_attention_packed`, `flash_attention` and
-`flash_attention_packed_int8` kernels and the JAX labs' `_online_kernel`
-and `_fullk_kernel` in interpret mode. The kernels themselves run only on
+`flash_attention_packed_int8` kernels and the JAX labs' `_online_kernel`,
+`_fullk_kernel` and `attn_int8_v2` in interpret mode. The kernels themselves run only on
 the card (`chip_smoke.py`, `tools/attn_tune.py --part sm90|lab`)."""
 
 import contextlib
@@ -51,17 +54,19 @@ def _f32(x):
     ("online", 96, "narrow"),
     # above 128 the wide kernel; the VAE's 512 its wide sm90 successor
     ("online", 160, "wide"), ("online", 512, "wide_sm90"),
-    # L1 and L3 run the sm90 kernel at the head dims it instantiates for
-    # them; elsewhere only the parent has them (`_parent_launch`); L2 runs
-    # the parent
+    # L1, L2 and L3 run the sm90 kernel at the head dims it instantiates for
+    # them; elsewhere only the parent has them (`_parent_launch`)
     ("tiled", 40, "sm90"), ("tiled", 64, "narrow"), ("tiled", 80, "narrow"),
-    ("tiled", 128, "narrow"), ("no_softmax", 40, "narrow"), ("no_softmax", 64, "narrow"),
+    ("tiled", 128, "narrow"), ("no_softmax", 40, "sm90"), ("no_softmax", 64, "narrow"),
     ("no_softmax", 128, "narrow"), ("two_pass", 40, "sm90"), ("two_pass", 64, "sm90"),
     ("two_pass", 80, "narrow"), ("two_pass", 128, "sm90"),
     ("int8", 32, "int8_sm90"), ("int8", 64, "int8_sm90"), ("int8", 128, "int8_sm90"),
     # SD1.5's heads under `int8_attention`: 64² and 32² self-attention
     ("int8", 40, "int8_sm90"), ("int8", 80, "int8_sm90"),
-    ("int8_rowk", 64, "int8_parent"), ("int8_rowk", 32, "int8_parent"),
+    # L4 on the sm90 int8 kernel at D = 64; elsewhere only the parent
+    # (`_int8_parent_launch`)
+    ("int8_rowk", 64, "int8_sm90"), ("int8_rowk", 32, "int8_parent"),
+    ("int8_rowk", 128, "int8_parent"),
 ])
 def test_attention_route(mode, d, route):
     """One function states which kernel a call on the card runs."""
@@ -140,21 +145,29 @@ def test_launch_takes_the_route(d, sm90, monkeypatch):
 @pytest.mark.parametrize("hd,h", [(256, 4), (320, 8), (640, 8)])
 def test_int8_launch_takes_the_route(hd, h, monkeypatch):
     """K9 (per-head K) goes to the sm90 kernel after K9p
-    (`_int8_sm90_launch`), at SD1.5's D = 40 and 80 too; a block_q or
-    per-row K to the parent `int8_attn_kernel` (which takes neither 40 nor
-    80)."""
+    (`_int8_sm90_launch`), at SD1.5's D = 40 and 80 too; per-row K (L4) to
+    the sm90 kernel's per-row-K mode (`_int8_rowk_sm90_launch`), at D = 64
+    only; the parent `int8_attn_kernel` only through its own launch
+    (`_int8_parent_launch`, which takes neither 40 nor 80)."""
     _no_build(monkeypatch)
     _as_if_on_the_card(monkeypatch)
-    calls = []
+    calls, rowk = [], []
     monkeypatch.setattr(fa, "_int8_sm90_launch", lambda q, k, v, heads, scale: calls.append(
         (tuple(q.shape), heads)) or torch.zeros(q.shape, dtype=torch.bfloat16))
     x = torch.zeros(1, 64, hd, dtype=torch.bfloat16)
     out = fa._int8_launch(x, x, x, h, 0.125)
     assert out.shape == (1, 64, hd) and calls == [((1, 64, hd), h)]
-    for kwargs in ({"block_q": 64}, {"row_k": True}):
+    with pytest.raises(AssertionError if hd == 256 else ValueError,
+                       match="extension was built" if hd == 256 else "head dim"):
+        fa._int8_launch(x, x, x, h, 0.125, row_k=True)
+    monkeypatch.setattr(fa, "_int8_rowk_sm90_launch", lambda q, k, v, heads, scale: rowk.append(
+        (tuple(q.shape), heads)) or torch.zeros(q.shape, dtype=torch.bfloat16))
+    fa._int8_launch(x, x, x, h, 0.125, row_k=True)
+    assert rowk == [((1, 64, hd), h)]
+    for row_k in (False, True):
         with pytest.raises(AssertionError if hd == 256 else ValueError,
                            match="extension was built" if hd == 256 else "head dim"):
-            fa._int8_launch(x, x, x, h, 0.125, **kwargs)
+            fa._int8_parent_launch(x, x, x, h, 0.125, row_k, 64)
     assert len(calls) == 1
 
 
@@ -170,8 +183,8 @@ def test_int8_sm90_launch_reaches_the_build(hd, h, monkeypatch):
 
 
 class _FakeExt:
-    """The extension's lab and parent attention entries, recording the
-    arguments each call hands them."""
+    """The extension's lab and parent attention entries and the per-row
+    prologue, recording the arguments each call hands them."""
 
     def __init__(self):
         self.calls = []
@@ -181,6 +194,12 @@ class _FakeExt:
 
     def flash_attention_fwd(self, *args):
         self.calls.append(("parent", args))
+
+    def int8_quant_k_rows(self, *args):
+        self.calls.append(("rows", args))
+
+    def int8_attention_fwd(self, *args):
+        self.calls.append(("int8 parent", args))
 
 
 def _fake_card(monkeypatch):
@@ -195,21 +214,25 @@ def _fake_card(monkeypatch):
     return ext
 
 
-LAB_LAUNCHES = [  # (wrapper, mode code, D, tiles): every instantiation of the lab modes
+LAB_LAUNCHES = [  # (wrapper, mode code, D, tiles): every instantiation of the bf16 lab modes
     *(("tiled", 0, 40, tile) for tile in fa.SM90_LAB_TILES),
+    *(("no_softmax", 1, 40, tile) for tile in fa.SM90_LAB_TILES),
     *(("two_pass", 2, d, tile) for d in (40, 64) for tile in fa.SM90_LAB_TILES),
     ("two_pass", 2, 128, (128, 64)), ("two_pass", 2, 128, (128, 128)),
 ]
+LAB_WRAPPERS = {"tiled": fa.flash_attention_tiled, "no_softmax": fa.attention_no_softmax,
+                "two_pass": fa.flash_attention_two_pass}
 
 
 @pytest.mark.parametrize("mode,code,d,tile", LAB_LAUNCHES)
 def test_lab_wrappers_reach_the_sm90_launch(mode, code, d, tile, monkeypatch):
-    """On the card L1 and L3 hand the lab entry of the sm90 kernel their
-    views (strides of (B, N, H, D) views of (B, H, N, D) memory, as the
-    lab's BHND inputs), the mode, and the plan's consumers and key tile;
-    each call counts one launch; the parent is not called."""
+    """On the card L1, L2 and L3 hand the lab entry of the sm90 kernel
+    their views (strides of (B, N, H, D) views of (B, H, N, D) memory, as
+    the lab's BHND inputs), no key scales, the mode, and the plan's
+    consumers and key tile; each call counts one launch; the parent is not
+    called."""
     ext = _fake_card(monkeypatch)
-    wrapper = fa.flash_attention_tiled if mode == "tiled" else fa.flash_attention_two_pass
+    wrapper = LAB_WRAPPERS[mode]
     b, n, h = 2, 96, 3
     q, k, v = (torch.zeros(b, h, n, d, dtype=torch.bfloat16).transpose(1, 2) for _ in range(3))
     before = wrapper.launches
@@ -218,18 +241,19 @@ def test_lab_wrappers_reach_the_sm90_launch(mode, code, d, tile, monkeypatch):
     ((kind, args),) = ext.calls
     plan = fa.sm90_lab_plan(d, mode, tile)
     assert kind == "lab" and (plan.block_q, plan.block_k) == tile
-    assert args[4:9] == (b, h, n, n, d)
-    assert args[9:12] == q.stride()[:3] == (h * n * d, d, n * d)
-    assert args[21:] == (pytest.approx(0.2), code, plan.consumers, plan.block_k, 0)
+    assert args[2:4] == (0, 0)
+    assert args[6:11] == (b, h, n, n, d)
+    assert args[11:14] == q.stride()[:3] == (h * n * d, d, n * d)
+    assert args[23:] == (pytest.approx(0.2), code, plan.consumers, plan.block_k, 0)
 
 
-@pytest.mark.parametrize("mode,d", [("tiled", 40), ("two_pass", 40), ("two_pass", 64),
-                                    ("two_pass", 128)])
+@pytest.mark.parametrize("mode,d", [("tiled", 40), ("no_softmax", 40), ("two_pass", 40),
+                                    ("two_pass", 64), ("two_pass", 128)])
 def test_lab_wrappers_default_to_k1s_tile(mode, d, monkeypatch):
-    """Without a tile L1 and L3 run K1's plan at their D: three consumers
-    at D <= 64, two above, 128-key tiles."""
+    """Without a tile L1, L2 and L3 run K1's plan at their D: three
+    consumers at D <= 64, two above, 128-key tiles."""
     ext = _fake_card(monkeypatch)
-    wrapper = fa.flash_attention_tiled if mode == "tiled" else fa.flash_attention_two_pass
+    wrapper = LAB_WRAPPERS[mode]
     q = torch.zeros(1, 64, 2, d, dtype=torch.bfloat16)
     wrapper(q, q, q, 0.2)
     k1 = fa.sm90_plan(d)
@@ -243,7 +267,12 @@ def _lab_refused(case):
     bf16 = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)
     x40, x128 = bf16(2, 64, 2, 40), bf16(2, 64, 2, 128)
     tiled, two_pass = fa.flash_attention_tiled, fa.flash_attention_two_pass
+    no_softmax = fa.attention_no_softmax
     return {
+        "L2 at D = 64": (no_softmax, bf16(2, 64, 2, 64), None, None, None),
+        "L2 at D = 128": (no_softmax, x128, None, None, None),
+        "L2 at a parent tile": (no_softmax, x40, None, None, (64, 64)),
+        "L2 fp32": (no_softmax, x40.float(), None, None, None),
         "L1 at D = 64": (tiled, bf16(2, 64, 2, 64), None, None, None),
         "L1 at D = 80": (tiled, bf16(2, 64, 2, 80), None, None, None),
         "L3 at D = 80": (two_pass, bf16(2, 64, 2, 80), None, None, None),
@@ -260,7 +289,8 @@ def _lab_refused(case):
     }[case]
 
 
-LAB_REFUSALS = ["L1 at D = 64", "L1 at D = 80", "L3 at D = 80", "L3 at D = 32",
+LAB_REFUSALS = ["L2 at D = 64", "L2 at D = 128", "L2 at a parent tile", "L2 fp32",
+                "L1 at D = 64", "L1 at D = 80", "L3 at D = 80", "L3 at D = 32",
                 "L3 on three consumers at D = 128", "L3 on three consumers at D = 128, 64 keys",
                 "L1 at a parent tile", "L3 at a parent tile", "L3 fp32", "L1 k batch broadcast",
                 "L3 v row stride not 16 bytes", "L3 q base misaligned"]
@@ -276,6 +306,8 @@ def test_lab_refuses_before_build(case, monkeypatch):
     monkeypatch.setattr(fa, "use_kernel", lambda t: True)
     monkeypatch.setattr(fa, "_parent_launch", lambda *a: pytest.fail("the parent ran"))
     monkeypatch.setattr(fa, "_torch_attention", lambda *a: pytest.fail("the plain version ran"))
+    monkeypatch.setattr(fa, "_torch_attention_no_softmax",
+                        lambda *a: pytest.fail("the plain version ran"))
     wrapper, q, k, v, tile = _lab_refused(case)
     before = wrapper.launches
     with pytest.raises(ValueError):
@@ -385,6 +417,8 @@ def test_sm90_plan_refuses(d, int8, consumers):
     ("two_pass", 64, (128, 64), 2, 50176), ("two_pass", 64, (128, 128), 2, 82944),
     ("two_pass", 64, (192, 64), 3, 58368), ("two_pass", 64, (192, 128), 3, 91136),
     ("two_pass", 128, (128, 64), 2, 99328), ("two_pass", 128, (128, 128), 2, 164864),
+    ("no_softmax", 40, (128, 64), 2, 50176), ("no_softmax", 40, (128, 128), 2, 82944),
+    ("no_softmax", 40, (192, 64), 3, 58368), ("no_softmax", 40, (192, 128), 3, 91136),
 ])
 def test_sm90_lab_plan(mode, d, tile, consumers, smem):
     """A lab tile of SM90_LAB_TILES is 64 query rows per consumer and 64 or
@@ -403,10 +437,13 @@ def test_sm90_lab_plan(mode, d, tile, consumers, smem):
 
 
 def test_sm90_lab_tiles_and_head_dims():
-    """SM90_LAB_TILES: two or three consumers by 64 or 128 keys; L1 at the
-    lab's D = 40, L3 also at lab3's heads padded to 64 and 128."""
+    """SM90_LAB_TILES: two or three consumers by 64 or 128 keys; L1 and L2
+    at the lab's D = 40, L3 also at lab3's heads padded to 64 and 128; L4
+    at the int8 lab's D = 64."""
     assert sorted(fa.SM90_LAB_TILES) == [(128, 64), (128, 128), (192, 64), (192, 128)]
-    assert fa.SM90_LAB_HEAD_DIMS == {"tiled": (40,), "two_pass": (40, 64, 128)}
+    assert fa.SM90_LAB_HEAD_DIMS == {"tiled": (40,), "no_softmax": (40,),
+                                     "two_pass": (40, 64, 128)}
+    assert fa.SM90_ROWK_HEAD_DIMS == (64,) and fa.SM90_ROWK_MODE not in fa._MODES.values()
     assert set(fa.SM90_LAB_HEAD_DIMS["two_pass"]) <= set(fa.SM90_HEAD_DIMS)
     for tile in fa.SM90_LAB_TILES:
         assert fa.lab_parent_tile(tile) in fa.LAB_TILES
@@ -417,7 +454,8 @@ def test_sm90_lab_tiles_and_head_dims():
     ("tiled", 64, None), ("tiled", 80, None), ("tiled", 128, None), ("two_pass", 80, None),
     ("two_pass", 32, None), ("two_pass", 128, (192, 64)), ("two_pass", 128, (192, 128)),
     ("tiled", 40, (64, 64)), ("two_pass", 40, (128, 32)), ("two_pass", 40, (256, 128)),
-    ("no_softmax", 40, None), ("online", 40, None),
+    ("no_softmax", 64, None), ("no_softmax", 40, (64, 64)), ("online", 40, None),
+    ("int8_rowk", 64, None),
 ])
 def test_sm90_lab_plan_refuses(mode, d, tile):
     with pytest.raises(ValueError):
@@ -593,7 +631,8 @@ def test_int8_sm90_refuses_sd15_shapes_before_build(case, monkeypatch):
 # ---- the order of work -------------------------------------------------------
 
 
-def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16, two_pass=False):
+def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16, two_pass=False,
+             row_k=False):
     """The sm90 kernel's order of work on (B, N, H, D) float tensors holding
     the inputs' values, in fp32: per key tile (the plan's) the logits (bf16: fp32
     products; int8: exact integer sums of the per-row Q codes and K9p's
@@ -605,7 +644,10 @@ def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16, two_pass
     maximum of the warp's `warp_rows` rows moved, then O += p.V in fp32,
     and O / l once, in v's dtype. With `two_pass` (L3) a first pass over
     the key tiles takes the exact row maximum (each tile's maximum times
-    c), and the second sums p and p.V against it with no correction.
+    c), and the second sums p and p.V against it with no correction. With
+    `row_k` (L4, int8) K's codes and scales are per key row and each key's
+    scale enters its logit first, x = f32(s32) * sk_j rounded to fp32, c =
+    sq * scale * log2(e), and P is rounded to bf16 whatever V's dtype.
     Returns (O, the Q codes or None)."""
     b, nq, h, d = q.shape
     nk = k.shape[1]
@@ -615,9 +657,13 @@ def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16, two_pass
     if int8:
         sq = fa._int8_scale(qf.abs().amax(dim=-1, keepdim=True))
         codes = torch.clamp(torch.round(qf / sq), -127, 127)
-        kc, skh = fa._quant_k_per_head(k.reshape(b, nk, h * d), h)
+        if row_k:
+            kc, skr = fa._quant_k_per_row(k.reshape(b, nk, h * d), h)  # skr (B, H, Nk)
+            c = (sq * _f32(scale)) * _f32(LOG2E)
+        else:
+            kc, skh = fa._quant_k_per_head(k.reshape(b, nk, h * d), h)
+            c = (sq * (skh * _f32(scale)).view(b, h, 1, 1)) * _f32(LOG2E)
         kf = kc.float().view(b, nk, h, d).permute(0, 2, 1, 3)
-        c = (sq * (skh * _f32(scale)).view(b, h, 1, 1)) * _f32(LOG2E)
         qf = codes
     else:
         c = torch.full((b, h, nq, 1), _f32(scale) * _f32(LOG2E))
@@ -633,6 +679,8 @@ def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16, two_pass
     for j0 in range(0, nk, block_k):
         kt, vt = kf[:, :, j0:j0 + block_k], vf[:, :, j0:j0 + block_k]
         s = logits(kt)
+        if row_k:
+            s = s * skr[:, :, None, j0:j0 + block_k]
         if not two_pass:
             mx = torch.maximum(m, s.amax(dim=-1, keepdim=True) * c)
             corr = torch.exp2(m - mx)
@@ -645,8 +693,23 @@ def _emulate(q, k, v, scale, *, int8=False, block_k=None, warp_rows=16, two_pass
             moved = torch.nn.functional.pad(corr != 1, (0, 0, 0, pad))
             moved = moved.view(b, h, -1, warp_rows).any(dim=-1).repeat_interleave(warp_rows, dim=2)
             o = torch.where(moved[:, :, :nq, None], o * corr, o)
-        o = o + p.to(v.dtype).float() @ vt
+        o = o + p.to(torch.bfloat16 if row_k else v.dtype).float() @ vt
     return (o / l).to(v.dtype).permute(0, 2, 1, 3), codes
+
+
+def _emulate_no_softmax(q, k, v, scale, block_k):
+    """L2's order of work on (B, N, H, D) float tensors holding the inputs'
+    values: per key tile of `block_k` keys the fp32 logits of the tile's
+    real keys (rows past N arrive as zeros and add nothing), times the
+    scale in fp32 (one FMUL), rounded to v's dtype, then O += P.V in fp32;
+    O in v's dtype. No maximum, exponential, sum or division."""
+    qf, kf, vf = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))  # (B, H, N, D)
+    o = torch.zeros(qf.shape[:3] + (v.shape[-1],))
+    for j0 in range(0, k.shape[1], block_k):
+        s = qf @ kf[:, :, j0:j0 + block_k].transpose(-1, -2)
+        p = (s * _f32(scale)).to(v.dtype).float()
+        o = o + p @ vf[:, :, j0:j0 + block_k]
+    return o.to(v.dtype).permute(0, 2, 1, 3)
 
 
 def _as(x, dtype):
@@ -931,17 +994,288 @@ def test_chip_smoke_checks_the_new_kernels_and_not_the_parents():
     assert any(src.endswith("attention_sm90_wide.cu")
                for src in chip_smoke.SOURCES_ALSO["flash_attention"])
     assert chip_smoke.DEVICE_FUNCTIONS["flash_attention"][1] == "attn_sm90_wide_kernel"
-    # L1 and L3: one launch of the lab instantiations per call, none of the
-    # parent, counted in `[kernels]` and on the `[labs]` path; L2 and L4
-    # keep their parents
-    for name in ("flash_attention_tiled", "flash_attention_two_pass"):
+    # L1, L2 and L3: one launch of the bf16 lab instantiations per call,
+    # none of the parent, counted in `[kernels]` and on the `[labs]` path;
+    # L4: one of its prologue and one of the per-row-K instantiation
+    for name in ("flash_attention_tiled", "attention_no_softmax", "flash_attention_two_pass"):
         assert one[name] == ("attn_sm90_lab_kernel",) and name in chip_smoke.ONE_LAUNCH
         assert chip_smoke.KERNELS[name][1].endswith("attention_sm90.cuh")
         assert any(src.endswith("attention_sm90_lab.cu") for src in chip_smoke.SOURCES_ALSO[name])
-        assert name in chip_smoke.PATH_KERNELS["labs"]
-    for name, parent in (("attention_no_softmax", "flash_attention.cu"),
-                         ("flash_attention_packed_int8_rowk", "int8_attention.cu")):
-        assert chip_smoke.KERNELS[name][1].endswith(parent) and name not in one
-    assert not any("attn_sm90_lab_kernel" in f or f in "attn_sm90_lab_kernel"
-                   for f in chip_smoke.PARENT_FUNCTIONS + ("attn_sm90_bf16_kernel",
-                                                           "attn_sm90_int8_kernel"))
+        assert name in chip_smoke.PATH_KERNELS["labs"] and name in chip_smoke.LAB_MODES
+    assert any(src.endswith("attention_sm90_lab_two_pass.cu")
+               for src in chip_smoke.SOURCES_ALSO["flash_attention_two_pass"])
+    rowk = "flash_attention_packed_int8_rowk"
+    assert one[rowk] == ("attn_sm90_rowk_kernel",) and rowk in chip_smoke.EACH_ONCE
+    assert chip_smoke.DEVICE_FUNCTIONS[rowk] == ("k_row_codes_kernel", "attn_sm90_rowk_kernel")
+    assert chip_smoke.KERNELS[rowk][1].endswith("attention_sm90.cuh")
+    assert any(src.endswith("attention_sm90_lab.cu") for src in chip_smoke.SOURCES_ALSO[rowk])
+    new_lab = ("attn_sm90_lab_kernel", "attn_sm90_rowk_kernel")
+    for f in new_lab:
+        assert not any(f in g or g in f for g in chip_smoke.PARENT_FUNCTIONS + (
+            "attn_sm90_bf16_kernel", "attn_sm90_int8_kernel") + tuple(set(new_lab) - {f}))
+
+
+@pytest.mark.parametrize("name,args,parent", [
+    ("attention_no_softmax", ("q", "k", "v", 0.2, 192, 128), ("no_softmax", (128, 128))),
+    ("attention_no_softmax", ("q", "k", "v", 0.2, 192, 64), ("no_softmax", (128, 64))),
+    ("flash_attention_tiled", ("q", "k", "v", 0.2, 192, 128), ("online", (128, 128))),
+    ("flash_attention_packed_int8_rowk", ("q", "k", "v", 4), ("int8 per row", None)),
+])
+def test_chip_smoke_times_the_parents_beside_the_lab_modes(name, args, parent, monkeypatch):
+    """chip_smoke.py's `[kernels]` times each lab mode's parent through its
+    own launch: the bf16 modes `fa_narrow_kernel` in their mode at
+    `lab_parent_tile`, L4 `int8_attn_kernel` with per-row K; and its cases
+    hold L2 at K1's tile and at 64-key tiles and L4 at the SD3 joint
+    shape."""
+    import chip_smoke
+
+    calls = []
+    monkeypatch.setattr(fa, "_parent_launch", lambda q, k, v, scale, mode, tile: calls.append(
+        (mode, tile)))
+    monkeypatch.setattr(fa, "_int8_parent_launch", lambda q, k, v, h, scale, row_k: calls.append(
+        ("int8 per row" if row_k else "int8", None)))
+    x = torch.zeros(1, 64, 256)
+    chip_smoke.parent_call(name, tuple(x if a in ("q", "k", "v") else a for a in args))()
+    assert calls == [parent]
+
+
+# ---- L2 and L4 on the sm90 kernel --------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,n,block_k,jax_block", [(2, 2, 256, 64, 64), (1, 2, 256, 128, 128),
+                                                     (1, 2, 200, 64, 40), (2, 1, 200, 128, 50),
+                                                     (1, 3, 77, 64, 77)])
+def test_no_softmax_emulation_matches_jax_lab(b, h, n, block_k, jax_block, dtype):
+    """L2's order of work (the tile's fp32 logits times the scale, rounded
+    to bf16, O summed tile by tile in fp32 at 64- or 128-key tiles; ragged
+    N with its tail unmasked: K's and V's rows past N are zeros) against
+    the JAX lab's `_online_kernel(do_softmax=False)` in interpret mode
+    (whole tiles of `jax_block` keys): fp32 within 1e-5 of the largest
+    output (the order of the fp32 sums), bf16 within one bf16 step of a P
+    and of the output (a logit that the sums' order moves across a
+    rounding of P)."""
+    rng = np.random.default_rng(n + block_k + h)
+    qkv, jqkv, views = _lab_inputs(rng, b, h, n, 40, dtype)
+    qkv[2] = qkv[2] / 8
+    jqkv[2] = jqkv[2] / 8
+    views[2] = views[2] / 8
+    scale = 40 ** -0.5
+    ref = np.asarray(jax_lab_bhnd(variants._online_kernel, jqkv, jax_block, scale=scale,
+                                  block_k=jax_block, do_softmax=False).astype(jnp.float32))
+    got = _emulate_no_softmax(*views, scale, block_k).float().transpose(1, 2).numpy()
+    err = np.abs(got - ref).max()
+    if dtype == "float32":
+        assert err <= 1e-5 * np.abs(ref).max()
+    else:
+        p = np.abs(np.einsum("bhqd,bhkd->bhqk", qkv[0], qkv[1]) * scale).max()
+        assert err <= 2.0 ** -8 * (p * np.abs(qkv[2]).max() + np.abs(ref).max())
+
+
+int8_lab = jax_lab("attn_int8_lab")
+
+ROWK = [  # (B, N, H, block_k): K9's plans' key tiles, ragged N
+    (1, 200, 2, 112), (2, 300, 2, 112), (1, 224, 3, 112), (1, 260, 2, 128), (2, 77, 2, 112)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,n,h,block_k", ROWK)
+def test_rowk_emulation_matches_jax_lab(b, n, h, block_k, dtype):
+    """L4's order of work (each key's scale in its logit before the row
+    maximum, x = f32(s32) * sk_j, then p = 2^(x * sq * scale * log2(e) - m)
+    in one rounding, the online rescale at 112- or 128-key tiles, P in
+    bf16, ragged N masked) against the int8 lab's `attn_int8_v2` in
+    interpret mode, which rounds (f32(s32) * (sq * sk_j)) * scale: its Q
+    codes the plain quantizer's, the output within one bf16 step of P and
+    of the output, with fp32 V too (both round P to bf16)."""
+    rng = np.random.default_rng(n + h + block_k)
+    q, k, v = (_normal(rng, (b, n, h * 64), 0.5) for _ in range(3))
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    if dtype == "bfloat16":
+        q, k, v = _bf16_values(q, k, v)
+    scale = 64 ** -0.5
+    ref = np.asarray(int8_lab.attn_int8_v2(*(jnp.asarray(x, jdt) for x in (q, k, v)), h, scale,
+                                           interpret=True).astype(jnp.float32))
+    heads = lambda x: _as(x, tdt).unflatten(-1, (h, 64))
+    got, codes = _emulate(heads(q), heads(k), heads(v), scale, int8=True, row_k=True,
+                          block_k=block_k)
+    qt = heads(q).float()
+    pcodes = torch.clamp(torch.round(qt / fa._int8_scale(qt.abs().amax(-1, keepdim=True))),
+                         -127, 127).permute(0, 2, 1, 3)
+    assert torch.equal(codes, pcodes)
+    err = np.abs(got.float().reshape(b, n, h * 64).numpy() - ref).max()
+    assert err <= _bf16_bound(v, ref)
+
+
+def test_rowk_emulation_scales_each_key():
+    """The key scale is in the logit before the maximum: with one key row
+    scaled up 8x (its codes unchanged, its scale 8x) the per-row emulation
+    follows the exact attention, where folding one scale a head (K9) would
+    not; default tiles are K9's plan's (112 keys on three consumers)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(_normal(rng, (1, 150, 2, 64), 0.5)) for _ in range(3))
+    k[0, 7] *= 8.0
+    exact = fa._torch_attention(q, k, v, 64 ** -0.5)
+    rowk, _ = _emulate(q, k, v, 64 ** -0.5, int8=True, row_k=True)
+    head, _ = _emulate(q, k, v, 64 ** -0.5, int8=True)
+    rel = lambda a: ((a - exact).norm() / exact.norm()).item()
+    assert rel(rowk) < rel(head)
+    assert fa.sm90_rowk_plan(64, 150, 150).block_k == 112
+
+
+@pytest.mark.parametrize("nq,consumers,block_k", [(4250, 3, 112), (4429, 3, 112), (1024, 2, 128),
+                                                   (1025, 3, 112), (77, 2, 128)])
+def test_sm90_rowk_plan(nq, consumers, block_k):
+    """L4 runs K9's plan at D = 64 (three consumers at 112-key tiles, two
+    at 128 where three pad the work) with a two-stage ring of the key
+    scales, a tile's fp32 scales 128-byte aligned (512 bytes at both
+    tiles); its rows of scales a pitch of whole 16 bytes apart."""
+    plan = fa.sm90_rowk_plan(64, nq, nq)
+    k9 = fa.sm90_plan(64, True, consumers)
+    assert (plan.consumers, plan.block_k, plan.block_q) == (consumers, block_k, 64 * consumers)
+    assert plan.int8 and plan.row_k and plan.scale_stage == 512
+    assert plan.smem == k9.smem + 2 * 512 == 83968 <= fa.SMEM_PER_BLOCK
+    assert (k9.row_k, k9.scale_stage) == (False, 0)
+    pitch = plan.scale_pitch(nq)
+    assert pitch >= nq and 4 * pitch % 16 == 0 and pitch - nq < 4
+    # the lab's dense rows, 17,000 bytes apart, are no stride a map takes
+    assert (4 * 4250 % 16, fa.sm90_rowk_plan(64, 4250, 4250).scale_pitch(4250)) == (8, 4252)
+
+
+@pytest.mark.parametrize("d", [32, 40, 80, 128])
+def test_sm90_rowk_plan_refuses(d):
+    with pytest.raises(ValueError, match="per-row-K"):
+        fa.sm90_rowk_plan(d, 256, 256)
+
+
+def _k_row_codes(k, heads, pitch):
+    """`k_row_codes_kernel`'s writes, emulated chunk by chunk: thread i
+    holds 8 values of key row n of sample b (its lane c of the row), the
+    row's amax over its head's D / 8 lanes (a shuffle butterfly: a
+    maximum, exact in any order), its scale at sk[(b * H + h) * pitch +
+    n], its codes at i * 8. Returns (codes (B, N, H*D), the scale memory
+    (B, H, pitch), NaN where nothing was written)."""
+    b, n, hd = k.shape
+    d = hd // heads
+    chunks = k.float().reshape(b * n * hd // 8, 8)
+    lanes = chunks.abs().amax(-1).view(b, n, heads, d // 8)
+    amax = lanes.amax(-1)  # (B, N, H)
+    s = fa._int8_scale(amax)
+    mem = torch.full((b * heads * pitch,), float("nan"))
+    bi, ni, hi = torch.meshgrid(torch.arange(b), torch.arange(n), torch.arange(heads),
+                                indexing="ij")
+    mem[((bi * heads + hi) * pitch + ni).flatten()] = s.flatten()
+    codes = torch.clamp(torch.round(chunks.view(b, n, heads, d) / s[..., None]), -127, 127)
+    return codes.to(torch.int8).view(b, n, hd), mem.view(b, heads, pitch)
+
+
+@pytest.mark.parametrize("b,n,h,d", [(2, 4250, 24, 64), (1, 77, 3, 64), (2, 130, 2, 32),
+                                     (1, 33, 2, 128)])
+def test_k_row_codes_pitch_keeps_the_plain_values(b, n, h, d):
+    """The per-row prologue at the sm90 kernel's pitch writes the plain
+    version's codes and scales bit for bit (`_quant_k_per_row`); the
+    floats past N of each row stay unwritten and lie outside the map; at
+    pitch N (the parent's) the rows are dense."""
+    rng = np.random.default_rng(n + d)
+    k = _as(_normal(rng, (b, n, h * d)), torch.bfloat16)
+    plain_codes, plain_sk = fa._quant_k_per_row(k, h)
+    for pitch in (n, fa.Sm90Plan(d=64, int8=True, consumers=3, row_k=True).scale_pitch(n)):
+        codes, mem = _k_row_codes(k, h, pitch)
+        assert torch.equal(codes, plain_codes) and torch.equal(mem[..., :n], plain_sk)
+        assert torch.isnan(mem[..., n:]).all()
+
+
+def _rowk_x(b, n, h, d=64):
+    return torch.zeros(b, n, h * d, dtype=torch.bfloat16)
+
+
+def test_rowk_launch_hands_the_prologue_and_the_kernel_their_arguments(monkeypatch):
+    """On the card L4 runs the per-row prologue into scales `scale_pitch(N)`
+    floats a row (counted in `quant_k_int8.launches`), then the lab entry
+    in mode SM90_ROWK_MODE on the codes (dense (B, N, H*D) bytes), those
+    scales and their pitch, Q and V as packed rows, K9's plan; each call
+    counts one launch of the wrapper; no parent runs."""
+    ext = _fake_card(monkeypatch)
+    monkeypatch.setattr(fa, "_int8_parent_launch", lambda *a: pytest.fail("the parent ran"))
+    b, n, h = 2, 300, 3
+    q, k, v = _rowk_x(b, n, h), _rowk_x(b, n, h), _rowk_x(b, n, h)
+    before = (fa.flash_attention_packed_int8_rowk.launches, fa.quant_k_int8.launches)
+    out = fa.flash_attention_packed_int8_rowk(q, k, v, h, 0.125)
+    assert out.shape == (b, n, h * 64) and out.dtype == torch.bfloat16
+    assert (fa.flash_attention_packed_int8_rowk.launches, fa.quant_k_int8.launches) == (
+        before[0] + 1, before[1] + 1)
+    (rows_kind, rows), (lab_kind, lab) = ext.calls
+    plan = fa.sm90_rowk_plan(64, n, n)
+    pitch = plan.scale_pitch(n)
+    assert (rows_kind, lab_kind) == ("rows", "lab")
+    assert rows[:7] == (k.data_ptr(), n * h * 64, h * 64, b, h, n, 64) and rows[8] == pitch
+    assert lab[1] == rows[9] and lab[2] == rows[7] and lab[3] == pitch  # codes, scales, pitch
+    assert lab[4:11] == (v.data_ptr(), lab[5], b, h, n, n, 64)
+    assert lab[11:20] == (n * h * 64, h * 64, 64, n * h * 64, h * 64, 64, n * h * 64, h * 64, 64)
+    assert lab[23:] == (pytest.approx(0.125), fa.SM90_ROWK_MODE, plan.consumers, plan.block_k, 0)
+
+
+ROWK_REFUSALS = {
+    "D = 32": lambda: (_rowk_x(2, 64, 2, 32),) * 3 + (2,),
+    "D = 128": lambda: (_rowk_x(2, 64, 2, 128),) * 3 + (2,),
+    "D = 40": lambda: (_rowk_x(2, 64, 8, 40),) * 3 + (8,),
+    "q fp32": lambda: (_rowk_x(2, 64, 3).float(), _rowk_x(2, 64, 3), _rowk_x(2, 64, 3), 3),
+    "v batch broadcast": lambda: (_rowk_x(2, 64, 3), _rowk_x(2, 64, 3),
+                                  _rowk_x(1, 64, 3).expand(2, 64, 192), 3),
+    "k row stride 196": lambda: (_rowk_x(2, 64, 3), torch.zeros(2, 64, 196, dtype=torch.bfloat16)
+                                 [..., :192], _rowk_x(2, 64, 3), 3),
+    "heads do not divide": lambda: (_rowk_x(2, 64, 3),) * 3 + (5,),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROWK_REFUSALS))
+def test_rowk_refuses_before_build(case, monkeypatch):
+    """What L4's instantiation does not take raises ValueError on the card
+    before the extension is built or the prologue runs: no fallback to
+    the parent or to the plain version, and no launch counted."""
+    _as_if_on_the_card(monkeypatch)
+    _no_build(monkeypatch)
+    monkeypatch.setattr(fa, "use_kernel", lambda t: True)
+    monkeypatch.setattr(fa, "_int8_parent_launch", lambda *a: pytest.fail("the parent ran"))
+    monkeypatch.setattr(fa, "_torch_int8_attention", lambda *a: pytest.fail("the plain ran"))
+    monkeypatch.setattr(fa, "quant_k_int8", lambda *a, **kw: pytest.fail("the prologue ran"))
+    q, k, v, h = ROWK_REFUSALS[case]()
+    before = fa.flash_attention_packed_int8_rowk.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention_packed_int8_rowk(q, k, v, h, 0.125)
+    assert fa.flash_attention_packed_int8_rowk.launches == before
+
+
+@pytest.mark.parametrize("block_q", [None, 64])
+def test_int8_parent_reachable_through_its_launch(block_q, monkeypatch):
+    """The sm90 int8 kernel's parent, `int8_attn_kernel`, through its own
+    launch with per-row K: the prologue at dense rows of scales (pitch N),
+    then the parent at `int8_block_q` or the given query rows, counted in
+    `_int8_parent_launch.launches`; a block_q not instantiated is refused
+    before any build."""
+    ext = _fake_card(monkeypatch)
+    b, n, h = 2, 300, 3
+    x = _rowk_x(b, n, h)
+    before = fa._int8_parent_launch.launches
+    fa._int8_parent_launch(x, x, x, h, 0.125, True, block_q)
+    (rows_kind, rows), (kind, args) = ext.calls
+    assert (rows_kind, kind) == ("rows", "int8 parent") and rows[8] == n
+    assert args[1:4] == (rows[9], rows[7], True)
+    assert args[-2:] == (block_q or fa.int8_block_q(n), 0)
+    assert fa._int8_parent_launch.launches == before + 1
+    _no_build(monkeypatch)
+    with pytest.raises(ValueError, match="not instantiated"):
+        fa._int8_parent_launch(x, x, x, h, 0.125, True, 256)
+
+
+@pytest.mark.parametrize("case", ["not per row", "pitch below N", "pitch not whole 16 bytes"])
+def test_quant_k_scale_pitch_refuses(case):
+    """`quant_k_int8`'s `scale_pitch` lays out per-row scales only, at
+    least N floats and a multiple of SM90_SCALE_PITCH apart."""
+    k = torch.zeros(1, 77, 128, dtype=torch.bfloat16)
+    kwargs = {"not per row": {"scale_pitch": 80}, "pitch below N": {"per_row": True,
+                                                                   "scale_pitch": 76},
+              "pitch not whole 16 bytes": {"per_row": True, "scale_pitch": 78}}[case]
+    with pytest.raises(ValueError, match="scale_pitch"):
+        fa.quant_k_int8(k, 2, **kwargs)

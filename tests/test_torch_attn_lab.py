@@ -239,11 +239,12 @@ def test_int8_row_scales_change_the_result():
 
 
 def test_lab_tiles_outside_the_instantiated_set_raise():
-    """Each wrapper against its own tile set, on the CPU as on the card: L1
-    and L3 take SM90_LAB_TILES (the sm90 kernel's), L2 LAB_TILES (the
-    parent's narrow kernel); a tile of the other set is refused."""
+    """Each wrapper against its own tile set, on the CPU as on the card: L1,
+    L2 and L3 take SM90_LAB_TILES (the sm90 kernel's); a tile of the
+    parent's narrow kernel (LAB_TILES) is refused."""
     q = torch.zeros(1, 64, 1, 40)
-    for fn, tiles in ((flash_attention_tiled, SM90_LAB_TILES), (attention_no_softmax, LAB_TILES),
+    for fn, tiles in ((flash_attention_tiled, SM90_LAB_TILES),
+                      (attention_no_softmax, SM90_LAB_TILES),
                       (flash_attention_two_pass, SM90_LAB_TILES)):
         for block_q, block_k in tiles:
             assert fn(q, q, q, 1.0, block_q, block_k).shape == q.shape
@@ -267,8 +268,8 @@ def test_cpu_tensors_take_the_plain_lab_versions():
 
 def test_lab_entry_runs_every_tile_beside_its_parent(monkeypatch):
     """The lab entry's bf16 labs (`tools/attn_lab.py`) at a tiny size on
-    the CPU, the timer and the parent's launch replaced by stand-ins: L1
-    and L3 run every tile the sm90 kernel instantiates at their D
+    the CPU, the timer and the parent's launch replaced by stand-ins: L1,
+    L2 and L3 run every tile the sm90 kernel instantiates at their D
     (`sm90_lab_tiles`), each row beside the parent in its mode at
     `lab_parent_tile`, and every row, the parent's too, lies within 2e-2
     of its largest plain output (bf16 against fp32)."""
@@ -278,9 +279,10 @@ def test_lab_entry_runs_every_tile_beside_its_parent(monkeypatch):
     parents = []
 
     def parent(q, k, v, scale, mode, tile):
-        assert tile in LAB_TILES and mode in ("online", "two_pass")
+        assert tile in LAB_TILES and mode in ("online", "no_softmax", "two_pass")
         parents.append((mode, tile, q.shape[-1]))
-        return fa._torch_attention(q, k, v, scale)
+        plain = fa._torch_attention_no_softmax if mode == "no_softmax" else fa._torch_attention
+        return plain(q, k, v, scale)
 
     monkeypatch.setattr(attn_lab, "_parent_launch", parent)
     monkeypatch.setattr(attn_lab, "time_ms", lambda fn, iters=10: (fn(), 1.0)[1])
@@ -290,14 +292,41 @@ def test_lab_entry_runs_every_tile_beside_its_parent(monkeypatch):
     rows = attn_lab.run(labs=("variants", "lab2", "lab3"), iters=1, device="cpu")
     tiles = lambda d: [fa.lab_parent_tile(t) for t in fa.sm90_lab_tiles(d, "two_pass")]
     online = [fa.lab_parent_tile(t) for t in fa.sm90_lab_tiles(40, "tiled")]
+    no_softmax = [fa.lab_parent_tile(t) for t in fa.sm90_lab_tiles(40, "no_softmax")]
     assert [r.get("parent_tile") for r in rows["variants"]] == (
-        online + [None, None] + tiles(40) + [(64, 64), (128, 64)] + [None])
+        online + no_softmax + tiles(40) + [(64, 64), (128, 64)] + [None])
     assert [r["parent_tile"] for r in rows["lab2"]] == [(64, 64), (64, 64), (128, 64), (64, 64),
                                                         (128, 64)]
     assert [r["parent_tile"] for r in rows["lab3"]] == tiles(64) + tiles(128)
     assert parents[::2] == parents[1::2]  # the error's call, then the timed one
     assert [(m, d) for m, _, d in parents[::2]] == (
-        [("online", 40)] * 4 + [("two_pass", 40)] * 11 + [("two_pass", 64)] * 4
-        + [("two_pass", 128)] * 2)
+        [("online", 40)] * 4 + [("no_softmax", 40)] * 4 + [("two_pass", 40)] * 11
+        + [("two_pass", 64)] * 4 + [("two_pass", 128)] * 2)
     for row in (r for lab in rows.values() for r in lab):
+        assert row["err_over_max"] <= 2e-2 and row.get("parent_err_over_max", 0.0) <= 2e-2
+
+
+def test_lab_entry_runs_l4_beside_its_parent(monkeypatch):
+    """The lab entry's int8 lab at a tiny size on the CPU, the timer and
+    the int8 parent's launch replaced by stand-ins: v2 (L4) runs beside
+    its parent `int8_attn_kernel` with per-row K at `int8_block_q` rows
+    and its 64-key tiles, K9's v1 and v3 and K1 beside none; every row
+    within 2e-2 of its largest plain output."""
+    from prompt_diffusion_tpu_torch.ops import flash_attention as fa
+    from prompt_diffusion_tpu_torch.tools import attn_lab
+
+    parents = []
+
+    def parent(q, k, v, heads, scale, row_k):
+        parents.append((tuple(q.shape), heads, row_k))
+        return fa._torch_int8_attention(q, k, v, heads, scale, row_k)
+
+    monkeypatch.setattr(attn_lab, "_int8_parent_launch", parent)
+    monkeypatch.setattr(attn_lab, "time_ms", lambda fn, iters=10: (fn(), 1.0)[1])
+    for name, value in (("INT8_B", 1), ("INT8_N", 96), ("INT8_H", 2), ("INT8_CHECK_N", 40)):
+        monkeypatch.setattr(attn_lab, name, value)
+    rows = attn_lab.run(labs=("int8",), iters=1, device="cpu")["int8"]
+    assert [r.get("parent_tile") for r in rows] == [None, (fa.int8_block_q(96), 64), None, None]
+    assert parents == [((1, 96, 128), 2, True)] * 2  # the error's call, then the timed one
+    for row in rows:
         assert row["err_over_max"] <= 2e-2 and row.get("parent_err_over_max", 0.0) <= 2e-2

@@ -215,7 +215,10 @@ def test_int8_attention_refuses_before_build(case, monkeypatch):
     monkeypatch.setattr(_build, "cuda_ext", built)
     q, k, v, heads, scale, block_q = _int8_refused(case)
     with pytest.raises(ValueError):
-        fa._int8_launch(q, k, v, heads, scale, False, block_q)
+        if block_q is None:
+            fa._int8_launch(q, k, v, heads, scale)
+        else:  # the parent `int8_attn_kernel`, through its own launch
+            fa._int8_parent_launch(q, k, v, heads, scale, False, block_q)
 
 
 def test_int8_attention_scheme_error_with_k_outlier():
