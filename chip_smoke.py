@@ -42,7 +42,13 @@ without the final `"ok": true` line:
                place) and K13 (also on the (B, 1, C) chunks of one
                (B, 1, 6C) bf16 projection the MMDiT passes as scale and
                shift) must issue one device launch per call, counted in a
-               profiler trace.
+               profiler trace. K10 and K11 split over a tensor group
+               (`act_amax`, `act_codes`; whole rows and one rank's quarter
+               of them): the row amax bit-equal (K11) or within 1e-6 (K10's
+               GELU), the codes as above, one launch each; and
+               (`split_checks`) codes and scales bit-equal to the
+               one-launch K10 / K11 on whole rows and on four column
+               slices with their amax maximum, two launches a split call.
                int8 conv, both variants: equal to the plain version bit
                for bit. K12 (AdaLN): its forward within 2e-2 and one
                device launch per call, its gradient through both kernels
@@ -281,9 +287,24 @@ without the final `"ok": true` line:
                full-width SD3 ControlNet + MMDiT CFG velocity under bf16
                (N(0, 1/fan_in) weights) with `apply_tp` at tensor width W
                against the unsharded one (bit-equal at W = 1, EPS_REL_BOUND
-               above); the launches of the path's kernels summed over the
-               ranks; and, in this process, the native decoder's images/s
-               against PIL's on [train]'s JPEGs (or why it did not build);
+               above), and the same under int8 (`tp_int8`: one launch of
+               `row_split_kernel` per split K10 / K11 pass under the
+               profiler, the all-reduces a velocity counted and timed
+               between synchronizations); one int8 SD1.5 request of batch W
+               through `generate_sharded` (`sd15_int8_sharded`: 512², 2
+               DDIM steps, eta 0.5) against the unsharded call: bit-equal
+               at W = 1; above it one all-reduce per quantized tensor and
+               no farther than FP32_RATIO_BOUND times the unsharded call
+               on the plain ops (random int8 weights turn any rounding,
+               a batch of 1 against one of 4 too, into a ~0.28 relative
+               difference of the images); at W = 1 also the int8 TP
+               velocity at width 2 on the one card (`torchrun
+               --nproc-per-node=2 chip_smoke.py --tp-child DIR`, two gloo
+               ranks, depth TP_ONE_CARD_LAYERS) against its unsharded
+               velocity, within EPS_REL_BOUND; the launches of the path's
+               kernels summed over the ranks; and, in this process, the
+               native decoder's images/s against PIL's on [train]'s JPEGs
+               (or why it did not build);
  14. a JSON line of the kernels, then {"ok": true, "device": {...}}.
 Every kernel case also prints the least time the card could take for its
 work (`bound_ms`: bytes over 3.35 TB/s, tensor-core operations over the
@@ -325,6 +346,10 @@ FP32_RATIO_BOUND = 1.25
 # SCALE_REL_BOUND, the codes at most 1 apart (an fp32 ulp can move a value
 # across a rounding boundary) and at least CODES_EQUAL_BOUND of them equal.
 SCALE_REL_BOUND, CODES_EQUAL_BOUND = 1e-6, 0.999
+# K10 and K11 split over a tensor group: the `[kernels]` cases at one rank's
+# slice of the rows, and `split_checks`' column slices, at this width (the
+# four-card tensor group)
+SPLIT_WIDTH = 4
 REQ_BATCH, REQ_SIZE, REQ_STEPS, CFG = 2, 512, 8, 9.0
 PROMPTS = ("a photograph of a red house by a lake", "an oil painting of a mountain at dawn")
 # SD3 requests as `bench.py --config sd3` makes them, cut to 8 of 28 steps
@@ -389,6 +414,12 @@ FID_SHARD_REL_BOUND = 1e-4
 # `update_agreement`: tests/test_torch_parallel.py's rule for an update
 UPDATE_RTOL, UPDATE_LIVE = 5e-3, 1e-3
 TP_SEED, TP_TIMESTEP, TP_CONTEXT = 9000, 500.0, 333
+# the int8 TP velocity at W = 1: two gloo ranks on the one card at tensor
+# width 2, the depth cut to these (MMDiT, ControlNet) blocks
+TP_ONE_CARD_LAYERS = (6, 3)
+# the int8 SD1.5 request of `[dist]`: batch W (a sample a rank), this size,
+# DDIM steps and eta
+DIST_SD15_SIZE, DIST_SD15_STEPS, DIST_SD15_ETA = 512, 2, 0.5
 NATIVE_BATCH, NATIVE_REPS = 8, 5
 # MiDaS as `bench.py --config annotate --annotator midas` runs it
 MIDAS_BATCH, MIDAS_SIZE, MIDAS_BATCHES = 16, 512, 2
@@ -580,6 +611,37 @@ def adaln_grads(x, scale, shift):
     return torch.cat([g.flatten() for g in torch.autograd.grad(loss, inputs)])
 
 
+def split_inputs(gen):
+    """(label, x, amax, gelu) of the split K10 / K11 cases: K10's (8192,
+    6144) and (666, 6144) rows (the MMDiT's FF hidden units, both streams,
+    CFG batch 2) and K11's image and context slices of one packed (2, 4429,
+    1536) attention output, read in place; each whole, and as one rank's
+    dense slice at tensor width SPLIT_WIDTH. `amax` is the plain amax of the
+    whole rows (fp32), what the all-reduce gives every rank."""
+    import torch
+    import torch.nn.functional as F
+
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    out = []
+    for n in (8192, 666):
+        x = (2 * randn(n, 6144)).to(torch.bfloat16)
+        amax = F.gelu(x.float(), approximate="tanh").abs().amax(dim=-1, keepdim=True)
+        part = x[:, :6144 // SPLIT_WIDTH].contiguous()
+        out += [(f"({n},6144)", x, amax, True),
+                (f"({n},{part.shape[-1]}) of (·,6144)", part, amax, True)]
+    for width in (1536, 1536 // SPLIT_WIDTH):
+        attn = (2 * randn(2, 4429, width)).to(torch.bfloat16)
+        whole = (2 * randn(2, 4429, 1536)).to(torch.bfloat16)
+        whole[..., :width] = attn
+        amax = whole.float().abs().amax(dim=-1, keepdim=True)
+        for rows in (slice(0, 4096), slice(4096, 4429)):
+            x = attn[:, rows]
+            of = "" if width == 1536 else " of (·,·,1536)"
+            out.append((f"{tuple(x.shape)} slice of {tuple(attn.shape)}{of}", x,
+                        amax[:, rows].contiguous(), False))
+    return out
+
+
 def kernel_cases(gen):
     """(kernel name, case label, wrapper, arguments, kind, bound, work,
     library) at the main paths' shapes. Float inputs are seeded N(0, 1) in
@@ -604,6 +666,8 @@ def kernel_cases(gen):
         sm90_plan,
     )
     from prompt_diffusion_tpu_torch.ops.fused_act import (
+        act_amax,
+        act_codes,
         fused_geglu_quant,
         fused_gelu_quant,
         fused_quant_rows,
@@ -877,6 +941,19 @@ def kernel_cases(gen):
                  f"{tuple(x.shape)} slice of {tuple(attn.shape)}")
         cases.append(("fused_quant_rows", label, fused_quant_rows, (x,), "quant", None,
                       (3 * rows * 1536 + 4 * rows, 0, 0), None))
+    # K10 and K11 split over a tensor group, pass 1 (`act_amax`: each row's
+    # amax, exact for K11, within SCALE_REL_BOUND for K10's GELU) and pass 2
+    # (`act_codes`: the codes from the whole rows' plain amax), at the
+    # one-launch cases' shapes (a group of one rank) and at one rank's
+    # slice of them at tensor width SPLIT_WIDTH (`split_inputs`)
+    for label, x, amax, gelu in split_inputs(gen):
+        rows, c = x.numel() // x.shape[-1], x.shape[-1]
+        tag = "K10" if gelu else "K11"
+        cases.append(("act_amax", f"{tag} {label}", act_amax, (x, gelu), "amax",
+                      SCALE_REL_BOUND if gelu else 0.0,
+                      (2 * rows * c + 4 * rows, 0, 0, rows * c if gelu else 0), None))
+        cases.append(("act_codes", f"{tag} {label}", act_codes, (x, amax, gelu), "quant", None,
+                      (3 * rows * c + 8 * rows, 0, 0, rows * c if gelu else 0), None))
     codes = lambda *s: torch.randint(-127, 128, s, generator=gen, device="cuda",
                                      dtype=torch.int8)
     uniform = lambda n, lo, hi: lo + (hi - lo) * torch.rand(n, generator=gen, device="cuda")
@@ -1192,6 +1269,14 @@ def phase_kernels(gen):
                    f"{SCALE_REL_BOUND}), codes at most {code_diff} apart, {equal} equal "
                    f"(bound {CODES_EQUAL_BOUND})")
             ok = (scale_err <= SCALE_REL_BOUND and code_diff <= 1 and equal >= CODES_EQUAL_BOUND)
+        elif kind == "amax":  # the split K10 / K11's pass 1: row maxima
+            check(torch.isfinite(out).all().item(), f"{name} {label}: non-finite amax")
+            err = (out - ref).abs().max().item()
+            rel = ((out - ref).abs() / ref.clamp_min(1e-30)).max().item()
+            extra = {"amax_rel_err": rel}
+            msg = (f"max_abs_err={err}; row amax within {rel} relative (bound {bound}, "
+                   f"against the plain version in fp32)")
+            ok = rel <= bound
         elif kind == "bwd":  # K12's backward: dx, dscale, dshift
             check(all(torch.isfinite(t).all().item() for t in out),
                   f"{name} {label}: non-finite gradients")
@@ -1290,6 +1375,37 @@ def phase_kernels(gen):
     return results
 
 
+def split_checks(gen):
+    """K10 and K11 split over a tensor group against the one-launch kernels
+    on the same rows (each of `split_inputs`'): `split_act_quant` with a
+    group of one rank gives their codes and scales bit for bit in two
+    device launches; and the rows cut into SPLIT_WIDTH dense column slices,
+    each slice's `act_amax`, their maximum (what the all-reduce computes
+    over a tensor group) and each slice's `act_codes` give the one-launch
+    kernels' codes, concatenated, and scales, bit for bit."""
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops import fused_act as act
+    from prompt_diffusion_tpu_torch.tools.timing import device_launches
+
+    for label, x, _, gelu in split_inputs(gen):
+        one = (act.fused_gelu_quant if gelu else act.fused_quant_rows)(x)
+        split = act.split_act_quant(x, gelu)
+        parts = [p.contiguous() for p in x.chunk(SPLIT_WIDTH, dim=-1)]
+        amax = torch.stack([act.act_amax(p, gelu) for p in parts]).amax(dim=0)
+        cut = [act.act_codes(p, amax, gelu) for p in parts]
+        whole = torch.equal(split[0], one[0]) and torch.equal(split[1], one[1])
+        sliced = (torch.equal(torch.cat([q for q, _ in cut], dim=-1), one[0])
+                  and all(torch.equal(sc, one[1]) for _, sc in cut))
+        per_call = device_launches(lambda: act.split_act_quant(x, gelu))
+        log(f"[kernels] split {'K10' if gelu else 'K11'} {label}: a group of one rank "
+            f"bit-equal to the one-launch kernel {whole}; {SPLIT_WIDTH} column slices with "
+            f"their amax maximum bit-equal {sliced}; {per_call} device launches per call "
+            f"(2 required)")
+        check(whole and sliced and per_call == 2,
+              f"split {label}: not the one-launch kernel's codes, or {per_call} launches")
+
+
 def k9_sd15_yardsticks(results):
     """K9's and K9p's device ms at SD1.5's shapes beside K1's and SDPA's at
     the same shape (K1's cases of this run) and the bound; each K9 case
@@ -1358,6 +1474,12 @@ KERNELS = {  # name -> (route, source, TPU kernel it replaces)
                          "prompt_diffusion_tpu/ops/fused_act.py:101"),
     "fused_quant_rows": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                          "prompt_diffusion_tpu/ops/fused_act.py:106"),
+    # K10 and K11 split over a tensor group: JAX computes the tensor-parallel
+    # int8 forward through the same two kernels under GSPMD
+    "act_amax": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
+                 "prompt_diffusion_tpu/ops/fused_act.py:101"),
+    "act_codes": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
+                  "prompt_diffusion_tpu/ops/fused_act.py:101"),
     "fused_adaln_quant": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
                           "prompt_diffusion_tpu/ops/fused_adaln.py:140"),
     "fused_adaln": ("cuda", "prompt_diffusion_tpu_torch/ops/csrc/row_quant.cu",
@@ -1391,7 +1513,7 @@ LAB_MODES = {"flash_attention_tiled": "online", "attention_no_softmax": "no_soft
 ONE_LAUNCH = ("fused_gelu_quant", "fused_adaln_quant", "fused_geglu_quant",
               "fused_group_norm_quant", "fused_layer_norm_quant", "fused_quant_rows",
               "fused_group_norm", "quant_k_int8", "fused_adaln", "fused_adaln_bwd",
-              *LAB_MODES)
+              "act_amax", "act_codes", *LAB_MODES)
 # wrappers that launch several device functions, each exactly once per call
 # in `[kernels]` (L4: its per-row prologue, then the sm90 kernel), counted by
 # name in a profiler trace: DEVICE_FUNCTIONS[name], one launch each
@@ -1424,6 +1546,7 @@ DEVICE_FUNCTIONS = {
 # (`_parent_launch`, `_int8_parent_launch`) and K2's wide parent for head
 # dims above 128 other than 512
 PATH_ONE_LAUNCH = {"fused_group_norm": ("gn_float_kernel",),
+                   "act_amax": ("row_split_kernel",), "act_codes": ("row_split_kernel",),
                    "quant_k_int8": ("k_head_quant_kernel",),
                    "fused_adaln": ("adaln_float_kernel",), "fused_adaln_bwd": ("adaln_bwd_kernel",),
                    "flash_attention_packed": ("attn_sm90_bf16_kernel", "attn_sm90_wide_kernel"),
@@ -1463,6 +1586,8 @@ ALSO_REPLACES = {
     "flash_attention_two_pass": ("tools/attn_variants.py:169", "tools/attn_lab2.py:47",
                                  "tools/attn_lab2.py:66", "tools/attn_lab3.py:47"),
     "flash_attention_packed_int8": ("tools/attn_int8_lab.py:105",),
+    "act_amax": ("prompt_diffusion_tpu/ops/fused_act.py:106",),
+    "act_codes": ("prompt_diffusion_tpu/ops/fused_act.py:106",),
 }
 # the kernels each main path must launch (K4 LayerNorm does not run in int8
 # mode: every pre-LN there quantizes through K6)
@@ -1505,9 +1630,16 @@ PATH_KERNELS = {
     # SD3 training: the joint attention and the VAE (K2), the VAE's GroupNorm
     "train_sd3": ("flash_attention", "fused_group_norm"),
     # [dist]: the sharded SD1.5 step (K1-K4 and their backwards), the TP
-    # MMDiT's joint attention on W / 24 of the heads (K2); FID: convolutions
+    # MMDiT's joint attention on W / 24 of the heads (K2); FID: convolutions;
+    # the int8 SD1.5 sharded request (the int8 path's kernels); the int8 TP
+    # velocity (K9, K9p, K13, and K10 / K11 whole in the unsharded
+    # velocity, split over the tensor group in the sharded one: over W
+    # cards, or over two ranks on one card where W = 1)
     "dist": ("flash_attention_packed", "flash_attention", "fused_group_norm",
-             "fused_layer_norm"),
+             "fused_layer_norm", "fused_group_norm_quant", "fused_layer_norm_quant",
+             "fused_geglu_quant", "conv3x3_int8", "flash_attention_packed_int8",
+             "quant_k_int8", "fused_gelu_quant", "fused_quant_rows", "fused_adaln_quant",
+             "act_amax", "act_codes"),
     # the annotation entry's batch with canny, hed, depth, normal and seg
     "annotate": ("fused_group_norm", "flash_attention_packed", "fused_layer_norm"),
     **{tag: tuple(k for k, n in counts.items() if n and "." not in k)
@@ -1577,6 +1709,8 @@ def wrappers():
             "flash_attention_packed_int8": fa.flash_attention_packed_int8,
             "fused_gelu_quant": act.fused_gelu_quant,
             "fused_quant_rows": act.fused_quant_rows,
+            "act_amax": act.act_amax,
+            "act_codes": act.act_codes,
             "fused_adaln_quant": ada.fused_adaln_quant,
             "fused_adaln": ada.fused_adaln,
             "fused_adaln_bwd": _BackwardLaunches(),
@@ -4028,15 +4162,17 @@ def masters_digest(state):
 
 def tp_inputs(dev):
     """One SD3 CFG velocity evaluation's inputs at 1024² (a (1, 16, 128,
-    128) latent, its condition and support pair latents, TP_CONTEXT text
-    tokens of 4096 and a pooled 2048, uncond || cond), from TP_SEED + 1."""
+    128) latent, its condition and support pair latents, in channels_last
+    memory as the pipeline passes them, TP_CONTEXT text tokens of 4096 and
+    a pooled 2048, uncond || cond), from TP_SEED + 1."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(TP_SEED + 1)
     r = lambda *shape: torch.randn(shape, generator=g, device=dev)
     lat = SD3_SIZE // 8
-    return {"x": r(1, 16, lat, lat), "cond": r(2, 16, lat, lat), "pair": r(2, 16, lat, lat),
-            "ctx": r(2, TP_CONTEXT, 4096), "pooled": r(2, 2048)}
+    nhwc = lambda b: r(b, lat, lat, 16).permute(0, 3, 1, 2)
+    return {"x": nhwc(1), "cond": nhwc(2), "pair": nhwc(2), "ctx": r(2, TP_CONTEXT, 4096),
+            "pooled": r(2, 2048)}
 
 
 def tp_velocity(tr, cn, inp):
@@ -4053,10 +4189,170 @@ def tp_velocity(tr, cn, inp):
         return v_u + SD3_CFG * (v_c - v_u)
 
 
+def tp_int8(w, layers=None):
+    """One rank of the SD3 ControlNet + MMDiT CFG velocity at full width
+    under the int8 policy (random weights from TP_SEED, fan-in scaled as
+    the bf16 one's; `layers` = (MMDiT, ControlNet) blocks where the depth is
+    cut), unsharded and with `apply_tp` at tensor width `w` over every rank
+    of the process group. The sharded velocity runs three times: under the
+    profiler (`one_launch_per_call`: one launch of `row_split_kernel` per
+    `act_amax` and `act_codes` call), timed, and with every all-reduce
+    counted and timed between synchronizations. Returns the measurements."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from prompt_diffusion_tpu_torch.models.controlnet_sd3 import SD3ControlNet
+    from prompt_diffusion_tpu_torch.models.mmdit_sd3 import MMDiTConfig, SD3Transformer
+    from prompt_diffusion_tpu_torch.parallel.tensor_parallel import apply_tp, make_tp_mesh
+    from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n_tr, n_cn = layers or (MMDiTConfig().num_layers, 12)
+    with torch.device(dev):
+        tr = SD3Transformer(MMDiTConfig(num_layers=n_tr), int8_policy())
+        cn = SD3ControlNet(MMDiTConfig(num_layers=n_cn), int8_policy())
+    gen = torch.Generator(device=dev).manual_seed(TP_SEED)
+    fan_in_init_(tr, gen, gain=1.0)
+    fan_in_init_(cn, gen, gain=1.0)
+    inp = tp_inputs(dev)
+    tp_velocity(tr, cn, inp)  # warm: the int8 weight caches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = tp_velocity(tr, cn, inp)
+    torch.cuda.synchronize()
+    out = {"layers": [n_tr, n_cn], "width": w, "unsharded_s": time.perf_counter() - t}
+    if tr.blocks_0.heads % w:
+        return out
+    mesh = make_tp_mesh(num_tensor=w)
+    apply_tp(tr, mesh)
+    apply_tp(cn, mesh)
+    got, _ = one_launch_per_call(f"dist rank {dist.get_rank()} int8 TP",
+                                 lambda: tp_velocity(tr, cn, inp))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    again = tp_velocity(tr, cn, inp)
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t
+    walls, all_reduce = [], dist.all_reduce
+
+    def timed(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        walls.append((str(tensor.dtype)[6:], tensor.numel() * tensor.element_size(),
+                      time.perf_counter() - t0))
+
+    with mock.patch.object(dist, "all_reduce", timed):
+        counted_run = tp_velocity(tr, cn, inp)
+    out.update(heads=tr.blocks_0.heads, equal=bool(torch.equal(got, ref)),
+               rel=((got - ref).norm() / ref.norm()).item(),
+               finite=bool(torch.isfinite(got).all()),
+               repeat_equal=bool(torch.equal(got, again) and torch.equal(got, counted_run)),
+               all_reduces=len(walls), all_reduce_s=sum(t for *_, t in walls),
+               all_reduce_by_dtype={d: [sum(1 for k, _, _ in walls if k == d),
+                                        sum(n for k, n, _ in walls if k == d),
+                                        sum(t for k, _, t in walls if k == d)]
+                                    for d in sorted({k for k, _, _ in walls})})
+    return out
+
+
+def sd15_int8_sharded(w):
+    """One SD1.5 request of batch w (a sample a rank) under the int8 policy
+    with the int8 VAE, DIST_SD15_SIZE², DIST_SD15_STEPS DDIM steps at eta
+    DIST_SD15_ETA, CFG 9, random weights from a seed, through
+    `generate_sharded` over every rank, against the unsharded call on this
+    rank's card and the distance of the unsharded call on the plain ops
+    from it (the int8 policy's rounding noise on these weights); the
+    `quant_act` calls of the unsharded call and of one CFG epsilon
+    evaluation (a MAX all-reduce each when sharded)."""
+    from unittest import mock
+
+    import torch
+
+    from prompt_diffusion_tpu_torch.ops import quant
+    from prompt_diffusion_tpu_torch.ops.dispatch import plain_ops
+    from prompt_diffusion_tpu_torch.parallel.mesh import make_mesh
+    from prompt_diffusion_tpu_torch.pipelines.prompt_diffusion_sd15 import PromptDiffusionSD15
+    from prompt_diffusion_tpu_torch.pipelines.sharded import generate_sharded
+    from prompt_diffusion_tpu_torch.utils.dtypes import int8_policy, random_init_
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    pipe = PromptDiffusionSD15.create(policy=int8_policy(), vae_int8=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for m in (pipe.unet, pipe.controlnet, pipe.vae, pipe.text_encoder):
+        random_init_(m, gen)
+    g = torch.Generator(device=dev).manual_seed(1000)
+    cond = lambda c: torch.rand((w, DIST_SD15_SIZE, DIST_SD15_SIZE, c), generator=g,
+                                device=dev) * 2 - 1
+    req = dict(token_ids=torch.from_numpy(hash_token_ids([PROMPTS[0]] * w)),
+               neg_token_ids=torch.from_numpy(hash_token_ids([""] * w)),
+               example_pair=cond(6), query=cond(3), num_steps=DIST_SD15_STEPS,
+               eta=DIST_SD15_ETA, guidance_scale=CFG)
+    seeded = lambda: torch.Generator(device=dev).manual_seed(2000)
+    mesh = make_mesh(device="cuda")
+    run = lambda: generate_sharded(pipe, mesh, **req, generator=seeded())
+    run()  # warm: the int8 weight caches, cuDNN's plans
+    quant.quant_act.all_reduces = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    img = run()
+    torch.cuda.synchronize()
+    out = {"s": time.perf_counter() - t, "all_reduces": quant.quant_act.all_reduces}
+    calls, real = [], quant.quant_act
+    counting = lambda: mock.patch.object(quant, "quant_act", lambda a: calls.append(1) or real(a))
+    t = time.perf_counter()
+    with counting():
+        ref = pipe.generate(**req, generator=seeded())
+    torch.cuda.synchronize()
+    out.update(unsharded_s=time.perf_counter() - t, quant_calls=len(calls))
+    with plain_ops():
+        plain = pipe.generate(**req, generator=seeded())
+    calls = []
+    eps_fn = pipe.make_eps_fn(req["token_ids"], req["neg_token_ids"], req["example_pair"],
+                              req["query"], CFG)
+    x = torch.randn((w, 4, DIST_SD15_SIZE // 8, DIST_SD15_SIZE // 8), generator=seeded(),
+                    device=dev)
+    with counting():
+        eps_fn(x, torch.full((w,), 999, dtype=torch.int32, device=dev))
+    out.update(equal=bool(torch.equal(img, ref)),
+               rel=((img - ref).norm() / ref.norm()).item(),
+               plain_rel=((plain - ref).norm() / ref.norm()).item(),
+               finite=bool(torch.isfinite(img).all()), shape=list(img.shape),
+               quant_per_step=len(calls))
+    return out
+
+
+def tp_child(outdir):
+    """One of two ranks of the int8 TP velocity on one card (`[dist]` at
+    W = 1), under torchrun: both ranks on card 0, joined over gloo (NCCL
+    takes one rank a card), `tp_int8` at tensor width 2 with the depth cut
+    to TP_ONE_CARD_LAYERS; writes tp<r>.json in `outdir`."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["LOCAL_RANK"] = "0"  # make_tp_mesh takes the rank's card from it
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo")
+    counted = reset_launches()
+    out = tp_int8(dist.get_world_size(), layers=TP_ONE_CARD_LAYERS)
+    out["launches"] = read_launches(counted)
+    with open(os.path.join(outdir, f"tp{dist.get_rank()}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
 def dist_child(outdir):
     """One rank of `[dist]`, under torchrun: train_sd15.main on the mesh
-    (--num-fsdp W), the sharded FID entry, the SD3 TP velocity; writes
-    rank<r>.json in `outdir`."""
+    (--num-fsdp W), the sharded FID entry, the SD3 TP velocity under bf16
+    and under int8 (`tp_int8`), the int8 SD1.5 sharded request
+    (`sd15_int8_sharded`); writes rank<r>.json in `outdir`."""
     import torch
     import torch.distributed as dist
 
@@ -4119,6 +4415,11 @@ def dist_child(outdir):
                    tp_equal=bool(torch.equal(got, ref)),
                    tp_rel=((got - ref).norm() / ref.norm()).item(),
                    tp_finite=bool(torch.isfinite(got).all()))
+    del tr, cn, inp, ref
+    torch.cuda.empty_cache()
+    out["tp8"] = tp_int8(w)
+    torch.cuda.empty_cache()
+    out["sd15_int8"] = sd15_int8_sharded(w)
     out["launches"] = read_launches(counted)
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -4277,25 +4578,42 @@ def phase_dist(card, handoff):
                 "fid_out": os.path.join(DIST_DIR, "sharded.npz")}
         with open(os.path.join(DIST_DIR, "args.json"), "w") as f:
             json.dump(args, f)
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               f"--nproc-per-node={w}", os.path.join(REPO, "chip_smoke.py"), "--dist-child",
-               DIST_DIR]
-        t = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=REPO, start_new_session=True)
-        try:
-            rc = proc.wait(timeout=DIST_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-            raise RuntimeError(f"[dist] torchrun did not end within {DIST_TIMEOUT}s")
-        launch_s = time.perf_counter() - t
-        check(rc == 0, f"[dist] torchrun exited {rc}")
-        ranks = []
-        for r in range(w):
-            with open(os.path.join(DIST_DIR, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        def torchrun(nproc, flag):
+            """`chip_smoke.py <flag> DIST_DIR` on `nproc` ranks; its seconds."""
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   f"--nproc-per-node={nproc}", os.path.join(REPO, "chip_smoke.py"), flag,
+                   DIST_DIR]
+            t = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=REPO, start_new_session=True)
+            try:
+                rc = proc.wait(timeout=DIST_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                raise RuntimeError(f"[dist] torchrun {flag} did not end within {DIST_TIMEOUT}s")
+            check(rc == 0, f"[dist] torchrun {flag} exited {rc}")
+            return time.perf_counter() - t
+
+        def read(prefix, n):
+            out = []
+            for r in range(n):
+                with open(os.path.join(DIST_DIR, f"{prefix}{r}.json")) as f:
+                    out.append(json.load(f))
+            return out
+
+        launch_s = torchrun(w, "--dist-child")
+        ranks = read("rank", w)
         r0 = ranks[0]
         launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+        # at W = 1 the int8 TP velocity's split K10 / K11 run on two gloo
+        # ranks sharing the card
+        one_card = None
+        if w == 1:
+            one_card_s = torchrun(2, "--tp-child")
+            one_card = read("tp", 2)
+            for r in one_card:
+                for k, n in r["launches"].items():
+                    launches[k] += n
         steady = float(np.mean(r0["step_s"][1:]))
         log(f"[dist] {card}: torchrun over {w} card(s) in {launch_s:.1f}s (process start, build "
             f"loads and the three parts): train_sd15 --num-fsdp {w} (mesh 1x{w}), "
@@ -4402,6 +4720,63 @@ def phase_dist(card, handoff):
                       "[dist] the TP velocity is too far from the unsharded one")
         else:
             log(f"[dist] TP: 24 heads do not divide over {w} cards; not run")
+        tp8 = [r["tp8"] for r in ranks]
+        if "s" in tp8[0]:
+            a = tp8[0]
+            log(f"[dist] {card}: SD3 ControlNet + MMDiT at full width under int8, one CFG "
+                f"velocity at {SD3_SIZE}² with {TP_CONTEXT} text tokens: apply_tp at tensor width "
+                f"{w} ({a['heads']} heads a rank) in {a['s']:.4f}s (rank 0; by rank "
+                f"{[round(r['s'], 4) for r in tp8]}), unsharded {a['unsharded_s']:.4f}s; "
+                f"{a['all_reduces']} all-reduces a velocity, {a['all_reduce_s']:.4f}s of wall "
+                f"between synchronizations (rank 0, a separate run; by dtype [count, bytes, s] "
+                f"{a['all_reduce_by_dtype']}); against the unsharded int8 velocity: bit-equal "
+                f"{[r['equal'] for r in tp8]}, relative L2 {[r['rel'] for r in tp8]}; repeats "
+                f"bit-equal {[r['repeat_equal'] for r in tp8]}")
+            check(all(r["finite"] and r["repeat_equal"] for r in tp8),
+                  "[dist] int8 TP velocity not finite or not repeated")
+            if w == 1:
+                check(a["equal"], "[dist] int8 TP at width 1 differs from the unsharded velocity")
+            else:
+                check(max(r["rel"] for r in tp8) <= EPS_REL_BOUND,
+                      "[dist] the int8 TP velocity is too far from the unsharded one")
+        else:
+            log(f"[dist] int8 TP: 24 heads do not divide over {w} cards; not run")
+        if one_card is not None:
+            a = one_card[0]
+            log(f"[dist] {card}: int8 TP on one card, two gloo ranks at tensor width 2 "
+                f"({a['heads']} heads a rank), depth cut to {a['layers'][0]} MMDiT and "
+                f"{a['layers'][1]} ControlNet blocks, full width: torchrun in {one_card_s:.1f}s; "
+                f"velocity {a['s']:.4f}s (host-staged gloo all-reduces: no speed reading); "
+                f"{a['all_reduces']} all-reduces a velocity; against the unsharded int8 velocity: "
+                f"bit-equal {[r['equal'] for r in one_card]}, relative L2 "
+                f"{[r['rel'] for r in one_card]}; split K10 / K11 launches "
+                f"{[(r['launches']['act_amax'], r['launches']['act_codes']) for r in one_card]}")
+            check(all(r["finite"] and r["repeat_equal"] for r in one_card),
+                  "[dist] one-card int8 TP velocity not finite or not repeated")
+            check(max(r["rel"] for r in one_card) <= EPS_REL_BOUND,
+                  "[dist] the one-card int8 TP velocity is too far from the unsharded one")
+        sd = [r["sd15_int8"] for r in ranks]
+        a = sd[0]
+        log(f"[dist] {card}: SD1.5 int8 (int8 VAE) generate_sharded over {w} rank(s): one request "
+            f"of batch {w} at {DIST_SD15_SIZE}², {DIST_SD15_STEPS} DDIM steps, eta "
+            f"{DIST_SD15_ETA}, CFG {CFG}: {a['s']:.3f}s (rank 0; by rank "
+            f"{[round(r['s'], 3) for r in sd]}), the unsharded call on one card "
+            f"{a['unsharded_s']:.3f}s; {a['all_reduces']} all-reduces of the activation scale "
+            f"in the sharded call ({a['quant_calls']} quantized tensors in the unsharded "
+            f"call), {a['quant_per_step']} per CFG step; against the unsharded images: "
+            f"bit-equal {[r['equal'] for r in sd]}, relative L2 {[r['rel'] for r in sd]}; the "
+            f"unsharded call on the plain ops {a['plain_rel']} from it")
+        check(all(r["finite"] and r["shape"] == [w, DIST_SD15_SIZE, DIST_SD15_SIZE, 3]
+                  for r in sd), "[dist] int8 sharded images not finite or misshapen")
+        if w == 1:
+            check(a["equal"] and a["all_reduces"] == 0,
+                  "[dist] the int8 sharded request at W = 1 is not the unsharded call")
+        else:
+            check(all(r["all_reduces"] == r["quant_calls"] for r in sd),
+                  "[dist] not one all-reduce per quantized tensor in the sharded request")
+            check(max(r["rel"] for r in sd) <= FP32_RATIO_BOUND * a["plain_rel"],
+                  "[dist] the int8 sharded images are farther from the unsharded ones than "
+                  "the policy's rounding noise")
         log(f"[dist] launches over the ranks (train, FID, TP): {trained(launches, 'dist')}; "
             f"the SD1.5 steps alone on rank 0: {trained(r0['train_launches'], 'dist')}")
         for name in PATH_KERNELS["dist"]:
@@ -4412,7 +4787,8 @@ def phase_dist(card, handoff):
                   "steady_step_s": steady, "samples_per_s": TRAIN_BATCH / steady,
                   "peak_bytes": [r["peak_bytes"] for r in ranks],
                   "state_bytes": [r["state_bytes"] for r in ranks], "losses": r0["losses"],
-                  "fid_s": r0["fid_s"], "tp_rel": r0.get("tp_rel"), "native_rate": rate}
+                  "fid_s": r0["fid_s"], "tp_rel": r0.get("tp_rel"), "native_rate": rate,
+                  "tp8": tp8, "tp8_one_card": one_card, "sd15_int8": sd}
     finally:
         shutil.rmtree(DIST_DIR, ignore_errors=True)
         shutil.rmtree(TRAIN_DIR, ignore_errors=True)
@@ -4462,6 +4838,7 @@ def main():
     sm90_plan_check()
     k9_codes_check()
     results = phase_kernels(gen)
+    split_checks(gen)
     k9_sd15_yardsticks(results)
     k3_k5 = k3_k5_statistics(gen)
     paths, slice_pipe, slice_img1 = phase_path("slice", default_policy(), False, fp32_policy(),
@@ -4575,4 +4952,6 @@ def dist_only():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-child"]:
         sys.exit(dist_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(tp_child(sys.argv[2]))
     sys.exit(dist_only() if sys.argv[1:2] == ["--dist-only"] else main())

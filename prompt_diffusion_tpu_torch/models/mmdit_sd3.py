@@ -20,12 +20,16 @@ norm2 sites from K13 (`fused_adaln_quant`), `ff_out` from K10
 (`fused_gelu_quant`), `to_out` and `to_add_out` from K11
 (`fused_quant_rows`) on the split attention output. The AdaLN projections,
 the embedders, the ControlNet taps and the output head stay in the compute
-dtype, as in the JAX package.
+dtype, as in the JAX package. Under tensor parallelism
+(`parallel/tensor_parallel.py::apply_tp`) `JointBlock.tp_group` is the
+tensor group, which K10 and K11 take: the rows they quantize are the
+rank's slices of rows whose scale spans the group.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -170,6 +174,7 @@ class JointBlock(nn.Module):
         dim, dt = cfg.hidden_size, policy.compute_dtype
         self.heads, self.head_dim = cfg.num_attention_heads, cfg.attention_head_dim
         self.context_pre_only, self.quant = context_pre_only, _int8(policy)
+        self.tp_group = None  # the tensor group, once `apply_tp` has split the block
         if self.quant:
             dense = lambda i, o: QuantDense(i, o, out_dtype=dt)
         else:
@@ -210,8 +215,9 @@ class JointBlock(nn.Module):
         vp = torch.cat([self.to_v(h_mod), self.add_v_proj(c_mod)], dim=1)
         attn = self.attention(qp, kp, vp)
         attn_h, attn_c = attn[:, :n_h], attn[:, n_h:]
-        if self.quant:
-            act, rowq = fused_gelu_quant, fused_quant_rows
+        if self.quant:  # the inputs of the row-sharded layers under tensor parallelism
+            act = functools.partial(fused_gelu_quant, group=self.tp_group)
+            rowq = functools.partial(fused_quant_rows, group=self.tp_group)
         else:
             act, rowq = (lambda x: F.gelu(x, approximate="tanh")), (lambda x: x)
 

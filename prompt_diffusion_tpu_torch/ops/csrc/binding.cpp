@@ -328,6 +328,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Rows -> int8 codes and fp32 row scales: op 0 tanh-GELU (K10), op 1 AdaLN with "
         "per-sample (B, C) scale and shift views (K13), op 2 GEGLU of [h | gate] rows (K7), "
         "op 3 LayerNorm (K6), op 4 rows (K11); op 5 AdaLN in x's dtype, no scales (K12); "
+        "K10 and K11 split over a tensor group: ops 6 and 7 the row amax of GELU(x) and of x, "
+        "ops 8 and 9 the codes and scales from a given row amax (in `sc`); "
         "the plan of ops/row_quant.py::row_plan");
   m.def("adaln_bwd_occupancy", &adaln_bwd_occupancy,
         "K12's backward: blocks per SM of the kernel <bf16, vpt> at c columns "

@@ -97,6 +97,21 @@
 // Sums are taken in a fixed order (xor-butterfly shuffles give every lane
 // the same value; a row's warp partials are added in warp order), so runs
 // repeat bit for bit.
+//
+// K10 and K11 split over a tensor group (`row_split_kernel`, ops 6-9): under
+// tensor parallelism a rank holds a slice of each row's columns (its heads,
+// its hidden units), and the row's scale spans them all. Pass 1 (ops 6, 7)
+// writes each row's amax of GELU(x) (K10) or of x (K11) over the rank's
+// columns as one fp32 per row; the wrapper all-reduces it with MAX over the
+// group; pass 2 (ops 8, 9) reads x again and writes the codes of the rank's
+// columns and the scale s = max(amax / 127, 1e-8), with the one-launch
+// kernels' GELU, IEEE division, quotient and rint. Max is exact in any
+// order, so over a group of one rank the codes and scales are the
+// one-launch kernels' bit for bit. Each pass reads the row once (pass 2
+// also writes the int8 codes): bound by bytes as the one-launch kernels
+// are, 2 bytes a bf16 value for pass 1 and 3 for pass 2. The passes are
+// the simple form, on the same row plan without the next group's loads in
+// flight (`row_plan(..., groups=1)`).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -114,7 +129,11 @@ constexpr int kMaxVpt = 8;                     // 16-byte vectors a thread holds
 constexpr int kRedFloats = 2 * kThreads / kWarp;  // two buffers of one partial per warp
 constexpr int kSmemDefault = 48 * 1024;
 
-enum Op { kGelu = 0, kAdaLN = 1, kGeglu = 2, kLN = 3, kRows = 4, kAdaLNF = 5 };
+enum Op {
+  kGelu = 0, kAdaLN = 1, kGeglu = 2, kLN = 3, kRows = 4, kAdaLNF = 5,
+  // the split K10 / K11: pass 1, the row amax; pass 2, the codes from it
+  kGeluAmax = 6, kRowsAmax = 7, kGeluCodes = 8, kRowsCodes = 9
+};
 
 struct Params {
   const void* x;
@@ -128,7 +147,9 @@ struct Params {
   int sc_bf16, sh_bf16;
   float eps;
   void* out;      // int8 codes, or K12's y in x's dtype: (batch * n, c), dense
-  float* scales;  // (batch * n); K12: none
+  float* scales;  // (batch * n); K12: none; the split's pass 1: the row amax
+  const float* amax;  // the split's pass 2: the all-reduced row amax (batch * n)
+  int gelu;           // the split passes: K10 (1) or K11 (0)
 };
 
 // -2 sqrt(2/pi) log2(e) and 0.044715 times it: x * (C1 + C3 x^2) = -2 z log2(e)
@@ -400,6 +421,100 @@ __global__ void __launch_bounds__(kThreads) rows_quant_kernel(const Params p) {
 template <typename T, int VPT, bool PIPE>
 __global__ void __launch_bounds__(kThreads) adaln_float_kernel(const Params p) {
   row_quant_body<T, VPT, kAdaLNF, PIPE>(p);
+}
+
+// The split K10 / K11, pass 1 (kCodes false: each row's amax of y, y =
+// GELU(x) or x, over its columns here, to p.scales) or pass 2 (kCodes true:
+// the codes of y and s = max(p.amax[row] / 127, 1e-8) to p.scales). One
+// block: rows [row0, row0 + groups * rpb) of sample blockIdx.y, the row
+// plan of `row_quant_body`, one group after the other.
+template <typename T, int VPT, bool kCodes>
+__global__ void __launch_bounds__(kThreads) row_split_kernel(const Params p) {
+  constexpr int E = Vec<T>::E;
+  extern __shared__ float4 smem4[];
+  float* red = reinterpret_cast<float*>(smem4);
+  const int tpr = p.tpr;
+  const int rpb = kThreads / tpr;
+  const int t = threadIdx.x % tpr;
+  const int slot_row = threadIdx.x / tpr;
+  const int nvec = p.c / E;
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * rpb * p.groups;
+  const T* xb = static_cast<const T*>(p.x) + b * p.x_sb;
+  int slot = 0;
+  for (int g = 0; g < p.groups; ++g) {
+    const int n_idx = row0 + g * rpb + slot_row;
+    const bool live = n_idx < p.n;
+    const uint4* xr = reinterpret_cast<const uint4*>(xb + (int64_t)n_idx * p.x_sn);
+    float v[VPT][E];
+    float amax = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int vi = t + k * tpr;
+      Vec<T>::unpack(live && vi < nvec ? __ldg(xr + vi) : make_uint4(0u, 0u, 0u, 0u), v[k]);
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        if (p.gelu) v[k][j] = gelu(v[k][j]);  // gelu(0) = 0 past the row
+        amax = fmaxf(amax, fabsf(v[k][j]));
+      }
+    }
+    const int64_t row = (int64_t)b * p.n + n_idx;
+    if constexpr (!kCodes) {
+      amax = row_reduce<true>(amax, tpr, red, slot);  // every thread of the block
+      if (live && t == 0) p.scales[row] = amax;
+    } else if (live) {
+      const float s = fmaxf(__fdiv_rn(p.amax[row], 127.f), 1e-8f);
+      const float r = __frcp_rn(s);
+      int8_t* out = static_cast<int8_t*>(p.out) + row * p.c;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int vi = t + k * tpr;
+        if (vi < nvec) {
+          uint32_t w[E / 4];
+#pragma unroll
+          for (int h = 0; h < E / 4; ++h) {
+            const float* y = v[k] + 4 * h;
+            w[h] = rq::pack4(rq::code_bits(rq::quotient(y[0], s, r)),
+                             rq::code_bits(rq::quotient(y[1], s, r)),
+                             rq::code_bits(rq::quotient(y[2], s, r)),
+                             rq::code_bits(rq::quotient(y[3], s, r)));
+          }
+          if constexpr (E == 8) {
+            *reinterpret_cast<uint2*>(out + (int64_t)vi * E) = make_uint2(w[0], w[1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(out + (int64_t)vi * E) = w[0];
+          }
+        }
+      }
+      if (t == 0) p.scales[row] = s;
+    }
+  }
+}
+
+template <typename T, int VPT>
+int launch_split(int op, const Params& p, dim3 grid, cudaStream_t s) {
+  const size_t smem = sizeof(float) * kRedFloats;
+  if (op == kGeluAmax || op == kRowsAmax) {
+    row_split_kernel<T, VPT, false><<<grid, kThreads, smem, s>>>(p);
+  } else {
+    row_split_kernel<T, VPT, true><<<grid, kThreads, smem, s>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_split_vpt(int vpt, int op, const Params& p, dim3 grid, cudaStream_t s) {
+  switch (vpt) {
+    case 1: return launch_split<T, 1>(op, p, grid, s);
+    case 2: return launch_split<T, 2>(op, p, grid, s);
+    case 3: return launch_split<T, 3>(op, p, grid, s);
+    case 4: return launch_split<T, 4>(op, p, grid, s);
+    case 5: return launch_split<T, 5>(op, p, grid, s);
+    case 6: return launch_split<T, 6>(op, p, grid, s);
+    case 7: return launch_split<T, 7>(op, p, grid, s);
+    case 8: return launch_split<T, 8>(op, p, grid, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename T, int VPT, bool PIPE>
@@ -745,17 +860,19 @@ void* pick_bwd(int x_bf16, int vpt, int c) {
 }  // namespace
 
 // K10 (op 0), K13 (op 1), K7 (op 2), K6 (op 3), K11 (op 4) or K12 (op 5) on
-// `stream`;
+// `stream`, or a pass of the split K10 / K11 (ops 6-9);
 // returns the launch's cudaError_t (0 = queued). x: `batch` samples of n
 // rows of c values (K7: 2c values, [h | gate]), bf16 (x_bf16) or fp32,
 // element strides x_sb and x_sn, 16-byte aligned rows, dense columns; K13's
 // and K12's scale and shift: bf16 or fp32 (B, C) views with element strides; K6's w
 // and b in the same arguments, batch stride 0 (K10, K7 and K11 ignore
-// them). The plan (threads per row tpr, vectors per
+// them); the split's pass 2 takes the row amax (batch * n fp32, dense) as
+// `sc`. The plan (threads per row tpr, vectors per
 // thread vpt, row groups per block, grid_x blocks per sample) comes from
 // `row_plan`; it must cover every column and every row. Writes int8 codes
 // (batch * n, c) to `out` and scales (batch * n), both dense; K12 writes y
-// (batch * n, c) in x's dtype to `out` and no scales.
+// (batch * n, c) in x's dtype to `out` and no scales; the split's pass 1
+// writes the row amax (batch * n) to `scales` and nothing to `out`.
 extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int64_t x_sn,
                             int batch, int n, int c, const void* sc, int sc_bf16, int64_t sc_sb,
                             int64_t sc_sc, const void* sh, int sh_bf16, int64_t sh_sb,
@@ -766,11 +883,15 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
   const bool tpr_ok = tpr == 8 || tpr == 16 || tpr == 32 || tpr == 64 || tpr == 128 ||
                       tpr == 256;
   const int nin = op == kGeglu ? 2 : 1;
-  if (op < kGelu || op > kAdaLNF || c <= 0 || c % 8 != 0 || n <= 0 ||
+  const bool split = op >= kGeluAmax;
+  const bool codes = op != kAdaLNF && op != kGeluAmax && op != kRowsAmax;
+  if (op < kGelu || op > kRowsCodes || c <= 0 || c % 8 != 0 || n <= 0 ||
       batch <= 0 || batch > 65535 || !tpr_ok || vpt < 1 || nin * vpt > kMaxVpt ||
       (int64_t)vpt * tpr < nvec ||
       groups < 1 || grid_x < 1 || (int64_t)grid_x * (kThreads / tpr) * groups < n ||
-      ((op == kAdaLN || op == kLN || op == kAdaLNF) && (sc == nullptr || sh == nullptr))) {
+      ((op == kAdaLN || op == kLN || op == kAdaLNF) && (sc == nullptr || sh == nullptr)) ||
+      ((op == kGeluCodes || op == kRowsCodes) && sc == nullptr) ||
+      (codes && out == nullptr) || (op != kAdaLNF && scales == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -792,8 +913,14 @@ extern "C" int pd_row_quant(int op, const void* x, int x_bf16, int64_t x_sb, int
   p.eps = eps;
   p.out = out;
   p.scales = static_cast<float*>(scales);
+  p.amax = static_cast<const float*>(sc);
+  p.gelu = op == kGeluAmax || op == kGeluCodes;
   const dim3 grid(grid_x, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split) {
+    return x_bf16 ? launch_split_vpt<__nv_bfloat16>(vpt, op, p, grid, s)
+                  : launch_split_vpt<float>(vpt, op, p, grid, s);
+  }
   if (x_bf16) {
     return groups > 1 ? launch_vpt<__nv_bfloat16, true>(vpt, op, p, grid, s)
                       : launch_vpt<__nv_bfloat16, false>(vpt, op, p, grid, s);

@@ -40,7 +40,14 @@ def rowquant(h: torch.Tensor):
     per-row int8, the quantize step of K6 and K7 (`rowquant` of the JAX
     package): scale max(amax / 127, 1e-8), codes round(h / scale) with
     ties to even, clipped to +-127."""
-    s_a = torch.clamp_min(h.abs().amax(dim=-1, keepdim=True) / 127.0, 1e-8)
+    return rowquant_amax(h, h.abs().amax(dim=-1, keepdim=True))
+
+
+def rowquant_amax(h: torch.Tensor, amax: torch.Tensor):
+    """`rowquant` of fp32 h (..., C) with each row's amax given (fp32
+    (..., 1)): the second half of K10's and K11's split over a tensor
+    group, where the amax spans more columns than h holds."""
+    s_a = torch.clamp_min(amax / 127.0, 1e-8)
     return torch.clamp(torch.round(h / s_a), -127, 127).to(torch.int8), s_a
 
 

@@ -8,7 +8,10 @@ Counterpart of `prompt_diffusion_tpu/ops/quant.py`:
     module quantizes once and reuses the result until its weight changes
     (`load_state_dict`, `random_init_`, a move to another device);
   * activations: a float tensor is quantized here, dynamically, with one
-    scale over the whole tensor; a `(int8, scale)` pair from a kernel's
+    scale over the whole tensor (inside a call whose batch is split over
+    ranks, `parallel.mesh.sharded_batch`, the amax is all-reduced with MAX
+    over them first, so the scale is the unsharded call's and spans the
+    whole batch as the JAX package's does); a `(int8, scale)` pair from a kernel's
     int8 epilogue (per sample from GroupNorm, per row from LayerNorm and
     GEGLU) is taken as it is;
   * the product is int8 x int8 -> int32 (`int8_matmul`, or the K8 kernel
@@ -23,9 +26,11 @@ from __future__ import annotations
 from typing import Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from prompt_diffusion_tpu_torch.ops.int8_conv import VARIANTS, conv3x3_int8, im2col3x3, int8_matmul
+from prompt_diffusion_tpu_torch.parallel.mesh import batch_shard
 
 _EPS = 1e-8
 
@@ -39,10 +44,20 @@ def quant_weight(w: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def quant_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Activation -> (int8 tensor, 0-d fp32 scale), one scale per tensor."""
+    """Activation -> (int8 tensor, 0-d fp32 scale), one scale per tensor;
+    inside `sharded_batch` the amax is the MAX over the group's ranks (one
+    all-reduce, counted in `quant_act.all_reduces`)."""
     xf = x.float()
-    s_a = torch.clamp_min(xf.abs().amax() / 127.0, _EPS)
+    amax = xf.abs().amax()
+    shard = batch_shard()
+    if shard is not None:
+        dist.all_reduce(amax.view(1), op=dist.ReduceOp.MAX, group=shard.group)
+        quant_act.all_reduces += 1
+    s_a = torch.clamp_min(amax / 127.0, _EPS)
     return torch.clamp(torch.round(xf / s_a), -127, 127).to(torch.int8), s_a
+
+
+quant_act.all_reduces = 0
 
 
 def quant_act_pair(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

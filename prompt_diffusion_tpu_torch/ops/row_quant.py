@@ -6,7 +6,9 @@ and K12 (AdaLN in x's dtype) with K12's backward, the CUDA C++ kernels of
 `fused_act.fused_gelu_quant`, `fused_act.fused_geglu_quant`,
 `fused_act.fused_quant_rows`, `fused_adaln.fused_adaln_quant`,
 `fused_adaln.fused_adaln` (and its backward) and
-`fused_layer_norm.fused_layer_norm_quant` send a CUDA tensor here. Rows
+`fused_layer_norm.fused_layer_norm_quant` send a CUDA tensor here, and
+`fused_act.act_amax` and `fused_act.act_codes`, the two passes of K10 and
+K11 split over a tensor group (`row_amax`, `codes_from_amax`). Rows
 are read in place: a (B, N, C) tensor of K13, K12 or K11 as B samples with its
 own sample and row strides (K11's are the MMDiT's slices of one packed
 (B, N_h + N_c, C) attention output), any other as x.view(-1, C). `row_plan` cuts a
@@ -73,6 +75,10 @@ NARROW_THREADS, NARROW_VECTORS = (8, 16), 5
 MAX_ROW_BYTES = BLOCK_THREADS * MAX_VECTORS * VEC_BYTES  # 32 KB
 DTYPES = (torch.bfloat16, torch.float32)
 GELU, ADALN, GEGLU, LN, ROWS, ADALN_F = 0, 1, 2, 3, 4, 5  # the `op` of `csrc/row_quant.cu`
+# the split K10 / K11 (`row_split_kernel`): the row amax of GELU(x) or of x,
+# then the codes from a given row amax
+GELU_AMAX, ROWS_AMAX, GELU_CODES, ROWS_CODES = 6, 7, 8, 9
+_AMAX_OPS = (GELU_AMAX, ROWS_AMAX)
 ROW_THREADS = (8, 16, 32, 64, 128, 256)  # threads per row the kernel takes
 MAX_SAMPLES = 65535  # the grid's y dimension
 # row groups a block walks, pipelined, while the grid keeps MIN_BLOCKS blocks
@@ -234,7 +240,8 @@ def _launch(op, x, layout, plan, sc=None, sh=None, eps=0.0):
     """Codes (rows, plan.c) and scales (rows,) of the rows of x that
     `layout` (`_rows`) describes, each plan.inputs x plan.c wide; sc and sh
     as `_modulation` or `_affine` give them. K12 (ADALN_F): y (rows,
-    plan.c) in x's dtype, and no scales."""
+    plan.c) in x's dtype, and no scales. The split's pass 1 (GELU_AMAX,
+    ROWS_AMAX): no codes, and the row amax (rows,) in place of the scales."""
     b, n, x_sb, x_sn = layout
     if ((plan.grid[1], plan.rows, plan.inputs * plan.c) != (b, n, x.shape[-1])
             or plan.vec_elems * x.element_size() != VEC_BYTES):
@@ -244,15 +251,16 @@ def _launch(op, x, layout, plan, sc=None, sh=None, eps=0.0):
     from prompt_diffusion_tpu_torch.ops._build import cuda_ext
 
     ext = cuda_ext()
-    out = torch.empty((b * n, plan.c), dtype=x.dtype if op == ADALN_F else torch.int8,
-                      device=x.device)
+    out = None if op in _AMAX_OPS else torch.empty(
+        (b * n, plan.c), dtype=x.dtype if op == ADALN_F else torch.int8, device=x.device)
     scales = None if op == ADALN_F else torch.empty((b * n,), dtype=torch.float32,
                                                     device=x.device)
     mod = [a for t in (sc, sh) for a in (t or (0, False, 0, 0))]
     with torch.cuda.device(x.device):
         ext.row_quant(op, x.data_ptr(), x.dtype == torch.bfloat16, x_sb, x_sn, b, n, plan.c,
                       *mod, float(eps), plan.threads, plan.vectors, plan.groups, plan.grid[0],
-                      out.data_ptr(), 0 if scales is None else scales.data_ptr(),
+                      0 if out is None else out.data_ptr(),
+                      0 if scales is None else scales.data_ptr(),
                       torch.cuda.current_stream().cuda_stream)
     return out, scales
 
@@ -322,6 +330,41 @@ def quant_rows(x: torch.Tensor, plan: Optional[RowPlan] = None):
     layout = _rows(x, samples=x.ndim == 3)
     plan = plan or row_plan(layout[0] * layout[1], x.shape[-1], x.dtype, samples=layout[0])
     codes, scales = _launch(ROWS, x, layout, plan)
+    return codes.view(x.shape), scales.view(*x.shape[:-1], 1)
+
+
+def _split_layout(x: torch.Tensor):
+    """The split passes' layout and plan: x's rows read in place as `_rows`
+    reads them (a (B, N, C) x as B samples with its own strides, K11's
+    MMDiT slices), one row group a block (`row_plan(..., groups=1)`)."""
+    layout = _rows(x, samples=x.ndim == 3)
+    return layout, row_plan(layout[0] * layout[1], x.shape[-1], x.dtype, samples=layout[0],
+                            groups=1)
+
+
+def row_amax(x: torch.Tensor, gelu: bool) -> torch.Tensor:
+    """Pass 1 of the split K10 (`gelu`) or K11 on the card: x (..., C), the
+    rank's columns of each row, bf16 or fp32 (K10's and K11's checks) ->
+    fp32 (..., 1), each row's max |GELU(x)| or max |x| over those columns;
+    one launch, no copy of x."""
+    layout, plan = _split_layout(x)
+    _, amax = _launch(GELU_AMAX if gelu else ROWS_AMAX, x, layout, plan)
+    return amax.view(*x.shape[:-1], 1)
+
+
+def codes_from_amax(x: torch.Tensor, amax: torch.Tensor, gelu: bool):
+    """Pass 2 of the split K10 (`gelu`) or K11 on the card: x as
+    `row_amax` takes it and each row's amax over the whole row (fp32,
+    (..., 1) or (rows,), dense) -> (int8 codes (..., C), fp32 row scales
+    (..., 1)), s = max(amax / 127, 1e-8); one launch, no copy of x."""
+    layout, plan = _split_layout(x)
+    rows = layout[0] * layout[1]
+    if (amax.dtype != torch.float32 or amax.numel() != rows or amax.device != x.device
+            or not amax.is_contiguous()):
+        raise ValueError(f"amax must be {rows} dense fp32 values on {x.device}, one a row of x, "
+                         f"got {tuple(amax.shape)} {amax.dtype} on {amax.device}")
+    codes, scales = _launch(GELU_CODES if gelu else ROWS_CODES, x, layout, plan,
+                            (amax.data_ptr(), False, 0, 0))
     return codes.view(x.shape), scales.view(*x.shape[:-1], 1)
 
 

@@ -28,13 +28,23 @@ nothing, so a 1 x 1 mesh computes what no mesh does, bit for bit.
 `make_mesh` joins the process group `torchrun` describes (`RANK`,
 `WORLD_SIZE`, `LOCAL_RANK`; NCCL on the card, gloo on the CPU) unless the
 caller has joined one already.
+
+A call whose batch is split over the ranks (`pipelines/sharded.py`) runs
+inside `sharded_batch`: what spans the whole batch reads `batch_shard()`
+(the int8 per-tensor activation scale all-reduces its amax over the
+group, DDIM's eta > 0 step noise is drawn for the whole batch and cut to
+the rank's rows). Outside one, `batch_shard()` is None and nothing is
+exchanged.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+import dataclasses
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -44,6 +54,34 @@ AXES = ("data", "fsdp")
 # as a fresh fp32 allocation does, so a whole tensor's view reduces (the
 # clip's norm) exactly as the tensor would
 ALIGN = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """This rank's part of a call whose batch is split over a process
+    group."""
+
+    group: dist.ProcessGroup  # the ranks the batch is split over
+    batch: int  # the whole batch
+    rows: slice  # this rank's rows of it
+
+
+_BATCH_SHARD: contextvars.ContextVar = contextvars.ContextVar("batch_shard", default=None)
+
+
+@contextlib.contextmanager
+def sharded_batch(shard: BatchShard) -> Iterator[BatchShard]:
+    """Runs the block as `shard`'s rank of a call split over its group."""
+    token = _BATCH_SHARD.set(shard)
+    try:
+        yield shard
+    finally:
+        _BATCH_SHARD.reset(token)
+
+
+def batch_shard() -> Optional[BatchShard]:
+    """The split call this code runs in (`sharded_batch`), or None."""
+    return _BATCH_SHARD.get()
 
 
 def launched() -> bool:

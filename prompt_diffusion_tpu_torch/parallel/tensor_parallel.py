@@ -9,8 +9,29 @@ heads, its hidden units), the return projections and the contractions
 row-sharded (its slice of the input features), and a row-sharded layer's
 partial products are all-reduced over the tensor group before its bias is
 added. `JointBlock.heads` becomes H / tp, so the attention runs on each
-rank's heads (K2 under bf16 at the MMDiT's lengths). Everything else (the
-AdaLN projections, embedders, norms, taps, the head) stays replicated.
+rank's heads (K2 under bf16 at the MMDiT's lengths, K9 under int8).
+Everything else (the AdaLN projections, embedders, norms, taps, the head)
+stays replicated.
+
+Under the int8 policy the same rules give the unsharded layers' bits:
+  * a column-sharded `QuantDense` keeps its slice of the fp32 weight and
+    quantizes it (the scale is per output channel, so the codes are the
+    whole weight's rows);
+  * a row-sharded one (`RowParallelQuantDense`) quantizes the whole weight
+    first, so each output channel's scale spans every input feature, and
+    keeps its slice of the codes; its int8 GEMM's int32 accumulator is
+    all-reduced (SUM, exact) before the dequantization and the bias, once;
+  * its input, K11's codes of the attention output (`to_out`,
+    `to_add_out`) or K10's of the feed-forward's hidden units (`ff_out`,
+    `ff_context_out`), takes one scale over the whole row, of which the
+    rank holds a slice: `JointBlock.tp_group` hands the group to K10 and
+    K11, which run split (`ops/fused_act.py::split_act_quant`: the row amax
+    all-reduced with MAX between two launches);
+  * K13, K9 and K9's prologue need nothing: K13 runs on replicated rows,
+    K9's Q scale is per (row, head) and its K scale per (sample, head), and
+    a rank's heads are whole.
+One JointBlock exchanges 4 int32 accumulators and 4 row amax vectors (2 and
+2 in the last, context_pre_only, block).
 
     mesh = make_tp_mesh(num_tensor=4)        # under torchrun, 4 ranks
     apply_tp(pipe.transformer, mesh); apply_tp(pipe.controlnet, mesh)
@@ -18,11 +39,6 @@ AdaLN projections, embedders, norms, taps, the head) stays replicated.
 Differences from the JAX package, by design:
   * heads that the tensor width does not divide are refused; JAX leaves
     such a kernel replicated without a word;
-  * the int8 policy is refused: K11 (`to_out`, `to_add_out`) and K10
-    (`ff_out`) quantize each row over its whole width with one scale, and
-    a rank holds a slice of the row, so a matching port needs the row
-    maximum all-reduced inside those kernels (ROADMAP queue 2: int8
-    tensor parallelism);
   * it serves the forward: the all-reduce after a row-sharded layer is a
     plain collective, not an autograd function, so the sharded module is
     for inference (JAX's tests hold its forward only).
@@ -37,6 +53,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from prompt_diffusion_tpu_torch.ops.int8_conv import int8_matmul
+from prompt_diffusion_tpu_torch.ops.quant import QuantDense, _dequant
 
 TP_AXIS = "tensor"
 
@@ -91,6 +110,33 @@ class RowParallelDense(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
+class RowParallelQuantDense(nn.Module):
+    """The rank's columns of an int8 `QuantDense`'s codes (out, in / tp),
+    quantized from the whole fp32 weight (the scale of each output channel
+    spans every input feature): the int8 GEMM of its slice of the input
+    pair, the int32 accumulator all-reduced over the tensor group, then
+    the unsharded layer's dequantization and bias."""
+
+    def __init__(self, layer: QuantDense, rank: int, tp: int, group):
+        super().__init__()
+        wq, s_w = layer.quantized()
+        n = wq.shape[1] // tp
+        self.register_buffer("wq", wq[:, rank * n:(rank + 1) * n].contiguous())
+        self.register_buffer("s_w", s_w.clone())
+        self.bias = None if layer.bias is None else nn.Parameter(
+            layer.bias.detach().clone(), requires_grad=False)
+        self.out_dtype, self.group = layer.out_dtype, group
+
+    def forward(self, x):
+        """`x`: the (int8 (..., in / tp), fp32 per-row (..., 1)) pair of the
+        rank's columns, the scale over whole rows (K10 / K11 split)."""
+        xq, s_a = x
+        acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), self.wq).contiguous()
+        dist.all_reduce(acc, group=self.group)
+        return _dequant(acc.view(*xq.shape[:-1], -1), s_a * self.s_w, self.bias,
+                        self.out_dtype)
+
+
 def _slice_col(layer: nn.Linear, rank: int, tp: int) -> None:
     n = layer.weight.shape[0] // tp
     with torch.no_grad():
@@ -102,7 +148,9 @@ def _slice_col(layer: nn.Linear, rank: int, tp: int) -> None:
     layer.out_features = n
 
 
-def _row(layer: nn.Linear, rank: int, tp: int, group) -> RowParallelDense:
+def _row(layer: nn.Linear, rank: int, tp: int, group) -> nn.Module:
+    if isinstance(layer, QuantDense):
+        return RowParallelQuantDense(layer, rank, tp, group)
     n = layer.weight.shape[1] // tp
     w = layer.weight.detach()[:, rank * n:(rank + 1) * n].clone()
     b = None if layer.bias is None else layer.bias.detach().clone()
@@ -111,19 +159,14 @@ def _row(layer: nn.Linear, rank: int, tp: int, group) -> RowParallelDense:
 
 def apply_tp(module: nn.Module, mesh) -> nn.Module:
     """Rewrites every JointBlock of `module` (an `SD3Transformer` or
-    `SD3ControlNet`) in place for the mesh's tensor axis, by `TP_RULES`;
-    returns `module`. Refuses heads the width does not divide and the
-    int8 policy."""
+    `SD3ControlNet`, bf16, fp32 or int8) in place for the mesh's tensor
+    axis, by `TP_RULES`; returns `module`. Refuses heads the width does not
+    divide."""
     from prompt_diffusion_tpu_torch.models.mmdit_sd3 import JointBlock
 
     tp = mesh.size(mesh.mesh_dim_names.index(TP_AXIS))
     blocks = [m for m in module.modules() if isinstance(m, JointBlock)]
     for blk in blocks:
-        if blk.quant:
-            raise NotImplementedError(
-                "apply_tp under the int8 policy: K10 and K11 take one scale over a whole row, "
-                "a rank holds a slice of it (ROADMAP queue 2: int8 tensor parallelism, the row "
-                "maximum all-reduced into K10/K11)")
         if blk.heads % tp:
             raise ValueError(f"{blk.heads} heads do not divide over a tensor width of {tp}")
     if tp == 1:
@@ -139,4 +182,5 @@ def apply_tp(module: nn.Module, mesh) -> nn.Module:
             else:
                 setattr(blk, name, _row(layer, rank, tp, group))
         blk.heads //= tp
+        blk.tp_group = group
     return module

@@ -36,6 +36,7 @@ from prompt_diffusion_tpu_torch.ops.int8_conv import VARIANTS
 from prompt_diffusion_tpu_torch.data.tokenizer import EOT, SOT
 from prompt_diffusion_tpu_torch.models.vae import sample_from_moments
 from prompt_diffusion_tpu_torch.ops.quant import QuantConv
+from prompt_diffusion_tpu_torch.parallel.mesh import batch_shard
 from prompt_diffusion_tpu_torch.pipelines.control_window import (
     is_default_window,
     keep_by_timestep,
@@ -332,8 +333,11 @@ class PromptDiffusionSD15:
         elif sampler == "plms":
             x = plms_sample_loop(eps_fn, x, tables)
         else:
-            # every table entry runs: more than num_steps when 1000 % num_steps != 0
-            x = ddim_sample_loop(eps_fn, x, tables, generator=generator if eta > 0.0 else None)
+            # every table entry runs: more than num_steps when 1000 % num_steps != 0; one
+            # rank of a sharded call takes its rows of the whole batch's step noise
+            shard = batch_shard()
+            x = ddim_sample_loop(eps_fn, x, tables, generator=generator if eta > 0.0 else None,
+                                 noise_rows=None if shard is None else (shard.batch, shard.rows))
         return self.decode_latents(x.permute(_NHWC))
 
     @torch.no_grad()

@@ -12,7 +12,7 @@ computes them in fp32.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,17 +77,23 @@ def ddim_step(x: torch.Tensor, eps: torch.Tensor, index: int, tables: DDIMTables
 
 def ddim_sample_loop(eps_fn: EpsFn, x_T: torch.Tensor, tables: DDIMTables,
                      generator: Optional[torch.Generator] = None,
-                     temperature: float = 1.0) -> torch.Tensor:
+                     temperature: float = 1.0,
+                     noise_rows: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
     """Run every entry of the table. `eps_fn(x, t)` returns the
     (CFG-combined) epsilon. With a `generator` (eta > 0) each step adds
-    sigma-scaled noise drawn from it."""
+    sigma-scaled noise drawn from it; with `noise_rows` = (whole batch,
+    x's rows of it), x being one rank's rows of a sharded call, each
+    step's noise is drawn for the whole batch and x's rows taken."""
     x = x_T
     for i in range(tables.num_steps):
         index = tables.num_steps - 1 - i
         eps = eps_fn(x, timestep_batch(x, tables.timesteps[index]))
         noise = None
         if generator is not None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            shape = x.shape if noise_rows is None else (noise_rows[0],) + x.shape[1:]
+            noise = torch.randn(shape, generator=generator, device=x.device, dtype=x.dtype)
+            if noise_rows is not None:
+                noise = noise[noise_rows[1]]
         x, _ = ddim_step(x, eps, index, tables, noise=noise, temperature=temperature)
     return x
 

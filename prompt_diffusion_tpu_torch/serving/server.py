@@ -6,20 +6,28 @@ names and behaviour:
     seed), which batch freely; the parameters that shape the loop (size,
     steps, eta, guess mode, sampler) pick the bucket;
   * batch sizes are powers of two up to `max_batch`, or
-    `ServerConfig.buckets`; a partial batch is padded by repeating its last
-    request and sliced on the way out;
+    `ServerConfig.buckets` (none above `max_batch`); a partial batch is
+    padded by repeating its last request and sliced on the way out;
   * one worker thread owns the device; a bounded queue decouples the
     producers, and `flush_ms` bounds the extra latency a request pays to
     let a batch form; within a bucket requests are FIFO, and buckets are
     served round-robin.
 
-A request's x_T comes from its own `torch.Generator` seeded with its seed
-and is drawn per request before stacking, so it never depends on the
-batch. The image depends on the seed alone wherever every op is per
-sample: under the int8 policy the dynamic per-tensor activation scale
-couples co-batched requests (ROADMAP, queue 3), as it does in the JAX
-package. The worker runs under `torch.no_grad()` itself (grad mode is
-thread-local).
+A request's noise comes from its own `torch.Generator` seeded with its
+seed and is drawn per request before stacking, so it never depends on the
+batch or on the request's slot in it: x_T, and for SD3 then the VAE
+sampling noise of the support pair and of the query condition. An eta > 0
+DDIM request draws batch-shaped noise at every step, so it runs alone, at
+batch 1 whatever the bucket set, never padded. The image depends on the
+seed alone wherever every op is per sample: under the int8 policy the
+dynamic per-tensor activation scale couples co-batched requests (ROADMAP,
+queue 3), as it does in the JAX package. The worker runs under
+`torch.no_grad()` itself (grad mode is thread-local).
+
+Differences from the JAX package's server, by design (each a fault of
+the reference): buckets above `max_batch` are refused; an eta > 0 request
+is never padded past batch 1; the SD3 adapter's VAE sampling noise is the
+request's, not one fixed key's for every batch.
 """
 
 from __future__ import annotations
@@ -114,11 +122,12 @@ class GenerationServer:
         self.pipe = pipe
         self.config = config or ServerConfig()
         if self.config.buckets:
-            # buckets above max_batch are accepted, as in the JAX package
-            # (ROADMAP queue 3; test_buckets_above_max_batch_accepted)
             self._buckets = sorted(set(int(b) for b in self.config.buckets))
             if self._buckets[0] < 1:
                 raise ValueError(f"bucket sizes must be >= 1: {self.config.buckets}")
+            if self._buckets[-1] > self.config.max_batch:
+                raise ValueError(f"bucket sizes must be <= max_batch {self.config.max_batch}: "
+                                 f"{self.config.buckets}")
         else:
             self._buckets, b = [], 1
             while b <= self.config.max_batch:
@@ -219,10 +228,8 @@ class GenerationServer:
     @staticmethod
     def _batch_limit(req, max_batch: int) -> int:
         # eta > 0 draws batch-shaped noise at every DDIM step: only a batch
-        # of one keeps the image a function of the request's seed. A bucket
-        # set without 1 still pads such a request (ROADMAP queue 3;
-        # test_eta_request_padded_past_batch_one)
-        if getattr(req, "eta", 0.0) > 0:
+        # of one keeps the image a function of the request's seed
+        if _alone(req):
             return 1
         return max_batch
 
@@ -277,7 +284,8 @@ class GenerationServer:
 
     def _execute(self, reqs: Sequence) -> np.ndarray:
         n = len(reqs)
-        bucket = self._bucket_size(n)
+        # a request that must run alone is not padded, whatever the buckets
+        bucket = n if _alone(reqs[0]) else self._bucket_size(n)
         padded = list(reqs) + [reqs[-1]] * (bucket - n)
         images = self._adapter.execute(padded)
         out = images[:n].float().cpu().numpy()
@@ -285,6 +293,11 @@ class GenerationServer:
         self.stats["batches"] += 1
         self.stats["padded_slots"] += bucket - n
         return out
+
+
+def _alone(req) -> bool:
+    """Whether `req` runs in a batch of its own (DDIM with eta > 0)."""
+    return getattr(req, "eta", 0.0) > 0
 
 
 class PipelineAdapter:
@@ -349,10 +362,12 @@ class SD15Adapter(PipelineAdapter):
 
 
 class SD3Adapter(PipelineAdapter):
-    """SD3: per-sample guidance and x_T; the control scale, the shift and
-    the presence of T5 ids split buckets. The VAE sampling noise of the
-    support pair and the query condition comes from a generator seeded with
-    0 for every batch, as the JAX adapter passes one fixed key."""
+    """SD3: per-sample guidance and noise; the control scale, the shift and
+    the presence of T5 ids split buckets. Each request's generator, seeded
+    with its seed, gives its x_T (`request_noise`), then the VAE sampling
+    noise of its support pair, then of its query condition, stacked over
+    the batch as x_T is (the JAX adapter passes one fixed key for every
+    batch, so there a request's image depended on its slot)."""
 
     def __init__(self, pipe):
         self.pipe = pipe
@@ -368,6 +383,7 @@ class SD3Adapter(PipelineAdapter):
         h, w, _ = r0.query.shape
         zc = self.pipe.vae.config.z_channels
         img = lambda field: _stack(padded, field, torch.float32, dev)
+        noise = [self.request_noise(r.seed, h, w, zc, dev) for r in padded]
         return dict(
             prompt_ids=pd, neg_prompt_ids=nd, control_image=img("query"),
             support_cond=img("support_cond"), support_image=img("support_image"),
@@ -375,10 +391,22 @@ class SD3Adapter(PipelineAdapter):
             guidance_scale=_per_sample(padded, "guidance_scale", dev),
             controlnet_conditioning_scale=r0.control_scale,
             shift=r0.shift,
-            init_noise=torch.stack([request_noise(r.seed, (h // 8, w // 8, zc), dev)
-                                    for r in padded]),
-            generator=torch.Generator(device=dev).manual_seed(0),
+            **{k: torch.stack([n[k] for n in noise])
+               for k in ("init_noise", "pair_noise", "cond_noise")},
         )
+
+    @staticmethod
+    def request_noise(seed: int, h: int, w: int, zc: int, device) -> dict:
+        """One request's x_T (h/8, w/8, zc), then its support pair's and its
+        query condition's VAE sampling noise (zc, h/8, w/8 each, as the
+        moments are), from one generator seeded with `seed`; x_T is
+        `request_noise(seed, ...)`."""
+        g = torch.Generator(device=device).manual_seed(int(seed))
+        draw = lambda shape: torch.randn(shape, generator=g, device=device,
+                                         dtype=torch.float32)
+        return {"init_noise": draw((h // 8, w // 8, zc)),
+                "pair_noise": draw((zc, h // 8, w // 8)),
+                "cond_noise": draw((zc, h // 8, w // 8))}
 
     def execute(self, padded):
         return self.pipe.generate(**self.inputs(padded))

@@ -8,10 +8,16 @@ loss within 2e-5 relative, grad_norm within 1e-4, the parameter update
 within 5e-3 relative (1e-10 absolute) of the one-rank port's wherever it
 is a whole Adam step (`_assert_updates_close` says how the rest, and the
 update against JAX, are held). A restored checkpoint continues bit for bit; ranks hold equal
-modules; sharded generate within 1e-4 / 1e-5 of the unsharded images; the
-FID statistics within 1e-5 of JAX's single-process ones."""
+modules; sharded generate within 1e-4 / 1e-5 of the unsharded images at
+fp32, and under the int8 policy (fp32 compute; DDIM eta 0 and 1) and in
+bf16 with eta 0.5 within `GENERATE_REL_L2` (the CPU's convolutions round a
+batch of 2 apart from a batch of 4, and int8 codes or bf16 roundings can
+flip on that), with the mutations that would break the sharded numbers (a
+rank-local int8 scale, rank-local step noise) shown to fall outside those
+bounds; the FID statistics within 1e-5 of JAX's single-process ones."""
 
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -34,6 +40,7 @@ from prompt_diffusion_tpu.training import sd3 as jtr3
 from prompt_diffusion_tpu.training import sd15 as jtr
 from prompt_diffusion_tpu.utils.dtypes import fp32_policy as j_fp32_policy
 from prompt_diffusion_tpu_torch.data import edit_dataset as ped
+from prompt_diffusion_tpu_torch.ops import quant
 from prompt_diffusion_tpu_torch.parallel import mesh as pmesh
 from prompt_diffusion_tpu_torch.pipelines import sharded
 from prompt_diffusion_tpu_torch.tools.jax_bridge import load_jax_params, state_dict_from_jax
@@ -127,6 +134,13 @@ def sd15(tmp_path_factory):
                query=torch.from_numpy(g_rng.uniform(-1, 1, (B, IMG, IMG, 3))).float(),
                num_steps=2, guidance_scale=9.0)
     one["generate"] = pipe.generate(**gen, generator=torch.Generator().manual_seed(5))
+    one["variants"], one["quant_calls"] = {}, {}
+    for name, (policy, eta) in du.GENERATE_VARIANTS.items():
+        calls = []
+        with mock.patch.object(quant, "quant_act", _recording(quant.quant_act, calls)):
+            one["variants"][name] = du.load(du.tiny_sd15(policy), state_dicts).generate(
+                **gen, eta=eta, generator=torch.Generator().manual_seed(5))
+        one["quant_calls"][name] = len(calls)
 
     f_rng = np.random.default_rng(1)
     fid_inputs = {"images": f_rng.uniform(0, 1, (64, 8, 8, 3)).astype(np.float32),
@@ -261,14 +275,80 @@ def test_generate_sharded_equals_unsharded(sd15):
                                    rtol=1e-4, atol=1e-5)
 
 
+def _recording(fn, log):
+    """`fn`, recording each call."""
+    def wrapped(*args, **kwargs):
+        log.append(args)
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+# The sharded SD1.5 images against the unsharded ones under each of
+# `du.GENERATE_VARIANTS`, relative L2 over the batch, by compute dtype. The
+# CPU's convolutions round a batch of 2 apart from a batch of 4 (fp32:
+# 1.2e-6 here): under the int8 policy such a rounding can move an
+# activation across a code boundary (measured 2.8e-4 at eta 0, 2.4e-7 at eta
+# 1), and in bf16 CFG 9 makes a flipped rounding of epsilon a visible step
+# (measured 2.2e-3). The mutations land outside the fp32 bound: a
+# rank-local int8 scale 5.5e-2, eta's step noise drawn for the rank's rows
+# alone 4.7e-3.
+GENERATE_REL_L2 = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+def _generate_close(got, want, name):
+    """Whether a sharded SD1.5 image batch is within its variant's bound
+    (`GENERATE_REL_L2`) of the unsharded one."""
+    got, want = got.numpy().astype(np.float64), want.numpy().astype(np.float64)
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    return rel <= GENERATE_REL_L2[du.GENERATE_VARIANTS[name][0].compute_dtype]
+
+
+@pytest.mark.parametrize("name", list(du.GENERATE_VARIANTS))
+def test_generate_sharded_int8_and_eta_equal_unsharded(sd15, name):
+    """Two ranks, each its 2 of the 4 requests, under the int8 policy
+    (fp32 compute) with DDIM eta 0 and 1, and in bf16 with eta 0.5: within
+    the variant's bound of the unsharded call.
+    Each int8 activation quantized from a float tensor takes its amax over
+    both ranks (one MAX all-reduce per quantized tensor: as many as the
+    unsharded call's `quant_act` calls); eta's step noise is drawn for the
+    whole batch at every step and cut to the rank's rows."""
+    want = sd15["one"]["variants"][name]
+    n_quant = sd15["one"]["quant_calls"][name]
+    assert (n_quant > 0) == (du.GENERATE_VARIANTS[name][0].quant == "int8")
+    for r in sd15["ranks"]:
+        got, all_reduces = r["variants"][name]
+        assert got.shape == want.shape and _generate_close(got, want, name)
+        assert all_reduces == n_quant
+
+
+def test_generate_sharded_mutations_fall_outside_the_bounds(sd15):
+    """The bounds above see the sharding: the int8 scale taken over the
+    rank's rows alone (no all-reduce) and eta's step noise drawn for the
+    rank's rows alone (int8, eta 1) each land outside their variant's
+    bound."""
+    for r in sd15["ranks"]:
+        assert not _generate_close(r["variants"]["rank_local_scale"],
+                                   sd15["one"]["variants"]["int8"], "int8")
+        assert not _generate_close(r["variants"]["rank_local_noise"],
+                                   sd15["one"]["variants"]["int8_eta"], "int8_eta")
+
+
+class _Mesh:
+    """A mesh of two ranks, for the checks `generate_sharded` makes before
+    it touches a process group."""
+
+    def size(self, dim=None):
+        return 2
+
+
 def test_generate_sharded_refusals():
-    """Refused before any work: the int8 policy (per-tensor activation
-    scale over the whole batch) and DDIM with eta > 0."""
+    """Refused before any model runs: a batch the ranks do not divide. The
+    int8 policy and DDIM with eta > 0, refused before, are accepted (the
+    tests above)."""
     int8 = du.tiny_sd15(DTypePolicy(compute_dtype=torch.float32, quant="int8"))
-    with pytest.raises(NotImplementedError, match="queue 2, item 5"):
-        sharded.generate_sharded(int8, None, query=torch.zeros((2, 32, 32, 3)))
-    with pytest.raises(NotImplementedError, match="eta"):
-        sharded.generate_sharded(du.tiny_sd15(), None, query=torch.zeros((2, 32, 32, 3)), eta=0.5)
+    with pytest.raises(ValueError, match="a batch of 3 does not divide over 2 ranks"):
+        sharded.generate_sharded(int8, _Mesh(), query=torch.zeros((3, 32, 32, 3)), eta=0.5,
+                                 generator=torch.Generator().manual_seed(0))
 
 
 def test_fid_sharded_matches_jax_single_process(sd15):
@@ -455,11 +535,14 @@ def sd3(tmp_path_factory):
     gen = dict(prompt_ids={"l": ids(), "g": ids()}, neg_prompt_ids={"l": ids(), "g": ids()},
                control_image=im(), support_cond=im(), support_image=im(), num_steps=2)
     one_gen = pipe.generate(**gen, generator=torch.Generator().manual_seed(3))
+    int8_gen = du.load(du.tiny_sd3(2, 64, du.INT8_F32), gen_state_dicts).generate(
+        **gen, generator=torch.Generator().manual_seed(3))
     ranks = du.spawn(du.sd3_train_worker, WORLD, str(tmp_path_factory.mktemp("sd3_dist")), {
         "state_dicts": state_dicts, "batch": batch, "draws": [draws],
         "cfg": {"learning_rate": LR}, "meshes": ((1, 2),), "generate": gen,
         "generate_seed": 3, "generate_state_dicts": gen_state_dicts})
-    return dict(jax=jax_out, one=one, ranks=ranks, state_dicts=state_dicts, generate=one_gen)
+    return dict(jax=jax_out, one=one, ranks=ranks, state_dicts=state_dicts, generate=one_gen,
+                generate_int8=int8_gen)
 
 
 def test_sd3_sharded_step_matches_one_rank_and_jax(sd3):
@@ -485,3 +568,16 @@ def test_sd3_generate_sharded_equals_unsharded(sd3):
     for r in sd3["ranks"]:
         np.testing.assert_allclose(r["generate"].numpy(), sd3["generate"].numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+def test_sd3_generate_sharded_int8_equals_unsharded(sd3):
+    """SD3 under the int8 policy (fp32 compute) over two ranks: within the
+    fp32 test's bounds of the unsharded call. Every int8 site of the MMDiT
+    and the ControlNet takes a kernel's per-row pair (K13, K10, K11), so
+    no activation scale spans the batch and nothing is all-reduced."""
+    assert not np.array_equal(sd3["generate_int8"].numpy(), sd3["generate"].numpy())
+    for r in sd3["ranks"]:
+        got, all_reduces = r["generate_int8"]
+        np.testing.assert_allclose(got.numpy(), sd3["generate_int8"].numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        assert all_reduces == 0

@@ -1,8 +1,11 @@
 """PyTorch port, serving: the micro-batching GenerationServer on a tiny
 SD1.5 pipeline on the CPU (32², 2 steps, random weights) and on the tiny
-SD3 pipeline of tests/test_torch_sd3.py; the reference's two server faults
-and its int8 co-batching fault, each pinned by a test named for it; the
-tokenizer copy against the original; the serve entry point."""
+SD3 pipeline of tests/test_torch_sd3.py; the reference's three server
+faults, repaired here (a request's image depends on its slot in an SD3
+batch, eta > 0 requests padded past batch 1, buckets above max_batch
+accepted), each held by a test; its int8 co-batching fault, pinned by a
+test named for it; the tokenizer copy against the original; the serve
+entry point."""
 
 import dataclasses
 import json
@@ -226,23 +229,39 @@ def test_eta_request_seeds_its_loop_noise(pipe):
 
 
 def test_eta_request_padded_past_batch_one(pipe):
-    """Reference fault (serving/server.py:296, kept): with a bucket set
-    without 1, an eta > 0 request is padded to 2 and its loop noise is
-    drawn at batch 2, so its image is not the batch-1 image of its seed."""
+    """The reference's fault (serving/server.py:296 there: with a bucket
+    set without 1 an eta > 0 request was padded to 2, its loop noise drawn
+    at batch 2), repaired: it runs alone at batch 1, unpadded, whatever the
+    buckets, and its image is the batch-1 image of its seed."""
     req = _req(seed=5, steps=3, eta=0.5)
     one, _ = _serve(pipe, [req], buckets=(1,))
     two, stats = _serve(pipe, [req], buckets=(2, 4))
-    assert stats == {"requests": 1, "batches": 1, "padded_slots": 1}
-    assert not np.array_equal(one[0], two[0])
+    assert stats == {"requests": 1, "batches": 1, "padded_slots": 0}
+    np.testing.assert_array_equal(one[0], two[0])
 
 
 def test_buckets_above_max_batch_accepted(pipe):
-    """Reference fault (serving/server.py:124, kept): a bucket above
-    max_batch is accepted; the collector stops at max_batch and pads to
-    the bucket."""
-    imgs, stats = _serve(pipe, [_req(seed=i) for i in range(2)], max_batch=2, buckets=(4,))
+    """The reference's fault (serving/server.py:124 there: a bucket above
+    max_batch was accepted, the collector stopped at max_batch and padded
+    to the bucket), repaired: such a bucket set is refused when the server
+    is built; a bucket at max_batch still pads a partial batch."""
+    with pytest.raises(ValueError, match=r"bucket sizes must be <= max_batch 2: \(4,\)"):
+        GenerationServer(pipe, ServerConfig(max_batch=2, buckets=(4,)))
+    imgs, stats = _serve(pipe, [_req(seed=i) for i in range(2)], max_batch=4, buckets=(4,))
     assert stats == {"requests": 2, "batches": 1, "padded_slots": 2}
     assert len(imgs) == 2
+
+
+def test_sd15_request_image_independent_of_its_slot(pipe):
+    """A request at slot 0 and at slot 1 of a bucket of 2 (the server's
+    adapter, another request beside it) gives the same image bit for bit:
+    its noise is drawn from its own seed before stacking."""
+    a, b = _req(seed=11, guidance=5.0), _req(seed=12, control=0.5)
+    adapter = SD15Adapter(pipe)
+    first, second = adapter.execute([a, b]), adapter.execute([b, a])
+    np.testing.assert_array_equal(first[0].numpy(), second[1].numpy())
+    np.testing.assert_array_equal(first[1].numpy(), second[0].numpy())
+    assert not np.array_equal(first[0].numpy(), first[1].numpy())
 
 
 @pytest.mark.parametrize("scale", [10.0, 0.5])
@@ -304,6 +323,39 @@ def test_sd3_adapter_serves_requests():
     ref = pipe.generate(**inputs)
     np.testing.assert_array_equal(a, ref[0].numpy())
     np.testing.assert_array_equal(b, ref[1].numpy())
+
+
+def test_sd3_request_image_independent_of_its_slot():
+    """The reference's fault (its SD3 adapter passes one fixed key for the
+    VAE sampling noise of every batch, so a request's support pair and
+    query condition latents depend on its slot), repaired: each request's
+    x_T, pair noise and condition noise come from its own seed, and a
+    request at slot 0 and at slot 1 of a bucket of 2 gives the same image
+    bit for bit."""
+    pipe, res = _sd3_pipe()
+    rng = np.random.default_rng(3)
+
+    def req(seed, g):
+        img = lambda: rng.uniform(-1, 1, (res, res, 3)).astype(np.float32)
+        ids = lambda: rng.integers(0, 99, (77,)).astype(np.int32)
+        return SD3GenerationRequest(
+            token_ids_l=ids(), token_ids_g=ids(), neg_ids_l=ids(), neg_ids_g=ids(),
+            support_cond=img(), support_image=img(), query=img(), num_steps=2,
+            guidance_scale=g, seed=seed)
+
+    a, b = req(21, 7.0), req(22, 4.0)
+    adapter = SD3Adapter(pipe)
+    inputs = adapter.inputs([a, b])
+    zc, lat = pipe.vae.config.z_channels, res // 8
+    assert inputs["pair_noise"].shape == inputs["cond_noise"].shape == (2, zc, lat, lat)
+    g = torch.Generator().manual_seed(21)
+    for name, shape in (("init_noise", (lat, lat, zc)), ("pair_noise", (zc, lat, lat)),
+                        ("cond_noise", (zc, lat, lat))):
+        assert torch.equal(inputs[name][0], torch.randn(shape, generator=g)), name
+    first, second = adapter.execute([a, b]), adapter.execute([b, a])
+    np.testing.assert_array_equal(first[0].numpy(), second[1].numpy())
+    np.testing.assert_array_equal(first[1].numpy(), second[0].numpy())
+    assert not np.array_equal(first[0].numpy(), first[1].numpy())
 
 
 TEXTS = ["a photograph of a red house by a lake", "", "An OIL painting, 3 cats!",

@@ -11,13 +11,21 @@ port only, the test process holds both frameworks.
 """
 
 import os
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from prompt_diffusion_tpu_torch.utils.dtypes import DTypePolicy, default_policy
 from tests.torch_port_util import TINY_CLIP, TINY_UNET, TINY_VAE
+
+INT8_F32 = DTypePolicy(compute_dtype=torch.float32, quant="int8")
+# the SD1.5 sharded generates beside the fp32 one: name -> (UNet and
+# ControlNet policy, eta)
+GENERATE_VARIANTS = {"int8": (INT8_F32, 0.0), "int8_eta": (INT8_F32, 1.0),
+                     "bf16_eta": (default_policy(), 0.5)}
 
 # the tiny SD3 widths of tests/test_torch_train_sd3.py (4 heads: TP width 2)
 TCFG = dict(sample_size=8, patch_size=2, in_channels=4, num_layers=2, attention_head_dim=16,
@@ -68,10 +76,11 @@ def tiny_sd15(policy=None):
         text_encoder=CLIPTextModel(CLIPTextConfig(**TINY_CLIP), fp32_policy()), device="cpu")
 
 
-def tiny_sd3(clip_layers=1, pooled=56):
+def tiny_sd3(clip_layers=1, pooled=56, policy=None):
     """The tiny SD3 pipeline of tests/test_torch_train_sd3.py, fp32; for
     `generate`, CLIP with two layers (it reads the second to last) and the
-    pooled width the two CLIPs give (64)."""
+    pooled width the two CLIPs give (64); `policy` that of the MMDiT and
+    the ControlNet (fp32 by default)."""
     from prompt_diffusion_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
     from prompt_diffusion_tpu_torch.models.controlnet_sd3 import (
         SD3ControlNet,
@@ -84,8 +93,8 @@ def tiny_sd3(clip_layers=1, pooled=56):
 
     pol, cfg = fp32_policy(), MMDiTConfig(**dict(TCFG, pooled_projection_dim=pooled))
     return PromptDiffusionSD3.create(
-        transformer=SD3Transformer(cfg, pol),
-        controlnet=SD3ControlNet(cfg, pol), down_proj=SupportPairDownProj(pol),
+        transformer=SD3Transformer(cfg, policy or pol),
+        controlnet=SD3ControlNet(cfg, policy or pol), down_proj=SupportPairDownProj(pol),
         vae=AutoencoderKL(VAEConfig(**SD3_VAE), pol),
         clip_l=CLIPTextModel(CLIPTextConfig(**dict(SD3_CLIP, num_layers=clip_layers)), pol),
         clip_g=CLIPTextModel(CLIPTextConfig(**dict(SD3_CLIP, num_layers=clip_layers)), pol),
@@ -167,9 +176,10 @@ def sd15_train_worker(rank, world, inputs, workdir):
                                           {"controlnet": pipe2.controlnet})}
 
     gen = inputs["generate"]
+    seeded = lambda: torch.Generator().manual_seed(inputs["generate_seed"])
     pipe = load(tiny_sd15(), inputs["state_dicts"])
-    out["generate"] = generate_sharded(
-        pipe, mesh, **gen, generator=torch.Generator().manual_seed(inputs["generate_seed"]))
+    out["generate"] = generate_sharded(pipe, mesh, **gen, generator=seeded())
+    out["variants"] = generate_variants(mesh, inputs["state_dicts"], gen, seeded)
     try:
         make_mesh(1, 3, device="cpu")
     except ValueError as e:
@@ -189,16 +199,46 @@ def sd15_train_worker(rank, world, inputs, workdir):
     return out
 
 
+def generate_variants(mesh, state_dicts, gen, seeded):
+    """SD1.5 `generate_sharded` under each of GENERATE_VARIANTS (the
+    images, and the all-reduces of the int8 activation scale), then two
+    mutations held to fall outside the bounds: the int8 scale taken over
+    the rank's rows alone, and eta's step noise drawn for the rank's rows
+    alone."""
+    from prompt_diffusion_tpu_torch.ops import quant
+    from prompt_diffusion_tpu_torch.pipelines import prompt_diffusion_sd15 as psd
+    from prompt_diffusion_tpu_torch.pipelines.sharded import generate_sharded
+
+    out = {}
+    run = lambda name: generate_sharded(load(tiny_sd15(GENERATE_VARIANTS[name][0]), state_dicts),
+                                        mesh, **gen, eta=GENERATE_VARIANTS[name][1],
+                                        generator=seeded())
+    for name in GENERATE_VARIANTS:
+        quant.quant_act.all_reduces = 0
+        out[name] = (run(name), quant.quant_act.all_reduces)
+    with mock.patch.object(quant, "batch_shard", lambda: None):
+        out["rank_local_scale"] = run("int8")
+    with mock.patch.object(psd, "batch_shard", lambda: None):
+        out["rank_local_noise"] = run("int8_eta")
+    return out
+
+
 def sd3_train_worker(rank, world, inputs, workdir):
-    """One SD3 step on each mesh of inputs["meshes"]; sharded generate."""
+    """One SD3 step on each mesh of inputs["meshes"]; sharded generate at
+    fp32 and under the int8 policy."""
+    from prompt_diffusion_tpu_torch.ops import quant
     from prompt_diffusion_tpu_torch.parallel.mesh import make_mesh
     from prompt_diffusion_tpu_torch.pipelines.sharded import generate_sharded
     from prompt_diffusion_tpu_torch.training import sd3 as tr
 
     local = rows(inputs["batch"], rank, world)
-    out = {"generate": generate_sharded(
-        load(tiny_sd3(2, 64), inputs["generate_state_dicts"]), make_mesh(1, world, device="cpu"),
-        **inputs["generate"], generator=torch.Generator().manual_seed(inputs["generate_seed"]))}
+    mesh = make_mesh(1, world, device="cpu")
+    run = lambda policy: generate_sharded(
+        load(tiny_sd3(2, 64, policy), inputs["generate_state_dicts"]), mesh,
+        **inputs["generate"], generator=torch.Generator().manual_seed(inputs["generate_seed"]))
+    out = {"generate": run(None)}
+    quant.quant_act.all_reduces = 0
+    out["generate_int8"] = (run(INT8_F32), quant.quant_act.all_reduces)
     for shape in inputs["meshes"]:
         mesh = make_mesh(*shape, device="cpu")
         pipe = load(tiny_sd3(), inputs["state_dicts"])
@@ -212,26 +252,56 @@ def sd3_train_worker(rank, world, inputs, workdir):
 
 def tp_worker(rank, world, inputs, workdir):
     """The tiny MMDiT and SD3 ControlNet forwards with `apply_tp` at tensor
-    width `world`, and the refusals."""
+    width `world`, at fp32 and under the int8 policy (fp32 compute; the
+    unsharded int8 forwards first, in this process), and the split K10 /
+    K11's launches (`act_amax`, `act_codes`) of the int8 forwards."""
     from prompt_diffusion_tpu_torch.models.controlnet_sd3 import SD3ControlNet
     from prompt_diffusion_tpu_torch.models.mmdit_sd3 import MMDiTConfig, SD3Transformer
+    from prompt_diffusion_tpu_torch.ops import fused_act
     from prompt_diffusion_tpu_torch.parallel.tensor_parallel import apply_tp, make_tp_mesh
     from prompt_diffusion_tpu_torch.utils.dtypes import fp32_policy
 
     mesh = make_tp_mesh(num_tensor=world, device="cpu")
     x = inputs["x"]
-    tr = SD3Transformer(MMDiTConfig(**TCFG), fp32_policy())
-    tr.load_state_dict(inputs["transformer"])
-    cn = SD3ControlNet(MMDiTConfig(**TCFG), fp32_policy())
-    cn.load_state_dict(inputs["controlnet"])
+
+    def models(policy):
+        tr = SD3Transformer(MMDiTConfig(**TCFG), policy)
+        tr.load_state_dict(inputs["transformer"])
+        cn = SD3ControlNet(MMDiTConfig(**TCFG), policy)
+        cn.load_state_dict(inputs["controlnet"])
+        return tr, cn
+
+    def forward(tr, cn):
+        with torch.no_grad():
+            return {"transformer": tr(x["lat"], x["t"], x["ctx"], x["pooled"]),
+                    "controlnet": cn(x["lat"], x["t"], x["lat"], x["lat"], x["ctx"],
+                                     x["pooled"])}
+
+    tr, cn = models(fp32_policy())
     apply_tp(tr, mesh)
     apply_tp(cn, mesh)
-    with torch.no_grad():
-        out = {"transformer": tr(x["lat"], x["t"], x["ctx"], x["pooled"]),
-               "controlnet": cn(x["lat"], x["t"], x["lat"], x["lat"], x["ctx"], x["pooled"])}
+    out = forward(tr, cn)
     out["heads"] = tr.blocks_0.heads
     out["to_q_rows"] = tr.blocks_0.to_q.weight.shape[0]
+
+    tr, cn = models(INT8_F32)
+    out["int8_unsharded"] = forward(tr, cn)
+    apply_tp(tr, mesh)
+    apply_tp(cn, mesh)
+    calls = []
+    with mock.patch.object(fused_act, "split_act_quant",
+                           _recording(fused_act.split_act_quant, calls)):
+        out["int8"] = forward(tr, cn)
+    out["split_calls"] = calls
     return out
+
+
+def _recording(fn, log):
+    """`fn`, recording each call's (width, gelu, group size)."""
+    def wrapped(x, gelu, group=None):
+        log.append((x.shape[-1], gelu, 1 if group is None else dist.get_world_size(group)))
+        return fn(x, gelu, group)
+    return wrapped
 
 
 def np_batches(rng: np.random.Generator, sizes, res=8):
